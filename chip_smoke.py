@@ -21,7 +21,20 @@ Phases (any failure exits non-zero):
       synchronisation; one layer's nsa_prefill and nsa_decode_step on the
       card are compared, in f32, with the plain path (the same functions
       on CPU tensors) on the serve's own inputs; torch.profiler gives the
-      device busy time of a prefill and of a decode step, by kernel.
+      device busy time of a prefill and of a decode step, by kernel;
+  (d) train: at the m7c-125M training shapes (B=8, S=2048) the forward
+      kernels' row statistics (lse) and the two backward kernels
+      (banded_bwd for win and cmp, sel_attn_bwd) against their plain
+      versions in f32 and bf16 (bounds of `allowed_rel_err`), each backward
+      twice for identical bits, then timed beside its plain version, the
+      backward of one scaled_dot_product_attention call and its bound;
+      one layer's nsa_prefill forward + backward in f32 on the card
+      against the same layer on CPU tensors (every gradient, and no host
+      sync on the card); then the m7c-125M train step (bf16, remat, B=8 x
+      2048 synthetic tokens) through make_train_step: a warm-up step, timed
+      steps with CUDA events, the launch counts of all five kernels, peak
+      memory, a torch.profiler step by kernel, the host syncs a step makes;
+      and `train()` for a short run whose loss must fall.
 
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
@@ -29,10 +42,15 @@ kernels' numbers, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import csv
+import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -40,8 +58,8 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from nsa_vibe_tpu_torch import M7C_125M
-from nsa_vibe_tpu_torch.convert import params_to
+from nsa_vibe_tpu_torch import M7C_125M, M7C_125M_TRAIN
+from nsa_vibe_tpu_torch.convert import params_to, params_to_numpy
 from nsa_vibe_tpu_torch.core.cache import cache_from_prefill
 from nsa_vibe_tpu_torch.core.decode import nsa_decode_step
 from nsa_vibe_tpu_torch.core.nsa import nsa_prefill
@@ -52,12 +70,20 @@ from nsa_vibe_tpu_torch.models.tinylm import (
 from nsa_vibe_tpu_torch.ops import cuda as kernels
 from nsa_vibe_tpu_torch.ops.block_index import build_block_meta, expected_decode_reads
 from nsa_vibe_tpu_torch.ops.cuda import build as kbuild
+from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd, banded_bwd_plain, banded_mask
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn import sel_attn, sel_attn_plain
+from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import sel_attn_bwd, sel_attn_bwd_plain
 from nsa_vibe_tpu_torch.ops.cuda.select_cmp import select_cmp, select_cmp_plain
 from nsa_vibe_tpu_torch.ops.cuda.win_attn import win_attn, win_attn_plain
+from nsa_vibe_tpu_torch.ops.reference import attention_delta
 from nsa_vibe_tpu_torch.ops.selection import (
     canonicalize_sel, select_topn_blocks, selection_token_mask,
 )
+from nsa_vibe_tpu_torch.train.data import make_batches
+from nsa_vibe_tpu_torch.train.train_step import (
+    init_train_state, make_train_step, param_leaves, tree_from_leaves,
+)
+from nsa_vibe_tpu_torch.train.trainer import train
 
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense tensor-core bf16 / f32 FMA
@@ -65,10 +91,17 @@ F32_TOL = 5e-5                  # kernel vs plain, f32 with TF32 off: summation 
 BF16_ULPS, BF16_FLOOR = 2, 1e-4  # kernel vs plain, bf16: see allowed_err
 NEAR_TIE = 1e-5            # sel_idx may differ where p_grp scores are this close
 LAYER_TOL = 1e-4           # one layer, f32: kernel path vs plain path (|out| ~ 0.1)
+LSE_TOL = 1e-4             # forward row statistics, absolute (|lse| < ~20; f32 sum order)
+GRAD_TOL = 1e-4            # one layer's gradients, f32, relative to each tensor's max |value|
 SLEEP_CYCLES_PER_S = 2e9   # >= the H100's SM clock (1.98 GHz), so a sleep lasts at least as asked
 B, S, CAP, N_NEW = 4, 2048, 2080, 32
-PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "win_attn_kernel")   # CUDA symbol names
+B_TRAIN, TIMED_STEPS, LOSS_STEPS = 8, 5, 120
+LOSS_DROP = 0.2            # mean of the last 4 logged losses below the first, at least
+PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "win_attn_kernel",   # CUDA symbol names
+                "banded_bwd_dq_kernel", "banded_bwd_dkv_kernel", "sel_bwd_dq_kernel",
+                "sel_bwd_dkv_kernel", "reduce_splits_kernel")
 DECODE_T = (2048, 2055, 2070, 2079)                          # decode positions per row
+TRAIN_DIR = os.path.join("artifacts", "chip_smoke_train")   # git-ignored, inside the checkout
 
 
 def fail(msg: str) -> None:
@@ -173,11 +206,26 @@ def allowed_err(plain: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, BF16_ULPS * ulp, torch.zeros_like(x)) + BF16_FLOOR
 
 
-def check(name, got, want, extra="") -> float:
+def allowed_rel_err(plain: torch.Tensor) -> torch.Tensor:
+    """Per-element bound of |kernel - plain| for the backward kernels. f32:
+    F32_TOL of the tensor's max |value| (each gradient sums up to S rows or
+    keys, so the sum-order error scales with the largest terms, not with the
+    element). bf16: both versions round f32 results that agree within that
+    bound, so two bf16 ulps of the plain value on top of it."""
+    x = plain.float().abs()
+    rel = F32_TOL * float(x.max())
+    if plain.dtype == torch.float32:
+        return torch.full_like(x, rel)
+    _, e = torch.frexp(x)
+    ulp = torch.ldexp(torch.ones_like(x), e - 8)
+    return torch.where(x > 0, BF16_ULPS * ulp, torch.zeros_like(x)) + rel
+
+
+def check(name, got, want, extra="", bound=allowed_err) -> float:
     """Holds a kernel's output against its plain version's; returns the max
     absolute error."""
     err = (got.float() - want.float()).abs()
-    worst = float((err / allowed_err(want)).max())
+    worst = float((err / bound(want)).max())
     max_err = float(err.max())
     dt = str(want.dtype).replace("torch.", "")
     print(f"[check] {name:18s} {dt:8s} max_abs_err={max_err:.3e} worst err/bound={worst:.3f}"
@@ -379,7 +427,8 @@ def phase_serve(dev) -> dict:
         serve_ms = e0.elapsed_time(e1)
         peak = torch.cuda.max_memory_allocated()
         L = mcfg.n_layers
-        want = {"select_cmp": L, "sel_attn": L + L * (N_NEW - 1), "win_attn": L}
+        want = {"select_cmp": L, "sel_attn": L + L * (N_NEW - 1), "win_attn": L,
+                "banded_bwd": 0, "sel_attn_bwd": 0}
         print(f"[serve] launches on the main path: {counts} "
               f"(sel_attn at decode: {decode_launches}); expected {want}")
         if counts != want:
@@ -452,6 +501,290 @@ def trace(fn, n: int, what: str, wall_ms: float) -> None:
           + "; ".join(f"{k} {v:.3f} ms" for v, k in others[:3]))
 
 
+# ------------------------------------------------------------------ (d)
+
+def train_kernel_inputs(dtype, dev, gen) -> dict:
+    """Branch operands at the m7c training shapes and their forward outputs
+    with row statistics, from the kernels; the lse are held to their plain
+    versions'."""
+    cfg = M7C_125M.nsa
+    G, h, D = cfg.n_kv_groups, cfg.h_per_group, cfg.d_k
+    meta = build_block_meta(S, cfg.l, cfg.d, cfg.l_sel, cfg.n_sel, cfg.w)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    x = dict(cfg=cfg, scale=1.0 / float(np.sqrt(D)), t=torch.arange(S, device=dev),
+             Q=r(B_TRAIN, S, G, h, D), dO=r(B_TRAIN, S, G, h, D),
+             Kc=r(B_TRAIN, G, meta.S_cmp, D), Vc=r(B_TRAIN, G, meta.S_cmp, D),
+             K=r(B_TRAIN, G, S, D), V=r(B_TRAIN, G, S, D),
+             Kw=r(B_TRAIN, G, S, D), Vw=r(B_TRAIN, G, S, D),
+             M=torch.from_numpy(meta.M_csl).to(dev))
+    kw = dict(scale=x["scale"], l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel)
+    x["sel"], x["Oc"], x["lse_c"] = select_cmp(x["Q"], x["Kc"], x["Vc"], x["M"], **kw,
+                                               return_lse=True)
+    x["Os"], x["lse_s"] = sel_attn(x["Q"], x["K"], x["V"], x["sel"], x["t"], l_sel=cfg.l_sel,
+                                   scale=x["scale"], return_lse=True)
+    x["Ow"], x["lse_w"] = win_attn(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=x["scale"],
+                                   return_lse=True)
+    plain = {
+        "select_cmp": select_cmp_plain(x["Q"], x["Kc"], x["Vc"], x["M"], **kw,
+                                       return_lse=True)[2],
+        "sel_attn": sel_attn_plain(x["Q"], x["K"], x["V"], x["sel"], x["t"], l_sel=cfg.l_sel,
+                                   scale=x["scale"], return_lse=True)[1],
+        "win_attn": win_attn_plain(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=x["scale"],
+                                   return_lse=True)[1],
+    }
+    for name, key in (("select_cmp", "lse_c"), ("sel_attn", "lse_s"), ("win_attn", "lse_w")):
+        got, want = x[key], plain[name]
+        empty = want >= 1e29
+        if not torch.equal(got >= 1e29, empty):
+            fail(f"{name} lse: rows without a visible key differ from the plain version's")
+        err = float(torch.where(empty, torch.zeros_like(got), (got - want).abs()).max())
+        print(f"[check] {name + ' lse':18s} {str(dtype)[6:]:8s} max_abs_err={err:.3e} "
+              f"(bound {LSE_TOL:g}); rows without a visible key: {int(empty.sum())}")
+        if not err <= LSE_TOL:
+            fail(f"{name} lse {dtype}: error {err:.3e} above {LSE_TOL:g}")
+    return x
+
+
+def bwd_calls(x) -> dict:
+    """name -> (kernel call, plain call, visibility mask [B,S,G,S_kv]) of
+    each backward on the inputs of train_kernel_inputs."""
+    cfg, sc = x["cfg"], x["scale"]
+    Q, dO = x["Q"], x["dO"]
+    Bq, G = Q.shape[0], Q.shape[2]
+    dc, ds_, dw = (attention_delta(dO, x[k]) for k in ("Oc", "Os", "Ow"))
+    win = dict(mode="win", w=cfg.w)
+    cmp_ = dict(mode="cmp", l=cfg.l, d=cfg.d)
+    S_cmp = x["Kc"].shape[2]
+    return {
+        "banded_bwd@win": (
+            lambda: banded_bwd(Q, x["Kw"], x["Vw"], dO, x["lse_w"], dw, **win, scale=sc),
+            lambda: banded_bwd_plain(Q, x["Kw"], x["Vw"], dO, x["lse_w"], dw, **win, scale=sc),
+            lambda: banded_mask(S, S, **win, device=Q.device)[None, :, None, :].expand(
+                Bq, S, G, S)),
+        "banded_bwd@cmp": (
+            lambda: banded_bwd(Q, x["Kc"], x["Vc"], dO, x["lse_c"], dc, **cmp_, scale=sc),
+            lambda: banded_bwd_plain(Q, x["Kc"], x["Vc"], dO, x["lse_c"], dc, **cmp_,
+                                     scale=sc),
+            lambda: banded_mask(S, S_cmp, **cmp_, device=Q.device)[None, :, None, :].expand(
+                Bq, S, G, S_cmp)),
+        "sel_attn_bwd": (
+            lambda: sel_attn_bwd(Q, x["K"], x["V"], x["sel"], x["t"], dO, x["lse_s"], ds_,
+                                 l_sel=cfg.l_sel, scale=sc),
+            lambda: sel_attn_bwd_plain(Q, x["K"], x["V"], x["sel"], x["t"], dO, x["lse_s"],
+                                       ds_, l_sel=cfg.l_sel, scale=sc),
+            lambda: selection_token_mask(x["sel"], x["t"], cfg.l_sel, S)),
+    }
+
+
+def phase_train_kernels(dev) -> dict:
+    """Forward lse and backward kernels vs plain at the training shapes, f32
+    then bf16; each backward twice for identical bits. Returns the bf16
+    inputs and the bf16 max errors."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = train_kernel_inputs(dtype, dev, gen)
+        for name, (kern, plain, _) in bwd_calls(x).items():
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            errs = [check(f"{name}:{n}", g, w, bound=allowed_rel_err)
+                    for n, g, w in zip(("dQ", "dK", "dV"), got, want)]
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{name} {dtype}: two launches differ")
+            rec[name] = max(errs)
+            del got, again, want
+        print(f"[check] backward kernels {str(dtype)[6:]}: two launches gave identical bits")
+        if dtype == torch.bfloat16:
+            rec["inputs"] = x
+        del x
+        torch.cuda.empty_cache()
+    return rec
+
+
+def measure_train(rec, counts) -> list:
+    """Times each backward kernel (bf16, training shapes) beside its plain
+    version and the backward of one SDPA call with the equivalent mask;
+    computes its bound from this run's inputs."""
+    x = rec["inputs"]
+    cfg = x["cfg"]
+    Dk = Dv = cfg.d_k
+    h = cfg.h_per_group
+    launches = {"banded_bwd@win": counts["banded_bwd"] - counts["banded_bwd@cmp"],
+                "banded_bwd@cmp": counts["banded_bwd@cmp"],
+                "sel_attn_bwd": counts["sel_attn_bwd"]}
+    kv = {"banded_bwd@win": ("Kw", "Vw", "lse_w"), "banded_bwd@cmp": ("Kc", "Vc", "lse_c"),
+          "sel_attn_bwd": ("K", "V", "lse_s")}
+    replaces = {"banded_bwd": "nsa_vibe_tpu/ops/pallas/flash_bwd.py:479",
+                "sel_attn_bwd": "nsa_vibe_tpu/ops/pallas/sel_flash.py:843"}
+    out = []
+    for name, (kern, plain, mask_fn) in bwd_calls(x).items():
+        base = name.split("@")[0]
+        K, V, lse = (x[k] for k in kv[name])
+        mask = mask_fn()                                              # [B,S,G,S_kv]
+        # per visible (row, key): the S, dP, dV, dQ and dK products
+        ops = float(mask.sum()) * h * 2 * (3 * Dk + 2 * Dv)
+        grads = kern()
+        io = nbytes(x["Q"], K, V, x["dO"], lse, lse, *grads)         # lse and delta: same size
+        if base == "sel_attn_bwd":
+            io += nbytes(x["sel"])
+        bms, by = bound(io, ops, x["Q"].dtype)
+        sq, sk, sv, sm = sdpa_operands(x["Q"], K, V, mask)
+        sq, sk, sv = (t.detach().requires_grad_(True) for t in (sq, sk, sv))
+        so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm, scale=x["scale"])
+        sdo = torch.randn_like(so)
+        out.append(dict(
+            name=name, source=f"nsa_vibe_tpu_torch/csrc/{base}.cu", replaces=replaces[base],
+            launches=launches[name], max_abs_err=rec[name],
+            ms=time_ms(kern, 10, hold=True),
+            plain_ms=time_ms(plain, 3, hold=True),
+            bound_ms=bms, bound_by=by,
+            library_ms=time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), sdo,
+                                                           retain_graph=True), 5, hold=True)))
+        del sq, sk, sv, sm, so, sdo, mask, grads
+        torch.cuda.empty_cache()
+    for r in out:
+        print(f"[time] {r['name']:18s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  launches {r['launches']}  max_abs_err(bf16) "
+              f"{r['max_abs_err']:.3e}")
+    return out
+
+
+def train_layer_check(dev) -> None:
+    """Layer 0 of the m7c model in f32 (B=2, S=2048): nsa_prefill forward +
+    backward through the kernels against the same layer on CPU tensors
+    (plain versions): the gradients of x and of every parameter within
+    GRAD_TOL of each tensor's max |value|; then the card pass again under
+    set_sync_debug_mode("error")."""
+    mcfg, cfg = M7C_125M, M7C_125M.nsa
+    gen = torch.Generator().manual_seed(7)
+    params = init_model_params(mcfg, gen, device="cpu", dtype=torch.float32)
+    blk = params["blocks"][0]
+    tokens = torch.randint(0, mcfg.vocab_size, (2, S), generator=gen)
+    x = rmsnorm(params["embed"][tokens], blk["attn_norm"], mcfg.rmsnorm_eps)
+    dout = torch.randn(2, S, cfg.dim, generator=gen) * 1e-2
+
+    def layer(d):   # the layer's parameters on d, and [x, its leaves] as gradient targets
+        with torch.no_grad():
+            p = params_to(blk["attn"], device=d)
+        wrt = [x.detach().to(d)] + [t for _, t in param_leaves(p)]
+        return p, [t.requires_grad_(True) for t in wrt]
+
+    runs = {}
+    for d in ("cpu", dev):
+        p, wrt = layer(d)
+        out, aux = nsa_prefill(p, wrt[0], cfg)
+        grads = torch.autograd.grad(out, wrt, dout.to(d))
+        tree = params_to_numpy({"x": grads[0], **tree_from_leaves(p, list(grads[1:]))})
+        runs[d] = (dict(_leaves(tree)), canonicalize_sel(aux["sel_idx"]).cpu())
+    (gc, sc), (gg, sg) = runs["cpu"], runs[dev]
+    flips = int((sc != sg).any(-1).sum())
+    errs = {k: float(np.abs(gg[k] - want).max() / np.abs(want).max()) for k, want in gc.items()}
+    worst = max(errs, key=errs.get)
+    print(f"[layer] train f32: nsa_prefill forward + backward, card vs plain path: worst "
+          f"gradient err / max|grad| = {errs[worst]:.3e} ({worst}) over x and "
+          f"{len(errs) - 1} parameters (bound {GRAD_TOL:g}); rows whose selection differs: "
+          f"{flips}")
+    if flips or not errs[worst] <= GRAD_TOL:
+        fail("one layer's gradients on the card disagree with the plain path")
+    p, wrt = layer(dev)
+    dout = dout.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = nsa_prefill(p, wrt[0], cfg)
+        torch.autograd.grad(out, wrt, dout)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("[layer] one layer's forward + backward issued with no host-device synchronisation")
+
+
+def phase_train(dev) -> dict:
+    """The m7c-125M train step (bf16, remat, B=8 x S=2048, synthetic data)."""
+    mcfg, tcfg = M7C_125M, M7C_125M_TRAIN
+    L = mcfg.n_layers
+    state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(0),
+                                               device=dev), tcfg)
+    step = make_train_step(mcfg, tcfg)
+    data = make_batches("synthetic", tcfg.seq_len, tcfg.batch_size, seed=tcfg.seed)
+    batches = [torch.from_numpy(next(data)).long().to(dev)[None] for _ in range(TIMED_STEPS + 3)]
+    print(f"[train] m7c-125M {mcfg.dtype}, remat {mcfg.remat}, {tcfg.batch_size} x "
+          f"{tcfg.seq_len} tokens per step, lr {tcfg.lr}, max_grad_norm {tcfg.max_grad_norm}")
+    state, m = step(state, batches[0])                                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    ev[0].record()
+    losses = []
+    for i in range(TIMED_STEPS):
+        state, m = step(state, batches[1 + i])
+        ev[i + 1].record()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts(), **{"banded_bwd@cmp": banded_bwd.cmp_launches})
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TIMED_STEPS)]
+    peak = torch.cuda.max_memory_allocated()
+    # per step, remat runs each layer's forward twice; the backward runs the
+    # window and compressed banded_bwd and one sel_attn_bwd per layer
+    want = {"select_cmp": 2 * L, "sel_attn": 2 * L, "win_attn": 2 * L, "banded_bwd": 2 * L,
+            "sel_attn_bwd": L, "banded_bwd@cmp": L}
+    want = {k: v * TIMED_STEPS for k, v in want.items()}
+    print(f"[train] launches over {TIMED_STEPS} steps: {counts}; expected {want}")
+    if counts != want:
+        fail(f"train launch counts {counts} != {want}")
+    losses = [float(v) for v in losses]
+    if not np.all(np.isfinite(losses)) or not bool(m["good"]):
+        fail(f"train step losses not finite: {losses}")
+    mean_ms = float(np.mean(step_ms))
+    tokens = tcfg.batch_size * tcfg.seq_len
+    print(f"[train] step ms {', '.join(f'{v:.2f}' for v in step_ms)}; mean {mean_ms:.3f} ms, "
+          f"{tokens / (mean_ms / 1e3):.0f} tokens/s; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; grad_norm {float(m['grad_norm']):.4f}")
+    print(f"[train] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(state, batches[-2])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{os.path.basename(w.filename)}:{w.lineno}"
+            syncs[where] = syncs.get(where, 0) + 1
+    print(f"[train] host-device synchronisations in one step: {sum(syncs.values())} "
+          f"({syncs or 'none'})")
+    trace(lambda: step(state, batches[-1]), 1, "train step", mean_ms)
+    return {"counts": counts, "step_ms": mean_ms}
+
+
+def loss_falls(dev) -> None:
+    """train() on the card for LOSS_STEPS m7c steps with a short warmup: the
+    logged losses (every 5 steps) must be finite, with no bad step, and the
+    mean of the last four at least LOSS_DROP below the first (the loss at
+    initialisation, ~ln 256 + 0.1; one batch's loss moves by ~0.2 between
+    logs at this lr, so a shorter run does not show a fall reliably)."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    tcfg = dataclasses.replace(M7C_125M_TRAIN, steps=LOSS_STEPS, warmup_steps=5, log_every=5,
+                               save_every=0, eval_every=0, out_dir=TRAIN_DIR)
+    t = time.perf_counter()
+    summary = train(M7C_125M, tcfg, "synthetic", device=dev)
+    with open(os.path.join(TRAIN_DIR, "training.csv")) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    print(f"[train] train(): {summary['steps']} steps in {time.perf_counter() - t:.1f} s, "
+          f"logged losses {', '.join(f'{v:.4f}' for v in losses)}, bad steps "
+          f"{summary['bad_steps']}")
+    if not np.all(np.isfinite(losses)) or summary["bad_steps"] or \
+            not np.mean(losses[-4:]) < losses[0] - LOSS_DROP:
+        fail("the m7c training loss did not fall")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
 def _leaves(tree, key=None):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -478,6 +811,15 @@ def main() -> int:
     rec = phase_kernels(dev)
     serve = phase_serve(dev)
     rows = measure(rec, serve["counts"], serve["decode_launches"])
+    del rec
+    torch.cuda.empty_cache()
+    trec = phase_train_kernels(dev)
+    train_layer_check(dev)
+    tr = phase_train(dev)
+    rows += measure_train(trec, tr["counts"])
+    del trec
+    torch.cuda.empty_cache()
+    loss_falls(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

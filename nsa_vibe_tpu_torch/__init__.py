@@ -5,13 +5,18 @@ module names and parameter layout (nested dicts, weights `[in, out]`
 applied as `x @ W`) so parameters move between the two without
 transposes (`convert.params_from_numpy`).
 
-This slice covers the serving path: prefill with cache seeding and cached
-greedy/sampled decode (`models.tinylm.generate`). Its four TPU kernels
-have hand-written CUDA counterparts under `csrc/`, bound in `ops/cuda/`.
+Two paths are ported: serving (prefill with cache seeding and cached
+greedy/sampled decode, `models.tinylm.generate`) and the single-device
+train step and trainer (`train.train_step`, `python -m
+nsa_vibe_tpu_torch.train.trainer`). Their TPU kernels, forward and
+backward, have hand-written CUDA counterparts under `csrc/`, bound in
+`ops/cuda/`.
 A CUDA tensor always goes to a kernel; a CPU tensor goes to the kernel's
 plain PyTorch version (which the tests compare with the JAX package).
 """
 
-from nsa_vibe_tpu_torch.core.config import M7C_125M, ModelConfig, NSAConfig
+from nsa_vibe_tpu_torch.core.config import (
+    M7C_125M, M7C_125M_TRAIN, ModelConfig, NSAConfig, TrainConfig,
+)
 
-__all__ = ["M7C_125M", "ModelConfig", "NSAConfig"]
+__all__ = ["M7C_125M", "M7C_125M_TRAIN", "ModelConfig", "NSAConfig", "TrainConfig"]

@@ -3,7 +3,8 @@
 The JAX parameters are nested dicts and lists of arrays with weights
 [in, out] applied as x @ W; the port keeps that layout, so the conversion
 is a copy per leaf with no transposes. Every attention dict also gets its
-fused projection weight ("W_qkv", see core.nsa.fuse_projections).
+fused projection weight ("W_qkv", see core.nsa.fuse_projections);
+`params_to_numpy` goes back (the seven projection entries, no W_qkv).
 """
 
 from __future__ import annotations
@@ -34,6 +35,19 @@ def params_from_numpy(tree, device="cuda", dtype=None):
         return t.to(dev)
 
     return conv(tree)
+
+
+def params_to_numpy(params):
+    """The port's parameters (or a tree shaped like them, e.g. gradients
+    from train.train_step.tree_from_leaves) -> numpy pytree in the JAX
+    package's layout: the projection entries as separate arrays, no
+    "W_qkv", f32 for bf16 leaves (numpy has no bfloat16)."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items() if k != "W_qkv"}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to_numpy(v) for v in params)
+    t = params.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
 def params_to(params, device=None, dtype=None):

@@ -1,10 +1,11 @@
 """Typed configuration (port of nsa_vibe_tpu/core/config.py).
 
 The fields keep the JAX package's names and defaults. Options that only
-route between TPU paths (`kernel`, `prefill_chunk`, `varlen_exact`,
-`remat`) are absent: the port dispatches by the device of the tensors
-(CUDA -> kernel, CPU -> plain version), and varlen and training come in
-later slices.
+route between TPU paths (`kernel`, `prefill_chunk`, `varlen_exact`) are
+absent: the port dispatches by the device of the tensors (CUDA -> kernel,
+CPU -> plain version), and varlen comes in a later slice. `TrainConfig`
+is the single-device part of the JAX trainer's configuration (the
+parallel axes dp/tp/sp/pp/fsdp and varlen batching are later slices).
 """
 
 from __future__ import annotations
@@ -65,15 +66,45 @@ class ModelConfig:
     mlp_ratio: float = 4.0
     rmsnorm_eps: float = 1e-6
     dtype: str = "float32"     # activation and parameter dtype
+    # gradient checkpointing: False | True/"full" (recompute whole blocks in
+    # the backward) | "mlp" (recompute only the MLP)
+    remat: "bool | str" = False
 
 
-# configs/m7c_125m.yaml as code (the model and nsa sections; the train
-# section belongs to a later slice). tests/test_torch_ops.py holds it
+@dataclass(frozen=True)
+class TrainConfig:
+    """Trainer configuration, single device (JAX TrainConfig's defaults)."""
+
+    lr: float = 3e-4
+    warmup_steps: int = 50
+    steps: int = 1000
+    max_grad_norm: float = 1.0
+    weight_decay: float = 0.0
+    batch_size: int = 8
+    seq_len: int = 128
+    accum_steps: int = 1
+    seed: int = 1337
+    log_every: int = 20
+    save_every: int = 0        # 0 = only final
+    eval_every: int = 0
+    out_dir: str = "artifacts/train"
+    # per-step gate/selection stats (gate entropy, collapse fraction, k-stats)
+    gate_stats: bool = True
+
+
+# configs/m7c_125m.yaml as code (the card machine has no PyYAML):
+# M7C_125M is its model and nsa sections, M7C_125M_TRAIN its train
+# section. tests/test_torch_ops.py and tests/test_torch_train.py hold both
 # against the YAML.
 M7C_125M = ModelConfig(
     vocab_size=256,
     n_layers=12,
     dtype="bfloat16",
+    remat=True,
     nsa=NSAConfig(dim=768, n_heads=12, n_kv_groups=2, d_k=64, d_v=64,
                   l=32, d=16, l_sel=64, n_sel=16, w=512),
+)
+M7C_125M_TRAIN = TrainConfig(
+    lr=3e-4, warmup_steps=1000, steps=50000, max_grad_norm=1.0, batch_size=8,
+    seq_len=2048, log_every=50, save_every=5000, eval_every=1000,
 )

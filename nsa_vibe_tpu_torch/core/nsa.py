@@ -1,9 +1,12 @@
 """Functional NSA attention: parameters, projections, batched prefill.
 
-Port of nsa_vibe_tpu/core/nsa.py (forward; no varlen, no gate fold). The
-prefill runs the fused scorer (`fused_select_cmp`: selection indices and
-the cmp branch in one kernel), then the selection and window branches,
-then the gated combine. Decode lives in core/decode.py.
+Port of nsa_vibe_tpu/core/nsa.py (no varlen, no gate fold). The prefill
+runs the fused scorer (`fused_select_cmp`: selection indices and the cmp
+branch in one kernel), then the selection and window branches, then the
+gated combine. It is differentiable (the training hot path): each branch
+has a backward kernel (ops.attention), the selection indices carry no
+gradient, gradients reach W_K_cmp/W_V_cmp (and ϕ) through the pooling
+and the gate through the combine. Decode lives in core/decode.py.
 
 Layouts: x [B, S, dim] -> out [B, S, dim];
   Q: [B, S, G, h, Dk] (RoPE'd);  per-branch K/V: [B, G, S, D*].
@@ -157,6 +160,7 @@ def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig) -> Tuple[torch.Te
         sel_idx = select_topn_blocks(p_grp, cfg.n_sel, t_pos, cfg.l_sel,
                                      cfg.force_init, cfg.force_local)
         O_cmp = torch.zeros((B, S, G, h, cfg.d_v), dtype=Q.dtype, device=dev)
+    sel_idx = sel_idx.detach()
     O_sel = attn_ops.selection_attention(Q, K_sel, V_sel, sel_idx, t_pos, cfg.l_sel, scale)
     O_win = attn_ops.sliding_window_attention(Q, K_win, V_win, cfg.w, scale)
     out, gates = combine_branches(params, cfg, Q, O_cmp, O_sel, O_win)

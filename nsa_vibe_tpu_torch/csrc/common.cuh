@@ -15,6 +15,9 @@
 namespace nsa {
 
 constexpr float NEG = -FLT_MAX;   // finite "masked" logit (as the TPU kernels)
+// row statistic of a row with no visible key: exp(s - EMPTY_LSE) == 0 in
+// the backward (as the TPU kernels, flash_bwd.py EMPTY_LSE)
+constexpr float EMPTY_LSE = 1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 enum DType : int { DT_F32 = 0, DT_BF16 = 1 };
@@ -26,6 +29,11 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// lse = m + log(l) of a row's online softmax (natural base), or EMPTY_LSE
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : EMPTY_LSE;
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -11,6 +11,8 @@
 // a SET (-1 slots and repeated ids add nothing; the fused scorer emits
 // forced slots that may repeat), key positions clamped to <= t (t per row,
 // from tpos[b, s]) and < S_kv; a row with no visible key returns 0.
+// Optionally (lse != nullptr, the training forward) the row statistics
+// lse [B,S,G,h] f32 = m + log(l), EMPTY_LSE for a row with no key.
 //
 // What bounds it on the H100: each (b, s, g) gathers n * l_sel keys (16 x 64
 // at m7c) and shares them across the h heads of the group, the paper's
@@ -73,7 +75,7 @@ template <typename T, int HMAX>
 __global__ void __launch_bounds__(THREADS)
 sel_attn_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
                 const int* __restrict__ sel, const int* __restrict__ tpos, T* __restrict__ O,
-                Params p) {
+                float* __restrict__ lse, Params p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int nb_s;
   const int bid = blockIdx.x;   // (b*S + s)*G + g
@@ -226,11 +228,13 @@ sel_attn_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __res
     o.w = den > 0.f ? o.w / den : 0.f;
     store4<T>(O + (row0 + j) * Dv + c, o);
   }
+  if (lse != nullptr)
+    for (int j = tid; j < h; j += THREADS) lse[row0 + j] = row_lse(m_s[j], l_s[j]);
 }
 
 template <typename T, int HMAX>
 int launch(const void* Q, const void* K, const void* V, const int* sel, const int* tpos, void* O,
-           int B, const Params& p, cudaStream_t stream) {
+           float* lse, int B, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(p.h, p.Dk, p.Dv, p.n, p.l_sel).bytes;
   cudaError_t e = cudaFuncSetAttribute(sel_attn_kernel<T, HMAX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -238,15 +242,15 @@ int launch(const void* Q, const void* K, const void* V, const int* sel, const in
   const long long grid = (long long)B * p.S * p.G;
   sel_attn_kernel<T, HMAX><<<(unsigned)grid, THREADS, smem, stream>>>(
       static_cast<const T*>(Q), static_cast<const T*>(K), static_cast<const T*>(V), sel, tpos,
-      static_cast<T*>(O), p);
+      static_cast<T*>(O), lse, p);
   NSA_LAUNCH_CHECK();
 }
 
 template <typename T>
 int launch_h(const void* Q, const void* K, const void* V, const int* sel, const int* tpos,
-             void* O, int B, const Params& p, cudaStream_t stream) {
-  if (p.h <= 8) return launch<T, 8>(Q, K, V, sel, tpos, O, B, p, stream);
-  return launch<T, 16>(Q, K, V, sel, tpos, O, B, p, stream);
+             void* O, float* lse, int B, const Params& p, cudaStream_t stream) {
+  if (p.h <= 8) return launch<T, 8>(Q, K, V, sel, tpos, O, lse, B, p, stream);
+  return launch<T, 16>(Q, K, V, sel, tpos, O, lse, B, p, stream);
 }
 
 }  // namespace
@@ -258,15 +262,15 @@ long long nsa_sel_attn_smem_bytes(int h, int Dk, int Dv, int n, int l_sel) {
 }
 
 int nsa_sel_attn(int dtype, const void* Q, const void* K, const void* V, const int* sel,
-                 const int* tpos, void* O, int B, int S, int S_kv, int G, int h, int Dk, int Dv,
-                 int n, int l_sel, float scale, void* stream) {
+                 const int* tpos, void* O, float* lse, int B, int S, int S_kv, int G, int h,
+                 int Dk, int Dv, int n, int l_sel, float scale, void* stream) {
   if (n <= 0 || l_sel <= 0 || S_kv <= 0 || h > 16 || Dv % 8 != 0 || Dk % 8 != 0 ||
       Dv / 4 > THREADS)
     return (int)cudaErrorInvalidValue;
   const Params p{S, S_kv, G, h, Dk, Dv, n, l_sel, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch_h<float>(Q, K, V, sel, tpos, O, B, p, s);
-  if (dtype == DT_BF16) return launch_h<__nv_bfloat16>(Q, K, V, sel, tpos, O, B, p, s);
+  if (dtype == DT_F32) return launch_h<float>(Q, K, V, sel, tpos, O, lse, B, p, s);
+  if (dtype == DT_BF16) return launch_h<__nv_bfloat16>(Q, K, V, sel, tpos, O, lse, B, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,7 +14,9 @@
 // with start <= t that are not forced (Eq. 11-12). Output contract of the
 // TPU kernel: forced slots first (may repeat), then picks in descending
 // score order, -1 when no candidate is left. Rows with no visible
-// compressed token get O_cmp = 0 and p_slc = 0.
+// compressed token get O_cmp = 0 and p_slc = 0. Optionally (lse !=
+// nullptr, the training forward) the cmp rows' statistics lse [B,S,G,h]
+// f32 = m + log(l), EMPTY_LSE for the rows t < l-1 that see no token.
 //
 // What bounds it on the H100: at the m7c serving shape (S=2048, S_cmp=127,
 // S_sel=32, h=6, D=64) the work is ~4 GFLOP for ~25 MB of Q/O traffic, so
@@ -67,7 +69,7 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 select_cmp_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, const T* __restrict__ Vc,
                   const float* __restrict__ Mcsl, int* __restrict__ sel, T* __restrict__ O,
-                  Params p) {
+                  float* __restrict__ lse, Params p) {
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
   int bid = blockIdx.x;
@@ -158,6 +160,7 @@ select_cmp_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, const T* __
       O[orow * Dv + c] = from_f<T>(den > 0.f ? acc_o[r * Dv + c] / den : 0.f);
     for (int c = lane; c < S_sel; c += 32)
       acc_p[r * S_sel + c] = den > 0.f ? acc_p[r * S_sel + c] / den : 0.f;
+    if (lse != nullptr && lane == 0) lse[orow] = row_lse(m_s[r], den);
   }
   __syncthreads();
 
@@ -212,7 +215,7 @@ select_cmp_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, const T* __
 
 template <typename T>
 int launch(const void* Q, const void* Kc, const void* Vc, const float* M, int* sel, void* O,
-           int B, const Params& p, cudaStream_t stream) {
+           float* lse, int B, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(p.TQ, p.h, p.Dk, p.Dv, p.S_sel).total * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(select_cmp_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -221,7 +224,7 @@ int launch(const void* Q, const void* Kc, const void* Vc, const float* M, int* s
   const long long grid = (long long)B * p.G * nq;
   select_cmp_kernel<T><<<(unsigned)grid, THREADS, smem, stream>>>(
       static_cast<const T*>(Q), static_cast<const T*>(Kc), static_cast<const T*>(Vc), M, sel,
-      static_cast<T*>(O), p);
+      static_cast<T*>(O), lse, p);
   NSA_LAUNCH_CHECK();
 }
 
@@ -238,15 +241,15 @@ long long nsa_select_cmp_smem_bytes(int TQ, int h, int Dk, int Dv, int S_sel) {
 }
 
 int nsa_select_cmp(int dtype, const void* Q, const void* Kc, const void* Vc, const float* M,
-                   int* sel, void* O, int B, int S, int G, int h, int Dk, int Dv, int S_cmp,
-                   int S_sel, int l, int d, int l_sel, int n_top, int force_init,
+                   int* sel, void* O, float* lse, int B, int S, int G, int h, int Dk, int Dv,
+                   int S_cmp, int S_sel, int l, int d, int l_sel, int n_top, int force_init,
                    int force_local, float scale, int TQ, void* stream) {
   if (S_sel > MAX_S_SEL || S_cmp <= 0 || TQ <= 0) return (int)cudaErrorInvalidValue;
   const Params p{S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
                  TQ, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch<float>(Q, Kc, Vc, M, sel, O, B, p, s);
-  if (dtype == DT_BF16) return launch<__nv_bfloat16>(Q, Kc, Vc, M, sel, O, B, p, s);
+  if (dtype == DT_F32) return launch<float>(Q, Kc, Vc, M, sel, O, lse, B, p, s);
+  if (dtype == DT_BF16) return launch<__nv_bfloat16>(Q, Kc, Vc, M, sel, O, lse, B, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

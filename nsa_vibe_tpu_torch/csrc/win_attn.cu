@@ -6,6 +6,9 @@
 //
 // What it computes: query row t sees keys [max(t-w+1, 0), t]
 // (and < S_kv); softmax in f32; a row with no visible key returns 0.
+// Optionally (lse != nullptr, the training forward) the row statistics
+// lse [B,S,G,h] f32 = m + log(l), EMPTY_LSE for a row with no key; the
+// serving path passes nullptr and pays nothing.
 //
 // What bounds it on the H100: at the m7c serving shape (B=4, S=2048, G=2,
 // h=6, D=64, w=512) the band work is ~13 GFLOP against ~50 MB of Q/K/V/O,
@@ -67,7 +70,7 @@ struct Smem {
 template <typename T, int NS>
 __global__ void __launch_bounds__(THREADS)
 win_attn_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
-                T* __restrict__ O, Params p) {
+                T* __restrict__ O, float* __restrict__ lse, Params p) {
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
   int bid = blockIdx.x;
@@ -224,11 +227,13 @@ win_attn_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __res
       }
     }
   }
+  if (lse != nullptr)
+    for (int r = tid; r < rows; r += THREADS) lse[qo_row(r)] = row_lse(m_s[r], l_s[r]);
 }
 
 template <typename T, int NS>
-int launch_ns(const void* Q, const void* K, const void* V, void* O, int B, const Params& p,
-              cudaStream_t stream) {
+int launch_ns(const void* Q, const void* K, const void* V, void* O, float* lse, int B,
+              const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(p.TQ, p.h, p.Dk, p.Dv).total * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(win_attn_kernel<T, NS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -237,21 +242,21 @@ int launch_ns(const void* Q, const void* K, const void* V, void* O, int B, const
   const long long grid = (long long)B * p.G * nq;
   win_attn_kernel<T, NS><<<(unsigned)grid, THREADS, smem, stream>>>(
       static_cast<const T*>(Q), static_cast<const T*>(K), static_cast<const T*>(V),
-      static_cast<T*>(O), p);
+      static_cast<T*>(O), lse, p);
   NSA_LAUNCH_CHECK();
 }
 
 // NS = the (row, 4 dims) slices one thread can own: ceil(MAX_ROWS / rstride)
 // with rstride = THREADS / (Dv / 4), rounded up to 1, 2, 4 or MAX_SLICES
 template <typename T>
-int launch(const void* Q, const void* K, const void* V, void* O, int B, const Params& p,
-           cudaStream_t stream) {
+int launch(const void* Q, const void* K, const void* V, void* O, float* lse, int B,
+           const Params& p, cudaStream_t stream) {
   const int rstride = THREADS / (p.Dv / 4);
   const int ns = (MAX_ROWS + rstride - 1) / rstride;
-  if (ns <= 1) return launch_ns<T, 1>(Q, K, V, O, B, p, stream);
-  if (ns <= 2) return launch_ns<T, 2>(Q, K, V, O, B, p, stream);
-  if (ns <= 4) return launch_ns<T, 4>(Q, K, V, O, B, p, stream);
-  return launch_ns<T, MAX_SLICES>(Q, K, V, O, B, p, stream);
+  if (ns <= 1) return launch_ns<T, 1>(Q, K, V, O, lse, B, p, stream);
+  if (ns <= 2) return launch_ns<T, 2>(Q, K, V, O, lse, B, p, stream);
+  if (ns <= 4) return launch_ns<T, 4>(Q, K, V, O, lse, B, p, stream);
+  return launch_ns<T, MAX_SLICES>(Q, K, V, O, lse, B, p, stream);
 }
 
 }  // namespace
@@ -262,16 +267,16 @@ long long nsa_win_attn_smem_bytes(int TQ, int h, int Dk, int Dv) {
   return (long long)(Smem(TQ, h, Dk, Dv).total * sizeof(float));
 }
 
-int nsa_win_attn(int dtype, const void* Q, const void* K, const void* V, void* O, int B, int S,
-                 int S_kv, int G, int h, int Dk, int Dv, int w, float scale, int TQ,
-                 void* stream) {
+int nsa_win_attn(int dtype, const void* Q, const void* K, const void* V, void* O, float* lse,
+                 int B, int S, int S_kv, int G, int h, int Dk, int Dv, int w, float scale,
+                 int TQ, void* stream) {
   if (TQ <= 0 || w <= 0 || TQ * h > MAX_ROWS || Dv > 4 * MAX_SLICES * (THREADS / MAX_ROWS) ||
       Dv % 8 != 0 || Dk % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const Params p{S, S_kv, G, h, Dk, Dv, w, TQ, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch<float>(Q, K, V, O, B, p, s);
-  if (dtype == DT_BF16) return launch<__nv_bfloat16>(Q, K, V, O, B, p, s);
+  if (dtype == DT_F32) return launch<float>(Q, K, V, O, lse, B, p, s);
+  if (dtype == DT_BF16) return launch<__nv_bfloat16>(Q, K, V, O, lse, B, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 """LLaMA-style pre-norm block around NSA attention (port of
 nsa_vibe_tpu/models/llama_block.py): RMSNorm, SiLU MLP, residuals;
-batched prefill and cached single-token decode."""
+batched prefill (differentiable; remat="mlp" recomputes the MLP in the
+backward) and cached single-token decode."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from nsa_vibe_tpu_torch.core.cache import NSACache
 from nsa_vibe_tpu_torch.core.config import ModelConfig
@@ -46,8 +48,10 @@ def block_prefill(params: dict, x: torch.Tensor, mcfg: ModelConfig) -> Tuple[tor
     attn_out, aux = nsa_prefill(params["attn"], rmsnorm(x, params["attn_norm"], mcfg.rmsnorm_eps),
                                 mcfg.nsa)
     x = x + attn_out
-    x = x + mlp(params["mlp"], rmsnorm(x, params["mlp_norm"], mcfg.rmsnorm_eps))
-    return x, aux
+    h = rmsnorm(x, params["mlp_norm"], mcfg.rmsnorm_eps)
+    if mcfg.remat == "mlp" and torch.is_grad_enabled():
+        return x + checkpoint(mlp, params["mlp"], h, use_reentrant=False), aux
+    return x + mlp(params["mlp"], h), aux
 
 
 def block_decode_step(params: dict, x: torch.Tensor, cache: NSACache,

@@ -1,9 +1,10 @@
-"""TinyLM: byte-level language model over NSA blocks, serving path.
+"""TinyLM: byte-level language model over NSA blocks.
 
 Port of nsa_vibe_tpu/models/tinylm.py: embedding, n x LlamaBlockNSA,
-final RMSNorm, untied LM head; prefill with per-layer cache seeding and
-cached single-token decode; `generate` (greedy, or temperature/top-k/
-top-p sampling with a torch.Generator).
+final RMSNorm, untied LM head; the differentiable `model_forward` (with
+block remat) and the f32 cross-entropy of the train step; prefill with
+per-layer cache seeding and cached single-token decode; `generate`
+(greedy, or temperature/top-k/top-p sampling with a torch.Generator).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from nsa_vibe_tpu_torch.core.cache import NSACache, cache_from_prefill
 from nsa_vibe_tpu_torch.core.config import ModelConfig
@@ -52,14 +54,40 @@ def _head(params: dict, x: torch.Tensor, mcfg: ModelConfig) -> torch.Tensor:
 
 def model_forward(params: dict, tokens: torch.Tensor, mcfg: ModelConfig,
                   collect_aux: bool = False) -> Tuple[torch.Tensor, list]:
-    """tokens [B, S] -> (logits [B, S, vocab], per-layer gates/selection if asked)."""
+    """tokens [B, S] -> (logits [B, S, vocab], per-layer gates/selection if
+    asked). With remat True/"full" and grad mode on, each block's forward
+    is recomputed in the backward (torch.utils.checkpoint); "mlp" remats
+    inside the block."""
     x = _embed(params, tokens, mcfg)
     auxes = []
+    remat = mcfg.remat in (True, "full") and torch.is_grad_enabled()
     for bp in params["blocks"]:
-        x, aux = block_prefill(bp, x, mcfg)
+        if remat:
+            x, aux = checkpoint(block_prefill, bp, x, mcfg, use_reentrant=False)
+        else:
+            x, aux = block_prefill(bp, x, mcfg)
         if collect_aux:
             auxes.append({"gates": aux["gates"], "sel_idx": aux["sel_idx"]})
     return _head(params, x, mcfg), auxes
+
+
+def cross_entropy_numden(logits: torch.Tensor, targets: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of masked next-token nll, token count), in f32: the separable
+    form of the loss."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum(), m.sum().clamp(min=1.0)
+    return nll.sum(), torch.full((), float(nll.numel()), device=nll.device)
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """f32 next-token cross entropy (mean over the unmasked tokens)."""
+    num, den = cross_entropy_numden(logits, targets, mask)
+    return num / den
 
 
 def model_prefill_with_caches(params: dict, tokens: torch.Tensor, mcfg: ModelConfig,

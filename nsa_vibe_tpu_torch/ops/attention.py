@@ -1,23 +1,95 @@
-"""Branch-attention dispatch (port of nsa_vibe_tpu/ops/attention.py, forward).
+"""Branch-attention dispatch (port of nsa_vibe_tpu/ops/attention.py).
 
 One rule for every branch: a CUDA tensor goes to the hand-written kernel,
 a CPU tensor to the kernel's plain PyTorch version (`resolve_kernel`).
 Nothing else is dispatched and nothing falls back. The kernels take any
 heads-per-group h, so there is no odd-head padding. This layer makes the
 operands contiguous, which the kernel wrappers require.
+
+Training: when autograd records (grad mode on and an operand requires a
+gradient) each branch runs as a `torch.autograd.Function` whose forward
+asks its kernel for the row statistics lse and saves (Q, K, V, O, lse),
+and whose backward computes delta = rowsum(dO * O) and runs the backward
+kernel (banded_bwd for win and cmp, sel_attn_bwd for the selection), as
+the JAX package's custom_vjp rules do. Otherwise (serving, no_grad) the
+forward kernels run without lse and nothing is saved.
 """
 
 from __future__ import annotations
 
 import torch
 
+from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd
 from nsa_vibe_tpu_torch.ops.cuda.common import resolve_kernel
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn import sel_attn
+from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import sel_attn_bwd
 from nsa_vibe_tpu_torch.ops.cuda.select_cmp import select_cmp
 from nsa_vibe_tpu_torch.ops.cuda.win_attn import win_attn
+from nsa_vibe_tpu_torch.ops.reference import attention_delta
 
 __all__ = ["fused_select_cmp", "resolve_kernel", "selection_attention",
            "sliding_window_attention"]
+
+
+def _records(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _FusedSelectCmp(torch.autograd.Function):
+    """sel_idx (no gradient) and O_cmp; M gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, Q, K, V, M, kw):
+        sel, O, lse = select_cmp(Q, K, V, M, return_lse=True, **kw)
+        ctx.mark_non_differentiable(sel)
+        ctx.save_for_backward(Q, K, V, O, lse)
+        ctx.kw = kw
+        return sel, O
+
+    @staticmethod
+    def backward(ctx, _dsel, dO):
+        Q, K, V, O, lse = ctx.saved_tensors
+        kw = ctx.kw
+        dO = dO.contiguous()
+        dQ, dK, dV = banded_bwd(Q, K, V, dO, lse, attention_delta(dO, O), mode="cmp",
+                                l=kw["l"], d=kw["d"], scale=kw["scale"])
+        return dQ, dK, dV, None, None
+
+
+class _SelectionAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, Q, K, V, sel_idx, t_pos, l_sel, scale):
+        O, lse = sel_attn(Q, K, V, sel_idx, t_pos, l_sel=l_sel, scale=scale, return_lse=True)
+        ctx.save_for_backward(Q, K, V, sel_idx, t_pos, O, lse)
+        ctx.l_sel, ctx.scale = l_sel, scale
+        return O
+
+    @staticmethod
+    def backward(ctx, dO):
+        Q, K, V, sel_idx, t_pos, O, lse = ctx.saved_tensors
+        dO = dO.contiguous()
+        dQ, dK, dV = sel_attn_bwd(Q, K, V, sel_idx, t_pos, dO, lse, attention_delta(dO, O),
+                                  l_sel=ctx.l_sel, scale=ctx.scale)
+        return dQ, dK, dV, None, None, None, None
+
+
+class _SlidingWindowAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, Q, K, V, w, scale):
+        O, lse = win_attn(Q, K, V, w=w, scale=scale, return_lse=True)
+        ctx.save_for_backward(Q, K, V, O, lse)
+        ctx.w, ctx.scale = w, scale
+        return O
+
+    @staticmethod
+    def backward(ctx, dO):
+        Q, K, V, O, lse = ctx.saved_tensors
+        dO = dO.contiguous()
+        dQ, dK, dV = banded_bwd(Q, K, V, dO, lse, attention_delta(dO, O), mode="win",
+                                w=ctx.w, scale=ctx.scale)
+        return dQ, dK, dV, None, None
 
 
 def fused_select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int,
@@ -25,20 +97,28 @@ def fused_select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel:
     """Fused Eq. 8-12 selection + compressed-branch forward. Returns
     (sel_idx [B,S,G,max(n_top,n_forced)] int32 in the scorer's set form,
     O_cmp [B,S,G,h,Dv]). Requires at least one compressed token."""
-    return select_cmp(Q.contiguous(), K_cmp.contiguous(), V_cmp.contiguous(),
-                      M.to(device=Q.device, dtype=torch.float32).contiguous(),
-                      scale=scale, l=l, d=d, l_sel=l_sel, n_top=n_top,
-                      force_init=force_init, force_local=force_local)
+    Q, K_cmp, V_cmp = Q.contiguous(), K_cmp.contiguous(), V_cmp.contiguous()
+    M = M.to(device=Q.device, dtype=torch.float32).contiguous()
+    kw = dict(scale=scale, l=l, d=d, l_sel=l_sel, n_top=n_top, force_init=force_init,
+              force_local=force_local)
+    if _records(Q, K_cmp, V_cmp):
+        return _FusedSelectCmp.apply(Q, K_cmp, V_cmp, M, kw)
+    return select_cmp(Q, K_cmp, V_cmp, M, **kw)
 
 
 def selection_attention(Q, K, V, sel_idx, t_pos, l_sel: int, scale: float):
     """Selection branch for prefill (S > 1) and decode (S == 1): one
     group-centric gather kernel. t_pos: [S] or [B,S] query positions."""
-    return sel_attn(Q.contiguous(), K.contiguous(), V.contiguous(),
-                    sel_idx.to(torch.int32).contiguous(), t_pos,
-                    l_sel=l_sel, scale=scale)
+    Q, K, V = Q.contiguous(), K.contiguous(), V.contiguous()
+    sel_idx = sel_idx.to(torch.int32).contiguous()
+    if _records(Q, K, V):
+        return _SelectionAttention.apply(Q, K, V, sel_idx, t_pos, l_sel, scale)
+    return sel_attn(Q, K, V, sel_idx, t_pos, l_sel=l_sel, scale=scale)
 
 
 def sliding_window_attention(Q, K, V, w: int, scale: float):
     """Window branch: query row t sees keys [t-w+1, t]."""
-    return win_attn(Q.contiguous(), K.contiguous(), V.contiguous(), w=w, scale=scale)
+    Q, K, V = Q.contiguous(), K.contiguous(), V.contiguous()
+    if _records(Q, K, V):
+        return _SlidingWindowAttention.apply(Q, K, V, w, scale)
+    return win_attn(Q, K, V, w=w, scale=scale)

@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the serving path, their wrappers and
-plain PyTorch versions.
+"""Hand-written Hopper kernels of the serving and training paths, their
+wrappers and plain PyTorch versions.
 
 | wrapper      | CUDA source          | replaces (nsa_vibe_tpu/ops/pallas/)                  |
 |--------------|----------------------|------------------------------------------------------|
@@ -7,6 +7,8 @@ plain PyTorch versions.
 | sel_attn     | csrc/sel_attn.cu     | sel_flash.py::selection_flash_pallas (prefill),      |
 |              |                      | selection.py::selection_attention_pallas (decode)    |
 | win_attn     | csrc/win_attn.cu     | flash_diag.py::flash_banded_diag                     |
+| banded_bwd   | csrc/banded_bwd.cu   | flash_bwd.py::flash_banded_bwd_onepass (win and cmp) |
+| sel_attn_bwd | csrc/sel_attn_bwd.cu | sel_flash.py::selection_flash_bwd_onepass            |
 
 Each wrapper counts its launches in a plain integer attribute
 (`<wrapper>.launches`), incremented only where the kernel is launched.
@@ -14,17 +16,21 @@ Each wrapper counts its launches in a plain integer attribute
 
 from __future__ import annotations
 
+from nsa_vibe_tpu_torch.ops.cuda import banded_bwd as _banded_bwd_mod
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn as _sel_attn_mod
+from nsa_vibe_tpu_torch.ops.cuda import sel_attn_bwd as _sel_attn_bwd_mod
 from nsa_vibe_tpu_torch.ops.cuda import select_cmp as _select_cmp_mod
 from nsa_vibe_tpu_torch.ops.cuda import win_attn as _win_attn_mod
 
-WRAPPERS = (_select_cmp_mod.select_cmp, _sel_attn_mod.sel_attn, _win_attn_mod.win_attn)
+WRAPPERS = (_select_cmp_mod.select_cmp, _sel_attn_mod.sel_attn, _win_attn_mod.win_attn,
+            _banded_bwd_mod.banded_bwd, _sel_attn_bwd_mod.sel_attn_bwd)
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
     _sel_attn_mod.sel_attn.decode_launches = 0
+    _banded_bwd_mod.banded_bwd.cmp_launches = 0
 
 
 def launch_counts() -> dict:

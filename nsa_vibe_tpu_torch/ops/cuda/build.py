@@ -23,8 +23,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("select_cmp.cu", "sel_attn.cu", "win_attn.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("select_cmp.cu", "sel_attn.cu", "win_attn.cu", "banded_bwd.cu", "sel_attn_bwd.cu")
+HEADERS = ("common.cuh", "bwd_common.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -34,13 +34,17 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # stream are c_void_p so that 64-bit addresses pass whole
 SIGNATURES = {
     "nsa_error_string": ([I], ctypes.c_char_p),
-    "nsa_select_cmp": ([I, P, P, P, P, P, P] + [I] * 14 + [F, I, P], I),
+    "nsa_select_cmp": ([I, P, P, P, P, P, P, P] + [I] * 14 + [F, I, P], I),
     "nsa_select_cmp_max_s_sel": ([], I),
     "nsa_select_cmp_smem_bytes": ([I] * 5, LL),
-    "nsa_sel_attn": ([I, P, P, P, P, P, P] + [I] * 9 + [F, P], I),
+    "nsa_sel_attn": ([I, P, P, P, P, P, P, P] + [I] * 9 + [F, P], I),
     "nsa_sel_attn_smem_bytes": ([I] * 5, LL),
-    "nsa_win_attn": ([I, P, P, P, P] + [I] * 8 + [F, I, P], I),
+    "nsa_win_attn": ([I, P, P, P, P, P] + [I] * 8 + [F, I, P], I),
     "nsa_win_attn_smem_bytes": ([I] * 4, LL),
+    "nsa_banded_bwd": ([I] + [P] * 10 + [I] * 11 + [F, I, I, P], I),
+    "nsa_banded_bwd_smem_bytes": ([I] * 2, LL),
+    "nsa_sel_attn_bwd": ([I] + [P] * 14 + [I] * 10 + [F, I, I, P], I),
+    "nsa_sel_attn_bwd_smem_bytes": ([I] * 6, LL),
 }
 
 _LIB = None

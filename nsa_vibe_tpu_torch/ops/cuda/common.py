@@ -7,6 +7,7 @@ CUDA tensor launches the kernel or raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -63,6 +64,11 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def ptr_or_null(t) -> ctypes.c_void_p:
+    """A tensor's address, or a null pointer for None (an output the kernel skips)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
@@ -71,6 +77,20 @@ def raise_on_error(lib, name: str, err: int) -> None:
     if err != 0:
         msg = lib.nsa_error_string(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err} ({msg})")
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card `index` (a host query, no sync)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kv_splits(device: torch.device, tiles: int, max_splits: int) -> int:
+    """Splits of a kv-major backward pass's query range: enough that
+    tiles * splits covers ~4 blocks per SM, at most max_splits (>= 1).
+    Fixed by shape and card, so a launch's sums are always the same."""
+    want = -(-4 * sm_count(device.index or 0) // max(tiles, 1))
+    return max(1, min(want, max_splits))
 
 
 def check_smem(name: str, nbytes: int) -> None:

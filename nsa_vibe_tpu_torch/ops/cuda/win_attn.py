@@ -13,25 +13,26 @@ import torch
 from nsa_vibe_tpu_torch.ops import reference as ref
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    check_operands, check_smem, check_vector_rows, ptr, raise_on_error, resolve_kernel,
-    stream_of,
+    check_operands, check_smem, check_vector_rows, ptr, ptr_or_null, raise_on_error,
+    resolve_kernel, stream_of,
 )
 
 ROWS_PER_BLOCK = 64   # query rows (tokens x heads) per block, the kernel's maximum
 MAX_DV = 128          # output dims the kernel's register slices cover
 
 
-def win_attn_plain(Q, K, V, *, w: int, scale: float):
+def win_attn_plain(Q, K, V, *, w: int, scale: float, return_lse: bool = False):
     """Plain PyTorch version: row t sees keys [t-w+1, t]."""
     t_pos = torch.arange(Q.shape[1], device=Q.device)
-    return ref.sliding_window_attention(Q, K, V, t_pos, w, scale)
+    return ref.sliding_window_attention(Q, K, V, t_pos, w, scale, return_lse)
 
 
-def win_attn(Q, K, V, *, w: int, scale: float):
-    """Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv] -> O [B,S,G,h,Dv].
-    CPU tensors take the plain version."""
+def win_attn(Q, K, V, *, w: int, scale: float, return_lse: bool = False):
+    """Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv] -> O [B,S,G,h,Dv],
+    and with return_lse the f32 row statistics lse [B,S,G,h]
+    (ops.reference). CPU tensors take the plain version."""
     if resolve_kernel(Q) == "plain":
-        return win_attn_plain(Q, K, V, w=w, scale=scale)
+        return win_attn_plain(Q, K, V, w=w, scale=scale, return_lse=return_lse)
     code = check_operands("win_attn", {"Q": Q, "K": K, "V": V})
     B, S, G, h, Dk = Q.shape
     S_kv, Dv = K.shape[2], V.shape[3]
@@ -48,12 +49,14 @@ def win_attn(Q, K, V, *, w: int, scale: float):
     tq = max(1, ROWS_PER_BLOCK // h)
     check_smem("win_attn", lib.nsa_win_attn_smem_bytes(tq, h, Dk, Dv))
     O = torch.empty((B, S, G, h, Dv), dtype=Q.dtype, device=Q.device)
+    lse = (torch.empty((B, S, G, h), dtype=torch.float32, device=Q.device)
+           if return_lse else None)
     with torch.cuda.device(Q.device):
-        err = lib.nsa_win_attn(code, ptr(Q), ptr(K), ptr(V), ptr(O), B, S, S_kv, G, h, Dk, Dv,
-                               w, float(scale), tq, stream_of(Q))
+        err = lib.nsa_win_attn(code, ptr(Q), ptr(K), ptr(V), ptr(O), ptr_or_null(lse), B, S,
+                               S_kv, G, h, Dk, Dv, w, float(scale), tq, stream_of(Q))
     raise_on_error(lib, "win_attn", err)
     win_attn.launches += 1
-    return O
+    return (O, lse) if return_lse else O
 
 
 win_attn.launches = 0

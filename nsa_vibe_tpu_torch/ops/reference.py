@@ -2,7 +2,12 @@
 
 Port of nsa_vibe_tpu/ops/reference.py: explicit-mask attention with a
 float32 softmax; rows with no visible key return zeros. The kernels'
-plain versions (ops/cuda/*.py) are built from these.
+plain versions (ops/cuda/*.py) are built from these, forward and
+backward (`attend_masked_bwd`, the dense flash-attention gradient).
+
+Row statistics: lse = logsumexp of a row's visible scaled logits
+(natural base), EMPTY_LSE = +1e30 for a row with no visible key, so that
+exp(s - lse) is exactly 0 there in the backward.
 
 Layout:
   Q: [B, S, G, h, Dk] (RoPE applied)   K: [B, G, S_kv, Dk]   V: [B, G, S_kv, Dv]
@@ -16,18 +21,47 @@ import torch
 from nsa_vibe_tpu_torch.ops.selection import selection_token_mask
 
 NEG_INF = float("-inf")
+EMPTY_LSE = 1e30
 
 
 def attend_masked(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
-                  mask: torch.Tensor, scale: float) -> torch.Tensor:
+                  mask: torch.Tensor, scale: float, return_lse: bool = False):
     """Masked grouped attention. mask broadcastable to [B,S,G,h,S_kv];
-    True = attend."""
+    True = attend. With return_lse, also returns the f32 row statistics
+    lse [B,S,G,h] (module docstring)."""
     logits = torch.einsum("bsghd,bgkd->bsghk", Q.float(), K.float()) * scale
     logits = logits.masked_fill(~mask, NEG_INF)
     any_visible = mask.any(dim=-1, keepdim=True)
     p = torch.softmax(logits, dim=-1)
     p = torch.where(any_visible, p, torch.zeros((), device=p.device))
-    return torch.einsum("bsghk,bgkv->bsghv", p, V.float()).to(Q.dtype)
+    O = torch.einsum("bsghk,bgkv->bsghv", p, V.float()).to(Q.dtype)
+    if not return_lse:
+        return O
+    any_visible = any_visible.expand(logits.shape[:-1] + (1,))[..., 0]
+    lse = torch.where(any_visible, torch.logsumexp(logits, dim=-1),
+                      torch.full((), EMPTY_LSE, device=p.device))
+    return O, lse
+
+
+def attention_delta(dO: torch.Tensor, O: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, [B,S,G,h]: the backward's per-row
+    preprocess (JAX ops/attention.py::_delta, without the TPU stats layout)."""
+    return (dO.float() * O.float()).sum(-1)
+
+
+def attend_masked_bwd(Q, K, V, dO, lse, delta, mask, scale: float):
+    """Dense gradient of `attend_masked` from the forward's row statistics:
+    P = exp(s - lse) on visible keys (0 elsewhere and on EMPTY_LSE rows),
+    dV = P^T dO, dS = P * (dO V^T - delta), dQ = scale dS K,
+    dK = scale dS^T Q; f32 throughout, outputs in the operands' dtypes."""
+    s = torch.einsum("bsghd,bgkd->bsghk", Q.float(), K.float()) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros((), device=s.device))
+    dO_f = dO.float()
+    dV = torch.einsum("bsghk,bsghv->bgkv", p, dO_f)
+    dS = p * (torch.einsum("bsghv,bgkv->bsghk", dO_f, V.float()) - delta[..., None])
+    dQ = torch.einsum("bsghk,bgkd->bsghd", dS, K.float()) * scale
+    dK = torch.einsum("bsghk,bsghd->bgkd", dS, Q.float()) * scale
+    return dQ.to(Q.dtype), dK.to(K.dtype), dV.to(V.dtype)
 
 
 def sliding_window_mask(t_pos: torch.Tensor, S_kv: int, w: int) -> torch.Tensor:
@@ -43,19 +77,30 @@ def compressed_mask(num_cmp_t: torch.Tensor, S_cmp: int) -> torch.Tensor:
     return c < num_cmp_t.to(torch.int64)[:, None]
 
 
-def sliding_window_attention(Q, K, V, t_pos: torch.Tensor, w: int, scale: float):
+def num_cmp_per_token(S: int, l: int, d: int, S_cmp: int, device=None) -> torch.Tensor:
+    """Compressed tokens visible to query row t (position t): num_cmp(t+1),
+    capped at S_cmp. [S] int64."""
+    s_raw = torch.arange(1, S + 1, device=device)
+    n = torch.where(s_raw >= l, torch.div(s_raw - l, d, rounding_mode="floor") + 1,
+                    torch.zeros_like(s_raw))
+    return n.clamp(max=S_cmp)
+
+
+def sliding_window_attention(Q, K, V, t_pos: torch.Tensor, w: int, scale: float,
+                             return_lse: bool = False):
     m = sliding_window_mask(t_pos, K.shape[2], w)
-    return attend_masked(Q, K, V, m[None, :, None, None, :], scale)
+    return attend_masked(Q, K, V, m[None, :, None, None, :], scale, return_lse)
 
 
-def compressed_attention(Q, K_cmp, V_cmp, num_cmp_t: torch.Tensor, scale: float):
+def compressed_attention(Q, K_cmp, V_cmp, num_cmp_t: torch.Tensor, scale: float,
+                         return_lse: bool = False):
     m = compressed_mask(num_cmp_t, K_cmp.shape[2])
-    return attend_masked(Q, K_cmp, V_cmp, m[None, :, None, None, :], scale)
+    return attend_masked(Q, K_cmp, V_cmp, m[None, :, None, None, :], scale, return_lse)
 
 
 def selection_attention(Q, K, V, sel_idx: torch.Tensor, t_pos: torch.Tensor,
-                        l_sel: int, scale: float):
+                        l_sel: int, scale: float, return_lse: bool = False):
     """Softmax over the union of the selected blocks, key positions <= t.
     t_pos: [S] or [B,S] (per-row depths)."""
     m = selection_token_mask(sel_idx, t_pos, l_sel, K.shape[2])
-    return attend_masked(Q, K, V, m[:, :, :, None, :], scale)
+    return attend_masked(Q, K, V, m[:, :, :, None, :], scale, return_lse)

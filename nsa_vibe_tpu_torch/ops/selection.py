@@ -95,6 +95,15 @@ def canonicalize_sel(sel: torch.Tensor) -> torch.Tensor:
     return torch.where(x == big, torch.full_like(x, -1), x)
 
 
+def count_distinct_blocks(sel: torch.Tensor) -> torch.Tensor:
+    """Distinct non-negative block ids per row of sel [..., n] (any form:
+    forced-first with repeats or canonical) -> [...] int64."""
+    x = torch.sort(sel, dim=-1).values
+    new = torch.ones_like(x, dtype=torch.bool)
+    new[..., 1:] = x[..., 1:] != x[..., :-1]
+    return ((x >= 0) & new).sum(-1)
+
+
 def topn_forced_first(p_grp: torch.Tensor, n_top: int, t_pos: torch.Tensor,
                       l_sel: int, force_init: bool = True,
                       force_local: int = 2) -> torch.Tensor:

@@ -1,0 +1,111 @@
+"""Data pipeline: byte-LM token streams with fixed-length packing.
+
+The port's own copy of nsa_vibe_tpu/train/data.py (tokenize_bytes, the
+byte tokenizer, synthetic_docs, pack_token_stream, local_docs,
+make_batches): the same numpy arithmetic, so a seed gives the same
+batches in both packages. Not ported: the native C++ packer, HF
+tokenizers, the fineweb stream (it needs the network and HF `datasets`;
+`make_batches("fineweb...")` raises) and doc-level sharding across
+processes (one device reads every document).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Iterable, Iterator
+
+import numpy as np
+
+
+def tokenize_bytes(text: str) -> np.ndarray:
+    """Byte-level tokenizer (vocab 256)."""
+    return np.frombuffer(text.encode("utf-8", errors="ignore"), dtype=np.uint8).astype(
+        np.int32
+    )
+
+
+def make_tokenizer(spec: str = "byte"):
+    """Tokenizer factory: only "byte" (vocab 256) in the port."""
+    if spec == "byte":
+        return tokenize_bytes
+    raise ValueError(f"unknown tokenizer spec: {spec} (the port has only 'byte')")
+
+
+def pack_token_stream(
+    docs: Iterable[np.ndarray], seq_len: int, batch_size: int
+) -> Iterator[np.ndarray]:
+    """Concatenate document token streams into dense [batch, seq_len+1]
+    rows (the +1 column provides next-token targets). Rolling buffer, no
+    padding, no document-boundary loss masking."""
+    need = batch_size * (seq_len + 1)
+    buf = np.zeros(0, dtype=np.int32)
+    for doc in docs:
+        if doc.size == 0:
+            continue
+        buf = np.concatenate([buf, doc])
+        while buf.size >= need:
+            chunk, buf = buf[:need], buf[need:]
+            yield chunk.reshape(batch_size, seq_len + 1)
+
+
+def synthetic_docs(seed: int = 0, doc_len: int = 2048) -> Iterator[np.ndarray]:
+    """Deterministic synthetic byte docs with learnable structure (repeated
+    patterns + noise) so smoke-training loss visibly decreases."""
+    rng = np.random.default_rng(seed)
+    while True:
+        period = int(rng.integers(3, 17))
+        pattern = rng.integers(0, 256, size=period)
+        reps = doc_len // period + 1
+        doc = np.tile(pattern, reps)[:doc_len]
+        noise = rng.random(doc_len) < 0.02
+        doc = np.where(noise, rng.integers(0, 256, size=doc_len), doc)
+        yield doc.astype(np.int32)
+
+
+def local_docs(path: str, tokenize=tokenize_bytes, epochs: int = 1) -> Iterator[np.ndarray]:
+    """Local .jsonl ({'text': ...} per line) or plain .txt file. epochs=0
+    cycles the file forever."""
+    e = 0
+    while True:
+        if path.endswith(".jsonl"):
+            with open(path) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        text = json.loads(line).get("text", "")
+                    except json.JSONDecodeError:
+                        text = ""
+                    if text:
+                        yield tokenize(text)
+        else:
+            with open(path) as f:
+                yield tokenize(f.read())
+        e += 1
+        if epochs and e >= epochs:
+            return
+
+
+def make_batches(
+    source: str,
+    seq_len: int,
+    batch_size: int,
+    seed: int = 0,
+    tokenizer: str = "byte",
+    epochs: int = 1,
+) -> Iterator[np.ndarray]:
+    """source: 'synthetic' | path to .jsonl/.txt. epochs (local files
+    only): 0 cycles forever. Yields int32 [batch_size, seq_len+1]."""
+    tokenize = make_tokenizer(tokenizer)
+    if source == "synthetic":
+        docs: Iterator[np.ndarray] = synthetic_docs(seed)
+    elif source.startswith("fineweb"):
+        raise ValueError("the fineweb source needs the network and HF `datasets`; the port "
+                         "reads --data synthetic or a local .jsonl/.txt file")
+    elif os.path.exists(source):
+        docs = local_docs(source, tokenize=tokenize, epochs=epochs)
+    else:
+        raise ValueError(f"unknown data source: {source}")
+    yield from pack_token_stream(docs, seq_len, batch_size)

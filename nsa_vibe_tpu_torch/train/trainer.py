@@ -1,0 +1,270 @@
+"""Byte-LM trainer, single device (port of nsa_vibe_tpu/train/trainer.py).
+
+  * YAML config (model/nsa/train groups; PyYAML is imported only when
+    --config is given) + CLI overrides;
+  * the train step of train.train_step on one device (the card unless
+    --device cpu);
+  * training.csv, val.csv, heartbeat.jsonl, `.HALT` polling each step;
+  * the coherent NaN abort: the device `good` flags queue up and are read
+    at log boundaries, 3 consecutive bad steps halt the run;
+  * periodic + final checkpoints with optimizer state; --resume.
+
+The host reads device values only at log (and eval/save) boundaries, so
+the card runs ahead of the Python loop between them.
+
+Run:  python -m nsa_vibe_tpu_torch.train.trainer --steps 50 --data synthetic
+      python -m nsa_vibe_tpu_torch.train.trainer --config configs/m7c_125m.yaml \
+          --data synthetic --steps 20
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import dataclasses
+import json
+import os
+import queue
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig, TrainConfig
+from nsa_vibe_tpu_torch.models.tinylm import init_model_params
+from nsa_vibe_tpu_torch.train.data import make_batches
+from nsa_vibe_tpu_torch.train.train_step import init_train_state, make_eval_step, make_train_step
+from nsa_vibe_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from nsa_vibe_tpu_torch.utils.device import resolve_device
+from nsa_vibe_tpu_torch.utils.heartbeat import Heartbeat
+
+NAN_ABORT_STREAK = 3
+FIRST_BATCH_TIMEOUT_S = 120.0   # a stuck data source fails fast
+
+
+class _Prefetcher:
+    """Background batch generation into a bounded queue; the first get()
+    applies a timeout so a stuck source fails fast."""
+
+    def __init__(self, batches, depth: int = 4):
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._err = None
+
+        def worker():
+            try:
+                for b in batches:
+                    self._q.put(b)
+            except Exception as e:  # surfaced on get()
+                self._err = e
+            self._q.put(None)
+
+        threading.Thread(target=worker, daemon=True).start()
+
+    def get(self, timeout: Optional[float] = None):
+        item = self._q.get(timeout=timeout)
+        if item is None:
+            if self._err is not None:
+                raise RuntimeError(f"data loader failed: {self._err}") from self._err
+            raise StopIteration("data source exhausted")
+        return item
+
+
+def load_config(path: Optional[str]) -> tuple[ModelConfig, TrainConfig, str]:
+    """YAML with optional model/nsa/train groups; returns (mcfg, tcfg, data).
+    Keys the port does not have (parallel axes, varlen) raise."""
+    raw: dict = {}
+    if path:
+        import yaml
+
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+    nsa = NSAConfig(**raw.get("nsa", {}))
+    model_kw = dict(raw.get("model", {}))
+    data = model_kw.pop("data", raw.get("data", "synthetic"))
+    return ModelConfig(nsa=nsa, **model_kw), TrainConfig(**raw.get("train", {})), data
+
+
+def apply_overrides(mcfg: ModelConfig, tcfg: TrainConfig, args) -> tuple[ModelConfig, TrainConfig]:
+    t_over = {k: getattr(args, k)
+              for k in ("steps", "batch_size", "seq_len", "accum_steps", "lr", "seed",
+                        "save_every", "eval_every", "log_every", "out_dir")
+              if getattr(args, k, None) is not None}
+    if t_over:
+        tcfg = dataclasses.replace(tcfg, **t_over)
+    m_over = {}
+    if args.n_layers is not None:
+        m_over["n_layers"] = args.n_layers
+    if args.remat:
+        m_over["remat"] = True if args.remat is True else args.remat
+    if args.dtype is not None:
+        m_over["dtype"] = args.dtype
+    if m_over:
+        mcfg = dataclasses.replace(mcfg, **m_over)
+    return mcfg, tcfg
+
+
+def _to_device(batch_np: np.ndarray, shape, dev: torch.device) -> torch.Tensor:
+    """int32 numpy batch -> int64 tensor on dev; to a card through pinned
+    memory without waiting for the queued work."""
+    t = torch.from_numpy(np.ascontiguousarray(batch_np).reshape(shape)).long()
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
+          resume: bool = False, device="cuda") -> dict:
+    """Run training; returns a summary dict (final loss, toks/s, steps done)."""
+    dev = resolve_device(device)
+    run_dir = tcfg.out_dir
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "env.json"), "w") as f:
+        json.dump({
+            "torch": torch.__version__,
+            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
+            "model": dataclasses.asdict(mcfg),
+            "train": dataclasses.asdict(tcfg),
+            "data": data_source,
+        }, f, indent=2, default=str)
+
+    params = init_model_params(mcfg, torch.Generator().manual_seed(tcfg.seed), device=dev)
+    state = init_train_state(params, tcfg)
+    step_fn = make_train_step(mcfg, tcfg)
+    eval_fn = make_eval_step(mcfg)
+
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    start_step = 0
+    if resume and latest_step(ckpt_dir) is not None:
+        restore_checkpoint(ckpt_dir, state)
+        start_step = int(state.step)
+        print(f"[trainer] resumed from step {start_step}", flush=True)
+
+    A, Bsz, S = tcfg.accum_steps, tcfg.batch_size, tcfg.seq_len
+    batches = _Prefetcher(make_batches(data_source, S, Bsz * A, seed=tcfg.seed, epochs=0))
+    first_batch = batches.get(timeout=FIRST_BATCH_TIMEOUT_S)
+
+    hb = Heartbeat(os.path.join(run_dir, "heartbeat.jsonl"))
+    csv_path = os.path.join(run_dir, "training.csv")
+    val_path = os.path.join(run_dir, "val.csv")
+    new_csv = not (resume and os.path.exists(csv_path))
+    with open(csv_path, "w" if new_csv else "a", newline="") as csv_f:
+        csv_w = csv.writer(csv_f)
+        if new_csv:
+            csv_w.writerow(["step", "loss", "toks_per_s", "grad_norm", "gate_entropy",
+                            "gate_max", "gate_collapse_frac", "share_cmp", "share_sel",
+                            "share_win", "sel_k_mean", "sel_k_max", "bad_steps"])
+
+        halt_path = os.path.join(run_dir, ".HALT")
+        bad_streak = total_bad = 0
+        tokens_per_step = A * Bsz * S
+        last_loss = float("nan")
+        summary_toks = 0.0
+        t_start = time.perf_counter()
+        t_window = t_start
+        pending_good: list = []
+
+        for step in range(start_step, tcfg.steps):
+            if os.path.exists(halt_path):
+                print(f"[trainer] .HALT detected at step {step}; exiting gracefully", flush=True)
+                break
+            if first_batch is not None:
+                batch_np, first_batch = first_batch, None
+            else:
+                batch_np = batches.get(timeout=300.0)
+            state, metrics = step_fn(state, _to_device(batch_np, (A, Bsz, S + 1), dev))
+            pending_good.append(metrics["good"])
+            sync_now = ((step + 1) % tcfg.log_every == 0 or step == start_step
+                        or step == tcfg.steps - 1
+                        or (tcfg.eval_every and (step + 1) % tcfg.eval_every == 0)
+                        or (tcfg.save_every and (step + 1) % tcfg.save_every == 0))
+            if sync_now:
+                loss = float(metrics["loss"])   # waits for every queued step
+                now = time.perf_counter()
+                toks_per_s = tokens_per_step * len(pending_good) / max(now - t_window, 1e-9)
+                t_window = now
+                summary_toks = toks_per_s
+                last_loss = loss
+                abort = False
+                for g in pending_good:
+                    if not bool(g):
+                        bad_streak += 1
+                        total_bad += 1
+                        abort = abort or bad_streak >= NAN_ABORT_STREAK
+                    else:
+                        bad_streak = 0
+                pending_good = []
+                if abort:
+                    with open(os.path.join(run_dir, ".anomaly_type"), "w") as f:
+                        f.write("nan_loss\n")
+                    with open(halt_path, "w") as f:
+                        f.write("coherent NaN abort\n")
+                    print(f"[trainer] NaN abort at step {step}", flush=True)
+                    break
+                shares = metrics["branch_shares"].tolist()
+                vals = {k: float(metrics[k]) for k in ("grad_norm", "gate_entropy", "gate_max",
+                                                       "gate_collapse_frac", "sel_k_mean",
+                                                       "sel_k_max")}
+                csv_w.writerow([step + 1, f"{loss:.6f}", f"{toks_per_s:.1f}",
+                                f"{vals['grad_norm']:.4f}", f"{vals['gate_entropy']:.4f}",
+                                f"{vals['gate_max']:.4f}", f"{vals['gate_collapse_frac']:.4f}",
+                                f"{shares[0]:.4f}", f"{shares[1]:.4f}", f"{shares[2]:.4f}",
+                                f"{vals['sel_k_mean']:.2f}", f"{vals['sel_k_max']:.0f}", total_bad])
+                csv_f.flush()
+                hb.beat(step + 1, loss=loss, toks_per_s=toks_per_s, grad_norm=vals["grad_norm"],
+                        gate_entropy=vals["gate_entropy"], gate_max=vals["gate_max"],
+                        gate_collapse_frac=vals["gate_collapse_frac"])
+                print(f"[trainer] step {step + 1} loss {loss:.4f} {toks_per_s:.0f} toks/s",
+                      flush=True)
+
+            if tcfg.eval_every and (step + 1) % tcfg.eval_every == 0:
+                vb = batches.get(timeout=300.0)[:Bsz]
+                vl = float(eval_fn(state.params, _to_device(vb, vb.shape, dev)))
+                with open(val_path, "a", newline="") as vf:
+                    csv.writer(vf).writerow([step + 1, f"{vl:.6f}", f"{np.exp(vl):.4f}"])
+
+            if tcfg.save_every and (step + 1) % tcfg.save_every == 0:
+                save_checkpoint(ckpt_dir, step + 1, state)
+    save_checkpoint(ckpt_dir, int(state.step), state)
+    return {
+        "final_loss": last_loss,
+        "steps": int(state.step),
+        "toks_per_s": summary_toks,
+        "wall_s": time.perf_counter() - t_start,
+        "bad_steps": total_bad,
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description="NSA byte-LM trainer (PyTorch port, one device)")
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--data", default=None, help="synthetic | path.jsonl | path.txt")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--batch-size", dest="batch_size", type=int, default=None)
+    ap.add_argument("--seq-len", dest="seq_len", type=int, default=None)
+    ap.add_argument("--accum-steps", dest="accum_steps", type=int, default=None)
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--n-layers", dest="n_layers", type=int, default=None)
+    ap.add_argument("--remat", nargs="?", const=True, default=False,
+                    help="full block remat; --remat mlp = MLP-only")
+    ap.add_argument("--dtype", default=None)
+    ap.add_argument("--save-every", dest="save_every", type=int, default=None)
+    ap.add_argument("--eval-every", dest="eval_every", type=int, default=None)
+    ap.add_argument("--log-every", dest="log_every", type=int, default=None)
+    ap.add_argument("--out-dir", dest="out_dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    args = ap.parse_args()
+
+    mcfg, tcfg, data = load_config(args.config)
+    mcfg, tcfg = apply_overrides(mcfg, tcfg, args)
+    if args.data is not None:
+        data = args.data
+    summary = train(mcfg, tcfg, data, resume=args.resume, device=args.device)
+    print(json.dumps({"summary": summary}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -11,23 +11,33 @@ This file imports no JAX. f32 runs with TF32 off; bounds, per element:
 value plus 1e-4 (both versions round an f32 result that agrees to ~1e-6,
 so they may land one ulp apart, two across a power of two).
 Selection is compared as sets; inputs are random normals, whose group
-scores are well separated at these sizes.
+scores are well separated at these sizes. Backward kernels (and the
+forward row statistics) are held per tensor to 5e-5 of the tensor's max
+|value| in f32 (their sums run over up to S rows, so the order error
+scales with the largest terms, not with each element); in bf16 to two
+bf16 ulps of the plain value plus that f32 bound (both versions round f32
+results that agree within it).
 """
 
 import pytest
 import torch
 
-from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig
-from nsa_vibe_tpu_torch.convert import params_to
+from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig, TrainConfig
+from nsa_vibe_tpu_torch.convert import params_to, params_to_numpy
+from nsa_vibe_tpu_torch.core.nsa import init_nsa_params, nsa_prefill
 from nsa_vibe_tpu_torch.models.tinylm import (
     generate, init_model_params, model_decode_step, model_prefill_with_caches,
 )
 from nsa_vibe_tpu_torch.ops import cuda as kernels
 from nsa_vibe_tpu_torch.ops.block_index import build_M_csl, num_cmp_blocks
+from nsa_vibe_tpu_torch.ops.cuda import banded_bwd as bb_mod
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn as sa_mod
+from nsa_vibe_tpu_torch.ops.cuda import sel_attn_bwd as sb_mod
 from nsa_vibe_tpu_torch.ops.cuda import select_cmp as sc_mod
 from nsa_vibe_tpu_torch.ops.cuda import win_attn as wa_mod
+from nsa_vibe_tpu_torch.ops.reference import attention_delta
 from nsa_vibe_tpu_torch.ops.selection import canonicalize_sel
+from nsa_vibe_tpu_torch.train.train_step import init_train_state, make_train_step
 
 SCALE = 0.125
 F32_TOL = 5e-5
@@ -52,6 +62,135 @@ def _within_bound(got, plain):
     ulp = torch.ldexp(torch.ones_like(x), e - 8)            # bf16: 8 significant bits
     allowed = torch.where(x > 0, BF16_ULPS * ulp, torch.zeros_like(x)) + BF16_FLOOR
     return bool((err <= allowed).all())
+
+
+def _within_rel(got, plain):
+    """Backward bound (module docstring): F32_TOL of the tensor's max |value|,
+    plus two bf16 ulps of each plain value in bf16."""
+    err = (got.float() - plain.float()).abs()
+    x = plain.float().abs()
+    allowed = F32_TOL * float(x.max())
+    if plain.dtype == torch.bfloat16:
+        _, e = torch.frexp(x)
+        allowed = allowed + torch.where(x > 0, BF16_ULPS * torch.ldexp(torch.ones_like(x), e - 8),
+                                        torch.zeros_like(x))
+    return bool((err <= allowed).all())
+
+
+def _bwd_operands(dtype, dev, B, S, G, h, D, S_kv, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return r(B, S, G, h, D), r(B, G, S_kv, D), r(B, G, S_kv, D), r(B, S, G, h, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,G,h,D,l,d,l_sel,n_top,w", [
+    (1, 200, 2, 3, 64, 32, 16, 64, 5, 64),      # odd h, S not a multiple of l_sel
+    (2, 130, 1, 6, 16, 8, 4, 16, 4, 40),        # small head width, many blocks
+    (1, 70, 2, 1, 32, 16, 8, 16, 8, 512),       # h = 1, window wider than S
+    (1, 300, 1, 2, 32, 32, 16, 128, 3, 100),    # l_sel = 128: two kv tiles per block
+    (1, 100, 1, 2, 128, 16, 8, 32, 4, 50),      # D = 128: two register slices per thread
+])
+def test_backward_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, n_top, w):
+    """Forward lse and both backward kernels (win, cmp, sel) against their
+    plain versions on the same operands; two launches give the same bits."""
+    dev = _card()
+    scale = D ** -0.5
+    S_cmp = num_cmp_blocks(S, l, d)
+    Q, K, V, dO = _bwd_operands(dtype, dev, B, S, G, h, D, S)
+    _, Kc, Vc, _ = _bwd_operands(dtype, dev, B, S, G, h, D, S_cmp, seed=1)
+    M = torch.from_numpy(build_M_csl(S, l, d, l_sel)).to(dev)
+    kw = dict(scale=scale, l=l, d=d, l_sel=l_sel, n_top=n_top)
+    sel, Oc, lse_c = sc_mod.select_cmp(Q, Kc, Vc, M, **kw, return_lse=True)
+    _, pOc, plse_c = sc_mod.select_cmp_plain(Q, Kc, Vc, M, **kw, return_lse=True)
+    t = torch.arange(S, device=dev)
+    Os, lse_s = sa_mod.sel_attn(Q, K, V, sel, t, l_sel=l_sel, scale=scale, return_lse=True)
+    _, plse_s = sa_mod.sel_attn_plain(Q, K, V, sel, t, l_sel=l_sel, scale=scale, return_lse=True)
+    Ow, lse_w = wa_mod.win_attn(Q, K, V, w=w, scale=scale, return_lse=True)
+    _, plse_w = wa_mod.win_attn_plain(Q, K, V, w=w, scale=scale, return_lse=True)
+    assert bool((lse_c[:, :l - 1] == 1e30).all())                 # rows t < l-1 see no token
+    for got, want in ((lse_c, plse_c), (lse_s, plse_s), (lse_w, plse_w)):
+        assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)
+    cases = [
+        (lambda: bb_mod.banded_bwd(Q, Kc, Vc, dO, lse_c, attention_delta(dO, Oc), mode="cmp",
+                                   l=l, d=d, scale=scale),
+         lambda: bb_mod.banded_bwd_plain(Q, Kc, Vc, dO, lse_c, attention_delta(dO, Oc),
+                                         mode="cmp", l=l, d=d, scale=scale)),
+        (lambda: bb_mod.banded_bwd(Q, K, V, dO, lse_w, attention_delta(dO, Ow), mode="win",
+                                   w=w, scale=scale),
+         lambda: bb_mod.banded_bwd_plain(Q, K, V, dO, lse_w, attention_delta(dO, Ow),
+                                         mode="win", w=w, scale=scale)),
+        (lambda: sb_mod.sel_attn_bwd(Q, K, V, sel, t, dO, lse_s, attention_delta(dO, Os),
+                                     l_sel=l_sel, scale=scale),
+         lambda: sb_mod.sel_attn_bwd_plain(Q, K, V, sel, t, dO, lse_s, attention_delta(dO, Os),
+                                           l_sel=l_sel, scale=scale)),
+    ]
+    for kernel, plain in cases:
+        got, again, want = kernel(), kernel(), plain()
+        for g, a, p in zip(got, again, want):
+            assert g.dtype == p.dtype and g.shape == p.shape
+            assert _within_rel(g, p)
+            assert torch.equal(g, a)                               # deterministic
+    # rows that see no compressed token get no gradient
+    assert not bool(cases[0][0]()[0][:, :l - 1].any())
+
+
+@pytest.mark.gpu
+def test_two_layer_train_step_on_card_matches_cpu():
+    """Three f32 steps of a 2-layer model (remat on): loss, grad norm and
+    every parameter from the kernels equal the plain path's within 1e-4
+    of each tensor's scale."""
+    dev = _card()
+    mcfg = ModelConfig(vocab_size=64, n_layers=2, remat=True,
+                       nsa=NSAConfig(dim=96, n_heads=6, n_kv_groups=2, d_k=16, d_v=16,
+                                     l=8, d=4, l_sel=16, n_sel=4, w=32))
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1, steps=10)
+    sc, sg = (init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(0),
+                                                 device=d), tcfg) for d in ("cpu", dev))
+    step = make_train_step(mcfg, tcfg)
+    toks = torch.randint(0, 64, (3, 1, 2, 131), generator=torch.Generator().manual_seed(1))
+    kernels.reset_launch_counts()
+    for i in range(3):
+        sc, mc = step(sc, toks[i])
+        sg, mg = step(sg, toks[i].to(dev))
+        for k in ("loss", "grad_norm"):
+            assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * abs(float(mc[k])), k
+    counts = kernels.launch_counts()
+    assert counts == {"select_cmp": 12, "sel_attn": 12, "win_attn": 12,
+                      "banded_bwd": 12, "sel_attn_bwd": 6}, counts
+    for a, b in zip(_flat(params_to_numpy(sc.params)), _flat(params_to_numpy(sg.params))):
+        assert abs(a - b).max() <= 1e-4 * max(abs(a).max(), 1e-3)
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _flat(v)]
+    return [tree]
+
+
+@pytest.mark.gpu
+def test_layer_backward_issues_without_host_sync():
+    """One layer's forward and backward through the kernels never make
+    the host wait for the card."""
+    dev = _card()
+    cfg = NSAConfig(dim=96, n_heads=6, n_kv_groups=2, d_k=16, d_v=16, l=8, d=4, l_sel=16,
+                    n_sel=4, w=32)
+    params = init_nsa_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    params["W_qkv"].requires_grad_(True)
+    x = torch.randn(2, 90, 96, device=dev, requires_grad=True)
+    nsa_prefill(params, x, cfg)[0].sum().backward()              # first use builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nsa_prefill(params, x, cfg)[0].sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 @pytest.mark.gpu
@@ -121,7 +260,8 @@ def test_small_model_serves_the_same_tokens_on_card_and_cpu():
     kernels.reset_launch_counts()
     got = generate(params_to(params, device=dev), prompt.to(dev), 6, mcfg)
     assert torch.equal(got.cpu(), want)
-    assert kernels.launch_counts() == {"select_cmp": 2, "sel_attn": 2 + 2 * 5, "win_attn": 2}
+    assert kernels.launch_counts() == {"select_cmp": 2, "sel_attn": 2 + 2 * 5, "win_attn": 2,
+                                       "banded_bwd": 0, "sel_attn_bwd": 0}
 
 
 @pytest.mark.gpu
