@@ -34,7 +34,20 @@ Phases (any failure exits non-zero):
       2048 synthetic tokens) through make_train_step: a warm-up step, timed
       steps with CUDA events, the launch counts of all five kernels, peak
       memory, a torch.profiler step by kernel, the host syncs a step makes;
-      and `train()` for a short run whose loss must fall.
+      and `train()` for a short run whose loss must fall;
+  (e) long context: the banded kernel (row 5, both modes) and the
+      select-only scorer (row 6) at the 64k shapes (S_sel = 1024) against
+      their plain versions on the last 4096 query rows, f32 and bf16, and
+      the same rows from a call at t_start = 61440; at 16k, where both
+      routes apply, banded_attn and select_blocks against select_cmp, and
+      compressed_attention forward + backward with no host sync; m7c-125M
+      serves one 65536-token prompt and 32 greedy tokens through
+      `generate` on the long route (launch counts per prefill: select_cmp
+      0, banded_attn, select_blocks, sel_attn and win_attn 12 each; 12
+      sel_attn per decode step), timed, traced and checked for host syncs;
+      the needle smoke (five depths) and end-to-end probe (three depths)
+      at S = 65536 must pass; rows 5 and 6 are timed beside their plain
+      versions (over every row, 4096 rows a call) and, for row 5, SDPA.
 
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
@@ -68,11 +81,16 @@ from nsa_vibe_tpu_torch.models.tinylm import (
     generate, init_model_params, model_decode_step, model_prefill_with_caches,
 )
 from nsa_vibe_tpu_torch.ops import cuda as kernels
-from nsa_vibe_tpu_torch.ops.block_index import build_block_meta, expected_decode_reads
+from nsa_vibe_tpu_torch.ops.attention import compressed_attention
+from nsa_vibe_tpu_torch.ops.block_index import (
+    build_block_meta, build_M_csl_on, expected_decode_reads, num_cmp_blocks,
+)
 from nsa_vibe_tpu_torch.ops.cuda import build as kbuild
+from nsa_vibe_tpu_torch.ops.cuda.banded_attn import banded_attn, banded_attn_plain
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd, banded_bwd_plain, banded_mask
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn import sel_attn, sel_attn_plain
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import sel_attn_bwd, sel_attn_bwd_plain
+from nsa_vibe_tpu_torch.ops.cuda.select_blocks import select_blocks, select_blocks_plain
 from nsa_vibe_tpu_torch.ops.cuda.select_cmp import select_cmp, select_cmp_plain
 from nsa_vibe_tpu_torch.ops.cuda.win_attn import win_attn, win_attn_plain
 from nsa_vibe_tpu_torch.ops.reference import attention_delta
@@ -84,6 +102,7 @@ from nsa_vibe_tpu_torch.train.train_step import (
     init_train_state, make_train_step, param_leaves, tree_from_leaves,
 )
 from nsa_vibe_tpu_torch.train.trainer import train
+from nsa_vibe_tpu_torch.utils.needle import NEEDLE_CFG, needle_probe, needle_smoke
 
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense tensor-core bf16 / f32 FMA
@@ -99,9 +118,13 @@ B_TRAIN, TIMED_STEPS, LOSS_STEPS = 8, 5, 120
 LOSS_DROP = 0.2            # mean of the last 4 logged losses below the first, at least
 PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "win_attn_kernel",   # CUDA symbol names
                 "banded_bwd_dq_kernel", "banded_bwd_dkv_kernel", "sel_bwd_dq_kernel",
-                "sel_bwd_dkv_kernel", "reduce_splits_kernel")
+                "sel_bwd_dkv_kernel", "reduce_splits_kernel", "banded_attn_kernel",
+                "select_blocks_kernel")
 DECODE_T = (2048, 2055, 2070, 2079)                          # decode positions per row
 TRAIN_DIR = os.path.join("artifacts", "chip_smoke_train")   # git-ignored, inside the checkout
+S_LONG, N_CHECK = 65536, 4096    # long prompt; its last rows held against the plain versions
+S_CROSS = 16384                  # the longest m7c prompt the fused scorer takes (S_sel = 256)
+NEEDLE_DEPTHS, PROBE_DEPTHS = (0.1, 0.25, 0.5, 0.75, 0.9), (0.1, 0.5, 0.9)
 
 
 def fail(msg: str) -> None:
@@ -154,7 +177,8 @@ def phase_build() -> None:
 
 def near_tie_rows(sel_k, sel_p, p_grp):
     """(rows whose selection sets differ, of those the rows whose differing
-    blocks' plain scores spread more than NEAR_TIE)."""
+    blocks' plain scores spread more than NEAR_TIE, the widest such spread
+    or 0.0)."""
     ck, cp = canonicalize_sel(sel_k), canonicalize_sel(sel_p)
     S_sel = p_grp.shape[-1]
 
@@ -167,8 +191,8 @@ def near_tie_rows(sel_k, sel_p, p_grp):
     differ = diff.any(-1)
     hi = torch.where(diff, p_grp, torch.full_like(p_grp, -1e30)).amax(-1)
     lo = torch.where(diff, p_grp, torch.full_like(p_grp, 1e30)).amin(-1)
-    far = differ & ((hi - lo) > NEAR_TIE)
-    return int(differ.sum()), int(far.sum())
+    spread = torch.where(differ, hi - lo, torch.zeros_like(hi))
+    return int(differ.sum()), int((spread > NEAR_TIE).sum()), float(spread.max())
 
 
 def kernel_inputs(dtype, dev, gen):
@@ -248,7 +272,7 @@ def phase_kernels(dev) -> dict:
         sel_p, O_p, p_grp = select_cmp_plain(x["Q"], x["K_cmp"], x["V_cmp"], x["M"], **kw,
                                              return_scores=True)
         torch.cuda.synchronize()
-        n_diff, n_far = near_tie_rows(sel_k, sel_p, p_grp)
+        n_diff, n_far, _ = near_tie_rows(sel_k, sel_p, p_grp)
         e1 = check("select_cmp", O_k, O_p,
                    f"; sel rows differing on near ties: {n_diff} of "
                    f"{sel_k.shape[0] * sel_k.shape[1] * sel_k.shape[2]}")
@@ -428,7 +452,7 @@ def phase_serve(dev) -> dict:
         peak = torch.cuda.max_memory_allocated()
         L = mcfg.n_layers
         want = {"select_cmp": L, "sel_attn": L + L * (N_NEW - 1), "win_attn": L,
-                "banded_bwd": 0, "sel_attn_bwd": 0}
+                "banded_bwd": 0, "sel_attn_bwd": 0, "banded_attn": 0, "select_blocks": 0}
         print(f"[serve] launches on the main path: {counts} "
               f"(sel_attn at decode: {decode_launches}); expected {want}")
         if counts != want:
@@ -731,7 +755,7 @@ def phase_train(dev) -> dict:
     # per step, remat runs each layer's forward twice; the backward runs the
     # window and compressed banded_bwd and one sel_attn_bwd per layer
     want = {"select_cmp": 2 * L, "sel_attn": 2 * L, "win_attn": 2 * L, "banded_bwd": 2 * L,
-            "sel_attn_bwd": L, "banded_bwd@cmp": L}
+            "sel_attn_bwd": L, "banded_bwd@cmp": L, "banded_attn": 0, "select_blocks": 0}
     want = {k: v * TIMED_STEPS for k, v in want.items()}
     print(f"[train] launches over {TIMED_STEPS} steps: {counts}; expected {want}")
     if counts != want:
@@ -785,6 +809,282 @@ def loss_falls(dev) -> None:
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ (e)
+
+def long_inputs(dtype, dev, gen, S_q: int) -> dict:
+    """m7c operands of the compressed and window branches for an S_q-token
+    prompt: Q [1,S_q,G,h,D], K_cmp/V_cmp [1,G,S_cmp,D], K/V [1,G,S_q,D]."""
+    cfg = M7C_125M.nsa
+    G, h, D = cfg.n_kv_groups, cfg.h_per_group, cfg.d_k
+    S_cmp = num_cmp_blocks(S_q, cfg.l, cfg.d)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return dict(cfg=cfg, scale=1.0 / float(np.sqrt(D)), S_sel=-(-S_q // cfg.l_sel),
+                Q=r(1, S_q, G, h, D), Kc=r(1, G, S_cmp, D), Vc=r(1, G, S_cmp, D),
+                K=r(1, G, S_q, D), V=r(1, G, S_q, D))
+
+
+def sel_kw(x) -> dict:
+    cfg = x["cfg"]
+    return dict(S_sel=x["S_sel"], scale=x["scale"], l=cfg.l, d=cfg.d, l_sel=cfg.l_sel,
+                n_top=cfg.n_sel)
+
+
+def phase_long_kernels(dev) -> dict:
+    """Rows 5 and 6 at the 64k shapes, f32 then bf16: each kernel over all
+    S_LONG rows, its last N_CHECK rows held against the plain version run on
+    those rows at t_start = S_LONG - N_CHECK (the plain scores of every row
+    would take 12.9 GB), and the kernel run on the same slice at that
+    t_start must give the same rows. The window's plain version gets the
+    keys its rows can see, [t_start - w + 1, S_LONG), with positions
+    shifted by as much. Returns the bf16 inputs and max errors."""
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    t0 = S_LONG - N_CHECK
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = long_inputs(dtype, dev, gen, S_LONG)
+        cfg, sc = x["cfg"], x["scale"]
+        Qt = x["Q"][:, t0:]
+        k0 = t0 - cfg.w + 1
+        for mode, K, V, kw, Kp, Vp, tp in (
+                ("cmp", x["Kc"], x["Vc"], dict(l=cfg.l, d=cfg.d), x["Kc"], x["Vc"], t0),
+                ("win", x["K"], x["V"], dict(w=cfg.w), x["K"][:, :, k0:], x["V"][:, :, k0:],
+                 t0 - k0)):
+            O, lse = banded_attn(x["Q"], K, V, mode=mode, **kw, scale=sc, return_lse=True)
+            Os, lses = banded_attn(Qt, K, V, mode=mode, **kw, scale=sc, t_start=t0,
+                                   return_lse=True)
+            Op, lsep = banded_attn_plain(Qt, Kp, Vp, mode=mode, **kw, scale=sc, t_start=tp,
+                                         return_lse=True)
+            torch.cuda.synchronize()
+            lse_err = float((lse[:, t0:] - lsep).abs().max())
+            rec[f"banded_attn@{mode}"] = check(
+                f"banded_attn@{mode}", O[:, t0:], Op,
+                f"; lse max_abs_err={lse_err:.3e}; t_start={t0} rows equal: "
+                f"{torch.equal(Os, O[:, t0:]) and torch.equal(lses, lse[:, t0:])}")
+            if not lse_err <= LSE_TOL:
+                fail(f"banded_attn@{mode} lse error {lse_err:.3e} above {LSE_TOL:g}")
+            if not (torch.equal(Os, O[:, t0:]) and torch.equal(lses, lse[:, t0:])):
+                fail(f"banded_attn@{mode}: the t_start={t0} call differs from the full call")
+            del O, lse, Os, lses, Op, lsep
+        sel = select_blocks(x["Q"], x["Kc"], **sel_kw(x))
+        sels = select_blocks(Qt, x["Kc"], **sel_kw(x), pos_offset=t0)
+        selp, p_grp = select_blocks_plain(Qt, x["Kc"], **sel_kw(x), pos_offset=t0,
+                                          return_scores=True)
+        torch.cuda.synchronize()
+        n_diff, n_far, spread = near_tie_rows(sel[:, t0:], selp, p_grp)
+        print(f"[check] select_blocks      {str(dtype)[6:]:8s} S_sel={x['S_sel']}: sel rows "
+              f"differing on near ties: {n_diff} of {selp.shape[1] * selp.shape[2]} (widest "
+              f"score spread {spread:.3e}); t_start={t0} rows equal: "
+              f"{torch.equal(sels, sel[:, t0:])}")
+        if n_far or not torch.equal(sels, sel[:, t0:]):
+            fail(f"select_blocks {dtype}: {n_far} rows differ beyond the near-tie bound, or "
+                 f"the pos_offset call differs from the full call")
+        rec["select_blocks"] = spread
+        del sel, sels, selp, p_grp
+        if dtype == torch.bfloat16:
+            rec["inputs"] = x
+        torch.cuda.empty_cache()
+    return rec
+
+
+def cross_check(dev) -> None:
+    """At m7c S_CROSS = 16384 tokens both routes apply: on the same bf16
+    inputs banded_attn (cmp) and select_blocks against select_cmp, then
+    one compressed_attention forward + backward with no host sync."""
+    x = long_inputs(torch.bfloat16, dev, torch.Generator(device=dev).manual_seed(1357), S_CROSS)
+    cfg, sc = x["cfg"], x["scale"]
+    M = build_M_csl_on(S_CROSS, cfg.l, cfg.d, cfg.l_sel, dev)
+    kw = {k: v for k, v in sel_kw(x).items() if k != "S_sel"}
+    sel_f, O_f, lse_f = select_cmp(x["Q"], x["Kc"], x["Vc"], M, **kw, return_lse=True)
+    O_b, lse_b = banded_attn(x["Q"], x["Kc"], x["Vc"], mode="cmp", l=cfg.l, d=cfg.d, scale=sc,
+                             return_lse=True)
+    sel_b = select_blocks(x["Q"], x["Kc"], **sel_kw(x))
+    _, p_grp = select_blocks_plain(x["Q"], x["Kc"], **sel_kw(x), return_scores=True)
+    torch.cuda.synchronize()
+    check("cross: banded_attn vs select_cmp O", O_b, O_f)
+    empty = lse_f >= 1e29
+    lse_err = float(torch.where(empty, torch.zeros_like(lse_f), (lse_b - lse_f).abs()).max())
+    n_diff, n_far, spread = near_tie_rows(sel_b, sel_f, p_grp)
+    print(f"[cross] S={S_CROSS}, S_sel={x['S_sel']}: lse max_abs_err={lse_err:.3e} (bound "
+          f"{LSE_TOL:g}), empty rows equal {torch.equal(lse_b >= 1e29, empty)}; select_blocks vs "
+          f"select_cmp sets differing on near ties: {n_diff} (widest spread {spread:.3e})")
+    if not lse_err <= LSE_TOL or not torch.equal(lse_b >= 1e29, empty) or n_far:
+        fail("the long route disagrees with select_cmp at 16k")
+    Q, Kc, Vc = (x[k].detach().requires_grad_(True) for k in ("Q", "Kc", "Vc"))
+    dO = torch.randn_like(O_b)
+
+    def fwd_bwd():
+        O = compressed_attention(Q, Kc, Vc, l=cfg.l, d=cfg.d, scale=sc)
+        return torch.autograd.grad(O, (Q, Kc, Vc), dO)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = fwd_bwd()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        fail("compressed_attention gradients are not finite")
+    print("[cross] compressed_attention forward + backward (banded_attn + banded_bwd) issued "
+          "with no host-device synchronisation")
+
+
+def phase_long_serve(dev) -> dict:
+    """m7c-125M serves one 64k prompt and N_NEW greedy tokens: prefill on
+    the long route (12 select_blocks + 12 banded_attn, no select_cmp)."""
+    mcfg, L = M7C_125M, M7C_125M.n_layers
+    gen = torch.Generator().manual_seed(11)
+    params = init_model_params(mcfg, gen, device=dev)
+    prompt = torch.randint(0, mcfg.vocab_size, (1, S_LONG), generator=gen).to(dev)
+    cap = S_LONG + N_NEW
+    with torch.no_grad():
+        generate(params, prompt, 2, mcfg, capacity=cap)                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        tokens = generate(params, prompt, N_NEW, mcfg, capacity=cap)
+        e1.record()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        decode_launches = sel_attn.decode_launches
+        serve_ms = e0.elapsed_time(e1)
+        peak = torch.cuda.max_memory_allocated()
+        want = {"select_cmp": 0, "sel_attn": L + L * (N_NEW - 1), "win_attn": L,
+                "banded_bwd": 0, "sel_attn_bwd": 0, "banded_attn": L, "select_blocks": L}
+        print(f"[long] launches on the main path: {counts} (sel_attn at decode: "
+              f"{decode_launches}); expected {want}")
+        if counts != want or decode_launches != L * (N_NEW - 1):
+            fail(f"64k launch counts {counts} != {want}")
+        if tuple(tokens.shape) != (1, S_LONG + N_NEW) or not torch.equal(tokens[:, :S_LONG],
+                                                                          prompt) \
+                or int(tokens.min()) < 0 or int(tokens.max()) >= mcfg.vocab_size:
+            fail("generate returned a malformed token tensor at 64k")
+        logits, caches = model_prefill_with_caches(params, prompt, mcfg, cap)
+        if not bool(torch.isfinite(logits).all()):
+            fail("64k prefill logits are not finite")
+        del logits, caches
+        prefill_ms = time_ms(lambda: model_prefill_with_caches(params, prompt, mcfg, cap), 3, 1)
+        _, caches = model_prefill_with_caches(params, prompt, mcfg, cap)
+        torch.cuda.synchronize()       # the events below time decode, not this prefill's tail
+        tok = tokens[:, S_LONG:S_LONG + 1]
+        t_host = time.perf_counter()
+        e0.record()
+        for i in range(N_NEW - 1):
+            logits, caches = model_decode_step(params, tok, caches, mcfg)
+            tok = tokens[:, S_LONG + i + 1:S_LONG + i + 2]
+        e1.record()
+        decode_host_ms = (time.perf_counter() - t_host) * 1e3 / (N_NEW - 1)
+        torch.cuda.synchronize()
+        decode_ms = e0.elapsed_time(e1) / (N_NEW - 1)
+        if not bool(torch.isfinite(logits).all()):
+            fail("64k decode logits are not finite")
+        print(f"[long] 1 request x ({S_LONG} prompt + {N_NEW} new) tokens: generate "
+              f"{serve_ms:.2f} ms; prefill {prefill_ms:.3f} ms ({S_LONG / (prefill_ms / 1e3):.0f} "
+              f"tokens/s); decode {decode_ms:.4f} ms/token step, of which the host took "
+              f"{decode_host_ms:.4f} ms to issue")
+        print(f"[long] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+        del caches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, caches = model_prefill_with_caches(params, prompt, mcfg, cap)
+            model_decode_step(params, tokens[:, S_LONG:S_LONG + 1], caches, mcfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print("[long] 64k prefill and a decode step issued with no host-device synchronisation")
+        del caches
+        trace(lambda: model_prefill_with_caches(params, prompt, mcfg, cap), 1, "64k prefill",
+              prefill_ms)
+        _, caches = model_prefill_with_caches(params, prompt, mcfg, cap)
+        trace(lambda: model_decode_step(params, tokens[:, S_LONG:S_LONG + 1], caches, mcfg), 3,
+              "64k decode step", decode_ms)
+    return counts
+
+
+def phase_needles(dev) -> None:
+    """The needle tools at S_LONG in bf16 (bench/needle_e2e.py's config):
+    the selection smoke at five depths and the end-to-end probe at three,
+    whose prefill must take the long route (S_sel = 1024)."""
+    t = time.perf_counter()
+    smoke = needle_smoke(S_LONG, NEEDLE_DEPTHS, device=dev, dtype=torch.bfloat16)
+    print(f"[needle] smoke S={S_LONG}: pass {smoke['pass']}, "
+          + ", ".join(f"depth {r['depth']} block {r['pos'] // NEEDLE_CFG.l_sel} "
+                      f"found {r['found']}" for r in smoke["results"])
+          + f" ({time.perf_counter() - t:.1f} s)")
+    kernels.reset_launch_counts()
+    probes = []
+    for depth in PROBE_DEPTHS:
+        t = time.perf_counter()
+        r = needle_probe(NEEDLE_CFG, S_LONG, depth, dtype=torch.bfloat16, device=dev)
+        probes.append(r)
+        print(f"[needle] probe S={S_LONG} depth {depth}: found_sel {r['found_sel']} "
+              f"cos_needle {r['cos_needle']:.4f} cos_ablated {r['cos_ablated']:.4f} pass "
+              f"{r['pass_']} ({time.perf_counter() - t:.1f} s)")
+    counts = kernels.launch_counts()
+    print(f"[needle] probe launches: {counts}")
+    if not smoke["pass"] or not all(r["pass_"] for r in probes):
+        fail("a needle smoke or probe failed at 64k")
+    if counts["select_cmp"] or counts["select_blocks"] != 2 * len(PROBE_DEPTHS):
+        fail("the needle probe's prefill did not take the long route")
+
+
+def measure_long(rec, counts) -> list:
+    """Times rows 5 (cmp, the main path's mode) and 6 at the 64k shapes
+    (bf16) beside their plain versions over every row (N_CHECK rows per
+    call, by t_start) and, for row 5, one SDPA call with the equivalent
+    boolean mask; computes their bounds from this run's inputs."""
+    x = rec["inputs"]
+    cfg, sc, Q = x["cfg"], x["scale"], x["Q"]
+    h, D = cfg.h_per_group, cfg.d_k
+    t = torch.arange(S_LONG, device=Q.device)
+    n_c = torch.clamp(torch.where(t + 1 >= cfg.l, (t + 1 - cfg.l) // cfg.d + 1, 0),
+                      max=x["Kc"].shape[2])
+    pairs = float(n_c.sum()) * cfg.n_kv_groups * h           # visible (row, key) pairs
+    kw = dict(mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
+    starts = range(0, S_LONG, N_CHECK)
+    out = []
+
+    o = banded_attn(Q, x["Kc"], x["Vc"], **kw)
+    bms, by = bound(nbytes(Q, x["Kc"], x["Vc"], o), pairs * 2 * (2 * D), Q.dtype)
+    sq, sk, sv, _ = sdpa_operands(Q, x["Kc"], x["Vc"])
+    mask = (torch.arange(x["Kc"].shape[2], device=Q.device)[None, :] < n_c[:, None])[None, None]
+    out.append(dict(
+        name="banded_attn", source="nsa_vibe_tpu_torch/csrc/banded_attn.cu",
+        replaces="nsa_vibe_tpu/ops/pallas/flash.py:325",
+        launches=counts["banded_attn"], max_abs_err=rec["banded_attn@cmp"],
+        ms=time_ms(lambda: banded_attn(Q, x["Kc"], x["Vc"], **kw), 5, hold=True),
+        plain_ms=time_ms(lambda: [banded_attn_plain(Q[:, s:s + N_CHECK], x["Kc"], x["Vc"], **kw,
+                                                    t_start=s) for s in starts], 1, 1,
+                         hold=True),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=mask, scale=sc), 3, 1, hold=True)))
+    del o, sq, sk, sv, mask
+    torch.cuda.empty_cache()
+
+    sel = select_blocks(Q, x["Kc"], **sel_kw(x))
+    bms, by = bound(nbytes(Q, x["Kc"], sel), pairs * 2 * D, Q.dtype)   # one Q K^T
+    out.append(dict(
+        name="select_blocks", source="nsa_vibe_tpu_torch/csrc/select_blocks.cu",
+        replaces="nsa_vibe_tpu/ops/pallas/scorer.py:186",
+        launches=counts["select_blocks"], max_abs_err=rec["select_blocks"],
+        ms=time_ms(lambda: select_blocks(Q, x["Kc"], **sel_kw(x)), 5, hold=True),
+        plain_ms=time_ms(lambda: [select_blocks_plain(Q[:, s:s + N_CHECK], x["Kc"], **sel_kw(x),
+                                                      pos_offset=s) for s in starts], 1, 1,
+                         hold=True),
+        bound_ms=bms, bound_by=by, library_ms=None))
+    for r in out:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[time] {r['name']:18s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"library {lib}  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
+              f"launches {r['launches']}  max_abs_err(bf16) {r['max_abs_err']:.3e}")
+    return out
+
+
 def _leaves(tree, key=None):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -820,6 +1120,12 @@ def main() -> int:
     del trec
     torch.cuda.empty_cache()
     loss_falls(dev)
+    lrec = phase_long_kernels(dev)
+    cross_check(dev)
+    long_counts = phase_long_serve(dev)
+    phase_needles(dev)
+    rows += measure_long(lrec, long_counts)
+    del lrec
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

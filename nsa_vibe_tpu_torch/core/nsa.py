@@ -2,11 +2,18 @@
 
 Port of nsa_vibe_tpu/core/nsa.py (no varlen, no gate fold). The prefill
 runs the fused scorer (`fused_select_cmp`: selection indices and the cmp
-branch in one kernel), then the selection and window branches, then the
-gated combine. It is differentiable (the training hot path): each branch
-has a backward kernel (ops.attention), the selection indices carry no
-gradient, gradients reach W_K_cmp/W_V_cmp (and ϕ) through the pooling
-and the gate through the combine. Decode lives in core/decode.py.
+branch in one kernel) when it fits, by the JAX package's rule: at least
+one compressed token and `select_cmp_fits(h, S_sel)` (at m7c, prompts up
+to 16384 tokens). Otherwise the scorer runs alone (`select_blocks`) and
+the cmp branch through the banded kernel (`compressed_attention`). The
+JAX package's own non-fused selection is XLA code chunked by
+`prefill_chunk`; the port's scorer kernel computes the same sets without
+a [chunk, S_cmp] score tensor, so the port has no `prefill_chunk`. Then
+the selection and window branches, then the gated combine. It is
+differentiable (the training hot path): each branch has a backward
+kernel (ops.attention), the selection indices carry no gradient,
+gradients reach W_K_cmp/W_V_cmp (and ϕ) through the pooling and the gate
+through the combine. Decode lives in core/decode.py.
 
 Layouts: x [B, S, dim] -> out [B, S, dim];
   Q: [B, S, G, h, Dk] (RoPE'd);  per-branch K/V: [B, G, S, D*].
@@ -26,8 +33,9 @@ import torch
 from nsa_vibe_tpu_torch.core.config import NSAConfig
 from nsa_vibe_tpu_torch.core.gate import gate_probs, init_gate_params
 from nsa_vibe_tpu_torch.ops import attention as attn_ops
-from nsa_vibe_tpu_torch.ops.block_index import build_block_meta, build_M_csl_on
+from nsa_vibe_tpu_torch.ops.block_index import build_M_csl_on
 from nsa_vibe_tpu_torch.ops.compress import init_conv_phi_weight, pool_phi_rope_kv
+from nsa_vibe_tpu_torch.ops.cuda import select_cmp as select_cmp_mod
 from nsa_vibe_tpu_torch.ops.rope import apply_rope
 from nsa_vibe_tpu_torch.ops.selection import select_topn_blocks
 from nsa_vibe_tpu_torch.utils.device import resolve_device
@@ -144,18 +152,22 @@ def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig) -> Tuple[torch.Te
         k_weight=params.get("phi_k"), v_weight=params.get("phi_v"),
         rope_base=cfg.rope_base, rope_scale=cfg.rope_scale)
     S_cmp = K_cmp.shape[2]
+    S_sel = -(-S // cfg.l_sel)
+    sel_kw = dict(scale=scale, l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel,
+                  force_init=cfg.force_init, force_local=cfg.force_local)
 
-    if S_cmp > 0:
+    if S_cmp > 0 and select_cmp_mod.select_cmp_fits(h, S_sel):
         # one pass: selection scores and the cmp branch share softmax(Q K_cmp^T)
         M = build_M_csl_on(S, cfg.l, cfg.d, cfg.l_sel, dev)
-        sel_idx, O_cmp = attn_ops.fused_select_cmp(
-            Q, K_cmp, V_cmp, M, scale=scale, l=cfg.l, d=cfg.d, l_sel=cfg.l_sel,
-            n_top=cfg.n_sel, force_init=cfg.force_init, force_local=cfg.force_local)
+        sel_idx, O_cmp = attn_ops.fused_select_cmp(Q, K_cmp, V_cmp, M, **sel_kw)
+    elif S_cmp > 0:
+        # too many selection blocks for the fused scorer: two kernels
+        sel_idx = attn_ops.select_blocks(Q, K_cmp, S_sel=S_sel, **sel_kw)
+        O_cmp = attn_ops.compressed_attention(Q, K_cmp, V_cmp, l=cfg.l, d=cfg.d, scale=scale)
     else:
         # no compressed tokens (S < l): all scores are 0, so the top-n keeps
         # the forced blocks plus the lowest-index candidates, as in JAX; the
         # scorer is not launched and the cmp branch is zero
-        S_sel = build_block_meta(S, cfg.l, cfg.d, cfg.l_sel, cfg.n_sel, cfg.w).S_sel
         p_grp = torch.zeros((B, S, G, S_sel), dtype=torch.float32, device=dev)
         sel_idx = select_topn_blocks(p_grp, cfg.n_sel, t_pos, cfg.l_sel,
                                      cfg.force_init, cfg.force_local)

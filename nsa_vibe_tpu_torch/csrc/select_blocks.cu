@@ -1,0 +1,323 @@
+// select_blocks: NSA selection scorer (Eq. 8-12) without the compressed
+// branch's output, for selection-block counts too wide for select_cmp.
+//
+// Replaces: nsa_vibe_tpu/ops/pallas/scorer.py::nsa_select_pallas (kernel
+// _scorer_kernel, top-n epilogue _scorer_topn), which the JAX prefill runs
+// when the fused scorer does not fit (long prompts) and which the 64k
+// needle smoke runs on one query row.
+//
+// What it computes, per query row s at position t = pos_offset + s (token
+// t, head j of group g):
+//   p      = softmax(q · K_cmp^T * scale) over c < num_cmp(t+1)   (Eq. 8)
+//   p_slc  = p · M_csl                                           (Eq. 9)
+// then per token p_grp = sum over the group's h heads of p_slc (Eq. 10),
+// the forced blocks {0, t//l_sel, t//l_sel - 1} (clamped at 0) and
+// n_top - n_forced argmax passes over `p_grp - 1e-8 * index` among blocks
+// with start <= t that are not forced (Eq. 11-12). Output contract of
+// select_cmp and of the TPU kernel: forced slots first (may repeat), then
+// picks in descending score order, -1 when no candidate is left. A row
+// with no visible compressed token adds p_slc = 0.
+//
+// M_csl is not read: M[c, j] = overlap([c*d, c*d+l), [j*l_sel, (j+1)*l_sel))
+// / l, the row-normalised fractional overlap of ops/block_index.py, whose
+// integer overlaps sum to l in every row, so the one IEEE division here
+// gives the same f32 value. Each compressed token overlaps at most
+// ceil(l / l_sel) + 1 selection blocks (2 at m7c), so the map costs a few
+// FMAs per (token, block) instead of a dense [S_cmp, S_sel] product.
+//
+// What bounds it on the H100: at the m7c 64k prefill (B=1, S=65536, G=2,
+// h=6, Dk=64, S_cmp=4095, S_sel=1024) one QK^T over the ~1.6 G visible
+// (row, key) pairs is ~206 GFLOP against ~0.2 GB of Q, K_cmp and sel_idx:
+// the tensor cores bound it (~0.21 ms). This f32 FMA design is bound by FMA
+// issue and shared-memory reads, and forms QK^T twice.
+// Design: the TPU kernel keeps a [rows, S_sel] f32 p_slc accumulator per
+// head in VMEM; at S_sel = 1024 that is 1.5 MB per 64-row tile against the
+// 227 KB a block has. Heads cannot be summed before they are normalised
+// (each has its own max and denominator), so one block per (b, g, tile of
+// TQ tokens x h heads, at most 64 rows) makes two passes over the tile's
+// visible prefix of K_cmp (16-byte loads, 64 tokens per chunk, logits in
+// 4x4 register tiles as win_attn.cu):
+//   1. statistics: online max and sum per row, giving lse = m + log(l);
+//   2. probabilities exp(s - lse) per (row, token), then per (token of the
+//      tile, selection block touched by the chunk) one thread adds the
+//      group's heads and the chunk's overlapping tokens times M into a
+//      [TQ, S_sel] f32 accumulator in shared memory (40 KB at TQ=10,
+//      S_sel=1024), so no two threads write the same element;
+// then select_cmp's top-n, one warp per token with shuffle argmax
+// reductions. The wrapper shrinks TQ until the accumulator fits and
+// raises when even TQ = 1 does not (S_sel above ~53k at h = 6, Dk = 64,
+// i.e. prompts of ~3.4 M tokens at l_sel = 64).
+// tensor-core (wgmma) tiles are later work.
+#include "common.cuh"
+
+using namespace nsa;
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int NWARPS = THREADS / 32;
+constexpr int KC = 64;          // compressed tokens per chunk
+constexpr int MAX_ROWS = 64;    // query rows (tokens x heads) per block
+
+struct Params {
+  int S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local, pos_offset, TQ;
+  float scale;
+};
+
+// shared-memory carve-up (floats): Q rows, one chunk of K_cmp (pitch
+// Dk+4), the [rows, KC] logits/probabilities, row max/sum/lse, and the
+// [TQ, S_sel] group-score accumulator
+struct Smem {
+  size_t q, k, s, m, l, acc, total;
+  __host__ __device__ Smem(int TQ, int h, int Dk, int S_sel) {
+    const size_t R = (size_t)TQ * h;
+    q = 0;
+    k = q + round4(R * Dk);
+    s = k + round4((size_t)KC * (Dk + 4));
+    m = s + round4(R * KC);
+    l = m + round4(R);
+    acc = l + round4(R);
+    total = acc + round4((size_t)TQ * S_sel);
+  }
+};
+
+// Phase A of a chunk: logits of the staged rows against the KC staged
+// tokens, each thread a 4x4 tile (rows ri+16m, tokens ki+16n).
+__device__ __forceinline__ void chunk_logits(const float* q_s, const float* k_s, int rows, int Dk,
+                                             float (&sc)[4][4]) {
+  const int ri = threadIdx.x / 16, ki = threadIdx.x % 16;
+  const int kp = Dk + 4;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) sc[m][n] = 0.f;
+  for (int c = 0; c < Dk; c += 4) {
+    float4 qv[4], kv[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      qv[m] = *reinterpret_cast<const float4*>(q_s + min(ri + 16 * m, rows - 1) * Dk + c);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      kv[n] = *reinterpret_cast<const float4*>(k_s + (ki + 16 * n) * kp + c);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        sc[m][n] = fmaf(qv[m].x, kv[n].x, sc[m][n]);
+        sc[m][n] = fmaf(qv[m].y, kv[n].y, sc[m][n]);
+        sc[m][n] = fmaf(qv[m].z, kv[n].z, sc[m][n]);
+        sc[m][n] = fmaf(qv[m].w, kv[n].w, sc[m][n]);
+      }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+select_blocks_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, int* __restrict__ sel,
+                     Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int nq = (p.S + p.TQ - 1) / p.TQ;
+  int bid = blockIdx.x;
+  const int qt = bid % nq;
+  bid /= nq;
+  const int g = bid % p.G;
+  const int b = bid / p.G;
+  const int s0 = qt * p.TQ;
+  const int nt = min(p.TQ, p.S - s0);
+  const int h = p.h, Dk = p.Dk, S_sel = p.S_sel;
+  const int rows = nt * h;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ri = tid / 16, ki = tid % 16;
+
+  const Smem L(p.TQ, h, Dk, S_sel);
+  float* q_s = smem + L.q;       // [R][Dk]
+  float* k_s = smem + L.k;       // [KC][Dk+4]
+  float* s_s = smem + L.s;       // [R][KC]
+  float* m_s = smem + L.m;       // [R] running max, then lse
+  float* l_s = smem + L.l;       // [R]
+  float* acc = smem + L.acc;     // [TQ][S_sel]
+  const int kp = Dk + 4;
+  const int t_first = p.pos_offset + s0;
+
+  auto q_row = [&](int r) -> size_t {
+    const int i = r / h, j = r - i * h;
+    return (((size_t)b * p.S + s0 + i) * p.G + g) * h + j;
+  };
+  load_rows_vec<T>(q_s, Dk, [&](int r) -> const T* { return Q + q_row(r) * Dk; }, Dk, rows);
+  for (int idx = tid; idx < rows; idx += THREADS) {
+    m_s[idx] = NEG;
+    l_s[idx] = 0.f;
+  }
+  for (int idx = tid; idx < nt * S_sel; idx += THREADS) acc[idx] = 0.f;
+
+  const T* Kbg = Kc + ((size_t)b * p.G + g) * p.S_cmp * Dk;
+  // prefix bound of the tile's last token: no row of the tile sees past it
+  const int n_vis_tile = min(num_cmp(t_first + nt, p.l, p.d), p.S_cmp);
+  // visible prefix of each row of this thread's phase-A tile
+  int nvis[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    nvis[m] = min(num_cmp(t_first + min(ri + 16 * m, rows - 1) / h + 1, p.l, p.d), p.S_cmp);
+
+  // pass 1: row statistics (online max and sum)
+  for (int c0 = 0; c0 < n_vis_tile; c0 += KC) {
+    __syncthreads();   // previous chunk consumed (and Q staged)
+    load_rows_vec<T>(k_s, kp, Kbg, Dk, c0, KC, n_vis_tile);
+    __syncthreads();
+    float sc[4][4];
+    chunk_logits(q_s, k_s, rows, Dk, sc);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r = ri + 16 * m;
+      if (r < rows) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          s_s[r * KC + ki + 16 * n] = c0 + ki + 16 * n < nvis[m] ? sc[m][n] * p.scale : NEG;
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < rows; r += NWARPS) {
+      const float* sr = s_s + r * KC;
+      const float x0 = sr[lane], x1 = sr[lane + 32];
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+      const float p0 = x0 > NEG ? expf(x0 - m_new) : 0.f;
+      const float p1 = x1 > NEG ? expf(x1 - m_new) : 0.f;
+      const float psum = warp_sum(p0 + p1);
+      if (lane == 0) {
+        l_s[r] = l_s[r] * expf(m_old - m_new) + psum;
+        m_s[r] = m_new;
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = tid; r < rows; r += THREADS) m_s[r] = row_lse(m_s[r], l_s[r]);   // lse
+
+  // pass 2: probabilities, heads and overlapping tokens into the group scores
+  for (int c0 = 0; c0 < n_vis_tile; c0 += KC) {
+    __syncthreads();   // previous chunk consumed (and lse written)
+    load_rows_vec<T>(k_s, kp, Kbg, Dk, c0, KC, n_vis_tile);
+    __syncthreads();
+    float sc[4][4];
+    chunk_logits(q_s, k_s, rows, Dk, sc);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r = ri + 16 * m;
+      if (r < rows) {
+        const float lse_r = m_s[r];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          s_s[r * KC + ki + 16 * n] =
+              c0 + ki + 16 * n < nvis[m] ? expf(sc[m][n] * p.scale - lse_r) : 0.f;
+      }
+    }
+    __syncthreads();
+    // selection blocks [j_lo, j_hi] that the chunk's tokens [c0, c1) overlap
+    const int c1 = min(c0 + KC, n_vis_tile);
+    const int j_lo = c0 * p.d / p.l_sel;
+    const int j_hi = min(((c1 - 1) * p.d + p.l - 1) / p.l_sel, S_sel - 1);
+    const int nj = j_hi - j_lo + 1;
+    for (int e = tid; e < nt * nj; e += THREADS) {
+      const int i = e / nj, j = j_lo + (e - i * nj);
+      const int b0 = j * p.l_sel, b1 = b0 + p.l_sel;
+      // tokens c with c*d < b1 and c*d + l > b0, within the chunk
+      const int first = b0 - p.l + 1;
+      const int lo_c = max(c0, first <= 0 ? 0 : (first + p.d - 1) / p.d);
+      const int hi_c = min(c1 - 1, (b1 - 1) / p.d);
+      float a = 0.f;
+      for (int c = lo_c; c <= hi_c; ++c) {
+        float pc = 0.f;
+        for (int hh = 0; hh < h; ++hh) pc += s_s[(i * h + hh) * KC + (c - c0)];
+        const int a0 = c * p.d;
+        const int ov = min(a0 + p.l, b1) - max(a0, b0);
+        a = fmaf(pc, __fdiv_rn((float)ov, (float)p.l), a);
+      }
+      acc[i * S_sel + j] += a;
+    }
+  }
+  __syncthreads();
+
+  // top-n per token (as select_cmp.cu): forced slots, argmax passes
+  const int n_forced = (p.force_init ? 1 : 0) + p.force_local;
+  const int n_out = max(p.n_top, n_forced);
+  const int k_rest = p.n_top - n_forced;
+  for (int i = warp; i < nt; i += NWARPS) {
+    const int t = t_first + i;
+    const int last = t / p.l_sel;
+    float* comp = acc + (size_t)i * S_sel;
+    int* out = sel + (((size_t)b * p.S + s0 + i) * p.G + g) * n_out;
+    for (int c = lane; c < S_sel; c += 32) {
+      bool forced = p.force_init && c == 0;
+      for (int f = 0; f < p.force_local; ++f) forced = forced || c == max(last - f, 0);
+      const bool valid = (long long)c * p.l_sel <= t;
+      const float score = (valid && !forced) ? comp[c] : NEG;
+      comp[c] = __fsub_rn(score, __fmul_rn((float)c, 1e-8f));
+    }
+    if (lane == 0) {
+      int f = 0;
+      if (p.force_init) out[f++] = 0;
+      for (int k = 0; k < p.force_local; ++k) out[f++] = max(last - k, 0);
+    }
+    __syncwarp();
+    for (int k = 0; k < k_rest; ++k) {
+      float bv = NEG;
+      int bi = INT_MAX;
+      for (int c = lane; c < S_sel; c += 32) {
+        const float v = comp[c];
+        if (v > bv || (v == bv && c < bi)) {   // ties: the lowest index wins
+          bv = v;
+          bi = c;
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(FULL, bv, o);
+        const int oi = __shfl_xor_sync(FULL, bi, o);
+        if (ov > bv || (ov == bv && oi < bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if (lane == 0) out[n_forced + k] = bv > NEG / 2 ? bi : -1;
+      if (bi < S_sel && (bi & 31) == lane) comp[bi] = NEG;   // the owning lane retires it
+      __syncwarp();
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* Q, const void* Kc, int* sel, int B, const Params& p, cudaStream_t stream) {
+  const size_t smem = Smem(p.TQ, p.h, p.Dk, p.S_sel).total * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(select_blocks_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long nq = (p.S + p.TQ - 1) / p.TQ;
+  const long long grid = (long long)B * p.G * nq;
+  select_blocks_kernel<T><<<(unsigned)grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(Q), static_cast<const T*>(Kc), sel, p);
+  NSA_LAUNCH_CHECK();
+}
+
+}  // namespace
+
+extern "C" {
+
+long long nsa_select_blocks_smem_bytes(int TQ, int h, int Dk, int S_sel) {
+  return (long long)(Smem(TQ, h, Dk, S_sel).total * sizeof(float));
+}
+
+int nsa_select_blocks(int dtype, const void* Q, const void* Kc, int* sel, int B, int S, int G,
+                      int h, int Dk, int S_cmp, int S_sel, int l, int d, int l_sel, int n_top,
+                      int force_init, int force_local, int pos_offset, float scale, int TQ,
+                      void* stream) {
+  if (TQ <= 0 || TQ * h > MAX_ROWS || S_cmp <= 0 || S_sel <= 0 || Dk % 8 != 0 ||
+      pos_offset < 0 || l <= 0 || d <= 0 || l_sel <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Params p{S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
+                 pos_offset, TQ, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32) return launch<float>(Q, Kc, sel, B, p, s);
+  if (dtype == DT_BF16) return launch<__nv_bfloat16>(Q, Kc, sel, B, p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

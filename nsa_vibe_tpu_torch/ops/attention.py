@@ -13,22 +13,29 @@ and whose backward computes delta = rowsum(dO * O) and runs the backward
 kernel (banded_bwd for win and cmp, sel_attn_bwd for the selection), as
 the JAX package's custom_vjp rules do. Otherwise (serving, no_grad) the
 forward kernels run without lse and nothing is saved.
+
+Two routes to the selection and the compressed branch, chosen by the
+caller (core/nsa.py, `select_cmp_fits`): the fused scorer
+(`fused_select_cmp`), or, for selections too wide for it, the scorer
+alone (`select_blocks`, no gradient) beside `compressed_attention`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from nsa_vibe_tpu_torch.ops.cuda.banded_attn import banded_attn
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd
 from nsa_vibe_tpu_torch.ops.cuda.common import resolve_kernel
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn import sel_attn
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import sel_attn_bwd
+from nsa_vibe_tpu_torch.ops.cuda.select_blocks import select_blocks as _select_blocks
 from nsa_vibe_tpu_torch.ops.cuda.select_cmp import select_cmp
 from nsa_vibe_tpu_torch.ops.cuda.win_attn import win_attn
 from nsa_vibe_tpu_torch.ops.reference import attention_delta
 
-__all__ = ["fused_select_cmp", "resolve_kernel", "selection_attention",
-           "sliding_window_attention"]
+__all__ = ["compressed_attention", "fused_select_cmp", "resolve_kernel", "select_blocks",
+           "selection_attention", "sliding_window_attention"]
 
 
 def _records(*ts) -> bool:
@@ -54,6 +61,26 @@ class _FusedSelectCmp(torch.autograd.Function):
         dQ, dK, dV = banded_bwd(Q, K, V, dO, lse, attention_delta(dO, O), mode="cmp",
                                 l=kw["l"], d=kw["d"], scale=kw["scale"])
         return dQ, dK, dV, None, None
+
+
+class _CompressedAttention(torch.autograd.Function):
+    """O_cmp through banded_attn (cmp) with lse; backward as _FusedSelectCmp's."""
+
+    @staticmethod
+    def forward(ctx, Q, K, V, kw):
+        O, lse = banded_attn(Q, K, V, mode="cmp", return_lse=True, **kw)
+        ctx.save_for_backward(Q, K, V, O, lse)
+        ctx.kw = kw
+        return O
+
+    @staticmethod
+    def backward(ctx, dO):
+        Q, K, V, O, lse = ctx.saved_tensors
+        kw = ctx.kw
+        dO = dO.contiguous()
+        dQ, dK, dV = banded_bwd(Q, K, V, dO, lse, attention_delta(dO, O), mode="cmp",
+                                l=kw["l"], d=kw["d"], scale=kw["scale"])
+        return dQ, dK, dV, None
 
 
 class _SelectionAttention(torch.autograd.Function):
@@ -104,6 +131,30 @@ def fused_select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel:
     if _records(Q, K_cmp, V_cmp):
         return _FusedSelectCmp.apply(Q, K_cmp, V_cmp, M, kw)
     return select_cmp(Q, K_cmp, V_cmp, M, **kw)
+
+
+def compressed_attention(Q, K_cmp, V_cmp, *, l: int, d: int, scale: float, t_start: int = 0):
+    """Compressed branch alone: query row s at position t_start + s sees
+    the first num_cmp(t+1) compressed tokens. O [B,S,G,h,Dv]. Its
+    backward (banded_bwd) takes row 0 at position 0, so a recorded call
+    needs t_start == 0."""
+    Q, K_cmp, V_cmp = Q.contiguous(), K_cmp.contiguous(), V_cmp.contiguous()
+    kw = dict(l=l, d=d, scale=scale)
+    if _records(Q, K_cmp, V_cmp):
+        if t_start:
+            raise ValueError("compressed_attention: the backward takes no t_start")
+        return _CompressedAttention.apply(Q, K_cmp, V_cmp, kw)
+    return banded_attn(Q, K_cmp, V_cmp, mode="cmp", t_start=t_start, **kw)
+
+
+def select_blocks(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: int,
+                  n_top: int, force_init: bool, force_local: int, pos_offset: int = 0):
+    """Eq. 8-12 selection without O_cmp, for S_sel selection blocks; the
+    same set form as fused_select_cmp. Carries no gradient."""
+    return _select_blocks(Q.detach().contiguous(), K_cmp.detach().contiguous(), S_sel=S_sel,
+                          scale=scale, l=l, d=d, l_sel=l_sel, n_top=n_top,
+                          force_init=force_init, force_local=force_local,
+                          pos_offset=pos_offset)
 
 
 def selection_attention(Q, K, V, sel_idx, t_pos, l_sel: int, scale: float):

@@ -1,14 +1,16 @@
-"""Hand-written Hopper kernels of the serving and training paths, their
-wrappers and plain PyTorch versions.
+"""Hand-written Hopper kernels of the serving, training and long-context
+paths, their wrappers and plain PyTorch versions.
 
-| wrapper      | CUDA source          | replaces (nsa_vibe_tpu/ops/pallas/)                  |
-|--------------|----------------------|------------------------------------------------------|
-| select_cmp   | csrc/select_cmp.cu   | scorer.py::nsa_select_and_cmp_pallas                 |
-| sel_attn     | csrc/sel_attn.cu     | sel_flash.py::selection_flash_pallas (prefill),      |
-|              |                      | selection.py::selection_attention_pallas (decode)    |
-| win_attn     | csrc/win_attn.cu     | flash_diag.py::flash_banded_diag                     |
-| banded_bwd   | csrc/banded_bwd.cu   | flash_bwd.py::flash_banded_bwd_onepass (win and cmp) |
-| sel_attn_bwd | csrc/sel_attn_bwd.cu | sel_flash.py::selection_flash_bwd_onepass            |
+| wrapper       | CUDA source           | replaces (nsa_vibe_tpu/ops/pallas/)                  |
+|---------------|-----------------------|------------------------------------------------------|
+| select_cmp    | csrc/select_cmp.cu    | scorer.py::nsa_select_and_cmp_pallas                 |
+| sel_attn      | csrc/sel_attn.cu      | sel_flash.py::selection_flash_pallas (prefill),      |
+|               |                       | selection.py::selection_attention_pallas (decode)    |
+| win_attn      | csrc/win_attn.cu      | flash_diag.py::flash_banded_diag                     |
+| banded_bwd    | csrc/banded_bwd.cu    | flash_bwd.py::flash_banded_bwd_onepass (win and cmp) |
+| sel_attn_bwd  | csrc/sel_attn_bwd.cu  | sel_flash.py::selection_flash_bwd_onepass            |
+| banded_attn   | csrc/banded_attn.cu   | flash.py::flash_banded (win and cmp, t_start)        |
+| select_blocks | csrc/select_blocks.cu | scorer.py::nsa_select_pallas (pos_offset)            |
 
 Each wrapper counts its launches in a plain integer attribute
 (`<wrapper>.launches`), incremented only where the kernel is launched.
@@ -16,14 +18,17 @@ Each wrapper counts its launches in a plain integer attribute
 
 from __future__ import annotations
 
+from nsa_vibe_tpu_torch.ops.cuda import banded_attn as _banded_attn_mod
 from nsa_vibe_tpu_torch.ops.cuda import banded_bwd as _banded_bwd_mod
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn as _sel_attn_mod
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn_bwd as _sel_attn_bwd_mod
+from nsa_vibe_tpu_torch.ops.cuda import select_blocks as _select_blocks_mod
 from nsa_vibe_tpu_torch.ops.cuda import select_cmp as _select_cmp_mod
 from nsa_vibe_tpu_torch.ops.cuda import win_attn as _win_attn_mod
 
 WRAPPERS = (_select_cmp_mod.select_cmp, _sel_attn_mod.sel_attn, _win_attn_mod.win_attn,
-            _banded_bwd_mod.banded_bwd, _sel_attn_bwd_mod.sel_attn_bwd)
+            _banded_bwd_mod.banded_bwd, _sel_attn_bwd_mod.sel_attn_bwd,
+            _banded_attn_mod.banded_attn, _select_blocks_mod.select_blocks)
 
 
 def reset_launch_counts() -> None:

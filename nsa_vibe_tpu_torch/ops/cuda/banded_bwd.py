@@ -23,15 +23,15 @@ MAX_D = 128           # head widths the kernel's register slices cover
 
 
 def banded_mask(S: int, S_kv: int, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-                device=None) -> torch.Tensor:
-    """[S, S_kv] visibility: "win" row t sees [t-w+1, t]; "cmp" row t sees
-    the first num_cmp(t+1) compressed tokens."""
-    t_pos = torch.arange(S, device=device)
+                t_start: int = 0, device=None) -> torch.Tensor:
+    """[S, S_kv] visibility of query row s at position t = t_start + s:
+    "win" sees keys [t-w+1, t]; "cmp" the first num_cmp(t+1) compressed
+    tokens (flash.py::_bounds_fn)."""
     if mode == "win":
-        return ref.sliding_window_mask(t_pos, S_kv, w)
+        return ref.sliding_window_mask(torch.arange(t_start, t_start + S, device=device), S_kv, w)
     if mode == "cmp":
-        return ref.compressed_mask(ref.num_cmp_per_token(S, l, d, S_kv, device), S_kv)
-    raise ValueError(f"banded_bwd: mode must be 'win' or 'cmp', got {mode!r}")
+        return ref.compressed_mask(ref.num_cmp_per_token(S, l, d, S_kv, device, t_start), S_kv)
+    raise ValueError(f"banded mode must be 'win' or 'cmp', got {mode!r}")
 
 
 def banded_bwd_plain(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,

@@ -23,7 +23,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("select_cmp.cu", "sel_attn.cu", "win_attn.cu", "banded_bwd.cu", "sel_attn_bwd.cu")
+SOURCES = ("select_cmp.cu", "sel_attn.cu", "win_attn.cu", "banded_bwd.cu", "sel_attn_bwd.cu",
+           "banded_attn.cu", "select_blocks.cu")
 HEADERS = ("common.cuh", "bwd_common.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -45,6 +46,10 @@ SIGNATURES = {
     "nsa_banded_bwd_smem_bytes": ([I] * 2, LL),
     "nsa_sel_attn_bwd": ([I] + [P] * 14 + [I] * 10 + [F, I, I, P], I),
     "nsa_sel_attn_bwd_smem_bytes": ([I] * 6, LL),
+    "nsa_banded_attn": ([I, P, P, P, P, P] + [I] * 12 + [F, I, P], I),
+    "nsa_banded_attn_smem_bytes": ([I] * 4, LL),
+    "nsa_select_blocks": ([I, P, P, P] + [I] * 14 + [F, I, P], I),
+    "nsa_select_blocks_smem_bytes": ([I] * 4, LL),
 }
 
 _LIB = None

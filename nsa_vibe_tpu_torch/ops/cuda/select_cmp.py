@@ -27,6 +27,18 @@ from nsa_vibe_tpu_torch.ops.selection import (
 )
 
 ROWS_PER_BLOCK = 64   # query rows (tokens x heads) one block aims to hold
+# width of the kernel's p_slc accumulator (csrc/select_cmp.cu MAX_S_SEL);
+# the wrapper checks the two agree when it launches
+SELECT_CMP_MAX_S_SEL = 256
+
+
+def select_cmp_fits(h: int, S_sel: int) -> bool:
+    """Whether the fused scorer takes h heads per group and S_sel selection
+    blocks: the port's counterpart of scorer.py::scorer_fits_vmem, decided
+    by shape alone (it loads no library), so the prefill takes the same
+    route on the CPU and on the card. Within these bounds a block's shared
+    memory stays below the H100's 227 KB for head widths up to 128."""
+    return h <= ROWS_PER_BLOCK and 0 < S_sel <= SELECT_CMP_MAX_S_SEL
 
 
 def select_cmp_plain(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int,
@@ -72,10 +84,13 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
         raise ValueError("select_cmp: no compressed tokens (S_cmp == 0); the caller "
                          "selects the forced blocks without the scorer")
     lib = library()
-    max_s_sel = lib.nsa_select_cmp_max_s_sel()   # width of the kernel's p_slc accumulator
-    if S_sel > max_s_sel:
-        raise ValueError(f"select_cmp: S_sel={S_sel} selection blocks exceed the kernel's "
-                         f"limit {max_s_sel}")
+    if lib.nsa_select_cmp_max_s_sel() != SELECT_CMP_MAX_S_SEL:
+        raise RuntimeError(f"select_cmp: SELECT_CMP_MAX_S_SEL={SELECT_CMP_MAX_S_SEL} differs "
+                           f"from the kernel's MAX_S_SEL={lib.nsa_select_cmp_max_s_sel()}")
+    if not select_cmp_fits(h, S_sel):
+        raise ValueError(f"select_cmp: h={h}, S_sel={S_sel} is past the kernel's limits "
+                         f"(h <= {ROWS_PER_BLOCK}, S_sel <= {SELECT_CMP_MAX_S_SEL}); "
+                         f"ops.cuda.select_blocks takes wider selections")
     tq = max(1, ROWS_PER_BLOCK // h)
     check_smem("select_cmp", lib.nsa_select_cmp_smem_bytes(tq, h, Dk, Dv, S_sel))
     n_out = effective_sel_blocks(n_top, force_init, force_local)

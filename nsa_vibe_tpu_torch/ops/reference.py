@@ -77,10 +77,11 @@ def compressed_mask(num_cmp_t: torch.Tensor, S_cmp: int) -> torch.Tensor:
     return c < num_cmp_t.to(torch.int64)[:, None]
 
 
-def num_cmp_per_token(S: int, l: int, d: int, S_cmp: int, device=None) -> torch.Tensor:
-    """Compressed tokens visible to query row t (position t): num_cmp(t+1),
-    capped at S_cmp. [S] int64."""
-    s_raw = torch.arange(1, S + 1, device=device)
+def num_cmp_per_token(S: int, l: int, d: int, S_cmp: int, device=None,
+                      t_start: int = 0) -> torch.Tensor:
+    """Compressed tokens visible to query row s at position t = t_start + s:
+    num_cmp(t+1), capped at S_cmp. [S] int64."""
+    s_raw = torch.arange(t_start + 1, t_start + S + 1, device=device)
     n = torch.where(s_raw >= l, torch.div(s_raw - l, d, rounding_mode="floor") + 1,
                     torch.zeros_like(s_raw))
     return n.clamp(max=S_cmp)

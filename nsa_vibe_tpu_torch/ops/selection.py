@@ -12,6 +12,11 @@ index on exact ties (a stable descending sort, like `lax.top_k`).
 slots first, possibly repeated, then the picks in rank order, -1 when no
 candidate is left); `select_topn_blocks` gives its canonical form, sorted
 ascending, unique, -1 padded (`canonicalize_sel`).
+
+Rows at a position offset (a query slice, the needle's last row) pass
+their positions t_pos = pos_offset + arange(S) and their visible counts
+`ops.reference.num_cmp_per_token(..., t_start=pos_offset)`; the forced
+blocks and the causal clamp follow t_pos.
 """
 
 from __future__ import annotations

@@ -11,7 +11,9 @@ This file imports no JAX. f32 runs with TF32 off; bounds, per element:
 value plus 1e-4 (both versions round an f32 result that agrees to ~1e-6,
 so they may land one ulp apart, two across a power of two).
 Selection is compared as sets; inputs are random normals, whose group
-scores are well separated at these sizes. Backward kernels (and the
+scores are well separated at these sizes (the one-row S_sel = 1024 case
+may differ only where the plain scores of the differing blocks are within
+1e-5, as in chip_smoke.py). Backward kernels (and the
 forward row statistics) are held per tensor to 5e-5 of the tensor's max
 |value| in f32 (their sums run over up to S rows, so the order error
 scales with the largest terms, not with each element); in bf16 to two
@@ -30,9 +32,11 @@ from nsa_vibe_tpu_torch.models.tinylm import (
 )
 from nsa_vibe_tpu_torch.ops import cuda as kernels
 from nsa_vibe_tpu_torch.ops.block_index import build_M_csl, num_cmp_blocks
+from nsa_vibe_tpu_torch.ops.cuda import banded_attn as ba_mod
 from nsa_vibe_tpu_torch.ops.cuda import banded_bwd as bb_mod
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn as sa_mod
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn_bwd as sb_mod
+from nsa_vibe_tpu_torch.ops.cuda import select_blocks as sk_mod
 from nsa_vibe_tpu_torch.ops.cuda import select_cmp as sc_mod
 from nsa_vibe_tpu_torch.ops.cuda import win_attn as wa_mod
 from nsa_vibe_tpu_torch.ops.reference import attention_delta
@@ -161,7 +165,8 @@ def test_two_layer_train_step_on_card_matches_cpu():
             assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * abs(float(mc[k])), k
     counts = kernels.launch_counts()
     assert counts == {"select_cmp": 12, "sel_attn": 12, "win_attn": 12,
-                      "banded_bwd": 12, "sel_attn_bwd": 6}, counts
+                      "banded_bwd": 12, "sel_attn_bwd": 6,
+                      "banded_attn": 0, "select_blocks": 0}, counts
     for a, b in zip(_flat(params_to_numpy(sc.params)), _flat(params_to_numpy(sg.params))):
         assert abs(a - b).max() <= 1e-4 * max(abs(a).max(), 1e-3)
 
@@ -261,7 +266,8 @@ def test_small_model_serves_the_same_tokens_on_card_and_cpu():
     got = generate(params_to(params, device=dev), prompt.to(dev), 6, mcfg)
     assert torch.equal(got.cpu(), want)
     assert kernels.launch_counts() == {"select_cmp": 2, "sel_attn": 2 + 2 * 5, "win_attn": 2,
-                                       "banded_bwd": 0, "sel_attn_bwd": 0}
+                                       "banded_bwd": 0, "sel_attn_bwd": 0,
+                                       "banded_attn": 0, "select_blocks": 0}
 
 
 @pytest.mark.gpu
@@ -282,3 +288,91 @@ def test_serving_path_issues_without_host_sync():
         model_decode_step(params, logits[:, -1:].argmax(-1), caches, mcfg)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,S,t_start,h,D,kw", [
+    ("win", 300, 0, 6, 64, dict(w=128)),
+    ("win", 130, 170, 3, 16, dict(w=40)),       # rows at positions 170..299, odd h
+    ("cmp", 300, 0, 6, 64, dict(l=32, d=16)),   # rows t < 31 see no compressed token
+    ("cmp", 70, 260, 1, 32, dict(l=8, d=4)),
+])
+def test_banded_attn_matches_plain_on_gpu(dtype, mode, S, t_start, h, D, kw):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    B, G, n_pos = 2, 2, t_start + S
+    S_kv = n_pos if mode == "win" else num_cmp_blocks(n_pos, kw["l"], kw["d"])
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    Q, K, V = r(B, S, G, h, D), r(B, G, S_kv, D), r(B, G, S_kv, D)
+    O, lse = ba_mod.banded_attn(Q, K, V, mode=mode, **kw, scale=SCALE, t_start=t_start,
+                                return_lse=True)
+    pO, plse = ba_mod.banded_attn_plain(Q, K, V, mode=mode, **kw, scale=SCALE,
+                                        t_start=t_start, return_lse=True)
+    assert _within_bound(O, pO)
+    empty = plse >= 1e29
+    assert torch.equal(lse >= 1e29, empty)
+    assert float(torch.where(empty, 0.0, (lse - plse).abs()).max()) <= 1e-4
+    if t_start:   # the same rows of one call over every position
+        Qf = torch.cat([r(B, t_start, G, h, D), Q], dim=1)
+        full = ba_mod.banded_attn(Qf, K, V, mode=mode, **kw, scale=SCALE)
+        assert torch.equal(full[:, t_start:], O)
+
+
+def _sets_equal_but_near_ties(sel, psel, p_grp, tie=1e-5):
+    a, b = canonicalize_sel(sel), canonicalize_sel(psel)
+    for i in (a != b).any(-1).nonzero().tolist():
+        differ = set(a[tuple(i)].tolist()) ^ set(b[tuple(i)].tolist())
+        if -1 in differ:                        # one set has more blocks than the other
+            return False
+        scores = p_grp[tuple(i)][sorted(differ)]
+        if float(scores.max() - scores.min()) > tie:
+            return False
+    return True
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,h,D,l,d,l_sel,n_top,pos_offset", [
+    (300, 6, 64, 32, 16, 64, 16, 0),
+    (130, 3, 16, 8, 4, 16, 4, 70),              # rows at positions 70..199, odd h
+    (1, 2, 64, 32, 16, 64, 16, 65535),          # one row, S_sel = 1024 (the needle smoke)
+])
+def test_select_blocks_matches_plain_on_gpu(dtype, S, h, D, l, d, l_sel, n_top, pos_offset):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, G, n_pos = 2, 2, pos_offset + S
+    S_cmp, S_sel = num_cmp_blocks(n_pos, l, d), -(-n_pos // l_sel)
+    Q = torch.randn((B, S, G, h, D), generator=gen, device=dev).to(dtype)
+    Kc = torch.randn((B, G, S_cmp, D), generator=gen, device=dev).to(dtype)
+    kw = dict(S_sel=S_sel, scale=SCALE, l=l, d=d, l_sel=l_sel, n_top=n_top,
+              pos_offset=pos_offset)
+    sel = sk_mod.select_blocks(Q, Kc, **kw)
+    psel, p_grp = sk_mod.select_blocks_plain(Q, Kc, **kw, return_scores=True)
+    assert sel.shape == psel.shape and sel.dtype == torch.int32
+    assert torch.equal(sel[..., :3], psel[..., :3])             # forced slots, in order
+    assert _sets_equal_but_near_ties(sel, psel, p_grp)
+
+
+@pytest.mark.gpu
+def test_small_model_serves_the_same_tokens_on_the_long_route(monkeypatch):
+    """With the fused scorer's limit set below this prompt's selection
+    width, prefill takes select_blocks + banded_attn on the card and the
+    plain versions on the CPU: the same greedy tokens."""
+    dev = _card()
+    monkeypatch.setattr(sc_mod, "SELECT_CMP_MAX_S_SEL", 4)
+    mcfg = ModelConfig(vocab_size=64, n_layers=2,
+                       nsa=NSAConfig(dim=64, n_heads=6, n_kv_groups=2, d_k=16, d_v=16,
+                                     l=8, d=4, l_sel=16, n_sel=4, w=32))
+    params = init_model_params(mcfg, torch.Generator().manual_seed(0), device="cpu")
+    prompt = torch.randint(0, 64, (2, 90), generator=torch.Generator().manual_seed(1))
+    want = generate(params, prompt, 6, mcfg)
+    kernels.reset_launch_counts()
+    got = generate(params_to(params, device=dev), prompt.to(dev), 6, mcfg)
+    assert torch.equal(got.cpu(), want)
+    assert kernels.launch_counts() == {"select_cmp": 0, "sel_attn": 2 + 2 * 5, "win_attn": 2,
+                                       "banded_bwd": 0, "sel_attn_bwd": 0,
+                                       "banded_attn": 2, "select_blocks": 2}

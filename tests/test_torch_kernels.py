@@ -28,7 +28,9 @@ from nsa_vibe_tpu.ops.pallas.sel_flash import selection_flash_pallas
 from nsa_vibe_tpu.ops.pallas.selection import selection_attention_pallas
 from nsa_vibe_tpu_torch.ops import reference as tref
 from nsa_vibe_tpu_torch.ops.block_index import build_M_csl, num_cmp_blocks
+from nsa_vibe_tpu_torch.ops.cuda import banded_attn as ba_mod
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn as sa_mod
+from nsa_vibe_tpu_torch.ops.cuda import select_blocks as sb_mod
 from nsa_vibe_tpu_torch.ops.cuda import select_cmp as sc_mod
 from nsa_vibe_tpu_torch.ops.cuda import win_attn as wa_mod
 from nsa_vibe_tpu_torch.ops.selection import canonicalize_sel
@@ -156,7 +158,8 @@ def test_win_attn_plain_matches_jax(B, S, G, h, w):
 
 # ------------------------------------------------------------ dispatch rule
 
-WRAPPERS = [(sc_mod, "select_cmp"), (sa_mod, "sel_attn"), (wa_mod, "win_attn")]
+WRAPPERS = [(sc_mod, "select_cmp"), (sa_mod, "sel_attn"), (wa_mod, "win_attn"),
+            (ba_mod, "banded_attn"), (sb_mod, "select_blocks")]
 
 
 @pytest.mark.parametrize("mod,name", WRAPPERS)
@@ -197,8 +200,12 @@ def test_wrapper_never_takes_plain_off_the_cpu(mod, name, monkeypatch):
         "sel_attn": (m, kv, kv, torch.empty((1, 4, 1, 2), dtype=torch.int32, device="meta"),
                      torch.arange(4)),
         "win_attn": (m, kv, kv),
+        "banded_attn": (m, kv, kv),
+        "select_blocks": (m, kv),
     }[name]
     kw = {"select_cmp": dict(scale=1.0, l=2, d=1, l_sel=2, n_top=2),
-          "sel_attn": dict(l_sel=2, scale=1.0), "win_attn": dict(w=2, scale=1.0)}[name]
+          "sel_attn": dict(l_sel=2, scale=1.0), "win_attn": dict(w=2, scale=1.0),
+          "banded_attn": dict(mode="cmp", l=2, d=1, scale=1.0),
+          "select_blocks": dict(S_sel=2, scale=1.0, l=2, d=1, l_sel=2, n_top=2)}[name]
     with pytest.raises(ValueError, match="device"):
         getattr(mod, name)(*args, **kw)

@@ -146,7 +146,8 @@ def test_cpu_path_launches_no_kernel():
     kernels.reset_launch_counts()
     tnsa.nsa_prefill(tp, torch.from_numpy(_x(1, 40, jc.dim)), tc)
     assert kernels.launch_counts() == {"select_cmp": 0, "sel_attn": 0, "win_attn": 0,
-                                       "banded_bwd": 0, "sel_attn_bwd": 0}
+                                       "banded_bwd": 0, "sel_attn_bwd": 0,
+                                       "banded_attn": 0, "select_blocks": 0}
 
 
 def test_tinylm_logits_and_greedy_generate_match_jax():
