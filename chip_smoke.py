@@ -23,7 +23,7 @@ Phases (any failure exits non-zero):
       on CPU tensors) on the serve's own inputs; torch.profiler gives the
       device busy time of a prefill and of a decode step, by kernel;
   (d) train: at the m7c-125M training shapes (B=8, S=2048) the forward
-      kernels' row statistics (lse) and the two backward kernels
+      kernels' row statistics (lse) and the two-pass backward kernels
       (banded_bwd for win and cmp, sel_attn_bwd) against their plain
       versions in f32 and bf16 (bounds of `allowed_rel_err`), each backward
       twice for identical bits, then timed beside its plain version, the
@@ -31,10 +31,11 @@ Phases (any failure exits non-zero):
       one layer's nsa_prefill forward + backward in f32 on the card
       against the same layer on CPU tensors (every gradient, and no host
       sync on the card); then the m7c-125M train step (bf16, remat, B=8 x
-      2048 synthetic tokens) through make_train_step: a warm-up step, timed
-      steps with CUDA events, the launch counts of all five kernels, peak
-      memory, a torch.profiler step by kernel, the host syncs a step makes;
-      and `train()` for a short run whose loss must fall;
+      2048 synthetic tokens) through make_train_step under the port's
+      default design keys (ops/tuning.py): a warm-up step, timed steps
+      with CUDA events, the launch counts of the kernels those keys
+      select, peak memory, a torch.profiler step by kernel, the host syncs
+      a step makes; and `train()` for a short run whose loss must fall;
   (e) long context: the banded kernel (row 5, both modes) and the
       select-only scorer (row 6) at the 64k shapes (S_sel = 1024) against
       their plain versions on the last 4096 query rows, f32 and bf16, and
@@ -47,7 +48,18 @@ Phases (any failure exits non-zero):
       sel_attn per decode step), timed, traced and checked for host syncs;
       the needle smoke (five depths) and end-to-end probe (three depths)
       at S = 65536 must pass; rows 5 and 6 are timed beside their plain
-      versions (over every row, 4096 rows a call) and, for row 5, SDPA.
+      versions (over every row, 4096 rows a call) and, for row 5, SDPA;
+  (f) backward designs: the one-pass kernels (banded_bwd_1p for win and
+      cmp, sel_attn_bwd_1p) and the diagonal window kernel (win_bwd_diag)
+      at the training shapes against their plain versions (f32, bf16), twice
+      for identical bits, and against the other design of the same function
+      (rows 7/8, 9/10, 11/7/8); timed as in (d), the diagonal kernel at each
+      q tile it takes; one m7c layer's f32 gradients on the card under each
+      setting of DESIGNS against the CPU, with no host sync; the m7c train
+      step under each setting of DESIGNS: step ms, tokens/s, peak memory,
+      the asserted launch counts, a profiler step by kernel, and the losses
+      of the same steps from the same seed, equal to the default keys'
+      within LOSS_TOL.
 
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
@@ -55,6 +67,7 @@ kernels' numbers, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import json
@@ -81,15 +94,19 @@ from nsa_vibe_tpu_torch.models.tinylm import (
     generate, init_model_params, model_decode_step, model_prefill_with_caches,
 )
 from nsa_vibe_tpu_torch.ops import cuda as kernels
+from nsa_vibe_tpu_torch.ops import tuning
 from nsa_vibe_tpu_torch.ops.attention import compressed_attention
 from nsa_vibe_tpu_torch.ops.block_index import (
     build_block_meta, build_M_csl_on, expected_decode_reads, num_cmp_blocks,
 )
 from nsa_vibe_tpu_torch.ops.cuda import build as kbuild
 from nsa_vibe_tpu_torch.ops.cuda.banded_attn import banded_attn, banded_attn_plain
+from nsa_vibe_tpu_torch.ops.cuda import win_bwd_diag as win_bwd_diag_mod
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd, banded_bwd_plain, banded_mask
+from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import banded_bwd_1p
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn import sel_attn, sel_attn_plain
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import sel_attn_bwd, sel_attn_bwd_plain
+from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd_1p import sel_attn_bwd_1p
 from nsa_vibe_tpu_torch.ops.cuda.select_blocks import select_blocks, select_blocks_plain
 from nsa_vibe_tpu_torch.ops.cuda.select_cmp import select_cmp, select_cmp_plain
 from nsa_vibe_tpu_torch.ops.cuda.win_attn import win_attn, win_attn_plain
@@ -119,7 +136,16 @@ LOSS_DROP = 0.2            # mean of the last 4 logged losses below the first, a
 PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "win_attn_kernel",   # CUDA symbol names
                 "banded_bwd_dq_kernel", "banded_bwd_dkv_kernel", "sel_bwd_dq_kernel",
                 "sel_bwd_dkv_kernel", "reduce_splits_kernel", "banded_attn_kernel",
-                "select_blocks_kernel")
+                "select_blocks_kernel", "banded_bwd_1p_kernel", "sel_bwd_1p_kernel",
+                "win_bwd_diag_kernel", "sum_slots_kernel", "sum_strips_kernel")
+# backward-design settings of phase (f) (ops/tuning.py keys), each a train step
+DESIGNS = {
+    "onepass": {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 0},
+    "onepass+diag": {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 1},
+    "twopass": {"bwd.onepass": 0, "sel.bwd_onepass": 0, "win.bwd_diag": 0},
+}
+DIAG_Q_SUBTILES = (1, 2, 4)   # q tiles of win_bwd_diag timed in phase (f)
+LOSS_TOL = 5e-3   # train-step loss, any design vs the default keys, absolute (loss ~5.6)
 DECODE_T = (2048, 2055, 2070, 2079)                          # decode positions per row
 TRAIN_DIR = os.path.join("artifacts", "chip_smoke_train")   # git-ignored, inside the checkout
 S_LONG, N_CHECK = 65536, 4096    # long prompt; its last rows held against the plain versions
@@ -451,8 +477,8 @@ def phase_serve(dev) -> dict:
         serve_ms = e0.elapsed_time(e1)
         peak = torch.cuda.max_memory_allocated()
         L = mcfg.n_layers
-        want = {"select_cmp": L, "sel_attn": L + L * (N_NEW - 1), "win_attn": L,
-                "banded_bwd": 0, "sel_attn_bwd": 0, "banded_attn": 0, "select_blocks": 0}
+        want = {**dict.fromkeys(counts, 0), "select_cmp": L, "sel_attn": L + L * (N_NEW - 1),
+                "win_attn": L}
         print(f"[serve] launches on the main path: {counts} "
               f"(sel_attn at decode: {decode_launches}); expected {want}")
         if counts != want:
@@ -572,96 +598,162 @@ def train_kernel_inputs(dtype, dev, gen) -> dict:
     return x
 
 
+# the TPU kernel each backward kernel replaces (PERF.md's table, rows 7-11)
+BWD_REPLACES = {"banded_bwd_1p": "nsa_vibe_tpu/ops/pallas/flash_bwd.py:479",
+                "banded_bwd": "nsa_vibe_tpu/ops/pallas/flash_bwd.py:664",
+                "sel_attn_bwd_1p": "nsa_vibe_tpu/ops/pallas/sel_flash.py:843",
+                "sel_attn_bwd": "nsa_vibe_tpu/ops/pallas/sel_flash.py:537",
+                "win_bwd_diag": "nsa_vibe_tpu/ops/pallas/flash_diag.py:354"}
+TWO_PASS = ("banded_bwd@win", "banded_bwd@cmp", "sel_attn_bwd")          # phase (d)
+# phase (f): the one-pass and diagonal kernels, each with the other designs
+# of the same function it is held against
+PARTNERS = {"banded_bwd_1p@win": ("banded_bwd@win",), "banded_bwd_1p@cmp": ("banded_bwd@cmp",),
+            "sel_attn_bwd_1p": ("sel_attn_bwd",),
+            "win_bwd_diag": ("banded_bwd_1p@win", "banded_bwd@win")}
+
+
+def branch_of(name: str) -> str:
+    """'win', 'cmp' or 'sel': the branch a backward kernel row serves."""
+    if name.endswith("@cmp"):
+        return "cmp"
+    return "sel" if name.startswith("sel") else "win"
+
+
 def bwd_calls(x) -> dict:
     """name -> (kernel call, plain call, visibility mask [B,S,G,S_kv]) of
-    each backward on the inputs of train_kernel_inputs."""
+    each backward kernel on the inputs of train_kernel_inputs; the designs
+    of one function share its plain version and mask."""
     cfg, sc = x["cfg"], x["scale"]
     Q, dO = x["Q"], x["dO"]
     Bq, G = Q.shape[0], Q.shape[2]
     dc, ds_, dw = (attention_delta(dO, x[k]) for k in ("Oc", "Os", "Ow"))
-    win = dict(mode="win", w=cfg.w)
-    cmp_ = dict(mode="cmp", l=cfg.l, d=cfg.d)
+    win = dict(mode="win", w=cfg.w, scale=sc)
+    cmp_ = dict(mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
+    sel = dict(l_sel=cfg.l_sel, scale=sc)
+    wargs = (Q, x["Kw"], x["Vw"], dO, x["lse_w"], dw)
+    cargs = (Q, x["Kc"], x["Vc"], dO, x["lse_c"], dc)
+    sargs = (Q, x["K"], x["V"], x["sel"], x["t"], dO, x["lse_s"], ds_)
     S_cmp = x["Kc"].shape[2]
+
+    def win_mask():
+        return banded_mask(S, S, mode="win", w=cfg.w, device=Q.device)[None, :, None, :].expand(
+            Bq, S, G, S)
+
+    def cmp_mask():
+        return banded_mask(S, S_cmp, mode="cmp", l=cfg.l, d=cfg.d,
+                           device=Q.device)[None, :, None, :].expand(Bq, S, G, S_cmp)
+
+    def sel_mask():
+        return selection_token_mask(x["sel"], x["t"], cfg.l_sel, S)
+
+    def win_plain():
+        return banded_bwd_plain(*wargs, **win)
+
+    def cmp_plain():
+        return banded_bwd_plain(*cargs, **cmp_)
+
+    def sel_plain():
+        return sel_attn_bwd_plain(*sargs, **sel)
+
     return {
-        "banded_bwd@win": (
-            lambda: banded_bwd(Q, x["Kw"], x["Vw"], dO, x["lse_w"], dw, **win, scale=sc),
-            lambda: banded_bwd_plain(Q, x["Kw"], x["Vw"], dO, x["lse_w"], dw, **win, scale=sc),
-            lambda: banded_mask(S, S, **win, device=Q.device)[None, :, None, :].expand(
-                Bq, S, G, S)),
-        "banded_bwd@cmp": (
-            lambda: banded_bwd(Q, x["Kc"], x["Vc"], dO, x["lse_c"], dc, **cmp_, scale=sc),
-            lambda: banded_bwd_plain(Q, x["Kc"], x["Vc"], dO, x["lse_c"], dc, **cmp_,
-                                     scale=sc),
-            lambda: banded_mask(S, S_cmp, **cmp_, device=Q.device)[None, :, None, :].expand(
-                Bq, S, G, S_cmp)),
-        "sel_attn_bwd": (
-            lambda: sel_attn_bwd(Q, x["K"], x["V"], x["sel"], x["t"], dO, x["lse_s"], ds_,
-                                 l_sel=cfg.l_sel, scale=sc),
-            lambda: sel_attn_bwd_plain(Q, x["K"], x["V"], x["sel"], x["t"], dO, x["lse_s"],
-                                       ds_, l_sel=cfg.l_sel, scale=sc),
-            lambda: selection_token_mask(x["sel"], x["t"], cfg.l_sel, S)),
+        "banded_bwd@win": (lambda: banded_bwd(*wargs, **win), win_plain, win_mask),
+        "banded_bwd@cmp": (lambda: banded_bwd(*cargs, **cmp_), cmp_plain, cmp_mask),
+        "sel_attn_bwd": (lambda: sel_attn_bwd(*sargs, **sel), sel_plain, sel_mask),
+        "banded_bwd_1p@win": (lambda: banded_bwd_1p(*wargs, **win), win_plain, win_mask),
+        "banded_bwd_1p@cmp": (lambda: banded_bwd_1p(*cargs, **cmp_), cmp_plain, cmp_mask),
+        "sel_attn_bwd_1p": (lambda: sel_attn_bwd_1p(*sargs, **sel), sel_plain, sel_mask),
+        "win_bwd_diag": (lambda: win_bwd_diag_mod.win_bwd_diag(*wargs, w=cfg.w, scale=sc),
+                         win_plain, win_mask),
     }
 
 
-def phase_train_kernels(dev) -> dict:
-    """Forward lse and backward kernels vs plain at the training shapes, f32
-    then bf16; each backward twice for identical bits. Returns the bf16
-    inputs and the bf16 max errors."""
+def phase_train_kernels(dev, names) -> dict:
+    """The named backward kernels vs plain at the training shapes, f32 then
+    bf16; each twice for identical bits, and against the other designs of
+    its function (PARTNERS) on the same inputs. Returns the bf16 inputs
+    and the bf16 max errors."""
     gen = torch.Generator(device=dev).manual_seed(4321)
     rec = {}
     for dtype in (torch.float32, torch.bfloat16):
         x = train_kernel_inputs(dtype, dev, gen)
-        for name, (kern, plain, _) in bwd_calls(x).items():
+        calls = bwd_calls(x)
+        for name in names:
+            kern, plain, _ = calls[name]
             got, again, want = kern(), kern(), plain()
             torch.cuda.synchronize()
             errs = [check(f"{name}:{n}", g, w, bound=allowed_rel_err)
                     for n, g, w in zip(("dQ", "dK", "dV"), got, want)]
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"{name} {dtype}: two launches differ")
+            for other in PARTNERS.get(name, ()):
+                theirs = calls[other][0]()
+                for n, g, w in zip(("dQ", "dK", "dV"), got, theirs):
+                    check(f"{name}:{n} vs {other}", g, w, bound=allowed_rel_err)
+                del theirs
             rec[name] = max(errs)
             del got, again, want
-        print(f"[check] backward kernels {str(dtype)[6:]}: two launches gave identical bits")
+        print(f"[check] backward kernels {', '.join(names)} {str(dtype)[6:]}: two launches "
+              f"gave identical bits")
         if dtype == torch.bfloat16:
             rec["inputs"] = x
-        del x
+        del x, calls
         torch.cuda.empty_cache()
     return rec
 
 
-def measure_train(rec, counts) -> list:
-    """Times each backward kernel (bf16, training shapes) beside its plain
-    version and the backward of one SDPA call with the equivalent mask;
-    computes its bound from this run's inputs."""
+def launches_of(counts: dict, name: str) -> int:
+    """A backward kernel row's launches in one train-step run's counts."""
+    base, _, mode = name.partition("@")
+    if mode == "cmp":
+        return counts[f"{base}@cmp"]
+    return counts[base] - counts.get(f"{base}@cmp", 0)
+
+
+def measure_train(rec, runs, names) -> list:
+    """Times the named backward kernels (bf16, training shapes) beside
+    their plain version and the backward of one SDPA call with the
+    equivalent mask; computes each bound from this run's inputs (the same
+    work for every design of a function). launches: over TIMED_STEPS steps
+    of the train-step run (of `runs`, phases (d) and (f)) whose keys select
+    the kernel. win_bwd_diag is also timed at each q tile of
+    DIAG_Q_SUBTILES."""
     x = rec["inputs"]
     cfg = x["cfg"]
     Dk = Dv = cfg.d_k
     h = cfg.h_per_group
-    launches = {"banded_bwd@win": counts["banded_bwd"] - counts["banded_bwd@cmp"],
-                "banded_bwd@cmp": counts["banded_bwd@cmp"],
-                "sel_attn_bwd": counts["sel_attn_bwd"]}
-    kv = {"banded_bwd@win": ("Kw", "Vw", "lse_w"), "banded_bwd@cmp": ("Kc", "Vc", "lse_c"),
-          "sel_attn_bwd": ("K", "V", "lse_s")}
-    replaces = {"banded_bwd": "nsa_vibe_tpu/ops/pallas/flash_bwd.py:479",
-                "sel_attn_bwd": "nsa_vibe_tpu/ops/pallas/sel_flash.py:843"}
+    kv = {"win": ("Kw", "Vw", "lse_w"), "cmp": ("Kc", "Vc", "lse_c"), "sel": ("K", "V", "lse_s")}
+    calls = bwd_calls(x)
     out = []
-    for name, (kern, plain, mask_fn) in bwd_calls(x).items():
+    for name in names:
+        kern, plain, mask_fn = calls[name]
         base = name.split("@")[0]
-        K, V, lse = (x[k] for k in kv[name])
+        K, V, lse = (x[k] for k in kv[branch_of(name)])
         mask = mask_fn()                                              # [B,S,G,S_kv]
         # per visible (row, key): the S, dP, dV, dQ and dK products
         ops = float(mask.sum()) * h * 2 * (3 * Dk + 2 * Dv)
         grads = kern()
         io = nbytes(x["Q"], K, V, x["dO"], lse, lse, *grads)         # lse and delta: same size
-        if base == "sel_attn_bwd":
+        if branch_of(name) == "sel":
             io += nbytes(x["sel"])
         bms, by = bound(io, ops, x["Q"].dtype)
+        if name == "win_bwd_diag":
+            chosen = win_bwd_diag_mod.Q_SUBTILES
+            for q in DIAG_Q_SUBTILES:
+                win_bwd_diag_mod.Q_SUBTILES = q
+                tq = q * (64 // h)
+                n_q = -(-S // tq)
+                sl = kbuild.library().nsa_win_bwd_diag_strip_keys(tq, cfg.w, S)
+                strip = B_TRAIN * cfg.n_kv_groups * n_q * sl * (Dk + Dv) * 4
+                print(f"[time] win_bwd_diag q tile {tq} tokens ({q} x 64 rows): "
+                      f"{time_ms(kern, 10, hold=True):.4f} ms, strips {strip} bytes")
+            win_bwd_diag_mod.Q_SUBTILES = chosen
         sq, sk, sv, sm = sdpa_operands(x["Q"], K, V, mask)
         sq, sk, sv = (t.detach().requires_grad_(True) for t in (sq, sk, sv))
         so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm, scale=x["scale"])
         sdo = torch.randn_like(so)
         out.append(dict(
-            name=name, source=f"nsa_vibe_tpu_torch/csrc/{base}.cu", replaces=replaces[base],
-            launches=launches[name], max_abs_err=rec[name],
+            name=name, source=f"nsa_vibe_tpu_torch/csrc/{base}.cu", replaces=BWD_REPLACES[base],
+            launches=max(launches_of(c, name) for c in runs), max_abs_err=rec[name],
             ms=time_ms(kern, 10, hold=True),
             plain_ms=time_ms(plain, 3, hold=True),
             bound_ms=bms, bound_by=by,
@@ -677,12 +769,28 @@ def measure_train(rec, counts) -> list:
     return out
 
 
-def train_layer_check(dev) -> None:
+@contextlib.contextmanager
+def design_keys(keys):
+    """Runs the body under the backward-design keys `keys` (None: the keys
+    in force) by replacing ops/tuning.py's loaded dict, as the JAX
+    package's tests replace theirs (tests/test_flash_diag.py)."""
+    saved = tuning._load
+    if keys is not None:
+        tuning._load = lambda: dict(keys)
+    try:
+        yield
+    finally:
+        tuning._load = saved
+
+
+def train_layer_check(dev, designs: dict, cpu=None):
     """Layer 0 of the m7c model in f32 (B=2, S=2048): nsa_prefill forward +
-    backward through the kernels against the same layer on CPU tensors
-    (plain versions): the gradients of x and of every parameter within
-    GRAD_TOL of each tensor's max |value|; then the card pass again under
-    set_sync_debug_mode("error")."""
+    backward through the kernels, under each entry of `designs` (label ->
+    design keys, None for the keys in force), against the same layer on
+    CPU tensors (plain versions, computed here unless given in `cpu`): the
+    gradients of x and of every parameter within GRAD_TOL of each tensor's
+    max |value|; then the card pass again under set_sync_debug_mode("error").
+    Returns the CPU result."""
     mcfg, cfg = M7C_125M, M7C_125M.nsa
     gen = torch.Generator().manual_seed(7)
     params = init_model_params(mcfg, gen, device="cpu", dtype=torch.float32)
@@ -697,78 +805,109 @@ def train_layer_check(dev) -> None:
         wrt = [x.detach().to(d)] + [t for _, t in param_leaves(p)]
         return p, [t.requires_grad_(True) for t in wrt]
 
-    runs = {}
-    for d in ("cpu", dev):
+    def grads(d):
         p, wrt = layer(d)
         out, aux = nsa_prefill(p, wrt[0], cfg)
-        grads = torch.autograd.grad(out, wrt, dout.to(d))
-        tree = params_to_numpy({"x": grads[0], **tree_from_leaves(p, list(grads[1:]))})
-        runs[d] = (dict(_leaves(tree)), canonicalize_sel(aux["sel_idx"]).cpu())
-    (gc, sc), (gg, sg) = runs["cpu"], runs[dev]
-    flips = int((sc != sg).any(-1).sum())
-    errs = {k: float(np.abs(gg[k] - want).max() / np.abs(want).max()) for k, want in gc.items()}
-    worst = max(errs, key=errs.get)
-    print(f"[layer] train f32: nsa_prefill forward + backward, card vs plain path: worst "
-          f"gradient err / max|grad| = {errs[worst]:.3e} ({worst}) over x and "
-          f"{len(errs) - 1} parameters (bound {GRAD_TOL:g}); rows whose selection differs: "
-          f"{flips}")
-    if flips or not errs[worst] <= GRAD_TOL:
-        fail("one layer's gradients on the card disagree with the plain path")
-    p, wrt = layer(dev)
-    dout = dout.to(dev)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out, _ = nsa_prefill(p, wrt[0], cfg)
-        torch.autograd.grad(out, wrt, dout)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    print("[layer] one layer's forward + backward issued with no host-device synchronisation")
+        g = torch.autograd.grad(out, wrt, dout.to(d))
+        tree = params_to_numpy({"x": g[0], **tree_from_leaves(p, list(g[1:]))})
+        return dict(_leaves(tree)), canonicalize_sel(aux["sel_idx"]).cpu()
+
+    gc, sc = cpu if cpu is not None else grads("cpu")
+    for label, keys in designs.items():
+        with design_keys(keys):
+            gg, sg = grads(dev)
+            flips = int((sc != sg).any(-1).sum())
+            errs = {k: float(np.abs(gg[k] - want).max() / np.abs(want).max())
+                    for k, want in gc.items()}
+            worst = max(errs, key=errs.get)
+            print(f"[layer] train f32 ({label} keys): nsa_prefill forward + backward, card vs "
+                  f"plain path: worst gradient err / max|grad| = {errs[worst]:.3e} ({worst}) "
+                  f"over x and {len(errs) - 1} parameters (bound {GRAD_TOL:g}); rows whose "
+                  f"selection differs: {flips}")
+            if flips or not errs[worst] <= GRAD_TOL:
+                fail(f"one layer's gradients on the card ({label} keys) disagree with the "
+                     f"plain path")
+            p, wrt = layer(dev)
+            dd = dout.to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out, _ = nsa_prefill(p, wrt[0], cfg)
+                torch.autograd.grad(out, wrt, dd)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    print(f"[layer] one layer's forward + backward issued with no host-device synchronisation "
+          f"({', '.join(designs)} keys)")
+    return gc, sc
 
 
-def phase_train(dev) -> dict:
-    """The m7c-125M train step (bf16, remat, B=8 x S=2048, synthetic data)."""
+def train_counts() -> dict:
+    """The launch counters, with the cmp-mode launches of the banded kernels."""
+    return dict(kernels.launch_counts(), **{"banded_bwd@cmp": banded_bwd.cmp_launches,
+                                            "banded_bwd_1p@cmp": banded_bwd_1p.cmp_launches})
+
+
+def train_launches(steps: int) -> dict:
+    """The launch counts `steps` m7c train steps must show under the keys
+    in force: remat runs each layer's three forward kernels twice; the
+    backward runs per layer the kernel tuning.backward_kernel names for
+    each of the window, compressed and selection branches."""
+    L, tcfg = M7C_125M.n_layers, M7C_125M_TRAIN
+    want = dict.fromkeys(train_counts(), 0)
+    for k in ("select_cmp", "sel_attn", "win_attn"):
+        want[k] = 2 * L
+    for branch in ("win", "cmp", "sel"):
+        k = tuning.backward_kernel(branch, tcfg.seq_len, M7C_125M.nsa.w)
+        want[k] += L
+        if branch == "cmp":
+            want[f"{k}@cmp"] += L
+    return {k: v * steps for k, v in want.items()}
+
+
+def phase_train(dev, tag: str = "train") -> dict:
+    """The m7c-125M train step (bf16, remat, B=8 x S=2048, synthetic data)
+    under the design keys in force, from the same seed and batches in every
+    call. Returns the launch counts over TIMED_STEPS steps, the mean step
+    ms and the losses of the warm-up and timed steps."""
     mcfg, tcfg = M7C_125M, M7C_125M_TRAIN
-    L = mcfg.n_layers
     state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(0),
                                                device=dev), tcfg)
     step = make_train_step(mcfg, tcfg)
     data = make_batches("synthetic", tcfg.seq_len, tcfg.batch_size, seed=tcfg.seed)
     batches = [torch.from_numpy(next(data)).long().to(dev)[None] for _ in range(TIMED_STEPS + 3)]
-    print(f"[train] m7c-125M {mcfg.dtype}, remat {mcfg.remat}, {tcfg.batch_size} x "
-          f"{tcfg.seq_len} tokens per step, lr {tcfg.lr}, max_grad_norm {tcfg.max_grad_norm}")
+    print(f"[{tag}] m7c-125M {mcfg.dtype}, remat {mcfg.remat}, {tcfg.batch_size} x "
+          f"{tcfg.seq_len} tokens per step, lr {tcfg.lr}, max_grad_norm {tcfg.max_grad_norm}; "
+          f"backward kernels: " + ", ".join(
+              f"{b} {tuning.backward_kernel(b, tcfg.seq_len, mcfg.nsa.w)}"
+              for b in ("win", "cmp", "sel")))
     state, m = step(state, batches[0])                                 # warm-up
+    losses = [m["loss"]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
     ev[0].record()
-    losses = []
     for i in range(TIMED_STEPS):
         state, m = step(state, batches[1 + i])
         ev[i + 1].record()
         losses.append(m["loss"])
     torch.cuda.synchronize()
-    counts = dict(kernels.launch_counts(), **{"banded_bwd@cmp": banded_bwd.cmp_launches})
+    counts = train_counts()
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TIMED_STEPS)]
     peak = torch.cuda.max_memory_allocated()
-    # per step, remat runs each layer's forward twice; the backward runs the
-    # window and compressed banded_bwd and one sel_attn_bwd per layer
-    want = {"select_cmp": 2 * L, "sel_attn": 2 * L, "win_attn": 2 * L, "banded_bwd": 2 * L,
-            "sel_attn_bwd": L, "banded_bwd@cmp": L, "banded_attn": 0, "select_blocks": 0}
-    want = {k: v * TIMED_STEPS for k, v in want.items()}
-    print(f"[train] launches over {TIMED_STEPS} steps: {counts}; expected {want}")
+    want = train_launches(TIMED_STEPS)
+    print(f"[{tag}] launches over {TIMED_STEPS} steps: {counts}; expected {want}")
     if counts != want:
-        fail(f"train launch counts {counts} != {want}")
+        fail(f"{tag} launch counts {counts} != {want}")
     losses = [float(v) for v in losses]
     if not np.all(np.isfinite(losses)) or not bool(m["good"]):
-        fail(f"train step losses not finite: {losses}")
+        fail(f"{tag} step losses not finite: {losses}")
     mean_ms = float(np.mean(step_ms))
     tokens = tcfg.batch_size * tcfg.seq_len
-    print(f"[train] step ms {', '.join(f'{v:.2f}' for v in step_ms)}; mean {mean_ms:.3f} ms, "
-          f"{tokens / (mean_ms / 1e3):.0f} tokens/s; losses "
+    print(f"[{tag}] step ms {', '.join(f'{v:.2f}' for v in step_ms)}; mean {mean_ms:.3f} ms, "
+          f"{tokens / (mean_ms / 1e3):.0f} tokens/s; losses (warm-up, timed) "
           f"{', '.join(f'{v:.4f}' for v in losses)}; grad_norm {float(m['grad_norm']):.4f}")
-    print(f"[train] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+    print(f"[{tag}] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -781,10 +920,29 @@ def phase_train(dev) -> dict:
         if "synchroniz" in str(w.message):
             where = f"{os.path.basename(w.filename)}:{w.lineno}"
             syncs[where] = syncs.get(where, 0) + 1
-    print(f"[train] host-device synchronisations in one step: {sum(syncs.values())} "
+    print(f"[{tag}] host-device synchronisations in one step: {sum(syncs.values())} "
           f"({syncs or 'none'})")
-    trace(lambda: step(state, batches[-1]), 1, "train step", mean_ms)
-    return {"counts": counts, "step_ms": mean_ms}
+    trace(lambda: step(state, batches[-1]), 1, f"{tag} step", mean_ms)
+    return {"counts": counts, "step_ms": mean_ms, "losses": losses}
+
+
+def phase_designs(dev, default_losses, cpu) -> list:
+    """Phase (f) beyond the kernel checks: one layer's gradients and the
+    m7c train step under each setting of DESIGNS; each setting's losses
+    must equal the default keys' (phase (d)) within LOSS_TOL. Returns the
+    settings' launch counts."""
+    train_layer_check(dev, DESIGNS, cpu)
+    runs = []
+    for label, keys in DESIGNS.items():
+        with design_keys(keys):
+            r = phase_train(dev, f"train {label}")
+        diff = max(abs(a - b) for a, b in zip(r["losses"], default_losses))
+        print(f"[train {label}] losses vs the default keys': max |difference| {diff:.3e} "
+              f"(bound {LOSS_TOL:g})")
+        if not diff <= LOSS_TOL:
+            fail(f"the train step's losses under {label} differ from the default keys'")
+        runs.append(r["counts"])
+    return runs
 
 
 def loss_falls(dev) -> None:
@@ -954,8 +1112,8 @@ def phase_long_serve(dev) -> dict:
         decode_launches = sel_attn.decode_launches
         serve_ms = e0.elapsed_time(e1)
         peak = torch.cuda.max_memory_allocated()
-        want = {"select_cmp": 0, "sel_attn": L + L * (N_NEW - 1), "win_attn": L,
-                "banded_bwd": 0, "sel_attn_bwd": 0, "banded_attn": L, "select_blocks": L}
+        want = {**dict.fromkeys(counts, 0), "sel_attn": L + L * (N_NEW - 1), "win_attn": L,
+                "banded_attn": L, "select_blocks": L}
         print(f"[long] launches on the main path: {counts} (sel_attn at decode: "
               f"{decode_launches}); expected {want}")
         if counts != want or decode_launches != L * (N_NEW - 1):
@@ -1113,11 +1271,10 @@ def main() -> int:
     rows = measure(rec, serve["counts"], serve["decode_launches"])
     del rec
     torch.cuda.empty_cache()
-    trec = phase_train_kernels(dev)
-    train_layer_check(dev)
+    trec = phase_train_kernels(dev, TWO_PASS)
+    cpu = train_layer_check(dev, {"default": None})
     tr = phase_train(dev)
-    rows += measure_train(trec, tr["counts"])
-    del trec
+    del trec["inputs"]
     torch.cuda.empty_cache()
     loss_falls(dev)
     lrec = phase_long_kernels(dev)
@@ -1126,6 +1283,11 @@ def main() -> int:
     phase_needles(dev)
     rows += measure_long(lrec, long_counts)
     del lrec
+    torch.cuda.empty_cache()
+    frec = phase_train_kernels(dev, tuple(PARTNERS))
+    runs = [tr["counts"]] + phase_designs(dev, tr["losses"], cpu)
+    rows += measure_train({**trec, **frec}, runs, TWO_PASS + tuple(PARTNERS))
+    del trec, frec
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

@@ -1,9 +1,10 @@
 // banded_bwd: backward of the window and compressed-prefix attention
 // branches (mode WIN or CMP), from the forward's row statistics.
 //
-// Replaces: nsa_vibe_tpu/ops/pallas/flash_bwd.py::flash_banded_bwd_onepass
-// (kernel _onepass_bwd_kernel), which the JAX train step runs for the
-// window branch and, behind the fused scorer, for the compressed branch.
+// Replaces: nsa_vibe_tpu/ops/pallas/flash_bwd.py::flash_banded_bwd (kernels
+// _dq_kernel and _dkv_kernel: the two-pass design, q-major dQ and kv-major
+// dK/dV), which the JAX train step runs for the window and compressed
+// branches under bwd.onepass = 0 (ops/tuning.py).
 //
 // What it computes, for query rows (token t, head j of group g) with
 // visible keys [lo(t), hi(t)):

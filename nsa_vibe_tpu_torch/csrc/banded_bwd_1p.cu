@@ -1,0 +1,224 @@
+// banded_bwd_1p: one-pass backward of the window and compressed-prefix
+// attention branches (mode WIN or CMP), from the forward's row statistics.
+//
+// Replaces: nsa_vibe_tpu/ops/pallas/flash_bwd.py::flash_banded_bwd_onepass
+// (kernel _onepass_bwd_kernel), the JAX train step's win and cmp backward
+// under bwd.onepass = 1 (the window's when win.bwd_diag does not apply).
+//
+// What it computes: the same dQ, dK, dV as banded_bwd.cu (the two-pass
+// design, flash_bwd.py::flash_banded_bwd): for query rows (token t, head j
+// of group g) with visible keys [lo(t), hi(t)) (banded_common.cuh), the
+// gradients of O = softmax(scale Q K^T) V given dO, lse and delta =
+// rowsum(dO*O); outputs in the operands' dtype, accumulated in f32
+// (notation: bwd_common.cuh).
+//
+// What bounds it on the H100: as banded_bwd's: ~5 products per visible
+// (row, key) pair, tensor-core bound on paper; this f32 FMA design is
+// bound by FMA issue and shared-memory reads. It forms S, P, dP and dS
+// once per (row, key) pair where the two-pass design forms them twice.
+// Design: one kv-major pass, one block per (b, g, tile of 64 keys, split),
+// as banded_bwd's dK/dV pass: the block keeps its K/V tile in shared
+// memory and streams the query rows that see it, TQ tokens per chunk; dK
+// and dV stay in registers. The same dS tile gives the chunk's rows their
+// partial dQ = dS K_tile (accumulate_q_rows), which has no home across
+// blocks (the TPU kernel's dQ ring carries it in VMEM across sequential
+// grid steps): each partial goes to an f32 slot workspace ws[slot][row],
+// slot = the tile's offset from the row's first visible tile (WIN: kt -
+// lo(t)/64, at most (w+62)/64 + 1 slots; CMP: kt). Splits partition the
+// query rows, so each (slot, row) is written by exactly one block; a
+// second kernel (sum_slots) adds each row's slots in slot order and
+// scales. dK/dV go through per-split f32 partials summed in split order
+// (with one split the partial is only cast). No float atomics: two
+// launches give identical bits.
+#include "banded_common.cuh"
+
+using namespace nsa;
+using namespace nsa::bwd;
+using namespace nsa::band;
+
+namespace {
+
+// slots a row of token t wrote: the key tiles it sees
+struct BandSlots {
+  Params p;
+  __device__ int operator()(long long row) const {
+    const int t = (int)((row / ((long long)p.G * p.h)) % p.S);
+    int lo, hi;
+    key_range(p, t, lo, hi);
+    return hi > lo ? (hi - 1) / KC - lo / KC + 1 : 0;
+  }
+};
+
+template <typename T, int NSK, int NSV, int NSQ>
+__global__ void __launch_bounds__(THREADS)
+banded_bwd_1p_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
+                     const T* __restrict__ dO, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dK,
+                     float* __restrict__ dV, float* __restrict__ ws, Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int nkt = (p.S_kv + KC - 1) / KC;
+  int bid = blockIdx.x;
+  const int split = bid % p.nsplit;
+  bid /= p.nsplit;
+  const int kt = bid % nkt;
+  bid /= nkt;
+  const int g = bid % p.G;
+  const int b = bid / p.G;
+  const int k0 = kt * KC;
+  const int nk = min(KC, p.S_kv - k0);
+  const int h = p.h, Dk = p.Dk, Dv = p.Dv;
+  const int kp = Dk + 4, vp = Dv + 4;
+  const size_t slot_stride = (size_t)p.B * p.S * p.G * h * Dk;
+
+  const Smem L(MAX_ROWS, Dk, Dv);
+  float* q_s = smem + L.q;
+  float* do_s = smem + L.dO;
+  float* k_s = smem + L.k;
+  float* v_s = smem + L.v;
+  float* p_s = smem + L.p;    // [rows][SP]
+  float* ds_s = smem + L.ds;  // [rows][SP]
+  float* lse_s = smem + L.lse;
+  float* dl_s = smem + L.dl;
+  int* lo_s = reinterpret_cast<int*>(smem + L.lo);
+  int* hi_s = reinterpret_cast<int*>(smem + L.hi);
+
+  load_rows_vec<T>(k_s, kp, K + ((size_t)b * p.G + g) * p.S_kv * Dk, Dk, k0, KC, k0 + nk);
+  load_rows_vec<T>(v_s, vp, V + ((size_t)b * p.G + g) * p.S_kv * Dv, Dv, k0, KC, k0 + nk);
+  float4 dk_acc[NSK][4], dv_acc[NSV][4];
+#pragma unroll
+  for (int i = 0; i < NSK; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dk_acc[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < NSV; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dv_acc[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // this split's share of the tokens that see the tile, whole chunks of TQ
+  int t_lo, t_hi;
+  token_range(p, k0, k0 + nk, t_lo, t_hi);
+  const int ntok = max(t_hi - t_lo + 1, 0);
+  const int per = ((ntok + p.nsplit - 1) / p.nsplit + p.TQ - 1) / p.TQ * p.TQ;
+  const int ta = t_lo + split * per;
+  const int tb = min(t_hi + 1, ta + per);
+  const int d4 = Dk / 4;
+
+  for (int t0 = ta; t0 < tb; t0 += p.TQ) {
+    const int nt = min(p.TQ, tb - t0);
+    const int rows = nt * h;
+    __syncthreads();   // previous chunk consumed (and the K/V tile staged)
+    stage_rows<T>(p, Q, dO, lse, delta, b, g, t0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
+    __syncthreads();
+    scores_and_ds(q_s, do_s, k_s, v_s, lse_s, dl_s, rows, Dk, Dv, kp, vp, p.scale,
+                  [&](int r, int key) {
+                    const int k = k0 + key;
+                    return key < nk && k >= lo_s[r] && k < hi_s[r];
+                  },
+                  p_s, ds_s, SP, 1);
+    __syncthreads();
+    accumulate_kv<NSV>(dv_acc, p_s, do_s, rows, Dv);
+    accumulate_kv<NSK>(dk_acc, ds_s, q_s, rows, Dk);
+    float4 q_acc[NSQ][4];
+#pragma unroll
+    for (int i = 0; i < NSQ; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) q_acc[i][r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    accumulate_q_rows<NSQ>(q_acc, ds_s, k_s, nk, Dk, kp);
+#pragma unroll
+    for (int i = 0; i < NSQ; ++i) {
+      const int e = threadIdx.x + THREADS * i;
+      const int rq = e / d4, c4 = e - (e / d4) * d4;
+      if (rq >= MAX_ROWS / 4) continue;
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) {
+        const int r = 4 * rq + r4;
+        if (r < rows) {
+          const int ti = r / h;
+          const int slot = p.mode == WIN ? kt - lo_s[r] / KC : kt;
+          const size_t row = (((size_t)b * p.S + t0 + ti) * p.G + g) * h + (r - ti * h);
+          *reinterpret_cast<float4*>(ws + slot * slot_stride + row * Dk + 4 * c4) = q_acc[i][r4];
+        }
+      }
+    }
+  }
+  const size_t row0 = (((size_t)split * p.B + b) * p.G + g) * p.S_kv + k0;
+  store_kv<float, NSK>(dk_acc, dK, row0, nk, Dk, p.scale);
+  store_kv<float, NSV>(dv_acc, dV, row0, nk, Dv, 1.f);
+}
+
+template <typename T, int NSK, int NSV>
+int launch_ns(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
+              const float* delta, void* dQ, void* dK, void* dV, float* part, float* ws,
+              const Params& p, cudaStream_t stream) {
+  const size_t smem = Smem(MAX_ROWS, p.Dk, p.Dv).total * sizeof(float);
+  const long long nkt = (p.S_kv + KC - 1) / KC;
+  const unsigned grid = (unsigned)((long long)p.B * p.G * nkt * p.nsplit);
+  const long long nk_el = (long long)p.B * p.G * p.S_kv * p.Dk;
+  const long long nv_el = (long long)p.B * p.G * p.S_kv * p.Dv;
+  float* part_k = part;
+  float* part_v = part + (size_t)p.nsplit * nk_el;
+  cudaError_t e = cudaFuncSetAttribute(banded_bwd_1p_kernel<T, NSK, NSV, NSK>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  banded_bwd_1p_kernel<T, NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(Q), static_cast<const T*>(K), static_cast<const T*>(V),
+      static_cast<const T*>(dO), lse, delta, part_k, part_v, ws, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int rk = reduce_splits<T>(part_k, dK, nk_el, p.nsplit, stream);
+  if (rk != 0) return rk;
+  const int rv = reduce_splits<T>(part_v, dV, nv_el, p.nsplit, stream);
+  if (rv != 0) return rv;
+  const long long rows = (long long)p.B * p.S * p.G * p.h;
+  return sum_slots<T>(ws, dQ, rows, p.Dk, BandSlots{p}, p.scale, stream);
+}
+
+template <typename T>
+int launch(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
+           const float* delta, void* dQ, void* dK, void* dV, float* part, float* ws,
+           const Params& p, cudaStream_t stream) {
+  const int nk = kv_slices(p.Dk), nv = kv_slices(p.Dv);
+  if (nk == 1 && nv == 1)
+    return launch_ns<T, 1, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, stream);
+  if (nk == 1) return launch_ns<T, 1, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, stream);
+  if (nv == 1) return launch_ns<T, 2, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, stream);
+  return launch_ns<T, 2, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+long long nsa_banded_bwd_1p_smem_bytes(int Dk, int Dv) {
+  return (long long)(Smem(MAX_ROWS, Dk, Dv).total * sizeof(float));
+}
+
+// Slots of the dQ workspace: the most key tiles one row sees.
+int nsa_banded_bwd_1p_slots(int mode, int w, int S_kv) {
+  const int nkt = (S_kv + KC - 1) / KC;
+  if (mode != WIN) return nkt;
+  const int most = (w + KC - 2) / KC + 1;
+  return most < nkt ? most : nkt;
+}
+
+// part: f32 scratch of nsplit * B*G*S_kv*(Dk+Dv) floats (per-split partial
+// dK, then dV). ws: f32 dQ workspace of
+// nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats.
+int nsa_banded_bwd_1p(int dtype, const void* Q, const void* K, const void* V, const void* dO,
+                      const float* lse, const float* delta, void* dQ, void* dK, void* dV,
+                      float* part, float* ws, int B, int S, int S_kv, int G, int h, int Dk,
+                      int Dv, int mode, int w, int l, int d, float scale, int TQ, int nsplit,
+                      void* stream) {
+  if (TQ <= 0 || TQ * h > MAX_ROWS || nsplit <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 ||
+      Dv > 128 || S_kv <= 0 || (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
+      (mode != WIN && mode != CMP) || part == nullptr || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, nsplit, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32) return launch<float>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
+  if (dtype == DT_BF16)
+    return launch<__nv_bfloat16>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

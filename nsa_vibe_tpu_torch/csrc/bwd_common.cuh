@@ -1,7 +1,8 @@
 // Shared pieces of the attention backward kernels (banded_bwd.cu,
-// sel_attn_bwd.cu): the per-chunk arithmetic of the kv-major dK/dV pass,
-// the q-major dQ accumulation, and the deterministic reduction of per-split
-// partial dK/dV.
+// sel_attn_bwd.cu, banded_bwd_1p.cu, sel_attn_bwd_1p.cu, win_bwd_diag.cu):
+// the per-chunk arithmetic of the kv-major dK/dV pass, the dQ product over
+// a staged key tile, and the deterministic reductions of per-split partial
+// dK/dV and of per-slot partial dQ.
 //
 // Notation (as the TPU kernels, flash_bwd.py): for a visible (row, key)
 //   s  = scale * q.k          P  = exp(s - lse[row])   (0 where not visible;
@@ -172,6 +173,85 @@ int reduce_splits(const float* part, void* out, long long n, int nsplit, cudaStr
   const long long want = (n + THREADS - 1) / THREADS;
   const unsigned grid = (unsigned)(want < 4096 ? want : 4096);
   reduce_splits_kernel<T><<<grid, THREADS, 0, stream>>>(part, static_cast<T*>(out), n, nsplit);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// acc[row][dims] += sum over keys j < nk of ds_s[row][j] * k_s[j][dims]
+// for one staged key tile, with dS row-major ([MAX_ROWS][SP], as
+// scores_and_ds writes it with pitch_r = SP) and K rows of pitch kp. Thread
+// slice e = tid + THREADS*i owns rows 4*rq..4*rq+3 and dims 4*c4..4*c4+3;
+// keys go in fours (dS and the staged K rows are 0 from nk to KC), so each
+// step reads 4 float4 of dS and 4 of K for 64 FMAs. Used for dQ by the
+// one-pass kernels (a partial per key tile) and the diagonal kernel (exact).
+template <int NS>
+__device__ __forceinline__ void accumulate_q_rows(float4 (&acc)[NS][4], const float* ds_s,
+                                                  const float* k_s, int nk, int Dk, int kp) {
+  const int d4 = Dk / 4;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int e = threadIdx.x + THREADS * i;
+    const int rq = e / d4, c4 = e - (e / d4) * d4;
+    if (rq >= MAX_ROWS / 4) continue;
+    for (int j = 0; j < nk; j += 4) {
+      float w[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 dv = *reinterpret_cast<const float4*>(ds_s + (4 * rq + r) * SP + j);
+        w[r][0] = dv.x;
+        w[r][1] = dv.y;
+        w[r][2] = dv.z;
+        w[r][3] = dv.w;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 kv = *reinterpret_cast<const float4*>(k_s + (j + u) * kp + 4 * c4);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          acc[i][r].x = fmaf(w[r][u], kv.x, acc[i][r].x);
+          acc[i][r].y = fmaf(w[r][u], kv.y, acc[i][r].y);
+          acc[i][r].z = fmaf(w[r][u], kv.z, acc[i][r].z);
+          acc[i][r].w = fmaf(w[r][u], kv.w, acc[i][r].w);
+        }
+      }
+    }
+  }
+}
+
+// out[row][:] = scale * (sum over slots s < count(row), in slot order, of
+// ws[s][row][:]) cast to T, for rows [0, rows) of width D (D % 4 == 0). The
+// slot stride is rows * D floats; `count` is a functor row -> the number of
+// slots the one-pass kernel wrote for that row (0: the row gets zeros).
+template <typename T, typename Count>
+__global__ void __launch_bounds__(THREADS)
+sum_slots_kernel(const float* __restrict__ ws, T* __restrict__ out, long long rows, int D,
+                 Count count, float scale) {
+  const int d4 = D / 4;
+  const long long n = rows * d4;
+  const size_t stride = (size_t)rows * D;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * THREADS) {
+    const long long row = i / d4;
+    const size_t o = (size_t)row * D + (size_t)(i - row * d4) * 4;
+    const int ns = count(row);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < ns; ++s) {
+      const float4 x = *reinterpret_cast<const float4*>(ws + s * stride + o);
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    store4<T>(out + o, make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale));
+  }
+}
+
+template <typename T, typename Count>
+int sum_slots(const float* ws, void* out, long long rows, int D, Count count, float scale,
+              cudaStream_t stream) {
+  const long long want = (rows * (D / 4) + THREADS - 1) / THREADS;
+  const unsigned grid = (unsigned)(want < 8192 ? want : 8192);
+  sum_slots_kernel<T, Count><<<grid, THREADS, 0, stream>>>(ws, static_cast<T*>(out), rows, D,
+                                                           count, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

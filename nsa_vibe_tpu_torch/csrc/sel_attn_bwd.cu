@@ -1,9 +1,10 @@
 // sel_attn_bwd: backward of the NSA selection branch, from the forward's
 // row statistics.
 //
-// Replaces: nsa_vibe_tpu/ops/pallas/sel_flash.py::selection_flash_bwd_onepass
-// (kernel _sel_onepass_bwd_kernel), the selection backward of the JAX
-// train step under the shipped tuning (sel.bwd_onepass = 1).
+// Replaces: nsa_vibe_tpu/ops/pallas/sel_flash.py::selection_flash_bwd
+// (kernels _sel_dq_kernel and _sel_dkv_kernel: the two-pass design), the
+// selection backward of the JAX train step under sel.bwd_onepass = 0
+// (ops/tuning.py).
 //
 // What it computes: dQ, dK, dV of sel_attn's forward (per query (b, s) and
 // group g, softmax over the keys of the row's selected blocks taken as a

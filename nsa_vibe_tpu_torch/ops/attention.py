@@ -10,9 +10,12 @@ Training: when autograd records (grad mode on and an operand requires a
 gradient) each branch runs as a `torch.autograd.Function` whose forward
 asks its kernel for the row statistics lse and saves (Q, K, V, O, lse),
 and whose backward computes delta = rowsum(dO * O) and runs the backward
-kernel (banded_bwd for win and cmp, sel_attn_bwd for the selection), as
-the JAX package's custom_vjp rules do. Otherwise (serving, no_grad) the
-forward kernels run without lse and nothing is saved.
+kernel that ops/tuning.py's design keys name (`backward_kernel`): for
+win and cmp the one-pass banded_bwd_1p or the two-pass banded_bwd, for
+win also the diagonal win_bwd_diag; for the selection sel_attn_bwd_1p or
+sel_attn_bwd, as the JAX package's custom_vjp rules do under the same
+keys. Otherwise (serving, no_grad) the forward kernels run without lse
+and nothing is saved.
 
 Two routes to the selection and the compressed branch, chosen by the
 caller (core/nsa.py, `select_cmp_fits`): the fused scorer
@@ -24,14 +27,18 @@ from __future__ import annotations
 
 import torch
 
+from nsa_vibe_tpu_torch.ops import tuning
 from nsa_vibe_tpu_torch.ops.cuda.banded_attn import banded_attn
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd
+from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import banded_bwd_1p
 from nsa_vibe_tpu_torch.ops.cuda.common import resolve_kernel
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn import sel_attn
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import sel_attn_bwd
+from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd_1p import sel_attn_bwd_1p
 from nsa_vibe_tpu_torch.ops.cuda.select_blocks import select_blocks as _select_blocks
 from nsa_vibe_tpu_torch.ops.cuda.select_cmp import select_cmp
 from nsa_vibe_tpu_torch.ops.cuda.win_attn import win_attn
+from nsa_vibe_tpu_torch.ops.cuda.win_bwd_diag import win_bwd_diag
 from nsa_vibe_tpu_torch.ops.reference import attention_delta
 
 __all__ = ["compressed_attention", "fused_select_cmp", "resolve_kernel", "select_blocks",
@@ -40,6 +47,19 @@ __all__ = ["compressed_attention", "fused_select_cmp", "resolve_kernel", "select
 
 def _records(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _banded_grads(saved, dO, mode: str, **kw):
+    """dQ, dK, dV of a window (mode "win", kw w, scale) or compressed-prefix
+    (mode "cmp", kw l, d, scale) branch from its saved (Q, K, V, O, lse),
+    through the kernel that tuning.backward_kernel names."""
+    Q, K, V, O, lse = saved
+    dO = dO.contiguous()
+    args = (Q, K, V, dO, lse, attention_delta(dO, O))
+    kernel = tuning.backward_kernel(mode, Q.shape[1], kw.get("w", 0))
+    if kernel == "win_bwd_diag":
+        return win_bwd_diag(*args, **kw)
+    return (banded_bwd_1p if kernel == "banded_bwd_1p" else banded_bwd)(*args, mode=mode, **kw)
 
 
 class _FusedSelectCmp(torch.autograd.Function):
@@ -55,11 +75,9 @@ class _FusedSelectCmp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, _dsel, dO):
-        Q, K, V, O, lse = ctx.saved_tensors
         kw = ctx.kw
-        dO = dO.contiguous()
-        dQ, dK, dV = banded_bwd(Q, K, V, dO, lse, attention_delta(dO, O), mode="cmp",
-                                l=kw["l"], d=kw["d"], scale=kw["scale"])
+        dQ, dK, dV = _banded_grads(ctx.saved_tensors, dO, "cmp", l=kw["l"], d=kw["d"],
+                                   scale=kw["scale"])
         return dQ, dK, dV, None, None
 
 
@@ -75,11 +93,9 @@ class _CompressedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dO):
-        Q, K, V, O, lse = ctx.saved_tensors
         kw = ctx.kw
-        dO = dO.contiguous()
-        dQ, dK, dV = banded_bwd(Q, K, V, dO, lse, attention_delta(dO, O), mode="cmp",
-                                l=kw["l"], d=kw["d"], scale=kw["scale"])
+        dQ, dK, dV = _banded_grads(ctx.saved_tensors, dO, "cmp", l=kw["l"], d=kw["d"],
+                                   scale=kw["scale"])
         return dQ, dK, dV, None
 
 
@@ -96,8 +112,10 @@ class _SelectionAttention(torch.autograd.Function):
     def backward(ctx, dO):
         Q, K, V, sel_idx, t_pos, O, lse = ctx.saved_tensors
         dO = dO.contiguous()
-        dQ, dK, dV = sel_attn_bwd(Q, K, V, sel_idx, t_pos, dO, lse, attention_delta(dO, O),
-                                  l_sel=ctx.l_sel, scale=ctx.scale)
+        bwd = (sel_attn_bwd_1p if tuning.backward_kernel("sel", Q.shape[1]) == "sel_attn_bwd_1p"
+               else sel_attn_bwd)
+        dQ, dK, dV = bwd(Q, K, V, sel_idx, t_pos, dO, lse, attention_delta(dO, O),
+                         l_sel=ctx.l_sel, scale=ctx.scale)
         return dQ, dK, dV, None, None, None, None
 
 
@@ -112,10 +130,7 @@ class _SlidingWindowAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dO):
-        Q, K, V, O, lse = ctx.saved_tensors
-        dO = dO.contiguous()
-        dQ, dK, dV = banded_bwd(Q, K, V, dO, lse, attention_delta(dO, O), mode="win",
-                                w=ctx.w, scale=ctx.scale)
+        dQ, dK, dV = _banded_grads(ctx.saved_tensors, dO, "win", w=ctx.w, scale=ctx.scale)
         return dQ, dK, dV, None, None
 
 
@@ -136,8 +151,8 @@ def fused_select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel:
 def compressed_attention(Q, K_cmp, V_cmp, *, l: int, d: int, scale: float, t_start: int = 0):
     """Compressed branch alone: query row s at position t_start + s sees
     the first num_cmp(t+1) compressed tokens. O [B,S,G,h,Dv]. Its
-    backward (banded_bwd) takes row 0 at position 0, so a recorded call
-    needs t_start == 0."""
+    backward (banded_bwd_1p or banded_bwd) takes row 0 at position 0, so a
+    recorded call needs t_start == 0."""
     Q, K_cmp, V_cmp = Q.contiguous(), K_cmp.contiguous(), V_cmp.contiguous()
     kw = dict(l=l, d=d, scale=scale)
     if _records(Q, K_cmp, V_cmp):

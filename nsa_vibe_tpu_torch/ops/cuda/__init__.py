@@ -1,34 +1,43 @@
 """Hand-written Hopper kernels of the serving, training and long-context
 paths, their wrappers and plain PyTorch versions.
 
-| wrapper       | CUDA source           | replaces (nsa_vibe_tpu/ops/pallas/)                  |
-|---------------|-----------------------|------------------------------------------------------|
-| select_cmp    | csrc/select_cmp.cu    | scorer.py::nsa_select_and_cmp_pallas                 |
-| sel_attn      | csrc/sel_attn.cu      | sel_flash.py::selection_flash_pallas (prefill),      |
-|               |                       | selection.py::selection_attention_pallas (decode)    |
-| win_attn      | csrc/win_attn.cu      | flash_diag.py::flash_banded_diag                     |
-| banded_bwd    | csrc/banded_bwd.cu    | flash_bwd.py::flash_banded_bwd_onepass (win and cmp) |
-| sel_attn_bwd  | csrc/sel_attn_bwd.cu  | sel_flash.py::selection_flash_bwd_onepass            |
-| banded_attn   | csrc/banded_attn.cu   | flash.py::flash_banded (win and cmp, t_start)        |
-| select_blocks | csrc/select_blocks.cu | scorer.py::nsa_select_pallas (pos_offset)            |
+| wrapper         | CUDA source             | replaces (nsa_vibe_tpu/ops/pallas/)                 |
+|-----------------|-------------------------|-----------------------------------------------------|
+| select_cmp      | csrc/select_cmp.cu      | scorer.py::nsa_select_and_cmp_pallas                |
+| sel_attn        | csrc/sel_attn.cu        | sel_flash.py::selection_flash_pallas (prefill),     |
+|                 |                         | selection.py::selection_attention_pallas (decode)   |
+| win_attn        | csrc/win_attn.cu        | flash_diag.py::flash_banded_diag                    |
+| banded_bwd_1p   | csrc/banded_bwd_1p.cu   | flash_bwd.py::flash_banded_bwd_onepass (win, cmp)   |
+| banded_bwd      | csrc/banded_bwd.cu      | flash_bwd.py::flash_banded_bwd (win, cmp; 2 passes) |
+| sel_attn_bwd_1p | csrc/sel_attn_bwd_1p.cu | sel_flash.py::selection_flash_bwd_onepass           |
+| sel_attn_bwd    | csrc/sel_attn_bwd.cu    | sel_flash.py::selection_flash_bwd (2 passes)        |
+| win_bwd_diag    | csrc/win_bwd_diag.cu    | flash_diag.py::flash_banded_bwd_diag                |
+| banded_attn     | csrc/banded_attn.cu     | flash.py::flash_banded (win and cmp, t_start)       |
+| select_blocks   | csrc/select_blocks.cu   | scorer.py::nsa_select_pallas (pos_offset)           |
 
-Each wrapper counts its launches in a plain integer attribute
-(`<wrapper>.launches`), incremented only where the kernel is launched.
+The backward design each branch runs follows ops/tuning.py. Each wrapper
+counts its launches in a plain integer attribute (`<wrapper>.launches`),
+incremented only where the kernel is launched.
 """
 
 from __future__ import annotations
 
 from nsa_vibe_tpu_torch.ops.cuda import banded_attn as _banded_attn_mod
 from nsa_vibe_tpu_torch.ops.cuda import banded_bwd as _banded_bwd_mod
+from nsa_vibe_tpu_torch.ops.cuda import banded_bwd_1p as _banded_bwd_1p_mod
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn as _sel_attn_mod
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn_bwd as _sel_attn_bwd_mod
+from nsa_vibe_tpu_torch.ops.cuda import sel_attn_bwd_1p as _sel_attn_bwd_1p_mod
 from nsa_vibe_tpu_torch.ops.cuda import select_blocks as _select_blocks_mod
 from nsa_vibe_tpu_torch.ops.cuda import select_cmp as _select_cmp_mod
 from nsa_vibe_tpu_torch.ops.cuda import win_attn as _win_attn_mod
+from nsa_vibe_tpu_torch.ops.cuda import win_bwd_diag as _win_bwd_diag_mod
 
 WRAPPERS = (_select_cmp_mod.select_cmp, _sel_attn_mod.sel_attn, _win_attn_mod.win_attn,
             _banded_bwd_mod.banded_bwd, _sel_attn_bwd_mod.sel_attn_bwd,
-            _banded_attn_mod.banded_attn, _select_blocks_mod.select_blocks)
+            _banded_attn_mod.banded_attn, _select_blocks_mod.select_blocks,
+            _banded_bwd_1p_mod.banded_bwd_1p, _sel_attn_bwd_1p_mod.sel_attn_bwd_1p,
+            _win_bwd_diag_mod.win_bwd_diag)
 
 
 def reset_launch_counts() -> None:
@@ -36,6 +45,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     _sel_attn_mod.sel_attn.decode_launches = 0
     _banded_bwd_mod.banded_bwd.cmp_launches = 0
+    _banded_bwd_1p_mod.banded_bwd_1p.cmp_launches = 0
 
 
 def launch_counts() -> dict:

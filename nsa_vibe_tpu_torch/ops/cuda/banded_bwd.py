@@ -1,8 +1,9 @@
 """Window / compressed-prefix attention backward (csrc/banded_bwd.cu).
 
-Replaces nsa_vibe_tpu/ops/pallas/flash_bwd.py::flash_banded_bwd_onepass
-(the win and cmp backward of the JAX train step). Bound on the H100 and
-design: see the note at the top of the CUDA source.
+Replaces nsa_vibe_tpu/ops/pallas/flash_bwd.py::flash_banded_bwd (the
+two-pass win and cmp backward of the JAX train step under bwd.onepass =
+0). Bound on the H100 and design: see the note at the top of the CUDA
+source.
 """
 
 from __future__ import annotations

@@ -13,19 +13,22 @@ here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("select_cmp.cu", "sel_attn.cu", "win_attn.cu", "banded_bwd.cu", "sel_attn_bwd.cu",
-           "banded_attn.cu", "select_blocks.cu")
-HEADERS = ("common.cuh", "bwd_common.cuh")
+           "banded_attn.cu", "select_blocks.cu", "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu",
+           "win_bwd_diag.cu")
+HEADERS = ("common.cuh", "bwd_common.cuh", "banded_common.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -50,6 +53,14 @@ SIGNATURES = {
     "nsa_banded_attn_smem_bytes": ([I] * 4, LL),
     "nsa_select_blocks": ([I, P, P, P] + [I] * 14 + [F, I, P], I),
     "nsa_select_blocks_smem_bytes": ([I] * 4, LL),
+    "nsa_banded_bwd_1p": ([I] + [P] * 11 + [I] * 11 + [F, I, I, P], I),
+    "nsa_banded_bwd_1p_smem_bytes": ([I] * 2, LL),
+    "nsa_banded_bwd_1p_slots": ([I] * 3, I),
+    "nsa_sel_attn_bwd_1p": ([I] + [P] * 16 + [I] * 9 + [F, I, I, P], I),
+    "nsa_sel_attn_bwd_1p_smem_bytes": ([I] * 2, LL),
+    "nsa_win_bwd_diag": ([I] + [P] * 11 + [I] * 8 + [F, I, I, P], I),
+    "nsa_win_bwd_diag_smem_bytes": ([I] * 3, LL),
+    "nsa_win_bwd_diag_strip_keys": ([I] * 3, I),
 }
 
 _LIB = None
@@ -88,19 +99,28 @@ def build(force: bool = False) -> Path:
     obj_dir = out_dir / f"obj.{os.getpid()}"
     obj_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = []
-    for name in SOURCES:
-        obj = obj_dir / (Path(name).stem + ".o")
-        cmd = [nvcc, *ARCH, *CFLAGS, "-I", str(CSRC), "-c", str(CSRC / name), "-o", str(obj)]
-        procs.append((name, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    t0 = time.perf_counter()
     logs, objs, failed = [], [], []
-    for name, obj, proc in procs:
-        out, _ = proc.communicate()
-        logs.append(f"== nvcc {name} (rc {proc.returncode})\n{out}")
-        objs.append(str(obj))
-        if proc.returncode != 0:
-            failed.append(name)
+    with contextlib.ExitStack() as stack:
+        procs = []
+        for name in SOURCES:
+            obj = obj_dir / (Path(name).stem + ".o")
+            out = stack.enter_context(open(obj_dir / (Path(name).stem + ".log"), "w+"))
+            cmd = [nvcc, *ARCH, *CFLAGS, "-I", str(CSRC), "-c", str(CSRC / name), "-o", str(obj)]
+            procs.append((name, obj, out, subprocess.Popen(cmd, stdout=out,
+                                                           stderr=subprocess.STDOUT)))
+        took = {}
+        while len(took) < len(procs):     # each source's wall time, for the log
+            for name, _, _, proc in procs:
+                if name not in took and proc.poll() is not None:
+                    took[name] = time.perf_counter() - t0
+            time.sleep(0.05)
+        for name, obj, out, proc in procs:
+            out.seek(0)
+            logs.append(f"== nvcc {name} (rc {proc.returncode}, {took[name]:.1f} s)\n{out.read()}")
+            objs.append(str(obj))
+            if proc.returncode != 0:
+                failed.append(name)
     BUILD_LOG = "\n".join(logs)
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n{BUILD_LOG}")

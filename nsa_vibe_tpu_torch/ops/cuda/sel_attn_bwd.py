@@ -1,7 +1,8 @@
 """Selection-branch attention backward (csrc/sel_attn_bwd.cu).
 
-Replaces nsa_vibe_tpu/ops/pallas/sel_flash.py::selection_flash_bwd_onepass
-(the selection backward of the JAX train step). The selection is a set:
+Replaces nsa_vibe_tpu/ops/pallas/sel_flash.py::selection_flash_bwd (the
+two-pass selection backward of the JAX train step under sel.bwd_onepass =
+0). The selection is a set:
 -1 slots and repeated ids add nothing. Bound on the H100 and design: see
 the note at the top of the CUDA source.
 """

@@ -31,17 +31,24 @@ from nsa_vibe_tpu_torch.models.tinylm import (
     generate, init_model_params, model_decode_step, model_prefill_with_caches,
 )
 from nsa_vibe_tpu_torch.ops import cuda as kernels
+from nsa_vibe_tpu_torch.ops import tuning
+from nsa_vibe_tpu_torch.ops.attention import compressed_attention, fused_select_cmp
 from nsa_vibe_tpu_torch.ops.block_index import build_M_csl, num_cmp_blocks
 from nsa_vibe_tpu_torch.ops.cuda import banded_attn as ba_mod
 from nsa_vibe_tpu_torch.ops.cuda import banded_bwd as bb_mod
+from nsa_vibe_tpu_torch.ops.cuda import banded_bwd_1p as b1_mod
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn as sa_mod
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn_bwd as sb_mod
+from nsa_vibe_tpu_torch.ops.cuda import sel_attn_bwd_1p as s1_mod
 from nsa_vibe_tpu_torch.ops.cuda import select_blocks as sk_mod
 from nsa_vibe_tpu_torch.ops.cuda import select_cmp as sc_mod
 from nsa_vibe_tpu_torch.ops.cuda import win_attn as wa_mod
+from nsa_vibe_tpu_torch.ops.cuda import win_bwd_diag as wd_mod
 from nsa_vibe_tpu_torch.ops.reference import attention_delta
 from nsa_vibe_tpu_torch.ops.selection import canonicalize_sel
-from nsa_vibe_tpu_torch.train.train_step import init_train_state, make_train_step
+from nsa_vibe_tpu_torch.train.train_step import (
+    init_train_state, make_train_step, param_leaves,
+)
 
 SCALE = 0.125
 F32_TOL = 5e-5
@@ -144,6 +151,151 @@ def test_backward_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,G,h,D,l,d,l_sel,n_top,w", [
+    (1, 200, 2, 3, 64, 32, 16, 64, 5, 64),      # odd h, S not a multiple of l_sel
+    (2, 130, 1, 6, 16, 8, 4, 16, 4, 40),        # small head width, many blocks
+    (1, 70, 2, 1, 32, 16, 8, 16, 8, 512),       # h = 1, window wider than S
+    (1, 300, 1, 2, 32, 32, 16, 128, 3, 100),    # l_sel = 128: two kv tiles per block
+    (1, 100, 1, 2, 128, 16, 8, 32, 4, 50),      # D = 128: two register slices per thread
+])
+def test_backward_designs_match_plain_and_each_other_on_gpu(dtype, B, S, G, h, D, l, d, l_sel,
+                                                            n_top, w):
+    """The one-pass kernels (banded_bwd_1p win and cmp, sel_attn_bwd_1p)
+    and the diagonal window kernel (win_bwd_diag, at each q tile it takes
+    at this width)
+    against their plain versions and against the two-pass design of the
+    same function; two launches give the same bits."""
+    dev = _card()
+    scale = D ** -0.5
+    S_cmp = num_cmp_blocks(S, l, d)
+    Q, K, V, dO = _bwd_operands(dtype, dev, B, S, G, h, D, S)
+    _, Kc, Vc, _ = _bwd_operands(dtype, dev, B, S, G, h, D, S_cmp, seed=1)
+    M = torch.from_numpy(build_M_csl(S, l, d, l_sel)).to(dev)
+    sel, Oc, lse_c = sc_mod.select_cmp(Q, Kc, Vc, M, scale=scale, l=l, d=d, l_sel=l_sel,
+                                       n_top=n_top, return_lse=True)
+    t = torch.arange(S, device=dev)
+    Os, lse_s = sa_mod.sel_attn(Q, K, V, sel, t, l_sel=l_sel, scale=scale, return_lse=True)
+    Ow, lse_w = wa_mod.win_attn(Q, K, V, w=w, scale=scale, return_lse=True)
+    cargs = (Q, Kc, Vc, dO, lse_c, attention_delta(dO, Oc))
+    wargs = (Q, K, V, dO, lse_w, attention_delta(dO, Ow))
+    sargs = (Q, K, V, sel, t, dO, lse_s, attention_delta(dO, Os))
+    cmp_ = dict(mode="cmp", l=l, d=d, scale=scale)
+    win = dict(mode="win", w=w, scale=scale)
+    sel_kw = dict(l_sel=l_sel, scale=scale)
+
+    def diag(q):
+        def run():
+            wd_mod.Q_SUBTILES = q
+            return wd_mod.win_bwd_diag(*wargs, w=w, scale=scale)
+        return run
+
+    cases = [   # (kernel, plain version, two-pass design)
+        (lambda: b1_mod.banded_bwd_1p(*cargs, **cmp_), lambda: bb_mod.banded_bwd_plain(
+            *cargs, **cmp_), lambda: bb_mod.banded_bwd(*cargs, **cmp_)),
+        (lambda: b1_mod.banded_bwd_1p(*wargs, **win), lambda: bb_mod.banded_bwd_plain(
+            *wargs, **win), lambda: bb_mod.banded_bwd(*wargs, **win)),
+        (lambda: s1_mod.sel_attn_bwd_1p(*sargs, **sel_kw), lambda: sb_mod.sel_attn_bwd_plain(
+            *sargs, **sel_kw), lambda: sb_mod.sel_attn_bwd(*sargs, **sel_kw)),
+    ] + [(diag(q), lambda: bb_mod.banded_bwd_plain(*wargs, **win),
+          lambda: bb_mod.banded_bwd(*wargs, **win)) for q in ((1, 2, 4) if D <= 64 else (1,))]
+    chosen = wd_mod.Q_SUBTILES
+    try:
+        for kernel, plain, other in cases:
+            got, again, want, theirs = kernel(), kernel(), plain(), other()
+            for g, a, p, o in zip(got, again, want, theirs):
+                assert g.dtype == p.dtype and g.shape == p.shape
+                assert _within_rel(g, p) and _within_rel(g, o)
+                assert torch.equal(g, a)                           # deterministic
+    finally:
+        wd_mod.Q_SUBTILES = chosen
+    # rows that see no compressed token get no gradient
+    assert not bool(cases[0][0]()[0][:, :l - 1].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fused", "compressed"])
+def test_cmp_backward_takes_the_one_pass_kernel_behind_both_routes(monkeypatch, route):
+    """Under bwd.onepass = 1 the compressed branch's backward behind the
+    fused scorer (_FusedSelectCmp) and behind compressed_attention
+    (_CompressedAttention) launches banded_bwd_1p in cmp mode, with the
+    CPU's gradients; under bwd.onepass = 0 the two-pass kernel."""
+    dev = _card()
+    B, S, G, h, D, l, d, l_sel = 2, 200, 2, 3, 32, 16, 8, 32
+    S_cmp = num_cmp_blocks(S, l, d)
+    gen = torch.Generator().manual_seed(4)
+    Q, K, V, dO = (torch.randn(shape, generator=gen) for shape in (
+        (B, S, G, h, D), (B, G, S_cmp, D), (B, G, S_cmp, D), (B, S, G, h, D)))
+    M = torch.from_numpy(build_M_csl(S, l, d, l_sel))
+
+    def grads(dv):
+        q, k, v = (x.to(dv).requires_grad_(True) for x in (Q, K, V))
+        if route == "fused":
+            O = fused_select_cmp(q, k, v, M.to(dv), scale=0.2, l=l, d=d, l_sel=l_sel, n_top=4,
+                                 force_init=True, force_local=2)[1]
+        else:
+            O = compressed_attention(q, k, v, l=l, d=d, scale=0.2)
+        return torch.autograd.grad(O, (q, k, v), dO.to(dv))
+
+    want = grads("cpu")
+    for onepass, kernel in ((1, "banded_bwd_1p"), (0, "banded_bwd")):
+        keys = dict(tuning.DEFAULTS, **{"bwd.onepass": onepass})
+        monkeypatch.setattr(tuning, "_load", lambda keys=keys: keys)
+        kernels.reset_launch_counts()
+        got = grads(dev)
+        counts = kernels.launch_counts()
+        assert counts[kernel] == 1 and counts["banded_bwd_1p"] + counts["banded_bwd"] == 1
+        for g, w_ in zip(got, want):
+            assert (g.cpu() - w_).abs().max() <= F32_TOL * max(float(w_.abs().max()), 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keys", [
+    {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 0},
+    {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 1},
+    {"bwd.onepass": 0, "sel.bwd_onepass": 0, "win.bwd_diag": 0},
+    {"bwd.onepass": 0, "sel.bwd_onepass": 1, "win.bwd_diag": 1},
+])
+def test_layer_backward_under_each_design_matches_cpu(monkeypatch, keys):
+    """One f32 layer's forward + backward on the card under a setting of
+    the design keys: the kernels tuning.backward_kernel names launch, once
+    per branch, with the CPU's gradients, and no host sync."""
+    dev = _card()
+    monkeypatch.setattr(tuning, "_load", lambda: keys)
+    cfg = NSAConfig(dim=96, n_heads=6, n_kv_groups=2, d_k=16, d_v=16, l=8, d=4, l_sel=16,
+                    n_sel=4, w=32)
+    params = init_nsa_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn(2, 150, 96, generator=torch.Generator().manual_seed(1))
+
+    def layer(dv):   # parameters and [x, parameter leaves] on dv, as gradient targets
+        with torch.no_grad():
+            p = params_to(params, device=dv)
+        return p, [t.requires_grad_(True) for t in [x.to(dv)] + [t for _, t in param_leaves(p)]]
+
+    def grads(p, wrt):
+        out = nsa_prefill(p, wrt[0], cfg)[0]
+        return torch.autograd.grad((out * out).sum(), wrt)
+
+    want = grads(*layer("cpu"))
+    on_card = layer(dev)
+    kernels.reset_launch_counts()
+    got = grads(*on_card)
+    counts = kernels.launch_counts()
+    for branch in ("win", "cmp", "sel"):
+        assert counts[tuning.backward_kernel(branch, 150, 32)] >= 1
+    assert sum(counts[k] for k in ("banded_bwd", "banded_bwd_1p", "win_bwd_diag",
+                                   "sel_attn_bwd", "sel_attn_bwd_1p")) == 3, counts
+    for g, w_ in zip(got, want):
+        assert (g.cpu() - w_).abs().max() <= 1e-4 * float(w_.abs().max())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.gpu
 def test_two_layer_train_step_on_card_matches_cpu():
     """Three f32 steps of a 2-layer model (remat on): loss, grad norm and
     every parameter from the kernels equal the plain path's within 1e-4
@@ -164,9 +316,10 @@ def test_two_layer_train_step_on_card_matches_cpu():
         for k in ("loss", "grad_norm"):
             assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * abs(float(mc[k])), k
     counts = kernels.launch_counts()
-    assert counts == {"select_cmp": 12, "sel_attn": 12, "win_attn": 12,
-                      "banded_bwd": 12, "sel_attn_bwd": 6,
-                      "banded_attn": 0, "select_blocks": 0}, counts
+    want = {**dict.fromkeys(counts, 0), "select_cmp": 12, "sel_attn": 12, "win_attn": 12}
+    for branch in ("win", "cmp", "sel"):          # the default design keys' kernels
+        want[tuning.backward_kernel(branch, 130, 32)] += 6
+    assert counts == want, counts
     for a, b in zip(_flat(params_to_numpy(sc.params)), _flat(params_to_numpy(sg.params))):
         assert abs(a - b).max() <= 1e-4 * max(abs(a).max(), 1e-3)
 
@@ -265,9 +418,9 @@ def test_small_model_serves_the_same_tokens_on_card_and_cpu():
     kernels.reset_launch_counts()
     got = generate(params_to(params, device=dev), prompt.to(dev), 6, mcfg)
     assert torch.equal(got.cpu(), want)
-    assert kernels.launch_counts() == {"select_cmp": 2, "sel_attn": 2 + 2 * 5, "win_attn": 2,
-                                       "banded_bwd": 0, "sel_attn_bwd": 0,
-                                       "banded_attn": 0, "select_blocks": 0}
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), "select_cmp": 2, "sel_attn": 2 + 2 * 5,
+                      "win_attn": 2}
 
 
 @pytest.mark.gpu
@@ -373,6 +526,6 @@ def test_small_model_serves_the_same_tokens_on_the_long_route(monkeypatch):
     kernels.reset_launch_counts()
     got = generate(params_to(params, device=dev), prompt.to(dev), 6, mcfg)
     assert torch.equal(got.cpu(), want)
-    assert kernels.launch_counts() == {"select_cmp": 0, "sel_attn": 2 + 2 * 5, "win_attn": 2,
-                                       "banded_bwd": 0, "sel_attn_bwd": 0,
-                                       "banded_attn": 2, "select_blocks": 2}
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), "sel_attn": 2 + 2 * 5, "win_attn": 2,
+                      "banded_attn": 2, "select_blocks": 2}

@@ -147,7 +147,9 @@ def test_cpu_path_launches_no_kernel():
     tnsa.nsa_prefill(tp, torch.from_numpy(_x(1, 40, jc.dim)), tc)
     assert kernels.launch_counts() == {"select_cmp": 0, "sel_attn": 0, "win_attn": 0,
                                        "banded_bwd": 0, "sel_attn_bwd": 0,
-                                       "banded_attn": 0, "select_blocks": 0}
+                                       "banded_attn": 0, "select_blocks": 0,
+                                       "banded_bwd_1p": 0, "sel_attn_bwd_1p": 0,
+                                       "win_bwd_diag": 0}
 
 
 def test_tinylm_logits_and_greedy_generate_match_jax():
