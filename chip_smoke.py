@@ -53,13 +53,14 @@ Phases (any failure exits non-zero):
       cmp, sel_attn_bwd_1p) and the diagonal window kernel (win_bwd_diag)
       at the training shapes against their plain versions (f32, bf16), twice
       for identical bits, and against the other design of the same function
-      (rows 7/8, 9/10, 11/7/8); timed as in (d), the diagonal kernel at each
-      q tile it takes; one m7c layer's f32 gradients on the card under each
-      setting of DESIGNS against the CPU, with no host sync; the m7c train
-      step under each setting of DESIGNS: step ms, tokens/s, peak memory,
-      the asserted launch counts, a profiler step by kernel, and the losses
-      of the same steps from the same seed, equal to the default keys'
-      within LOSS_TOL.
+      (rows 7/8, 9/10, 11/7/8); timed as in (d); one m7c layer's f32
+      gradients on the card under each setting of DESIGNS against the CPU,
+      with no host sync; the m7c train step's first gradient under each
+      setting against the default keys' (f32) within STEP_GRAD_TOL per leaf,
+      where each of PLANTED_FAULTS must fail it; the m7c train step under
+      each setting of DESIGNS: step ms, tokens/s, peak memory, the asserted
+      launch counts, a profiler step by kernel, and the losses of the same
+      steps from the same seed, equal to the default keys' within LOSS_TOL.
 
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
@@ -88,20 +89,19 @@ from nsa_vibe_tpu_torch import M7C_125M, M7C_125M_TRAIN
 from nsa_vibe_tpu_torch.convert import params_to, params_to_numpy
 from nsa_vibe_tpu_torch.core.cache import cache_from_prefill
 from nsa_vibe_tpu_torch.core.decode import nsa_decode_step
-from nsa_vibe_tpu_torch.core.nsa import nsa_prefill
+from nsa_vibe_tpu_torch.core.nsa import PROJ_KEYS, nsa_prefill
 from nsa_vibe_tpu_torch.models.llama_block import rmsnorm
 from nsa_vibe_tpu_torch.models.tinylm import (
     generate, init_model_params, model_decode_step, model_prefill_with_caches,
 )
 from nsa_vibe_tpu_torch.ops import cuda as kernels
-from nsa_vibe_tpu_torch.ops import tuning
+from nsa_vibe_tpu_torch.ops import attention, tuning
 from nsa_vibe_tpu_torch.ops.attention import compressed_attention
 from nsa_vibe_tpu_torch.ops.block_index import (
     build_block_meta, build_M_csl_on, expected_decode_reads, num_cmp_blocks,
 )
 from nsa_vibe_tpu_torch.ops.cuda import build as kbuild
 from nsa_vibe_tpu_torch.ops.cuda.banded_attn import banded_attn, banded_attn_plain
-from nsa_vibe_tpu_torch.ops.cuda import win_bwd_diag as win_bwd_diag_mod
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd, banded_bwd_plain, banded_mask
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import banded_bwd_1p
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn import sel_attn, sel_attn_plain
@@ -110,13 +110,14 @@ from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd_1p import sel_attn_bwd_1p
 from nsa_vibe_tpu_torch.ops.cuda.select_blocks import select_blocks, select_blocks_plain
 from nsa_vibe_tpu_torch.ops.cuda.select_cmp import select_cmp, select_cmp_plain
 from nsa_vibe_tpu_torch.ops.cuda.win_attn import win_attn, win_attn_plain
+from nsa_vibe_tpu_torch.ops.cuda.win_bwd_diag import win_bwd_diag
 from nsa_vibe_tpu_torch.ops.reference import attention_delta
 from nsa_vibe_tpu_torch.ops.selection import (
     canonicalize_sel, select_topn_blocks, selection_token_mask,
 )
 from nsa_vibe_tpu_torch.train.data import make_batches
 from nsa_vibe_tpu_torch.train.train_step import (
-    init_train_state, make_train_step, param_leaves, tree_from_leaves,
+    init_train_state, loss_and_grads, make_train_step, param_leaves, tree_from_leaves,
 )
 from nsa_vibe_tpu_torch.train.trainer import train
 from nsa_vibe_tpu_torch.utils.needle import NEEDLE_CFG, needle_probe, needle_smoke
@@ -144,8 +145,16 @@ DESIGNS = {
     "onepass+diag": {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 1},
     "twopass": {"bwd.onepass": 0, "sel.bwd_onepass": 0, "win.bwd_diag": 0},
 }
-DIAG_Q_SUBTILES = (1, 2, 4)   # q tiles of win_bwd_diag timed in phase (f)
 LOSS_TOL = 5e-3   # train-step loss, any design vs the default keys, absolute (loss ~5.6)
+# the train step's first gradient, any design vs the default keys, per leaf:
+# ||g - g_default|| / ||g_default|| (f32, TF32 off). On the H100 the designs
+# differ by at most ~2.7e-6; a 0.01% error in one kernel's dQ, dK or dV
+# shows as 4.7e-5 to 1.7e-4 (PERF.md)
+STEP_GRAD_TOL = 2e-5
+# faults planted in the default keys' backward kernels (kernel, gradient: 0 dQ,
+# 1 dK, 2 dV, factor); each must take the first gradient past STEP_GRAD_TOL
+PLANTED_FAULTS = (("sel_attn_bwd_1p", 1, 0.0), ("sel_attn_bwd_1p", 0, 0.9999),
+                  ("win_bwd_diag", 2, 0.9999), ("banded_bwd_1p", 0, 0.9999))
 DECODE_T = (2048, 2055, 2070, 2079)                          # decode positions per row
 TRAIN_DIR = os.path.join("artifacts", "chip_smoke_train")   # git-ignored, inside the checkout
 S_LONG, N_CHECK = 65536, 4096    # long prompt; its last rows held against the plain versions
@@ -662,7 +671,7 @@ def bwd_calls(x) -> dict:
         "banded_bwd_1p@win": (lambda: banded_bwd_1p(*wargs, **win), win_plain, win_mask),
         "banded_bwd_1p@cmp": (lambda: banded_bwd_1p(*cargs, **cmp_), cmp_plain, cmp_mask),
         "sel_attn_bwd_1p": (lambda: sel_attn_bwd_1p(*sargs, **sel), sel_plain, sel_mask),
-        "win_bwd_diag": (lambda: win_bwd_diag_mod.win_bwd_diag(*wargs, w=cfg.w, scale=sc),
+        "win_bwd_diag": (lambda: win_bwd_diag(*wargs, w=cfg.w, scale=sc),
                          win_plain, win_mask),
     }
 
@@ -715,8 +724,7 @@ def measure_train(rec, runs, names) -> list:
     equivalent mask; computes each bound from this run's inputs (the same
     work for every design of a function). launches: over TIMED_STEPS steps
     of the train-step run (of `runs`, phases (d) and (f)) whose keys select
-    the kernel. win_bwd_diag is also timed at each q tile of
-    DIAG_Q_SUBTILES."""
+    the kernel."""
     x = rec["inputs"]
     cfg = x["cfg"]
     Dk = Dv = cfg.d_k
@@ -737,16 +745,10 @@ def measure_train(rec, runs, names) -> list:
             io += nbytes(x["sel"])
         bms, by = bound(io, ops, x["Q"].dtype)
         if name == "win_bwd_diag":
-            chosen = win_bwd_diag_mod.Q_SUBTILES
-            for q in DIAG_Q_SUBTILES:
-                win_bwd_diag_mod.Q_SUBTILES = q
-                tq = q * (64 // h)
-                n_q = -(-S // tq)
-                sl = kbuild.library().nsa_win_bwd_diag_strip_keys(tq, cfg.w, S)
-                strip = B_TRAIN * cfg.n_kv_groups * n_q * sl * (Dk + Dv) * 4
-                print(f"[time] win_bwd_diag q tile {tq} tokens ({q} x 64 rows): "
-                      f"{time_ms(kern, 10, hold=True):.4f} ms, strips {strip} bytes")
-            win_bwd_diag_mod.Q_SUBTILES = chosen
+            tq = 64 // h
+            sl = kbuild.library().nsa_win_bwd_diag_strip_keys(tq, cfg.w, S)
+            print(f"[time] win_bwd_diag q tile {tq} tokens: strips "
+                  f"{B_TRAIN * cfg.n_kv_groups * -(-S // tq) * sl * (Dk + Dv) * 4} bytes")
         sq, sk, sv, sm = sdpa_operands(x["Q"], K, V, mask)
         sq, sk, sv = (t.detach().requires_grad_(True) for t in (sq, sk, sv))
         so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm, scale=x["scale"])
@@ -926,12 +928,108 @@ def phase_train(dev, tag: str = "train") -> dict:
     return {"counts": counts, "step_ms": mean_ms, "losses": losses}
 
 
+@contextlib.contextmanager
+def planted_fault(kernel: str, index: int, factor: float):
+    """Runs the body with ops/attention.py's `kernel` wrapper replaced by
+    one that multiplies its gradient `index` (0 dQ, 1 dK, 2 dV) by
+    `factor`: a fault the design checks must catch."""
+    real = getattr(attention, kernel)
+
+    def faulty(*args, **kw):
+        grads = list(real(*args, **kw))
+        grads[index] = grads[index] * factor
+        return tuple(grads)
+
+    setattr(attention, kernel, faulty)
+    try:
+        yield
+    finally:
+        setattr(attention, kernel, real)
+
+
+def first_grads(dev, dtype: str, keys, fault=None) -> list:
+    """[(leaf name, gradient)] of the m7c-125M train step's first batch at
+    phase_train's initial parameters in `dtype` (remat, B=8 x 2048), under
+    the design keys `keys` (None: the keys in force) and a planted fault
+    (planted_fault's arguments) if given; W_qkv is split into its seven
+    projections, so a fault in one branch's dK or dV meets its own block."""
+    mcfg, tcfg = dataclasses.replace(M7C_125M, dtype=dtype), M7C_125M_TRAIN
+    params = init_model_params(mcfg, torch.Generator().manual_seed(0), device=dev)
+    leaves = param_leaves(params)
+    for _, leaf in leaves:
+        leaf.requires_grad_(True)
+    data = make_batches("synthetic", tcfg.seq_len, tcfg.batch_size, seed=tcfg.seed)
+    batch = torch.from_numpy(next(data)).long().to(dev)
+    with design_keys(keys), (planted_fault(*fault) if fault else contextlib.nullcontext()):
+        grads = loss_and_grads(params, batch, mcfg)[1]
+    c = mcfg.nsa
+    widths = [c.n_heads * c.d_k] + [c.n_kv_groups * dim for dim in (c.d_k, c.d_v)] * 3
+    out = []
+    for (name, _), g in zip(leaves, grads):
+        if name.endswith("/W_qkv"):
+            out += [(name[:-len("W_qkv")] + k, p)
+                    for k, p in zip(PROJ_KEYS, g.split(widths, dim=1))]
+        else:
+            out.append((name, g))
+    return out
+
+
+def step_grad_check(dev) -> None:
+    """The m7c-125M train step's first gradient (first_grads) under each
+    setting of DESIGNS against the default keys': in f32, for every leaf
+    ||g - g_default|| / ||g_default|| within STEP_GRAD_TOL, and each fault
+    of PLANTED_FAULTS, planted in the default keys' kernels, must exceed
+    it, so the check is shown to fail where a kernel is wrong. The same
+    differences in bf16 (the train step's dtype) are printed, not bounded:
+    there one rounding step in a backward kernel moves a gradient that is
+    a sum with heavy cancellation (layer 0's W_K_cmp) as far as a 1% fault
+    does."""
+    runs = {tuning.backward_kernel(b, M7C_125M_TRAIN.seq_len, M7C_125M.nsa.w)
+            for b in ("win", "cmp", "sel")}
+    bad = []
+    for dtype in ("bfloat16", "float32"):
+        ref = first_grads(dev, dtype, None)
+
+        def gap(keys, fault=None):   # (worst leaf's relative difference, its name)
+            got = first_grads(dev, dtype, keys, fault)
+            errs = torch.stack([(g.float() - r.float()).norm() / r.float().norm()
+                                for (_, g), (_, r) in zip(got, ref)])
+            i = int(errs.argmax())
+            return float(errs[i]), got[i][0]
+
+        gated = dtype == "float32"
+        print(f"[train grads] {dtype}: first step's gradient over {len(ref)} leaves vs the "
+              f"default keys' (per leaf ||g - g_default|| / ||g_default||, "
+              f"{f'bound {STEP_GRAD_TOL:g}' if gated else 'not bounded'}):")
+        for label, keys in DESIGNS.items():
+            err, leaf = gap(keys)
+            print(f"[train grads]   {label}: {err:.3e} ({leaf})")
+            if gated and not err <= STEP_GRAD_TOL:
+                bad.append(label)
+        for kernel, index, factor in PLANTED_FAULTS if gated else ():
+            if kernel not in runs:
+                fail(f"planted fault in {kernel}, which the default keys do not run")
+            err, leaf = gap(None, (kernel, index, factor))
+            label = f"planted: {kernel} d{'QKV'[index]} x {factor:g}"
+            print(f"[train grads]   {label}: {err:.3e} ({leaf}); must exceed the bound")
+            if not err > STEP_GRAD_TOL:
+                bad.append(label)
+        del ref
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"the train step's first gradient check failed for {bad}")
+
+
 def phase_designs(dev, default_losses, cpu) -> list:
-    """Phase (f) beyond the kernel checks: one layer's gradients and the
-    m7c train step under each setting of DESIGNS; each setting's losses
-    must equal the default keys' (phase (d)) within LOSS_TOL. Returns the
-    settings' launch counts."""
+    """Phase (f) beyond the kernel checks: one layer's gradients, the m7c
+    train step's first gradient (step_grad_check) and the m7c train step
+    under each setting of DESIGNS; each setting's losses must equal the
+    default keys' (phase (d)) within LOSS_TOL. The first loss comes before
+    any update and the warm-up lr moves the later ones little, so the loss
+    check is weak; the gradient checks are the gate. Returns the settings'
+    launch counts."""
     train_layer_check(dev, DESIGNS, cpu)
+    step_grad_check(dev)
     runs = []
     for label, keys in DESIGNS.items():
         with design_keys(keys):

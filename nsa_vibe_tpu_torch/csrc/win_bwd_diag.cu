@@ -14,23 +14,20 @@
 // per visible (row, key) pair, tensor-core bound on paper); this f32 FMA
 // design is bound by FMA issue and shared-memory reads, plus the strips'
 // bytes below. It forms S, P, dP and dS once per (row, key) pair.
-// Design: q-major, one block per (b, g, q tile of TQ = QSUB * (64 / h)
-// tokens). The block stages its QSUB x 64 query rows in shared memory and
-// streams the tile's band [t_first - w + 1, t_last] in 64-key chunks; per
-// chunk and 64-row sub-tile it forms P and dS once, keeps dQ exact in
-// registers, and sums the chunk's dK/dV over the tile's rows in
-// registers. The dK/dV of the band go to a per-tile f32 strip [B, G, nq,
-// SL, D] (SL = the band's keys rounded up to 64), as the TPU kernel's
-// strips (flash_diag.py:363-366); a second kernel (sum_strips) adds, for
-// each key, the strips of the tiles whose band covers it in ascending tile
-// order (about (w + TQ - 1) / TQ of them). The TPU kernel sums its strips
-// with a one-hot matmul, a workaround for slow scatters, not ported. The
-// strips take nq * SL * (Dk + Dv) * 4 bytes per (b, g), so larger q tiles
-// (QSUB sub-tiles of 64 rows) mean fewer strips per key, at the price of
-// registers (dQ of every sub-tile) and shared memory (QSUB = 4 takes 200 KB
-// at D = 64: one block per SM); QSUB = 1 was the fastest at the m7c train
-// shape, the wrapper's choice. No float atomics: two launches give
-// identical bits.
+// Design: q-major, one block per (b, g, q tile of TQ = 64 / h tokens). The
+// block stages its 64 query rows in shared memory and streams the tile's
+// band [t_first - w + 1, t_last] in 64-key chunks; per chunk it forms P and
+// dS once, keeps dQ exact in registers, and sums the chunk's dK/dV over the
+// tile's rows in registers. The dK/dV of the band go to a per-tile f32
+// strip [B, G, nq, SL, D] (SL = the band's keys rounded up to 64), as the
+// TPU kernel's strips (flash_diag.py:363-366); a second kernel (sum_strips)
+// adds, for each key, the strips of the tiles whose band covers it in
+// ascending tile order (about (w + TQ - 1) / TQ of them). The TPU kernel
+// sums its strips with a one-hot matmul, a workaround for slow scatters,
+// not ported. The strips take nq * SL * (Dk + Dv) * 4 bytes per (b, g);
+// q tiles of 2 and 4 sub-tiles of 64 rows cut them but were slower at the
+// m7c train shape on the H100 (PERF.md), so the tile is one sub-tile. No
+// float atomics: two launches give identical bits.
 #include "banded_common.cuh"
 
 using namespace nsa;
@@ -46,7 +43,7 @@ __host__ __device__ int strip_keys(int TQ, int w, int S_kv) {
   return most / KC * KC;
 }
 
-template <typename T, int QSUB, int NSK, int NSV, int NSQ>
+template <typename T, int NSK, int NSV, int NSQ>
 __global__ void __launch_bounds__(THREADS)
 win_bwd_diag_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
                     const T* __restrict__ dO, const float* __restrict__ lse,
@@ -61,14 +58,13 @@ win_bwd_diag_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* _
   const int b = bid / p.G;
   const int h = p.h, Dk = p.Dk, Dv = p.Dv;
   const int kp = Dk + 4, vp = Dv + 4;
-  const int tq1 = p.TQ / QSUB;   // tokens per 64-row sub-tile
   const int s0 = qt * p.TQ;
   const int nt = min(p.TQ, p.S - s0);
   const int rows = nt * h;
 
-  const Smem L(QSUB * MAX_ROWS, Dk, Dv);
-  float* q_s = smem + L.q;     // [QSUB*64][Dk]
-  float* do_s = smem + L.dO;   // [QSUB*64][Dv]
+  const Smem L(MAX_ROWS, Dk, Dv);
+  float* q_s = smem + L.q;     // [64][Dk]
+  float* do_s = smem + L.dO;   // [64][Dv]
   float* k_s = smem + L.k;
   float* v_s = smem + L.v;
   float* p_s = smem + L.p;     // [64][SP]
@@ -79,13 +75,11 @@ win_bwd_diag_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* _
   int* hi_s = reinterpret_cast<int*>(smem + L.hi);
 
   stage_rows<T>(p, Q, dO, lse, delta, b, g, s0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
-  float4 q_acc[QSUB][NSQ][4];
+  float4 q_acc[NSQ][4];
 #pragma unroll
-  for (int u = 0; u < QSUB; ++u)
+  for (int i = 0; i < NSQ; ++i)
 #pragma unroll
-    for (int i = 0; i < NSQ; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) q_acc[u][i][r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < 4; ++r) q_acc[i][r] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   int lo_first, hi_last, unused;
   key_range(p, s0, lo_first, unused);
@@ -109,49 +103,34 @@ win_bwd_diag_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* _
     for (int i = 0; i < NSV; ++i)
 #pragma unroll
       for (int k = 0; k < 4; ++k) dv_acc[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int u = 0; u < QSUB; ++u) {
-      const int r0 = u * tq1 * h;           // first row of sub-tile u
-      const int nr = min(rows - r0, tq1 * h);
-      if (nr <= 0) break;                   // block-uniform
-      const int* lo_u = lo_s + r0;
-      const int* hi_u = hi_s + r0;
-      scores_and_ds(q_s + (size_t)r0 * Dk, do_s + (size_t)r0 * Dv, k_s, v_s, lse_s + r0,
-                    dl_s + r0, nr, Dk, Dv, kp, vp, p.scale,
-                    [&](int r, int key) {
-                      const int k = k0 + key;
-                      return key < nk && k >= lo_u[r] && k < hi_u[r];
-                    },
-                    p_s, ds_s, SP, 1);
-      __syncthreads();
-      accumulate_kv<NSV>(dv_acc, p_s, do_s + (size_t)r0 * Dv, nr, Dv);
-      accumulate_kv<NSK>(dk_acc, ds_s, q_s + (size_t)r0 * Dk, nr, Dk);
-      accumulate_q_rows<NSQ>(q_acc[u], ds_s, k_s, nk, Dk, kp);
-      __syncthreads();   // P and dS consumed before the next sub-tile writes them
-    }
+    scores_and_ds(q_s, do_s, k_s, v_s, lse_s, dl_s, rows, Dk, Dv, kp, vp, p.scale,
+                  [&](int r, int key) {
+                    const int k = k0 + key;
+                    return key < nk && k >= lo_s[r] && k < hi_s[r];
+                  },
+                  p_s, ds_s, SP, 1);
+    __syncthreads();
+    accumulate_kv<NSV>(dv_acc, p_s, do_s, rows, Dv);
+    accumulate_kv<NSK>(dk_acc, ds_s, q_s, rows, Dk);
+    accumulate_q_rows<NSQ>(q_acc, ds_s, k_s, nk, Dk, kp);
     store_kv<float, NSK>(dk_acc, strip_k, strip0 + (k0 - lo_first), nk, Dk, 1.f);
     store_kv<float, NSV>(dv_acc, strip_v, strip0 + (k0 - lo_first), nk, Dv, 1.f);
   }
   const int d4 = Dk / 4;
 #pragma unroll
-  for (int u = 0; u < QSUB; ++u) {
-    const int r0 = u * tq1 * h;
+  for (int i = 0; i < NSQ; ++i) {
+    const int e = threadIdx.x + THREADS * i;
+    const int rq = e / d4, c4 = e - (e / d4) * d4;
+    if (rq >= MAX_ROWS / 4) continue;
 #pragma unroll
-    for (int i = 0; i < NSQ; ++i) {
-      const int e = threadIdx.x + THREADS * i;
-      const int rq = e / d4, c4 = e - (e / d4) * d4;
-      if (rq >= MAX_ROWS / 4) continue;
-#pragma unroll
-      for (int r4 = 0; r4 < 4; ++r4) {
-        const int rl = 4 * rq + r4;         // row within the sub-tile
-        const int r = r0 + rl;
-        if (rl < tq1 * h && r < rows) {
-          const int ti = r / h;
-          const size_t row = (((size_t)b * p.S + s0 + ti) * p.G + g) * h + (r - ti * h);
-          const float4 a = q_acc[u][i][r4];
-          store4<T>(dQ + row * Dk + 4 * c4,
-                    make_float4(a.x * p.scale, a.y * p.scale, a.z * p.scale, a.w * p.scale));
-        }
+    for (int r4 = 0; r4 < 4; ++r4) {
+      const int r = 4 * rq + r4;
+      if (r < rows) {
+        const int ti = r / h;
+        const size_t row = (((size_t)b * p.S + s0 + ti) * p.G + g) * h + (r - ti * h);
+        const float4 a = q_acc[i][r4];
+        store4<T>(dQ + row * Dk + 4 * c4,
+                  make_float4(a.x * p.scale, a.y * p.scale, a.z * p.scale, a.w * p.scale));
       }
     }
   }
@@ -200,18 +179,18 @@ int sum_strips(const float* strip, void* out, const Params& p, int D, int SL, fl
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int QSUB, int NSK, int NSV>
+template <typename T, int NSK, int NSV>
 int launch_ns(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
               const float* delta, void* dQ, void* dK, void* dV, float* strip_k, float* strip_v,
               const Params& p, cudaStream_t stream) {
-  const size_t smem = Smem(QSUB * MAX_ROWS, p.Dk, p.Dv).total * sizeof(float);
+  const size_t smem = Smem(MAX_ROWS, p.Dk, p.Dv).total * sizeof(float);
   const int SL = strip_keys(p.TQ, p.w, p.S_kv);
-  cudaError_t e = cudaFuncSetAttribute(win_bwd_diag_kernel<T, QSUB, NSK, NSV, NSK>,
+  cudaError_t e = cudaFuncSetAttribute(win_bwd_diag_kernel<T, NSK, NSV, NSK>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long nq = (p.S + p.TQ - 1) / p.TQ;
   const unsigned grid = (unsigned)((long long)p.B * p.G * nq);
-  win_bwd_diag_kernel<T, QSUB, NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(
+  win_bwd_diag_kernel<T, NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(Q), static_cast<const T*>(K), static_cast<const T*>(V),
       static_cast<const T*>(dO), lse, delta, static_cast<T*>(dQ), strip_k, strip_v, p, SL);
   e = cudaGetLastError();
@@ -221,62 +200,46 @@ int launch_ns(const void* Q, const void* K, const void* V, const void* dO, const
   return sum_strips<T>(strip_v, dV, p, p.Dv, SL, 1.f, stream);
 }
 
-// q tiles of 2 and 4 sub-tiles exist for Dk, Dv <= 64 only (one register
-// slice each): they are timed beside the 1-sub-tile tile the wrapper takes
 template <typename T>
-int launch(int qsub, const void* Q, const void* K, const void* V, const void* dO,
-           const float* lse, const float* delta, void* dQ, void* dK, void* dV, float* strip_k,
-           float* strip_v, const Params& p, cudaStream_t stream) {
+int launch(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
+           const float* delta, void* dQ, void* dK, void* dV, float* strip_k, float* strip_v,
+           const Params& p, cudaStream_t stream) {
   const int nk = kv_slices(p.Dk), nv = kv_slices(p.Dv);
-  if (qsub == 2)
-    return launch_ns<T, 2, 1, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p,
-                                 stream);
-  if (qsub == 4)
-    return launch_ns<T, 4, 1, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p,
-                                 stream);
   if (nk == 1 && nv == 1)
-    return launch_ns<T, 1, 1, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p,
-                                 stream);
+    return launch_ns<T, 1, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, stream);
   if (nk == 1)
-    return launch_ns<T, 1, 1, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p,
-                                 stream);
+    return launch_ns<T, 1, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, stream);
   if (nv == 1)
-    return launch_ns<T, 1, 2, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p,
-                                 stream);
-  return launch_ns<T, 1, 2, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p,
-                               stream);
+    return launch_ns<T, 2, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, stream);
+  return launch_ns<T, 2, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-long long nsa_win_bwd_diag_smem_bytes(int qsub, int Dk, int Dv) {
-  return (long long)(Smem(qsub * MAX_ROWS, Dk, Dv).total * sizeof(float));
+long long nsa_win_bwd_diag_smem_bytes(int Dk, int Dv) {
+  return (long long)(Smem(MAX_ROWS, Dk, Dv).total * sizeof(float));
 }
 
 int nsa_win_bwd_diag_strip_keys(int TQ, int w, int S_kv) { return strip_keys(TQ, w, S_kv); }
 
-// TQ = qsub * tq1 tokens per q tile with tq1 * h <= 64, qsub in {1, 2, 4}
-// (2 and 4 need Dk, Dv <= 64).
+// TQ tokens per q tile, TQ * h <= 64.
 // strip_k / strip_v: f32 scratch of B*G*ceil(S/TQ)*SL*Dk (Dv) floats, SL =
 // nsa_win_bwd_diag_strip_keys(TQ, w, S_kv).
 int nsa_win_bwd_diag(int dtype, const void* Q, const void* K, const void* V, const void* dO,
                      const float* lse, const float* delta, void* dQ, void* dK, void* dV,
                      float* strip_k, float* strip_v, int B, int S, int S_kv, int G, int h, int Dk,
-                     int Dv, int w, float scale, int TQ, int qsub, void* stream) {
-  if ((qsub != 1 && qsub != 2 && qsub != 4) || (qsub > 1 && (Dk > 64 || Dv > 64)) || TQ <= 0 ||
-      TQ % qsub != 0 ||
-      (TQ / qsub) * h > MAX_ROWS || w <= 0 || S <= 0 || S_kv <= 0 || Dk % 8 != 0 ||
+                     int Dv, int w, float scale, int TQ, void* stream) {
+  if (TQ <= 0 || TQ * h > MAX_ROWS || w <= 0 || S <= 0 || S_kv <= 0 || Dk % 8 != 0 ||
       Dv % 8 != 0 || Dk > 128 || Dv > 128 || strip_k == nullptr || strip_v == nullptr)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, WIN, w, 0, 1, TQ, 1, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return launch<float>(qsub, Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
+    return launch<float>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
   if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(qsub, Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v,
-                                 p, s);
+    return launch<__nv_bfloat16>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

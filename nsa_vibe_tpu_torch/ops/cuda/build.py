@@ -58,8 +58,8 @@ SIGNATURES = {
     "nsa_banded_bwd_1p_slots": ([I] * 3, I),
     "nsa_sel_attn_bwd_1p": ([I] + [P] * 16 + [I] * 9 + [F, I, I, P], I),
     "nsa_sel_attn_bwd_1p_smem_bytes": ([I] * 2, LL),
-    "nsa_win_bwd_diag": ([I] + [P] * 11 + [I] * 8 + [F, I, I, P], I),
-    "nsa_win_bwd_diag_smem_bytes": ([I] * 3, LL),
+    "nsa_win_bwd_diag": ([I] + [P] * 11 + [I] * 8 + [F, I, P], I),
+    "nsa_win_bwd_diag_smem_bytes": ([I] * 2, LL),
     "nsa_win_bwd_diag_strip_keys": ([I] * 3, I),
 }
 

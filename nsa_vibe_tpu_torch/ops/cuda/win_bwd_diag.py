@@ -18,13 +18,6 @@ from nsa_vibe_tpu_torch.ops.cuda.common import (
     check_smem, ptr, raise_on_error, resolve_kernel, stream_of,
 )
 
-# 64-row sub-tiles per q tile: a q tile holds Q_SUBTILES * (64 // h) tokens.
-# The kernel takes 1, 2 or 4 (2 and 4 for Dk, Dv <= 64); 1 was the fastest
-# at the m7c train shape on the H100 (chip_smoke.py phase (f) times all
-# three; PERF.md): the larger tiles cut the strips' bytes but run out of
-# registers.
-Q_SUBTILES = 1
-
 
 def win_bwd_diag(Q, K, V, dO, lse, delta, *, w: int, scale: float):
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
@@ -37,12 +30,9 @@ def win_bwd_diag(Q, K, V, dO, lse, delta, *, w: int, scale: float):
                                  d=1)
     B, S, G, h, Dk = Q.shape
     S_kv, Dv = K.shape[2], V.shape[3]
-    qsub, tq = Q_SUBTILES, Q_SUBTILES * max(1, ROWS_PER_CHUNK // h)
-    if qsub not in (1, 2, 4) or (qsub > 1 and max(Dk, Dv) > 64):
-        raise ValueError(f"win_bwd_diag: Q_SUBTILES must be 1, 2 or 4 (2 and 4 for Dk, Dv <= 64), "
-                         f"got {qsub} at Dk {Dk}, Dv {Dv}")
+    tq = max(1, ROWS_PER_CHUNK // h)   # q tile: the tokens of one 64-row chunk
     lib = library()
-    check_smem("win_bwd_diag", lib.nsa_win_bwd_diag_smem_bytes(qsub, Dk, Dv))
+    check_smem("win_bwd_diag", lib.nsa_win_bwd_diag_smem_bytes(Dk, Dv))
     n_q = -(-S // tq)
     sl = lib.nsa_win_bwd_diag_strip_keys(tq, w, S_kv)
     dQ = torch.empty_like(Q)
@@ -53,7 +43,7 @@ def win_bwd_diag(Q, K, V, dO, lse, delta, *, w: int, scale: float):
     with torch.cuda.device(Q.device):
         err = lib.nsa_win_bwd_diag(code, ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta),
                                    ptr(dQ), ptr(dK), ptr(dV), ptr(strip_k), ptr(strip_v), B, S,
-                                   S_kv, G, h, Dk, Dv, w, float(scale), tq, qsub, stream_of(Q))
+                                   S_kv, G, h, Dk, Dv, w, float(scale), tq, stream_of(Q))
     raise_on_error(lib, "win_bwd_diag", err)
     win_bwd_diag.launches += 1
     return dQ, dK, dV

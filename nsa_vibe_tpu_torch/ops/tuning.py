@@ -19,7 +19,8 @@ The defaults are the port's own, chosen by timing both designs of each
 branch at the m7c-125M train shape on an H100 (chip_smoke.py phase (f);
 PERF.md). Overrides come from a JSON object in the file named by the
 environment variable NSA_TORCH_TUNING (never NSA_KERNEL_TUNING, whose keys
-answer TPU constraints), read once; a key not listed here raises. The
+answer TPU constraints), read once; a key not listed here, or a value
+other than 0 or 1 (or None for sel.bwd_onepass), raises. The
 port's kernels take their tile sizes from their own modules, not from here.
 """
 
@@ -47,6 +48,11 @@ def _load() -> dict:
     if unknown:
         raise ValueError(f"{ENV_VAR}={path}: unknown keys {unknown}; the port knows "
                          f"{sorted(DEFAULTS)}")
+    for key, value in data.items():
+        allowed = (0, 1, None) if key == "sel.bwd_onepass" else (0, 1)
+        if value not in allowed:
+            raise ValueError(f"{ENV_VAR}={path}: {key} must be one of {list(allowed)}, "
+                             f"got {value!r}")
     return {**DEFAULTS, **data}
 
 

@@ -157,6 +157,16 @@ def test_tuning_rejects_an_unknown_key(monkeypatch, tmp_path):
     try:
         with pytest.raises(ValueError, match="unknown keys"):
             ttuning._load()
+        # a known key with a value that is not a design: "0" would read as true
+        for bad in ({"bwd.onepass": "0"}, {"win.bwd_diag": 2}, {"bwd.onepass": None},
+                    {"sel.bwd_onepass": "1"}):
+            path.write_text(json.dumps(bad))
+            ttuning._load.cache_clear()
+            with pytest.raises(ValueError, match="must be one of"):
+                ttuning._load()
+        path.write_text(json.dumps({"sel.bwd_onepass": None, "bwd.onepass": 0}))
+        ttuning._load.cache_clear()
+        assert ttuning._load()["bwd.onepass"] == 0
     finally:
         monkeypatch.delenv(ttuning.ENV_VAR, raising=False)
         ttuning._load.cache_clear()

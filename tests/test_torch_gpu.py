@@ -162,10 +162,9 @@ def test_backward_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, 
 def test_backward_designs_match_plain_and_each_other_on_gpu(dtype, B, S, G, h, D, l, d, l_sel,
                                                             n_top, w):
     """The one-pass kernels (banded_bwd_1p win and cmp, sel_attn_bwd_1p)
-    and the diagonal window kernel (win_bwd_diag, at each q tile it takes
-    at this width)
-    against their plain versions and against the two-pass design of the
-    same function; two launches give the same bits."""
+    and the diagonal window kernel (win_bwd_diag) against their plain
+    versions and against the two-pass design of the same function; two
+    launches give the same bits."""
     dev = _card()
     scale = D ** -0.5
     S_cmp = num_cmp_blocks(S, l, d)
@@ -184,12 +183,6 @@ def test_backward_designs_match_plain_and_each_other_on_gpu(dtype, B, S, G, h, D
     win = dict(mode="win", w=w, scale=scale)
     sel_kw = dict(l_sel=l_sel, scale=scale)
 
-    def diag(q):
-        def run():
-            wd_mod.Q_SUBTILES = q
-            return wd_mod.win_bwd_diag(*wargs, w=w, scale=scale)
-        return run
-
     cases = [   # (kernel, plain version, two-pass design)
         (lambda: b1_mod.banded_bwd_1p(*cargs, **cmp_), lambda: bb_mod.banded_bwd_plain(
             *cargs, **cmp_), lambda: bb_mod.banded_bwd(*cargs, **cmp_)),
@@ -197,18 +190,15 @@ def test_backward_designs_match_plain_and_each_other_on_gpu(dtype, B, S, G, h, D
             *wargs, **win), lambda: bb_mod.banded_bwd(*wargs, **win)),
         (lambda: s1_mod.sel_attn_bwd_1p(*sargs, **sel_kw), lambda: sb_mod.sel_attn_bwd_plain(
             *sargs, **sel_kw), lambda: sb_mod.sel_attn_bwd(*sargs, **sel_kw)),
-    ] + [(diag(q), lambda: bb_mod.banded_bwd_plain(*wargs, **win),
-          lambda: bb_mod.banded_bwd(*wargs, **win)) for q in ((1, 2, 4) if D <= 64 else (1,))]
-    chosen = wd_mod.Q_SUBTILES
-    try:
-        for kernel, plain, other in cases:
-            got, again, want, theirs = kernel(), kernel(), plain(), other()
-            for g, a, p, o in zip(got, again, want, theirs):
-                assert g.dtype == p.dtype and g.shape == p.shape
-                assert _within_rel(g, p) and _within_rel(g, o)
-                assert torch.equal(g, a)                           # deterministic
-    finally:
-        wd_mod.Q_SUBTILES = chosen
+        (lambda: wd_mod.win_bwd_diag(*wargs, w=w, scale=scale), lambda: bb_mod.banded_bwd_plain(
+            *wargs, **win), lambda: bb_mod.banded_bwd(*wargs, **win)),
+    ]
+    for kernel, plain, other in cases:
+        got, again, want, theirs = kernel(), kernel(), plain(), other()
+        for g, a, p, o in zip(got, again, want, theirs):
+            assert g.dtype == p.dtype and g.shape == p.shape
+            assert _within_rel(g, p) and _within_rel(g, o)
+            assert torch.equal(g, a)                           # deterministic
     # rows that see no compressed token get no gradient
     assert not bool(cases[0][0]()[0][:, :l - 1].any())
 
