@@ -5,7 +5,10 @@
 
 Phases (any failure exits non-zero):
   (a) build: compile the CUDA kernels of nsa_vibe_tpu_torch/csrc/ from the
-      checkout (one nvcc per source, in parallel) and print the ptxas report;
+      checkout (one nvcc per source, in parallel) and print the ptxas report
+      (and, for the selection backward's kernels, registers and spills);
+      the SASS of each bf16 tensor-core kernel (TENSOR_CORE_KERNELS) must
+      hold HMMA/HGMMA instructions (cuobjdump -sass);
   (b) kernel checks: each kernel at the m7c-125M serving shapes (B=4,
       S=2048, G=2, h=6, D=64; decode with cache capacity 2080) against its
       plain PyTorch version on the card, in f32 with TF32 off and in bf16,
@@ -25,7 +28,9 @@ Phases (any failure exits non-zero):
   (d) train: at the m7c-125M training shapes (B=8, S=2048) the forward
       kernels' row statistics (lse) and the two-pass backward kernels
       (banded_bwd for win and cmp, sel_attn_bwd) against their plain
-      versions in f32 and bf16 (bounds of `allowed_rel_err`), each backward
+      versions in f32 and bf16 (bounds of `allowed_rel_err`; the
+      selection's bf16 tensor-core kernels `allowed_tc_err`, which a 1%
+      fault planted in each of their gradients must fail), each backward
       twice for identical bits, then timed beside its plain version, the
       backward of one scaled_dot_product_attention call and its bound;
       one layer's nsa_prefill forward + backward in f32 on the card
@@ -53,7 +58,10 @@ Phases (any failure exits non-zero):
       cmp, sel_attn_bwd_1p) and the diagonal window kernel (win_bwd_diag)
       at the training shapes against their plain versions (f32, bf16), twice
       for identical bits, and against the other design of the same function
-      (rows 7/8, 9/10, 11/7/8); timed as in (d); one m7c layer's f32
+      (rows 7/8, 9/10, 11/7/8); the selection's kv-major chunks per CTA
+      before and after its work items, and its two-pass dQ kernel's mean
+      union size and time at each q tile of Q_TILE_TOKENS; timed as in (d);
+      one m7c layer's f32
       gradients on the card under each setting of DESIGNS against the CPU,
       with no host sync; the m7c train step's first gradient under each
       setting against the default keys' (f32) within STEP_GRAD_TOL per leaf,
@@ -105,7 +113,12 @@ from nsa_vibe_tpu_torch.ops.cuda.banded_attn import banded_attn, banded_attn_pla
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd, banded_bwd_plain, banded_mask
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import banded_bwd_1p
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn import sel_attn, sel_attn_plain
-from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import sel_attn_bwd, sel_attn_bwd_plain
+from nsa_vibe_tpu_torch.ops.cuda import sel_attn_bwd as sb_mod
+from nsa_vibe_tpu_torch.ops.cuda.common import kv_splits
+from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import (
+    CHUNKS_PER_ITEM, sel_attn_bwd, sel_attn_bwd_plain, sel_attn_bwd_rss, selection_index,
+    selection_tile_union, union_tokens,
+)
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd_1p import sel_attn_bwd_1p
 from nsa_vibe_tpu_torch.ops.cuda.select_blocks import select_blocks, select_blocks_plain
 from nsa_vibe_tpu_torch.ops.cuda.select_cmp import select_cmp, select_cmp_plain
@@ -136,15 +149,27 @@ B_TRAIN, TIMED_STEPS, LOSS_STEPS = 8, 5, 120
 LOSS_DROP = 0.2            # mean of the last 4 logged losses below the first, at least
 PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "win_attn_kernel",   # CUDA symbol names
                 "banded_bwd_dq_kernel", "banded_bwd_dkv_kernel", "sel_bwd_dq_kernel",
-                "sel_bwd_dkv_kernel", "reduce_splits_kernel", "banded_attn_kernel",
-                "select_blocks_kernel", "banded_bwd_1p_kernel", "sel_bwd_1p_kernel",
-                "win_bwd_diag_kernel", "sum_slots_kernel", "sum_strips_kernel")
+                "sel_bwd_dq_union_kernel", "sel_bwd_kv_mma_kernel", "sel_bwd_kv_fma_kernel",
+                "sel_bwd_reduce_kernel", "reduce_splits_kernel", "banded_attn_kernel",
+                "select_blocks_kernel", "banded_bwd_1p_kernel", "win_bwd_diag_kernel",
+                "sum_slots_kernel", "sum_strips_kernel")
+# the bf16 kernels that must run on tensor cores: their SASS holds HMMA
+TENSOR_CORE_KERNELS = ("sel_bwd_kv_mma_kernel", "sel_bwd_dq_union_kernel")
 # backward-design settings of phase (f) (ops/tuning.py keys), each a train step
 DESIGNS = {
     "onepass": {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 0},
     "onepass+diag": {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 1},
+    "onepass+diag, sel two-pass": {"bwd.onepass": 1, "sel.bwd_onepass": 0, "win.bwd_diag": 1},
     "twopass": {"bwd.onepass": 0, "sel.bwd_onepass": 0, "win.bwd_diag": 0},
 }
+# the selection backward's bf16 tensor-core kernels round P and dS to bf16
+# before their products, as the TPU kernels do (sel_flash.py:438, :514,
+# :523, :818), and the plain version does not; their bound (allowed_tc_err)
+# adds TC_SIGMAS * 2^-9 * rss, the root sum of squares of each element's
+# terms, to one bf16 ulp of the unrounded plain value and F32_TOL of its max
+TC_SIGMAS = 4
+FAULT = 1.01               # a planted 1% error in one bf16 gradient must fail that bound
+Q_TILE_TOKENS = (1, 2, 5, 10)   # q tiles of the union dQ kernel timed at h = 6
 LOSS_TOL = 5e-3   # train-step loss, any design vs the default keys, absolute (loss ~5.6)
 # the train step's first gradient, any design vs the default keys, per leaf:
 # ||g - g_default|| / ||g_default|| (f32, TF32 off). On the H100 the designs
@@ -199,6 +224,51 @@ def nbytes(*ts) -> int:
 
 # ------------------------------------------------------------------ (a)
 
+def demangle(names: list) -> list:
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) else names
+
+
+def ptxas_report(log: str, names) -> list:
+    """(kernel, registers, stack frame and spills) of each compiled entry
+    whose name holds one of `names`, from the build's `ptxas -v` output."""
+    out, cur, frame = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            cur = entry if any(n in entry for n in names) else None
+        elif cur and "bytes stack frame" in line:
+            frame = line.strip()
+        elif cur and "Used" in line and "registers" in line:
+            out.append((cur, int(line.split("Used")[1].split()[0]), frame))
+            cur = None
+    return out
+
+
+def tensor_core_sass(lib_path) -> dict:
+    """mangled name -> count of tensor-core instructions (HMMA, HGMMA) in
+    the SASS of each kernel of TENSOR_CORE_KERNELS in the built library
+    (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            cur = name if any(k in name for k in TENSOR_CORE_KERNELS) else None
+            if cur:
+                counts[cur] = 0
+        elif cur and ("HMMA" in line or "HGMMA" in line):
+            counts[cur] += 1
+    return counts
+
+
 def phase_build() -> None:
     t = time.perf_counter()
     path = kbuild.build(force=True)
@@ -206,6 +276,19 @@ def phase_build() -> None:
     kbuild.library()
     print(f"[build] {path.name} built from {len(kbuild.SOURCES)} sources in "
           f"{time.perf_counter() - t:.1f} s")
+    report = ptxas_report(kbuild.BUILD_LOG, ("sel_bwd_",))
+    for (_, regs, frame), name in zip(report, demangle([r[0] for r in report])):
+        print(f"[build] ptxas {name}: {regs} registers; {frame}")
+    spills = [n for n, _, f in report
+              if any(int(v) for v in f.replace(",", " ").split() if v.isdigit())]
+    print(f"[build] selection backward kernels with a stack frame or spills: {len(spills)}")
+    counts = tensor_core_sass(path)
+    for name, n in zip(demangle(list(counts)), counts.values()):
+        print(f"[build] SASS {name}: {n} tensor-core instructions (HMMA/HGMMA)")
+    found = {k for k in TENSOR_CORE_KERNELS for name in counts if k in name}
+    if found != set(TENSOR_CORE_KERNELS) or not all(counts.values()):
+        fail(f"the bf16 kernels {TENSOR_CORE_KERNELS} must hold tensor-core instructions: "
+             f"{counts}")
 
 
 # ------------------------------------------------------------------ (b)
@@ -280,13 +363,40 @@ def allowed_rel_err(plain: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, BF16_ULPS * ulp, torch.zeros_like(x)) + rel
 
 
+def allowed_tc_err(plain32: torch.Tensor, rss: torch.Tensor) -> torch.Tensor:
+    """Per-element bound of |kernel - plain| for the selection backward's
+    bf16 tensor-core kernels, against the plain version's unrounded f32
+    result from the same bf16 operands (sel_attn_bwd_rss): one bf16 ulp of
+    that value (the kernel's one rounding of its output, which may cross a
+    power of two), F32_TOL of its max |value| (sum order), and TC_SIGMAS *
+    2^-9 * rss. The kernels round each P and dS to bf16 (relative error <=
+    2^-9, of either sign) before dV = P^T dO, dK = dS^T Q and dQ = dS K, as
+    the TPU kernels do; an element then moves by a sum of those errors,
+    whose standard deviation is at most 2^-9 / sqrt(3) * rss, rss the root
+    sum of squares of the element's terms, so the bound allows ~6.9 of
+    them. A 1% error in a gradient exceeds it wherever an element is not a
+    sum with heavy cancellation (phase (d) plants one in each)."""
+    x = plain32.abs()
+    _, e = torch.frexp(x)
+    ulp = torch.ldexp(torch.ones_like(x), e - 8)
+    return (torch.where(x > 0, ulp, torch.zeros_like(x)) + F32_TOL * float(x.max())
+            + TC_SIGMAS * 2.0 ** -9 * rss)
+
+
+def worst_ratio(got, want, bound) -> float:
+    """max |got - want| / bound; `bound` a tensor, or a function of want."""
+    b = bound if isinstance(bound, torch.Tensor) else bound(want)
+    return float(((got.float() - want.float()).abs() / b).max())
+
+
 def check(name, got, want, extra="", bound=allowed_err) -> float:
-    """Holds a kernel's output against its plain version's; returns the max
-    absolute error."""
+    """Holds a kernel's output against its plain version's (within `bound`:
+    a tensor, or a function of the plain output); returns the max absolute
+    error."""
     err = (got.float() - want.float()).abs()
-    worst = float((err / bound(want)).max())
+    worst = worst_ratio(got, want, bound)
     max_err = float(err.max())
-    dt = str(want.dtype).replace("torch.", "")
+    dt = str(got.dtype).replace("torch.", "")
     print(f"[check] {name:18s} {dt:8s} max_abs_err={max_err:.3e} worst err/bound={worst:.3f}"
           f"{extra}")
     if not worst <= 1.0:
@@ -676,31 +786,58 @@ def bwd_calls(x) -> dict:
     }
 
 
+def sel_tc_bounds(x) -> tuple:
+    """The plain selection backward's unrounded f32 gradients from the bf16
+    inputs of train_kernel_inputs, and allowed_tc_err of each."""
+    cfg = x["cfg"]
+    args = (x["Q"], x["K"], x["V"], x["sel"], x["t"], x["dO"], x["lse_s"],
+            attention_delta(x["dO"], x["Os"]))
+    want, rss = sel_attn_bwd_rss(*args, l_sel=cfg.l_sel, scale=x["scale"])
+    return want, tuple(allowed_tc_err(w, r) for w, r in zip(want, rss))
+
+
 def phase_train_kernels(dev, names) -> dict:
     """The named backward kernels vs plain at the training shapes, f32 then
     bf16; each twice for identical bits, and against the other designs of
-    its function (PARTNERS) on the same inputs. Returns the bf16 inputs
-    and the bf16 max errors."""
+    its function (PARTNERS) on the same inputs. The selection's bf16
+    kernels (tensor cores) are held to allowed_tc_err against the plain
+    version's unrounded result, and a FAULT planted in each of their
+    gradients must fail it. Returns the bf16 inputs and the bf16 max
+    errors."""
     gen = torch.Generator(device=dev).manual_seed(4321)
     rec = {}
     for dtype in (torch.float32, torch.bfloat16):
         x = train_kernel_inputs(dtype, dev, gen)
         calls = bwd_calls(x)
+        tc_ref = None
         for name in names:
             kern, plain, _ = calls[name]
-            got, again, want = kern(), kern(), plain()
+            got, again = kern(), kern()
+            if dtype == torch.bfloat16 and branch_of(name) == "sel":
+                tc_ref = tc_ref or sel_tc_bounds(x)
+                want, bounds = tc_ref
+            else:
+                want, bounds = plain(), (allowed_rel_err,) * 3
             torch.cuda.synchronize()
-            errs = [check(f"{name}:{n}", g, w, bound=allowed_rel_err)
-                    for n, g, w in zip(("dQ", "dK", "dV"), got, want)]
+            errs = [check(f"{name}:{n}", g, w, bound=bd)
+                    for n, g, w, bd in zip(("dQ", "dK", "dV"), got, want, bounds)]
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"{name} {dtype}: two launches differ")
+            if tc_ref is not None and branch_of(name) == "sel":
+                faults = [worst_ratio(g * FAULT, w, bd) for g, w, bd in zip(got, want, bounds)]
+                print(f"[check] {name} bf16 with a {FAULT - 1:.0%} fault planted in dQ, dK, dV: "
+                      f"worst err/bound {', '.join(f'{v:.3f}' for v in faults)} (each must "
+                      f"exceed 1)")
+                if not min(faults) > 1.0:
+                    fail(f"{name}: a planted {FAULT - 1:.0%} fault passes the bf16 bound")
             for other in PARTNERS.get(name, ()):
                 theirs = calls[other][0]()
-                for n, g, w in zip(("dQ", "dK", "dV"), got, theirs):
-                    check(f"{name}:{n} vs {other}", g, w, bound=allowed_rel_err)
+                for n, g, w, bd in zip(("dQ", "dK", "dV"), got, theirs, bounds):
+                    check(f"{name}:{n} vs {other}", g, w, bound=bd)
                 del theirs
             rec[name] = max(errs)
             del got, again, want
+        del tc_ref
         print(f"[check] backward kernels {', '.join(names)} {str(dtype)[6:]}: two launches "
               f"gave identical bits")
         if dtype == torch.bfloat16:
@@ -716,6 +853,59 @@ def launches_of(counts: dict, name: str) -> int:
     if mode == "cmp":
         return counts[f"{base}@cmp"]
     return counts[base] - counts.get(f"{base}@cmp", 0)
+
+
+def chunk_spread(cnt, tq: int, per: int, nsplit: int) -> tuple:
+    """Chunks of tq tokens per CTA of the selection's kv-major pass, from
+    its member counts cnt [B,G,NB], over the CTAs with work: (max, mean)
+    under a split of each block's members into nsplit contiguous shares
+    (the former scheme, kv_splits per block), then (max, mean) under the
+    work items of `per` tokens."""
+    c = cnt.reshape(-1).long()
+    share = -(-(-(-c // nsplit)) // tq) * tq
+    s = torch.arange(nsplit, device=c.device)
+    toks = (torch.minimum(c[:, None], (s + 1) * share[:, None]) - s * share[:, None]).clamp(min=0)
+    before = -(-toks[toks > 0] // tq)
+    full = (c // per).sum()
+    rest = c % per
+    after = torch.cat([torch.full((int(full),), per // tq, device=c.device),
+                       -(-rest[rest > 0] // tq)])
+    return (int(before.max()), float(before.float().mean()), int(after.max()),
+            float(after.float().mean()))
+
+
+def phase_sel_tiles(x) -> None:
+    """The selection backward's work at the train shape (bf16 inputs of
+    train_kernel_inputs): the kv-major pass's chunks per CTA before and
+    after the work items; then, for each q tile of Q_TILE_TOKENS, the mean
+    union size of the two-pass dQ kernel and the device time of
+    sel_attn_bwd with that tile (the kv pass is the same in each: the
+    differences are the dQ kernel's)."""
+    cfg, h = x["cfg"], x["cfg"].h_per_group
+    Q, K = x["Q"], x["K"]
+    B_, S_, G_ = Q.shape[:3]
+    _, _, cnt, _ = selection_index(x["sel"], x["t"], cfg.l_sel, S)
+    NB = cnt.shape[-1]
+    tq = kbuild.library().nsa_sel_attn_bwd_kv_rows(1, cfg.d_k, cfg.d_v) // h
+    nsplit = kv_splits(Q.device, B_ * G_ * NB * -(-cfg.l_sel // 64), 8)
+    bmax, bmean, amax, amean = chunk_spread(cnt, tq, tq * CHUNKS_PER_ITEM, nsplit)
+    print(f"[sel] kv-major chunks ({tq} tokens) per CTA: {nsplit} splits per block max "
+          f"{bmax} mean {bmean:.2f} (max/mean {bmax / bmean:.2f}); work items of "
+          f"{CHUNKS_PER_ITEM} chunks max {amax} mean {amean:.2f} (max/mean {amax / amean:.2f})")
+    args = (Q, K, x["V"], x["sel"], x["t"], x["dO"], x["lse_s"], attention_delta(x["dO"], x["Os"]))
+    default = union_tokens(h)
+    for T in Q_TILE_TOKENS:
+        _, count, _ = selection_tile_union(x["sel"], x["t"], cfg.l_sel, S, T)
+        sb_mod.union_tokens = lambda h, T=T: T     # the wrapper's q tile, for this timing only
+        try:
+            ms = time_ms(lambda: sel_attn_bwd(*args, l_sel=cfg.l_sel, scale=x["scale"]), 10,
+                         hold=True)
+        finally:
+            sb_mod.union_tokens = union_tokens
+        print(f"[sel] union dQ q tile {T} tokens ({T * h} rows): mean union "
+              f"{float(count.float().mean()):.3f} "
+              f"blocks over {-(-S_ // T)} tiles per (b, g); "
+              f"sel_attn_bwd {ms:.4f} ms{' (the default)' if T == default else ''}")
 
 
 def measure_train(rec, runs, names) -> list:
@@ -1383,6 +1573,7 @@ def main() -> int:
     del lrec
     torch.cuda.empty_cache()
     frec = phase_train_kernels(dev, tuple(PARTNERS))
+    phase_sel_tiles(frec["inputs"])
     runs = [tr["counts"]] + phase_designs(dev, tr["losses"], cpu)
     rows += measure_train({**trec, **frec}, runs, TWO_PASS + tuple(PARTNERS))
     del trec, frec

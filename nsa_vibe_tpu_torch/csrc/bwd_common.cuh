@@ -9,7 +9,9 @@
 //   dP = dO[row].v            dS = P * (dP - delta[row])   EMPTY_LSE rows -> 0)
 //   dV[key] += P dO[row]      dK[key] += scale * dS q[row]
 //   dQ[row] += scale * dS k[key]
-// All products are f32 FMAs on operands staged in shared memory as f32.
+// All products here are f32 FMAs on operands staged in shared memory as
+// f32 (the selection backward's bf16 kernels use tensor cores instead:
+// tc.cuh).
 // No float atomics anywhere: every output element is summed by one thread
 // in a fixed order, and partial sums across blocks are added by
 // `reduce_splits` in split order, so two launches give identical bits.

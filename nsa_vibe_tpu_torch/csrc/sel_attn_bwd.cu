@@ -1,5 +1,5 @@
-// sel_attn_bwd: backward of the NSA selection branch, from the forward's
-// row statistics.
+// sel_attn_bwd: two-pass backward of the NSA selection branch, from the
+// forward's row statistics.
 //
 // Replaces: nsa_vibe_tpu/ops/pallas/sel_flash.py::selection_flash_bwd
 // (kernels _sel_dq_kernel and _sel_dkv_kernel: the two-pass design), the
@@ -14,27 +14,33 @@
 // as in the forward (`member = any(sel_q == blk)`, sel_flash.py).
 //
 // What bounds it on the H100: at the m7c training shape (B=8, S=2048, G=2,
-// h=6, D=64, n=16 blocks of 64) ~5 products over the ~0.17 G visible
-// (row, key) pairs, ~0.2 TFLOP, against ~60 MB of distinct operands: the
-// tensor cores bound it on paper (~0.2 ms). This f32 FMA design is bound
-// by FMA issue, shared-memory reads and, in the dQ pass, by re-gathering
-// each query's blocks, as the forward.
+// h=6, D=64, n=16 blocks of 64) ~5 products of 2 FLOP per visible (row,
+// key) pair, ~0.09 TFLOP: 0.0957 ms of bf16 tensor-core time. The dQ pass
+// re-reads K/V blocks from L2 (8 MB in bf16), and needs no workspace.
 // Design, two passes with no float atomics:
-//   dQ  (query-major, as sel_attn's forward): one block per (b, s, g);
-//       thread 0 compacts the row's selection into distinct visible block
-//       ids; each block's K/V rows are staged in shared memory, S and dP
-//       are formed for the group's h heads, dS goes to shared memory and
-//       dQ stays in registers (4 dims of every head per thread, key
-//       splits summed once at the end).
-//   dKV (kv-block-major): one block per (b, g, selection block, sub-tile
-//       of <= 64 keys, split) keeps its K/V tile in shared memory and
-//       streams the query rows whose set holds the block, from an inverse
-//       index built by the wrapper on the device (the member tokens of each
-//       (b, g, block) in ascending order, and their count), TQ tokens per
-//       chunk; dK/dV as in banded_bwd's kv pass. With nsplit > 1 each
-//       split takes a contiguous share of the member list and writes an f32
-//       partial that `reduce_splits` adds in split order.
+//   dQ  (query-major). bf16: `sel_bwd_dq_union_kernel`, the TPU kernel's
+//       design (_sel_dq_kernel) cut for Hopper: one CTA (4 warps) per
+//       (b, g, q tile of T tokens, T*h <= 64 rows, warp w rows [16w,
+//       16w+16)). It walks the union of the tile's distinct visible blocks
+//       (ascending; built on the device as _tile_active + _compact_active
+//       build theirs, with each row's membership as a bitmask over the
+//       union: ops/cuda/sel_attn_bwd.py::selection_tile_union), K/V tiles
+//       of 64 keys double-buffered through cp.async. S = Q K^T and dP =
+//       dO V^T run on mma.m16n8k16 (tc.cuh); membership, causality and
+//       S_kv are masked in the fragments; dS = P (dP - delta), rounded to
+//       bf16 as the TPU kernel rounds it (sel_flash.py:438), is the A
+//       operand of dQ += dS K, which stays exact in f32 registers. f32
+//       operands keep the FMA design `sel_bwd_dq_kernel`: one block per
+//       (b, s, g); thread 0 compacts the row's selection into distinct
+//       visible block ids; each block's K/V rows are staged as f32, S and
+//       dP are formed for the group's h heads, dS goes to shared memory and
+//       dQ stays in registers. (The f32 checks' bounds are 5e-5 relative:
+//       TF32 would break them.)
+//   dKV (kv-block-major): the kv pass of sel_bwd.cuh without dQ slots
+//       (sel_attn_bwd_1p.cu).
 #include "bwd_common.cuh"
+#include "sel_bwd.cuh"
+#include "tc.cuh"
 
 using namespace nsa;
 using namespace nsa::bwd;
@@ -42,11 +48,14 @@ using namespace nsa::bwd;
 namespace {
 
 constexpr int QTHREADS = 128;   // dQ pass (one query per block, as the forward)
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
-  int B, S, S_kv, G, h, Dk, Dv, n, l_sel, TQ, nsplit, inv_pitch;
+  int B, S, S_kv, G, h, Dk, Dv, n, l_sel, U, W, qT;
   float scale;
 };
+
+// ------------------------------------------------------------ f32: FMA
 
 // dQ pass shared memory (floats): Q and dO rows, lse, delta, one block of
 // K (pitch Dk+4) and V (pitch Dv+4), dS [h][L]; then the block-id list.
@@ -68,12 +77,13 @@ struct SmemQ {
   }
 };
 
-template <typename T, int HMAX>
+template <int HMAX>
 __global__ void __launch_bounds__(QTHREADS)
-sel_bwd_dq_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
-                  const T* __restrict__ dO, const float* __restrict__ lse,
-                  const float* __restrict__ delta, const int* __restrict__ sel,
-                  const int* __restrict__ tpos, T* __restrict__ dQ, Params p) {
+sel_bwd_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                  const float* __restrict__ V, const float* __restrict__ dO,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const int* __restrict__ sel, const int* __restrict__ tpos,
+                  float* __restrict__ dQ, Params p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int nb_s;
   const int bid = blockIdx.x;   // (b*S + s)*G + g
@@ -101,8 +111,8 @@ sel_bwd_dq_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __r
   const bool owner = ks < nsplit;
 
   const size_t row0 = (size_t)bid * h;
-  load_rows_vec<T>(q_s, Dk, Q + row0 * Dk, Dk, 0, h, h);
-  load_rows_vec<T>(do_s, Dv, dO + row0 * Dv, Dv, 0, h, h);
+  load_rows_vec<float>(q_s, Dk, Q + row0 * Dk, Dk, 0, h, h);
+  load_rows_vec<float>(do_s, Dv, dO + row0 * Dv, Dv, 0, h, h);
   for (int j = tid; j < h; j += QTHREADS) {
     lse_s[j] = lse[row0 + j];
     dl_s[j] = delta[row0 + j];
@@ -124,16 +134,16 @@ sel_bwd_dq_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __r
   for (int j = 0; j < HMAX; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
   const int nb = nb_s;
-  const T* Kbg = K + ((size_t)b * p.G + g) * p.S_kv * Dk;
-  const T* Vbg = V + ((size_t)b * p.G + g) * p.S_kv * Dv;
+  const float* Kbg = K + ((size_t)b * p.G + g) * p.S_kv * Dk;
+  const float* Vbg = V + ((size_t)b * p.G + g) * p.S_kv * Dv;
 
   for (int bi = 0; bi < nb; ++bi) {
     const int k0 = blist[bi] * L;
     const int kend = min(min(k0 + L, t + 1), p.S_kv);   // visible keys [k0, kend)
     const int nk = kend - k0;
     __syncthreads();   // previous block's K/V and dS consumed
-    load_rows_vec<T, 8>(k_s, kp, Kbg, Dk, k0, nk, kend);
-    load_rows_vec<T, 8>(v_s, vp, Vbg, Dv, k0, nk, kend);
+    load_rows_vec<float, 8>(k_s, kp, Kbg, Dk, k0, nk, kend);
+    load_rows_vec<float, 8>(v_s, vp, Vbg, Dv, k0, nk, kend);
     __syncthreads();
     for (int idx = tid; idx < nk * ngrp; idx += QTHREADS) {   // S, dP -> dS
       const int key = idx % nk, j0 = (idx / nk) * 4;
@@ -206,231 +216,281 @@ sel_bwd_dq_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __r
       o.z += x.z;
       o.w += x.w;
     }
-    store4<T>(dQ + (row0 + j) * Dk + c,
-              make_float4(o.x * p.scale, o.y * p.scale, o.z * p.scale, o.w * p.scale));
+    store4<float>(dQ + (row0 + j) * Dk + c,
+                  make_float4(o.x * p.scale, o.y * p.scale, o.z * p.scale, o.w * p.scale));
   }
 }
 
-// dKV pass shared memory (floats), 256 threads
-struct SmemKV {
-  size_t q, dO, k, v, p, ds, lse, dl, tok, tpos, total;
-  __host__ __device__ SmemKV(int Dk, int Dv) {
-    q = 0;
-    dO = q + round4((size_t)MAX_ROWS * Dk);
-    k = dO + round4((size_t)MAX_ROWS * Dv);
-    v = k + round4((size_t)KC * (Dk + 4));
-    p = v + round4((size_t)KC * (Dv + 4));
-    ds = p + round4((size_t)MAX_ROWS * SP);
-    lse = ds + round4((size_t)MAX_ROWS * SP);
-    dl = lse + MAX_ROWS;
-    tok = dl + MAX_ROWS;    // ints: the chunk's member tokens
-    tpos = tok + MAX_ROWS;  // ints: their positions
-    total = tpos + MAX_ROWS;
-  }
+// ------------------------------------------------------------ bf16: union, tensor cores
+
+template <int DT>
+struct Union {
+  static constexpr int ROWS = 64;     // query rows (tokens x heads) per q tile
+  static constexpr int P = DT + 8;    // tile pitch (tc.cuh)
+  static constexpr size_t TILE = (size_t)ROWS * P * 2;   // = KC keys
+  // Q, dO, K[2], V[2] (bf16); lse*log2e, delta (f32), positions (int) per
+  // row; then the q tile's membership words (int)
+  static constexpr size_t Q = 0, DO = TILE, K = 2 * TILE, V = 4 * TILE, STATS = 6 * TILE;
+  static constexpr size_t MASK = STATS + (size_t)3 * ROWS * 4;
+  static size_t bytes(int qT, int W) { return MASK + (size_t)qT * W * 4; }
 };
 
-template <typename T, typename OutT, int NSK, int NSV>
-__global__ void __launch_bounds__(THREADS)
-sel_bwd_dkv_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
-                   const T* __restrict__ dO, const float* __restrict__ lse,
-                   const float* __restrict__ delta, const int* __restrict__ inv,
-                   const int* __restrict__ cnt, const int* __restrict__ tpos,
-                   OutT* __restrict__ dK, OutT* __restrict__ dV, Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int L = p.l_sel;
+template <int DT>
+__global__ void __launch_bounds__(128)
+sel_bwd_dq_union_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
+                        const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const int* __restrict__ tpos, const int* __restrict__ uorder,
+                        const int* __restrict__ ucount, const int* __restrict__ umask,
+                        __nv_bfloat16* __restrict__ dQ, Params p) {
+  using C = Union<DT>;
+  constexpr int P = C::P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nq = (p.S + p.qT - 1) / p.qT;
+  const int qt = blockIdx.x % nq;
+  const int bg = blockIdx.x / nq;   // b * G + g
+  const int g = bg % p.G, b = bg / p.G;
+  const int s0 = qt * p.qT;
+  const int h = p.h, Dk = p.Dk, Dv = p.Dv, L = p.l_sel, W = p.W;
+  const int R = min(p.qT, p.S - s0) * h;   // live rows of the tile
   const int nsub = (L + KC - 1) / KC;
-  const int NB = (p.S_kv + L - 1) / L;
-  int bid = blockIdx.x;
-  const int split = bid % p.nsplit;
-  bid /= p.nsplit;
-  const int sub = bid % nsub;
-  bid /= nsub;
-  const int jb = bid % NB;
-  bid /= NB;
-  const int g = bid % p.G;
-  const int b = bid / p.G;
-  const int k0 = jb * L + sub * KC;
-  const int nk = min(min(KC, L - sub * KC), p.S_kv - k0);
-  if (nk <= 0) return;   // block-uniform: no key of this tile exists
-  const int h = p.h, Dk = p.Dk, Dv = p.Dv;
-  const int kp = Dk + 4, vp = Dv + 4;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  const float sl2 = p.scale * LOG2E;
 
-  const SmemKV S_(Dk, Dv);
-  float* q_s = smem + S_.q;
-  float* do_s = smem + S_.dO;
-  float* k_s = smem + S_.k;
-  float* v_s = smem + S_.v;
-  float* p_s = smem + S_.p;
-  float* ds_s = smem + S_.ds;
-  float* lse_s = smem + S_.lse;
-  float* dl_s = smem + S_.dl;
-  int* tok_s = reinterpret_cast<int*>(smem + S_.tok);
-  int* tp_s = reinterpret_cast<int*>(smem + S_.tpos);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + C::Q);
+  __nv_bfloat16* do_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + C::DO);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + C::K);   // [2][KC][P]
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + C::V);   // [2][KC][P]
+  float* lse_s = reinterpret_cast<float*>(smem_raw + C::STATS);
+  float* dl_s = lse_s + C::ROWS;
+  int* tp_s = reinterpret_cast<int*>(dl_s + C::ROWS);
+  int* mask_s = reinterpret_cast<int*>(smem_raw + C::MASK);   // [qT][W]
 
-  load_rows_vec<T>(k_s, kp, K + ((size_t)b * p.G + g) * p.S_kv * Dk, Dk, k0, KC, k0 + nk);
-  load_rows_vec<T>(v_s, vp, V + ((size_t)b * p.G + g) * p.S_kv * Dv, Dv, k0, KC, k0 + nk);
-  float4 dk_acc[NSK][4], dv_acc[NSV][4];
-#pragma unroll
-  for (int i = 0; i < NSK; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) dk_acc[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int i = 0; i < NSV; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) dv_acc[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  // this split's share of the block's member tokens, whole chunks of TQ
-  const size_t lst = ((size_t)b * p.G + g) * NB + jb;
-  const int* list = inv + lst * p.inv_pitch;
-  const int count = cnt[lst];
-  const int per = ((count + p.nsplit - 1) / p.nsplit + p.TQ - 1) / p.TQ * p.TQ;
-  const int ia = split * per;
-  const int ib = min(count, ia + per);
-
-  for (int i0 = ia; i0 < ib; i0 += p.TQ) {
-    const int nt = min(p.TQ, ib - i0);
-    const int rows = nt * h;
-    __syncthreads();   // previous chunk consumed (and the K/V tile staged)
-    for (int i = threadIdx.x; i < nt; i += THREADS) {
-      const int s = list[i0 + i];
-      tok_s[i] = s;
-      tp_s[i] = tpos[(size_t)b * p.S + s];
+  // global row of tile row r: token s0 + r / h, head r % h
+  auto grow = [&](int r) -> size_t {
+    return (((size_t)b * p.S + s0 + r / h) * p.G + g) * h + r % h;
+  };
+  // head-width padding: columns [D, DT) stay zero
+  for (int idx = tid; idx < C::ROWS * (DT / 8); idx += 128) {
+    const int r = idx / (DT / 8), c = (idx % (DT / 8)) * 8;
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    if (c >= Dk) {
+      *reinterpret_cast<uint4*>(q_s + r * P + c) = z;
+      *reinterpret_cast<uint4*>(k_s + r * P + c) = z;
+      *reinterpret_cast<uint4*>(k_s + (KC + r) * P + c) = z;
     }
-    __syncthreads();
-    auto row_of = [&](int r) -> size_t {
-      const int i = r / h;
-      return (((size_t)b * p.S + tok_s[i]) * p.G + g) * h + (r - i * h);
-    };
-    load_rows_vec<T>(q_s, Dk, [&](int r) -> const T* { return Q + row_of(r) * Dk; }, Dk, rows);
-    load_rows_vec<T>(do_s, Dv, [&](int r) -> const T* { return dO + row_of(r) * Dv; }, Dv,
-                     rows);
-    for (int r = threadIdx.x; r < rows; r += THREADS) {
-      const size_t o = row_of(r);
-      lse_s[r] = lse[o];
-      dl_s[r] = delta[o];
+    if (c >= Dv) {
+      *reinterpret_cast<uint4*>(do_s + r * P + c) = z;
+      *reinterpret_cast<uint4*>(v_s + r * P + c) = z;
+      *reinterpret_cast<uint4*>(v_s + (KC + r) * P + c) = z;
     }
-    __syncthreads();
-    scores_and_ds(q_s, do_s, k_s, v_s, lse_s, dl_s, rows, Dk, Dv, kp, vp, p.scale,
-                  [&](int r, int key) { return key < nk && k0 + key <= tp_s[r / h]; },
-                  p_s, ds_s, SP, 1);
-    __syncthreads();
-    accumulate_kv<NSV>(dv_acc, p_s, do_s, rows, Dv);
-    accumulate_kv<NSK>(dk_acc, ds_s, q_s, rows, Dk);
   }
-  const size_t row0 = (((size_t)split * p.B + b) * p.G + g) * p.S_kv + k0;
-  store_kv<OutT, NSK>(dk_acc, dK, row0, nk, Dk, p.scale);
-  store_kv<OutT, NSV>(dv_acc, dV, row0, nk, Dv, 1.f);
+  for (int idx = tid; idx < C::ROWS * (Dk / 8); idx += 128) {
+    const int r = idx / (Dk / 8), c = (idx % (Dk / 8)) * 8;
+    tc::cp_async16(q_s + r * P + c, r < R ? Q + grow(r) * Dk + c : Q, r < R);
+  }
+  for (int idx = tid; idx < C::ROWS * (Dv / 8); idx += 128) {
+    const int r = idx / (Dv / 8), c = (idx % (Dv / 8)) * 8;
+    tc::cp_async16(do_s + r * P + c, r < R ? dO + grow(r) * Dv + c : dO, r < R);
+  }
+  for (int r = tid; r < C::ROWS; r += 128) {
+    const bool live = r < R;
+    lse_s[r] = live ? lse[grow(r)] * LOG2E : 0.f;
+    dl_s[r] = live ? delta[grow(r)] : 0.f;
+    tp_s[r] = live ? tpos[(size_t)b * p.S + s0 + r / h] : -1;   // padded rows see no key
+  }
+  for (int idx = tid; idx < min(p.qT, p.S - s0) * W; idx += 128)
+    mask_s[idx] = umask[(((size_t)b * p.S + s0 + idx / W) * p.G + g) * W + idx % W];
+
+  const size_t tile = (size_t)bg * nq + qt;
+  const int* order = uorder + tile * p.U;
+  const int J = ucount[tile] * nsub;   // key tiles of the union
+  const __nv_bfloat16* Kbg = K + (size_t)bg * p.S_kv * Dk;
+  const __nv_bfloat16* Vbg = V + (size_t)bg * p.S_kv * Dv;
+  auto tile_keys = [&](int j, int& k0) {   // first key and key count of union tile j
+    const int sub = j % nsub;
+    k0 = order[j / nsub] * L + sub * KC;
+    return max(min(min(KC, L - sub * KC), p.S_kv - k0), 0);
+  };
+  auto issue = [&](int j, int buf) {
+    int k0;
+    const int nk = tile_keys(j, k0);
+    __nv_bfloat16* kb = k_s + buf * KC * P;
+    __nv_bfloat16* vb = v_s + buf * KC * P;
+    for (int idx = tid; idx < KC * (Dk / 8); idx += 128) {
+      const int r = idx / (Dk / 8), c = (idx % (Dk / 8)) * 8;
+      tc::cp_async16(kb + r * P + c, r < nk ? Kbg + (size_t)(k0 + r) * Dk + c : K, r < nk);
+    }
+    for (int idx = tid; idx < KC * (Dv / 8); idx += 128) {
+      const int r = idx / (Dv / 8), c = (idx % (Dv / 8)) * 8;
+      tc::cp_async16(vb + r * P + c, r < nk ? Vbg + (size_t)(k0 + r) * Dv + c : V, r < nk);
+    }
+  };
+
+  float dq[DT / 8][4];
+#pragma unroll
+  for (int i = 0; i < DT / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
+  const int r0 = 16 * w;   // this warp's rows
+  if (J > 0) issue(0, 0);
+  tc::cp_async_commit();
+  for (int j = 0; j < J; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < J) {   // the next tile's copy overlaps this tile's math
+      issue(j + 1, buf ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (r0 < R) {
+      int k0;
+      const int nk = tile_keys(j, k0);
+      const int u = j / nsub;
+      const __nv_bfloat16* kb = k_s + buf * KC * P;
+      const __nv_bfloat16* vb = v_s + buf * KC * P;
+      float s[KC / 8][4], dp[KC / 8][4];
+#pragma unroll
+      for (int i = 0; i < KC / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+      tc::mma_tile<KC / 8, DT / 16, false>(
+          s, [&](int ks, uint32_t (&f)[4]) { tc::ldsm_x4(f, tc::a_addr(q_s, P, r0, 16 * ks)); },
+          kb, P);
+      tc::mma_tile<KC / 8, DT / 16, false>(
+          dp, [&](int ks, uint32_t (&f)[4]) { tc::ldsm_x4(f, tc::a_addr(do_s, P, r0, 16 * ks)); },
+          vb, P);
+      // membership of this thread's two rows in union block u
+      bool mem[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = r0 + g8 + 8 * hf;
+        mem[hf] = r < R && ((mask_s[(r / h) * W + (u >> 5)] >> (u & 31)) & 1);
+      }
+      // P and dS in place (C element e: row r0 + g8 (+8 for e >= 2), key 8i + 2 t4 + (e & 1))
+#pragma unroll
+      for (int i = 0; i < KC / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + g8 + (e >> 1) * 8, key = 8 * i + 2 * t4 + (e & 1);
+          const bool vis = mem[e >> 1] && key < nk && k0 + key <= tp_s[r];
+          const float pr = vis ? exp2f(s[i][e] * sl2 - lse_s[r]) : 0.f;
+          s[i][e] = pr * (dp[i][e] - dl_s[r]);
+        }
+      // dQ += dS K (dS rounded to bf16 in the A fragments, K by ldmatrix.trans)
+      tc::mma_tile<DT / 8, KC / 16, true>(
+          dq, [&](int ks, uint32_t (&f)[4]) { tc::a_from_c(f, s[2 * ks], s[2 * ks + 1]); }, kb,
+          P);
+    }
+    __syncthreads();   // this buffer is refilled next
+  }
+  tc::cp_async_wait<0>();   // a tile with no union block still staged Q/dO
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + g8 + 8 * hf;
+    if (r >= R) continue;
+    __nv_bfloat16* dst = dQ + grow(r) * Dk;
+#pragma unroll
+    for (int i = 0; i < DT / 8; ++i) {
+      const int dim = 8 * i + 2 * t4;
+      if (dim < Dk)
+        *reinterpret_cast<uint32_t*>(dst + dim) =
+            tc::pack_bf16(dq[i][2 * hf] * p.scale, dq[i][2 * hf + 1] * p.scale);
+    }
+  }
 }
 
-template <typename T, int HMAX, int NSK, int NSV>
-int launch_ns(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
-              const float* delta, const int* sel, const int* tpos, const int* inv,
-              const int* cnt, void* dQ, void* dK, void* dV, float* part, const Params& p,
-              cudaStream_t stream) {
-  const T* q = static_cast<const T*>(Q);
-  const T* k = static_cast<const T*>(K);
-  const T* v = static_cast<const T*>(V);
-  const T* o = static_cast<const T*>(dO);
-  const size_t smem_q = SmemQ(p.h, p.Dk, p.Dv, p.n, p.l_sel).bytes;
-  cudaError_t e = cudaFuncSetAttribute(sel_bwd_dq_kernel<T, HMAX>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned grid_q = (unsigned)((long long)p.B * p.S * p.G);
-  sel_bwd_dq_kernel<T, HMAX><<<grid_q, QTHREADS, smem_q, stream>>>(q, k, v, o, lse, delta, sel,
-                                                                  tpos, static_cast<T*>(dQ), p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+template <typename Kern>
+int set_smem(Kern kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
 
-  const size_t smem = SmemKV(p.Dk, p.Dv).total * sizeof(float);
-  const long long nsub = (p.l_sel + KC - 1) / KC;
-  const long long NB = (p.S_kv + p.l_sel - 1) / p.l_sel;
-  const unsigned grid = (unsigned)((long long)p.B * p.G * NB * nsub * p.nsplit);
-  if (p.nsplit == 1) {
-    e = cudaFuncSetAttribute(sel_bwd_dkv_kernel<T, T, NSK, NSV>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    sel_bwd_dkv_kernel<T, T, NSK, NSV><<<grid, THREADS, smem, stream>>>(
-        q, k, v, o, lse, delta, inv, cnt, tpos, static_cast<T*>(dK), static_cast<T*>(dV), p);
+int launch_dq_f32(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
+                  const float* delta, const int* sel, const int* tpos, void* dQ, const Params& p,
+                  cudaStream_t stream) {
+  const size_t smem = SmemQ(p.h, p.Dk, p.Dv, p.n, p.l_sel).bytes;
+  const unsigned grid = (unsigned)((long long)p.B * p.S * p.G);
+  auto go = [&](auto kernel) {
+    const int e = set_smem(kernel, smem);
+    if (e != 0) return e;
+    kernel<<<grid, QTHREADS, smem, stream>>>(
+        static_cast<const float*>(Q), static_cast<const float*>(K), static_cast<const float*>(V),
+        static_cast<const float*>(dO), lse, delta, sel, tpos, static_cast<float*>(dQ), p);
     return (int)cudaGetLastError();
-  }
-  const long long nk_el = (long long)p.B * p.G * p.S_kv * p.Dk;
-  const long long nv_el = (long long)p.B * p.G * p.S_kv * p.Dv;
-  float* part_k = part;
-  float* part_v = part + (size_t)p.nsplit * nk_el;
-  e = cudaFuncSetAttribute(sel_bwd_dkv_kernel<T, float, NSK, NSV>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  // every key below S_kv lies in exactly one tile, which writes its partial
-  // for every split (zeros where the split has no member)
-  sel_bwd_dkv_kernel<T, float, NSK, NSV><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, lse, delta, inv, cnt, tpos, part_k, part_v, p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int rk = reduce_splits<T>(part_k, dK, nk_el, p.nsplit, stream);
-  if (rk != 0) return rk;
-  return reduce_splits<T>(part_v, dV, nv_el, p.nsplit, stream);
+  };
+  return p.h <= 8 ? go(sel_bwd_dq_kernel<8>) : go(sel_bwd_dq_kernel<16>);
 }
 
-template <typename T, int HMAX>
-int launch_kv(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
-              const float* delta, const int* sel, const int* tpos, const int* inv,
-              const int* cnt, void* dQ, void* dK, void* dV, float* part, const Params& p,
-              cudaStream_t stream) {
-  const int nk = kv_slices(p.Dk), nv = kv_slices(p.Dv);
-  if (nk == 1 && nv == 1)
-    return launch_ns<T, HMAX, 1, 1>(Q, K, V, dO, lse, delta, sel, tpos, inv, cnt, dQ, dK, dV,
-                                    part, p, stream);
-  if (nk == 1)
-    return launch_ns<T, HMAX, 1, 2>(Q, K, V, dO, lse, delta, sel, tpos, inv, cnt, dQ, dK, dV,
-                                    part, p, stream);
-  if (nv == 1)
-    return launch_ns<T, HMAX, 2, 1>(Q, K, V, dO, lse, delta, sel, tpos, inv, cnt, dQ, dK, dV,
-                                    part, p, stream);
-  return launch_ns<T, HMAX, 2, 2>(Q, K, V, dO, lse, delta, sel, tpos, inv, cnt, dQ, dK, dV,
-                                  part, p, stream);
-}
-
-template <typename T>
-int launch(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
-           const float* delta, const int* sel, const int* tpos, const int* inv, const int* cnt,
-           void* dQ, void* dK, void* dV, float* part, const Params& p, cudaStream_t stream) {
-  if (p.h <= 8)
-    return launch_kv<T, 8>(Q, K, V, dO, lse, delta, sel, tpos, inv, cnt, dQ, dK, dV, part, p,
-                           stream);
-  return launch_kv<T, 16>(Q, K, V, dO, lse, delta, sel, tpos, inv, cnt, dQ, dK, dV, part, p,
-                          stream);
+int launch_dq_bf16(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
+                   const float* delta, const int* tpos, const int* uorder, const int* ucount,
+                   const int* umask, void* dQ, const Params& p, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((long long)p.B * p.G * ((p.S + p.qT - 1) / p.qT));
+  auto go = [&](auto kernel, size_t smem) {
+    const int e = set_smem(kernel, smem);
+    if (e != 0) return e;
+    kernel<<<grid, 128, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(K),
+        static_cast<const __nv_bfloat16*>(V), static_cast<const __nv_bfloat16*>(dO), lse, delta,
+        tpos, uorder, ucount, umask, static_cast<__nv_bfloat16*>(dQ), p);
+    return (int)cudaGetLastError();
+  };
+  if (p.Dk > 64 || p.Dv > 64)
+    return go(sel_bwd_dq_union_kernel<128>, Union<128>::bytes(p.qT, p.W));
+  return go(sel_bwd_dq_union_kernel<64>, Union<64>::bytes(p.qT, p.W));
 }
 
 }  // namespace
 
 extern "C" {
 
-long long nsa_sel_attn_bwd_smem_bytes(int which, int h, int Dk, int Dv, int n, int l_sel) {
-  if (which == 0) return (long long)SmemQ(h, Dk, Dv, n, l_sel).bytes;
-  return (long long)(SmemKV(Dk, Dv).total * sizeof(float));
+// which 0: the dQ pass (h, Dk, Dv, n, l_sel; qT, W for bf16); which 1: the kv pass
+long long nsa_sel_attn_bwd_smem_bytes(int which, int dtype, int h, int Dk, int Dv, int n,
+                                      int l_sel, int qT, int W) {
+  if (which == 1) return nsa::sel::kv_smem_bytes(dtype, Dk, Dv);
+  if (dtype == DT_F32) return (long long)SmemQ(h, Dk, Dv, n, l_sel).bytes;
+  return (long long)((Dk > 64 || Dv > 64) ? Union<128>::bytes(qT, W) : Union<64>::bytes(qT, W));
 }
 
 // inv [B,G,NB,inv_pitch] int32: row (b, g, block) lists the member query
 // rows s (ascending) whose selection set holds the block; cnt [B,G,NB]
-// their number. part: f32 scratch of nsplit * B*G*S_kv*(Dk+Dv) floats when
-// nsplit > 1, else unused.
+// their number; work/span: the kv pass's work list (sel_bwd.cuh), items of
+// `per` tokens; part: f32 scratch of n_work * ceil(l_sel/64) * 64 *
+// (Dk+Dv) floats. bf16 (the union dQ kernel): uorder [B,G,nq,U] the
+// distinct visible blocks of each q tile of qT tokens (ascending, columns
+// [0, ucount)), ucount [B,G,nq], umask [B,S,G,W] bit u of word u/32 set
+// when the row's set holds uorder[u]; sel is then unused. f32: sel
+// [B,S,G,n]; the union tables are unused.
 int nsa_sel_attn_bwd(int dtype, const void* Q, const void* K, const void* V, const void* dO,
                      const float* lse, const float* delta, const int* sel, const int* tpos,
-                     const int* inv, const int* cnt, void* dQ, void* dK, void* dV, float* part,
-                     int B, int S, int S_kv, int G, int h, int Dk, int Dv, int n, int l_sel,
-                     int inv_pitch, float scale, int TQ, int nsplit, void* stream) {
-  if (n <= 0 || l_sel <= 0 || S_kv <= 0 || h > 16 || TQ <= 0 || TQ * h > MAX_ROWS ||
-      nsplit <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 ||
-      (nsplit > 1 && part == nullptr))
+                     const int* inv, const int* cnt, const int* work, const int* span,
+                     const int* uorder, const int* ucount, const int* umask, void* dQ, void* dK,
+                     void* dV, float* part, int B, int S, int S_kv, int G, int h, int Dk, int Dv,
+                     int n, int l_sel, int inv_pitch, int n_work, int TQ, int per, int U, int W,
+                     int qT, float scale, void* stream) {
+  if (n <= 0 || l_sel <= 0 || S_kv <= 0 || h <= 0 || h > 16 || Dk % 8 != 0 || Dv % 8 != 0 ||
+      Dk > 128 || Dv > 128)
     return (int)cudaErrorInvalidValue;
-  const Params p{B, S, S_kv, G, h, Dk, Dv, n, l_sel, TQ, nsplit, inv_pitch, scale};
+  const Params p{B, S, S_kv, G, h, Dk, Dv, n, l_sel, U, W, qT, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return launch<float>(Q, K, V, dO, lse, delta, sel, tpos, inv, cnt, dQ, dK, dV, part, p, s);
-  if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(Q, K, V, dO, lse, delta, sel, tpos, inv, cnt, dQ, dK, dV, part,
-                                 p, s);
-  return (int)cudaErrorInvalidValue;
+  int e;
+  if (dtype == DT_F32) {
+    e = launch_dq_f32(Q, K, V, dO, lse, delta, sel, tpos, dQ, p, s);
+  } else if (dtype == DT_BF16) {
+    if (qT <= 0 || qT * h > Union<64>::ROWS || U <= 0 || W <= 0 || U > 32 * W ||
+        uorder == nullptr || ucount == nullptr || umask == nullptr)
+      return (int)cudaErrorInvalidValue;
+    e = launch_dq_bf16(Q, K, V, dO, lse, delta, tpos, uorder, ucount, umask, dQ, p, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (e != 0) return e;
+  const nsa::sel::KvArgs a{Q, K, V, dO, lse, delta, tpos, inv, cnt, nullptr, work, span, nullptr,
+                           nullptr, dK, dV, part, nullptr};
+  const nsa::sel::KvParams kp{B, S, S_kv, G, h, Dk, Dv, l_sel, inv_pitch, n_work, TQ, per, scale};
+  return nsa::sel::launch_kv(dtype, a, kp, s);
 }
 
 }  // extern "C"

@@ -28,7 +28,7 @@ BUILD_ROOT = PKG / "_build"
 SOURCES = ("select_cmp.cu", "sel_attn.cu", "win_attn.cu", "banded_bwd.cu", "sel_attn_bwd.cu",
            "banded_attn.cu", "select_blocks.cu", "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu",
            "win_bwd_diag.cu")
-HEADERS = ("common.cuh", "bwd_common.cuh", "banded_common.cuh")
+HEADERS = ("common.cuh", "bwd_common.cuh", "banded_common.cuh", "sel_bwd.cuh", "tc.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -47,8 +47,8 @@ SIGNATURES = {
     "nsa_win_attn_smem_bytes": ([I] * 4, LL),
     "nsa_banded_bwd": ([I] + [P] * 10 + [I] * 11 + [F, I, I, P], I),
     "nsa_banded_bwd_smem_bytes": ([I] * 2, LL),
-    "nsa_sel_attn_bwd": ([I] + [P] * 14 + [I] * 10 + [F, I, I, P], I),
-    "nsa_sel_attn_bwd_smem_bytes": ([I] * 6, LL),
+    "nsa_sel_attn_bwd": ([I] + [P] * 19 + [I] * 16 + [F, P], I),
+    "nsa_sel_attn_bwd_smem_bytes": ([I] * 9, LL),
     "nsa_banded_attn": ([I, P, P, P, P, P] + [I] * 12 + [F, I, P], I),
     "nsa_banded_attn_smem_bytes": ([I] * 4, LL),
     "nsa_select_blocks": ([I, P, P, P] + [I] * 14 + [F, I, P], I),
@@ -56,8 +56,9 @@ SIGNATURES = {
     "nsa_banded_bwd_1p": ([I] + [P] * 11 + [I] * 11 + [F, I, I, P], I),
     "nsa_banded_bwd_1p_smem_bytes": ([I] * 2, LL),
     "nsa_banded_bwd_1p_slots": ([I] * 3, I),
-    "nsa_sel_attn_bwd_1p": ([I] + [P] * 16 + [I] * 9 + [F, I, I, P], I),
-    "nsa_sel_attn_bwd_1p_smem_bytes": ([I] * 2, LL),
+    "nsa_sel_attn_bwd_1p": ([I] + [P] * 18 + [I] * 12 + [F, P], I),
+    "nsa_sel_attn_bwd_1p_smem_bytes": ([I] * 3, LL),
+    "nsa_sel_attn_bwd_kv_rows": ([I] * 3, I),
     "nsa_win_bwd_diag": ([I] + [P] * 11 + [I] * 8 + [F, I, P], I),
     "nsa_win_bwd_diag_smem_bytes": ([I] * 2, LL),
     "nsa_win_bwd_diag_strip_keys": ([I] * 3, I),

@@ -64,6 +64,24 @@ def attend_masked_bwd(Q, K, V, dO, lse, delta, mask, scale: float):
     return dQ.to(Q.dtype), dK.to(K.dtype), dV.to(V.dtype)
 
 
+def attend_masked_bwd_rss(Q, K, V, dO, lse, delta, mask, scale: float):
+    """Root sum of squares of the terms each element of attend_masked_bwd's
+    gradients sums, f32: sqrt(sum_r (P dO)^2) for dV, scale * sqrt(sum_r
+    (dS q)^2) for dK, scale * sqrt(sum_k (dS k)^2) for dQ. A kernel that
+    rounds each P and dS to bf16 before these products (relative error <=
+    2^-9 per term, of either sign) moves an element by a sum of such
+    terms: its spread scales with this root sum of squares."""
+    s = torch.einsum("bsghd,bgkd->bsghk", Q.float(), K.float()) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros((), device=s.device))
+    dO_f = dO.float()
+    dS = p * (torch.einsum("bsghv,bgkv->bsghk", dO_f, V.float()) - delta[..., None])
+    p2, dS2 = p * p, dS * dS
+    rV = torch.einsum("bsghk,bsghv->bgkv", p2, dO_f * dO_f).sqrt()
+    rQ = torch.einsum("bsghk,bgkd->bsghd", dS2, K.float() ** 2).sqrt() * scale
+    rK = torch.einsum("bsghk,bsghd->bgkd", dS2, Q.float() ** 2).sqrt() * scale
+    return rQ, rK, rV
+
+
 def sliding_window_mask(t_pos: torch.Tensor, S_kv: int, w: int) -> torch.Tensor:
     """Banded mask: token t attends keys in [t-w+1, t]. [S] -> [S, S_kv]."""
     k = torch.arange(S_kv, device=t_pos.device)[None, :]

@@ -42,7 +42,7 @@ from nsa_vibe_tpu_torch.core import nsa as tnsa
 from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig, TrainConfig
 from nsa_vibe_tpu_torch.ops import attention as tattn
 from nsa_vibe_tpu_torch.ops import tuning as ttuning
-from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd_1p import selection_slot_index
+from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import selection_index
 from nsa_vibe_tpu_torch.train import train_step as tts
 
 SETTINGS = {   # the settings chip_smoke.py's phase (f) trains under
@@ -365,7 +365,7 @@ def test_selection_slot_index_matches_numpy():
     rs = np.random.RandomState(3)
     sel = rs.randint(-1, 8, size=(B, S, G, n)).astype(np.int32)
     t_pos = np.arange(S)
-    inv, ranks, cnt, nblk = selection_slot_index(_t(sel), torch.arange(S), l_sel, S_kv)
+    inv, ranks, cnt, nblk = selection_index(_t(sel), torch.arange(S), l_sel, S_kv)
     NB = -(-S_kv // l_sel)
     assert inv.shape == ranks.shape == (B, G, NB, S + 1) and nblk.shape == (B, S, G)
     for b in range(B):

@@ -18,7 +18,11 @@ forward row statistics) are held per tensor to 5e-5 of the tensor's max
 |value| in f32 (their sums run over up to S rows, so the order error
 scales with the largest terms, not with each element); in bf16 to two
 bf16 ulps of the plain value plus that f32 bound (both versions round f32
-results that agree within it).
+results that agree within it). The selection backward's bf16 kernels run
+on tensor cores and round P and dS to bf16 before their products, as the
+TPU kernels do: they are held to the plain version's unrounded f32 result
+within one bf16 ulp, plus the f32 bound, plus 4 * 2^-9 times the root sum
+of squares of each element's terms (chip_smoke.py::allowed_tc_err).
 """
 
 import pytest
@@ -88,6 +92,26 @@ def _within_rel(got, plain):
     return bool((err <= allowed).all())
 
 
+def _within_tc(got, ref, plain32, rss):
+    """The selection backward's bf16 bound (module docstring): |got - ref|
+    within one bf16 ulp of the unrounded plain value, F32_TOL of its max,
+    and 4 * 2^-9 * rss."""
+    x = plain32.abs()
+    _, e = torch.frexp(x)
+    allowed = (torch.where(x > 0, torch.ldexp(torch.ones_like(x), e - 8), torch.zeros_like(x))
+               + F32_TOL * float(x.max()) + 4 * 2.0 ** -9 * rss)
+    return bool(((got.float() - ref.float()).abs() <= allowed).all())
+
+
+def _sel_within(args, l_sel, scale):
+    """within(got, ref, i): gradient i of a selection backward kernel is
+    within its bound of ref (f32: _within_rel; bf16: _within_tc)."""
+    if args[0].dtype == torch.float32:
+        return lambda g, ref, i: _within_rel(g, ref)
+    want, rss = sb_mod.sel_attn_bwd_rss(*args, l_sel=l_sel, scale=scale)
+    return lambda g, ref, i: _within_tc(g, ref, want[i], rss[i])
+
+
 def _bwd_operands(dtype, dev, B, S, G, h, D, S_kv, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -126,25 +150,26 @@ def test_backward_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, 
     assert bool((lse_c[:, :l - 1] == 1e30).all())                 # rows t < l-1 see no token
     for got, want in ((lse_c, plse_c), (lse_s, plse_s), (lse_w, plse_w)):
         assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)
-    cases = [
+    sargs = (Q, K, V, sel, t, dO, lse_s, attention_delta(dO, Os))
+    banded = lambda g, ref, i: _within_rel(g, ref)  # noqa: E731
+    cases = [   # (kernel, plain version, bound)
         (lambda: bb_mod.banded_bwd(Q, Kc, Vc, dO, lse_c, attention_delta(dO, Oc), mode="cmp",
                                    l=l, d=d, scale=scale),
          lambda: bb_mod.banded_bwd_plain(Q, Kc, Vc, dO, lse_c, attention_delta(dO, Oc),
-                                         mode="cmp", l=l, d=d, scale=scale)),
+                                         mode="cmp", l=l, d=d, scale=scale), banded),
         (lambda: bb_mod.banded_bwd(Q, K, V, dO, lse_w, attention_delta(dO, Ow), mode="win",
                                    w=w, scale=scale),
          lambda: bb_mod.banded_bwd_plain(Q, K, V, dO, lse_w, attention_delta(dO, Ow),
-                                         mode="win", w=w, scale=scale)),
-        (lambda: sb_mod.sel_attn_bwd(Q, K, V, sel, t, dO, lse_s, attention_delta(dO, Os),
-                                     l_sel=l_sel, scale=scale),
-         lambda: sb_mod.sel_attn_bwd_plain(Q, K, V, sel, t, dO, lse_s, attention_delta(dO, Os),
-                                           l_sel=l_sel, scale=scale)),
+                                         mode="win", w=w, scale=scale), banded),
+        (lambda: sb_mod.sel_attn_bwd(*sargs, l_sel=l_sel, scale=scale),
+         lambda: sb_mod.sel_attn_bwd_plain(*sargs, l_sel=l_sel, scale=scale),
+         _sel_within(sargs, l_sel, scale)),
     ]
-    for kernel, plain in cases:
+    for kernel, plain, within in cases:
         got, again, want = kernel(), kernel(), plain()
-        for g, a, p in zip(got, again, want):
+        for i, (g, a, p) in enumerate(zip(got, again, want)):
             assert g.dtype == p.dtype and g.shape == p.shape
-            assert _within_rel(g, p)
+            assert within(g, p, i)
             assert torch.equal(g, a)                               # deterministic
     # rows that see no compressed token get no gradient
     assert not bool(cases[0][0]()[0][:, :l - 1].any())
@@ -183,24 +208,70 @@ def test_backward_designs_match_plain_and_each_other_on_gpu(dtype, B, S, G, h, D
     win = dict(mode="win", w=w, scale=scale)
     sel_kw = dict(l_sel=l_sel, scale=scale)
 
-    cases = [   # (kernel, plain version, two-pass design)
+    banded = lambda g, ref, i: _within_rel(g, ref)  # noqa: E731
+    cases = [   # (kernel, plain version, two-pass design, bound)
         (lambda: b1_mod.banded_bwd_1p(*cargs, **cmp_), lambda: bb_mod.banded_bwd_plain(
-            *cargs, **cmp_), lambda: bb_mod.banded_bwd(*cargs, **cmp_)),
+            *cargs, **cmp_), lambda: bb_mod.banded_bwd(*cargs, **cmp_), banded),
         (lambda: b1_mod.banded_bwd_1p(*wargs, **win), lambda: bb_mod.banded_bwd_plain(
-            *wargs, **win), lambda: bb_mod.banded_bwd(*wargs, **win)),
+            *wargs, **win), lambda: bb_mod.banded_bwd(*wargs, **win), banded),
         (lambda: s1_mod.sel_attn_bwd_1p(*sargs, **sel_kw), lambda: sb_mod.sel_attn_bwd_plain(
-            *sargs, **sel_kw), lambda: sb_mod.sel_attn_bwd(*sargs, **sel_kw)),
+            *sargs, **sel_kw), lambda: sb_mod.sel_attn_bwd(*sargs, **sel_kw),
+         _sel_within(sargs, l_sel, scale)),
         (lambda: wd_mod.win_bwd_diag(*wargs, w=w, scale=scale), lambda: bb_mod.banded_bwd_plain(
-            *wargs, **win), lambda: bb_mod.banded_bwd(*wargs, **win)),
+            *wargs, **win), lambda: bb_mod.banded_bwd(*wargs, **win), banded),
     ]
-    for kernel, plain, other in cases:
+    for kernel, plain, other, within in cases:
         got, again, want, theirs = kernel(), kernel(), plain(), other()
-        for g, a, p, o in zip(got, again, want, theirs):
+        for i, (g, a, p, o) in enumerate(zip(got, again, want, theirs)):
             assert g.dtype == p.dtype and g.shape == p.shape
-            assert _within_rel(g, p) and _within_rel(g, o)
+            assert within(g, p, i) and within(g, o, i)
             assert torch.equal(g, a)                           # deterministic
     # rows that see no compressed token get no gradient
     assert not bool(cases[0][0]()[0][:, :l - 1].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,D,l_sel,S,n", [
+    (1, 64, 64, 200, 5),       # h = 1; S_kv = 200, not a multiple of 64
+    (3, 32, 32, 150, 4),       # odd h; l_sel = 32: half a key tile per block
+    (6, 64, 64, 300, 16),      # the m7c geometry; n above the blocks a row sees early on
+    (16, 64, 128, 330, 3),     # h = 16; l_sel = 128: two key tiles, the last past S_kv
+    (6, 128, 64, 140, 4),      # D = 128: the wide tensor-core tiles (32-row chunks)
+    (3, 32, 8, 330, 6),        # l_sel = 8: q-tile unions past 32 blocks (two mask words)
+])
+def test_selection_backward_designs_on_gpu(dtype, h, D, l_sel, S, n):
+    """Both selection backward designs (sel_attn_bwd, sel_attn_bwd_1p)
+    against the plain version and each other, with rows whose set is
+    empty and repeated ids; two launches give the same bits; one launch
+    each."""
+    dev = _card()
+    scale = D ** -0.5
+    Q, K, V, dO = _bwd_operands(dtype, dev, 2, S, 2, h, D, S, seed=h)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    NB = -(-S // l_sel)
+    sel = torch.randint(-1, NB, (2, S, 2, n), generator=gen, device=dev, dtype=torch.int32)
+    sel[..., -1] = sel[..., 0]                                   # repeated ids
+    sel[:, 7] = -1                                               # rows with an empty set
+    t = torch.arange(S, device=dev)
+    O, lse = sa_mod.sel_attn(Q, K, V, sel, t, l_sel=l_sel, scale=scale, return_lse=True)
+    args = (Q, K, V, sel, t, dO, lse, attention_delta(dO, O))
+    within = _sel_within(args, l_sel, scale)
+    want = sb_mod.sel_attn_bwd_plain(*args, l_sel=l_sel, scale=scale)
+    kernels.reset_launch_counts()
+    outs = {}
+    for fn in (sb_mod.sel_attn_bwd, s1_mod.sel_attn_bwd_1p):
+        got, again = fn(*args, l_sel=l_sel, scale=scale), fn(*args, l_sel=l_sel, scale=scale)
+        for i, (g, a, p) in enumerate(zip(got, again, want)):
+            assert g.dtype == dtype and g.shape == p.shape
+            assert within(g, p, i), (fn.__name__, i)
+            assert torch.equal(g, a)                             # deterministic
+        assert not bool(got[0][:, 7].any())                      # empty rows: no dQ
+        outs[fn.__name__] = got
+    for i, (a, b) in enumerate(zip(outs["sel_attn_bwd"], outs["sel_attn_bwd_1p"])):
+        assert within(a, b, i)
+    counts = kernels.launch_counts()
+    assert counts["sel_attn_bwd"] == 2 and counts["sel_attn_bwd_1p"] == 2
 
 
 @pytest.mark.gpu

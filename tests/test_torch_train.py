@@ -45,7 +45,7 @@ from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig, TrainConfig
 from nsa_vibe_tpu_torch.models import tinylm as ttiny
 from nsa_vibe_tpu_torch.ops import reference as tref
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd, banded_bwd_plain
-from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import sel_attn_bwd, selection_inverse_index
+from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import sel_attn_bwd, selection_index
 from nsa_vibe_tpu_torch.ops.selection import count_distinct_blocks, selection_token_mask
 from nsa_vibe_tpu_torch.train import data as tdata
 from nsa_vibe_tpu_torch.train import optim as toptim
@@ -169,7 +169,7 @@ def test_selection_inverse_index_lists_each_row_once():
     B, S, G, n, l_sel = 2, 50, 2, 5, 8
     rs = np.random.RandomState(3)
     sel = torch.from_numpy(rs.randint(-1, 8, size=(B, S, G, n)).astype(np.int32))
-    inv, cnt = selection_inverse_index(sel, torch.arange(S), l_sel, S)
+    inv, _, cnt, _ = selection_index(sel, torch.arange(S), l_sel, S)
     NB = -(-S // l_sel)
     assert inv.shape == (B, G, NB, S + 1) and cnt.shape == (B, G, NB)
     for b in range(B):
