@@ -6,16 +6,20 @@
 Phases (any failure exits non-zero):
   (a) build: compile the CUDA kernels of nsa_vibe_tpu_torch/csrc/ from the
       checkout (one nvcc per source, in parallel) and print the ptxas report
-      (and, for the selection backward's kernels, registers and spills);
-      the SASS of each bf16 tensor-core kernel (TENSOR_CORE_KERNELS) must
-      hold HMMA/HGMMA instructions (cuobjdump -sass);
+      (and, for the selection's kernels of PTXAS_REPORTED, registers and
+      spills; the bf16 union forward at D = 64 must have none); the SASS of
+      each bf16 tensor-core kernel (TENSOR_CORE_KERNELS) must hold
+      HMMA/HGMMA instructions (cuobjdump -sass);
   (b) kernel checks: each kernel at the m7c-125M serving shapes (B=4,
       S=2048, G=2, h=6, D=64; decode with cache capacity 2080) against its
       plain PyTorch version on the card, in f32 with TF32 off and in bf16,
-      with the bounds of `allowed_err`; select_cmp's sel_idx is compared as
-      sets and may differ only on near ties (NEAR_TIE); then each kernel is
-      timed beside its plain version, one PyTorch library call where one
-      computes the same function, and its bound on the card;
+      with the bounds of `allowed_err`, except the bf16 prefill selection
+      forward (tensor cores, P rounded to bf16), held by `sel_fwd_check` to
+      `allowed_tc_err`, which a 1% fault planted in its output must fail;
+      the selection forward twice for identical bits; select_cmp's sel_idx
+      is compared as sets and may differ only on near ties (NEAR_TIE); then
+      each kernel is timed beside its plain version, one PyTorch library
+      call where one computes the same function, and its bound on the card;
   (c) serve: m7c-125M in bf16 with random weights from a seed serves 4
       prompts of 2048 tokens and 32 greedy new tokens each through
       `generate`; the kernels' launch counters must show 12 select_cmp,
@@ -25,7 +29,8 @@ Phases (any failure exits non-zero):
       card are compared, in f32, with the plain path (the same functions
       on CPU tensors) on the serve's own inputs; torch.profiler gives the
       device busy time of a prefill and of a decode step, by kernel;
-  (d) train: at the m7c-125M training shapes (B=8, S=2048) the forward
+  (d) train: at the m7c-125M training shapes (B=8, S=2048) the selection
+      forward (`sel_fwd_check`), the forward
       kernels' row statistics (lse) and the two-pass backward kernels
       (banded_bwd for win and cmp, sel_attn_bwd) against their plain
       versions in f32 and bf16 (bounds of `allowed_rel_err`; the
@@ -44,7 +49,9 @@ Phases (any failure exits non-zero):
   (e) long context: the banded kernel (row 5, both modes) and the
       select-only scorer (row 6) at the 64k shapes (S_sel = 1024) against
       their plain versions on the last 4096 query rows, f32 and bf16, and
-      the same rows from a call at t_start = 61440; at 16k, where both
+      the same rows from a call at t_start = 61440; the selection forward
+      on select_blocks' sets (its last 4096 rows, PLAIN_ROWS a call) and at
+      the 64k decode cache (`sel_fwd_check`); at 16k, where both
       routes apply, banded_attn and select_blocks against select_cmp, and
       compressed_attention forward + backward with no host sync; m7c-125M
       serves one 65536-token prompt and 32 greedy tokens through
@@ -54,13 +61,17 @@ Phases (any failure exits non-zero):
       the needle smoke (five depths) and end-to-end probe (three depths)
       at S = 65536 must pass; rows 5 and 6 are timed beside their plain
       versions (over every row, 4096 rows a call) and, for row 5, SDPA;
+      rows 2 and 4 at the 64k prefill and decode shapes, and the union
+      forward's mean union and time at each q tile of Q_TILE_TOKENS;
   (f) backward designs: the one-pass kernels (banded_bwd_1p for win and
       cmp, sel_attn_bwd_1p) and the diagonal window kernel (win_bwd_diag)
       at the training shapes against their plain versions (f32, bf16), twice
       for identical bits, and against the other design of the same function
       (rows 7/8, 9/10, 11/7/8); the selection's kv-major chunks per CTA
       before and after its work items, and its two-pass dQ kernel's mean
-      union size and time at each q tile of Q_TILE_TOKENS; timed as in (d);
+      union size and time at each q tile of Q_TILE_TOKENS, and the same for
+      the union forward; the selection forward timed at the train shape;
+      timed as in (d);
       one m7c layer's f32
       gradients on the card under each setting of DESIGNS against the CPU,
       with no host sync; the m7c train step's first gradient under each
@@ -112,7 +123,10 @@ from nsa_vibe_tpu_torch.ops.cuda import build as kbuild
 from nsa_vibe_tpu_torch.ops.cuda.banded_attn import banded_attn, banded_attn_plain
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd, banded_bwd_plain, banded_mask
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import banded_bwd_1p
-from nsa_vibe_tpu_torch.ops.cuda.sel_attn import sel_attn, sel_attn_plain
+from nsa_vibe_tpu_torch.ops.cuda import sel_attn as sa_mod
+from nsa_vibe_tpu_torch.ops.cuda.sel_attn import (
+    sel_attn, sel_attn_plain, sel_attn_rss, union_tile_tokens,
+)
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn_bwd as sb_mod
 from nsa_vibe_tpu_torch.ops.cuda.common import kv_splits
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import (
@@ -147,14 +161,19 @@ SLEEP_CYCLES_PER_S = 2e9   # >= the H100's SM clock (1.98 GHz), so a sleep lasts
 B, S, CAP, N_NEW = 4, 2048, 2080, 32
 B_TRAIN, TIMED_STEPS, LOSS_STEPS = 8, 5, 120
 LOSS_DROP = 0.2            # mean of the last 4 logged losses below the first, at least
-PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "win_attn_kernel",   # CUDA symbol names
+PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "sel_attn_union_kernel",  # CUDA symbols
+                "sel_attn_split_kernel", "sel_attn_combine_kernel", "win_attn_kernel",
                 "banded_bwd_dq_kernel", "banded_bwd_dkv_kernel", "sel_bwd_dq_kernel",
                 "sel_bwd_dq_union_kernel", "sel_bwd_kv_mma_kernel", "sel_bwd_kv_fma_kernel",
                 "sel_bwd_reduce_kernel", "reduce_splits_kernel", "banded_attn_kernel",
                 "select_blocks_kernel", "banded_bwd_1p_kernel", "win_bwd_diag_kernel",
                 "sum_slots_kernel", "sum_strips_kernel")
 # the bf16 kernels that must run on tensor cores: their SASS holds HMMA
-TENSOR_CORE_KERNELS = ("sel_bwd_kv_mma_kernel", "sel_bwd_dq_union_kernel")
+TENSOR_CORE_KERNELS = ("sel_bwd_kv_mma_kernel", "sel_bwd_dq_union_kernel",
+                       "sel_attn_union_kernel")
+# kernels whose ptxas report is printed; the union forward at D = 64 must not spill
+PTXAS_REPORTED = ("sel_bwd_", "sel_attn_union_kernel", "sel_attn_split_kernel")
+NO_SPILL = "sel_attn_union_kernelILi64E"   # mangled sel_attn_union_kernel<64>
 # backward-design settings of phase (f) (ops/tuning.py keys), each a train step
 DESIGNS = {
     "onepass": {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 0},
@@ -169,7 +188,8 @@ DESIGNS = {
 # terms, to one bf16 ulp of the unrounded plain value and F32_TOL of its max
 TC_SIGMAS = 4
 FAULT = 1.01               # a planted 1% error in one bf16 gradient must fail that bound
-Q_TILE_TOKENS = (1, 2, 5, 10)   # q tiles of the union dQ kernel timed at h = 6
+Q_TILE_TOKENS = (1, 2, 5, 10)   # q tiles of the union dQ and forward kernels timed at h = 6
+PLAIN_ROWS = 1024          # query rows per call of the selection forward's plain version at 64k
 LOSS_TOL = 5e-3   # train-step loss, any design vs the default keys, absolute (loss ~5.6)
 # the train step's first gradient, any design vs the default keys, per leaf:
 # ||g - g_default|| / ||g_default|| (f32, TF32 off). On the H100 the designs
@@ -276,12 +296,15 @@ def phase_build() -> None:
     kbuild.library()
     print(f"[build] {path.name} built from {len(kbuild.SOURCES)} sources in "
           f"{time.perf_counter() - t:.1f} s")
-    report = ptxas_report(kbuild.BUILD_LOG, ("sel_bwd_",))
-    for (_, regs, frame), name in zip(report, demangle([r[0] for r in report])):
+    report = ptxas_report(kbuild.BUILD_LOG, PTXAS_REPORTED)
+    names = demangle([r[0] for r in report])
+    for (_, regs, frame), name in zip(report, names):
         print(f"[build] ptxas {name}: {regs} registers; {frame}")
     spills = [n for n, _, f in report
               if any(int(v) for v in f.replace(",", " ").split() if v.isdigit())]
-    print(f"[build] selection backward kernels with a stack frame or spills: {len(spills)}")
+    print(f"[build] reported kernels with a stack frame or spills: {len(spills)}")
+    if not any(NO_SPILL in n for n, _, _ in report) or any(NO_SPILL in n for n in spills):
+        fail("ptxas must report sel_attn_union_kernel<64> with no stack frame or spills")
     counts = tensor_core_sass(path)
     for name, n in zip(demangle(list(counts)), counts.values()):
         print(f"[build] SASS {name}: {n} tensor-core instructions (HMMA/HGMMA)")
@@ -364,18 +387,21 @@ def allowed_rel_err(plain: torch.Tensor) -> torch.Tensor:
 
 
 def allowed_tc_err(plain32: torch.Tensor, rss: torch.Tensor) -> torch.Tensor:
-    """Per-element bound of |kernel - plain| for the selection backward's
-    bf16 tensor-core kernels, against the plain version's unrounded f32
-    result from the same bf16 operands (sel_attn_bwd_rss): one bf16 ulp of
-    that value (the kernel's one rounding of its output, which may cross a
-    power of two), F32_TOL of its max |value| (sum order), and TC_SIGMAS *
-    2^-9 * rss. The kernels round each P and dS to bf16 (relative error <=
-    2^-9, of either sign) before dV = P^T dO, dK = dS^T Q and dQ = dS K, as
-    the TPU kernels do; an element then moves by a sum of those errors,
-    whose standard deviation is at most 2^-9 / sqrt(3) * rss, rss the root
-    sum of squares of the element's terms, so the bound allows ~6.9 of
-    them. A 1% error in a gradient exceeds it wherever an element is not a
-    sum with heavy cancellation (phase (d) plants one in each)."""
+    """Per-element bound of |kernel - plain| for the selection's bf16
+    tensor-core kernels (backward, and the prefill forward), against the
+    plain version's unrounded f32 result from the same bf16 operands
+    (sel_attn_bwd_rss, sel_attn_rss): one bf16 ulp of that value (the
+    kernel's one rounding of its output, which may cross a power of two),
+    F32_TOL of its max |value| (sum order), and TC_SIGMAS * 2^-9 * rss.
+    The kernels round each P (O = P V / l, dV = P^T dO) and dS (dK = dS^T
+    Q, dQ = dS K) to bf16 before the product, as the TPU kernels do: a
+    relative error of either sign, at most 2^-8 and of standard deviation
+    ~0.85 * 2^-9 over the mantissas. An element then moves by a sum of
+    those errors, whose standard deviation is ~0.85 * 2^-9 * rss, rss the
+    root sum of squares of the element's terms, so the last term allows
+    ~4.7 of them, the ulp term more where the element is not a sum with
+    heavy cancellation. A 1% error exceeds the bound wherever an element
+    is not such a sum (phases (b), (d), (e) and (f) plant one in each)."""
     x = plain32.abs()
     _, e = torch.frexp(x)
     ulp = torch.ldexp(torch.ones_like(x), e - 8)
@@ -404,6 +430,142 @@ def check(name, got, want, extra="", bound=allowed_err) -> float:
     return max_err
 
 
+def sel_fwd_check(name, run, Q, K, V, sel, t, *, l_sel: int, scale: float, lse: bool = False,
+                  rows=None, chunk=None) -> float:
+    """Holds the selection forward `run()` (sel_attn on Q, K, V, sel, t;
+    returning (O, lse) when `lse`) against its plain version, after two
+    launches that must give the same bits: f32 and decode within
+    allowed_err; the bf16 prefill (the tensor-core union kernel, which
+    rounds P to bf16 before P V, as the TPU kernel does at
+    sel_flash.py:157) within allowed_tc_err of the plain version's
+    unrounded f32 result (sel_attn_rss), where a FAULT planted in O must
+    fail; lse within LSE_TOL, with the same rows empty. rows = (r0, r1):
+    hold only those query rows, `chunk` at a time (the plain version's
+    dense scores at 64k). Returns the max absolute error of O."""
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got if lse else (got,),
+                                                  again if lse else (again,))):
+        fail(f"{name} {Q.dtype}: two launches differ")
+    O, L_ = got if lse else (got, None)
+    del again
+    tc = Q.dtype == torch.bfloat16 and Q.shape[1] > 1
+    r0, r1 = rows or (0, Q.shape[1])
+    worst = fault = max_err = lse_err = 0.0
+    for a in range(r0, r1, chunk or r1 - r0):
+        b = min(a + (chunk or r1 - r0), r1)
+        q, s_, tt = Q[:, a:b], sel[:, a:b], (t[a:b] if t.dim() == 1 else t[:, a:b])
+        if tc:
+            want, rss = sel_attn_rss(q, K, V, s_, tt, l_sel=l_sel, scale=scale)
+            bd = allowed_tc_err(want, rss)
+            fault = max(fault, worst_ratio(O[:, a:b] * FAULT, want, bd))
+            del rss
+        else:
+            want = sel_attn_plain(q, K, V, s_, tt, l_sel=l_sel, scale=scale)
+            bd = allowed_err(want)
+        worst = max(worst, worst_ratio(O[:, a:b], want, bd))
+        max_err = max(max_err, float((O[:, a:b].float() - want.float()).abs().max()))
+        del want, bd
+        if lse:
+            plse = sel_attn_plain(q, K, V, s_, tt, l_sel=l_sel, scale=scale, return_lse=True)[1]
+            empty = plse >= 1e29
+            if not torch.equal(L_[:, a:b] >= 1e29, empty):
+                fail(f"{name} lse: rows without a visible key differ from the plain version's")
+            lse_err = max(lse_err, float(torch.where(empty, torch.zeros_like(plse),
+                                                     (L_[:, a:b] - plse).abs()).max()))
+    dt = str(Q.dtype).replace("torch.", "")
+    print(f"[check] {name:18s} {dt:8s} max_abs_err={max_err:.3e} worst err/bound={worst:.3f} "
+          f"({'allowed_tc_err' if tc else 'allowed_err'} over rows [{r0}, {r1}))"
+          + (f"; lse max_abs_err={lse_err:.3e} (bound {LSE_TOL:g})" if lse else "")
+          + (f"; with a {FAULT - 1:.0%} fault planted in O: worst err/bound {fault:.3f} "
+             f"(must exceed 1)" if tc else "") + "; two launches gave identical bits")
+    if not worst <= 1.0:
+        fail(f"{name} {dt}: an element is {worst:.3f} x its bound")
+    if tc and not fault > 1.0:
+        fail(f"{name}: a planted {FAULT - 1:.0%} fault passes the bf16 bound")
+    if lse and not lse_err <= LSE_TOL:
+        fail(f"{name} lse {dt}: error {lse_err:.3e} above {LSE_TOL:g}")
+    return max_err
+
+
+def sel_work(sel, tp, l_sel: int, S_kv: int) -> tuple:
+    """(visible (query row, key) pairs per head, distinct K/V rows read) of
+    the selection forward on these inputs, from the sets alone: a dense
+    [B,S,G,S_kv] mask would take 8.6 GB at 64k."""
+    B_, S_ = sel.shape[:2]
+    NB = -(-S_kv // l_sel)
+    ids = canonicalize_sel(sel).long()
+    t = tp.to(torch.int64).expand(B_, S_)[:, :, None, None]
+    ok = (ids >= 0) & (ids < NB) & (ids * l_sel <= t)
+    keys = torch.where(ok, torch.clamp(torch.clamp(t + 1, max=S_kv) - ids * l_sel, max=l_sel), 0)
+    idx = torch.where(ok, ids, NB).transpose(1, 2).flatten(2)                  # [B,G,S*n]
+    per = torch.zeros((B_, sel.shape[2], NB + 1), dtype=torch.int64, device=sel.device)
+    per.scatter_reduce_(-1, idx, keys.transpose(1, 2).flatten(2), "amax")      # keys per block
+    return float(keys.sum()), int(per[..., :NB].sum())
+
+
+def sel_attn_row(name, q, k, v, s, tp, *, launches: int, max_err: float, iters: int = 20,
+                 plain_rows=None, library: bool = True) -> dict:
+    """The JSON row of the selection forward on these inputs: kernel time
+    (stream held), plain version's time (over every row, `plain_rows` a
+    call if given), one SDPA call with the equivalent mask (`library`),
+    and the bound from this run's inputs."""
+    cfg = M7C_125M.nsa
+    Dk, Dv, h = q.shape[-1], v.shape[-1], q.shape[3]
+    sc = 1.0 / float(np.sqrt(Dk))
+    kw = dict(l_sel=cfg.l_sel, scale=sc)
+    pairs, kv_rows = sel_work(s, tp, cfg.l_sel, k.shape[2])
+    o = sel_attn(q, k, v, s, tp, **kw)
+    tpb = tp.to(torch.int32).expand(q.shape[0], q.shape[1])
+    bms, by = bound(nbytes(q, s, tpb, o) + kv_rows * (Dk + Dv) * k.element_size(),
+                    pairs * h * 2 * (Dk + Dv), q.dtype)
+    del o
+    if plain_rows is None:
+        plain_ms = time_ms(lambda: sel_attn_plain(q, k, v, s, tp, **kw), 5, hold=True)
+    else:
+        plain_ms = time_ms(lambda: [sel_attn_plain(q[:, a:a + plain_rows], k, v,
+                                                   s[:, a:a + plain_rows], tp[a:a + plain_rows],
+                                                   **kw) for a in range(0, q.shape[1], plain_rows)],
+                           1, 1, hold=True)
+    lib_ms = None
+    if library:
+        mask = selection_token_mask(s, tp, cfg.l_sel, k.shape[2])
+        sq, sk, sv, sm = sdpa_operands(q, k, v, mask)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm,
+                                                                scale=sc), 10, hold=True)
+        del sq, sk, sv, sm, mask
+    decode = q.shape[1] == 1
+    src = "sel_attn" if decode or q.dtype != torch.bfloat16 else "sel_attn_fwd_mma"
+    row = dict(
+        name=name, source=f"nsa_vibe_tpu_torch/csrc/{src}.cu",
+        replaces=("nsa_vibe_tpu/ops/pallas/selection.py:97" if decode
+                  else "nsa_vibe_tpu/ops/pallas/sel_flash.py:227"),
+        launches=launches, max_abs_err=max_err,
+        ms=time_ms(lambda: sel_attn(q, k, v, s, tp, **kw), iters, hold=True),
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    torch.cuda.empty_cache()
+    return row
+
+
+def sel_fwd_tiles(label: str, q, k, v, s, tp, iters: int) -> None:
+    """The bf16 union forward at each q tile of Q_TILE_TOKENS on these
+    inputs: the mean union size and the kernel's time."""
+    cfg, h = M7C_125M.nsa, q.shape[3]
+    kw = dict(l_sel=cfg.l_sel, scale=1.0 / float(np.sqrt(q.shape[-1])))
+    for T in Q_TILE_TOKENS:
+        _, count, _ = selection_tile_union(s, tp, cfg.l_sel, k.shape[2], T)
+        sa_mod.union_tile_tokens = lambda h, T=T: T    # the wrapper's q tile, for this timing only
+        try:
+            ms = time_ms(lambda: sel_attn(q, k, v, s, tp, **kw), iters, hold=True)
+        finally:
+            sa_mod.union_tile_tokens = union_tile_tokens
+        print(f"[sel fwd] {label}: union q tile {T} tokens ({T * h} rows): mean union "
+              f"{float(count.float().mean()):.3f} blocks over {count.shape[2]} tiles per (b, g); "
+              f"sel_attn {ms:.4f} ms{' (the default)' if T == union_tile_tokens(h) else ''}")
+        del count
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(dev) -> dict:
     """Returns per-kernel records: max_abs_err (bf16, the serving dtype) and
     the bf16 inputs for timing."""
@@ -424,15 +586,12 @@ def phase_kernels(dev) -> dict:
         if n_far:
             fail(f"select_cmp {dtype}: {n_far} rows differ beyond the near-tie bound")
         # prefill selection on the scorer's own output (forced slots repeat)
-        O_k = sel_attn(x["Q"], x["K"], x["V"], sel_k, x["t_pre"], l_sel=cfg.l_sel, scale=sc)
-        O_p = sel_attn_plain(x["Q"], x["K"], x["V"], sel_k, x["t_pre"], l_sel=cfg.l_sel,
-                             scale=sc)
-        e2 = check("sel_attn@prefill", O_k, O_p)
-        O_k = sel_attn(x["Qd"], x["Kd"], x["Vd"], x["sel_dec"], x["t_dec"], l_sel=cfg.l_sel,
-                       scale=sc)
-        O_p = sel_attn_plain(x["Qd"], x["Kd"], x["Vd"], x["sel_dec"], x["t_dec"],
-                             l_sel=cfg.l_sel, scale=sc)
-        e3 = check("sel_attn@decode", O_k, O_p)
+        pre = (x["Q"], x["K"], x["V"], sel_k, x["t_pre"])
+        e2 = sel_fwd_check("sel_attn@prefill", lambda: sel_attn(*pre, l_sel=cfg.l_sel, scale=sc),
+                           *pre, l_sel=cfg.l_sel, scale=sc)
+        dec = (x["Qd"], x["Kd"], x["Vd"], x["sel_dec"], x["t_dec"])
+        e3 = sel_fwd_check("sel_attn@decode", lambda: sel_attn(*dec, l_sel=cfg.l_sel, scale=sc),
+                           *dec, l_sel=cfg.l_sel, scale=sc)
         O_k = win_attn(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=sc)
         O_p = win_attn_plain(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=sc)
         e4 = check("win_attn", O_k, O_p)
@@ -480,31 +639,11 @@ def measure(rec, counts, decode_launches) -> list:
         bound_ms=bms, bound_by=by, library_ms=None))
 
     # sel_attn at prefill and decode: per (b,s,g) the visible keys of its block set
-    for kind, (q, k, v, s, tp) in {
-        "prefill": (Q, x["K"], x["V"], sel, x["t_pre"]),
-        "decode": (x["Qd"], x["Kd"], x["Vd"], x["sel_dec"], x["t_dec"]),
-    }.items():
-        mask = selection_token_mask(s, tp, cfg.l_sel, k.shape[2])            # [B,S,G,S_kv]
-        ops = float(mask.sum()) * h * 2 * (Dk + Dv)
-        kv_rows = int(mask.any(dim=1).sum())                                  # distinct rows
-        o = sel_attn(q, k, v, s, tp, l_sel=cfg.l_sel, scale=sc)
-        tpb = tp.to(torch.int32).expand(q.shape[0], q.shape[1])
-        bms, by = bound(nbytes(q, s, tpb, o) + kv_rows * (Dk + Dv) * k.element_size(), ops, dt)
-        sq, sk, sv, sm = sdpa_operands(q, k, v, mask)
-        launches = (counts["sel_attn"] - decode_launches if kind == "prefill"
-                    else decode_launches)
-        out.append(dict(
-            name=f"sel_attn@{kind}", source="nsa_vibe_tpu_torch/csrc/sel_attn.cu",
-            replaces=("nsa_vibe_tpu/ops/pallas/sel_flash.py:227" if kind == "prefill"
-                      else "nsa_vibe_tpu/ops/pallas/selection.py:97"),
-            launches=launches, max_abs_err=rec[f"sel_attn@{kind}"],
-            ms=time_ms(lambda: sel_attn(q, k, v, s, tp, l_sel=cfg.l_sel, scale=sc), 20, hold=True),
-            plain_ms=time_ms(lambda: sel_attn_plain(q, k, v, s, tp, l_sel=cfg.l_sel,
-                                                    scale=sc), 5, hold=True),
-            bound_ms=bms, bound_by=by,
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                sq, sk, sv, attn_mask=sm, scale=sc), 10, hold=True)))
-        del sq, sk, sv, sm, mask
+    out.append(sel_attn_row("sel_attn@prefill", Q, x["K"], x["V"], sel, x["t_pre"],
+                            launches=counts["sel_attn"] - decode_launches,
+                            max_err=rec["sel_attn@prefill"]))
+    out.append(sel_attn_row("sel_attn@decode", x["Qd"], x["Kd"], x["Vd"], x["sel_dec"],
+                            x["t_dec"], launches=decode_launches, max_err=rec["sel_attn@decode"]))
 
     # win_attn: per row 2*min(w, t+1)*(Dk + Dv)
     ops = float(torch.clamp(t + 1, max=cfg.w).sum()) * B * cfg.n_kv_groups * h * 2 * (Dk + Dv)
@@ -523,12 +662,16 @@ def measure(rec, counts, decode_launches) -> list:
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             sq, sk, sv, attn_mask=band, scale=sc), 10, hold=True)))
-    for r in out:
+    print_rows(out)
+    return out
+
+
+def print_rows(rows) -> None:
+    for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[time] {r['name']:18s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
               f"library {lib}  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
               f"launches {r['launches']}  max_abs_err(bf16) {r['max_abs_err']:.3e}")
-    return out
 
 
 # ------------------------------------------------------------------ (c)
@@ -694,6 +837,11 @@ def train_kernel_inputs(dtype, dev, gen) -> dict:
                                                return_lse=True)
     x["Os"], x["lse_s"] = sel_attn(x["Q"], x["K"], x["V"], x["sel"], x["t"], l_sel=cfg.l_sel,
                                    scale=x["scale"], return_lse=True)
+    sargs = (x["Q"], x["K"], x["V"], x["sel"], x["t"])
+    x["sel_fwd_err"] = sel_fwd_check(
+        "sel_attn@train", lambda: sel_attn(*sargs, l_sel=cfg.l_sel, scale=x["scale"],
+                                           return_lse=True),
+        *sargs, l_sel=cfg.l_sel, scale=x["scale"], lse=True)
     x["Ow"], x["lse_w"] = win_attn(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=x["scale"],
                                    return_lse=True)
     plain = {
@@ -1328,11 +1476,37 @@ def phase_long_kernels(dev) -> dict:
             fail(f"select_blocks {dtype}: {n_far} rows differ beyond the near-tie bound, or "
                  f"the pos_offset call differs from the full call")
         rec["select_blocks"] = spread
-        del sel, sels, selp, p_grp
+        del sels, selp, p_grp
+        # row 2 on select_blocks' sets (the long route's prefill), then row 4 at the 64k cache
+        fwd = (x["Q"], x["K"], x["V"], sel, torch.arange(S_LONG, device=dev))
+        rec["sel_attn@64k"] = sel_fwd_check(
+            "sel_attn@64k", lambda: sel_attn(*fwd, l_sel=cfg.l_sel, scale=sc, return_lse=True),
+            *fwd, l_sel=cfg.l_sel, scale=sc, lse=True, rows=(t0, S_LONG), chunk=PLAIN_ROWS)
+        dec = long_decode_inputs(dtype, dev, gen)
+        rec["sel_attn@decode-64k"] = sel_fwd_check(
+            "sel_attn@decode-64k", lambda: sel_attn(*dec, l_sel=cfg.l_sel, scale=sc),
+            *dec, l_sel=cfg.l_sel, scale=sc)
         if dtype == torch.bfloat16:
-            rec["inputs"] = x
+            rec.update(inputs=x, sel=sel, dec=dec)
+        del fwd, sel, dec
         torch.cuda.empty_cache()
     return rec
+
+
+def long_decode_inputs(dtype, dev, gen) -> tuple:
+    """One decode step's selection operands at the 64k cache (capacity
+    S_LONG + N_NEW, the query at position S_LONG): Q [1,1,G,h,D], K/V
+    [1,G,cap,D], sel [1,1,G,n] from random block scores, t [1,1]."""
+    cfg = M7C_125M.nsa
+    G, h, D, cap = cfg.n_kv_groups, cfg.h_per_group, cfg.d_k, S_LONG + N_NEW
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    t = torch.full((1, 1), S_LONG, device=dev)
+    p = torch.rand((1, 1, G, -(-cap // cfg.l_sel)), generator=gen, device=dev)
+    return (r(1, 1, G, h, D), r(1, G, cap, D), r(1, G, cap, D),
+            select_topn_blocks(p, cfg.n_sel, t, cfg.l_sel), t)
 
 
 def cross_check(dev) -> None:
@@ -1448,7 +1622,7 @@ def phase_long_serve(dev) -> dict:
         _, caches = model_prefill_with_caches(params, prompt, mcfg, cap)
         trace(lambda: model_decode_step(params, tokens[:, S_LONG:S_LONG + 1], caches, mcfg), 3,
               "64k decode step", decode_ms)
-    return counts
+    return {**counts, "sel_attn@decode": decode_launches}
 
 
 def phase_needles(dev) -> None:
@@ -1523,11 +1697,17 @@ def measure_long(rec, counts) -> list:
                                                       pos_offset=s) for s in starts], 1, 1,
                          hold=True),
         bound_ms=bms, bound_by=by, library_ms=None))
-    for r in out:
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"[time] {r['name']:18s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"library {lib}  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-              f"launches {r['launches']}  max_abs_err(bf16) {r['max_abs_err']:.3e}")
+
+    # rows 2 and 4 at 64k; no SDPA call at 64k prefill: its mask would take 51 GB
+    fwd = (Q, x["K"], x["V"], rec["sel"], torch.arange(S_LONG, device=Q.device))
+    dec_launches = counts["sel_attn@decode"]
+    out.append(sel_attn_row("sel_attn@64k", *fwd, launches=counts["sel_attn"] - dec_launches,
+                            max_err=rec["sel_attn@64k"], iters=5, plain_rows=PLAIN_ROWS,
+                            library=False))
+    out.append(sel_attn_row("sel_attn@decode-64k", *rec["dec"], launches=dec_launches,
+                            max_err=rec["sel_attn@decode-64k"]))
+    sel_fwd_tiles("64k", *fwd, iters=3)
+    print_rows(out)
     return out
 
 
@@ -1574,6 +1754,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     frec = phase_train_kernels(dev, tuple(PARTNERS))
     phase_sel_tiles(frec["inputs"])
+    x = frec["inputs"]
+    sargs = (x["Q"], x["K"], x["V"], x["sel"], x["t"])
+    sel_fwd_tiles("train", *sargs, iters=10)
+    rows.append(sel_attn_row("sel_attn@train", *sargs, launches=tr["counts"]["sel_attn"],
+                             max_err=x["sel_fwd_err"]))
+    print_rows(rows[-1:])
+    del x, sargs
     runs = [tr["counts"]] + phase_designs(dev, tr["losses"], cpu)
     rows += measure_train({**trec, **frec}, runs, TWO_PASS + tuple(PARTNERS))
     del trec, frec

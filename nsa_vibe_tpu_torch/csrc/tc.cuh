@@ -1,8 +1,8 @@
-// Tensor-core pieces of the bf16 backward kernels (sel_attn_bwd.cu,
-// sel_attn_bwd_1p.cu): 16-byte cp.async copies, ldmatrix loads of
-// mma.sync.m16n8k16 fragments from bf16 tiles in shared memory, the bf16
-// product with f32 accumulation, and packing of f32 results into bf16
-// operand fragments.
+// Tensor-core pieces of the bf16 selection kernels (sel_attn_fwd_mma.cu,
+// sel_attn_bwd.cu, sel_attn_bwd_1p.cu): 16-byte cp.async copies, ldmatrix
+// loads of mma.sync.m16n8k16 fragments from bf16 tiles in shared memory,
+// the bf16 product with f32 accumulation, and packing of f32 results into
+// bf16 operand fragments.
 //
 // Fragments of mma.m16n8k16 (PTX ISA), lane = 4 * g + t:
 //   A 16x16 (4 regs of 2 bf16):  a0 (row g,   cols 2t, 2t+1)   a1 (row g+8, cols 2t, 2t+1)

@@ -4,8 +4,8 @@ paths, their wrappers and plain PyTorch versions.
 | wrapper         | CUDA source             | replaces (nsa_vibe_tpu/ops/pallas/)                 |
 |-----------------|-------------------------|-----------------------------------------------------|
 | select_cmp      | csrc/select_cmp.cu      | scorer.py::nsa_select_and_cmp_pallas                |
-| sel_attn        | csrc/sel_attn.cu        | sel_flash.py::selection_flash_pallas (prefill),     |
-|                 |                         | selection.py::selection_attention_pallas (decode)   |
+| sel_attn        | csrc/sel_attn.cu,       | sel_flash.py::selection_flash_pallas (prefill),     |
+|                 | csrc/sel_attn_fwd_mma.cu| selection.py::selection_attention_pallas (decode)   |
 | win_attn        | csrc/win_attn.cu        | flash_diag.py::flash_banded_diag                    |
 | banded_bwd_1p   | csrc/banded_bwd_1p.cu   | flash_bwd.py::flash_banded_bwd_onepass (win, cmp)   |
 | banded_bwd      | csrc/banded_bwd.cu      | flash_bwd.py::flash_banded_bwd (win, cmp; 2 passes) |

@@ -25,9 +25,9 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("select_cmp.cu", "sel_attn.cu", "win_attn.cu", "banded_bwd.cu", "sel_attn_bwd.cu",
-           "banded_attn.cu", "select_blocks.cu", "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu",
-           "win_bwd_diag.cu")
+SOURCES = ("select_cmp.cu", "sel_attn.cu", "sel_attn_fwd_mma.cu", "win_attn.cu",
+           "banded_bwd.cu", "sel_attn_bwd.cu", "banded_attn.cu", "select_blocks.cu",
+           "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu", "win_bwd_diag.cu")
 HEADERS = ("common.cuh", "bwd_common.cuh", "banded_common.cuh", "sel_bwd.cuh", "tc.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -41,8 +41,11 @@ SIGNATURES = {
     "nsa_select_cmp": ([I, P, P, P, P, P, P, P] + [I] * 14 + [F, I, P], I),
     "nsa_select_cmp_max_s_sel": ([], I),
     "nsa_select_cmp_smem_bytes": ([I] * 5, LL),
-    "nsa_sel_attn": ([I, P, P, P, P, P, P, P] + [I] * 9 + [F, P], I),
+    "nsa_sel_attn": ([I] + [P] * 8 + [I] * 9 + [F, P], I),
     "nsa_sel_attn_smem_bytes": ([I] * 5, LL),
+    "nsa_sel_attn_ws_floats": ([I] * 2, LL),
+    "nsa_sel_attn_union": ([P] * 7 + [I] * 10 + [F, P], I),
+    "nsa_sel_attn_union_smem_bytes": ([I] * 6, LL),
     "nsa_win_attn": ([I, P, P, P, P, P] + [I] * 8 + [F, I, P], I),
     "nsa_win_attn_smem_bytes": ([I] * 4, LL),
     "nsa_banded_bwd": ([I] + [P] * 10 + [I] * 11 + [F, I, I, P], I),

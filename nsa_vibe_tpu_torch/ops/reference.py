@@ -43,6 +43,21 @@ def attend_masked(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
     return O, lse
 
 
+def attend_masked_rss(Q, K, V, mask, scale: float) -> torch.Tensor:
+    """Root sum of squares of the terms each element of attend_masked's
+    output sums, f32 [B,S,G,h,Dv]: sqrt(sum_k (p_k v_k)^2) / l, p the
+    unnormalised softmax weights and l their sum (0 on rows with no
+    visible key). A kernel that rounds each p to bf16 before P V (relative
+    error <= 2^-9 per term, of either sign) while l sums the unrounded p,
+    as the TPU kernels do, moves an element by a sum of such terms: its
+    spread scales with this root sum of squares."""
+    logits = torch.einsum("bsghd,bgkd->bsghk", Q.float(), K.float()) * scale
+    logits = logits.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros((), device=p.device))
+    return torch.einsum("bsghk,bgkv->bsghv", p * p, V.float() ** 2).sqrt()
+
+
 def attention_delta(dO: torch.Tensor, O: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) in f32, [B,S,G,h]: the backward's per-row
     preprocess (JAX ops/attention.py::_delta, without the TPU stats layout)."""

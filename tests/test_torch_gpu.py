@@ -18,11 +18,12 @@ forward row statistics) are held per tensor to 5e-5 of the tensor's max
 |value| in f32 (their sums run over up to S rows, so the order error
 scales with the largest terms, not with each element); in bf16 to two
 bf16 ulps of the plain value plus that f32 bound (both versions round f32
-results that agree within it). The selection backward's bf16 kernels run
-on tensor cores and round P and dS to bf16 before their products, as the
-TPU kernels do: they are held to the plain version's unrounded f32 result
-within one bf16 ulp, plus the f32 bound, plus 4 * 2^-9 times the root sum
-of squares of each element's terms (chip_smoke.py::allowed_tc_err).
+results that agree within it). The selection backward's bf16 kernels and
+the bf16 prefill selection forward run on tensor cores and round P (and
+dS) to bf16 before their products, as the TPU kernels do: they are held
+to the plain version's unrounded f32 result within one bf16 ulp, plus the
+f32 bound, plus 4 * 2^-9 times the root sum of squares of each element's
+terms (chip_smoke.py::allowed_tc_err).
 """
 
 import pytest
@@ -101,6 +102,18 @@ def _within_tc(got, ref, plain32, rss):
     allowed = (torch.where(x > 0, torch.ldexp(torch.ones_like(x), e - 8), torch.zeros_like(x))
                + F32_TOL * float(x.max()) + 4 * 2.0 ** -9 * rss)
     return bool(((got.float() - ref.float()).abs() <= allowed).all())
+
+
+def _sel_fwd_within(got, Q, K, V, sel, t, l_sel, scale):
+    """The selection forward's output within its bound: f32 and decode
+    (S = 1) _within_bound of the plain version; the bf16 prefill (the
+    tensor-core union kernel, P rounded to bf16) _within_tc of the plain
+    version's unrounded f32 result."""
+    if Q.dtype == torch.float32 or Q.shape[1] == 1:
+        return _within_bound(got, sa_mod.sel_attn_plain(Q, K, V, sel, t, l_sel=l_sel,
+                                                        scale=scale))
+    want, rss = sa_mod.sel_attn_rss(Q, K, V, sel, t, l_sel=l_sel, scale=scale)
+    return _within_tc(got, want, want, rss)
 
 
 def _sel_within(args, l_sel, scale):
@@ -274,6 +287,75 @@ def test_selection_backward_designs_on_gpu(dtype, h, D, l_sel, S, n):
     assert counts["sel_attn_bwd"] == 2 and counts["sel_attn_bwd_1p"] == 2
 
 
+def _random_selection(dev, B, S, G, n, NB, seed):
+    """Ids in [-1, NB) with a repeated id in every row."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sel = torch.randint(-1, NB, (B, S, G, n), generator=gen, device=dev, dtype=torch.int32)
+    sel[..., -1] = sel[..., 0]
+    return sel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,D,l_sel,S,n", [
+    (1, 64, 64, 200, 5),       # 64-token q tiles, S and S_kv not multiples of the tile / block
+    (4, 128, 32, 150, 4),      # D = 128: the wide tensor-core tiles; half a key tile per block
+    (6, 64, 64, 305, 16),      # the m7c geometry: 10-token q tiles, the last one of 5
+    (16, 64, 128, 330, 3),     # h = 16; two key tiles per block, the last one past S_kv
+    (16, 128, 16, 77, 6),      # h = 16, D = 128, 4-token tiles
+    (1, 64, 8, 330, 5),        # unions past 32 blocks: two membership words
+])
+def test_prefill_selection_forward_on_gpu(dtype, h, D, l_sel, S, n):
+    """sel_attn at S > 1 (bf16: the tensor-core union kernel; f32: the FMA
+    kernel) against the plain version, O within its bound and lse within
+    1e-4, with rows whose set is empty and repeated ids; two launches give
+    the same bits."""
+    dev = _card()
+    scale = D ** -0.5
+    Q, K, V, _ = _bwd_operands(dtype, dev, 2, S, 2, h, D, S, seed=h + D)
+    sel = _random_selection(dev, 2, S, 2, n, -(-S // l_sel), seed=D)
+    sel[:, 7] = -1                                             # rows with an empty set
+    t = torch.arange(S, device=dev)
+    kernels.reset_launch_counts()
+    (O, lse), (O2, lse2) = (sa_mod.sel_attn(Q, K, V, sel, t, l_sel=l_sel, scale=scale,
+                                            return_lse=True) for _ in range(2))
+    assert kernels.launch_counts()["sel_attn"] == 2 and sa_mod.sel_attn.decode_launches == 0
+    assert torch.equal(O, O2) and torch.equal(lse, lse2)
+    assert O.dtype == dtype and _sel_fwd_within(O, Q, K, V, sel, t, l_sel, scale)
+    _, plse = sa_mod.sel_attn_plain(Q, K, V, sel, t, l_sel=l_sel, scale=scale, return_lse=True)
+    empty = plse >= 1e29
+    assert torch.equal(lse >= 1e29, empty) and bool(empty[:, 7].all())
+    assert float(torch.where(empty, 0.0, (lse - plse).abs()).max()) <= 1e-4
+    assert not bool(O[:, 7].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,n,C,l_sel,h", [
+    (1, 1, 64, 64, 6),         # one slot
+    (3, 5, 100, 16, 3),        # a partial last block (keys 96..99)
+    (4, 16, 2080, 64, 6),      # the m7c serve cache
+    (2, 16, 333, 8, 16),       # h = 16, more slots than visible blocks early on
+])
+def test_decode_selection_split_on_gpu(dtype, B, n, C, l_sel, h):
+    """sel_attn at S = 1 (the split kernel and its combine) against the
+    plain version at per-row depths, with -1 slots, repeated ids and an
+    empty row; two launches give the same bits."""
+    dev = _card()
+    D = 64
+    Q, K, V, _ = _bwd_operands(dtype, dev, B, 1, 2, h, D, C, seed=n)
+    NB = -(-C // l_sel)
+    sel = _random_selection(dev, B, 1, 2, n, NB, seed=B)
+    sel[1:, :, :, 0] = NB - 1                                  # the last, partial block
+    sel[0] = -1                                                # batch row 0: every set empty
+    t = torch.tensor([[C - 1 - 13 * (i // 2)] for i in range(B)], device=dev)
+    kernels.reset_launch_counts()
+    O, O2 = (sa_mod.sel_attn(Q, K, V, sel, t, l_sel=l_sel, scale=0.125) for _ in range(2))
+    assert sa_mod.sel_attn.decode_launches == 2 and torch.equal(O, O2)
+    assert O.dtype == dtype and _sel_fwd_within(O, Q, K, V, sel, t, l_sel, 0.125)
+    assert not bool(O[0].any())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("route", ["fused", "compressed"])
 def test_cmp_backward_takes_the_one_pass_kernel_behind_both_routes(monkeypatch, route):
@@ -438,8 +520,8 @@ def test_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, n_top, w)
     K, V = r(B, G, S, D), r(B, G, S, D)
     t = torch.arange(S, device=dev)
     for s in (sel, canonicalize_sel(sel)):      # forced-first repeats == the set
-        assert _within_bound(sa_mod.sel_attn(Q, K, V, s, t, l_sel=l_sel, scale=SCALE),
-                             sa_mod.sel_attn_plain(Q, K, V, sel, t, l_sel=l_sel, scale=SCALE))
+        assert _sel_fwd_within(sa_mod.sel_attn(Q, K, V, s, t, l_sel=l_sel, scale=SCALE),
+                               Q, K, V, sel, t, l_sel, SCALE)
     assert _within_bound(wa_mod.win_attn(Q, K, V, w=w, scale=SCALE),
                          wa_mod.win_attn_plain(Q, K, V, w=w, scale=SCALE))
     # decode shape: one query per row at its own depth, cache rows past t unread
