@@ -6,18 +6,20 @@
 Phases (any failure exits non-zero):
   (a) build: compile the CUDA kernels of nsa_vibe_tpu_torch/csrc/ from the
       checkout (one nvcc per source, in parallel) and print the ptxas report
-      (and, for the selection's kernels of PTXAS_REPORTED, registers and
-      spills; the bf16 union forward at D = 64 must have none); the SASS of
-      each bf16 tensor-core kernel (TENSOR_CORE_KERNELS) must hold
-      HMMA/HGMMA instructions (cuobjdump -sass);
+      (and, for the kernels of PTXAS_REPORTED, registers and spills; the
+      bf16 forwards on tensor cores at D = 64, NO_SPILL, must have none);
+      the SASS of each bf16 tensor-core kernel (TENSOR_CORE_KERNELS) must
+      hold HMMA/HGMMA instructions (cuobjdump -sass);
   (b) kernel checks: each kernel at the m7c-125M serving shapes (B=4,
       S=2048, G=2, h=6, D=64; decode with cache capacity 2080) against its
       plain PyTorch version on the card, in f32 with TF32 off and in bf16,
       with the bounds of `allowed_err`, except the bf16 prefill selection
-      forward (tensor cores, P rounded to bf16), held by `sel_fwd_check` to
-      `allowed_tc_err`, which a 1% fault planted in its output must fail;
-      the selection forward twice for identical bits; select_cmp's sel_idx
-      is compared as sets and may differ only on near ties (NEAR_TIE); then
+      forward and the bf16 window forward (tensor cores, P rounded to
+      bf16), held by `sel_fwd_check` and `banded_fwd_check` to
+      `allowed_tc_err`, which a 1% fault planted in their output must fail;
+      the selection and window forwards twice for identical bits;
+      select_cmp's sel_idx is compared as sets and may differ only on near
+      ties (NEAR_TIE); then
       each kernel is timed beside its plain version, one PyTorch library
       call where one computes the same function, and its bound on the card;
   (c) serve: m7c-125M in bf16 with random weights from a seed serves 4
@@ -30,7 +32,8 @@ Phases (any failure exits non-zero):
       on CPU tensors) on the serve's own inputs; torch.profiler gives the
       device busy time of a prefill and of a decode step, by kernel;
   (d) train: at the m7c-125M training shapes (B=8, S=2048) the selection
-      forward (`sel_fwd_check`), the forward
+      forward (`sel_fwd_check`) and the window forward with lse
+      (`banded_fwd_check`), the forward
       kernels' row statistics (lse) and the two-pass backward kernels
       (banded_bwd for win and cmp, sel_attn_bwd) against their plain
       versions in f32 and bf16 (bounds of `allowed_rel_err`; the
@@ -46,21 +49,25 @@ Phases (any failure exits non-zero):
       with CUDA events, the launch counts of the kernels those keys
       select, peak memory, a torch.profiler step by kernel, the host syncs
       a step makes; and `train()` for a short run whose loss must fall;
-  (e) long context: the banded kernel (row 5, both modes) and the
-      select-only scorer (row 6) at the 64k shapes (S_sel = 1024) against
-      their plain versions on the last 4096 query rows, f32 and bf16, and
-      the same rows from a call at t_start = 61440; the selection forward
+  (e) long context: the banded forward (rows 5 and 3: banded_attn in cmp
+      mode, win_attn) at the 64k shapes against its plain version on the
+      last 4096 query rows (`banded_fwd_check`, f32 and bf16), and the same
+      rows, bit for bit, from banded_attn at t_start = 61440; the
+      select-only scorer (row 6, S_sel = 1024) on those rows, and at that
+      t_start; the selection forward
       on select_blocks' sets (its last 4096 rows, PLAIN_ROWS a call) and at
       the 64k decode cache (`sel_fwd_check`); at 16k, where both
-      routes apply, banded_attn and select_blocks against select_cmp, and
+      routes apply, banded_attn and select_cmp against the plain unrounded
+      compressed branch and select_blocks against select_cmp, and
       compressed_attention forward + backward with no host sync; m7c-125M
       serves one 65536-token prompt and 32 greedy tokens through
       `generate` on the long route (launch counts per prefill: select_cmp
       0, banded_attn, select_blocks, sel_attn and win_attn 12 each; 12
       sel_attn per decode step), timed, traced and checked for host syncs;
       the needle smoke (five depths) and end-to-end probe (three depths)
-      at S = 65536 must pass; rows 5 and 6 are timed beside their plain
-      versions (over every row, 4096 rows a call) and, for row 5, SDPA;
+      at S = 65536 must pass; rows 5, 3 and 6 are timed beside their plain
+      versions (over every row, 4096 rows a call) and, for 5 and 3, SDPA,
+      and the banded forward at q tiles of 64 and 128 rows (both modes);
       rows 2 and 4 at the 64k prefill and decode shapes, and the union
       forward's mean union and time at each q tile of Q_TILE_TOKENS;
   (f) backward designs: the one-pass kernels (banded_bwd_1p for win and
@@ -70,7 +77,8 @@ Phases (any failure exits non-zero):
       (rows 7/8, 9/10, 11/7/8); the selection's kv-major chunks per CTA
       before and after its work items, and its two-pass dQ kernel's mean
       union size and time at each q tile of Q_TILE_TOKENS, and the same for
-      the union forward; the selection forward timed at the train shape;
+      the union forward; the selection and window forwards timed at the
+      train shape, the window at q tiles of 64 and 128 rows;
       timed as in (d);
       one m7c layer's f32
       gradients on the card under each setting of DESIGNS against the CPU,
@@ -120,7 +128,10 @@ from nsa_vibe_tpu_torch.ops.block_index import (
     build_block_meta, build_M_csl_on, expected_decode_reads, num_cmp_blocks,
 )
 from nsa_vibe_tpu_torch.ops.cuda import build as kbuild
-from nsa_vibe_tpu_torch.ops.cuda.banded_attn import banded_attn, banded_attn_plain
+from nsa_vibe_tpu_torch.ops.cuda import banded_attn as ba_mod
+from nsa_vibe_tpu_torch.ops.cuda.banded_attn import (
+    MMA_TILE_ROWS, banded_attn, banded_attn_plain, banded_attn_rss,
+)
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd, banded_bwd_plain, banded_mask
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import banded_bwd_1p
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn as sa_mod
@@ -162,7 +173,8 @@ B, S, CAP, N_NEW = 4, 2048, 2080, 32
 B_TRAIN, TIMED_STEPS, LOSS_STEPS = 8, 5, 120
 LOSS_DROP = 0.2            # mean of the last 4 logged losses below the first, at least
 PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "sel_attn_union_kernel",  # CUDA symbols
-                "sel_attn_split_kernel", "sel_attn_combine_kernel", "win_attn_kernel",
+                "sel_attn_split_kernel", "sel_attn_combine_kernel", "win_fwd_mma_kernel",
+                "cmp_fwd_mma_kernel",
                 "banded_bwd_dq_kernel", "banded_bwd_dkv_kernel", "sel_bwd_dq_kernel",
                 "sel_bwd_dq_union_kernel", "sel_bwd_kv_mma_kernel", "sel_bwd_kv_fma_kernel",
                 "sel_bwd_reduce_kernel", "reduce_splits_kernel", "banded_attn_kernel",
@@ -170,10 +182,13 @@ PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "sel_attn_union_kernel",
                 "sum_slots_kernel", "sum_strips_kernel")
 # the bf16 kernels that must run on tensor cores: their SASS holds HMMA
 TENSOR_CORE_KERNELS = ("sel_bwd_kv_mma_kernel", "sel_bwd_dq_union_kernel",
-                       "sel_attn_union_kernel")
-# kernels whose ptxas report is printed; the union forward at D = 64 must not spill
-PTXAS_REPORTED = ("sel_bwd_", "sel_attn_union_kernel", "sel_attn_split_kernel")
-NO_SPILL = "sel_attn_union_kernelILi64E"   # mangled sel_attn_union_kernel<64>
+                       "sel_attn_union_kernel", "win_fwd_mma_kernel", "cmp_fwd_mma_kernel")
+# kernels whose ptxas report is printed; the forwards on tensor cores at D = 64
+# must have no stack frame and no spills
+PTXAS_REPORTED = ("sel_bwd_", "sel_attn_union_kernel", "sel_attn_split_kernel",
+                  "fwd_mma_kernel")
+NO_SPILL = ("sel_attn_union_kernelILi64E", "win_fwd_mma_kernelILi64E",   # mangled <64>
+            "cmp_fwd_mma_kernelILi64E")
 # backward-design settings of phase (f) (ops/tuning.py keys), each a train step
 DESIGNS = {
     "onepass": {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 0},
@@ -303,8 +318,9 @@ def phase_build() -> None:
     spills = [n for n, _, f in report
               if any(int(v) for v in f.replace(",", " ").split() if v.isdigit())]
     print(f"[build] reported kernels with a stack frame or spills: {len(spills)}")
-    if not any(NO_SPILL in n for n, _, _ in report) or any(NO_SPILL in n for n in spills):
-        fail("ptxas must report sel_attn_union_kernel<64> with no stack frame or spills")
+    for k in NO_SPILL:
+        if not any(k in n for n, _, _ in report) or any(k in n for n in spills):
+            fail(f"ptxas must report {k} (D = 64) with no stack frame or spills")
     counts = tensor_core_sass(path)
     for name, n in zip(demangle(list(counts)), counts.values()):
         print(f"[build] SASS {name}: {n} tensor-core instructions (HMMA/HGMMA)")
@@ -430,50 +446,48 @@ def check(name, got, want, extra="", bound=allowed_err) -> float:
     return max_err
 
 
-def sel_fwd_check(name, run, Q, K, V, sel, t, *, l_sel: int, scale: float, lse: bool = False,
-                  rows=None, chunk=None) -> float:
-    """Holds the selection forward `run()` (sel_attn on Q, K, V, sel, t;
-    returning (O, lse) when `lse`) against its plain version, after two
-    launches that must give the same bits: f32 and decode within
-    allowed_err; the bf16 prefill (the tensor-core union kernel, which
-    rounds P to bf16 before P V, as the TPU kernel does at
-    sel_flash.py:157) within allowed_tc_err of the plain version's
-    unrounded f32 result (sel_attn_rss), where a FAULT planted in O must
-    fail; lse within LSE_TOL, with the same rows empty. rows = (r0, r1):
-    hold only those query rows, `chunk` at a time (the plain version's
-    dense scores at 64k). Returns the max absolute error of O."""
+def fwd_check(name, run, dtype, S_q: int, plain, rss, *, tc: bool, lse: bool, rows,
+              chunk) -> float:
+    """Holds a forward kernel `run()` (returning (O, lse) when `lse`) over
+    S_q query rows against its plain version, after two launches that must
+    give the same bits: within allowed_err of `plain(a, b)`, the plain O
+    of rows [a, b); or, where `tc` (a bf16 tensor-core kernel, which rounds
+    P to bf16 before P V, as the TPU kernels do), within allowed_tc_err of
+    `rss(a, b)`, the plain version's unrounded f32 O and rss of those rows,
+    where a FAULT planted in O must fail; lse within LSE_TOL of
+    `plain(a, b, True)[1]`, with the same rows empty. rows = (r0, r1):
+    hold only those query rows, `chunk` at a time. Returns the max
+    absolute error of O."""
     got, again = run(), run()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got if lse else (got,),
                                                   again if lse else (again,))):
-        fail(f"{name} {Q.dtype}: two launches differ")
+        fail(f"{name} {dtype}: two launches differ")
     O, L_ = got if lse else (got, None)
     del again
-    tc = Q.dtype == torch.bfloat16 and Q.shape[1] > 1
-    r0, r1 = rows or (0, Q.shape[1])
+    r0, r1 = rows or (0, S_q)
     worst = fault = max_err = lse_err = 0.0
     for a in range(r0, r1, chunk or r1 - r0):
         b = min(a + (chunk or r1 - r0), r1)
-        q, s_, tt = Q[:, a:b], sel[:, a:b], (t[a:b] if t.dim() == 1 else t[:, a:b])
         if tc:
-            want, rss = sel_attn_rss(q, K, V, s_, tt, l_sel=l_sel, scale=scale)
-            bd = allowed_tc_err(want, rss)
+            want, err_rss = rss(a, b)
+            bd = allowed_tc_err(want, err_rss)
             fault = max(fault, worst_ratio(O[:, a:b] * FAULT, want, bd))
-            del rss
+            del err_rss
         else:
-            want = sel_attn_plain(q, K, V, s_, tt, l_sel=l_sel, scale=scale)
+            want = plain(a, b)
             bd = allowed_err(want)
         worst = max(worst, worst_ratio(O[:, a:b], want, bd))
         max_err = max(max_err, float((O[:, a:b].float() - want.float()).abs().max()))
         del want, bd
         if lse:
-            plse = sel_attn_plain(q, K, V, s_, tt, l_sel=l_sel, scale=scale, return_lse=True)[1]
+            plse = plain(a, b, True)[1]
             empty = plse >= 1e29
             if not torch.equal(L_[:, a:b] >= 1e29, empty):
                 fail(f"{name} lse: rows without a visible key differ from the plain version's")
             lse_err = max(lse_err, float(torch.where(empty, torch.zeros_like(plse),
                                                      (L_[:, a:b] - plse).abs()).max()))
-    dt = str(Q.dtype).replace("torch.", "")
+    dt = str(dtype).replace("torch.", "")
     print(f"[check] {name:18s} {dt:8s} max_abs_err={max_err:.3e} worst err/bound={worst:.3f} "
           f"({'allowed_tc_err' if tc else 'allowed_err'} over rows [{r0}, {r1}))"
           + (f"; lse max_abs_err={lse_err:.3e} (bound {LSE_TOL:g})" if lse else "")
@@ -486,6 +500,77 @@ def sel_fwd_check(name, run, Q, K, V, sel, t, *, l_sel: int, scale: float, lse: 
     if lse and not lse_err <= LSE_TOL:
         fail(f"{name} lse {dt}: error {lse_err:.3e} above {LSE_TOL:g}")
     return max_err
+
+
+def sel_fwd_check(name, run, Q, K, V, sel, t, *, l_sel: int, scale: float, lse: bool = False,
+                  rows=None, chunk=None) -> float:
+    """fwd_check of the selection forward `run()` (sel_attn on Q, K, V,
+    sel, t): f32 and decode against sel_attn_plain; the bf16 prefill (the
+    union kernel, rounding P as sel_flash.py:157 does) against
+    sel_attn_rss."""
+    def part(a, b):
+        return Q[:, a:b], K, V, sel[:, a:b], (t[a:b] if t.dim() == 1 else t[:, a:b])
+
+    return fwd_check(name, run, Q.dtype, Q.shape[1],
+                     lambda a, b, with_lse=False: sel_attn_plain(
+                         *part(a, b), l_sel=l_sel, scale=scale, return_lse=with_lse),
+                     lambda a, b: sel_attn_rss(*part(a, b), l_sel=l_sel, scale=scale),
+                     tc=Q.dtype == torch.bfloat16 and Q.shape[1] > 1, lse=lse, rows=rows,
+                     chunk=chunk)
+
+
+def banded_fwd_check(name, run, Q, K, V, *, mode: str, kw: dict, scale: float,
+                     lse: bool = False, rows=None) -> float:
+    """fwd_check of the banded forward `run()` (win_attn or banded_attn on
+    Q, K, V over every row from position 0, in `mode` with kw: w, or l and
+    d): f32 (the FMA kernel) against banded_attn_plain; bf16 (the
+    tensor-core kernel, rounding P as flash.py:213 and flash_diag.py:119
+    do) against banded_attn_rss. In window mode the plain version of rows
+    [a, b) gets only the keys they can see, with positions shifted by as
+    much (the dense scores of every 64k row would take 12.9 GB)."""
+    def part(a, b):
+        if mode == "win" and a > 0:
+            k0 = max(a - kw["w"] + 1, 0)
+            return Q[:, a:b], K[:, :, k0:], V[:, :, k0:], a - k0
+        return Q[:, a:b], K, V, a
+
+    def plain(a, b, with_lse=False):
+        q, k, v, tp = part(a, b)
+        return banded_attn_plain(q, k, v, mode=mode, **kw, scale=scale, t_start=tp,
+                                 return_lse=with_lse)
+
+    def rss(a, b):
+        q, k, v, tp = part(a, b)
+        return banded_attn_rss(q, k, v, mode=mode, **kw, scale=scale, t_start=tp)
+
+    return fwd_check(name, run, Q.dtype, Q.shape[1], plain, rss,
+                     tc=Q.dtype == torch.bfloat16, lse=lse, rows=rows, chunk=None)
+
+
+def band_pairs(S_q: int, S_kv: int, mode: str, kw: dict) -> float:
+    """Visible (query token, key) pairs of one (b, g, head) of the banded
+    forward over positions 0..S_q-1."""
+    t = torch.arange(S_q, dtype=torch.float64)
+    if mode == "win":
+        return float(torch.clamp(torch.clamp(t + 1, max=S_kv) - torch.clamp(t - kw["w"] + 1, min=0),
+                                 min=0).sum())
+    n = torch.where(t + 1 >= kw["l"], torch.div(t + 1 - kw["l"], kw["d"], rounding_mode="floor")
+                    + 1, torch.zeros_like(t))
+    return float(torch.clamp(n, max=S_kv).sum())
+
+
+def band_fwd_tiles(label: str, run, iters: int) -> None:
+    """The bf16 banded forward `run()` at q tiles of 64 and 128 rows
+    (banded_attn.MMA_TILE_ROWS, replaced for this timing only): the
+    kernel's time."""
+    for rows in (64, 128):
+        ba_mod.MMA_TILE_ROWS = rows
+        try:
+            ms = time_ms(run, iters, hold=True)
+        finally:
+            ba_mod.MMA_TILE_ROWS = MMA_TILE_ROWS
+        print(f"[band fwd] {label}: q tile {rows} rows: {ms:.4f} ms"
+              f"{' (the default)' if rows == MMA_TILE_ROWS else ''}")
 
 
 def sel_work(sel, tp, l_sel: int, S_kv: int) -> tuple:
@@ -592,10 +677,9 @@ def phase_kernels(dev) -> dict:
         dec = (x["Qd"], x["Kd"], x["Vd"], x["sel_dec"], x["t_dec"])
         e3 = sel_fwd_check("sel_attn@decode", lambda: sel_attn(*dec, l_sel=cfg.l_sel, scale=sc),
                            *dec, l_sel=cfg.l_sel, scale=sc)
-        O_k = win_attn(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=sc)
-        O_p = win_attn_plain(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=sc)
-        e4 = check("win_attn", O_k, O_p)
-        torch.cuda.synchronize()
+        win = (x["Q"], x["Kw"], x["Vw"])
+        e4 = banded_fwd_check("win_attn@serve", lambda: win_attn(*win, w=cfg.w, scale=sc), *win,
+                              mode="win", kw=dict(w=cfg.w), scale=sc)
         rec = {"select_cmp": e1, "sel_attn@prefill": e2, "sel_attn@decode": e3,
                "win_attn": e4, "inputs": x, "sel": sel_k}
     return rec
@@ -624,9 +708,8 @@ def measure(rec, counts, decode_launches) -> list:
 
     # select_cmp: per row 2*n_c*(Dk + Dv + S_sel) for its n_c visible compressed tokens
     S_cmp, S_sel = x["M"].shape
-    t = torch.arange(S, device=Q.device)
-    n_c = torch.clamp(torch.where(t + 1 >= cfg.l, (t + 1 - cfg.l) // cfg.d + 1, 0), max=S_cmp)
-    ops = float(n_c.sum()) * B * cfg.n_kv_groups * h * 2 * (Dk + Dv + S_sel)
+    ops = (band_pairs(S, S_cmp, "cmp", dict(l=cfg.l, d=cfg.d)) * B * cfg.n_kv_groups * h
+           * 2 * (Dk + Dv + S_sel))
     sel_out, O_out = select_cmp(Q, x["K_cmp"], x["V_cmp"], x["M"], **kw)
     bms, by = bound(nbytes(Q, x["K_cmp"], x["V_cmp"], x["M"], sel_out, O_out), ops, dt)
     out.append(dict(
@@ -646,24 +729,66 @@ def measure(rec, counts, decode_launches) -> list:
                             x["t_dec"], launches=decode_launches, max_err=rec["sel_attn@decode"]))
 
     # win_attn: per row 2*min(w, t+1)*(Dk + Dv)
-    ops = float(torch.clamp(t + 1, max=cfg.w).sum()) * B * cfg.n_kv_groups * h * 2 * (Dk + Dv)
-    o = win_attn(Q, x["Kw"], x["Vw"], w=cfg.w, scale=sc)
-    bms, by = bound(nbytes(Q, x["Kw"], x["Vw"], o), ops, dt)
-    kpos = torch.arange(S, device=Q.device)
-    band = (kpos[None, :] <= t[:, None]) & (kpos[None, :] > t[:, None] - cfg.w)
-    sq, sk, sv, _ = sdpa_operands(Q, x["Kw"], x["Vw"])
-    out.append(dict(
-        name="win_attn", source="nsa_vibe_tpu_torch/csrc/win_attn.cu",
-        replaces="nsa_vibe_tpu/ops/pallas/flash_diag.py:146",
-        launches=counts["win_attn"], max_abs_err=rec["win_attn"],
-        ms=time_ms(lambda: win_attn(Q, x["Kw"], x["Vw"], w=cfg.w, scale=sc), 20, hold=True),
-        plain_ms=time_ms(lambda: win_attn_plain(Q, x["Kw"], x["Vw"], w=cfg.w, scale=sc), 5,
-                         hold=True),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            sq, sk, sv, attn_mask=band, scale=sc), 10, hold=True)))
+    win = (Q, x["Kw"], x["Vw"])
+    out.append(band_row("win_attn", lambda: win_attn(*win, w=cfg.w, scale=sc), *win,
+                        mode="win", kw=dict(w=cfg.w), lse=False, launches=counts["win_attn"],
+                        max_err=rec["win_attn"], iters=20))
     print_rows(out)
     return out
+
+
+# the TPU kernel each banded forward row replaces (PERF.md's table, rows 3 and 5)
+BAND_REPLACES = {"win": "nsa_vibe_tpu/ops/pallas/flash_diag.py:146",
+                 "cmp": "nsa_vibe_tpu/ops/pallas/flash.py:325"}
+
+
+def band_row(name, kernel, Q, K, V, *, mode: str, kw: dict, lse: bool, launches: int,
+             max_err: float, iters: int, chunk=None) -> dict:
+    """The JSON row of the banded forward `kernel()` (win_attn or
+    banded_attn on Q, K, V in `mode` with kw, from position 0; returning
+    (O, lse) when `lse`): kernel time (stream held), the plain version's
+    time over every row (`chunk` rows a call if given, each call with the
+    keys its rows see), one SDPA call with the equivalent boolean mask
+    (None where that call runs out of device memory), and the bound from
+    this run's inputs: Q, K, V, O (and lse) moved once, 2 (Dk + Dv) FLOP
+    per visible (row, key) pair."""
+    Dk, Dv, h = Q.shape[-1], V.shape[-1], Q.shape[3]
+    S_q, S_kv = Q.shape[1], K.shape[2]
+    sc = 1.0 / float(np.sqrt(Dk))
+    out = kernel()
+    io = nbytes(Q, K, V, *(out if lse else (out,)))
+    pairs = band_pairs(S_q, S_kv, mode, kw) * Q.shape[0] * Q.shape[2] * h
+    bms, by = bound(io, pairs * 2 * (Dk + Dv), Q.dtype)
+    del out
+
+    def plain(a, b):
+        Kp, Vp, tp = K, V, a
+        if mode == "win":
+            k0 = max(a - kw["w"] + 1, 0)
+            Kp, Vp, tp = K[:, :, k0:b], V[:, :, k0:b], a - k0
+        return banded_attn_plain(Q[:, a:b], Kp, Vp, mode=mode, **kw, scale=sc, t_start=tp,
+                                 return_lse=lse)
+
+    step = chunk or S_q
+    plain_ms = time_ms(lambda: [plain(a, min(a + step, S_q)) for a in range(0, S_q, step)],
+                       3 if chunk is None else 1, 1, hold=True)
+    lib_ms = None
+    try:
+        mask = banded_mask(S_q, S_kv, mode=mode, **kw, device=Q.device)
+        sq, sk, sv, _ = sdpa_operands(Q, K, V)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
+                                                                scale=sc), 3, 1, hold=True)
+    except torch.cuda.OutOfMemoryError:
+        print(f"[time] {name}: one SDPA call with the [{S_q}, {S_kv}] mask ran out of memory")
+    mask = sq = sk = sv = None
+    torch.cuda.empty_cache()
+    row = dict(
+        name=name, source=f"nsa_vibe_tpu_torch/csrc/"
+                          f"{'banded_fwd_mma' if Q.dtype == torch.bfloat16 else 'banded_attn'}.cu",
+        replaces=BAND_REPLACES[mode], launches=launches, max_abs_err=max_err,
+        ms=time_ms(kernel, iters, hold=True), plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=lib_ms)
+    return row
 
 
 def print_rows(rows) -> None:
@@ -844,6 +969,10 @@ def train_kernel_inputs(dtype, dev, gen) -> dict:
         *sargs, l_sel=cfg.l_sel, scale=x["scale"], lse=True)
     x["Ow"], x["lse_w"] = win_attn(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=x["scale"],
                                    return_lse=True)
+    wargs = (x["Q"], x["Kw"], x["Vw"])
+    x["win_fwd_err"] = banded_fwd_check(
+        "win_attn@train", lambda: win_attn(*wargs, w=cfg.w, scale=x["scale"], return_lse=True),
+        *wargs, mode="win", kw=dict(w=cfg.w), scale=x["scale"], lse=True)
     plain = {
         "select_cmp": select_cmp_plain(x["Q"], x["Kc"], x["Vc"], x["M"], **kw,
                                        return_lse=True)[2],
@@ -1427,13 +1556,12 @@ def sel_kw(x) -> dict:
 
 
 def phase_long_kernels(dev) -> dict:
-    """Rows 5 and 6 at the 64k shapes, f32 then bf16: each kernel over all
-    S_LONG rows, its last N_CHECK rows held against the plain version run on
-    those rows at t_start = S_LONG - N_CHECK (the plain scores of every row
-    would take 12.9 GB), and the kernel run on the same slice at that
-    t_start must give the same rows. The window's plain version gets the
-    keys its rows can see, [t_start - w + 1, S_LONG), with positions
-    shifted by as much. Returns the bf16 inputs and max errors."""
+    """Rows 3 and 5 at the 64k shapes, f32 then bf16: the banded forward in
+    both modes (the window through win_attn) over all S_LONG rows, held by
+    banded_fwd_check on its last N_CHECK rows (the plain scores of every
+    row would take 12.9 GB), and banded_attn on the same rows at t_start =
+    S_LONG - N_CHECK must give the same bits as the full call; then row 6
+    and the selection forward. Returns the bf16 inputs and max errors."""
     gen = torch.Generator(device=dev).manual_seed(2468)
     t0 = S_LONG - N_CHECK
     rec = {}
@@ -1441,27 +1569,25 @@ def phase_long_kernels(dev) -> dict:
         x = long_inputs(dtype, dev, gen, S_LONG)
         cfg, sc = x["cfg"], x["scale"]
         Qt = x["Q"][:, t0:]
-        k0 = t0 - cfg.w + 1
-        for mode, K, V, kw, Kp, Vp, tp in (
-                ("cmp", x["Kc"], x["Vc"], dict(l=cfg.l, d=cfg.d), x["Kc"], x["Vc"], t0),
-                ("win", x["K"], x["V"], dict(w=cfg.w), x["K"][:, :, k0:], x["V"][:, :, k0:],
-                 t0 - k0)):
-            O, lse = banded_attn(x["Q"], K, V, mode=mode, **kw, scale=sc, return_lse=True)
+        for mode, K, V, kw, run in (
+                ("cmp", x["Kc"], x["Vc"], dict(l=cfg.l, d=cfg.d),
+                 lambda: banded_attn(x["Q"], x["Kc"], x["Vc"], mode="cmp", l=cfg.l, d=cfg.d,
+                                     scale=sc, return_lse=True)),
+                ("win", x["K"], x["V"], dict(w=cfg.w),
+                 lambda: win_attn(x["Q"], x["K"], x["V"], w=cfg.w, scale=sc, return_lse=True))):
+            name = "banded_attn@cmp" if mode == "cmp" else "win_attn@64k"
+            rec[name] = banded_fwd_check(name, run, x["Q"], K, V, mode=mode, kw=kw, scale=sc,
+                                         lse=True, rows=(t0, S_LONG))
+            O, lse = run()
             Os, lses = banded_attn(Qt, K, V, mode=mode, **kw, scale=sc, t_start=t0,
                                    return_lse=True)
-            Op, lsep = banded_attn_plain(Qt, Kp, Vp, mode=mode, **kw, scale=sc, t_start=tp,
-                                         return_lse=True)
             torch.cuda.synchronize()
-            lse_err = float((lse[:, t0:] - lsep).abs().max())
-            rec[f"banded_attn@{mode}"] = check(
-                f"banded_attn@{mode}", O[:, t0:], Op,
-                f"; lse max_abs_err={lse_err:.3e}; t_start={t0} rows equal: "
-                f"{torch.equal(Os, O[:, t0:]) and torch.equal(lses, lse[:, t0:])}")
-            if not lse_err <= LSE_TOL:
-                fail(f"banded_attn@{mode} lse error {lse_err:.3e} above {LSE_TOL:g}")
-            if not (torch.equal(Os, O[:, t0:]) and torch.equal(lses, lse[:, t0:])):
-                fail(f"banded_attn@{mode}: the t_start={t0} call differs from the full call")
-            del O, lse, Os, lses, Op, lsep
+            same = torch.equal(Os, O[:, t0:]) and torch.equal(lses, lse[:, t0:])
+            print(f"[check] {name}: banded_attn at t_start={t0} gives the full call's rows "
+                  f"bit for bit: {same}")
+            if not same:
+                fail(f"{name}: the t_start={t0} call differs from the full call")
+            del O, lse, Os, lses
         sel = select_blocks(x["Q"], x["Kc"], **sel_kw(x))
         sels = select_blocks(Qt, x["Kc"], **sel_kw(x), pos_offset=t0)
         selp, p_grp = select_blocks_plain(Qt, x["Kc"], **sel_kw(x), pos_offset=t0,
@@ -1523,7 +1649,15 @@ def cross_check(dev) -> None:
     sel_b = select_blocks(x["Q"], x["Kc"], **sel_kw(x))
     _, p_grp = select_blocks_plain(x["Q"], x["Kc"], **sel_kw(x), return_scores=True)
     torch.cuda.synchronize()
-    check("cross: banded_attn vs select_cmp O", O_b, O_f)
+    # banded_attn (tensor cores) rounds P to bf16 before P V and select_cmp
+    # (FMA) keeps it in f32: hold both against the plain version's
+    # unrounded f32 result, not against each other
+    want, rss = banded_attn_rss(x["Q"], x["Kc"], x["Vc"], mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
+    bd = allowed_tc_err(want, rss)
+    del rss
+    check("cross: banded_attn O", O_b, want, bound=bd)
+    check("cross: select_cmp O", O_f, want, bound=bd)
+    del want, bd
     empty = lse_f >= 1e29
     lse_err = float(torch.where(empty, torch.zeros_like(lse_f), (lse_b - lse_f).abs()).max())
     n_diff, n_far, spread = near_tie_rows(sel_b, sel_f, p_grp)
@@ -1653,38 +1787,30 @@ def phase_needles(dev) -> None:
 
 
 def measure_long(rec, counts) -> list:
-    """Times rows 5 (cmp, the main path's mode) and 6 at the 64k shapes
-    (bf16) beside their plain versions over every row (N_CHECK rows per
-    call, by t_start) and, for row 5, one SDPA call with the equivalent
-    boolean mask; computes their bounds from this run's inputs."""
+    """Times rows 5 (cmp, the long route's mode), 3 (the window) and 6 at
+    the 64k shapes (bf16) beside their plain versions over every row
+    (N_CHECK rows per call, by t_start) and, for rows 5 and 3, one SDPA
+    call with the equivalent boolean mask; computes their bounds from this
+    run's inputs; sweeps the banded forward's q tile (band_fwd_tiles)."""
     x = rec["inputs"]
     cfg, sc, Q = x["cfg"], x["scale"], x["Q"]
     h, D = cfg.h_per_group, cfg.d_k
-    t = torch.arange(S_LONG, device=Q.device)
-    n_c = torch.clamp(torch.where(t + 1 >= cfg.l, (t + 1 - cfg.l) // cfg.d + 1, 0),
-                      max=x["Kc"].shape[2])
-    pairs = float(n_c.sum()) * cfg.n_kv_groups * h           # visible (row, key) pairs
+    pairs = band_pairs(S_LONG, x["Kc"].shape[2], "cmp", dict(l=cfg.l, d=cfg.d)) \
+        * cfg.n_kv_groups * h                                  # visible (row, key) pairs
     kw = dict(mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
     starts = range(0, S_LONG, N_CHECK)
     out = []
 
-    o = banded_attn(Q, x["Kc"], x["Vc"], **kw)
-    bms, by = bound(nbytes(Q, x["Kc"], x["Vc"], o), pairs * 2 * (2 * D), Q.dtype)
-    sq, sk, sv, _ = sdpa_operands(Q, x["Kc"], x["Vc"])
-    mask = (torch.arange(x["Kc"].shape[2], device=Q.device)[None, :] < n_c[:, None])[None, None]
-    out.append(dict(
-        name="banded_attn", source="nsa_vibe_tpu_torch/csrc/banded_attn.cu",
-        replaces="nsa_vibe_tpu/ops/pallas/flash.py:325",
-        launches=counts["banded_attn"], max_abs_err=rec["banded_attn@cmp"],
-        ms=time_ms(lambda: banded_attn(Q, x["Kc"], x["Vc"], **kw), 5, hold=True),
-        plain_ms=time_ms(lambda: [banded_attn_plain(Q[:, s:s + N_CHECK], x["Kc"], x["Vc"], **kw,
-                                                    t_start=s) for s in starts], 1, 1,
-                         hold=True),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            sq, sk, sv, attn_mask=mask, scale=sc), 3, 1, hold=True)))
-    del o, sq, sk, sv, mask
-    torch.cuda.empty_cache()
+    cargs, wargs = (Q, x["Kc"], x["Vc"]), (Q, x["K"], x["V"])
+    out.append(band_row("banded_attn@cmp", lambda: banded_attn(*cargs, **kw), *cargs,
+                        mode="cmp", kw=dict(l=cfg.l, d=cfg.d), lse=False,
+                        launches=counts["banded_attn"], max_err=rec["banded_attn@cmp"], iters=5,
+                        chunk=N_CHECK))
+    out.append(band_row("win_attn@64k", lambda: win_attn(*wargs, w=cfg.w, scale=sc), *wargs,
+                        mode="win", kw=dict(w=cfg.w), lse=False, launches=counts["win_attn"],
+                        max_err=rec["win_attn@64k"], iters=5, chunk=N_CHECK))
+    band_fwd_tiles("64k cmp", lambda: banded_attn(*cargs, **kw), 5)
+    band_fwd_tiles("64k win", lambda: win_attn(*wargs, w=cfg.w, scale=sc), 5)
 
     sel = select_blocks(Q, x["Kc"], **sel_kw(x))
     bms, by = bound(nbytes(Q, x["Kc"], sel), pairs * 2 * D, Q.dtype)   # one Q K^T
@@ -1759,8 +1885,15 @@ def main() -> int:
     sel_fwd_tiles("train", *sargs, iters=10)
     rows.append(sel_attn_row("sel_attn@train", *sargs, launches=tr["counts"]["sel_attn"],
                              max_err=x["sel_fwd_err"]))
-    print_rows(rows[-1:])
-    del x, sargs
+    cfg, wargs = x["cfg"], (x["Q"], x["Kw"], x["Vw"])
+    rows.append(band_row("win_attn@train", lambda: win_attn(*wargs, w=cfg.w, scale=x["scale"],
+                                                            return_lse=True), *wargs,
+                         mode="win", kw=dict(w=cfg.w), lse=True,
+                         launches=tr["counts"]["win_attn"], max_err=x["win_fwd_err"], iters=10))
+    band_fwd_tiles("train win (lse)", lambda: win_attn(*wargs, w=cfg.w, scale=x["scale"],
+                                                       return_lse=True), 10)
+    print_rows(rows[-2:])
+    del x, sargs, wargs
     runs = [tr["counts"]] + phase_designs(dev, tr["losses"], cpu)
     rows += measure_train({**trec, **frec}, runs, TWO_PASS + tuple(PARTNERS))
     del trec, frec

@@ -1,11 +1,12 @@
 // banded_attn: axis-aligned banded (window) or prefix (compressed) attention
-// forward with a query position offset.
+// forward with a query position offset, f32.
 //
-// Replaces: nsa_vibe_tpu/ops/pallas/flash.py::flash_banded (kernel
-// _flash_kernel, row bounds _bounds_fn), which the JAX prefill runs for the
-// compressed branch whenever the fused scorer does not fit (long prompts),
-// for the window branch when win.fwd_diag is off, and under sequence
-// parallelism with t_start > 0.
+// Replaces, for f32 operands: nsa_vibe_tpu/ops/pallas/flash.py::flash_banded
+// (kernel _flash_kernel, row bounds _bounds_fn) and, in window mode at
+// t_start = 0, nsa_vibe_tpu/ops/pallas/flash_diag.py::flash_banded_diag
+// (kernel _diag_kernel, the window forward win_attn runs). bf16 operands
+// take the tensor-core kernel of banded_fwd_mma.cu; f32 stays here, on
+// FMA, since its 5e-5 gates rule out TF32.
 //
 // What it computes: query row s sits at position t = t_start + s and sees
 //   WIN: keys [max(t-w+1, 0), t]                 (and < S_kv)
@@ -13,22 +14,23 @@
 // softmax in f32; a row with no visible key returns O = 0. Optionally (lse
 // != nullptr) the row statistics lse [B,S,G,h] f32 = m + log(l) in the
 // natural base, EMPTY_LSE for a row with no key (the port's convention,
-// consumed by banded_bwd; the TPU kernel writes base-2 lse in a flat
-// [B*G, 1, stats_rows] layout instead).
+// consumed by the backward kernels; the TPU kernel writes base-2 lse in a
+// flat [B*G, 1, stats_rows] layout instead).
 //
 // What bounds it on the H100: at the m7c 64k prefill (B=1, S=65536, G=2,
 // h=6, D=64, CMP over S_cmp=4095) the visible (row, key) pairs are ~1.6 G,
-// ~412 GFLOP of QK^T and PV against ~0.5 GB of Q/K/V/O: the tensor cores
-// bound it (~0.42 ms). This f32 FMA design is bound by FMA issue and
-// shared-memory reads instead.
-// Design (as win_attn.cu, which it leaves untouched): one block per (b, g,
-// tile of TQ tokens x h heads, at most 64 rows); only the tile's band of
-// K/V, [lo(t_first), hi(t_last)], streams through shared memory (16-byte
-// loads), 64 keys per chunk; each chunk forms the [rows, 64] logits in 4x4
-// register tiles, runs the online softmax one warp per row, and accumulates
-// P·V into (row, 4 dims) slices each thread keeps in registers. The mode is
-// a template argument, so each instantiation tests only its own bounds.
-// wgmma/TMA tiles are later work.
+// ~412 GFLOP of QK^T and PV against ~0.5 GB of Q/K/V/O; in f32 outside the
+// tensor cores (67 TFLOP/s) that is ~6.2 ms. This FMA design is bound by
+// FMA issue and shared-memory reads.
+// Design: one block per (b, g, tile of TQ tokens x h heads, at most 64
+// rows); only the tile's band of K/V, [lo(t_first), hi(t_last)), streams
+// through shared memory (16-byte loads), 64 keys per chunk from an
+// absolute multiple of 64 (so the rows of a call at t_start > 0 equal
+// those of the full call, as in banded_fwd_mma.cu); each chunk
+// forms the [rows, 64] logits in 4x4 register tiles, runs the online
+// softmax one warp per row, and accumulates P·V into (row, 4 dims) slices
+// each thread keeps in registers. The mode is a template argument, so each
+// instantiation tests only its own bounds.
 #include "common.cuh"
 
 using namespace nsa;
@@ -85,12 +87,15 @@ struct Smem {
 //   B. online softmax: one warp per row, two keys per lane;
 //   C. O += P V: each thread owns (row, 4 dims) output slices in registers
 //      (dims fixed per thread, rows strided), reusing each V read across
-//      its rows; NS, the slices a thread can own at this Dv, is a template
-//      argument (see win_attn.cu).
-template <typename T, int NS, int MODE>
+//      its rows. NS, the slices a thread can own at this Dv (4 at Dv=64),
+//      is a template argument: guards for slices that cannot exist would
+//      cost predicates the compiler then re-tests inside the P·V loop.
+template <int NS, int MODE>
 __global__ void __launch_bounds__(THREADS)
-banded_attn_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
-                   T* __restrict__ O, float* __restrict__ lse, Params p) {
+banded_attn_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                   const float* __restrict__ V, float* __restrict__ O, float* __restrict__ lse,
+                   Params p) {
+  using T = float;
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
   int bid = blockIdx.x;
@@ -136,10 +141,14 @@ banded_attn_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __
   const T* Vbg = V + ((size_t)b * p.G + g) * p.S_kv * Dv;
   const int t_first = p.t_start + s0;
   // both bounds grow with t: the first token's lo and the last token's hi
-  // bound the tile's band
+  // bound the tile's band; chunks start at absolute multiples of KC, so a
+  // row's result does not depend on the tile that holds it (a chunk where
+  // the row sees no key leaves its state exactly as it was) and a call at
+  // t_start > 0 gives the same bits as those rows of the full call
   int lo, hi, unused;
   key_range<MODE>(p, t_first, lo, unused);
   key_range<MODE>(p, t_first + nt - 1, unused, hi);
+  lo = lo / KC * KC;
   // per-row visible range of the rows of this thread's phase-A tile
   int rlo[4], rhi[4];
 #pragma unroll
@@ -256,39 +265,32 @@ banded_attn_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __
     for (int r = tid; r < rows; r += THREADS) lse[qo_row(r)] = row_lse(m_s[r], l_s[r]);
 }
 
-template <typename T, int NS, int MODE>
+template <int NS, int MODE>
 int launch_ns(const void* Q, const void* K, const void* V, void* O, float* lse, int B,
               const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(p.TQ, p.h, p.Dk, p.Dv).total * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(banded_attn_kernel<T, NS, MODE>,
+  cudaError_t e = cudaFuncSetAttribute(banded_attn_kernel<NS, MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long nq = (p.S + p.TQ - 1) / p.TQ;
   const long long grid = (long long)B * p.G * nq;
-  banded_attn_kernel<T, NS, MODE><<<(unsigned)grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(Q), static_cast<const T*>(K), static_cast<const T*>(V),
-      static_cast<T*>(O), lse, p);
+  banded_attn_kernel<NS, MODE><<<(unsigned)grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(Q), static_cast<const float*>(K), static_cast<const float*>(V),
+      static_cast<float*>(O), lse, p);
   NSA_LAUNCH_CHECK();
 }
 
 // NS = the (row, 4 dims) slices one thread can own: ceil(MAX_ROWS / rstride)
 // with rstride = THREADS / (Dv / 4), rounded up to 1, 2, 4 or MAX_SLICES
-template <typename T, int MODE>
+template <int MODE>
 int launch(const void* Q, const void* K, const void* V, void* O, float* lse, int B,
            const Params& p, cudaStream_t stream) {
   const int rstride = THREADS / (p.Dv / 4);
   const int ns = (MAX_ROWS + rstride - 1) / rstride;
-  if (ns <= 1) return launch_ns<T, 1, MODE>(Q, K, V, O, lse, B, p, stream);
-  if (ns <= 2) return launch_ns<T, 2, MODE>(Q, K, V, O, lse, B, p, stream);
-  if (ns <= 4) return launch_ns<T, 4, MODE>(Q, K, V, O, lse, B, p, stream);
-  return launch_ns<T, MAX_SLICES, MODE>(Q, K, V, O, lse, B, p, stream);
-}
-
-template <typename T>
-int launch_mode(int mode, const void* Q, const void* K, const void* V, void* O, float* lse,
-                int B, const Params& p, cudaStream_t stream) {
-  if (mode == WIN) return launch<T, WIN>(Q, K, V, O, lse, B, p, stream);
-  return launch<T, CMP>(Q, K, V, O, lse, B, p, stream);
+  if (ns <= 1) return launch_ns<1, MODE>(Q, K, V, O, lse, B, p, stream);
+  if (ns <= 2) return launch_ns<2, MODE>(Q, K, V, O, lse, B, p, stream);
+  if (ns <= 4) return launch_ns<4, MODE>(Q, K, V, O, lse, B, p, stream);
+  return launch_ns<MAX_SLICES, MODE>(Q, K, V, O, lse, B, p, stream);
 }
 
 }  // namespace
@@ -299,18 +301,20 @@ long long nsa_banded_attn_smem_bytes(int TQ, int h, int Dk, int Dv) {
   return (long long)(Smem(TQ, h, Dk, Dv).total * sizeof(float));
 }
 
-int nsa_banded_attn(int dtype, const void* Q, const void* K, const void* V, void* O, float* lse,
-                    int B, int S, int S_kv, int G, int h, int Dk, int Dv, int mode, int w, int l,
-                    int d, int t_start, float scale, int TQ, void* stream) {
+// f32 only. Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv] -> O
+// [B,S,G,h,Dv], lse [B,S,G,h] (or null). mode 0 WIN (w > 0), 1 CMP (l, d >
+// 0); tiles of TQ tokens, TQ * h <= 64.
+int nsa_banded_attn(const void* Q, const void* K, const void* V, void* O, float* lse, int B,
+                    int S, int S_kv, int G, int h, int Dk, int Dv, int mode, int w, int l, int d,
+                    int t_start, float scale, int TQ, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || Dv > 4 * MAX_SLICES * (THREADS / MAX_ROWS) ||
       Dv % 8 != 0 || Dk % 8 != 0 || t_start < 0 || (mode != WIN && mode != CMP) ||
       (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)))
     return (int)cudaErrorInvalidValue;
   const Params p{S, S_kv, G, h, Dk, Dv, w, l, d, t_start, TQ, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch_mode<float>(mode, Q, K, V, O, lse, B, p, s);
-  if (dtype == DT_BF16) return launch_mode<__nv_bfloat16>(mode, Q, K, V, O, lse, B, p, s);
-  return (int)cudaErrorInvalidValue;
+  if (mode == WIN) return launch<WIN>(Q, K, V, O, lse, B, p, s);
+  return launch<CMP>(Q, K, V, O, lse, B, p, s);
 }
 
 }  // extern "C"

@@ -36,7 +36,7 @@
 // (each has its own max and denominator), so one block per (b, g, tile of
 // TQ tokens x h heads, at most 64 rows) makes two passes over the tile's
 // visible prefix of K_cmp (16-byte loads, 64 tokens per chunk, logits in
-// 4x4 register tiles as win_attn.cu):
+// 4x4 register tiles as banded_attn.cu):
 //   1. statistics: online max and sum per row, giving lse = m + log(l);
 //   2. probabilities exp(s - lse) per (row, token), then per (token of the
 //      tile, selection block touched by the chunk) one thread adds the

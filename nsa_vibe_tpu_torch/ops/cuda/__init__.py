@@ -6,18 +6,23 @@ paths, their wrappers and plain PyTorch versions.
 | select_cmp      | csrc/select_cmp.cu      | scorer.py::nsa_select_and_cmp_pallas                |
 | sel_attn        | csrc/sel_attn.cu,       | sel_flash.py::selection_flash_pallas (prefill),     |
 |                 | csrc/sel_attn_fwd_mma.cu| selection.py::selection_attention_pallas (decode)   |
-| win_attn        | csrc/win_attn.cu        | flash_diag.py::flash_banded_diag                    |
+| win_attn        | csrc/banded_fwd_mma.cu, | flash_diag.py::flash_banded_diag                    |
+|                 | csrc/banded_attn.cu     |                                                     |
 | banded_bwd_1p   | csrc/banded_bwd_1p.cu   | flash_bwd.py::flash_banded_bwd_onepass (win, cmp)   |
 | banded_bwd      | csrc/banded_bwd.cu      | flash_bwd.py::flash_banded_bwd (win, cmp; 2 passes) |
 | sel_attn_bwd_1p | csrc/sel_attn_bwd_1p.cu | sel_flash.py::selection_flash_bwd_onepass           |
 | sel_attn_bwd    | csrc/sel_attn_bwd.cu    | sel_flash.py::selection_flash_bwd (2 passes)        |
 | win_bwd_diag    | csrc/win_bwd_diag.cu    | flash_diag.py::flash_banded_bwd_diag                |
-| banded_attn     | csrc/banded_attn.cu     | flash.py::flash_banded (win and cmp, t_start)       |
+| banded_attn     | csrc/banded_fwd_mma.cu, | flash.py::flash_banded (win and cmp, t_start)       |
+|                 | csrc/banded_attn.cu     |                                                     |
 | select_blocks   | csrc/select_blocks.cu   | scorer.py::nsa_select_pallas (pos_offset)           |
 
-The backward design each branch runs follows ops/tuning.py. Each wrapper
-counts its launches in a plain integer attribute (`<wrapper>.launches`),
-incremented only where the kernel is launched.
+win_attn and banded_attn launch the same two kernels (window mode at
+t_start = 0 for win_attn): bf16 the tensor-core banded_fwd_mma.cu, f32
+the FMA banded_attn.cu. The backward design each branch runs follows
+ops/tuning.py. Each wrapper counts its launches in a plain integer
+attribute (`<wrapper>.launches`), incremented only where the kernel is
+launched.
 """
 
 from __future__ import annotations

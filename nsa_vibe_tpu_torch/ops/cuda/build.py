@@ -25,7 +25,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("select_cmp.cu", "sel_attn.cu", "sel_attn_fwd_mma.cu", "win_attn.cu",
+SOURCES = ("select_cmp.cu", "sel_attn.cu", "sel_attn_fwd_mma.cu", "banded_fwd_mma.cu",
            "banded_bwd.cu", "sel_attn_bwd.cu", "banded_attn.cu", "select_blocks.cu",
            "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu", "win_bwd_diag.cu")
 HEADERS = ("common.cuh", "bwd_common.cuh", "banded_common.cuh", "sel_bwd.cuh", "tc.cuh")
@@ -46,13 +46,13 @@ SIGNATURES = {
     "nsa_sel_attn_ws_floats": ([I] * 2, LL),
     "nsa_sel_attn_union": ([P] * 7 + [I] * 10 + [F, P], I),
     "nsa_sel_attn_union_smem_bytes": ([I] * 6, LL),
-    "nsa_win_attn": ([I, P, P, P, P, P] + [I] * 8 + [F, I, P], I),
-    "nsa_win_attn_smem_bytes": ([I] * 4, LL),
+    "nsa_banded_fwd_mma": ([P] * 5 + [I] * 12 + [F, I, P], I),
+    "nsa_banded_fwd_mma_smem_bytes": ([I] * 3, LL),
     "nsa_banded_bwd": ([I] + [P] * 10 + [I] * 11 + [F, I, I, P], I),
     "nsa_banded_bwd_smem_bytes": ([I] * 2, LL),
     "nsa_sel_attn_bwd": ([I] + [P] * 19 + [I] * 16 + [F, P], I),
     "nsa_sel_attn_bwd_smem_bytes": ([I] * 9, LL),
-    "nsa_banded_attn": ([I, P, P, P, P, P] + [I] * 12 + [F, I, P], I),
+    "nsa_banded_attn": ([P] * 5 + [I] * 12 + [F, I, P], I),
     "nsa_banded_attn_smem_bytes": ([I] * 4, LL),
     "nsa_select_blocks": ([I, P, P, P] + [I] * 14 + [F, I, P], I),
     "nsa_select_blocks_smem_bytes": ([I] * 4, LL),

@@ -23,7 +23,8 @@ the bf16 prefill selection forward run on tensor cores and round P (and
 dS) to bf16 before their products, as the TPU kernels do: they are held
 to the plain version's unrounded f32 result within one bf16 ulp, plus the
 f32 bound, plus 4 * 2^-9 times the root sum of squares of each element's
-terms (chip_smoke.py::allowed_tc_err).
+terms (chip_smoke.py::allowed_tc_err). So is the bf16 banded forward
+(win_attn, banded_attn: csrc/banded_fwd_mma.cu on tensor cores).
 """
 
 import pytest
@@ -116,6 +117,18 @@ def _sel_fwd_within(got, Q, K, V, sel, t, l_sel, scale):
     return _within_tc(got, want, want, rss)
 
 
+def _band_fwd_within(got, Q, K, V, *, mode, scale, t_start=0, **kw):
+    """The banded forward's output (win_attn, banded_attn) within its
+    bound: f32 _within_bound of the plain version; bf16 (the tensor-core
+    kernel, P rounded to bf16) _within_tc of the plain version's unrounded
+    f32 result."""
+    if Q.dtype == torch.float32:
+        return _within_bound(got, ba_mod.banded_attn_plain(Q, K, V, mode=mode, **kw, scale=scale,
+                                                           t_start=t_start))
+    want, rss = ba_mod.banded_attn_rss(Q, K, V, mode=mode, **kw, scale=scale, t_start=t_start)
+    return _within_tc(got, want, want, rss)
+
+
 def _sel_within(args, l_sel, scale):
     """within(got, ref, i): gradient i of a selection backward kernel is
     within its bound of ref (f32: _within_rel; bf16: _within_tc)."""
@@ -160,6 +173,7 @@ def test_backward_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, 
     _, plse_s = sa_mod.sel_attn_plain(Q, K, V, sel, t, l_sel=l_sel, scale=scale, return_lse=True)
     Ow, lse_w = wa_mod.win_attn(Q, K, V, w=w, scale=scale, return_lse=True)
     _, plse_w = wa_mod.win_attn_plain(Q, K, V, w=w, scale=scale, return_lse=True)
+    assert _band_fwd_within(Ow, Q, K, V, mode="win", w=w, scale=scale)
     assert bool((lse_c[:, :l - 1] == 1e30).all())                 # rows t < l-1 see no token
     for got, want in ((lse_c, plse_c), (lse_s, plse_s), (lse_w, plse_w)):
         assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)
@@ -214,6 +228,9 @@ def test_backward_designs_match_plain_and_each_other_on_gpu(dtype, B, S, G, h, D
     t = torch.arange(S, device=dev)
     Os, lse_s = sa_mod.sel_attn(Q, K, V, sel, t, l_sel=l_sel, scale=scale, return_lse=True)
     Ow, lse_w = wa_mod.win_attn(Q, K, V, w=w, scale=scale, return_lse=True)
+    assert _band_fwd_within(Ow, Q, K, V, mode="win", w=w, scale=scale)
+    _, plse_w = wa_mod.win_attn_plain(Q, K, V, w=w, scale=scale, return_lse=True)
+    assert torch.allclose(lse_w, plse_w, atol=1e-4, rtol=1e-5)
     cargs = (Q, Kc, Vc, dO, lse_c, attention_delta(dO, Oc))
     wargs = (Q, K, V, dO, lse_w, attention_delta(dO, Ow))
     sargs = (Q, K, V, sel, t, dO, lse_s, attention_delta(dO, Os))
@@ -522,8 +539,8 @@ def test_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, n_top, w)
     for s in (sel, canonicalize_sel(sel)):      # forced-first repeats == the set
         assert _sel_fwd_within(sa_mod.sel_attn(Q, K, V, s, t, l_sel=l_sel, scale=SCALE),
                                Q, K, V, sel, t, l_sel, SCALE)
-    assert _within_bound(wa_mod.win_attn(Q, K, V, w=w, scale=SCALE),
-                         wa_mod.win_attn_plain(Q, K, V, w=w, scale=SCALE))
+    assert _band_fwd_within(wa_mod.win_attn(Q, K, V, w=w, scale=SCALE), Q, K, V, mode="win",
+                            w=w, scale=SCALE)
     # decode shape: one query per row at its own depth, cache rows past t unread
     Qd = r(B, 1, G, h, D)
     td = torch.tensor([[S - 1 - 7 * i] for i in range(B)], device=dev)
@@ -593,8 +610,16 @@ def test_serving_path_issues_without_host_sync():
     ("win", 130, 170, 3, 16, dict(w=40)),       # rows at positions 170..299, odd h
     ("cmp", 300, 0, 6, 64, dict(l=32, d=16)),   # rows t < 31 see no compressed token
     ("cmp", 70, 260, 1, 32, dict(l=8, d=4)),
+    ("win", 150, 61, 2, 32, dict(w=70)),        # t_start not a multiple of a q tile; S_kv 211
+    ("cmp", 200, 333, 6, 64, dict(l=32, d=16)),   # S_kv = 32, one partial key tile
+    ("win", 260, 45, 3, 128, dict(w=100)),      # D = 128: the wide tensor-core tiles
+    ("cmp", 330, 0, 2, 128, dict(l=16, d=8)),   # D = 128, S_kv = 40
+    ("win", 100, 0, 1, 64, dict(w=512)),        # h = 1, window wider than S
 ])
-def test_banded_attn_matches_plain_on_gpu(dtype, mode, S, t_start, h, D, kw):
+def test_banded_attn_matches_plain_on_gpu(dtype, mode, S, t_start, h, D, kw, monkeypatch):
+    """banded_attn on the card against its plain version (bf16: the
+    tensor-core bound), lse, the same rows from the call over every
+    position, and in bf16 the same bits at q tiles of 64 and 128 rows."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(2)
     B, G, n_pos = 2, 2, t_start + S
@@ -608,7 +633,7 @@ def test_banded_attn_matches_plain_on_gpu(dtype, mode, S, t_start, h, D, kw):
                                 return_lse=True)
     pO, plse = ba_mod.banded_attn_plain(Q, K, V, mode=mode, **kw, scale=SCALE,
                                         t_start=t_start, return_lse=True)
-    assert _within_bound(O, pO)
+    assert _band_fwd_within(O, Q, K, V, mode=mode, **kw, scale=SCALE, t_start=t_start)
     empty = plse >= 1e29
     assert torch.equal(lse >= 1e29, empty)
     assert float(torch.where(empty, 0.0, (lse - plse).abs()).max()) <= 1e-4
@@ -616,6 +641,14 @@ def test_banded_attn_matches_plain_on_gpu(dtype, mode, S, t_start, h, D, kw):
         Qf = torch.cat([r(B, t_start, G, h, D), Q], dim=1)
         full = ba_mod.banded_attn(Qf, K, V, mode=mode, **kw, scale=SCALE)
         assert torch.equal(full[:, t_start:], O)
+    if dtype == torch.bfloat16:   # a row's bits do not depend on the q tile that holds it
+        tiles = []
+        for rows in (64, 128):
+            monkeypatch.setattr(ba_mod, "MMA_TILE_ROWS", rows)
+            tiles.append(ba_mod.banded_attn(Q, K, V, mode=mode, **kw, scale=SCALE,
+                                            t_start=t_start, return_lse=True))
+        assert all(torch.equal(a, b) for a, b in zip(*tiles))
+        assert torch.equal(tiles[0][0], O) and torch.equal(tiles[0][1], lse)
 
 
 def _sets_equal_but_near_ties(sel, psel, p_grp, tie=1e-5):

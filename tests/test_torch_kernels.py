@@ -180,8 +180,21 @@ def test_wrapper_calls_plain_only_under_the_cpu_branch(mod, name):
     inside = [c for c in ast.walk(first) if isinstance(c, ast.Call)
               and isinstance(c.func, ast.Name) and c.func.id == plain]
     assert len(calls) == len(inside) == 1
-    launches = [c for c in ast.walk(fn) if isinstance(c, ast.Call)
-                and isinstance(c.func, ast.Attribute) and c.func.attr == f"nsa_{name}"]
+    if name in ("win_attn", "banded_attn"):
+        # both launch through banded_attn.launch_banded, which calls the
+        # bf16 and the f32 kernel and no plain version
+        launches = [c for c in ast.walk(fn) if isinstance(c, ast.Call)
+                    and isinstance(c.func, ast.Name) and c.func.id == "launch_banded"]
+        helper = next(n for n in ast.parse(inspect.getsource(ba_mod)).body
+                      if isinstance(n, ast.FunctionDef) and n.name == "launch_banded")
+        called = {c.func.attr if isinstance(c.func, ast.Attribute) else c.func.id
+                  for c in ast.walk(helper) if isinstance(c, ast.Call)
+                  and isinstance(c.func, (ast.Attribute, ast.Name))}
+        assert {"nsa_banded_fwd_mma", "nsa_banded_attn"} <= called
+        assert not any(c.endswith("_plain") for c in called)
+    else:
+        launches = [c for c in ast.walk(fn) if isinstance(c, ast.Call)
+                    and isinstance(c.func, ast.Attribute) and c.func.attr == f"nsa_{name}"]
     assert len(launches) == 1
 
 
