@@ -72,9 +72,14 @@ Phases (any failure exits non-zero):
       forward's mean union and time at each q tile of Q_TILE_TOKENS;
   (f) backward designs: the one-pass kernels (banded_bwd_1p for win and
       cmp, sel_attn_bwd_1p) and the diagonal window kernel (win_bwd_diag)
-      at the training shapes against their plain versions (f32, bf16), twice
-      for identical bits, and against the other design of the same function
-      (rows 7/8, 9/10, 11/7/8); the selection's kv-major chunks per CTA
+      at the training shapes against their plain versions (f32, bf16; the
+      bf16 kernels all run on tensor cores and are held to `allowed_tc_err`
+      with a planted 1% fault), twice for identical bits, and against the
+      other design of the same function (rows 7/8, 9/10, 11/7/8; rows 11
+      and 7 (win) form P and dS alike and are held to each other by
+      `allowed_rel_err`); the banded one-pass kernel's chunks per CTA and
+      the diagonal kernel's time and strip bytes at each q tile of
+      DIAG_TILE_ROWS; the selection's kv-major chunks per CTA
       before and after its work items, and its two-pass dQ kernel's mean
       union size and time at each q tile of Q_TILE_TOKENS, and the same for
       the union forward; the selection and window forwards timed at the
@@ -132,8 +137,10 @@ from nsa_vibe_tpu_torch.ops.cuda import banded_attn as ba_mod
 from nsa_vibe_tpu_torch.ops.cuda.banded_attn import (
     MMA_TILE_ROWS, banded_attn, banded_attn_plain, banded_attn_rss,
 )
-from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd, banded_bwd_plain, banded_mask
-from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import banded_bwd_1p
+from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import (
+    banded_bwd, banded_bwd_plain, banded_bwd_rss, banded_mask,
+)
+from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import banded_bwd_1p, mma_plan, split_shares
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn as sa_mod
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn import (
     sel_attn, sel_attn_plain, sel_attn_rss, union_tile_tokens,
@@ -148,6 +155,7 @@ from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd_1p import sel_attn_bwd_1p
 from nsa_vibe_tpu_torch.ops.cuda.select_blocks import select_blocks, select_blocks_plain
 from nsa_vibe_tpu_torch.ops.cuda.select_cmp import select_cmp, select_cmp_plain
 from nsa_vibe_tpu_torch.ops.cuda.win_attn import win_attn, win_attn_plain
+from nsa_vibe_tpu_torch.ops.cuda import win_bwd_diag as wd_mod
 from nsa_vibe_tpu_torch.ops.cuda.win_bwd_diag import win_bwd_diag
 from nsa_vibe_tpu_torch.ops.reference import attention_delta
 from nsa_vibe_tpu_torch.ops.selection import (
@@ -179,16 +187,19 @@ PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "sel_attn_union_kernel",
                 "sel_bwd_dq_union_kernel", "sel_bwd_kv_mma_kernel", "sel_bwd_kv_fma_kernel",
                 "sel_bwd_reduce_kernel", "reduce_splits_kernel", "banded_attn_kernel",
                 "select_blocks_kernel", "banded_bwd_1p_kernel", "win_bwd_diag_kernel",
+                "banded_bwd_1p_mma_kernel", "win_bwd_diag_mma_kernel",
                 "sum_slots_kernel", "sum_strips_kernel")
 # the bf16 kernels that must run on tensor cores: their SASS holds HMMA
 TENSOR_CORE_KERNELS = ("sel_bwd_kv_mma_kernel", "sel_bwd_dq_union_kernel",
-                       "sel_attn_union_kernel", "win_fwd_mma_kernel", "cmp_fwd_mma_kernel")
-# kernels whose ptxas report is printed; the forwards on tensor cores at D = 64
-# must have no stack frame and no spills
+                       "sel_attn_union_kernel", "win_fwd_mma_kernel", "cmp_fwd_mma_kernel",
+                       "banded_bwd_1p_mma_kernel", "win_bwd_diag_mma_kernel")
+# kernels whose ptxas report is printed; the forwards and the banded backward
+# on tensor cores at D = 64 must have no stack frame and no spills
 PTXAS_REPORTED = ("sel_bwd_", "sel_attn_union_kernel", "sel_attn_split_kernel",
-                  "fwd_mma_kernel")
+                  "fwd_mma_kernel", "bwd_1p_mma_kernel", "bwd_diag_mma_kernel")
 NO_SPILL = ("sel_attn_union_kernelILi64E", "win_fwd_mma_kernelILi64E",   # mangled <64>
-            "cmp_fwd_mma_kernelILi64E")
+            "cmp_fwd_mma_kernelILi64E", "banded_bwd_1p_mma_kernelILi64E",
+            "win_bwd_diag_mma_kernelILi64E")
 # backward-design settings of phase (f) (ops/tuning.py keys), each a train step
 DESIGNS = {
     "onepass": {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 0},
@@ -204,6 +215,7 @@ DESIGNS = {
 TC_SIGMAS = 4
 FAULT = 1.01               # a planted 1% error in one bf16 gradient must fail that bound
 Q_TILE_TOKENS = (1, 2, 5, 10)   # q tiles of the union dQ and forward kernels timed at h = 6
+DIAG_TILE_ROWS = (64, 128, 192)  # q tiles (rows) of the bf16 diagonal window backward timed
 PLAIN_ROWS = 1024          # query rows per call of the selection forward's plain version at 64k
 LOSS_TOL = 5e-3   # train-step loss, any design vs the default keys, absolute (loss ~5.6)
 # the train step's first gradient, any design vs the default keys, per leaf:
@@ -1000,12 +1012,25 @@ BWD_REPLACES = {"banded_bwd_1p": "nsa_vibe_tpu/ops/pallas/flash_bwd.py:479",
                 "sel_attn_bwd_1p": "nsa_vibe_tpu/ops/pallas/sel_flash.py:843",
                 "sel_attn_bwd": "nsa_vibe_tpu/ops/pallas/sel_flash.py:537",
                 "win_bwd_diag": "nsa_vibe_tpu/ops/pallas/flash_diag.py:354"}
+# the source of each backward kernel row's bf16 kernel (the one timed)
+BWD_SOURCE = {"banded_bwd_1p": "banded_bwd_mma.cu", "banded_bwd": "banded_bwd.cu",
+              "sel_attn_bwd_1p": "sel_attn_bwd_1p.cu", "sel_attn_bwd": "sel_attn_bwd.cu",
+              "win_bwd_diag": "banded_bwd_mma.cu"}
 TWO_PASS = ("banded_bwd@win", "banded_bwd@cmp", "sel_attn_bwd")          # phase (d)
 # phase (f): the one-pass and diagonal kernels, each with the other designs
 # of the same function it is held against
 PARTNERS = {"banded_bwd_1p@win": ("banded_bwd@win",), "banded_bwd_1p@cmp": ("banded_bwd@cmp",),
             "sel_attn_bwd_1p": ("sel_attn_bwd",),
             "win_bwd_diag": ("banded_bwd_1p@win", "banded_bwd@win")}
+# the rows whose bf16 kernel runs on tensor cores, rounding P and dS to bf16
+# before their products as the TPU kernels do: held to allowed_tc_err (row 8's
+# bf16 FMA kernel keeps P and dS in f32 and allowed_rel_err)
+TC_ROWS = ("sel_attn_bwd", "sel_attn_bwd_1p", "banded_bwd_1p@win", "banded_bwd_1p@cmp",
+           "win_bwd_diag")
+# bf16 pairs that form P and dS with the same instructions
+# (banded_bwd_mma.cu::p_and_ds) and differ in summation order only: held to
+# each other by allowed_rel_err; other pairs by the kernel's own bound
+SAME_P_DS = {("win_bwd_diag", "banded_bwd_1p@win")}
 
 
 def branch_of(name: str) -> str:
@@ -1063,36 +1088,46 @@ def bwd_calls(x) -> dict:
     }
 
 
-def sel_tc_bounds(x) -> tuple:
-    """The plain selection backward's unrounded f32 gradients from the bf16
-    inputs of train_kernel_inputs, and allowed_tc_err of each."""
-    cfg = x["cfg"]
-    args = (x["Q"], x["K"], x["V"], x["sel"], x["t"], x["dO"], x["lse_s"],
-            attention_delta(x["dO"], x["Os"]))
-    want, rss = sel_attn_bwd_rss(*args, l_sel=cfg.l_sel, scale=x["scale"])
+def tc_bounds(x, branch: str) -> tuple:
+    """The plain backward's unrounded f32 gradients of `branch` ('sel', 'win'
+    or 'cmp') from the bf16 inputs of train_kernel_inputs, and
+    allowed_tc_err of each."""
+    cfg, dO, sc = x["cfg"], x["dO"], x["scale"]
+    if branch == "sel":
+        want, rss = sel_attn_bwd_rss(x["Q"], x["K"], x["V"], x["sel"], x["t"], dO, x["lse_s"],
+                                     attention_delta(dO, x["Os"]), l_sel=cfg.l_sel, scale=sc)
+    elif branch == "win":
+        want, rss = banded_bwd_rss(x["Q"], x["Kw"], x["Vw"], dO, x["lse_w"],
+                                   attention_delta(dO, x["Ow"]), mode="win", w=cfg.w, scale=sc)
+    else:
+        want, rss = banded_bwd_rss(x["Q"], x["Kc"], x["Vc"], dO, x["lse_c"],
+                                   attention_delta(dO, x["Oc"]), mode="cmp", l=cfg.l, d=cfg.d,
+                                   scale=sc)
     return want, tuple(allowed_tc_err(w, r) for w, r in zip(want, rss))
 
 
 def phase_train_kernels(dev, names) -> dict:
     """The named backward kernels vs plain at the training shapes, f32 then
     bf16; each twice for identical bits, and against the other designs of
-    its function (PARTNERS) on the same inputs. The selection's bf16
-    kernels (tensor cores) are held to allowed_tc_err against the plain
-    version's unrounded result, and a FAULT planted in each of their
-    gradients must fail it. Returns the bf16 inputs and the bf16 max
-    errors."""
+    its function (PARTNERS) on the same inputs. The bf16 kernels on tensor
+    cores (TC_ROWS) are held to allowed_tc_err against the plain version's
+    unrounded result, and a FAULT planted in each of their gradients must
+    fail it; a pair of SAME_P_DS is held to allowed_rel_err. Returns the
+    bf16 inputs and the bf16 max errors."""
     gen = torch.Generator(device=dev).manual_seed(4321)
     rec = {}
     for dtype in (torch.float32, torch.bfloat16):
         x = train_kernel_inputs(dtype, dev, gen)
         calls = bwd_calls(x)
-        tc_ref = None
+        tc_refs = {}
         for name in names:
             kern, plain, _ = calls[name]
             got, again = kern(), kern()
-            if dtype == torch.bfloat16 and branch_of(name) == "sel":
-                tc_ref = tc_ref or sel_tc_bounds(x)
-                want, bounds = tc_ref
+            tc = dtype == torch.bfloat16 and name in TC_ROWS
+            if tc:
+                if branch_of(name) not in tc_refs:
+                    tc_refs[branch_of(name)] = tc_bounds(x, branch_of(name))
+                want, bounds = tc_refs[branch_of(name)]
             else:
                 want, bounds = plain(), (allowed_rel_err,) * 3
             torch.cuda.synchronize()
@@ -1100,7 +1135,7 @@ def phase_train_kernels(dev, names) -> dict:
                     for n, g, w, bd in zip(("dQ", "dK", "dV"), got, want, bounds)]
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"{name} {dtype}: two launches differ")
-            if tc_ref is not None and branch_of(name) == "sel":
+            if tc:
                 faults = [worst_ratio(g * FAULT, w, bd) for g, w, bd in zip(got, want, bounds)]
                 print(f"[check] {name} bf16 with a {FAULT - 1:.0%} fault planted in dQ, dK, dV: "
                       f"worst err/bound {', '.join(f'{v:.3f}' for v in faults)} (each must "
@@ -1109,12 +1144,17 @@ def phase_train_kernels(dev, names) -> dict:
                     fail(f"{name}: a planted {FAULT - 1:.0%} fault passes the bf16 bound")
             for other in PARTNERS.get(name, ()):
                 theirs = calls[other][0]()
-                for n, g, w, bd in zip(("dQ", "dK", "dV"), got, theirs, bounds):
+                tight = tc and (name, other) in SAME_P_DS
+                for n, g, w, bd in zip(("dQ", "dK", "dV"), got, theirs,
+                                       (allowed_rel_err,) * 3 if tight else bounds):
                     check(f"{name}:{n} vs {other}", g, w, bound=bd)
+                if tight:
+                    print(f"[check] {name} vs {other}: bit-equal dQ, dK, dV "
+                          f"{[bool(torch.equal(g, w)) for g, w in zip(got, theirs)]}")
                 del theirs
             rec[name] = max(errs)
             del got, again, want
-        del tc_ref
+        del tc_refs
         print(f"[check] backward kernels {', '.join(names)} {str(dtype)[6:]}: two launches "
               f"gave identical bits")
         if dtype == torch.bfloat16:
@@ -1185,6 +1225,45 @@ def phase_sel_tiles(x) -> None:
               f"sel_attn_bwd {ms:.4f} ms{' (the default)' if T == default else ''}")
 
 
+def phase_band_bwd_tiles(x) -> None:
+    """The bf16 banded backward's work at the train shape (inputs of
+    train_kernel_inputs): the one-pass kernel's CTAs and chunks of band rows
+    per CTA in each mode (split_shares, mma_plan); the diagonal window
+    kernel's device time and strip bytes at each q tile of DIAG_TILE_ROWS,
+    and whether its dQ has the default tile's bits (its key tiles sit at
+    multiples of 64, so a row's dQ sums the same tiles under any q tile)."""
+    cfg, Q = x["cfg"], x["Q"]
+    B_, S_, G_, h = Q.shape[:4]
+    lib = kbuild.library()
+    for mode, K, kw in (("win", x["Kw"], dict(w=cfg.w)), ("cmp", x["Kc"], dict(l=cfg.l, d=cfg.d))):
+        S_kv = K.shape[2]
+        rows, nsplit = mma_plan(lib, Q.device, B_, S_, S_kv, G_, h, cfg.d_k, cfg.d_v)
+        shares = split_shares(S_, S_kv, h, mode=mode, **kw, rows=rows, nsplit=nsplit)
+        chunks = [-(-(rb - ra) // rows) for tile in shares for ra, rb in tile if rb > ra]
+        print(f"[band] banded_bwd_1p {mode} bf16: {len(shares)} key tiles x {nsplit} splits x "
+              f"{B_ * G_} (b, g) = {len(shares) * nsplit * B_ * G_} CTAs; chunks of {rows} band "
+              f"rows per CTA with rows: max {max(chunks)} mean "
+              f"{sum(chunks) / len(chunks):.2f}; CTAs without rows "
+              f"{(len(shares) * nsplit - len(chunks)) * B_ * G_}")
+    args = (Q, x["Kw"], x["Vw"], x["dO"], x["lse_w"], attention_delta(x["dO"], x["Ow"]))
+    default = wd_mod.MMA_TILE_ROWS
+    ref = win_bwd_diag(*args, w=cfg.w, scale=x["scale"])
+    for rows in DIAG_TILE_ROWS:
+        wd_mod.MMA_TILE_ROWS = rows   # the wrapper's q tile, for this timing only
+        try:
+            got = win_bwd_diag(*args, w=cfg.w, scale=x["scale"])
+            ms = time_ms(lambda: win_bwd_diag(*args, w=cfg.w, scale=x["scale"]), 10, hold=True)
+            tq, sl, strip = wd_mod.tile_plan(lib, Q.dtype, B_, S_, S_, G_, h, cfg.d_k, cfg.d_v,
+                                             cfg.w)
+        finally:
+            wd_mod.MMA_TILE_ROWS = default
+        print(f"[band] win_bwd_diag q tile {rows} rows ({tq} tokens): {ms:.4f} ms; strips "
+              f"{strip} bytes ({sl} keys a tile); dQ bit-equal to the {default}-row tile's: "
+              f"{bool(torch.equal(got[0], ref[0]))}{' (the default)' if rows == default else ''}")
+        del got
+    del ref
+
+
 def measure_train(rec, runs, names) -> list:
     """Times the named backward kernels (bf16, training shapes) beside
     their plain version and the backward of one SDPA call with the
@@ -1212,16 +1291,17 @@ def measure_train(rec, runs, names) -> list:
             io += nbytes(x["sel"])
         bms, by = bound(io, ops, x["Q"].dtype)
         if name == "win_bwd_diag":
-            tq = 64 // h
-            sl = kbuild.library().nsa_win_bwd_diag_strip_keys(tq, cfg.w, S)
-            print(f"[time] win_bwd_diag q tile {tq} tokens: strips "
-                  f"{B_TRAIN * cfg.n_kv_groups * -(-S // tq) * sl * (Dk + Dv) * 4} bytes")
+            tq, _, strip = wd_mod.tile_plan(kbuild.library(), x["Q"].dtype, B_TRAIN, S, S,
+                                            cfg.n_kv_groups, h, Dk, Dv, cfg.w)
+            print(f"[time] win_bwd_diag q tile {wd_mod.MMA_TILE_ROWS} rows ({tq} tokens): "
+                  f"strips {strip} bytes")
         sq, sk, sv, sm = sdpa_operands(x["Q"], K, V, mask)
         sq, sk, sv = (t.detach().requires_grad_(True) for t in (sq, sk, sv))
         so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm, scale=x["scale"])
         sdo = torch.randn_like(so)
         out.append(dict(
-            name=name, source=f"nsa_vibe_tpu_torch/csrc/{base}.cu", replaces=BWD_REPLACES[base],
+            name=name, source=f"nsa_vibe_tpu_torch/csrc/{BWD_SOURCE[base]}",
+            replaces=BWD_REPLACES[base],
             launches=max(launches_of(c, name) for c in runs), max_abs_err=rec[name],
             ms=time_ms(kern, 10, hold=True),
             plain_ms=time_ms(plain, 3, hold=True),
@@ -1879,6 +1959,7 @@ def main() -> int:
     del lrec
     torch.cuda.empty_cache()
     frec = phase_train_kernels(dev, tuple(PARTNERS))
+    phase_band_bwd_tiles(frec["inputs"])
     phase_sel_tiles(frec["inputs"])
     x = frec["inputs"]
     sargs = (x["Q"], x["K"], x["V"], x["sel"], x["t"])

@@ -1,32 +1,36 @@
 // banded_bwd_1p: one-pass backward of the window and compressed-prefix
-// attention branches (mode WIN or CMP), from the forward's row statistics.
+// attention branches (mode WIN or CMP), from the forward's row statistics,
+// for f32 operands.
 //
-// Replaces: nsa_vibe_tpu/ops/pallas/flash_bwd.py::flash_banded_bwd_onepass
-// (kernel _onepass_bwd_kernel), the JAX train step's win and cmp backward
-// under bwd.onepass = 1 (the window's when win.bwd_diag does not apply).
+// Replaces, for f32 operands: nsa_vibe_tpu/ops/pallas/flash_bwd.py::
+// flash_banded_bwd_onepass (kernel _onepass_bwd_kernel), the JAX train
+// step's win and cmp backward under bwd.onepass = 1 (the window's when
+// win.bwd_diag does not apply). bf16 operands (the train step's dtype) take
+// the tensor-core kernel banded_bwd_1p_mma_kernel of banded_bwd_mma.cu,
+// which writes the same dQ slots; f32 keeps this FMA kernel, since the f32
+// gates (5e-5 relative) rule out TF32.
 //
 // What it computes: the same dQ, dK, dV as banded_bwd.cu (the two-pass
 // design, flash_bwd.py::flash_banded_bwd): for query rows (token t, head j
 // of group g) with visible keys [lo(t), hi(t)) (banded_common.cuh), the
 // gradients of O = softmax(scale Q K^T) V given dO, lse and delta =
-// rowsum(dO*O); outputs in the operands' dtype, accumulated in f32
-// (notation: bwd_common.cuh).
+// rowsum(dO*O); outputs f32, accumulated in f32 (notation: bwd_common.cuh).
 //
-// What bounds it on the H100: as banded_bwd's: ~5 products per visible
-// (row, key) pair, tensor-core bound on paper; this f32 FMA design is
-// bound by FMA issue and shared-memory reads. It forms S, P, dP and dS
-// once per (row, key) pair where the two-pass design forms them twice.
+// What bounds it on the H100: ~5 products per visible (row, key) pair at
+// the card's f32 FMA rate (67 TFLOP/s, not the tensor cores), and
+// shared-memory reads. It forms S, P, dP and dS once per (row, key) pair
+// where the two-pass design forms them twice.
 // Design: one kv-major pass, one block per (b, g, tile of 64 keys, split),
 // as banded_bwd's dK/dV pass: the block keeps its K/V tile in shared
 // memory and streams the query rows that see it, TQ tokens per chunk; dK
 // and dV stay in registers. The same dS tile gives the chunk's rows their
 // partial dQ = dS K_tile (accumulate_q_rows), which has no home across
 // blocks (the TPU kernel's dQ ring carries it in VMEM across sequential
-// grid steps): each partial goes to an f32 slot workspace ws[slot][row],
-// slot = the tile's offset from the row's first visible tile (WIN: kt -
-// lo(t)/64, at most (w+62)/64 + 1 slots; CMP: kt). Splits partition the
-// query rows, so each (slot, row) is written by exactly one block; a
-// second kernel (sum_slots) adds each row's slots in slot order and
+// grid steps): each partial goes to an f32 slot workspace ws[slot][row]
+// (banded_common.cuh::BandSlots: slot = the tile's offset from the row's
+// first visible tile, WIN: kt - lo(t)/64, at most (w+62)/64 + 1 slots;
+// CMP: kt). Splits partition the query rows, so each (slot, row) is written
+// by exactly one block; sum_slots adds each row's slots in slot order and
 // scales. dK/dV go through per-split f32 partials summed in split order
 // (with one split the partial is only cast). No float atomics: two
 // launches give identical bits.
@@ -38,21 +42,11 @@ using namespace nsa::band;
 
 namespace {
 
-// slots a row of token t wrote: the key tiles it sees
-struct BandSlots {
-  Params p;
-  __device__ int operator()(long long row) const {
-    const int t = (int)((row / ((long long)p.G * p.h)) % p.S);
-    int lo, hi;
-    key_range(p, t, lo, hi);
-    return hi > lo ? (hi - 1) / KC - lo / KC + 1 : 0;
-  }
-};
-
-template <typename T, int NSK, int NSV, int NSQ>
+template <int NSK, int NSV, int NSQ>
 __global__ void __launch_bounds__(THREADS)
-banded_bwd_1p_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
-                     const T* __restrict__ dO, const float* __restrict__ lse,
+banded_bwd_1p_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                     const float* __restrict__ V, const float* __restrict__ dO,
+                     const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dK,
                      float* __restrict__ dV, float* __restrict__ ws, Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -82,8 +76,8 @@ banded_bwd_1p_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* 
   int* lo_s = reinterpret_cast<int*>(smem + L.lo);
   int* hi_s = reinterpret_cast<int*>(smem + L.hi);
 
-  load_rows_vec<T>(k_s, kp, K + ((size_t)b * p.G + g) * p.S_kv * Dk, Dk, k0, KC, k0 + nk);
-  load_rows_vec<T>(v_s, vp, V + ((size_t)b * p.G + g) * p.S_kv * Dv, Dv, k0, KC, k0 + nk);
+  load_rows_vec<float>(k_s, kp, K + ((size_t)b * p.G + g) * p.S_kv * Dk, Dk, k0, KC, k0 + nk);
+  load_rows_vec<float>(v_s, vp, V + ((size_t)b * p.G + g) * p.S_kv * Dv, Dv, k0, KC, k0 + nk);
   float4 dk_acc[NSK][4], dv_acc[NSV][4];
 #pragma unroll
   for (int i = 0; i < NSK; ++i)
@@ -107,7 +101,7 @@ banded_bwd_1p_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* 
     const int nt = min(p.TQ, tb - t0);
     const int rows = nt * h;
     __syncthreads();   // previous chunk consumed (and the K/V tile staged)
-    stage_rows<T>(p, Q, dO, lse, delta, b, g, t0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
+    stage_rows(p, Q, dO, lse, delta, b, g, t0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
     __syncthreads();
     scores_and_ds(q_s, do_s, k_s, v_s, lse_s, dl_s, rows, Dk, Dv, kp, vp, p.scale,
                   [&](int r, int key) {
@@ -146,9 +140,9 @@ banded_bwd_1p_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* 
   store_kv<float, NSV>(dv_acc, dV, row0, nk, Dv, 1.f);
 }
 
-template <typename T, int NSK, int NSV>
-int launch_ns(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
-              const float* delta, void* dQ, void* dK, void* dV, float* part, float* ws,
+template <int NSK, int NSV>
+int launch_ns(const float* Q, const float* K, const float* V, const float* dO, const float* lse,
+              const float* delta, float* dQ, float* dK, float* dV, float* part, float* ws,
               const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(MAX_ROWS, p.Dk, p.Dv).total * sizeof(float);
   const long long nkt = (p.S_kv + KC - 1) / KC;
@@ -157,32 +151,19 @@ int launch_ns(const void* Q, const void* K, const void* V, const void* dO, const
   const long long nv_el = (long long)p.B * p.G * p.S_kv * p.Dv;
   float* part_k = part;
   float* part_v = part + (size_t)p.nsplit * nk_el;
-  cudaError_t e = cudaFuncSetAttribute(banded_bwd_1p_kernel<T, NSK, NSV, NSK>,
+  cudaError_t e = cudaFuncSetAttribute(banded_bwd_1p_kernel<NSK, NSV, NSK>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  banded_bwd_1p_kernel<T, NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(Q), static_cast<const T*>(K), static_cast<const T*>(V),
-      static_cast<const T*>(dO), lse, delta, part_k, part_v, ws, p);
+  banded_bwd_1p_kernel<NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(Q, K, V, dO, lse, delta,
+                                                                       part_k, part_v, ws, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int rk = reduce_splits<T>(part_k, dK, nk_el, p.nsplit, stream);
+  const int rk = reduce_splits<float>(part_k, dK, nk_el, p.nsplit, stream);
   if (rk != 0) return rk;
-  const int rv = reduce_splits<T>(part_v, dV, nv_el, p.nsplit, stream);
+  const int rv = reduce_splits<float>(part_v, dV, nv_el, p.nsplit, stream);
   if (rv != 0) return rv;
   const long long rows = (long long)p.B * p.S * p.G * p.h;
-  return sum_slots<T>(ws, dQ, rows, p.Dk, BandSlots{p}, p.scale, stream);
-}
-
-template <typename T>
-int launch(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
-           const float* delta, void* dQ, void* dK, void* dV, float* part, float* ws,
-           const Params& p, cudaStream_t stream) {
-  const int nk = kv_slices(p.Dk), nv = kv_slices(p.Dv);
-  if (nk == 1 && nv == 1)
-    return launch_ns<T, 1, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, stream);
-  if (nk == 1) return launch_ns<T, 1, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, stream);
-  if (nv == 1) return launch_ns<T, 2, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, stream);
-  return launch_ns<T, 2, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, stream);
+  return sum_slots<float>(ws, dQ, rows, p.Dk, BandSlots{p}, p.scale, stream);
 }
 
 }  // namespace
@@ -201,11 +182,11 @@ int nsa_banded_bwd_1p_slots(int mode, int w, int S_kv) {
   return most < nkt ? most : nkt;
 }
 
-// part: f32 scratch of nsplit * B*G*S_kv*(Dk+Dv) floats (per-split partial
-// dK, then dV). ws: f32 dQ workspace of
+// f32 only. part: f32 scratch of nsplit * B*G*S_kv*(Dk+Dv) floats (per-split
+// partial dK, then dV). ws: f32 dQ workspace of
 // nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats.
-int nsa_banded_bwd_1p(int dtype, const void* Q, const void* K, const void* V, const void* dO,
-                      const float* lse, const float* delta, void* dQ, void* dK, void* dV,
+int nsa_banded_bwd_1p(const float* Q, const float* K, const float* V, const float* dO,
+                      const float* lse, const float* delta, float* dQ, float* dK, float* dV,
                       float* part, float* ws, int B, int S, int S_kv, int G, int h, int Dk,
                       int Dv, int mode, int w, int l, int d, float scale, int TQ, int nsplit,
                       void* stream) {
@@ -215,10 +196,12 @@ int nsa_banded_bwd_1p(int dtype, const void* Q, const void* K, const void* V, co
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, nsplit, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch<float>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
-  if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
-  return (int)cudaErrorInvalidValue;
+  const int nk = kv_slices(Dk), nv = kv_slices(Dv);
+  if (nk == 1 && nv == 1)
+    return launch_ns<1, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
+  if (nk == 1) return launch_ns<1, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
+  if (nv == 1) return launch_ns<2, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
+  return launch_ns<2, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
 }
 
 }  // extern "C"

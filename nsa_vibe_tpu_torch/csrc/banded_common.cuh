@@ -1,8 +1,12 @@
 // Pieces of the banded (window / compressed-prefix) backward kernels of the
-// one-pass and diagonal designs (banded_bwd_1p.cu, win_bwd_diag.cu): the
-// visibility rule, the staging of query rows, and the shared-memory
-// carve-up. The rules are those of banded_bwd.cu (the two-pass design),
-// which keeps its own copy.
+// one-pass and diagonal designs: the visibility rule, the staging of query
+// rows, the shared-memory carve-up of the f32 FMA kernels, the slot count
+// of the one-pass dQ workspace and the strip sum of the diagonal design.
+// Which kernel serves which dtype: f32 operands take the FMA kernels
+// (banded_bwd_1p.cu, win_bwd_diag.cu), bf16 operands the tensor-core
+// kernels (banded_bwd_mma.cu); both write the same slots and strips and
+// finish with the same sum_slots / sum_strips. The rules are those of
+// banded_bwd.cu (the two-pass design), which keeps its own copy.
 #pragma once
 
 #include "bwd_common.cuh"
@@ -43,9 +47,22 @@ __device__ __forceinline__ void token_range(const Params& p, int k0, int k1, int
   }
 }
 
-// shared-memory carve-up (floats) for `rows` staged query rows (a multiple
-// of MAX_ROWS), one KC-key tile of K and V, and one MAX_ROWS x KC tile each
-// of P and dS
+// dQ slots a row of the one-pass design wrote (sum_slots' count): the key
+// tiles its token sees. Slot of a (row, key tile kt): WIN kt - lo(t)/64,
+// CMP kt.
+struct BandSlots {
+  Params p;
+  __device__ int operator()(long long row) const {
+    const int t = (int)((row / ((long long)p.G * p.h)) % p.S);
+    int lo, hi;
+    key_range(p, t, lo, hi);
+    return hi > lo ? (hi - 1) / KC - lo / KC + 1 : 0;
+  }
+};
+
+// shared-memory carve-up (floats) of the FMA kernels for `rows` staged
+// query rows (a multiple of MAX_ROWS), one KC-key tile of K and V, and one
+// MAX_ROWS x KC tile each of P and dS
 struct Smem {
   size_t q, dO, k, v, p, ds, lse, dl, lo, hi, total;
   __host__ __device__ Smem(int rows, int Dk, int Dv) {
@@ -63,10 +80,9 @@ struct Smem {
   }
 };
 
-// Stages the query rows of tokens [t0, t0+nt) of (b, g): Q and dO rows,
+// Stages the f32 query rows of tokens [t0, t0+nt) of (b, g): Q and dO rows,
 // lse, delta and each row's visible key range.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const Params& p, const T* Q, const T* dO,
+__device__ __forceinline__ void stage_rows(const Params& p, const float* Q, const float* dO,
                                            const float* lse, const float* delta, int b, int g,
                                            int t0, int nt, float* q_s, float* do_s,
                                            float* lse_s, float* dl_s, int* lo_s, int* hi_s) {
@@ -76,16 +92,65 @@ __device__ __forceinline__ void stage_rows(const Params& p, const T* Q, const T*
     return (((size_t)b * p.S + t0 + i) * p.G + g) * h + (r - i * h);
   };
   const int rows = nt * h;
-  load_rows_vec<T>(q_s, p.Dk, [&](int r) -> const T* { return Q + row_of(r) * p.Dk; }, p.Dk,
-                   rows);
-  load_rows_vec<T>(do_s, p.Dv, [&](int r) -> const T* { return dO + row_of(r) * p.Dv; }, p.Dv,
-                   rows);
+  load_rows_vec<float>(q_s, p.Dk, [&](int r) -> const float* { return Q + row_of(r) * p.Dk; },
+                       p.Dk, rows);
+  load_rows_vec<float>(do_s, p.Dv, [&](int r) -> const float* { return dO + row_of(r) * p.Dv; },
+                       p.Dv, rows);
   for (int r = threadIdx.x; r < rows; r += THREADS) {
     const size_t o = row_of(r);
     lse_s[r] = lse[o];
     dl_s[r] = delta[o];
     key_range(p, t0 + r / h, lo_s[r], hi_s[r]);
   }
+}
+
+// Strips of the diagonal design: q tile qt (tokens [qt*TQ, qt*TQ+TQ)) wrote
+// the dK/dV of its band's keys to strip rows [0, ...) of [B, G, nq, SL, D],
+// strip row 0 being key kb0(qt) = floor(max(qt*TQ - w + 1, 0) / align) *
+// align (align 1 for the FMA kernel, 64 for the tensor-core kernel, whose
+// key tiles sit at multiples of 64).
+// out[b, g, k, :] = mul * (sum over the q tiles whose band covers key k, in
+// ascending order, of their strip row k - kb0(qt)), cast to T; keys no row
+// sees (k >= S) get 0.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+sum_strips_kernel(const float* __restrict__ strip, T* __restrict__ out, Params p, int D, int SL,
+                  float mul, int align) {
+  const int nq = (p.S + p.TQ - 1) / p.TQ;
+  const int d4 = D / 4;
+  const long long n = (long long)p.B * p.G * p.S_kv * d4;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * THREADS) {
+    const long long krow = i / d4;             // (b*G + g)*S_kv + k
+    const int c = (int)(i - krow * d4) * 4;
+    const long long bg = krow / p.S_kv;
+    const int k = (int)(krow - bg * p.S_kv);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k < p.S) {
+      const int qa = k / p.TQ;
+      const int qb = min((k + p.w - 1) / p.TQ, nq - 1);
+      for (int qt = qa; qt <= qb; ++qt) {
+        const int kb0 = max(qt * p.TQ - p.w + 1, 0) / align * align;
+        const float4 x = *reinterpret_cast<const float4*>(
+            strip + ((bg * nq + qt) * SL + (k - kb0)) * (size_t)D + c);
+        a.x += x.x;
+        a.y += x.y;
+        a.z += x.z;
+        a.w += x.w;
+      }
+    }
+    store4<T>(out + krow * D + c, make_float4(a.x * mul, a.y * mul, a.z * mul, a.w * mul));
+  }
+}
+
+template <typename T>
+int sum_strips(const float* strip, void* out, const Params& p, int D, int SL, float mul,
+               int align, cudaStream_t stream) {
+  const long long want = ((long long)p.B * p.G * p.S_kv * (D / 4) + THREADS - 1) / THREADS;
+  const unsigned grid = (unsigned)(want < 8192 ? want : 8192);
+  sum_strips_kernel<T><<<grid, THREADS, 0, stream>>>(strip, static_cast<T*>(out), p, D, SL, mul,
+                                                     align);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace band

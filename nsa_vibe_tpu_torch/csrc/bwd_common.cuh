@@ -1,8 +1,8 @@
 // Shared pieces of the attention backward kernels (banded_bwd.cu,
-// sel_attn_bwd.cu, banded_bwd_1p.cu, sel_attn_bwd_1p.cu, win_bwd_diag.cu):
-// the per-chunk arithmetic of the kv-major dK/dV pass, the dQ product over
-// a staged key tile, and the deterministic reductions of per-split partial
-// dK/dV and of per-slot partial dQ.
+// sel_attn_bwd.cu, banded_bwd_1p.cu, sel_attn_bwd_1p.cu, win_bwd_diag.cu,
+// banded_bwd_mma.cu): the per-chunk arithmetic of the kv-major dK/dV pass,
+// the dQ product over a staged key tile, and the deterministic reductions
+// of per-split partial dK/dV and of per-slot partial dQ.
 //
 // Notation (as the TPU kernels, flash_bwd.py): for a visible (row, key)
 //   s  = scale * q.k          P  = exp(s - lse[row])   (0 where not visible;
@@ -10,8 +10,8 @@
 //   dV[key] += P dO[row]      dK[key] += scale * dS q[row]
 //   dQ[row] += scale * dS k[key]
 // All products here are f32 FMAs on operands staged in shared memory as
-// f32 (the selection backward's bf16 kernels use tensor cores instead:
-// tc.cuh).
+// f32 (the bf16 selection and banded backward kernels use tensor cores
+// instead: tc.cuh; they share only the reductions).
 // No float atomics anywhere: every output element is summed by one thread
 // in a fixed order, and partial sums across blocks are added by
 // `reduce_splits` in split order, so two launches give identical bits.

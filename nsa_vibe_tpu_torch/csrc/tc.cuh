@@ -1,5 +1,6 @@
-// Tensor-core pieces of the bf16 selection kernels (sel_attn_fwd_mma.cu,
-// sel_attn_bwd.cu, sel_attn_bwd_1p.cu): 16-byte cp.async copies, ldmatrix
+// Tensor-core pieces of the bf16 selection and banded kernels
+// (sel_attn_fwd_mma.cu, sel_attn_bwd.cu, sel_attn_bwd_1p.cu,
+// banded_fwd_mma.cu, banded_bwd_mma.cu): 16-byte cp.async copies, ldmatrix
 // loads of mma.sync.m16n8k16 fragments from bf16 tiles in shared memory,
 // the bf16 product with f32 accumulation, and packing of f32 results into
 // bf16 operand fragments.

@@ -1,33 +1,34 @@
 // win_bwd_diag: diagonal backward of the sliding-window branch, from the
-// forward's row statistics.
+// forward's row statistics, for f32 operands.
 //
-// Replaces: nsa_vibe_tpu/ops/pallas/flash_diag.py::flash_banded_bwd_diag
-// (kernel _diag_bwd_kernel), the JAX train step's window backward under
-// win.bwd_diag = 1 on the one-pass route (S >= 128).
+// Replaces, for f32 operands: nsa_vibe_tpu/ops/pallas/flash_diag.py::
+// flash_banded_bwd_diag (kernel _diag_bwd_kernel), the JAX train step's
+// window backward under win.bwd_diag = 1 on the one-pass route (S >= 128).
+// bf16 operands (the train step's dtype) take the tensor-core kernel
+// win_bwd_diag_mma_kernel of banded_bwd_mma.cu; f32 keeps this FMA kernel,
+// since the f32 gates (5e-5 relative) rule out TF32.
 //
 // What it computes: the same dQ, dK, dV as banded_bwd.cu and
 // banded_bwd_1p.cu in window mode: query token t sees keys
-// [max(t-w+1, 0), min(t+1, S_kv)); outputs in the operands' dtype,
-// accumulated in f32 (notation: bwd_common.cuh).
+// [max(t-w+1, 0), min(t+1, S_kv)); outputs f32, accumulated in f32
+// (notation: bwd_common.cuh).
 //
-// What bounds it on the H100: as the other window backwards (~5 products
-// per visible (row, key) pair, tensor-core bound on paper); this f32 FMA
-// design is bound by FMA issue and shared-memory reads, plus the strips'
-// bytes below. It forms S, P, dP and dS once per (row, key) pair.
+// What bounds it on the H100: ~5 products per visible (row, key) pair at
+// the card's f32 FMA rate (67 TFLOP/s, not the tensor cores), and
+// shared-memory reads; plus the strips' bytes below. It forms S, P, dP and
+// dS once per (row, key) pair.
 // Design: q-major, one block per (b, g, q tile of TQ = 64 / h tokens). The
 // block stages its 64 query rows in shared memory and streams the tile's
 // band [t_first - w + 1, t_last] in 64-key chunks; per chunk it forms P and
 // dS once, keeps dQ exact in registers, and sums the chunk's dK/dV over the
 // tile's rows in registers. The dK/dV of the band go to a per-tile f32
 // strip [B, G, nq, SL, D] (SL = the band's keys rounded up to 64), as the
-// TPU kernel's strips (flash_diag.py:363-366); a second kernel (sum_strips)
-// adds, for each key, the strips of the tiles whose band covers it in
-// ascending tile order (about (w + TQ - 1) / TQ of them). The TPU kernel
-// sums its strips with a one-hot matmul, a workaround for slow scatters,
-// not ported. The strips take nq * SL * (Dk + Dv) * 4 bytes per (b, g);
-// q tiles of 2 and 4 sub-tiles of 64 rows cut them but were slower at the
-// m7c train shape on the H100 (PERF.md), so the tile is one sub-tile. No
-// float atomics: two launches give identical bits.
+// TPU kernel's strips (flash_diag.py:363-366); sum_strips
+// (banded_common.cuh) adds, for each key, the strips of the tiles whose
+// band covers it in ascending tile order (about (w + TQ - 1) / TQ of
+// them). The TPU kernel sums its strips with a one-hot matmul, a
+// workaround for slow scatters, not ported. No float atomics: two launches
+// give identical bits.
 #include "banded_common.cuh"
 
 using namespace nsa;
@@ -43,11 +44,12 @@ __host__ __device__ int strip_keys(int TQ, int w, int S_kv) {
   return most / KC * KC;
 }
 
-template <typename T, int NSK, int NSV, int NSQ>
+template <int NSK, int NSV, int NSQ>
 __global__ void __launch_bounds__(THREADS)
-win_bwd_diag_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
-                    const T* __restrict__ dO, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dQ,
+win_bwd_diag_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                    const float* __restrict__ V, const float* __restrict__ dO,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dQ,
                     float* __restrict__ strip_k, float* __restrict__ strip_v, Params p, int SL) {
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
@@ -74,7 +76,7 @@ win_bwd_diag_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* _
   int* lo_s = reinterpret_cast<int*>(smem + L.lo);
   int* hi_s = reinterpret_cast<int*>(smem + L.hi);
 
-  stage_rows<T>(p, Q, dO, lse, delta, b, g, s0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
+  stage_rows(p, Q, dO, lse, delta, b, g, s0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
   float4 q_acc[NSQ][4];
 #pragma unroll
   for (int i = 0; i < NSQ; ++i)
@@ -84,15 +86,15 @@ win_bwd_diag_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* _
   int lo_first, hi_last, unused;
   key_range(p, s0, lo_first, unused);
   key_range(p, s0 + nt - 1, unused, hi_last);   // lo and hi never decrease with t
-  const T* Kbg = K + ((size_t)b * p.G + g) * p.S_kv * Dk;
-  const T* Vbg = V + ((size_t)b * p.G + g) * p.S_kv * Dv;
+  const float* Kbg = K + ((size_t)b * p.G + g) * p.S_kv * Dk;
+  const float* Vbg = V + ((size_t)b * p.G + g) * p.S_kv * Dv;
   const size_t strip0 = (((size_t)b * p.G + g) * nq + qt) * SL;   // strip row of key lo_first
 
   for (int k0 = lo_first; k0 < hi_last; k0 += KC) {
     const int nk = min(KC, hi_last - k0);
     __syncthreads();   // previous chunk consumed (and the rows staged)
-    load_rows_vec<T>(k_s, kp, Kbg, Dk, k0, KC, k0 + nk);
-    load_rows_vec<T>(v_s, vp, Vbg, Dv, k0, KC, k0 + nk);
+    load_rows_vec<float>(k_s, kp, Kbg, Dk, k0, KC, k0 + nk);
+    load_rows_vec<float>(v_s, vp, Vbg, Dv, k0, KC, k0 + nk);
     __syncthreads();
     float4 dk_acc[NSK][4], dv_acc[NSV][4];
 #pragma unroll
@@ -129,89 +131,31 @@ win_bwd_diag_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* _
         const int ti = r / h;
         const size_t row = (((size_t)b * p.S + s0 + ti) * p.G + g) * h + (r - ti * h);
         const float4 a = q_acc[i][r4];
-        store4<T>(dQ + row * Dk + 4 * c4,
+        store4<float>(dQ + row * Dk + 4 * c4,
                   make_float4(a.x * p.scale, a.y * p.scale, a.z * p.scale, a.w * p.scale));
       }
     }
   }
 }
 
-// out[b, g, k, :] = mul * (sum over the q tiles qt whose band covers key k,
-// in ascending order, of strip[b, g, qt, k - lo_first(qt), :]); keys no
-// row sees (k >= S) get 0.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-sum_strips_kernel(const float* __restrict__ strip, T* __restrict__ out, Params p, int D, int SL,
-                  float mul) {
-  const int nq = (p.S + p.TQ - 1) / p.TQ;
-  const int d4 = D / 4;
-  const long long n = (long long)p.B * p.G * p.S_kv * d4;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += (long long)gridDim.x * THREADS) {
-    const long long krow = i / d4;             // (b*G + g)*S_kv + k
-    const int c = (int)(i - krow * d4) * 4;
-    const long long bg = krow / p.S_kv;
-    const int k = (int)(krow - bg * p.S_kv);
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k < p.S) {
-      const int qa = k / p.TQ;
-      const int qb = min((k + p.w - 1) / p.TQ, nq - 1);
-      for (int qt = qa; qt <= qb; ++qt) {
-        const int lo_first = max(qt * p.TQ - p.w + 1, 0);
-        const float4 x = *reinterpret_cast<const float4*>(
-            strip + ((bg * nq + qt) * SL + (k - lo_first)) * (size_t)D + c);
-        a.x += x.x;
-        a.y += x.y;
-        a.z += x.z;
-        a.w += x.w;
-      }
-    }
-    store4<T>(out + krow * D + c, make_float4(a.x * mul, a.y * mul, a.z * mul, a.w * mul));
-  }
-}
-
-template <typename T>
-int sum_strips(const float* strip, void* out, const Params& p, int D, int SL, float mul,
-               cudaStream_t stream) {
-  const long long want = ((long long)p.B * p.G * p.S_kv * (D / 4) + THREADS - 1) / THREADS;
-  const unsigned grid = (unsigned)(want < 8192 ? want : 8192);
-  sum_strips_kernel<T><<<grid, THREADS, 0, stream>>>(strip, static_cast<T*>(out), p, D, SL, mul);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int NSK, int NSV>
-int launch_ns(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
-              const float* delta, void* dQ, void* dK, void* dV, float* strip_k, float* strip_v,
-              const Params& p, cudaStream_t stream) {
+template <int NSK, int NSV>
+int launch_ns(const float* Q, const float* K, const float* V, const float* dO, const float* lse,
+              const float* delta, float* dQ, float* dK, float* dV, float* strip_k,
+              float* strip_v, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(MAX_ROWS, p.Dk, p.Dv).total * sizeof(float);
   const int SL = strip_keys(p.TQ, p.w, p.S_kv);
-  cudaError_t e = cudaFuncSetAttribute(win_bwd_diag_kernel<T, NSK, NSV, NSK>,
+  cudaError_t e = cudaFuncSetAttribute(win_bwd_diag_kernel<NSK, NSV, NSK>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long nq = (p.S + p.TQ - 1) / p.TQ;
   const unsigned grid = (unsigned)((long long)p.B * p.G * nq);
-  win_bwd_diag_kernel<T, NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(Q), static_cast<const T*>(K), static_cast<const T*>(V),
-      static_cast<const T*>(dO), lse, delta, static_cast<T*>(dQ), strip_k, strip_v, p, SL);
+  win_bwd_diag_kernel<NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(Q, K, V, dO, lse, delta, dQ,
+                                                                      strip_k, strip_v, p, SL);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int rk = sum_strips<T>(strip_k, dK, p, p.Dk, SL, p.scale, stream);
+  const int rk = sum_strips<float>(strip_k, dK, p, p.Dk, SL, p.scale, 1, stream);
   if (rk != 0) return rk;
-  return sum_strips<T>(strip_v, dV, p, p.Dv, SL, 1.f, stream);
-}
-
-template <typename T>
-int launch(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
-           const float* delta, void* dQ, void* dK, void* dV, float* strip_k, float* strip_v,
-           const Params& p, cudaStream_t stream) {
-  const int nk = kv_slices(p.Dk), nv = kv_slices(p.Dv);
-  if (nk == 1 && nv == 1)
-    return launch_ns<T, 1, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, stream);
-  if (nk == 1)
-    return launch_ns<T, 1, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, stream);
-  if (nv == 1)
-    return launch_ns<T, 2, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, stream);
-  return launch_ns<T, 2, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, stream);
+  return sum_strips<float>(strip_v, dV, p, p.Dv, SL, 1.f, 1, stream);
 }
 
 }  // namespace
@@ -224,11 +168,11 @@ long long nsa_win_bwd_diag_smem_bytes(int Dk, int Dv) {
 
 int nsa_win_bwd_diag_strip_keys(int TQ, int w, int S_kv) { return strip_keys(TQ, w, S_kv); }
 
-// TQ tokens per q tile, TQ * h <= 64.
+// f32 only. TQ tokens per q tile, TQ * h <= 64.
 // strip_k / strip_v: f32 scratch of B*G*ceil(S/TQ)*SL*Dk (Dv) floats, SL =
 // nsa_win_bwd_diag_strip_keys(TQ, w, S_kv).
-int nsa_win_bwd_diag(int dtype, const void* Q, const void* K, const void* V, const void* dO,
-                     const float* lse, const float* delta, void* dQ, void* dK, void* dV,
+int nsa_win_bwd_diag(const float* Q, const float* K, const float* V, const float* dO,
+                     const float* lse, const float* delta, float* dQ, float* dK, float* dV,
                      float* strip_k, float* strip_v, int B, int S, int S_kv, int G, int h, int Dk,
                      int Dv, int w, float scale, int TQ, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || w <= 0 || S <= 0 || S_kv <= 0 || Dk % 8 != 0 ||
@@ -236,11 +180,12 @@ int nsa_win_bwd_diag(int dtype, const void* Q, const void* K, const void* V, con
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, WIN, w, 0, 1, TQ, 1, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return launch<float>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
-  if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
-  return (int)cudaErrorInvalidValue;
+  const int nk = kv_slices(Dk), nv = kv_slices(Dv);
+  if (nk == 1 && nv == 1)
+    return launch_ns<1, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
+  if (nk == 1) return launch_ns<1, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
+  if (nv == 1) return launch_ns<2, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
+  return launch_ns<2, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
 }
 
 }  // extern "C"

@@ -42,6 +42,19 @@ def banded_bwd_plain(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int =
     return ref.attend_masked_bwd(Q, K, V, dO, lse, delta, m[None, :, None, None, :], scale)
 
 
+def banded_bwd_rss(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
+                   scale: float):
+    """(dQ, dK, dV) of the plain version in f32 from the operands' values,
+    unrounded, and the root sum of squares of each element's terms
+    (ops/reference.py::attend_masked_bwd_rss): the scale of what rounding
+    P and dS to bf16 before their products moves each element."""
+    m = banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d,
+                    device=Q.device)[None, :, None, None, :]
+    args = [x.float() for x in (Q, K, V, dO)]
+    return (ref.attend_masked_bwd(*args, lse, delta, m, scale),
+            ref.attend_masked_bwd_rss(*args, lse, delta, m, scale))
+
+
 def banded_bwd(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
                scale: float):
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->

@@ -1,10 +1,20 @@
-"""One-pass window / compressed-prefix attention backward (csrc/banded_bwd_1p.cu).
+"""One-pass window / compressed-prefix attention backward
+(csrc/banded_bwd_mma.cu, csrc/banded_bwd_1p.cu).
 
 Replaces nsa_vibe_tpu/ops/pallas/flash_bwd.py::flash_banded_bwd_onepass
 (the win and cmp backward of the JAX train step under bwd.onepass = 1).
 It computes the same function as banded_bwd (the two-pass design), so its
-plain version is that module's. Bound on the H100 and design: see the
-note at the top of the CUDA source.
+plain version is that module's. Two kernels, chosen by dtype alone:
+- bf16: the kv-major tensor-core kernel (banded_bwd_mma.cu; P and dS
+  rounded to bf16 before their products, as the TPU kernels do, so its
+  bound is the plain version's unrounded f32 gradients within a multiple
+  of `banded_bwd.banded_bwd_rss`, not two ulps), chunks of
+  `mma_plan` band rows (token * h + head), cut by `split_shares`;
+- f32: the FMA kernel (banded_bwd_1p.cu), chunks of ROWS_PER_CHUNK // h
+  tokens.
+Both write each dQ partial to its own f32 slot and sum them in order.
+Bound on the H100 and design: see the notes at the top of the CUDA
+sources.
 """
 
 from __future__ import annotations
@@ -14,13 +24,13 @@ import torch
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import MODES, banded_bwd_plain
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    check_operands, check_smem, check_vector_rows, kv_splits, ptr, raise_on_error,
+    DTYPE_CODES, check_operands, check_smem, check_vector_rows, kv_splits, ptr, raise_on_error,
     resolve_kernel, stream_of,
 )
 
-ROWS_PER_CHUNK = 64   # query rows (tokens x heads) per chunk, the kernel's maximum
+ROWS_PER_CHUNK = 64   # query rows (tokens x heads) per chunk of the f32 kernel, its maximum
 KEYS_PER_TILE = 64    # keys per tile of the kv-major pass
-MAX_D = 128           # head widths the kernel's register slices cover
+MAX_D = 128           # head widths the kernels' register slices and tiles cover
 
 
 def check_banded_operands(name: str, Q, K, V, dO, lse, delta, *, mode: str, w: int, l: int,
@@ -49,6 +59,32 @@ def check_banded_operands(name: str, Q, K, V, dO, lse, delta, *, mode: str, w: i
     return code
 
 
+def split_shares(S: int, S_kv: int, h: int, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
+                 rows: int, nsplit: int) -> list:
+    """[key tile][split] -> band rows [ra, rb) (row = token * h + head) of
+    the bf16 kernel's CTA (tile, split), as the kernel cuts them: the rows
+    whose tokens see a key of the tile (banded_common.cuh::token_range), in
+    nsplit shares of whole chunks of `rows` rows. An empty share has ra >=
+    rb."""
+    out = []
+    for k0 in range(0, S_kv, KEYS_PER_TILE):
+        k1 = min(k0 + KEYS_PER_TILE, S_kv)
+        t_lo, t_hi = (k0, min(k1 - 1 + w - 1, S - 1)) if mode == "win" else (k0 * d + l - 1,
+                                                                             S - 1)
+        R0, n = t_lo * h, max(t_hi - t_lo + 1, 0) * h
+        per = -(-(-(-n // nsplit)) // rows) * rows
+        out.append([(R0 + s * per, min(R0 + n, R0 + s * per + per)) for s in range(nsplit)])
+    return out
+
+
+def mma_plan(lib, device, B: int, S: int, S_kv: int, G: int, h: int, Dk: int,
+             Dv: int) -> tuple:
+    """(band rows per chunk, splits) of the bf16 kernel's launch: fixed by
+    shape and card (kv_splits), so a launch's sums are always the same."""
+    rows = lib.nsa_banded_bwd_1p_mma_rows(Dk, Dv)
+    return rows, kv_splits(device, B * G * -(-S_kv // KEYS_PER_TILE), -(-S * h // rows))
+
+
 def banded_bwd_1p(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
                   scale: float):
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
@@ -63,21 +99,27 @@ def banded_bwd_1p(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0,
     B, S, G, h, Dk = Q.shape
     S_kv, Dv = K.shape[2], V.shape[3]
     lib = library()
-    check_smem("banded_bwd_1p", lib.nsa_banded_bwd_1p_smem_bytes(Dk, Dv))
-    tq = max(1, ROWS_PER_CHUNK // h)
-    n_kt = -(-S_kv // KEYS_PER_TILE)
-    nsplit = kv_splits(Q.device, B * G * n_kt, -(-S // tq))
+    mma = code == DTYPE_CODES[torch.bfloat16]
+    if mma:
+        check_smem("banded_bwd_1p", lib.nsa_banded_bwd_1p_mma_smem_bytes(Dk, Dv))
+        _, nsplit = mma_plan(lib, Q.device, B, S, S_kv, G, h, Dk, Dv)
+    else:
+        check_smem("banded_bwd_1p", lib.nsa_banded_bwd_1p_smem_bytes(Dk, Dv))
+        tq = max(1, ROWS_PER_CHUNK // h)
+        nsplit = kv_splits(Q.device, B * G * -(-S_kv // KEYS_PER_TILE), -(-S // tq))
     n_slots = lib.nsa_banded_bwd_1p_slots(MODES[mode], w, S_kv)
     dQ = torch.empty_like(Q)
     dK = torch.empty_like(K)
     dV = torch.empty_like(V)
     ws = torch.empty(n_slots * Q.numel(), dtype=torch.float32, device=Q.device)
     part = torch.empty(nsplit * B * G * S_kv * (Dk + Dv), dtype=torch.float32, device=Q.device)
+    args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr(dQ), ptr(dK), ptr(dV),
+            ptr(part), ptr(ws), B, S, S_kv, G, h, Dk, Dv, MODES[mode], w, l, d, float(scale))
     with torch.cuda.device(Q.device):
-        err = lib.nsa_banded_bwd_1p(code, ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta),
-                                    ptr(dQ), ptr(dK), ptr(dV), ptr(part), ptr(ws), B, S,
-                                    S_kv, G, h, Dk, Dv, MODES[mode], w, l, d, float(scale), tq,
-                                    nsplit, stream_of(Q))
+        if mma:
+            err = lib.nsa_banded_bwd_1p_mma(*args, nsplit, stream_of(Q))
+        else:
+            err = lib.nsa_banded_bwd_1p(*args, tq, nsplit, stream_of(Q))
     raise_on_error(lib, "banded_bwd_1p", err)
     banded_bwd_1p.launches += 1
     if mode == "cmp":

@@ -27,7 +27,7 @@ CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("select_cmp.cu", "sel_attn.cu", "sel_attn_fwd_mma.cu", "banded_fwd_mma.cu",
            "banded_bwd.cu", "sel_attn_bwd.cu", "banded_attn.cu", "select_blocks.cu",
-           "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu", "win_bwd_diag.cu")
+           "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu", "win_bwd_diag.cu", "banded_bwd_mma.cu")
 HEADERS = ("common.cuh", "bwd_common.cuh", "banded_common.cuh", "sel_bwd.cuh", "tc.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -56,15 +56,21 @@ SIGNATURES = {
     "nsa_banded_attn_smem_bytes": ([I] * 4, LL),
     "nsa_select_blocks": ([I, P, P, P] + [I] * 14 + [F, I, P], I),
     "nsa_select_blocks_smem_bytes": ([I] * 4, LL),
-    "nsa_banded_bwd_1p": ([I] + [P] * 11 + [I] * 11 + [F, I, I, P], I),
+    "nsa_banded_bwd_1p": ([P] * 11 + [I] * 11 + [F, I, I, P], I),
     "nsa_banded_bwd_1p_smem_bytes": ([I] * 2, LL),
     "nsa_banded_bwd_1p_slots": ([I] * 3, I),
     "nsa_sel_attn_bwd_1p": ([I] + [P] * 18 + [I] * 12 + [F, P], I),
     "nsa_sel_attn_bwd_1p_smem_bytes": ([I] * 3, LL),
     "nsa_sel_attn_bwd_kv_rows": ([I] * 3, I),
-    "nsa_win_bwd_diag": ([I] + [P] * 11 + [I] * 8 + [F, I, P], I),
+    "nsa_win_bwd_diag": ([P] * 11 + [I] * 8 + [F, I, P], I),
     "nsa_win_bwd_diag_smem_bytes": ([I] * 2, LL),
     "nsa_win_bwd_diag_strip_keys": ([I] * 3, I),
+    "nsa_banded_bwd_1p_mma": ([P] * 11 + [I] * 11 + [F, I, P], I),
+    "nsa_banded_bwd_1p_mma_rows": ([I] * 2, I),
+    "nsa_banded_bwd_1p_mma_smem_bytes": ([I] * 2, LL),
+    "nsa_win_bwd_diag_mma": ([P] * 11 + [I] * 8 + [F, I, P], I),
+    "nsa_win_bwd_diag_mma_smem_bytes": ([I] * 3, LL),
+    "nsa_win_bwd_diag_mma_strip_keys": ([I] * 4, I),
 }
 
 _LIB = None

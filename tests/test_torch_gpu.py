@@ -23,8 +23,15 @@ the bf16 prefill selection forward run on tensor cores and round P (and
 dS) to bf16 before their products, as the TPU kernels do: they are held
 to the plain version's unrounded f32 result within one bf16 ulp, plus the
 f32 bound, plus 4 * 2^-9 times the root sum of squares of each element's
-terms (chip_smoke.py::allowed_tc_err). So is the bf16 banded forward
-(win_attn, banded_attn: csrc/banded_fwd_mma.cu on tensor cores).
+terms (chip_smoke.py::allowed_tc_err). So are the bf16 banded forward
+(win_attn, banded_attn: csrc/banded_fwd_mma.cu on tensor cores) and the
+bf16 one-pass and diagonal banded backward (banded_bwd_1p, win_bwd_diag:
+csrc/banded_bwd_mma.cu on tensor cores, against banded_bwd_rss), also
+against their FMA partner (the two-pass banded_bwd); the diagonal and the
+one-pass window kernel form P and dS with the same instructions and differ
+in summation order only, so they are held to each other by the backward
+bound above (two bf16 ulps plus the f32 bound). The two-pass banded_bwd
+keeps P and dS in f32 in bf16 too and stays on the backward bound.
 """
 
 import pytest
@@ -127,6 +134,16 @@ def _band_fwd_within(got, Q, K, V, *, mode, scale, t_start=0, **kw):
                                                            t_start=t_start))
     want, rss = ba_mod.banded_attn_rss(Q, K, V, mode=mode, **kw, scale=scale, t_start=t_start)
     return _within_tc(got, want, want, rss)
+
+
+def _band_within(args, scale, **kw):
+    """within(got, ref, i): gradient i of a one-pass or diagonal banded
+    backward kernel is within its bound of ref (f32: _within_rel; bf16, on
+    tensor cores: _within_tc against banded_bwd_rss)."""
+    if args[0].dtype == torch.float32:
+        return lambda g, ref, i: _within_rel(g, ref)
+    want, rss = bb_mod.banded_bwd_rss(*args, **kw, scale=scale)
+    return lambda g, ref, i: _within_tc(g, ref, want[i], rss[i])
 
 
 def _sel_within(args, l_sel, scale):
@@ -238,26 +255,67 @@ def test_backward_designs_match_plain_and_each_other_on_gpu(dtype, B, S, G, h, D
     win = dict(mode="win", w=w, scale=scale)
     sel_kw = dict(l_sel=l_sel, scale=scale)
 
-    banded = lambda g, ref, i: _within_rel(g, ref)  # noqa: E731
+    cwithin = _band_within(cargs, scale, mode="cmp", l=l, d=d)
+    wwithin = _band_within(wargs, scale, mode="win", w=w)
     cases = [   # (kernel, plain version, two-pass design, bound)
         (lambda: b1_mod.banded_bwd_1p(*cargs, **cmp_), lambda: bb_mod.banded_bwd_plain(
-            *cargs, **cmp_), lambda: bb_mod.banded_bwd(*cargs, **cmp_), banded),
+            *cargs, **cmp_), lambda: bb_mod.banded_bwd(*cargs, **cmp_), cwithin),
         (lambda: b1_mod.banded_bwd_1p(*wargs, **win), lambda: bb_mod.banded_bwd_plain(
-            *wargs, **win), lambda: bb_mod.banded_bwd(*wargs, **win), banded),
+            *wargs, **win), lambda: bb_mod.banded_bwd(*wargs, **win), wwithin),
         (lambda: s1_mod.sel_attn_bwd_1p(*sargs, **sel_kw), lambda: sb_mod.sel_attn_bwd_plain(
             *sargs, **sel_kw), lambda: sb_mod.sel_attn_bwd(*sargs, **sel_kw),
          _sel_within(sargs, l_sel, scale)),
         (lambda: wd_mod.win_bwd_diag(*wargs, w=w, scale=scale), lambda: bb_mod.banded_bwd_plain(
-            *wargs, **win), lambda: bb_mod.banded_bwd(*wargs, **win), banded),
+            *wargs, **win), lambda: bb_mod.banded_bwd(*wargs, **win), wwithin),
     ]
+    outs = []
     for kernel, plain, other, within in cases:
         got, again, want, theirs = kernel(), kernel(), plain(), other()
         for i, (g, a, p, o) in enumerate(zip(got, again, want, theirs)):
             assert g.dtype == p.dtype and g.shape == p.shape
             assert within(g, p, i) and within(g, o, i)
             assert torch.equal(g, a)                           # deterministic
+            if dtype == torch.bfloat16:                # a planted 1% fault fails the bound
+                assert not within(g.float() * 1.01, p, i)
+        outs.append(got)
+    # the diagonal and the one-pass window kernel (the same P and dS in
+    # bf16): two bf16 ulps plus the f32 bound apart
+    for a, b in zip(outs[3], outs[1]):
+        assert _within_rel(a, b)
     # rows that see no compressed token get no gradient
     assert not bool(cases[0][0]()[0][:, :l - 1].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_banded_backward_routes_by_dtype(dtype):
+    """bf16 operands launch the tensor-core kernels of banded_bwd_mma.cu,
+    f32 the FMA kernels (kernel names from torch.profiler); one launch
+    counted per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    S, h, D = 150, 6, 64
+    Q, K, V, dO = _bwd_operands(dtype, dev, 1, S, 2, h, D, S)
+    O, lse = wa_mod.win_attn(Q, K, V, w=64, scale=SCALE, return_lse=True)
+    args = (Q, K, V, dO, lse, attention_delta(dO, O))
+    kernels.reset_launch_counts()
+    names = []
+    for fn in (lambda: b1_mod.banded_bwd_1p(*args, mode="win", w=64, scale=SCALE),
+               lambda: wd_mod.win_bwd_diag(*args, w=64, scale=SCALE)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names.append([e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA])
+    mma = ("banded_bwd_1p_mma_kernel", "win_bwd_diag_mma_kernel")
+    fma = ("banded_bwd_1p_kernel", "win_bwd_diag_kernel")
+    want, other = (mma, fma) if dtype == torch.bfloat16 else (fma, mma)
+    for kernel, not_this, seen in zip(want, other, names):
+        assert any(kernel in n for n in seen) and not any(not_this in n for n in seen), seen
+    counts = kernels.launch_counts()
+    assert counts["banded_bwd_1p"] == 1 and counts["win_bwd_diag"] == 1
 
 
 @pytest.mark.gpu
