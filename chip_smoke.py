@@ -7,7 +7,7 @@ Phases (any failure exits non-zero):
   (a) build: compile the CUDA kernels of nsa_vibe_tpu_torch/csrc/ from the
       checkout (one nvcc per source, in parallel) and print the ptxas report
       (and, for the kernels of PTXAS_REPORTED, registers and spills; the
-      bf16 forwards on tensor cores at D = 64, NO_SPILL, must have none);
+      bf16 tensor-core kernels at D = 64 of NO_SPILL must have none);
       the SASS of each bf16 tensor-core kernel (TENSOR_CORE_KERNELS) must
       hold HMMA/HGMMA instructions (cuobjdump -sass);
   (b) kernel checks: each kernel at the m7c-125M serving shapes (B=4,
@@ -36,8 +36,8 @@ Phases (any failure exits non-zero):
       (`banded_fwd_check`), the forward
       kernels' row statistics (lse) and the two-pass backward kernels
       (banded_bwd for win and cmp, sel_attn_bwd) against their plain
-      versions in f32 and bf16 (bounds of `allowed_rel_err`; the
-      selection's bf16 tensor-core kernels `allowed_tc_err`, which a 1%
+      versions in f32 and bf16 (bounds of `allowed_rel_err` in f32; the
+      bf16 kernels, all on tensor cores, `allowed_tc_err`, which a 1%
       fault planted in each of their gradients must fail), each backward
       twice for identical bits, then timed beside its plain version, the
       backward of one scaled_dot_product_attention call and its bound;
@@ -53,8 +53,8 @@ Phases (any failure exits non-zero):
       mode, win_attn) at the 64k shapes against its plain version on the
       last 4096 query rows (`banded_fwd_check`, f32 and bf16), and the same
       rows, bit for bit, from banded_attn at t_start = 61440; the
-      select-only scorer (row 6, S_sel = 1024) on those rows, and at that
-      t_start; the selection forward
+      select-only scorer (row 6, S_sel = 1024) on those rows, twice for
+      identical bits, and at that t_start; the selection forward
       on select_blocks' sets (its last 4096 rows, PLAIN_ROWS a call) and at
       the 64k decode cache (`sel_fwd_check`); at 16k, where both
       routes apply, banded_attn and select_cmp against the plain unrounded
@@ -69,17 +69,19 @@ Phases (any failure exits non-zero):
       versions (over every row, 4096 rows a call) and, for 5 and 3, SDPA,
       and the banded forward at q tiles of 64 and 128 rows (both modes);
       rows 2 and 4 at the 64k prefill and decode shapes, and the union
-      forward's mean union and time at each q tile of Q_TILE_TOKENS;
+      forward's mean union and time at each q tile of Q_TILE_TOKENS; row 6
+      at CTAs of each size of MMA_ROWS;
   (f) backward designs: the one-pass kernels (banded_bwd_1p for win and
       cmp, sel_attn_bwd_1p) and the diagonal window kernel (win_bwd_diag)
       at the training shapes against their plain versions (f32, bf16; the
       bf16 kernels all run on tensor cores and are held to `allowed_tc_err`
       with a planted 1% fault), twice for identical bits, and against the
-      other design of the same function (rows 7/8, 9/10, 11/7/8; rows 11
-      and 7 (win) form P and dS alike and are held to each other by
-      `allowed_rel_err`); the banded one-pass kernel's chunks per CTA and
-      the diagonal kernel's time and strip bytes at each q tile of
-      DIAG_TILE_ROWS; the selection's kv-major chunks per CTA
+      other design of the same function (rows 7/8, 9/10, 11/7/8; rows 11,
+      7 and 8 form P and dS alike and are held to each other by
+      `allowed_rel_err`); the banded one-pass kernel's chunks per CTA, the
+      diagonal kernel's time and strip bytes at each q tile of
+      DIAG_TILE_ROWS and the two-pass design's time at each q tile of its
+      dQ kernel, MMA_ROWS; the selection's kv-major chunks per CTA
       before and after its work items, and its two-pass dQ kernel's mean
       union size and time at each q tile of Q_TILE_TOKENS, and the same for
       the union forward; the selection and window forwards timed at the
@@ -137,8 +139,9 @@ from nsa_vibe_tpu_torch.ops.cuda import banded_attn as ba_mod
 from nsa_vibe_tpu_torch.ops.cuda.banded_attn import (
     MMA_TILE_ROWS, banded_attn, banded_attn_plain, banded_attn_rss,
 )
+from nsa_vibe_tpu_torch.ops.cuda import banded_bwd as bb_mod
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import (
-    banded_bwd, banded_bwd_plain, banded_bwd_rss, banded_mask,
+    DQ_TILE_ROWS, banded_bwd, banded_bwd_plain, banded_bwd_rss, banded_mask,
 )
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import banded_bwd_1p, mma_plan, split_shares
 from nsa_vibe_tpu_torch.ops.cuda import sel_attn as sa_mod
@@ -152,7 +155,10 @@ from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd import (
     selection_tile_union, union_tokens,
 )
 from nsa_vibe_tpu_torch.ops.cuda.sel_attn_bwd_1p import sel_attn_bwd_1p
-from nsa_vibe_tpu_torch.ops.cuda.select_blocks import select_blocks, select_blocks_plain
+from nsa_vibe_tpu_torch.ops.cuda import select_blocks as sk_mod
+from nsa_vibe_tpu_torch.ops.cuda.select_blocks import (
+    MMA_TILE_ROWS as SEL_TILE_ROWS, select_blocks, select_blocks_plain,
+)
 from nsa_vibe_tpu_torch.ops.cuda.select_cmp import select_cmp, select_cmp_plain
 from nsa_vibe_tpu_torch.ops.cuda.win_attn import win_attn, win_attn_plain
 from nsa_vibe_tpu_torch.ops.cuda import win_bwd_diag as wd_mod
@@ -183,23 +189,27 @@ LOSS_DROP = 0.2            # mean of the last 4 logged losses below the first, a
 PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "sel_attn_union_kernel",  # CUDA symbols
                 "sel_attn_split_kernel", "sel_attn_combine_kernel", "win_fwd_mma_kernel",
                 "cmp_fwd_mma_kernel",
-                "banded_bwd_dq_kernel", "banded_bwd_dkv_kernel", "sel_bwd_dq_kernel",
+                "banded_bwd_dq_kernel", "banded_bwd_dq_mma_kernel", "sel_bwd_dq_kernel",
                 "sel_bwd_dq_union_kernel", "sel_bwd_kv_mma_kernel", "sel_bwd_kv_fma_kernel",
                 "sel_bwd_reduce_kernel", "reduce_splits_kernel", "banded_attn_kernel",
-                "select_blocks_kernel", "banded_bwd_1p_kernel", "win_bwd_diag_kernel",
-                "banded_bwd_1p_mma_kernel", "win_bwd_diag_mma_kernel",
+                "select_blocks_kernel", "select_blocks_mma_kernel", "banded_bwd_1p_kernel",
+                "win_bwd_diag_kernel", "banded_bwd_1p_mma_kernel", "win_bwd_diag_mma_kernel",
                 "sum_slots_kernel", "sum_strips_kernel")
 # the bf16 kernels that must run on tensor cores: their SASS holds HMMA
 TENSOR_CORE_KERNELS = ("sel_bwd_kv_mma_kernel", "sel_bwd_dq_union_kernel",
                        "sel_attn_union_kernel", "win_fwd_mma_kernel", "cmp_fwd_mma_kernel",
-                       "banded_bwd_1p_mma_kernel", "win_bwd_diag_mma_kernel")
-# kernels whose ptxas report is printed; the forwards and the banded backward
-# on tensor cores at D = 64 must have no stack frame and no spills
+                       "banded_bwd_1p_mma_kernel", "win_bwd_diag_mma_kernel",
+                       "banded_bwd_dq_mma_kernel", "select_blocks_mma_kernel")
+# kernels whose ptxas report is printed; the forwards, the banded backward and
+# the select-only scorer on tensor cores at D = 64 must have no stack frame
+# and no spills
 PTXAS_REPORTED = ("sel_bwd_", "sel_attn_union_kernel", "sel_attn_split_kernel",
-                  "fwd_mma_kernel", "bwd_1p_mma_kernel", "bwd_diag_mma_kernel")
+                  "fwd_mma_kernel", "bwd_1p_mma_kernel", "bwd_diag_mma_kernel",
+                  "bwd_dq_mma_kernel", "select_blocks_mma_kernel")
 NO_SPILL = ("sel_attn_union_kernelILi64E", "win_fwd_mma_kernelILi64E",   # mangled <64>
             "cmp_fwd_mma_kernelILi64E", "banded_bwd_1p_mma_kernelILi64E",
-            "win_bwd_diag_mma_kernelILi64E")
+            "win_bwd_diag_mma_kernelILi64E", "banded_bwd_dq_mma_kernelILi64E",
+            "select_blocks_mma_kernelILi64E")
 # backward-design settings of phase (f) (ops/tuning.py keys), each a train step
 DESIGNS = {
     "onepass": {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 0},
@@ -216,6 +226,7 @@ TC_SIGMAS = 4
 FAULT = 1.01               # a planted 1% error in one bf16 gradient must fail that bound
 Q_TILE_TOKENS = (1, 2, 5, 10)   # q tiles of the union dQ and forward kernels timed at h = 6
 DIAG_TILE_ROWS = (64, 128, 192)  # q tiles (rows) of the bf16 diagonal window backward timed
+MMA_ROWS = (64, 128)        # q tiles (rows) of the bf16 two-pass dQ kernel and scorer timed
 PLAIN_ROWS = 1024          # query rows per call of the selection forward's plain version at 64k
 LOSS_TOL = 5e-3   # train-step loss, any design vs the default keys, absolute (loss ~5.6)
 # the train step's first gradient, any design vs the default keys, per leaf:
@@ -1013,7 +1024,7 @@ BWD_REPLACES = {"banded_bwd_1p": "nsa_vibe_tpu/ops/pallas/flash_bwd.py:479",
                 "sel_attn_bwd": "nsa_vibe_tpu/ops/pallas/sel_flash.py:537",
                 "win_bwd_diag": "nsa_vibe_tpu/ops/pallas/flash_diag.py:354"}
 # the source of each backward kernel row's bf16 kernel (the one timed)
-BWD_SOURCE = {"banded_bwd_1p": "banded_bwd_mma.cu", "banded_bwd": "banded_bwd.cu",
+BWD_SOURCE = {"banded_bwd_1p": "banded_bwd_mma.cu", "banded_bwd": "banded_bwd_mma.cu",
               "sel_attn_bwd_1p": "sel_attn_bwd_1p.cu", "sel_attn_bwd": "sel_attn_bwd.cu",
               "win_bwd_diag": "banded_bwd_mma.cu"}
 TWO_PASS = ("banded_bwd@win", "banded_bwd@cmp", "sel_attn_bwd")          # phase (d)
@@ -1023,14 +1034,16 @@ PARTNERS = {"banded_bwd_1p@win": ("banded_bwd@win",), "banded_bwd_1p@cmp": ("ban
             "sel_attn_bwd_1p": ("sel_attn_bwd",),
             "win_bwd_diag": ("banded_bwd_1p@win", "banded_bwd@win")}
 # the rows whose bf16 kernel runs on tensor cores, rounding P and dS to bf16
-# before their products as the TPU kernels do: held to allowed_tc_err (row 8's
-# bf16 FMA kernel keeps P and dS in f32 and allowed_rel_err)
+# before their products as the TPU kernels do: held to allowed_tc_err (every
+# backward row since row 8's redesign)
 TC_ROWS = ("sel_attn_bwd", "sel_attn_bwd_1p", "banded_bwd_1p@win", "banded_bwd_1p@cmp",
-           "win_bwd_diag")
+           "win_bwd_diag", "banded_bwd@win", "banded_bwd@cmp")
 # bf16 pairs that form P and dS with the same instructions
-# (banded_bwd_mma.cu::p_and_ds) and differ in summation order only: held to
-# each other by allowed_rel_err; other pairs by the kernel's own bound
-SAME_P_DS = {("win_bwd_diag", "banded_bwd_1p@win")}
+# (banded_bwd_mma.cu::p_and_ds: rows 7, 8 and 11) and differ in summation
+# order only: held to each other by allowed_rel_err; other pairs by the
+# kernel's own bound
+SAME_P_DS = {("win_bwd_diag", "banded_bwd_1p@win"), ("win_bwd_diag", "banded_bwd@win"),
+             ("banded_bwd_1p@win", "banded_bwd@win"), ("banded_bwd_1p@cmp", "banded_bwd@cmp")}
 
 
 def branch_of(name: str) -> str:
@@ -1230,8 +1243,10 @@ def phase_band_bwd_tiles(x) -> None:
     train_kernel_inputs): the one-pass kernel's CTAs and chunks of band rows
     per CTA in each mode (split_shares, mma_plan); the diagonal window
     kernel's device time and strip bytes at each q tile of DIAG_TILE_ROWS,
-    and whether its dQ has the default tile's bits (its key tiles sit at
-    multiples of 64, so a row's dQ sums the same tiles under any q tile)."""
+    and the two-pass design's (row 8) in each mode at each q tile of its dQ
+    kernel, MMA_ROWS, and whether their dQ has the default tile's bits
+    (their key tiles sit at multiples of 64, so a row's dQ sums the same
+    tiles under any q tile)."""
     cfg, Q = x["cfg"], x["Q"]
     B_, S_, G_, h = Q.shape[:4]
     lib = kbuild.library()
@@ -1261,6 +1276,24 @@ def phase_band_bwd_tiles(x) -> None:
               f"{strip} bytes ({sl} keys a tile); dQ bit-equal to the {default}-row tile's: "
               f"{bool(torch.equal(got[0], ref[0]))}{' (the default)' if rows == default else ''}")
         del got
+    for mode, K, V, lse, O, kw in (("win", x["Kw"], x["Vw"], x["lse_w"], x["Ow"], dict(w=cfg.w)),
+                                   ("cmp", x["Kc"], x["Vc"], x["lse_c"], x["Oc"],
+                                    dict(l=cfg.l, d=cfg.d))):
+        args = (Q, K, V, x["dO"], lse, attention_delta(x["dO"], O))
+        ref = banded_bwd(*args, mode=mode, **kw, scale=x["scale"])
+        for rows in MMA_ROWS:
+            bb_mod.DQ_TILE_ROWS = rows   # the wrapper's q tile, for this timing only
+            try:
+                got = banded_bwd(*args, mode=mode, **kw, scale=x["scale"])
+                ms = time_ms(lambda: banded_bwd(*args, mode=mode, **kw, scale=x["scale"]), 10,
+                             hold=True)
+            finally:
+                bb_mod.DQ_TILE_ROWS = DQ_TILE_ROWS
+            print(f"[band] banded_bwd {mode} dQ q tile {rows} rows ({rows // h} tokens): "
+                  f"{ms:.4f} ms; dQ bit-equal to the {DQ_TILE_ROWS}-row tile's: "
+                  f"{bool(torch.equal(got[0], ref[0]))}"
+                  f"{' (the default)' if rows == DQ_TILE_ROWS else ''}")
+            del got
     del ref
 
 
@@ -1669,20 +1702,22 @@ def phase_long_kernels(dev) -> dict:
                 fail(f"{name}: the t_start={t0} call differs from the full call")
             del O, lse, Os, lses
         sel = select_blocks(x["Q"], x["Kc"], **sel_kw(x))
+        again = select_blocks(x["Q"], x["Kc"], **sel_kw(x))
         sels = select_blocks(Qt, x["Kc"], **sel_kw(x), pos_offset=t0)
         selp, p_grp = select_blocks_plain(Qt, x["Kc"], **sel_kw(x), pos_offset=t0,
                                           return_scores=True)
         torch.cuda.synchronize()
         n_diff, n_far, spread = near_tie_rows(sel[:, t0:], selp, p_grp)
+        same, offset = torch.equal(sel, again), torch.equal(sels, sel[:, t0:])
         print(f"[check] select_blocks      {str(dtype)[6:]:8s} S_sel={x['S_sel']}: sel rows "
               f"differing on near ties: {n_diff} of {selp.shape[1] * selp.shape[2]} (widest "
-              f"score spread {spread:.3e}); t_start={t0} rows equal: "
-              f"{torch.equal(sels, sel[:, t0:])}")
-        if n_far or not torch.equal(sels, sel[:, t0:]):
+              f"score spread {spread:.3e}); t_start={t0} rows equal: {offset}; two launches "
+              f"gave identical bits: {same}")
+        if n_far or not offset or not same:
             fail(f"select_blocks {dtype}: {n_far} rows differ beyond the near-tie bound, or "
-                 f"the pos_offset call differs from the full call")
+                 f"the pos_offset call differs from the full call, or two launches differ")
         rec["select_blocks"] = spread
-        del sels, selp, p_grp
+        del again, sels, selp, p_grp
         # row 2 on select_blocks' sets (the long route's prefill), then row 4 at the 64k cache
         fwd = (x["Q"], x["K"], x["V"], sel, torch.arange(S_LONG, device=dev))
         rec["sel_attn@64k"] = sel_fwd_check(
@@ -1871,7 +1906,8 @@ def measure_long(rec, counts) -> list:
     the 64k shapes (bf16) beside their plain versions over every row
     (N_CHECK rows per call, by t_start) and, for rows 5 and 3, one SDPA
     call with the equivalent boolean mask; computes their bounds from this
-    run's inputs; sweeps the banded forward's q tile (band_fwd_tiles)."""
+    run's inputs; sweeps the banded forward's q tile (band_fwd_tiles) and
+    the scorer's CTA rows (MMA_ROWS)."""
     x = rec["inputs"]
     cfg, sc, Q = x["cfg"], x["scale"], x["Q"]
     h, D = cfg.h_per_group, cfg.d_k
@@ -1894,8 +1930,18 @@ def measure_long(rec, counts) -> list:
 
     sel = select_blocks(Q, x["Kc"], **sel_kw(x))
     bms, by = bound(nbytes(Q, x["Kc"], sel), pairs * 2 * D, Q.dtype)   # one Q K^T
+    for rows in MMA_ROWS:   # the tensor-core scorer's CTA of 64 or 128 rows
+        sk_mod.MMA_TILE_ROWS = rows   # the wrapper's tile, for this timing only
+        try:
+            same = torch.equal(select_blocks(Q, x["Kc"], **sel_kw(x)), sel)
+            ms = time_ms(lambda: select_blocks(Q, x["Kc"], **sel_kw(x)), 5, hold=True)
+        finally:
+            sk_mod.MMA_TILE_ROWS = SEL_TILE_ROWS
+        print(f"[long] select_blocks CTAs of {rows} rows ({rows // h} tokens): {ms:.4f} ms; "
+              f"sel_idx bit-equal to the {SEL_TILE_ROWS}-row CTAs': {same}"
+              f"{' (the default)' if rows == SEL_TILE_ROWS else ''}")
     out.append(dict(
-        name="select_blocks", source="nsa_vibe_tpu_torch/csrc/select_blocks.cu",
+        name="select_blocks", source="nsa_vibe_tpu_torch/csrc/select_blocks_mma.cu",
         replaces="nsa_vibe_tpu/ops/pallas/scorer.py:186",
         launches=counts["select_blocks"], max_abs_err=rec["select_blocks"],
         ms=time_ms(lambda: select_blocks(Q, x["Kc"], **sel_kw(x)), 5, hold=True),

@@ -10,8 +10,9 @@
 // which writes the same dQ slots; f32 keeps this FMA kernel, since the f32
 // gates (5e-5 relative) rule out TF32.
 //
-// What it computes: the same dQ, dK, dV as banded_bwd.cu (the two-pass
-// design, flash_bwd.py::flash_banded_bwd): for query rows (token t, head j
+// What it computes: the same dQ, dK, dV as the two-pass design
+// (flash_bwd.py::flash_banded_bwd: banded_bwd.cu's dQ pass, then this
+// kernel with its slots off): for query rows (token t, head j
 // of group g) with visible keys [lo(t), hi(t)) (banded_common.cuh), the
 // gradients of O = softmax(scale Q K^T) V given dO, lse and delta =
 // rowsum(dO*O); outputs f32, accumulated in f32 (notation: bwd_common.cuh).
@@ -33,7 +34,9 @@
 // by exactly one block; sum_slots adds each row's slots in slot order and
 // scales. dK/dV go through per-split f32 partials summed in split order
 // (with one split the partial is only cast). No float atomics: two
-// launches give identical bits.
+// launches give identical bits. With ws == nullptr the kernel forms dK and
+// dV alone: the dK/dV pass of the two-pass design (banded_bwd.cu has its
+// dQ pass), as flash_bwd.py::flash_banded_bwd's _dkv_kernel.
 #include "banded_common.cuh"
 
 using namespace nsa;
@@ -112,6 +115,7 @@ banded_bwd_1p_kernel(const float* __restrict__ Q, const float* __restrict__ K,
     __syncthreads();
     accumulate_kv<NSV>(dv_acc, p_s, do_s, rows, Dv);
     accumulate_kv<NSK>(dk_acc, ds_s, q_s, rows, Dk);
+    if (ws == nullptr) continue;   // dK and dV alone
     float4 q_acc[NSQ][4];
 #pragma unroll
     for (int i = 0; i < NSQ; ++i)
@@ -161,7 +165,7 @@ int launch_ns(const float* Q, const float* K, const float* V, const float* dO, c
   const int rk = reduce_splits<float>(part_k, dK, nk_el, p.nsplit, stream);
   if (rk != 0) return rk;
   const int rv = reduce_splits<float>(part_v, dV, nv_el, p.nsplit, stream);
-  if (rv != 0) return rv;
+  if (rv != 0 || ws == nullptr) return rv;
   const long long rows = (long long)p.B * p.S * p.G * p.h;
   return sum_slots<float>(ws, dQ, rows, p.Dk, BandSlots{p}, p.scale, stream);
 }
@@ -184,7 +188,8 @@ int nsa_banded_bwd_1p_slots(int mode, int w, int S_kv) {
 
 // f32 only. part: f32 scratch of nsplit * B*G*S_kv*(Dk+Dv) floats (per-split
 // partial dK, then dV). ws: f32 dQ workspace of
-// nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats.
+// nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats, or null for dK and dV
+// alone (dQ unused).
 int nsa_banded_bwd_1p(const float* Q, const float* K, const float* V, const float* dO,
                       const float* lse, const float* delta, float* dQ, float* dK, float* dV,
                       float* part, float* ws, int B, int S, int S_kv, int G, int h, int Dk,
@@ -192,7 +197,7 @@ int nsa_banded_bwd_1p(const float* Q, const float* K, const float* V, const floa
                       void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || nsplit <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 ||
       Dv > 128 || S_kv <= 0 || (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
-      (mode != WIN && mode != CMP) || part == nullptr || ws == nullptr)
+      (mode != WIN && mode != CMP) || part == nullptr)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, nsplit, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

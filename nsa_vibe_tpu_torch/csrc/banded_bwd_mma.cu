@@ -1,14 +1,18 @@
 // banded_bwd_mma: the bf16 banded backward on tensor cores: the window's
-// diagonal (q-major) design, and the one-pass (kv-major) design of the
-// window and of the compressed prefix.
+// diagonal (q-major) design, the one-pass (kv-major) design of the window
+// and of the compressed prefix, and the two-pass design of both (a q-major
+// dQ pass, then the kv-major kernel with its dQ slots off).
 //
 // Replaces, for bf16 operands (the train step's dtype):
 //   nsa_vibe_tpu/ops/pallas/flash_diag.py::flash_banded_bwd_diag (kernel
 //   _diag_bwd_kernel): win_bwd_diag_mma_kernel;
 //   nsa_vibe_tpu/ops/pallas/flash_bwd.py::flash_banded_bwd_onepass (kernel
-//   _onepass_bwd_kernel), both modes: banded_bwd_1p_mma_kernel.
-// f32 keeps the FMA kernels of win_bwd_diag.cu and banded_bwd_1p.cu (their
-// 5e-5 gates rule out TF32).
+//   _onepass_bwd_kernel), both modes: banded_bwd_1p_mma_kernel;
+//   nsa_vibe_tpu/ops/pallas/flash_bwd.py::flash_banded_bwd (kernels
+//   _dq_kernel and _dkv_kernel), both modes: banded_bwd_dq_mma_kernel, then
+//   banded_bwd_1p_mma_kernel with ws == nullptr.
+// f32 keeps the FMA kernels of win_bwd_diag.cu, banded_bwd_1p.cu and
+// banded_bwd.cu (their 5e-5 gates rule out TF32).
 //
 // What it computes, as those kernels: for query rows (token t, head j of
 // group g) with visible keys [lo(t), hi(t)) (banded_common.cuh: WIN
@@ -23,7 +27,9 @@
 // cores; ~23 GFLOP for the compressed prefix (S_cmp=127), whose bound is
 // its bytes (0.023 ms). Both designs also move f32 partial sums through
 // device memory: the diagonal design its dK/dV strips, the one-pass design
-// its dQ slots (and dK/dV split partials).
+// its dQ slots (and dK/dV split partials). The two-pass design moves neither
+// dQ slots nor strips, only the kv pass's split partials, and forms S and dP
+// once in each pass.
 //
 // P and dS, the same in both designs (`p_and_ds`): P = exp2(fma(s,
 // scale*log2e, -lse*log2e)) with the same instructions in every tile,
@@ -38,10 +44,15 @@
 //
 // Diagonal design (win_bwd_diag_mma_kernel), q-major: one CTA of ROWS / 16
 // warps per (b, g, q tile of ROWS rows = ROWS / h tokens; ROWS 64, 128 or
-// 192); warp w owns rows [16w, 16w+16). The CTA stages its Q and dO rows
-// once by cp.async, then streams the band's 64-key K/V tiles,
-// double-buffered, from the tile at floor(lo(t_first) / 64) * 64 to the
-// one holding t_last - absolute multiples of 64, as the forward
+// 192); warp w owns rows [16w, 16w+16). The body (`q_major`) also serves
+// the two-pass design's dQ pass (banded_bwd_dq_mma_kernel<DT, ROWS, MODE>,
+// ROWS 64 or 128) in either mode with the dK/dV half compiled out (DKV
+// false): there dQ is the whole output and no P or dS tile goes to shared
+// memory. In CMP mode later q tiles see longer prefixes, so the CTAs take
+// the q tiles from the last one down, the heaviest first. The CTA stages
+// its Q and dO rows once by cp.async, then streams the band's 64-key K/V
+// tiles, double-buffered, from the tile at floor(lo(t_first) / 64) * 64 to
+// the one holding t_last - absolute multiples of 64, as the forward
 // (banded_fwd_mma.cu). Per tile and half of 32 keys a warp that sees a key
 // forms S = Q K^T and dP = dO V^T on mma.sync, P and dS in registers, and
 // dQ += dS K, exact in f32 registers across the band (K by
@@ -69,7 +80,9 @@
 // ldmatrix.trans), and writes the chunk's dQ = dS K_tile (dS^T through
 // shared memory) to its f32 slot straight from the fragments: slot = kt -
 // lo(t)/64 (WIN), kt (CMP) (banded_common.cuh::BandSlots). sum_slots adds
-// each row's slots in order, reduce_splits each key's split partials.
+// each row's slots in order, reduce_splits each key's split partials. With
+// ws == nullptr (the two-pass design's dK/dV pass) the kernel skips dS^T,
+// the dQ product and the slots.
 #include "banded_common.cuh"
 #include "tc.cuh"
 
@@ -107,37 +120,42 @@ __device__ __forceinline__ float neg_lse2(float lse) { return -(lse * LOG2E); }
 // ------------------------------------------------------------ diagonal (q-major)
 
 // Shared memory (bytes): K[2], V[2] (KC keys each), Q, dO (ROWS rows; row
-// pitch DT + 8), P, dS (ROWS x KC, pitch KP); all bf16.
-template <int DT, int ROWS>
-struct DiagLayout {
+// pitch DT + 8), and where DKV P, dS (ROWS x KC, pitch KP); all bf16.
+template <int DT, int ROWS, bool DKV>
+struct QLayout {
   static constexpr int P = DT + 8;
   static constexpr size_t TILE = (size_t)KC * P * 2, ROWT = (size_t)ROWS * P * 2;
   static constexpr size_t K = 0, V = 2 * TILE, Q = 4 * TILE, DO = Q + ROWT, PS = DO + ROWT;
   static constexpr size_t DS = PS + (size_t)ROWS * KP * 2;
-  static constexpr size_t BYTES = DS + (size_t)ROWS * KP * 2;
+  static constexpr size_t BYTES = DKV ? DS + (size_t)ROWS * KP * 2 : PS;
 };
 
 // CTAs per SM the register budget is cut for: at D = 64 two of 8 warps
 // (128 rows; 128 registers) or three of 4 (64 rows; at four, 128 registers
 // spilled)
-__host__ __device__ constexpr int diag_min_blocks(int DT, int ROWS) {
+__host__ __device__ constexpr int q_min_blocks(int DT, int ROWS) {
   return DT == 64 ? (ROWS == 64 ? 3 : ROWS == 128 ? 2 : 1) : 1;
 }
 
-template <int DT, int ROWS>
-__global__ void __launch_bounds__(2 * ROWS, diag_min_blocks(DT, ROWS))
-win_bwd_diag_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
-                        const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dQ, float* __restrict__ strip_k,
-                        float* __restrict__ strip_v, Params p, int SL) {
-  using C = DiagLayout<DT, ROWS>;
+// The q-major body: the diagonal design (MODE WIN, DKV: dK/dV strips) and
+// the two-pass design's dQ pass (either MODE, dQ only). p.mode is MODE.
+template <int DT, int ROWS, int MODE, bool DKV>
+__device__ __forceinline__ void q_major(const __nv_bfloat16* __restrict__ Q,
+                                        const __nv_bfloat16* __restrict__ K,
+                                        const __nv_bfloat16* __restrict__ V,
+                                        const __nv_bfloat16* __restrict__ dO,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta,
+                                        __nv_bfloat16* __restrict__ dQ, float* __restrict__ strip_k,
+                                        float* __restrict__ strip_v, const Params& p, int SL) {
+  using C = QLayout<DT, ROWS, DKV>;
   constexpr int P = C::P, NTHR = 2 * ROWS, NW = NTHR / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int BG = p.B * p.G;
-  const int qt = blockIdx.x / BG, bg = blockIdx.x % BG;
-  const int g = bg % p.G, b = bg / p.G;
   const int nq = (p.S + p.TQ - 1) / p.TQ;
+  const int qt = MODE == CMP ? nq - 1 - (int)(blockIdx.x / BG) : (int)(blockIdx.x / BG);
+  const int bg = blockIdx.x % BG;
+  const int g = bg % p.G, b = bg / p.G;
   const int s0 = qt * p.TQ;
   const int T = min(p.TQ, p.S - s0);   // live tokens of the tile
   const int h = p.h, Dk = p.Dk, Dv = p.Dv;
@@ -275,19 +293,21 @@ win_bwd_diag_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16
         tc::mma_tile<DT / 8, 2, true>(
             dq, [&](int ks, uint32_t (&f)[4]) { tc::a_from_c(f, dp[2 * ks], dp[2 * ks + 1]); },
             kb + c0 * P, P);
-        // P and dS (bf16) to shared memory for dV and dK
+        if constexpr (DKV) {   // P and dS (bf16) to shared memory for dV and dK
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = c0 + 8 * i + 2 * t4;
+          for (int i = 0; i < 4; ++i) {
+            const int col = c0 + 8 * i + 2 * t4;
 #pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int o = (r0 + g8 + 8 * hf) * KP + col;
-            *reinterpret_cast<uint32_t*>(p_s + o) = tc::pack_bf16(s[i][2 * hf], s[i][2 * hf + 1]);
-            *reinterpret_cast<uint32_t*>(ds_s + o) =
-                tc::pack_bf16(dp[i][2 * hf], dp[i][2 * hf + 1]);
+            for (int hf = 0; hf < 2; ++hf) {
+              const int o = (r0 + g8 + 8 * hf) * KP + col;
+              *reinterpret_cast<uint32_t*>(p_s + o) =
+                  tc::pack_bf16(s[i][2 * hf], s[i][2 * hf + 1]);
+              *reinterpret_cast<uint32_t*>(ds_s + o) =
+                  tc::pack_bf16(dp[i][2 * hf], dp[i][2 * hf + 1]);
+            }
           }
         }
-      } else {   // no row of the warp sees a key of the half: P = dS = 0
+      } else if constexpr (DKV) {   // no row of the warp sees a key of the half: P = dS = 0
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int idx = lane + 32 * u, o = (r0 + idx / 4) * KP + c0 + (idx % 4) * 8;
@@ -296,32 +316,34 @@ win_bwd_diag_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16
         }
       }
     }
-    __syncthreads();
-    // dV = P^T dO and dK = dS^T Q of the tile's keys, summed over the ROWS
-    // rows, in units of 16 keys x 32 dims, to the strip rows of keys k0..
-    for (int u = w; u < UNITS; u += NW) {
-      const int prod = u / (4 * NH), mt = (u / NH) % 4, n0 = 32 * (u % NH);
-      const int D = prod ? Dk : Dv;
-      if (n0 >= D) continue;
-      const __nv_bfloat16* wt = prod ? ds_s : p_s;
-      float acc[4][4];
+    if constexpr (DKV) {
+      __syncthreads();
+      // dV = P^T dO and dK = dS^T Q of the tile's keys, summed over the ROWS
+      // rows, in units of 16 keys x 32 dims, to the strip rows of keys k0..
+      for (int u = w; u < UNITS; u += NW) {
+        const int prod = u / (4 * NH), mt = (u / NH) % 4, n0 = 32 * (u % NH);
+        const int D = prod ? Dk : Dv;
+        if (n0 >= D) continue;
+        const __nv_bfloat16* wt = prod ? ds_s : p_s;
+        float acc[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-      tc::mma_tile<4, ROWS / 16, true>(
-          acc,
-          [&](int ks, uint32_t (&f)[4]) {
-            tc::ldsm_x4_t(f, tc::at_addr(wt, KP, 16 * mt, 16 * ks));
-          },
-          (prod ? q_s : do_s) + n0, P);
-      float* out = (prod ? strip_k : strip_v) + (strip0 + (k0 - kb0) + 16 * mt + g8) * D;
+          for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+        tc::mma_tile<4, ROWS / 16, true>(
+            acc,
+            [&](int ks, uint32_t (&f)[4]) {
+              tc::ldsm_x4_t(f, tc::at_addr(wt, KP, 16 * mt, 16 * ks));
+            },
+            (prod ? q_s : do_s) + n0, P);
+        float* out = (prod ? strip_k : strip_v) + (strip0 + (k0 - kb0) + 16 * mt + g8) * D;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int dim = n0 + 8 * i + 2 * t4;
-        if (dim < D) {
-          *reinterpret_cast<float2*>(out + dim) = make_float2(acc[i][0], acc[i][1]);
-          *reinterpret_cast<float2*>(out + 8 * D + dim) = make_float2(acc[i][2], acc[i][3]);
+        for (int i = 0; i < 4; ++i) {
+          const int dim = n0 + 8 * i + 2 * t4;
+          if (dim < D) {
+            *reinterpret_cast<float2*>(out + dim) = make_float2(acc[i][0], acc[i][1]);
+            *reinterpret_cast<float2*>(out + 8 * D + dim) = make_float2(acc[i][2], acc[i][3]);
+          }
         }
       }
     }
@@ -341,6 +363,26 @@ win_bwd_diag_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16
             tc::pack_bf16(dq[i][2 * hf] * p.scale, dq[i][2 * hf + 1] * p.scale);
     }
   }
+}
+
+template <int DT, int ROWS>
+__global__ void __launch_bounds__(2 * ROWS, q_min_blocks(DT, ROWS))
+win_bwd_diag_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
+                        const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dQ, float* __restrict__ strip_k,
+                        float* __restrict__ strip_v, Params p, int SL) {
+  q_major<DT, ROWS, WIN, true>(Q, K, V, dO, lse, delta, dQ, strip_k, strip_v, p, SL);
+}
+
+template <int DT, int ROWS, int MODE>
+__global__ void __launch_bounds__(2 * ROWS, q_min_blocks(DT, ROWS))
+banded_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
+                         const __nv_bfloat16* __restrict__ V,
+                         const __nv_bfloat16* __restrict__ dO, const float* __restrict__ lse,
+                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dQ,
+                         Params p) {
+  q_major<DT, ROWS, MODE, false>(Q, K, V, dO, lse, delta, dQ, nullptr, nullptr, p, 0);
 }
 
 // ------------------------------------------------------------ one-pass (kv-major)
@@ -516,40 +558,43 @@ banded_bwd_1p_mma_kernel(const __nv_bfloat16* __restrict__ Q,
     tc::mma_tile<DT / 8, ROWS / 16, true>(
         dk, [&](int ks, uint32_t (&f)[4]) { tc::a_from_c(f, dpt[2 * ks], dpt[2 * ks + 1]); },
         qb, P);
-    // dS^T to shared memory, then dQ = dS K_tile: warp w takes row tile rt,
-    // dims [dq0, dq0 + 64)
+    if (ws != nullptr) {   // the one-pass design: this chunk's dQ partials to their slots
+      // dS^T to shared memory, then dQ = dS K_tile: warp w takes row tile rt,
+      // dims [dq0, dq0 + 64)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int r = 8 * j + 2 * t4;
-      *reinterpret_cast<uint32_t*>(ds_s + (kw0 + g8) * C::RP + r) =
-          tc::pack_bf16(dpt[j][0], dpt[j][1]);
-      *reinterpret_cast<uint32_t*>(ds_s + (kw0 + g8 + 8) * C::RP + r) =
-          tc::pack_bf16(dpt[j][2], dpt[j][3]);
-    }
-    __syncthreads();
-    const int rt = w % (ROWS / 16), dq0 = (w / (ROWS / 16)) * 64;
-    float dq[8][4];
+      for (int j = 0; j < NT; ++j) {
+        const int r = 8 * j + 2 * t4;
+        *reinterpret_cast<uint32_t*>(ds_s + (kw0 + g8) * C::RP + r) =
+            tc::pack_bf16(dpt[j][0], dpt[j][1]);
+        *reinterpret_cast<uint32_t*>(ds_s + (kw0 + g8 + 8) * C::RP + r) =
+            tc::pack_bf16(dpt[j][2], dpt[j][3]);
+      }
+      __syncthreads();
+      const int rt = w % (ROWS / 16), dq0 = (w / (ROWS / 16)) * 64;
+      float dq[8][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
-    tc::mma_tile<8, KC / 16, true>(
-        dq,
-        [&](int ks, uint32_t (&f)[4]) {
-          tc::ldsm_x4_t(f, tc::at_addr(ds_s, C::RP, 16 * rt, 16 * ks));
-        },
-        k_s + dq0, P);
+        for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
+      tc::mma_tile<8, KC / 16, true>(
+          dq,
+          [&](int ks, uint32_t (&f)[4]) {
+            tc::ldsm_x4_t(f, tc::at_addr(ds_s, C::RP, 16 * rt, 16 * ks));
+          },
+          k_s + dq0, P);
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = 16 * rt + g8 + 8 * hf;
-      if (a0 + r >= rb) continue;
-      const int slot = MODE == WIN ? kt - lo_b[r] / KC : kt;
-      float* dst = ws + (size_t)slot * stride + grow(a0 + r) * Dk;
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 16 * rt + g8 + 8 * hf;
+        if (a0 + r >= rb) continue;
+        const int slot = MODE == WIN ? kt - lo_b[r] / KC : kt;
+        float* dst = ws + (size_t)slot * stride + grow(a0 + r) * Dk;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int dim = dq0 + 8 * i + 2 * t4;
-        if (dim < Dk)
-          *reinterpret_cast<float2*>(dst + dim) = make_float2(dq[i][2 * hf], dq[i][2 * hf + 1]);
+        for (int i = 0; i < 8; ++i) {
+          const int dim = dq0 + 8 * i + 2 * t4;
+          if (dim < Dk)
+            *reinterpret_cast<float2*>(dst + dim) =
+                make_float2(dq[i][2 * hf], dq[i][2 * hf + 1]);
+        }
       }
     }
     __syncthreads();   // this buffer (and dS^T) is refilled next
@@ -585,7 +630,7 @@ int launch_diag(const void* Q, const void* K, const void* V, const void* dO, con
                 const float* delta, void* dQ, void* dK, void* dV, float* strip_k,
                 float* strip_v, const Params& p, int SL, cudaStream_t stream) {
   const DiagKernel kern = &win_bwd_diag_mma_kernel<DT, ROWS>;
-  constexpr size_t smem = DiagLayout<DT, ROWS>::BYTES;
+  constexpr size_t smem = QLayout<DT, ROWS, true>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -601,6 +646,23 @@ int launch_diag(const void* Q, const void* K, const void* V, const void* dO, con
   const int rk = sum_strips<__nv_bfloat16>(strip_k, dK, p, p.Dk, SL, p.scale, KC, stream);
   if (rk != 0) return rk;
   return sum_strips<__nv_bfloat16>(strip_v, dV, p, p.Dv, SL, 1.f, KC, stream);
+}
+
+template <int DT, int ROWS, int MODE>
+int launch_dq(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
+              const float* delta, void* dQ, const Params& p, cudaStream_t stream) {
+  const auto kern = &banded_bwd_dq_mma_kernel<DT, ROWS, MODE>;
+  constexpr size_t smem = QLayout<DT, ROWS, false>::BYTES;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long grid = (long long)p.B * p.G * ((p.S + p.TQ - 1) / p.TQ);
+  if (grid > 0)
+    kern<<<(unsigned)grid, 2 * ROWS, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(K),
+        static_cast<const __nv_bfloat16*>(V), static_cast<const __nv_bfloat16*>(dO), lse, delta,
+        static_cast<__nv_bfloat16*>(dQ), p);
+  NSA_LAUNCH_CHECK();
 }
 
 using KvKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
@@ -632,7 +694,7 @@ int launch_kv(const void* Q, const void* K, const void* V, const void* dO, const
   int r = reduce_splits<__nv_bfloat16>(part_k, dK, nk_el, p.nsplit, stream);
   if (r != 0) return r;
   r = reduce_splits<__nv_bfloat16>(part_v, dV, nv_el, p.nsplit, stream);
-  if (r != 0) return r;
+  if (r != 0 || ws == nullptr) return r;
   const long long rows = (long long)p.B * p.S * p.G * p.h;
   return sum_slots<__nv_bfloat16>(ws, dQ, rows, p.Dk, BandSlots{p}, p.scale, stream);
 }
@@ -655,7 +717,8 @@ long long nsa_banded_bwd_1p_mma_smem_bytes(int Dk, int Dv) {
 // bf16 only. Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32
 // -> dQ, dK, dV (bf16). mode 0 WIN (w > 0), 1 CMP (l, d > 0); Dk, Dv <= 128
 // and multiples of 8. part: f32 scratch of nsplit * B*G*S_kv*(Dk+Dv) floats;
-// ws: f32 dQ slots, nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats.
+// ws: f32 dQ slots, nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats, or
+// null for dK and dV alone (the two-pass design's kv pass; dQ unused).
 int nsa_banded_bwd_1p_mma(const void* Q, const void* K, const void* V, const void* dO,
                           const float* lse, const float* delta, void* dQ, void* dK, void* dV,
                           float* part, float* ws, int B, int S, int S_kv, int G, int h, int Dk,
@@ -663,7 +726,7 @@ int nsa_banded_bwd_1p_mma(const void* Q, const void* K, const void* V, const voi
                           void* stream) {
   if (nsplit <= 0 || h <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 ||
       S_kv <= 0 || (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
-      (mode != WIN && mode != CMP) || part == nullptr || ws == nullptr)
+      (mode != WIN && mode != CMP) || part == nullptr)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, 0, nsplit, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -672,11 +735,42 @@ int nsa_banded_bwd_1p_mma(const void* Q, const void* K, const void* V, const voi
 }
 
 long long nsa_win_bwd_diag_mma_smem_bytes(int Dk, int Dv, int rows) {
-  if (wide(Dk, Dv)) return (long long)(rows == 64 ? DiagLayout<128, 64>::BYTES
-                                                  : DiagLayout<128, 128>::BYTES);
-  return (long long)(rows == 64    ? DiagLayout<64, 64>::BYTES
-                     : rows == 128 ? DiagLayout<64, 128>::BYTES
-                                   : DiagLayout<64, 192>::BYTES);
+  if (wide(Dk, Dv)) return (long long)(rows == 64 ? QLayout<128, 64, true>::BYTES
+                                                  : QLayout<128, 128, true>::BYTES);
+  return (long long)(rows == 64    ? QLayout<64, 64, true>::BYTES
+                     : rows == 128 ? QLayout<64, 128, true>::BYTES
+                                   : QLayout<64, 192, true>::BYTES);
+}
+
+long long nsa_banded_bwd_dq_mma_smem_bytes(int Dk, int Dv, int rows) {
+  if (wide(Dk, Dv))
+    return (long long)(rows == 64 ? QLayout<128, 64, false>::BYTES
+                                  : QLayout<128, 128, false>::BYTES);
+  return (long long)(rows == 64 ? QLayout<64, 64, false>::BYTES : QLayout<64, 128, false>::BYTES);
+}
+
+// bf16 only: dQ of the two-pass design (its dK and dV: nsa_banded_bwd_1p_mma
+// with ws null). Shapes and modes as nsa_banded_bwd_1p_mma; q tiles of
+// `rows` = 64 or 128 rows (rows / h tokens, h <= rows).
+int nsa_banded_bwd_dq_mma(const void* Q, const void* K, const void* V, const void* dO,
+                          const float* lse, const float* delta, void* dQ, int B, int S, int S_kv,
+                          int G, int h, int Dk, int Dv, int mode, int w, int l, int d,
+                          float scale, int rows, void* stream) {
+  if ((rows != 64 && rows != 128) || h <= 0 || h > rows || S_kv <= 0 || Dk % 8 != 0 ||
+      Dv % 8 != 0 || Dk > 128 || Dv > 128 || (mode == WIN && w <= 0) ||
+      (mode == CMP && (l <= 0 || d <= 0)) || (mode != WIN && mode != CMP))
+    return (int)cudaErrorInvalidValue;
+  const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, rows / h, 1, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using Launch = int (*)(const void*, const void*, const void*, const void*, const float*,
+                        const float*, void*, const Params&, cudaStream_t);
+  const bool cmp = mode == CMP;
+  const Launch launch =
+      wide(Dk, Dv) ? (rows == 64 ? (cmp ? &launch_dq<128, 64, CMP> : &launch_dq<128, 64, WIN>)
+                                 : (cmp ? &launch_dq<128, 128, CMP> : &launch_dq<128, 128, WIN>))
+      : rows == 64 ? (cmp ? &launch_dq<64, 64, CMP> : &launch_dq<64, 64, WIN>)
+                   : (cmp ? &launch_dq<64, 128, CMP> : &launch_dq<64, 128, WIN>);
+  return launch(Q, K, V, dO, lse, delta, dQ, p, s);
 }
 
 // Strip rows per q tile of `rows` rows (rows / h tokens): the most 64-key

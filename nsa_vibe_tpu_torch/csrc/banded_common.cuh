@@ -1,12 +1,11 @@
 // Pieces of the banded (window / compressed-prefix) backward kernels of the
-// one-pass and diagonal designs: the visibility rule, the staging of query
-// rows, the shared-memory carve-up of the f32 FMA kernels, the slot count
-// of the one-pass dQ workspace and the strip sum of the diagonal design.
-// Which kernel serves which dtype: f32 operands take the FMA kernels
-// (banded_bwd_1p.cu, win_bwd_diag.cu), bf16 operands the tensor-core
-// kernels (banded_bwd_mma.cu); both write the same slots and strips and
-// finish with the same sum_slots / sum_strips. The rules are those of
-// banded_bwd.cu (the two-pass design), which keeps its own copy.
+// one-pass, diagonal and two-pass designs: the visibility rule, the staging
+// of query rows, the shared-memory carve-up of the f32 FMA kernels, the
+// slot count of the one-pass dQ workspace and the strip sum of the diagonal
+// design. Which kernel serves which dtype: f32 operands take the FMA
+// kernels (banded_bwd_1p.cu, win_bwd_diag.cu, banded_bwd.cu), bf16 operands
+// the tensor-core kernels (banded_bwd_mma.cu); both write the same slots
+// and strips and finish with the same sum_slots / sum_strips.
 #pragma once
 
 #include "bwd_common.cuh"

@@ -184,7 +184,8 @@ int reduce_splits(const float* part, void* out, long long n, int nsplit, cudaStr
 // slice e = tid + THREADS*i owns rows 4*rq..4*rq+3 and dims 4*c4..4*c4+3;
 // keys go in fours (dS and the staged K rows are 0 from nk to KC), so each
 // step reads 4 float4 of dS and 4 of K for 64 FMAs. Used for dQ by the
-// one-pass kernels (a partial per key tile) and the diagonal kernel (exact).
+// one-pass kernels (a partial per key tile) and the diagonal and two-pass
+// dQ kernels (exact).
 template <int NS>
 __device__ __forceinline__ void accumulate_q_rows(float4 (&acc)[NS][4], const float* ds_s,
                                                   const float* k_s, int nk, int Dk, int kp) {

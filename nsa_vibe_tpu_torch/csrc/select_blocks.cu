@@ -1,10 +1,13 @@
 // select_blocks: NSA selection scorer (Eq. 8-12) without the compressed
-// branch's output, for selection-block counts too wide for select_cmp.
+// branch's output, for selection-block counts too wide for select_cmp, for
+// f32 operands.
 //
-// Replaces: nsa_vibe_tpu/ops/pallas/scorer.py::nsa_select_pallas (kernel
-// _scorer_kernel, top-n epilogue _scorer_topn), which the JAX prefill runs
-// when the fused scorer does not fit (long prompts) and which the 64k
-// needle smoke runs on one query row.
+// Replaces, for f32 operands: nsa_vibe_tpu/ops/pallas/scorer.py::
+// nsa_select_pallas (kernel _scorer_kernel, top-n epilogue _scorer_topn),
+// which the JAX prefill runs when the fused scorer does not fit (long
+// prompts) and which the 64k needle smoke runs on one query row. bf16
+// operands (the serving dtype) take the tensor-core kernel of
+// select_blocks_mma.cu; f32 keeps this FMA kernel.
 //
 // What it computes, per query row s at position t = pos_offset + s (token
 // t, head j of group g):
@@ -28,8 +31,9 @@
 // What bounds it on the H100: at the m7c 64k prefill (B=1, S=65536, G=2,
 // h=6, Dk=64, S_cmp=4095, S_sel=1024) one QK^T over the ~1.6 G visible
 // (row, key) pairs is ~206 GFLOP against ~0.2 GB of Q, K_cmp and sel_idx:
-// the tensor cores bound it (~0.21 ms). This f32 FMA design is bound by FMA
-// issue and shared-memory reads, and forms QK^T twice.
+// the tensor cores bound it (~0.21 ms) in bf16, the f32 FMA rate (67
+// TFLOP/s) in f32. This FMA design is bound by FMA issue and shared-memory
+// reads, and forms QK^T twice.
 // Design: the TPU kernel keeps a [rows, S_sel] f32 p_slc accumulator per
 // head in VMEM; at S_sel = 1024 that is 1.5 MB per 64-row tile against the
 // 227 KB a block has. Heads cannot be summed before they are normalised
@@ -39,30 +43,25 @@
 // 4x4 register tiles as banded_attn.cu):
 //   1. statistics: online max and sum per row, giving lse = m + log(l);
 //   2. probabilities exp(s - lse) per (row, token), then per (token of the
-//      tile, selection block touched by the chunk) one thread adds the
-//      group's heads and the chunk's overlapping tokens times M into a
-//      [TQ, S_sel] f32 accumulator in shared memory (40 KB at TQ=10,
-//      S_sel=1024), so no two threads write the same element;
+//      tile, token of the chunk) one thread sums the group's heads, and per
+//      (token of the tile, selection block touched by the chunk) one thread
+//      adds the chunk's overlapping tokens times M into a [TQ, S_sel] f32
+//      accumulator in shared memory (40 KB at TQ=10, S_sel=1024), so no two
+//      threads write the same element (select_blocks.cuh::chunk_scores);
 // then select_cmp's top-n, one warp per token with shuffle argmax
-// reductions. The wrapper shrinks TQ until the accumulator fits and
-// raises when even TQ = 1 does not (S_sel above ~53k at h = 6, Dk = 64,
-// i.e. prompts of ~3.4 M tokens at l_sel = 64).
-// tensor-core (wgmma) tiles are later work.
-#include "common.cuh"
+// reductions (select_blocks.cuh::top_n). The wrapper shrinks TQ until the
+// accumulator fits and raises when even TQ = 1 does not (S_sel above ~53k
+// at h = 6, Dk = 64, i.e. prompts of ~3.4 M tokens at l_sel = 64).
+#include "select_blocks.cuh"
 
 using namespace nsa;
+using namespace nsa::scorer;
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
-constexpr int KC = 64;          // compressed tokens per chunk
 constexpr int MAX_ROWS = 64;    // query rows (tokens x heads) per block
-
-struct Params {
-  int S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local, pos_offset, TQ;
-  float scale;
-};
 
 // shared-memory carve-up (floats): Q rows, one chunk of K_cmp (pitch
 // Dk+4), the [rows, KC] logits/probabilities, row max/sum/lse, and the
@@ -111,10 +110,9 @@ __device__ __forceinline__ void chunk_logits(const float* q_s, const float* k_s,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-select_blocks_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, int* __restrict__ sel,
-                     Params p) {
+select_blocks_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
+                     int* __restrict__ sel, Params p) {
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
   int bid = blockIdx.x;
@@ -143,14 +141,15 @@ select_blocks_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, int* __r
     const int i = r / h, j = r - i * h;
     return (((size_t)b * p.S + s0 + i) * p.G + g) * h + j;
   };
-  load_rows_vec<T>(q_s, Dk, [&](int r) -> const T* { return Q + q_row(r) * Dk; }, Dk, rows);
+  load_rows_vec<float>(q_s, Dk, [&](int r) -> const float* { return Q + q_row(r) * Dk; }, Dk,
+                       rows);
   for (int idx = tid; idx < rows; idx += THREADS) {
     m_s[idx] = NEG;
     l_s[idx] = 0.f;
   }
   for (int idx = tid; idx < nt * S_sel; idx += THREADS) acc[idx] = 0.f;
 
-  const T* Kbg = Kc + ((size_t)b * p.G + g) * p.S_cmp * Dk;
+  const float* Kbg = Kc + ((size_t)b * p.G + g) * p.S_cmp * Dk;
   // prefix bound of the tile's last token: no row of the tile sees past it
   const int n_vis_tile = min(num_cmp(t_first + nt, p.l, p.d), p.S_cmp);
   // visible prefix of each row of this thread's phase-A tile
@@ -162,7 +161,7 @@ select_blocks_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, int* __r
   // pass 1: row statistics (online max and sum)
   for (int c0 = 0; c0 < n_vis_tile; c0 += KC) {
     __syncthreads();   // previous chunk consumed (and Q staged)
-    load_rows_vec<T>(k_s, kp, Kbg, Dk, c0, KC, n_vis_tile);
+    load_rows_vec<float>(k_s, kp, Kbg, Dk, c0, KC, n_vis_tile);
     __syncthreads();
     float sc[4][4];
     chunk_logits(q_s, k_s, rows, Dk, sc);
@@ -196,7 +195,7 @@ select_blocks_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, int* __r
   // pass 2: probabilities, heads and overlapping tokens into the group scores
   for (int c0 = 0; c0 < n_vis_tile; c0 += KC) {
     __syncthreads();   // previous chunk consumed (and lse written)
-    load_rows_vec<T>(k_s, kp, Kbg, Dk, c0, KC, n_vis_tile);
+    load_rows_vec<float>(k_s, kp, Kbg, Dk, c0, KC, n_vis_tile);
     __syncthreads();
     float sc[4][4];
     chunk_logits(q_s, k_s, rows, Dk, sc);
@@ -212,88 +211,20 @@ select_blocks_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, int* __r
       }
     }
     __syncthreads();
-    // selection blocks [j_lo, j_hi] that the chunk's tokens [c0, c1) overlap
-    const int c1 = min(c0 + KC, n_vis_tile);
-    const int j_lo = c0 * p.d / p.l_sel;
-    const int j_hi = min(((c1 - 1) * p.d + p.l - 1) / p.l_sel, S_sel - 1);
-    const int nj = j_hi - j_lo + 1;
-    for (int e = tid; e < nt * nj; e += THREADS) {
-      const int i = e / nj, j = j_lo + (e - i * nj);
-      const int b0 = j * p.l_sel, b1 = b0 + p.l_sel;
-      // tokens c with c*d < b1 and c*d + l > b0, within the chunk
-      const int first = b0 - p.l + 1;
-      const int lo_c = max(c0, first <= 0 ? 0 : (first + p.d - 1) / p.d);
-      const int hi_c = min(c1 - 1, (b1 - 1) / p.d);
-      float a = 0.f;
-      for (int c = lo_c; c <= hi_c; ++c) {
-        float pc = 0.f;
-        for (int hh = 0; hh < h; ++hh) pc += s_s[(i * h + hh) * KC + (c - c0)];
-        const int a0 = c * p.d;
-        const int ov = min(a0 + p.l, b1) - max(a0, b0);
-        a = fmaf(pc, __fdiv_rn((float)ov, (float)p.l), a);
-      }
-      acc[i * S_sel + j] += a;
-    }
+    chunk_scores(s_s, KC, acc, p, nt, c0, min(c0 + KC, n_vis_tile));
   }
   __syncthreads();
-
-  // top-n per token (as select_cmp.cu): forced slots, argmax passes
-  const int n_forced = (p.force_init ? 1 : 0) + p.force_local;
-  const int n_out = max(p.n_top, n_forced);
-  const int k_rest = p.n_top - n_forced;
-  for (int i = warp; i < nt; i += NWARPS) {
-    const int t = t_first + i;
-    const int last = t / p.l_sel;
-    float* comp = acc + (size_t)i * S_sel;
-    int* out = sel + (((size_t)b * p.S + s0 + i) * p.G + g) * n_out;
-    for (int c = lane; c < S_sel; c += 32) {
-      bool forced = p.force_init && c == 0;
-      for (int f = 0; f < p.force_local; ++f) forced = forced || c == max(last - f, 0);
-      const bool valid = (long long)c * p.l_sel <= t;
-      const float score = (valid && !forced) ? comp[c] : NEG;
-      comp[c] = __fsub_rn(score, __fmul_rn((float)c, 1e-8f));
-    }
-    if (lane == 0) {
-      int f = 0;
-      if (p.force_init) out[f++] = 0;
-      for (int k = 0; k < p.force_local; ++k) out[f++] = max(last - k, 0);
-    }
-    __syncwarp();
-    for (int k = 0; k < k_rest; ++k) {
-      float bv = NEG;
-      int bi = INT_MAX;
-      for (int c = lane; c < S_sel; c += 32) {
-        const float v = comp[c];
-        if (v > bv || (v == bv && c < bi)) {   // ties: the lowest index wins
-          bv = v;
-          bi = c;
-        }
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(FULL, bv, o);
-        const int oi = __shfl_xor_sync(FULL, bi, o);
-        if (ov > bv || (ov == bv && oi < bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (lane == 0) out[n_forced + k] = bv > NEG / 2 ? bi : -1;
-      if (bi < S_sel && (bi & 31) == lane) comp[bi] = NEG;   // the owning lane retires it
-      __syncwarp();
-    }
-  }
+  top_n(acc, sel, p, b, g, s0, nt);
 }
 
-template <typename T>
-int launch(const void* Q, const void* Kc, int* sel, int B, const Params& p, cudaStream_t stream) {
+int launch(const float* Q, const float* Kc, int* sel, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(p.TQ, p.h, p.Dk, p.S_sel).total * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(select_blocks_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = cudaFuncSetAttribute(select_blocks_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const long long nq = (p.S + p.TQ - 1) / p.TQ;
-  const long long grid = (long long)B * p.G * nq;
-  select_blocks_kernel<T><<<(unsigned)grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(Q), static_cast<const T*>(Kc), sel, p);
+  const long long grid = (long long)p.B * p.G * ((p.S + p.TQ - 1) / p.TQ);
+  if (grid > 0) select_blocks_kernel<<<(unsigned)grid, THREADS, smem, stream>>>(Q, Kc, sel, p);
   NSA_LAUNCH_CHECK();
 }
 
@@ -305,19 +236,18 @@ long long nsa_select_blocks_smem_bytes(int TQ, int h, int Dk, int S_sel) {
   return (long long)(Smem(TQ, h, Dk, S_sel).total * sizeof(float));
 }
 
-int nsa_select_blocks(int dtype, const void* Q, const void* Kc, int* sel, int B, int S, int G,
-                      int h, int Dk, int S_cmp, int S_sel, int l, int d, int l_sel, int n_top,
+// f32 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk] -> sel [B,S,G,n_out]; TQ
+// tokens per block, TQ * h <= 64.
+int nsa_select_blocks(const float* Q, const float* Kc, int* sel, int B, int S, int G, int h,
+                      int Dk, int S_cmp, int S_sel, int l, int d, int l_sel, int n_top,
                       int force_init, int force_local, int pos_offset, float scale, int TQ,
                       void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || S_cmp <= 0 || S_sel <= 0 || Dk % 8 != 0 ||
       pos_offset < 0 || l <= 0 || d <= 0 || l_sel <= 0)
     return (int)cudaErrorInvalidValue;
-  const Params p{S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
+  const Params p{B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
                  pos_offset, TQ, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch<float>(Q, Kc, sel, B, p, s);
-  if (dtype == DT_BF16) return launch<__nv_bfloat16>(Q, Kc, sel, B, p, s);
-  return (int)cudaErrorInvalidValue;
+  return launch(Q, Kc, sel, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,0 +1,120 @@
+// Pieces of the select-only scorer's two kernels (select_blocks.cu, f32 on
+// FMA; select_blocks_mma.cu, bf16 on tensor cores): their parameters, the
+// Eq. 9-10 map of one chunk of probabilities into a q tile's group scores,
+// and the Eq. 11-12 top-n epilogue. Notation: select_blocks.cu.
+#pragma once
+
+#include "common.cuh"
+
+namespace nsa {
+namespace scorer {
+
+constexpr int KC = 64;   // compressed tokens per chunk
+
+struct Params {
+  int B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local, pos_offset,
+      TQ;
+  float scale;
+};
+
+// Eq. 9-10 of one chunk of compressed tokens [c0, c1): for each token i <
+// nt of the q tile and each selection block j the chunk overlaps,
+//   acc[i][j] += sum over tokens c of the chunk within block j of
+//                (sum over heads hh of p[(i*h + hh) * pitch + c - c0]) * M[c, j]
+// with M[c, j] = overlap([c*d, c*d+l), [j*l_sel, (j+1)*l_sel)) / l in closed
+// form. First one thread per (token, c) sums the heads (a token's heads may
+// sit in two warps' rows) into the row of head 0, in place; after a barrier
+// one thread per (token, block) adds its tokens, so no two threads write
+// the same element and the sums run in a fixed order. Every thread of the
+// block calls it; p_s holds the head sums afterwards.
+__device__ __forceinline__ void chunk_scores(float* p_s, int pitch, float* acc, const Params& p,
+                                             int nt, int c0, int c1) {
+  const int nc = c1 - c0;
+  for (int e = threadIdx.x; e < nt * KC; e += blockDim.x) {
+    const int i = e / KC, c = e - i * KC;
+    if (c >= nc) continue;
+    float* col = p_s + (size_t)i * p.h * pitch + c;
+    float pc = 0.f;
+#pragma unroll 4
+    for (int hh = 0; hh < p.h; ++hh) pc += col[hh * pitch];
+    col[0] = pc;
+  }
+  __syncthreads();
+  const int j_lo = c0 * p.d / p.l_sel;
+  const int j_hi = min(((c1 - 1) * p.d + p.l - 1) / p.l_sel, p.S_sel - 1);
+  const int nj = j_hi - j_lo + 1;
+  for (int e = threadIdx.x; e < nt * nj; e += blockDim.x) {
+    const int i = e / nj, j = j_lo + (e - i * nj);
+    const int b0 = j * p.l_sel, b1 = b0 + p.l_sel;
+    // tokens c with c*d < b1 and c*d + l > b0, within the chunk
+    const int first = b0 - p.l + 1;
+    const int lo_c = max(c0, first <= 0 ? 0 : (first + p.d - 1) / p.d);
+    const int hi_c = min(c1 - 1, (b1 - 1) / p.d);
+    const float* ph = p_s + (size_t)i * p.h * pitch - c0;
+    float a = 0.f;
+    for (int c = lo_c; c <= hi_c; ++c) {
+      const int a0 = c * p.d;
+      const int ov = min(a0 + p.l, b1) - max(a0, b0);   // a token inside the block: M = 1
+      a = fmaf(ph[c], ov == p.l ? 1.f : __fdiv_rn((float)ov, (float)p.l), a);
+    }
+    acc[i * p.S_sel + j] += a;
+  }
+}
+
+// Eq. 11-12 per token of the q tile (tokens s0 .. s0+nt-1 of (b, g), at
+// positions t_first + i): the forced slots {0, t//l_sel, t//l_sel - 1}
+// (clamped at 0), then n_top - n_forced argmax passes over `score - 1e-8 *
+// index` among blocks with start <= t that are not forced, -1 when none is
+// left; one warp per token, shuffle reductions, ties to the lowest index.
+// acc [nt][S_sel] is overwritten.
+__device__ __forceinline__ void top_n(float* acc, int* __restrict__ sel, const Params& p, int b,
+                                      int g, int s0, int nt) {
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5, S_sel = p.S_sel;
+  const int n_forced = (p.force_init ? 1 : 0) + p.force_local;
+  const int n_out = max(p.n_top, n_forced);
+  const int k_rest = p.n_top - n_forced;
+  for (int i = threadIdx.x >> 5; i < nt; i += nwarps) {
+    const int t = p.pos_offset + s0 + i;
+    const int last = t / p.l_sel;
+    float* comp = acc + (size_t)i * S_sel;
+    int* out = sel + (((size_t)b * p.S + s0 + i) * p.G + g) * n_out;
+    for (int c = lane; c < S_sel; c += 32) {
+      bool forced = p.force_init && c == 0;
+      for (int f = 0; f < p.force_local; ++f) forced = forced || c == max(last - f, 0);
+      const bool valid = (long long)c * p.l_sel <= t;
+      const float score = (valid && !forced) ? comp[c] : NEG;
+      comp[c] = __fsub_rn(score, __fmul_rn((float)c, 1e-8f));
+    }
+    if (lane == 0) {
+      int f = 0;
+      if (p.force_init) out[f++] = 0;
+      for (int k = 0; k < p.force_local; ++k) out[f++] = max(last - k, 0);
+    }
+    __syncwarp();
+    for (int k = 0; k < k_rest; ++k) {
+      float bv = NEG;
+      int bi = INT_MAX;
+      for (int c = lane; c < S_sel; c += 32) {
+        const float v = comp[c];
+        if (v > bv || (v == bv && c < bi)) {   // ties: the lowest index wins
+          bv = v;
+          bi = c;
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(FULL, bv, o);
+        const int oi = __shfl_xor_sync(FULL, bi, o);
+        if (ov > bv || (ov == bv && oi < bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if (lane == 0) out[n_forced + k] = bv > NEG / 2 ? bi : -1;
+      if (bi < S_sel && (bi & 31) == lane) comp[bi] = NEG;   // the owning lane retires it
+      __syncwarp();
+    }
+  }
+}
+
+}  // namespace scorer
+}  // namespace nsa

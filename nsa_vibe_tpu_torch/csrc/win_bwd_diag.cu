@@ -8,10 +8,10 @@
 // win_bwd_diag_mma_kernel of banded_bwd_mma.cu; f32 keeps this FMA kernel,
 // since the f32 gates (5e-5 relative) rule out TF32.
 //
-// What it computes: the same dQ, dK, dV as banded_bwd.cu and
-// banded_bwd_1p.cu in window mode: query token t sees keys
-// [max(t-w+1, 0), min(t+1, S_kv)); outputs f32, accumulated in f32
-// (notation: bwd_common.cuh).
+// What it computes: the same dQ, dK, dV as the one-pass and two-pass
+// designs in window mode (banded_bwd_1p.cu, banded_bwd.cu): query token t
+// sees keys [max(t-w+1, 0), min(t+1, S_kv)); outputs f32, accumulated in
+// f32 (notation: bwd_common.cuh).
 //
 // What bounds it on the H100: ~5 products per visible (row, key) pair at
 // the card's f32 FMA rate (67 TFLOP/s, not the tensor cores), and

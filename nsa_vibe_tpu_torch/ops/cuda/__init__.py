@@ -8,21 +8,28 @@ paths, their wrappers and plain PyTorch versions.
 |                 | csrc/sel_attn_fwd_mma.cu| selection.py::selection_attention_pallas (decode)   |
 | win_attn        | csrc/banded_fwd_mma.cu, | flash_diag.py::flash_banded_diag                    |
 |                 | csrc/banded_attn.cu     |                                                     |
-| banded_bwd_1p   | csrc/banded_bwd_1p.cu   | flash_bwd.py::flash_banded_bwd_onepass (win, cmp)   |
-| banded_bwd      | csrc/banded_bwd.cu      | flash_bwd.py::flash_banded_bwd (win, cmp; 2 passes) |
+| banded_bwd_1p   | csrc/banded_bwd_mma.cu, | flash_bwd.py::flash_banded_bwd_onepass (win, cmp)   |
+|                 | csrc/banded_bwd_1p.cu   |                                                     |
+| banded_bwd      | csrc/banded_bwd_mma.cu, | flash_bwd.py::flash_banded_bwd (win, cmp; 2 passes) |
+|                 | csrc/banded_bwd.cu      |                                                     |
 | sel_attn_bwd_1p | csrc/sel_attn_bwd_1p.cu | sel_flash.py::selection_flash_bwd_onepass           |
 | sel_attn_bwd    | csrc/sel_attn_bwd.cu    | sel_flash.py::selection_flash_bwd (2 passes)        |
-| win_bwd_diag    | csrc/win_bwd_diag.cu    | flash_diag.py::flash_banded_bwd_diag                |
+| win_bwd_diag    | csrc/banded_bwd_mma.cu, | flash_diag.py::flash_banded_bwd_diag                |
+|                 | csrc/win_bwd_diag.cu    |                                                     |
 | banded_attn     | csrc/banded_fwd_mma.cu, | flash.py::flash_banded (win and cmp, t_start)       |
 |                 | csrc/banded_attn.cu     |                                                     |
-| select_blocks   | csrc/select_blocks.cu   | scorer.py::nsa_select_pallas (pos_offset)           |
+| select_blocks   | csrc/select_blocks_mma.cu | scorer.py::nsa_select_pallas (pos_offset)         |
+|                 | csrc/select_blocks.cu   |                                                     |
 
 win_attn and banded_attn launch the same two kernels (window mode at
 t_start = 0 for win_attn): bf16 the tensor-core banded_fwd_mma.cu, f32
-the FMA banded_attn.cu. The backward design each branch runs follows
-ops/tuning.py. Each wrapper counts its launches in a plain integer
-attribute (`<wrapper>.launches`), incremented only where the kernel is
-launched.
+the FMA banded_attn.cu. The other wrappers with two sources take the
+tensor-core one (`*_mma.cu`) for bf16 and the FMA one for f32 (sel_attn
+at decode: sel_attn.cu in both); banded_bwd's dK/dV pass is
+banded_bwd_1p's kernel with its dQ slots off. The backward design each
+branch runs follows ops/tuning.py. Each wrapper counts its launches in a
+plain integer attribute (`<wrapper>.launches`), incremented only where
+the kernel is launched.
 """
 
 from __future__ import annotations

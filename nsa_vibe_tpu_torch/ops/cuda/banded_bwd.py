@@ -1,9 +1,22 @@
-"""Window / compressed-prefix attention backward (csrc/banded_bwd.cu).
+"""Window / compressed-prefix attention backward, two-pass design
+(csrc/banded_bwd_mma.cu, csrc/banded_bwd.cu, and the kv-major kernels of
+csrc/banded_bwd_mma.cu and csrc/banded_bwd_1p.cu with their dQ slots off).
 
 Replaces nsa_vibe_tpu/ops/pallas/flash_bwd.py::flash_banded_bwd (the
 two-pass win and cmp backward of the JAX train step under bwd.onepass =
-0). Bound on the H100 and design: see the note at the top of the CUDA
-source.
+0): a q-major dQ pass, then a kv-major dK/dV pass. Kernels, chosen by
+dtype alone:
+- bf16: dQ from the q-major tensor-core kernel (banded_bwd_dq_mma_kernel,
+  q tiles of DQ_TILE_ROWS rows), dK and dV from the one-pass tensor-core
+  kernel with its slots off (banded_bwd_1p.kv_pass); P and dS rounded to
+  bf16 before their products, as the TPU kernels do, so the bound is the
+  plain version's unrounded f32 gradients within a multiple of
+  `banded_bwd_rss`, not two ulps;
+- f32: dQ from the FMA kernel of banded_bwd.cu, dK and dV from the FMA
+  one-pass kernel with its slots off.
+This module also holds the plain version of every banded backward design
+(`banded_bwd_plain`, `banded_bwd_rss`). Bound on the H100 and design: see
+the notes at the top of the CUDA sources.
 """
 
 from __future__ import annotations
@@ -13,14 +26,13 @@ import torch
 from nsa_vibe_tpu_torch.ops import reference as ref
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    check_operands, check_smem, check_vector_rows, kv_splits, ptr, ptr_or_null, raise_on_error,
-    resolve_kernel, stream_of,
+    DTYPE_CODES, check_smem, ptr, raise_on_error, resolve_kernel, stream_of,
 )
 
 MODES = {"win": 0, "cmp": 1}
-ROWS_PER_CHUNK = 64   # query rows (tokens x heads) per chunk, the kernel's maximum
-KEYS_PER_TILE = 64    # keys per tile of the kv-major pass
-MAX_D = 128           # head widths the kernel's register slices cover
+ROWS_PER_CHUNK = 64   # query rows (tokens x heads) per block of the f32 dQ kernel, its maximum
+# rows (tokens x heads) per q tile of the bf16 dQ kernel: 64 or 128 (PERF.md)
+DQ_TILE_ROWS = 128
 
 
 def banded_mask(S: int, S_kv: int, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
@@ -64,40 +76,26 @@ def banded_bwd(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d:
     `banded_bwd.cmp_launches`."""
     if resolve_kernel(Q) == "plain":
         return banded_bwd_plain(Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d, scale=scale)
-    if mode not in MODES:
-        raise ValueError(f"banded_bwd: mode must be 'win' or 'cmp', got {mode!r}")
-    code = check_operands("banded_bwd", {"Q": Q, "K": K, "V": V, "dO": dO})
-    check_operands("banded_bwd", {"lse": lse, "delta": delta})
+    # imported here: banded_bwd_1p takes its plain version from this module
+    from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import check_banded_operands, kv_pass
+
+    code = check_banded_operands("banded_bwd", Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d)
     B, S, G, h, Dk = Q.shape
     S_kv, Dv = K.shape[2], V.shape[3]
-    if K.shape != (B, G, S_kv, Dk) or V.shape[:3] != (B, G, S_kv) \
-            or dO.shape != (B, S, G, h, Dv) or lse.shape != (B, S, G, h) \
-            or delta.shape != lse.shape or lse.dtype != torch.float32 \
-            or delta.dtype != torch.float32:
-        raise ValueError(f"banded_bwd: shapes Q {tuple(Q.shape)} K {tuple(K.shape)} "
-                         f"V {tuple(V.shape)} dO {tuple(dO.shape)} lse {tuple(lse.shape)} "
-                         f"delta {tuple(delta.shape)} do not match (lse/delta f32)")
-    check_vector_rows("banded_bwd", Q=Q, K=K, V=V, dO=dO)
-    if h > ROWS_PER_CHUNK or Dk > MAX_D or Dv > MAX_D:
-        raise ValueError(f"banded_bwd: needs h <= {ROWS_PER_CHUNK}, Dk and Dv <= {MAX_D}")
-    if (mode == "win" and w <= 0) or (mode == "cmp" and (l <= 0 or d <= 0)):
-        raise ValueError("banded_bwd: win needs w > 0, cmp needs l, d > 0")
     lib = library()
-    check_smem("banded_bwd", lib.nsa_banded_bwd_smem_bytes(Dk, Dv))
-    tq = max(1, ROWS_PER_CHUNK // h)
-    n_kt = -(-S_kv // KEYS_PER_TILE)
-    nsplit = kv_splits(Q.device, B * G * n_kt, -(-S // tq))
     dQ = torch.empty_like(Q)
-    dK = torch.empty_like(K)
-    dV = torch.empty_like(V)
-    part = (torch.empty(nsplit * B * G * S_kv * (Dk + Dv), dtype=torch.float32, device=Q.device)
-            if nsplit > 1 else None)
+    args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr(dQ), B, S, S_kv, G, h,
+            Dk, Dv, MODES[mode], w, l, d, float(scale))
     with torch.cuda.device(Q.device):
-        err = lib.nsa_banded_bwd(code, ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta),
-                                 ptr(dQ), ptr(dK), ptr(dV), ptr_or_null(part), B, S, S_kv, G, h,
-                                 Dk, Dv, MODES[mode], w, l, d, float(scale), tq, nsplit,
-                                 stream_of(Q))
+        if code == DTYPE_CODES[torch.bfloat16]:
+            check_smem("banded_bwd", lib.nsa_banded_bwd_dq_mma_smem_bytes(Dk, Dv, DQ_TILE_ROWS))
+            err = lib.nsa_banded_bwd_dq_mma(*args, DQ_TILE_ROWS, stream_of(Q))
+        else:
+            check_smem("banded_bwd", lib.nsa_banded_bwd_smem_bytes(Dk, Dv))
+            err = lib.nsa_banded_bwd(*args, max(1, ROWS_PER_CHUNK // h), stream_of(Q))
     raise_on_error(lib, "banded_bwd", err)
+    _, dK, dV = kv_pass("banded_bwd", lib, code, Q, K, V, dO, lse, delta, mode=mode, w=w, l=l,
+                        d=d, scale=scale, slots=False)
     banded_bwd.launches += 1
     if mode == "cmp":
         banded_bwd.cmp_launches += 1

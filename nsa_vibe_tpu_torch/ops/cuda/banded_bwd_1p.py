@@ -12,9 +12,10 @@ plain version is that module's. Two kernels, chosen by dtype alone:
   `mma_plan` band rows (token * h + head), cut by `split_shares`;
 - f32: the FMA kernel (banded_bwd_1p.cu), chunks of ROWS_PER_CHUNK // h
   tokens.
-Both write each dQ partial to its own f32 slot and sum them in order.
-Bound on the H100 and design: see the notes at the top of the CUDA
-sources.
+Both write each dQ partial to its own f32 slot and sum them in order. The
+same launch with the slots off (`kv_pass`) is the two-pass design's dK/dV
+pass (banded_bwd). Bound on the H100 and design: see the notes at the top
+of the CUDA sources.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ import torch
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import MODES, banded_bwd_plain
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, check_operands, check_smem, check_vector_rows, kv_splits, ptr, raise_on_error,
-    resolve_kernel, stream_of,
+    DTYPE_CODES, check_operands, check_smem, check_vector_rows, kv_splits, ptr, ptr_or_null,
+    raise_on_error, resolve_kernel, stream_of,
 )
 
 ROWS_PER_CHUNK = 64   # query rows (tokens x heads) per chunk of the f32 kernel, its maximum
@@ -85,6 +86,41 @@ def mma_plan(lib, device, B: int, S: int, S_kv: int, G: int, h: int, Dk: int,
     return rows, kv_splits(device, B * G * -(-S_kv // KEYS_PER_TILE), -(-S * h // rows))
 
 
+def kv_pass(name: str, lib, code: int, Q, K, V, dO, lse, delta, *, mode: str, w: int, l: int,
+            d: int, scale: float, slots: bool) -> tuple:
+    """Launches the kv-major kernel on checked operands (dtype code `code`):
+    bf16 the tensor-core kernel, f32 the FMA kernel. With `slots` it writes
+    each chunk's dQ partial to its slot and returns (dQ, dK, dV) (the
+    one-pass design); without, it forms (None, dK, dV) alone (the two-pass
+    design's dK/dV pass: no slot workspace)."""
+    B, S, G, h, Dk = Q.shape
+    S_kv, Dv = K.shape[2], V.shape[3]
+    mma = code == DTYPE_CODES[torch.bfloat16]
+    if mma:
+        check_smem(name, lib.nsa_banded_bwd_1p_mma_smem_bytes(Dk, Dv))
+        _, nsplit = mma_plan(lib, Q.device, B, S, S_kv, G, h, Dk, Dv)
+    else:
+        check_smem(name, lib.nsa_banded_bwd_1p_smem_bytes(Dk, Dv))
+        tq = max(1, ROWS_PER_CHUNK // h)
+        nsplit = kv_splits(Q.device, B * G * -(-S_kv // KEYS_PER_TILE), -(-S // tq))
+    dQ = torch.empty_like(Q) if slots else None
+    dK = torch.empty_like(K)
+    dV = torch.empty_like(V)
+    ws = (torch.empty(lib.nsa_banded_bwd_1p_slots(MODES[mode], w, S_kv) * Q.numel(),
+                      dtype=torch.float32, device=Q.device) if slots else None)
+    part = torch.empty(nsplit * B * G * S_kv * (Dk + Dv), dtype=torch.float32, device=Q.device)
+    args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr_or_null(dQ), ptr(dK),
+            ptr(dV), ptr(part), ptr_or_null(ws), B, S, S_kv, G, h, Dk, Dv, MODES[mode], w, l, d,
+            float(scale))
+    with torch.cuda.device(Q.device):
+        if mma:
+            err = lib.nsa_banded_bwd_1p_mma(*args, nsplit, stream_of(Q))
+        else:
+            err = lib.nsa_banded_bwd_1p(*args, tq, nsplit, stream_of(Q))
+    raise_on_error(lib, name, err)
+    return dQ, dK, dV
+
+
 def banded_bwd_1p(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
                   scale: float):
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
@@ -96,35 +132,12 @@ def banded_bwd_1p(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0,
         return banded_bwd_plain(Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d, scale=scale)
     code = check_banded_operands("banded_bwd_1p", Q, K, V, dO, lse, delta, mode=mode, w=w, l=l,
                                  d=d)
-    B, S, G, h, Dk = Q.shape
-    S_kv, Dv = K.shape[2], V.shape[3]
-    lib = library()
-    mma = code == DTYPE_CODES[torch.bfloat16]
-    if mma:
-        check_smem("banded_bwd_1p", lib.nsa_banded_bwd_1p_mma_smem_bytes(Dk, Dv))
-        _, nsplit = mma_plan(lib, Q.device, B, S, S_kv, G, h, Dk, Dv)
-    else:
-        check_smem("banded_bwd_1p", lib.nsa_banded_bwd_1p_smem_bytes(Dk, Dv))
-        tq = max(1, ROWS_PER_CHUNK // h)
-        nsplit = kv_splits(Q.device, B * G * -(-S_kv // KEYS_PER_TILE), -(-S // tq))
-    n_slots = lib.nsa_banded_bwd_1p_slots(MODES[mode], w, S_kv)
-    dQ = torch.empty_like(Q)
-    dK = torch.empty_like(K)
-    dV = torch.empty_like(V)
-    ws = torch.empty(n_slots * Q.numel(), dtype=torch.float32, device=Q.device)
-    part = torch.empty(nsplit * B * G * S_kv * (Dk + Dv), dtype=torch.float32, device=Q.device)
-    args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr(dQ), ptr(dK), ptr(dV),
-            ptr(part), ptr(ws), B, S, S_kv, G, h, Dk, Dv, MODES[mode], w, l, d, float(scale))
-    with torch.cuda.device(Q.device):
-        if mma:
-            err = lib.nsa_banded_bwd_1p_mma(*args, nsplit, stream_of(Q))
-        else:
-            err = lib.nsa_banded_bwd_1p(*args, tq, nsplit, stream_of(Q))
-    raise_on_error(lib, "banded_bwd_1p", err)
+    grads = kv_pass("banded_bwd_1p", library(), code, Q, K, V, dO, lse, delta, mode=mode, w=w,
+                    l=l, d=d, scale=scale, slots=True)
     banded_bwd_1p.launches += 1
     if mode == "cmp":
         banded_bwd_1p.cmp_launches += 1
-    return dQ, dK, dV
+    return grads
 
 
 banded_bwd_1p.launches = 0

@@ -27,8 +27,10 @@ CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("select_cmp.cu", "sel_attn.cu", "sel_attn_fwd_mma.cu", "banded_fwd_mma.cu",
            "banded_bwd.cu", "sel_attn_bwd.cu", "banded_attn.cu", "select_blocks.cu",
-           "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu", "win_bwd_diag.cu", "banded_bwd_mma.cu")
-HEADERS = ("common.cuh", "bwd_common.cuh", "banded_common.cuh", "sel_bwd.cuh", "tc.cuh")
+           "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu", "win_bwd_diag.cu", "banded_bwd_mma.cu",
+           "select_blocks_mma.cu")
+HEADERS = ("common.cuh", "bwd_common.cuh", "banded_common.cuh", "sel_bwd.cuh", "tc.cuh",
+           "select_blocks.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -48,14 +50,16 @@ SIGNATURES = {
     "nsa_sel_attn_union_smem_bytes": ([I] * 6, LL),
     "nsa_banded_fwd_mma": ([P] * 5 + [I] * 12 + [F, I, P], I),
     "nsa_banded_fwd_mma_smem_bytes": ([I] * 3, LL),
-    "nsa_banded_bwd": ([I] + [P] * 10 + [I] * 11 + [F, I, I, P], I),
+    "nsa_banded_bwd": ([P] * 7 + [I] * 11 + [F, I, P], I),
     "nsa_banded_bwd_smem_bytes": ([I] * 2, LL),
     "nsa_sel_attn_bwd": ([I] + [P] * 19 + [I] * 16 + [F, P], I),
     "nsa_sel_attn_bwd_smem_bytes": ([I] * 9, LL),
     "nsa_banded_attn": ([P] * 5 + [I] * 12 + [F, I, P], I),
     "nsa_banded_attn_smem_bytes": ([I] * 4, LL),
-    "nsa_select_blocks": ([I, P, P, P] + [I] * 14 + [F, I, P], I),
+    "nsa_select_blocks": ([P] * 3 + [I] * 14 + [F, I, P], I),
     "nsa_select_blocks_smem_bytes": ([I] * 4, LL),
+    "nsa_select_blocks_mma": ([P] * 3 + [I] * 14 + [F, I, I, P], I),
+    "nsa_select_blocks_mma_smem_bytes": ([I] * 4, LL),
     "nsa_banded_bwd_1p": ([P] * 11 + [I] * 11 + [F, I, I, P], I),
     "nsa_banded_bwd_1p_smem_bytes": ([I] * 2, LL),
     "nsa_banded_bwd_1p_slots": ([I] * 3, I),
@@ -71,6 +75,8 @@ SIGNATURES = {
     "nsa_win_bwd_diag_mma": ([P] * 11 + [I] * 8 + [F, I, P], I),
     "nsa_win_bwd_diag_mma_smem_bytes": ([I] * 3, LL),
     "nsa_win_bwd_diag_mma_strip_keys": ([I] * 4, I),
+    "nsa_banded_bwd_dq_mma": ([P] * 7 + [I] * 11 + [F, I, P], I),
+    "nsa_banded_bwd_dq_mma_smem_bytes": ([I] * 3, LL),
 }
 
 _LIB = None

@@ -1,10 +1,14 @@
-"""Selection scorer without the compressed branch (csrc/select_blocks.cu).
+"""Selection scorer without the compressed branch (csrc/select_blocks_mma.cu,
+csrc/select_blocks.cu).
 
 Replaces nsa_vibe_tpu/ops/pallas/scorer.py::nsa_select_pallas. The prefill
 runs it when the fused scorer does not fit (`select_cmp_fits`: more than
 SELECT_CMP_MAX_S_SEL selection blocks, i.e. prompts above 16384 tokens at
-m7c); the needle smoke runs it on one query row. Bound on the H100 and
-design: see the note at the top of the CUDA source.
+m7c); the needle smoke runs it on one query row. Two kernels, chosen by
+dtype alone: bf16 the tensor-core kernel (select_blocks_mma.cu: CTAs of
+MMA_TILE_ROWS rows, logits on mma.sync, p and the Eq. 9 map in f32), f32
+the FMA kernel (select_blocks.cu). Bound on the H100 and design: see the
+notes at the top of the CUDA sources.
 
 Output contract (as select_cmp): sel_idx [B,S,G,max(n_top,n_forced)]
 int32, forced slots first (may repeat), then the picks in descending
@@ -22,13 +26,18 @@ from nsa_vibe_tpu_torch.ops import reference as ref
 from nsa_vibe_tpu_torch.ops.block_index import build_M_csl_on
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    SMEM_LIMIT, check_operands, check_vector_rows, ptr, raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, SMEM_LIMIT, check_operands, check_vector_rows, ptr, raise_on_error,
+    resolve_kernel, stream_of,
 )
 from nsa_vibe_tpu_torch.ops.selection import (
     compute_pcmp_masked, effective_sel_blocks, group_reduce, map_pcmp_to_pslc, topn_forced_first,
 )
 
-ROWS_PER_BLOCK = 64   # query rows (tokens x heads) one block holds at most
+ROWS_PER_BLOCK = 64   # query rows (tokens x heads) one block of the f32 kernel holds at most
+# rows (tokens x heads) per CTA of the bf16 tensor-core kernel: 64 or 128; three
+# CTAs of 64 share an SM (PERF.md)
+MMA_TILE_ROWS = 64
+MAX_D = 128           # head width the tensor-core kernel's tiles cover
 
 
 def selection_map(S_cmp: int, S_sel: int, l: int, d: int, l_sel: int, device=None):
@@ -56,11 +65,31 @@ def select_blocks_plain(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l
     return (sel, p_grp) if return_scores else sel
 
 
+def tile_plan(lib, dtype, h: int, Dk: int, S_sel: int) -> int:
+    """Tokens per CTA of a launch: bf16 (the tensor-core kernel) from
+    MMA_TILE_ROWS // h, f32 from ROWS_PER_BLOCK // h, shrunk until the
+    [tokens, S_sel] f32 group scores fit in shared memory. Raises when one
+    token does not fit."""
+    mma = dtype == torch.bfloat16
+
+    def need(tq):
+        return (lib.nsa_select_blocks_mma_smem_bytes(tq, h, Dk, S_sel) if mma
+                else lib.nsa_select_blocks_smem_bytes(tq, h, Dk, S_sel))
+
+    for tq in range((MMA_TILE_ROWS if mma else ROWS_PER_BLOCK) // h, 0, -1):
+        if need(tq) <= SMEM_LIMIT:
+            return tq
+    raise ValueError(f"select_blocks: S_sel={S_sel} selection blocks exceed the kernel's limit: "
+                     f"one token's scores need {need(1)} bytes of shared memory, more than the "
+                     f"{SMEM_LIMIT} an H100 block can use")
+
+
 def select_blocks(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: int,
                   n_top: int, force_init: bool = True, force_local: int = 2,
                   pos_offset: int = 0):
     """Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk] -> sel_idx [B,S,G,n_out] int32.
-    pos_offset is a host int. CPU tensors take the plain version."""
+    pos_offset is a host int. CPU tensors take the plain version. Counts
+    launches in `select_blocks.launches`."""
     if resolve_kernel(Q) == "plain":
         return select_blocks_plain(Q, K_cmp, S_sel=S_sel, scale=scale, l=l, d=d, l_sel=l_sel,
                                    n_top=n_top, force_init=force_init, force_local=force_local,
@@ -75,25 +104,21 @@ def select_blocks(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: 
     if S_cmp == 0:
         raise ValueError("select_blocks: no compressed tokens (S_cmp == 0); the caller "
                          "selects the forced blocks without the scorer")
-    if (S_cmp - 1) * d + l > S_sel * l_sel or pos_offset < 0 or h > ROWS_PER_BLOCK:
-        raise ValueError(f"select_blocks: needs (S_cmp-1)*d + l <= S_sel*l_sel, pos_offset >= 0 "
-                         f"and h <= {ROWS_PER_BLOCK}")
+    if (S_cmp - 1) * d + l > S_sel * l_sel or pos_offset < 0 or h > ROWS_PER_BLOCK \
+            or Dk > MAX_D:
+        raise ValueError(f"select_blocks: needs (S_cmp-1)*d + l <= S_sel*l_sel, pos_offset >= 0, "
+                         f"h <= {ROWS_PER_BLOCK} and Dk <= {MAX_D}")
     lib = library()
-    # the largest tile of tokens whose [TQ, S_sel] score accumulator fits
-    tq = max(1, ROWS_PER_BLOCK // h)
-    while tq > 1 and lib.nsa_select_blocks_smem_bytes(tq, h, Dk, S_sel) > SMEM_LIMIT:
-        tq -= 1
-    need = lib.nsa_select_blocks_smem_bytes(tq, h, Dk, S_sel)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"select_blocks: S_sel={S_sel} selection blocks exceed the kernel's "
-                         f"limit: one token's scores need {need} bytes of shared memory, more "
-                         f"than the {SMEM_LIMIT} an H100 block can use")
+    tq = tile_plan(lib, Q.dtype, h, Dk, S_sel)
     n_out = effective_sel_blocks(n_top, force_init, force_local)
     sel = torch.empty((B, S, G, n_out), dtype=torch.int32, device=Q.device)
+    args = (ptr(Q), ptr(K_cmp), ptr(sel), B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top,
+            int(force_init), force_local, int(pos_offset), float(scale), tq)
     with torch.cuda.device(Q.device):
-        err = lib.nsa_select_blocks(code, ptr(Q), ptr(K_cmp), ptr(sel), B, S, G, h, Dk, S_cmp,
-                                    S_sel, l, d, l_sel, n_top, int(force_init), force_local,
-                                    int(pos_offset), float(scale), tq, stream_of(Q))
+        if code == DTYPE_CODES[torch.bfloat16]:
+            err = lib.nsa_select_blocks_mma(*args, MMA_TILE_ROWS, stream_of(Q))
+        else:
+            err = lib.nsa_select_blocks(*args, stream_of(Q))
     raise_on_error(lib, "select_blocks", err)
     select_blocks.launches += 1
     return sel

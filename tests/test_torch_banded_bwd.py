@@ -1,20 +1,23 @@
 """The banded backward's bound and decompositions vs the JAX package (CPU).
 
 The bf16 banded backward (csrc/banded_bwd_mma.cu: the q-major diagonal
-window kernel behind win_bwd_diag, and the kv-major one-pass kernel behind
-banded_bwd_1p, window and compressed prefix) rounds P and dS to bf16
-before their products, as the TPU kernels do (flash_bwd.py:345, :350;
-flash_diag.py:337, :341). It is held to the plain version's unrounded f32
-gradients within one bf16 ulp, plus F32_TOL = 5e-5 of each gradient's max
-|value|, plus 4 * 2^-9 times the root sum of squares of each element's
-terms (`banded_bwd_rss`), as chip_smoke.py::allowed_tc_err holds it on the
-card. Here, with numpy-seeded data:
+window kernel behind win_bwd_diag, the kv-major one-pass kernel behind
+banded_bwd_1p, window and compressed prefix, and the two-pass banded_bwd:
+the q-major kernel's dQ in either mode, then the kv-major kernel with its
+dQ slots off) rounds P and dS to bf16 before their products, as the TPU
+kernels do (flash_bwd.py:131, :345, :350; flash_diag.py:337, :341). It
+is held to the plain version's unrounded f32 gradients within one bf16
+ulp, plus F32_TOL = 5e-5 of each gradient's max |value|, plus 4 * 2^-9
+times the root sum of squares of each element's terms (`banded_bwd_rss`),
+as chip_smoke.py::allowed_tc_err holds it on the card. Here, with
+numpy-seeded data:
 - banded_bwd_rss against a direct numpy sum, in both modes;
 - that bound against the TPU kernels themselves, in interpret mode on
   bf16 inputs with scale_on_q off (the scale folded into the f32 logits,
   as the port's kernels fold it), fed the port's row statistics:
-  flash_banded_bwd_onepass in both modes and flash_banded_bwd_diag lie
-  within it, and a 1% fault planted in each of dQ, dK, dV does not. The
+  flash_banded_bwd_onepass and flash_banded_bwd (two passes) in both
+  modes and flash_banded_bwd_diag lie within it, and a 1% fault planted in
+  each of dQ, dK, dV does not. The
   diagonal kernel also rounds its dK/dV strips to bf16 (flash_diag.py:338,
   :344; the port keeps them f32), which takes its dK past that bound
   (1.06 of it at the first diagonal case): each strip, a partial sum over
@@ -22,16 +25,20 @@ card. Here, with numpy-seeded data:
   the bound plus half a bf16 ulp of each of the element's strips, formed
   from the plain terms (`_strip_term`), which holds, and still fails the
   planted faults;
-- PyTorch walks of both decompositions (key tiles at absolute multiples of
-  64; the diagonal design's q tiles of 64 and 128 rows and their strips
-  summed per key in tile order; the one-pass design's split shares,
-  chunks of band rows and dQ slots, each (slot, row) written once, summed
-  in slot order, split partials in split order; P and dS rounded to bf16)
+- PyTorch walks of the three decompositions (key tiles at absolute
+  multiples of 64; the q-major walk's q tiles of 64 and 128 rows, in
+  window mode with their strips summed per key in tile order (the
+  diagonal design), in either mode dQ alone (the two-pass dQ pass); the
+  kv-major walk's split shares, chunks of band rows and dQ slots, each
+  (slot, row) written once, summed in slot order, split partials in split
+  order, or with the slots off (the two-pass dK/dV pass, which gives the
+  one-pass walk's dK and dV bit for bit); P and dS rounded to bf16)
   rebuild the plain gradients within the bound, with odd h, h = 1, S_kv
-  not a multiple of 64 and w > S. Both walks form P and dS from the same
-  logits, so they differ only in summation order: they agree within two
-  bf16 ulps plus F32_TOL of each gradient's max (chip_smoke.py's
-  allowed_rel_err), the bound the card holds the two kernels to;
+  not a multiple of 64, w > S and compressed rows that see no token. The
+  walks form P and dS from the same logits, so they differ only in
+  summation order: they agree within two bf16 ulps plus F32_TOL of each
+  gradient's max (chip_smoke.py's allowed_rel_err), the bound the card
+  holds the kernels of rows 7, 8 and 11 to each other by;
 - rows of the compressed branch with t < l - 1 get zero dQ.
 
 Tolerances: rss 1e-6 absolute + 1e-5 relative (f64 vs f32 sums).
@@ -49,7 +56,9 @@ from nsa_vibe_tpu.ops.pallas.flash import stats_rows
 from nsa_vibe_tpu.ops.pallas.flash_diag import flash_banded_bwd_diag
 from nsa_vibe_tpu_torch.ops.block_index import num_cmp_blocks
 from nsa_vibe_tpu_torch.ops.cuda.banded_attn import banded_attn_plain
-from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd_plain, banded_bwd_rss, banded_mask
+from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import (
+    banded_bwd, banded_bwd_plain, banded_bwd_rss, banded_mask,
+)
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import banded_bwd_1p, split_shares
 from nsa_vibe_tpu_torch.ops.cuda.win_bwd_diag import win_bwd_diag
 from nsa_vibe_tpu_torch.ops.reference import attention_delta
@@ -153,6 +162,8 @@ def _flat_stats(x, B, S, G, h, fill):
     ("onepass", "win", 90, 1, dict(w=120)),         # h = 1, w > S
     ("diag", "win", 200, 3, dict(w=40)),            # odd h, S_kv = 200
     ("diag", "win", 150, 2, dict(w=200)),           # w > S
+    ("twopass", "win", 200, 3, dict(w=40)),         # odd h; S_kv = 200
+    ("twopass", "cmp", 150, 3, dict(l=8, d=4)),     # odd h; rows t < 7 see no token
 ])
 def test_the_tpu_kernels_bf16_gradients_lie_within_the_backward_bound(kernel, mode, S, h, kw,
                                                                       monkeypatch):
@@ -173,6 +184,10 @@ def test_the_tpu_kernels_bf16_gradients_lie_within_the_backward_bound(kernel, mo
     if kernel == "diag":
         out = flash_banded_bwd_diag(*jargs, jlse, jdelta, w=kw["w"], scale=scale, block_q=64,
                                     interpret=True, scale_on_q=False)
+    elif kernel == "twopass":
+        out = jflash_bwd.flash_banded_bwd(*jargs, jlse, jdelta, mode=mode, **kw, scale=scale,
+                                          block_q=32, block_k=64, interpret=True,
+                                          scale_on_q=False)
     else:
         out = jflash_bwd.flash_banded_bwd_onepass(
             *jargs, jlse, jdelta, mode=mode, **kw, scale=scale, block_q=32, block_k=64,
@@ -235,14 +250,18 @@ def _p_ds(t, z, dp, nl2, dl, sl2, keys, lo, hi):
     return p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
 
 
-def _walk_diag(Q, K, V, dO, lse, delta, *, w, scale, rows):
-    """(dQ, dK, dV) in bf16 as the diagonal kernel forms them: per q tile of
-    rows // h tokens, key tiles of KC keys from floor(lo(t_first) / KC) *
-    KC to hi(t_last); dQ summed over the tiles, each tile's dK / dV over
-    its rows into the q tile's strip (row 0 = key kb0); then each key's
-    strips summed in ascending q-tile order (sum_strips, align KC)."""
+def _walk_q(Q, K, V, dO, lse, delta, *, mode, scale, rows, strips, w=0, l=0, d=1):
+    """(dQ, dK, dV) in bf16 as the q-major kernel forms them (dK and dV
+    None unless `strips`): per q tile of rows // h tokens, key tiles of KC
+    keys from floor(lo(t_first) / KC) * KC to hi(t_last); dQ summed over the
+    tiles. With `strips` (the diagonal design, window mode) each tile's dK /
+    dV go over its rows into the q tile's strip (row 0 = key kb0), then
+    each key's strips are summed in ascending q-tile order (sum_strips,
+    align KC). The CTAs take the q tiles from the last one down in cmp
+    mode; the order changes no sum."""
     B, S, G, h, Dk = Q.shape
     S_kv, Dv = K.shape[2], V.shape[3]
+    kw = dict(w=w, l=l, d=d)
     z, dp, nl2, dl, sl2 = _tiles(Q, K, V, dO, lse, delta, scale)
     Kz = torch.cat([K.float(), torch.zeros(B, G, KC, Dk)], 2)
     q_, do_ = Q.float().permute(0, 2, 1, 3, 4), dO.float().permute(0, 2, 1, 3, 4)   # [B,G,S,h,D]
@@ -251,38 +270,45 @@ def _walk_diag(Q, K, V, dO, lse, delta, *, w, scale, rows):
     SL = KC * min(-(-(KC - 1 + tq - 1 + w) // KC), -(-S_kv // KC))
     strip_k, strip_v = torch.zeros(B, G, nq, SL, Dk), torch.zeros(B, G, nq, SL, Dv)
     dQ = torch.zeros(B, G, S, h, Dk)
-    for qt in range(nq):
+    order = list(range(nq))[::-1] if mode == "cmp" else list(range(nq))
+    assert sorted(order) == list(range(nq))                      # every q tile once
+    for qt in order:
         t = torch.arange(qt * tq, min(S, qt * tq + tq))
-        lo_t, hi_t = _key_range("win", t, S_kv, w=w)
+        lo_t, hi_t = _key_range(mode, t, S_kv, **kw)
         lo, hi = int(lo_t[0]), int(hi_t[-1])
         kb0 = lo // KC * KC
         n_tiles = -(-(hi - kb0) // KC) if hi > lo else 0
-        assert n_tiles * KC <= SL
         for j in range(n_tiles):
             keys = torch.arange(kb0 + j * KC, kb0 + j * KC + KC)
             p, ds = _p_ds(t, z, dp, nl2, dl, sl2, keys, lo_t, hi_t)
             dQ[:, :, t] += torch.einsum("bgthk,bgkd->bgthd", ds, Kz[:, :, keys])
-            strip_v[:, :, qt, j * KC:j * KC + KC] = torch.einsum("bgthk,bgthd->bgkd", p,
-                                                                  do_[:, :, t])
-            strip_k[:, :, qt, j * KC:j * KC + KC] = torch.einsum("bgthk,bgthd->bgkd", ds,
-                                                                  q_[:, :, t])
+            if strips:
+                assert n_tiles * KC <= SL
+                strip_v[:, :, qt, j * KC:j * KC + KC] = torch.einsum("bgthk,bgthd->bgkd", p,
+                                                                      do_[:, :, t])
+                strip_k[:, :, qt, j * KC:j * KC + KC] = torch.einsum("bgthk,bgthd->bgkd", ds,
+                                                                      q_[:, :, t])
+    dQ = (dQ * scale).permute(0, 2, 1, 3, 4).to(torch.bfloat16)
+    if not strips:
+        return dQ, None, None
     dK, dV = torch.zeros(B, G, S_kv, Dk), torch.zeros(B, G, S_kv, Dv)
     for k in range(min(S, S_kv)):
         for qt in range(k // tq, min((k + w - 1) // tq, nq - 1) + 1):
             r = k - max(qt * tq - w + 1, 0) // KC * KC
             dK[:, :, k] += strip_k[:, :, qt, r]
             dV[:, :, k] += strip_v[:, :, qt, r]
-    return ((dQ * scale).permute(0, 2, 1, 3, 4).to(torch.bfloat16), (dK * scale).to(torch.bfloat16),
-            dV.to(torch.bfloat16))
+    return dQ, (dK * scale).to(torch.bfloat16), dV.to(torch.bfloat16)
 
 
-def _walk_1p(Q, K, V, dO, lse, delta, *, mode, scale, rows, nsplit, w=0, l=0, d=1):
-    """(dQ, dK, dV) in bf16 as the one-pass kernel forms them: per key tile
+def _walk_1p(Q, K, V, dO, lse, delta, *, mode, scale, rows, nsplit, slots=True, w=0, l=0, d=1):
+    """(dQ, dK, dV) in bf16 as the kv-major kernel forms them: per key tile
     kt and split share (split_shares), chunks of `rows` band rows (row =
     token * h + head); dK / dV summed over the chunks into the split's
-    partial, the partials in split order; each chunk's dQ = dS K_tile to
-    slot kt - lo(t) // KC (win) or kt (cmp), every (slot, row) a row sees
-    written exactly once, the slots summed in order (sum_slots)."""
+    partial, the partials in split order; with `slots` (the one-pass
+    design) each chunk's dQ = dS K_tile to slot kt - lo(t) // KC (win) or kt
+    (cmp), every (slot, row) a row sees written exactly once, the slots
+    summed in order (sum_slots); without (the two-pass design's dK/dV
+    pass) dQ is None."""
     B, S, G, h, Dk = Q.shape
     S_kv, Dv = K.shape[2], V.shape[3]
     kw = dict(w=w, l=l, d=d)
@@ -311,10 +337,18 @@ def _walk_1p(Q, K, V, dO, lse, delta, *, mode, scale, rows, nsplit, w=0, l=0, d=
                                                             do_[:, :, a])[:, :, live]
                 part_k[s, :, :, keys[live]] += torch.einsum("bgnk,bgnd->bgkd", ds,
                                                             q_[:, :, a])[:, :, live]
+                if not slots:
+                    continue
                 slot = kt - lo // KC if mode == "win" else torch.full_like(lo, kt)
                 dq = torch.einsum("bgnk,bgkd->bgnd", ds, Kz[:, :, keys])
                 ws[slot, :, :, a] = dq.permute(2, 0, 1, 3)
                 writes[slot, a] += 1
+    dK, dV = part_k[0] * scale, part_v[0]
+    for s in range(1, nsplit):
+        dK, dV = dK + part_k[s] * scale, dV + part_v[s]
+    dK, dV = dK.to(torch.bfloat16), dV.to(torch.bfloat16)
+    if not slots:
+        return None, dK, dV
     t = torch.arange(S * h) // h
     lo, hi = _key_range(mode, t, S_kv, **kw)
     count = torch.where(hi > lo, (hi - 1) // KC - lo // KC + 1, torch.zeros_like(lo))
@@ -322,11 +356,8 @@ def _walk_1p(Q, K, V, dO, lse, delta, *, mode, scale, rows, nsplit, w=0, l=0, d=
     dQ = torch.zeros(B, G, S * h, Dk)
     for sl in range(n_slots):
         dQ += ws[sl] * (sl < count)[None, None, :, None]
-    dK, dV = part_k[0] * scale, part_v[0]
-    for s in range(1, nsplit):
-        dK, dV = dK + part_k[s] * scale, dV + part_v[s]
     dQ = (dQ * scale).reshape(B, G, S, h, Dk).permute(0, 2, 1, 3, 4)
-    return dQ.to(torch.bfloat16), dK.to(torch.bfloat16), dV.to(torch.bfloat16)
+    return dQ.to(torch.bfloat16), dK, dV
 
 
 @pytest.mark.parametrize("mode,S,h,D,kw,nsplit", [
@@ -339,30 +370,42 @@ def _walk_1p(Q, K, V, dO, lse, delta, *, mode, scale, rows, nsplit, w=0, l=0, d=
 def test_kernel_walks_rebuild_the_plain_gradients(mode, S, h, D, kw, nsplit):
     Q, K, V, dO, lse, delta = _operands(mode, S, h, D, kw, seed=11)
     scale = D ** -0.5
-    want, rss = banded_bwd_rss(Q, K, V, dO, lse, delta, mode=mode, **kw, scale=scale)
-    walks = {f"1p-{rows}": _walk_1p(Q, K, V, dO, lse, delta, mode=mode, **kw, scale=scale,
-                                    rows=rows, nsplit=nsplit) for rows in (32, 64)}
+    args = (Q, K, V, dO, lse, delta)
+    want, rss = banded_bwd_rss(*args, mode=mode, **kw, scale=scale)
+    walks = {f"1p-{rows}": _walk_1p(*args, mode=mode, **kw, scale=scale, rows=rows,
+                                    nsplit=nsplit) for rows in (32, 64)}
+    # the two-pass design: the q-major dQ, the kv-major dK and dV with the slots off
+    _, dK, dV = _walk_1p(*args, mode=mode, **kw, scale=scale, rows=64, nsplit=nsplit,
+                         slots=False)
+    assert torch.equal(dK, walks["1p-64"][1]) and torch.equal(dV, walks["1p-64"][2])
+    for rows in (64, 128):
+        dQ, _, _ = _walk_q(*args, mode=mode, **kw, scale=scale, rows=rows, strips=False)
+        walks[f"2p-{rows}"] = (dQ, dK, dV)
     if mode == "win":
-        walks.update({f"diag-{rows}": _walk_diag(Q, K, V, dO, lse, delta, w=kw["w"],
-                                                 scale=scale, rows=rows) for rows in (64, 128)})
+        walks.update({f"diag-{rows}": _walk_q(*args, mode="win", **kw, scale=scale, rows=rows,
+                                              strips=True) for rows in (64, 128)})
     for name, got in walks.items():
         for g, w, r in zip(got, want, rss):
             bound = _tc_bound(w, r)
             assert _ratio(g, w, bound) <= 1.0, name
             assert _ratio(g.float() * FAULT, w, bound) > 1.0, name
-    if mode == "win":   # the same P and dS: the designs differ in summation order only
-        for a, b in zip(walks["diag-128"], walks["1p-64"]):
-            assert _ratio(a, b, _rel_bound(b)) <= 1.0
-        # dQ of the diagonal design does not depend on the q tile
-        assert torch.equal(walks["diag-64"][0], walks["diag-128"][0])
+    # the same P and dS: the designs (rows 7, 8 and 11) differ in summation order only
+    for other in ("diag-128", "1p-64") if mode == "win" else ("1p-64",):
+        for a, b in zip(walks["2p-128"], walks[other]):
+            assert _ratio(a, b, _rel_bound(b)) <= 1.0, other
+    # a row's dQ does not depend on the q tile (key tiles at multiples of 64)
+    assert torch.equal(walks["2p-64"][0], walks["2p-128"][0])
+    if mode == "win":   # the diagonal design's dQ is the two-pass design's
+        assert torch.equal(walks["diag-64"][0], walks["2p-128"][0])
     if mode == "cmp":
-        assert not walks["1p-64"][0][:, :kw["l"] - 1].float().any()
+        for name in ("1p-64", "2p-128"):
+            assert not walks[name][0][:, :kw["l"] - 1].float().any()
 
 
 def test_rows_without_a_compressed_token_get_zero_dq():
     """Rows t < l - 1 see no compressed token: dQ = 0 from the plain version
-    (the wrapper on CPU tensors) and from banded_rss; the wrappers take no
-    kernel on the CPU."""
+    (the wrappers on CPU tensors, all three designs) and from banded_rss;
+    the wrappers take no kernel on the CPU."""
     mode, kw, S, h, D = "cmp", dict(l=32, d=16), 100, 2, 8
     Q, K, V, dO, lse, delta = _operands(mode, S, h, D, kw, seed=21)
     assert bool((lse[:, :kw["l"] - 1] == EMPTY_LSE).all())
@@ -370,7 +413,11 @@ def test_rows_without_a_compressed_token_get_zero_dq():
     (wq, _, _), (rq, _, _) = banded_bwd_rss(Q, K, V, dO, lse, delta, mode=mode, **kw, scale=0.3)
     for x in (dQ.float(), wq, rq):
         assert not x[:, :kw["l"] - 1].any() and bool(x[:, kw["l"] - 1:].any())
+    c = banded_bwd(Q, K, V, dO, lse, delta, mode=mode, **kw, scale=0.3)
+    assert all(torch.equal(x, y) for x, y in zip(c, (dQ, dK, dV)))
     a = win_bwd_diag(Q, K, V, dO, lse, delta, w=5, scale=0.3)
     b = banded_bwd_1p(Q, K, V, dO, lse, delta, mode="win", w=5, scale=0.3)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert banded_bwd_1p.launches == 0 and win_bwd_diag.launches == 0
+    c = banded_bwd(Q, K, V, dO, lse, delta, mode="win", w=5, scale=0.3)
+    assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, c))
+    assert banded_bwd_1p.launches == 0 and win_bwd_diag.launches == 0 \
+        and banded_bwd.launches == 0

@@ -25,13 +25,14 @@ to the plain version's unrounded f32 result within one bf16 ulp, plus the
 f32 bound, plus 4 * 2^-9 times the root sum of squares of each element's
 terms (chip_smoke.py::allowed_tc_err). So are the bf16 banded forward
 (win_attn, banded_attn: csrc/banded_fwd_mma.cu on tensor cores) and the
-bf16 one-pass and diagonal banded backward (banded_bwd_1p, win_bwd_diag:
-csrc/banded_bwd_mma.cu on tensor cores, against banded_bwd_rss), also
-against their FMA partner (the two-pass banded_bwd); the diagonal and the
-one-pass window kernel form P and dS with the same instructions and differ
-in summation order only, so they are held to each other by the backward
-bound above (two bf16 ulps plus the f32 bound). The two-pass banded_bwd
-keeps P and dS in f32 in bf16 too and stays on the backward bound.
+bf16 banded backward of every design (banded_bwd_1p, win_bwd_diag and the
+two-pass banded_bwd: csrc/banded_bwd_mma.cu on tensor cores, against
+banded_bwd_rss), also against each other; the three form P and dS with
+the same instructions and differ in summation order only, so they are
+held to each other by the backward bound above (two bf16 ulps plus the f32
+bound). The bf16 select-only scorer (select_blocks: csrc/select_blocks_mma.cu
+on tensor cores) keeps p and its map in f32 and is held as sets, as the
+f32 kernel.
 """
 
 import pytest
@@ -195,16 +196,15 @@ def test_backward_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, 
     for got, want in ((lse_c, plse_c), (lse_s, plse_s), (lse_w, plse_w)):
         assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)
     sargs = (Q, K, V, sel, t, dO, lse_s, attention_delta(dO, Os))
-    banded = lambda g, ref, i: _within_rel(g, ref)  # noqa: E731
+    cargs = (Q, Kc, Vc, dO, lse_c, attention_delta(dO, Oc))
+    wargs = (Q, K, V, dO, lse_w, attention_delta(dO, Ow))
+    cmp_ = dict(mode="cmp", l=l, d=d, scale=scale)
+    win = dict(mode="win", w=w, scale=scale)
     cases = [   # (kernel, plain version, bound)
-        (lambda: bb_mod.banded_bwd(Q, Kc, Vc, dO, lse_c, attention_delta(dO, Oc), mode="cmp",
-                                   l=l, d=d, scale=scale),
-         lambda: bb_mod.banded_bwd_plain(Q, Kc, Vc, dO, lse_c, attention_delta(dO, Oc),
-                                         mode="cmp", l=l, d=d, scale=scale), banded),
-        (lambda: bb_mod.banded_bwd(Q, K, V, dO, lse_w, attention_delta(dO, Ow), mode="win",
-                                   w=w, scale=scale),
-         lambda: bb_mod.banded_bwd_plain(Q, K, V, dO, lse_w, attention_delta(dO, Ow),
-                                         mode="win", w=w, scale=scale), banded),
+        (lambda: bb_mod.banded_bwd(*cargs, **cmp_), lambda: bb_mod.banded_bwd_plain(*cargs, **cmp_),
+         _band_within(cargs, scale, mode="cmp", l=l, d=d)),
+        (lambda: bb_mod.banded_bwd(*wargs, **win), lambda: bb_mod.banded_bwd_plain(*wargs, **win),
+         _band_within(wargs, scale, mode="win", w=w)),
         (lambda: sb_mod.sel_attn_bwd(*sargs, l_sel=l_sel, scale=scale),
          lambda: sb_mod.sel_attn_bwd_plain(*sargs, l_sel=l_sel, scale=scale),
          _sel_within(sargs, l_sel, scale)),
@@ -215,6 +215,8 @@ def test_backward_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, 
             assert g.dtype == p.dtype and g.shape == p.shape
             assert within(g, p, i)
             assert torch.equal(g, a)                               # deterministic
+            if dtype == torch.bfloat16:                # a planted 1% fault fails the bound
+                assert not within(g.float() * 1.01, p, i)
     # rows that see no compressed token get no gradient
     assert not bool(cases[0][0]()[0][:, :l - 1].any())
 
@@ -278,10 +280,13 @@ def test_backward_designs_match_plain_and_each_other_on_gpu(dtype, B, S, G, h, D
             if dtype == torch.bfloat16:                # a planted 1% fault fails the bound
                 assert not within(g.float() * 1.01, p, i)
         outs.append(got)
-    # the diagonal and the one-pass window kernel (the same P and dS in
-    # bf16): two bf16 ulps plus the f32 bound apart
-    for a, b in zip(outs[3], outs[1]):
-        assert _within_rel(a, b)
+    # the diagonal, one-pass and two-pass window kernels, and the one-pass
+    # and two-pass cmp kernels (the same P and dS in bf16): two bf16 ulps
+    # plus the f32 bound apart
+    two_cmp, two_win = cases[0][2](), cases[1][2]()
+    for a, b, c, e, f in zip(outs[3], outs[1], two_win, outs[0], two_cmp):
+        assert _within_rel(a, b) and _within_rel(c, b) and _within_rel(c, a)
+        assert _within_rel(f, e)
     # rows that see no compressed token get no gradient
     assert not bool(cases[0][0]()[0][:, :l - 1].any())
 
@@ -316,6 +321,44 @@ def test_banded_backward_routes_by_dtype(dtype):
         assert any(kernel in n for n in seen) and not any(not_this in n for n in seen), seen
     counts = kernels.launch_counts()
     assert counts["banded_bwd_1p"] == 1 and counts["win_bwd_diag"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_two_pass_backward_and_scorer_route_by_dtype(dtype):
+    """bf16 operands launch the tensor-core kernels (banded_bwd: the q-major
+    dQ kernel, then the kv-major kernel with no dQ slots, so no slot sum;
+    select_blocks: select_blocks_mma_kernel), f32 the FMA kernels (kernel
+    names from torch.profiler); one launch counted per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    S, h, D, l, d, l_sel = 150, 6, 64, 16, 8, 16
+    Q, K, V, dO = _bwd_operands(dtype, dev, 1, S, 2, h, D, S)
+    O, lse = wa_mod.win_attn(Q, K, V, w=64, scale=SCALE, return_lse=True)
+    args = (Q, K, V, dO, lse, attention_delta(dO, O))
+    Kc = K[:, :, :num_cmp_blocks(S, l, d)].contiguous()
+    kernels.reset_launch_counts()
+    names = []
+    for fn in (lambda: bb_mod.banded_bwd(*args, mode="win", w=64, scale=SCALE),
+               lambda: sk_mod.select_blocks(Q, Kc, S_sel=-(-S // l_sel), scale=SCALE, l=l, d=d,
+                                            l_sel=l_sel, n_top=4)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names.append([e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA])
+    mma = (("banded_bwd_dq_mma_kernel", "banded_bwd_1p_mma_kernel"), ("select_blocks_mma_kernel",))
+    fma = (("banded_bwd_dq_kernel", "banded_bwd_1p_kernel"), ("select_blocks_kernel",))
+    want, other = (mma, fma) if dtype == torch.bfloat16 else (fma, mma)
+    for kerns, not_these, seen in zip(want, other, names):
+        for kernel, not_this in zip(kerns, not_these):
+            assert any(kernel in n for n in seen) and not any(not_this in n for n in seen), seen
+    assert not any("sum_slots_kernel" in n for n in names[0]), names[0]
+    counts = kernels.launch_counts()
+    assert counts["banded_bwd"] == 1 and counts["select_blocks"] == 1
+    assert counts["banded_bwd_1p"] == 0
 
 
 @pytest.mark.gpu
@@ -724,24 +767,38 @@ def _sets_equal_but_near_ties(sel, psel, p_grp, tie=1e-5):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,h,D,l,d,l_sel,n_top,pos_offset", [
-    (300, 6, 64, 32, 16, 64, 16, 0),
+    (300, 6, 64, 32, 16, 64, 16, 0),            # S not a multiple of the 21-token tile
     (130, 3, 16, 8, 4, 16, 4, 70),              # rows at positions 70..199, odd h
+    (200, 1, 32, 8, 4, 16, 4, 0),               # h = 1: 128 tokens a tile
     (1, 2, 64, 32, 16, 64, 16, 65535),          # one row, S_sel = 1024 (the needle smoke)
+    (100, 6, 64, 32, 16, 16, 16, 130972),       # S_sel = 8192: the tile shrinks
+    (90, 6, 128, 32, 16, 64, 16, 40),           # D = 128: the wide tiles
 ])
 def test_select_blocks_matches_plain_on_gpu(dtype, S, h, D, l, d, l_sel, n_top, pos_offset):
+    """Sets as the plain version's but for near ties; forced slots in
+    order; two launches give the same bits; the last rows at their own
+    pos_offset give the full call's rows."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(3)
     B, G, n_pos = 2, 2, pos_offset + S
     S_cmp, S_sel = num_cmp_blocks(n_pos, l, d), -(-n_pos // l_sel)
     Q = torch.randn((B, S, G, h, D), generator=gen, device=dev).to(dtype)
     Kc = torch.randn((B, G, S_cmp, D), generator=gen, device=dev).to(dtype)
-    kw = dict(S_sel=S_sel, scale=SCALE, l=l, d=d, l_sel=l_sel, n_top=n_top,
-              pos_offset=pos_offset)
-    sel = sk_mod.select_blocks(Q, Kc, **kw)
-    psel, p_grp = sk_mod.select_blocks_plain(Q, Kc, **kw, return_scores=True)
+    kw = dict(S_sel=S_sel, scale=SCALE, l=l, d=d, l_sel=l_sel, n_top=n_top)
+    sel = sk_mod.select_blocks(Q, Kc, **kw, pos_offset=pos_offset)
+    again = sk_mod.select_blocks(Q, Kc, **kw, pos_offset=pos_offset)
+    psel, p_grp = sk_mod.select_blocks_plain(Q, Kc, **kw, pos_offset=pos_offset,
+                                             return_scores=True)
     assert sel.shape == psel.shape and sel.dtype == torch.int32
     assert torch.equal(sel[..., :3], psel[..., :3])             # forced slots, in order
     assert _sets_equal_but_near_ties(sel, psel, p_grp)
+    assert torch.equal(sel, again)
+    if S_sel == 8192:
+        assert sk_mod.tile_plan(sk_mod.library(), dtype, h, D, S_sel) < (
+            sk_mod.MMA_TILE_ROWS if dtype == torch.bfloat16 else sk_mod.ROWS_PER_BLOCK) // h
+    a = S // 3
+    tail = sk_mod.select_blocks(Q[:, a:].contiguous(), Kc, **kw, pos_offset=pos_offset + a)
+    assert torch.equal(tail, sel[:, a:])
 
 
 @pytest.mark.gpu
