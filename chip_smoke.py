@@ -13,15 +13,18 @@ Phases (any failure exits non-zero):
   (b) kernel checks: each kernel at the m7c-125M serving shapes (B=4,
       S=2048, G=2, h=6, D=64; decode with cache capacity 2080) against its
       plain PyTorch version on the card, in f32 with TF32 off and in bf16,
-      with the bounds of `allowed_err`, except the bf16 prefill selection
-      forward and the bf16 window forward (tensor cores, P rounded to
-      bf16), held by `sel_fwd_check` and `banded_fwd_check` to
-      `allowed_tc_err`, which a 1% fault planted in their output must fail;
-      the selection and window forwards twice for identical bits;
-      select_cmp's sel_idx is compared as sets and may differ only on near
-      ties (NEAR_TIE); then
-      each kernel is timed beside its plain version, one PyTorch library
-      call where one computes the same function, and its bound on the card;
+      with the bounds of `allowed_err`, except the bf16 fused scorer, the
+      bf16 prefill selection forward and the bf16 window forward (tensor
+      cores, P rounded to bf16), held by `select_cmp_check`,
+      `sel_fwd_check` and `banded_fwd_check` to `allowed_tc_err`, which a
+      1% fault planted in their output must fail; the scorer, selection and
+      window forwards twice for identical bits; select_cmp's sel_idx is
+      compared as sets and may differ only on near ties (NEAR_TIE), its
+      forced slots in order, and in bf16 its O and lse must be banded_attn's
+      in cmp mode bit for bit; then each kernel is timed beside its plain
+      version, one PyTorch library call where one computes the same
+      function, and its bound on the card, and the scorer at CTAs of each
+      size of MMA_ROWS;
   (c) serve: m7c-125M in bf16 with random weights from a seed serves 4
       prompts of 2048 tokens and 32 greedy new tokens each through
       `generate`; the kernels' launch counters must show 12 select_cmp,
@@ -31,9 +34,9 @@ Phases (any failure exits non-zero):
       card are compared, in f32, with the plain path (the same functions
       on CPU tensors) on the serve's own inputs; torch.profiler gives the
       device busy time of a prefill and of a decode step, by kernel;
-  (d) train: at the m7c-125M training shapes (B=8, S=2048) the selection
-      forward (`sel_fwd_check`) and the window forward with lse
-      (`banded_fwd_check`), the forward
+  (d) train: at the m7c-125M training shapes (B=8, S=2048) the fused
+      scorer (`select_cmp_check`), the selection forward (`sel_fwd_check`)
+      and the window forward (`banded_fwd_check`), each with lse, the forward
       kernels' row statistics (lse) and the two-pass backward kernels
       (banded_bwd for win and cmp, sel_attn_bwd) against their plain
       versions in f32 and bf16 (bounds of `allowed_rel_err` in f32; the
@@ -56,9 +59,10 @@ Phases (any failure exits non-zero):
       select-only scorer (row 6, S_sel = 1024) on those rows, twice for
       identical bits, and at that t_start; the selection forward
       on select_blocks' sets (its last 4096 rows, PLAIN_ROWS a call) and at
-      the 64k decode cache (`sel_fwd_check`); at 16k, where both
-      routes apply, banded_attn and select_cmp against the plain unrounded
-      compressed branch and select_blocks against select_cmp, and
+      the 64k decode cache (`sel_fwd_check`); at 16k, where both routes
+      apply, banded_attn against the plain unrounded compressed branch,
+      select_cmp's O and lse against banded_attn's bit for bit and
+      select_blocks' sets against select_cmp's, and
       compressed_attention forward + backward with no host sync; m7c-125M
       serves one 65536-token prompt and 32 greedy tokens through
       `generate` on the long route (launch counts per prefill: select_cmp
@@ -159,7 +163,10 @@ from nsa_vibe_tpu_torch.ops.cuda import select_blocks as sk_mod
 from nsa_vibe_tpu_torch.ops.cuda.select_blocks import (
     MMA_TILE_ROWS as SEL_TILE_ROWS, select_blocks, select_blocks_plain,
 )
-from nsa_vibe_tpu_torch.ops.cuda.select_cmp import select_cmp, select_cmp_plain
+from nsa_vibe_tpu_torch.ops.cuda import select_cmp as sc_mod
+from nsa_vibe_tpu_torch.ops.cuda.select_cmp import (
+    MMA_TILE_ROWS as CMP_TILE_ROWS, select_cmp, select_cmp_plain, tile_plan as cmp_tile_plan,
+)
 from nsa_vibe_tpu_torch.ops.cuda.win_attn import win_attn, win_attn_plain
 from nsa_vibe_tpu_torch.ops.cuda import win_bwd_diag as wd_mod
 from nsa_vibe_tpu_torch.ops.cuda.win_bwd_diag import win_bwd_diag
@@ -186,7 +193,8 @@ SLEEP_CYCLES_PER_S = 2e9   # >= the H100's SM clock (1.98 GHz), so a sleep lasts
 B, S, CAP, N_NEW = 4, 2048, 2080, 32
 B_TRAIN, TIMED_STEPS, LOSS_STEPS = 8, 5, 120
 LOSS_DROP = 0.2            # mean of the last 4 logged losses below the first, at least
-PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "sel_attn_union_kernel",  # CUDA symbols
+PORT_KERNELS = ("select_cmp_kernel", "select_cmp_mma_kernel",                    # CUDA symbols
+                "sel_attn_kernel", "sel_attn_union_kernel",
                 "sel_attn_split_kernel", "sel_attn_combine_kernel", "win_fwd_mma_kernel",
                 "cmp_fwd_mma_kernel",
                 "banded_bwd_dq_kernel", "banded_bwd_dq_mma_kernel", "sel_bwd_dq_kernel",
@@ -199,17 +207,17 @@ PORT_KERNELS = ("select_cmp_kernel", "sel_attn_kernel", "sel_attn_union_kernel",
 TENSOR_CORE_KERNELS = ("sel_bwd_kv_mma_kernel", "sel_bwd_dq_union_kernel",
                        "sel_attn_union_kernel", "win_fwd_mma_kernel", "cmp_fwd_mma_kernel",
                        "banded_bwd_1p_mma_kernel", "win_bwd_diag_mma_kernel",
-                       "banded_bwd_dq_mma_kernel", "select_blocks_mma_kernel")
+                       "banded_bwd_dq_mma_kernel", "select_blocks_mma_kernel",
+                       "select_cmp_mma_kernel")
 # kernels whose ptxas report is printed; the forwards, the banded backward and
-# the select-only scorer on tensor cores at D = 64 must have no stack frame
-# and no spills
+# the scorers on tensor cores at D = 64 must have no stack frame and no spills
 PTXAS_REPORTED = ("sel_bwd_", "sel_attn_union_kernel", "sel_attn_split_kernel",
                   "fwd_mma_kernel", "bwd_1p_mma_kernel", "bwd_diag_mma_kernel",
-                  "bwd_dq_mma_kernel", "select_blocks_mma_kernel")
+                  "bwd_dq_mma_kernel", "select_blocks_mma_kernel", "select_cmp_mma_kernel")
 NO_SPILL = ("sel_attn_union_kernelILi64E", "win_fwd_mma_kernelILi64E",   # mangled <64>
             "cmp_fwd_mma_kernelILi64E", "banded_bwd_1p_mma_kernelILi64E",
             "win_bwd_diag_mma_kernelILi64E", "banded_bwd_dq_mma_kernelILi64E",
-            "select_blocks_mma_kernelILi64E")
+            "select_blocks_mma_kernelILi64E", "select_cmp_mma_kernelILi64E")
 # backward-design settings of phase (f) (ops/tuning.py keys), each a train step
 DESIGNS = {
     "onepass": {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 0},
@@ -226,7 +234,7 @@ TC_SIGMAS = 4
 FAULT = 1.01               # a planted 1% error in one bf16 gradient must fail that bound
 Q_TILE_TOKENS = (1, 2, 5, 10)   # q tiles of the union dQ and forward kernels timed at h = 6
 DIAG_TILE_ROWS = (64, 128, 192)  # q tiles (rows) of the bf16 diagonal window backward timed
-MMA_ROWS = (64, 128)        # q tiles (rows) of the bf16 two-pass dQ kernel and scorer timed
+MMA_ROWS = (64, 128)        # q tiles (rows) of the bf16 two-pass dQ kernel and scorers timed
 PLAIN_ROWS = 1024          # query rows per call of the selection forward's plain version at 64k
 LOSS_TOL = 5e-3   # train-step loss, any design vs the default keys, absolute (loss ~5.6)
 # the train step's first gradient, any design vs the default keys, per leaf:
@@ -388,7 +396,7 @@ def kernel_inputs(dtype, dev, gen):
     p_dec = torch.rand((B, 1, G, dmeta.S_sel), generator=gen, device=dev)
     return dict(
         cfg=cfg, scale=1.0 / float(np.sqrt(D)),
-        Q=r(B, S, G, h, D), K_cmp=r(B, G, meta.S_cmp, D), V_cmp=r(B, G, meta.S_cmp, D),
+        Q=r(B, S, G, h, D), Kc=r(B, G, meta.S_cmp, D), Vc=r(B, G, meta.S_cmp, D),
         M=torch.from_numpy(meta.M_csl).to(dev),
         K=r(B, G, S, D), V=r(B, G, S, D), Kw=r(B, G, S, D), Vw=r(B, G, S, D),
         t_pre=torch.arange(S, device=dev),
@@ -674,6 +682,58 @@ def sel_fwd_tiles(label: str, q, k, v, s, tp, iters: int) -> None:
     torch.cuda.empty_cache()
 
 
+def select_cmp_check(name, x, *, lse: bool) -> float:
+    """select_cmp on x's Q, K_cmp (Kc), V_cmp (Vc) and M at the m7c
+    settings: its sets against select_cmp_plain's, differing only on near
+    ties (NEAR_TIE), with the forced slots in order, the same sets from two
+    launches; O (and lse) by fwd_check (two launches identical), f32 (the
+    FMA kernel) against select_cmp_plain within allowed_err, bf16 (the
+    tensor-core kernel, rounding P before P V as scorer.py:388 does)
+    against the plain version's unrounded f32 O within allowed_tc_err
+    (banded_attn_rss in cmp mode), where a FAULT planted in O must fail; in
+    bf16 O and lse are banded_attn's in cmp mode bit for bit (the same
+    compressed-prefix walk). Returns the max absolute error of O."""
+    cfg, sc = x["cfg"], x["scale"]
+    Q, Kc, Vc, M = x["Q"], x["Kc"], x["Vc"], x["M"]
+    kw = dict(scale=sc, l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel)
+    sel_k = select_cmp(Q, Kc, Vc, M, **kw)[0]
+    sel_2 = select_cmp(Q, Kc, Vc, M, **kw)[0]
+    sel_p, _, p_grp = select_cmp_plain(Q, Kc, Vc, M, **kw, return_scores=True)
+    torch.cuda.synchronize()
+    n_diff, n_far, spread = near_tie_rows(sel_k, sel_p, p_grp)
+    forced = torch.equal(sel_k[..., :3], sel_p[..., :3])
+    print(f"[check] {name:18s} {str(Q.dtype)[6:]:8s} sel rows differing on near ties: {n_diff} "
+          f"of {sel_k.shape[0] * sel_k.shape[1] * sel_k.shape[2]} (widest spread {spread:.3e}); "
+          f"forced slots in order: {forced}; two launches gave identical sets: "
+          f"{torch.equal(sel_k, sel_2)}")
+    if n_far or not forced or not torch.equal(sel_k, sel_2):
+        fail(f"{name} {Q.dtype}: {n_far} rows differ beyond the near-tie bound, or the forced "
+             f"slots differ, or two launches differ")
+    del sel_k, sel_2, sel_p, p_grp
+
+    def run():
+        out = select_cmp(Q, Kc, Vc, M, **kw, return_lse=lse)
+        return out[1:] if lse else out[1]
+
+    def plain(a, b, with_lse=False):   # every row: the fused scorer has no t_start
+        out = select_cmp_plain(Q, Kc, Vc, M, **kw, return_lse=with_lse)
+        return out[1:] if with_lse else out[1]
+
+    err = fwd_check(name, run, Q.dtype, Q.shape[1], plain,
+                    lambda a, b: banded_attn_rss(Q, Kc, Vc, mode="cmp", l=cfg.l, d=cfg.d,
+                                                 scale=sc),
+                    tc=Q.dtype == torch.bfloat16, lse=lse, rows=None, chunk=None)
+    if Q.dtype == torch.bfloat16:
+        O, L_ = select_cmp(Q, Kc, Vc, M, **kw, return_lse=True)[1:]
+        Ob, Lb = banded_attn(Q, Kc, Vc, mode="cmp", l=cfg.l, d=cfg.d, scale=sc, return_lse=True)
+        torch.cuda.synchronize()
+        same = torch.equal(O, Ob) and torch.equal(L_, Lb)
+        print(f"[check] {name}: O and lse bit-equal to banded_attn (cmp): {same}")
+        if not same:
+            fail(f"{name}: O or lse differ from banded_attn's in cmp mode")
+    return err
+
+
 def phase_kernels(dev) -> dict:
     """Returns per-kernel records: max_abs_err (bf16, the serving dtype) and
     the bf16 inputs for timing."""
@@ -683,16 +743,8 @@ def phase_kernels(dev) -> dict:
         x = kernel_inputs(dtype, dev, gen)
         cfg, sc = x["cfg"], x["scale"]
         kw = dict(scale=sc, l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel)
-        sel_k, O_k = select_cmp(x["Q"], x["K_cmp"], x["V_cmp"], x["M"], **kw)
-        sel_p, O_p, p_grp = select_cmp_plain(x["Q"], x["K_cmp"], x["V_cmp"], x["M"], **kw,
-                                             return_scores=True)
-        torch.cuda.synchronize()
-        n_diff, n_far, _ = near_tie_rows(sel_k, sel_p, p_grp)
-        e1 = check("select_cmp", O_k, O_p,
-                   f"; sel rows differing on near ties: {n_diff} of "
-                   f"{sel_k.shape[0] * sel_k.shape[1] * sel_k.shape[2]}")
-        if n_far:
-            fail(f"select_cmp {dtype}: {n_far} rows differ beyond the near-tie bound")
+        e1 = select_cmp_check("select_cmp", x, lse=False)
+        sel_k = select_cmp(x["Q"], x["Kc"], x["Vc"], x["M"], **kw)[0]
         # prefill selection on the scorer's own output (forced slots repeat)
         pre = (x["Q"], x["K"], x["V"], sel_k, x["t_pre"])
         e2 = sel_fwd_check("sel_attn@prefill", lambda: sel_attn(*pre, l_sel=cfg.l_sel, scale=sc),
@@ -723,26 +775,12 @@ def measure(rec, counts, decode_launches) -> list:
     a library call; computes its bound from this run's inputs."""
     x, sel = rec["inputs"], rec["sel"]
     cfg, sc = x["cfg"], x["scale"]
-    Q, dt = x["Q"], x["Q"].dtype
-    Dk = Dv = cfg.d_k
-    h = cfg.h_per_group
-    kw = dict(scale=sc, l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel)
+    Q = x["Q"]
     out = []
 
-    # select_cmp: per row 2*n_c*(Dk + Dv + S_sel) for its n_c visible compressed tokens
-    S_cmp, S_sel = x["M"].shape
-    ops = (band_pairs(S, S_cmp, "cmp", dict(l=cfg.l, d=cfg.d)) * B * cfg.n_kv_groups * h
-           * 2 * (Dk + Dv + S_sel))
-    sel_out, O_out = select_cmp(Q, x["K_cmp"], x["V_cmp"], x["M"], **kw)
-    bms, by = bound(nbytes(Q, x["K_cmp"], x["V_cmp"], x["M"], sel_out, O_out), ops, dt)
-    out.append(dict(
-        name="select_cmp", source="nsa_vibe_tpu_torch/csrc/select_cmp.cu",
-        replaces="nsa_vibe_tpu/ops/pallas/scorer.py:436",
-        launches=counts["select_cmp"], max_abs_err=rec["select_cmp"],
-        ms=time_ms(lambda: select_cmp(Q, x["K_cmp"], x["V_cmp"], x["M"], **kw), 20, hold=True),
-        plain_ms=time_ms(lambda: select_cmp_plain(Q, x["K_cmp"], x["V_cmp"], x["M"], **kw), 5,
-                         hold=True),
-        bound_ms=bms, bound_by=by, library_ms=None))
+    out.append(select_cmp_row("select_cmp", x, lse=False, launches=counts["select_cmp"],
+                              max_err=rec["select_cmp"]))
+    cmp_tiles("serve", x)
 
     # sel_attn at prefill and decode: per (b,s,g) the visible keys of its block set
     out.append(sel_attn_row("sel_attn@prefill", Q, x["K"], x["V"], sel, x["t_pre"],
@@ -758,6 +796,56 @@ def measure(rec, counts, decode_launches) -> list:
                         max_err=rec["win_attn"], iters=20))
     print_rows(out)
     return out
+
+
+def select_cmp_row(name, x, *, lse: bool, launches: int, max_err: float) -> dict:
+    """The JSON row of the fused scorer on x's bf16 Q, Kc, Vc and M (with
+    lse where `lse`): kernel time (stream held), the plain version's time,
+    no library call (none computes a top-n block selection), and the bound
+    from this run's inputs: Q, K_cmp, V_cmp, M, sel_idx, O (and lse) moved
+    once, 2 (Dk + Dv + S_sel) FLOP per visible (row, compressed token)
+    pair (the products S, P V and p M)."""
+    cfg = x["cfg"]
+    Q, Kc, Vc, M = x["Q"], x["Kc"], x["Vc"], x["M"]
+    Bq, S_q, G, h, Dk = Q.shape
+    S_cmp, S_sel = M.shape
+    kw = dict(scale=x["scale"], l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel,
+              return_lse=lse)
+    ops = (band_pairs(S_q, S_cmp, "cmp", dict(l=cfg.l, d=cfg.d)) * Bq * G * h
+           * 2 * (Dk + Vc.shape[3] + S_sel))
+    bms, by = bound(nbytes(Q, Kc, Vc, M, *select_cmp(Q, Kc, Vc, M, **kw)), ops, Q.dtype)
+    return dict(
+        name=name, source="nsa_vibe_tpu_torch/csrc/select_cmp_mma.cu",
+        replaces="nsa_vibe_tpu/ops/pallas/scorer.py:436", launches=launches,
+        max_abs_err=max_err, ms=time_ms(lambda: select_cmp(Q, Kc, Vc, M, **kw), 20, hold=True),
+        plain_ms=time_ms(lambda: select_cmp_plain(Q, Kc, Vc, M, **kw), 5, hold=True),
+        bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def cmp_tiles(label: str, x) -> None:
+    """The bf16 fused scorer on x's inputs at CTAs of each size of MMA_ROWS
+    (select_cmp.MMA_TILE_ROWS, replaced for this timing only): tokens a CTA,
+    shared memory a CTA, the kernel's time, and whether its outputs have the
+    default CTA's bits."""
+    cfg, Q = x["cfg"], x["Q"]
+    Dk, Dv, h, S_sel = Q.shape[-1], x["Vc"].shape[-1], Q.shape[3], x["M"].shape[1]
+    kw = dict(scale=x["scale"], l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel)
+    args = (Q, x["Kc"], x["Vc"], x["M"])
+    ref = select_cmp(*args, **kw)
+    lib = kbuild.library()
+    for rows in MMA_ROWS:
+        sc_mod.MMA_TILE_ROWS = rows   # the wrapper's CTA, for this timing only
+        try:
+            got = select_cmp(*args, **kw)
+            ms = time_ms(lambda: select_cmp(*args, **kw), 20, hold=True)
+            tq = cmp_tile_plan(lib, h, Dk, Dv, S_sel)
+        finally:
+            sc_mod.MMA_TILE_ROWS = CMP_TILE_ROWS
+        print(f"[sel] select_cmp CTAs of {rows} rows ({tq} tokens, "
+              f"{lib.nsa_select_cmp_mma_smem_bytes(rows, tq, h, Dk, Dv, S_sel)} bytes of shared "
+              f"memory) at the {label} shape: {ms:.4f} ms; sel_idx and O bit-equal to the "
+              f"{CMP_TILE_ROWS}-row CTAs': {all(torch.equal(a, b) for a, b in zip(got, ref))}"
+              f"{' (the default)' if rows == CMP_TILE_ROWS else ''}")
 
 
 # the TPU kernel each banded forward row replaces (PERF.md's table, rows 3 and 5)
@@ -983,6 +1071,7 @@ def train_kernel_inputs(dtype, dev, gen) -> dict:
     kw = dict(scale=x["scale"], l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel)
     x["sel"], x["Oc"], x["lse_c"] = select_cmp(x["Q"], x["Kc"], x["Vc"], x["M"], **kw,
                                                return_lse=True)
+    x["cmp_fwd_err"] = select_cmp_check("select_cmp@train", x, lse=True)
     x["Os"], x["lse_s"] = sel_attn(x["Q"], x["K"], x["V"], x["sel"], x["t"], l_sel=cfg.l_sel,
                                    scale=x["scale"], return_lse=True)
     sargs = (x["Q"], x["K"], x["V"], x["sel"], x["t"])
@@ -996,15 +1085,13 @@ def train_kernel_inputs(dtype, dev, gen) -> dict:
     x["win_fwd_err"] = banded_fwd_check(
         "win_attn@train", lambda: win_attn(*wargs, w=cfg.w, scale=x["scale"], return_lse=True),
         *wargs, mode="win", kw=dict(w=cfg.w), scale=x["scale"], lse=True)
-    plain = {
-        "select_cmp": select_cmp_plain(x["Q"], x["Kc"], x["Vc"], x["M"], **kw,
-                                       return_lse=True)[2],
+    plain = {   # select_cmp's lse: select_cmp_check above
         "sel_attn": sel_attn_plain(x["Q"], x["K"], x["V"], x["sel"], x["t"], l_sel=cfg.l_sel,
                                    scale=x["scale"], return_lse=True)[1],
         "win_attn": win_attn_plain(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=x["scale"],
                                    return_lse=True)[1],
     }
-    for name, key in (("select_cmp", "lse_c"), ("sel_attn", "lse_s"), ("win_attn", "lse_w")):
+    for name, key in (("sel_attn", "lse_s"), ("win_attn", "lse_w")):
         got, want = x[key], plain[name]
         empty = want >= 1e29
         if not torch.equal(got >= 1e29, empty):
@@ -1752,8 +1839,10 @@ def long_decode_inputs(dtype, dev, gen) -> tuple:
 
 def cross_check(dev) -> None:
     """At m7c S_CROSS = 16384 tokens both routes apply: on the same bf16
-    inputs banded_attn (cmp) and select_blocks against select_cmp, then
-    one compressed_attention forward + backward with no host sync."""
+    inputs banded_attn (cmp) against the plain unrounded compressed branch,
+    select_cmp's O and lse against banded_attn's bit for bit and
+    select_blocks' sets against select_cmp's, then one
+    compressed_attention forward + backward with no host sync."""
     x = long_inputs(torch.bfloat16, dev, torch.Generator(device=dev).manual_seed(1357), S_CROSS)
     cfg, sc = x["cfg"], x["scale"]
     M = build_M_csl_on(S_CROSS, cfg.l, cfg.d, cfg.l_sel, dev)
@@ -1764,22 +1853,20 @@ def cross_check(dev) -> None:
     sel_b = select_blocks(x["Q"], x["Kc"], **sel_kw(x))
     _, p_grp = select_blocks_plain(x["Q"], x["Kc"], **sel_kw(x), return_scores=True)
     torch.cuda.synchronize()
-    # banded_attn (tensor cores) rounds P to bf16 before P V and select_cmp
-    # (FMA) keeps it in f32: hold both against the plain version's
-    # unrounded f32 result, not against each other
+    # both round P to bf16 before P V, as the TPU kernels do: banded_attn is
+    # held against the plain version's unrounded f32 result, and select_cmp,
+    # whose pass 1 is the same compressed-prefix walk, to banded_attn's bits
     want, rss = banded_attn_rss(x["Q"], x["Kc"], x["Vc"], mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
     bd = allowed_tc_err(want, rss)
     del rss
     check("cross: banded_attn O", O_b, want, bound=bd)
-    check("cross: select_cmp O", O_f, want, bound=bd)
     del want, bd
-    empty = lse_f >= 1e29
-    lse_err = float(torch.where(empty, torch.zeros_like(lse_f), (lse_b - lse_f).abs()).max())
+    same = torch.equal(O_f, O_b) and torch.equal(lse_f, lse_b)
     n_diff, n_far, spread = near_tie_rows(sel_b, sel_f, p_grp)
-    print(f"[cross] S={S_CROSS}, S_sel={x['S_sel']}: lse max_abs_err={lse_err:.3e} (bound "
-          f"{LSE_TOL:g}), empty rows equal {torch.equal(lse_b >= 1e29, empty)}; select_blocks vs "
-          f"select_cmp sets differing on near ties: {n_diff} (widest spread {spread:.3e})")
-    if not lse_err <= LSE_TOL or not torch.equal(lse_b >= 1e29, empty) or n_far:
+    print(f"[cross] S={S_CROSS}, S_sel={x['S_sel']}: select_cmp O and lse bit-equal to "
+          f"banded_attn (cmp): {same}; select_blocks vs select_cmp sets differing on near ties: "
+          f"{n_diff} (widest spread {spread:.3e})")
+    if not same or n_far:
         fail("the long route disagrees with select_cmp at 16k")
     Q, Kc, Vc = (x[k].detach().requires_grad_(True) for k in ("Q", "Kc", "Vc"))
     dO = torch.randn_like(O_b)
@@ -2012,6 +2099,8 @@ def main() -> int:
     sel_fwd_tiles("train", *sargs, iters=10)
     rows.append(sel_attn_row("sel_attn@train", *sargs, launches=tr["counts"]["sel_attn"],
                              max_err=x["sel_fwd_err"]))
+    rows.append(select_cmp_row("select_cmp@train", x, lse=True,
+                               launches=tr["counts"]["select_cmp"], max_err=x["cmp_fwd_err"]))
     cfg, wargs = x["cfg"], (x["Q"], x["Kw"], x["Vw"])
     rows.append(band_row("win_attn@train", lambda: win_attn(*wargs, w=cfg.w, scale=x["scale"],
                                                             return_lse=True), *wargs,
@@ -2019,7 +2108,7 @@ def main() -> int:
                          launches=tr["counts"]["win_attn"], max_err=x["win_fwd_err"], iters=10))
     band_fwd_tiles("train win (lse)", lambda: win_attn(*wargs, w=cfg.w, scale=x["scale"],
                                                        return_lse=True), 10)
-    print_rows(rows[-2:])
+    print_rows(rows[-3:])
     del x, sargs, wargs
     runs = [tr["counts"]] + phase_designs(dev, tr["losses"], cpu)
     rows += measure_train({**trec, **frec}, runs, TWO_PASS + tuple(PARTNERS))

@@ -48,10 +48,11 @@
 //      adds the chunk's overlapping tokens times M into a [TQ, S_sel] f32
 //      accumulator in shared memory (40 KB at TQ=10, S_sel=1024), so no two
 //      threads write the same element (select_blocks.cuh::chunk_scores);
-// then select_cmp's top-n, one warp per token with shuffle argmax
-// reductions (select_blocks.cuh::top_n). The wrapper shrinks TQ until the
-// accumulator fits and raises when even TQ = 1 does not (S_sel above ~53k
-// at h = 6, Dk = 64, i.e. prompts of ~3.4 M tokens at l_sel = 64).
+// then the top-n, one warp per token with shuffles (a rank per block up to
+// 32 blocks, argmax passes past that; select_blocks.cuh::top_n). The
+// wrapper shrinks TQ until the accumulator fits and raises when even TQ =
+// 1 does not (S_sel above ~53k at h = 6, Dk = 64, i.e. prompts of ~3.4 M
+// tokens at l_sel = 64).
 #include "select_blocks.cuh"
 
 using namespace nsa;

@@ -1,7 +1,8 @@
-// Pieces of the select-only scorer's two kernels (select_blocks.cu, f32 on
-// FMA; select_blocks_mma.cu, bf16 on tensor cores): their parameters, the
-// Eq. 9-10 map of one chunk of probabilities into a q tile's group scores,
-// and the Eq. 11-12 top-n epilogue. Notation: select_blocks.cu.
+// Pieces of the selection scorers' kernels (select_blocks.cu, f32 on FMA;
+// select_blocks_mma.cu and the fused select_cmp_mma.cu, bf16 on tensor
+// cores): their parameters, the Eq. 9-10 map of one chunk of probabilities
+// into a q tile's group scores, and the Eq. 11-12 top-n epilogue.
+// Notation: select_blocks.cu.
 #pragma once
 
 #include "common.cuh"
@@ -21,14 +22,18 @@ struct Params {
 // nt of the q tile and each selection block j the chunk overlaps,
 //   acc[i][j] += sum over tokens c of the chunk within block j of
 //                (sum over heads hh of p[(i*h + hh) * pitch + c - c0]) * M[c, j]
-// with M[c, j] = overlap([c*d, c*d+l), [j*l_sel, (j+1)*l_sel)) / l in closed
-// form. First one thread per (token, c) sums the heads (a token's heads may
+// with M[c, j] read from the map M [S_cmp, S_sel] f32 where one is given
+// (the fused scorer's operand: only the entries of the tokens c that
+// overlap block j are read, the band this loop bounds), else in closed form,
+// overlap([c*d, c*d+l), [j*l_sel, (j+1)*l_sel)) / l (the select-only
+// scorer). First one thread per (token, c) sums the heads (a token's heads may
 // sit in two warps' rows) into the row of head 0, in place; after a barrier
 // one thread per (token, block) adds its tokens, so no two threads write
 // the same element and the sums run in a fixed order. Every thread of the
 // block calls it; p_s holds the head sums afterwards.
 __device__ __forceinline__ void chunk_scores(float* p_s, int pitch, float* acc, const Params& p,
-                                             int nt, int c0, int c1) {
+                                             int nt, int c0, int c1,
+                                             const float* __restrict__ M = nullptr) {
   const int nc = c1 - c0;
   for (int e = threadIdx.x; e < nt * KC; e += blockDim.x) {
     const int i = e / KC, c = e - i * KC;
@@ -53,9 +58,13 @@ __device__ __forceinline__ void chunk_scores(float* p_s, int pitch, float* acc, 
     const float* ph = p_s + (size_t)i * p.h * pitch - c0;
     float a = 0.f;
     for (int c = lo_c; c <= hi_c; ++c) {
-      const int a0 = c * p.d;
-      const int ov = min(a0 + p.l, b1) - max(a0, b0);   // a token inside the block: M = 1
-      a = fmaf(ph[c], ov == p.l ? 1.f : __fdiv_rn((float)ov, (float)p.l), a);
+      if (M != nullptr) {
+        a = fmaf(ph[c], __ldg(M + (size_t)c * p.S_sel + j), a);
+      } else {
+        const int a0 = c * p.d;
+        const int ov = min(a0 + p.l, b1) - max(a0, b0);   // a token inside the block: M = 1
+        a = fmaf(ph[c], ov == p.l ? 1.f : __fdiv_rn((float)ov, (float)p.l), a);
+      }
     }
     acc[i * p.S_sel + j] += a;
   }
@@ -63,16 +72,47 @@ __device__ __forceinline__ void chunk_scores(float* p_s, int pitch, float* acc, 
 
 // Eq. 11-12 per token of the q tile (tokens s0 .. s0+nt-1 of (b, g), at
 // positions t_first + i): the forced slots {0, t//l_sel, t//l_sel - 1}
-// (clamped at 0), then n_top - n_forced argmax passes over `score - 1e-8 *
-// index` among blocks with start <= t that are not forced, -1 when none is
-// left; one warp per token, shuffle reductions, ties to the lowest index.
-// acc [nt][S_sel] is overwritten.
+// (clamped at 0), then the n_top - n_forced blocks of largest `score - 1e-8
+// * index` among blocks with start <= t that are not forced, in descending
+// order (ties to the lowest index), -1 for the slots past the last such
+// block; one warp per token. Up to 32 blocks a lane holds one and counts
+// the blocks ahead of it with 32 shuffles: a block of rank k fills slot k;
+// past 32, n_top - n_forced argmax passes with shuffle reductions. Either
+// way a slot's block is the same. acc [nt][S_sel] is overwritten.
 __device__ __forceinline__ void top_n(float* acc, int* __restrict__ sel, const Params& p, int b,
                                       int g, int s0, int nt) {
   const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5, S_sel = p.S_sel;
   const int n_forced = (p.force_init ? 1 : 0) + p.force_local;
   const int n_out = max(p.n_top, n_forced);
   const int k_rest = p.n_top - n_forced;
+  if (S_sel <= 32) {
+    for (int i = threadIdx.x >> 5; i < nt; i += nwarps) {
+      const int t = p.pos_offset + s0 + i;
+      const int last = t / p.l_sel;
+      int* out = sel + (((size_t)b * p.S + s0 + i) * p.G + g) * n_out;
+      const int c = lane;
+      bool forced = p.force_init && c == 0;
+      for (int f = 0; f < p.force_local; ++f) forced = forced || c == max(last - f, 0);
+      const bool cand = c < S_sel && (long long)c * p.l_sel <= t && !forced;
+      const float v = cand ? __fsub_rn(acc[(size_t)i * S_sel + c], __fmul_rn((float)c, 1e-8f))
+                           : NEG;
+      int rank = 0;   // candidates ahead of this one
+#pragma unroll
+      for (int o = 0; o < 32; ++o) {
+        const float ov = __shfl_sync(FULL, v, o);
+        rank += (ov > v || (ov == v && o < c)) ? 1 : 0;
+      }
+      const int n_cand = __popc(__ballot_sync(FULL, cand));
+      if (lane == 0) {
+        int f = 0;
+        if (p.force_init) out[f++] = 0;
+        for (int k = 0; k < p.force_local; ++k) out[f++] = max(last - k, 0);
+      }
+      if (cand && rank < k_rest) out[n_forced + rank] = c;
+      for (int k = n_cand + lane; k < k_rest; k += 32) out[n_forced + k] = -1;
+    }
+    return;
+  }
   for (int i = threadIdx.x >> 5; i < nt; i += nwarps) {
     const int t = p.pos_offset + s0 + i;
     const int last = t / p.l_sel;

@@ -46,9 +46,10 @@
 //      shared memory (select_blocks.cuh::chunk_scores, as the FMA kernel),
 //      so the map stays exact in f32 and no two threads write the same
 //      element;
-// then the top-n, one warp per token with shuffle argmax reductions
-// (select_blocks.cuh::top_n). No float atomics: two launches give the same
-// bits, and a row gives the same bits under any q tile or pos_offset.
+// then the top-n, one warp per token with shuffles (a rank per block up to
+// 32 blocks, argmax passes past that; select_blocks.cuh::top_n). No float
+// atomics: two launches give the same bits, and a row gives the same bits
+// under any q tile or pos_offset.
 // Occupancy, not the tensor cores, sets the time (PERF.md): the group
 // scores take 40 KB of a 64-row CTA (S_sel = 1024, h = 6), so one K_cmp
 // buffer instead of two lets three CTAs of 64 rows share an SM (12 warps;

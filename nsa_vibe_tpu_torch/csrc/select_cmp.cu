@@ -1,8 +1,11 @@
 // select_cmp: fused NSA selection scorer (Eq. 8-12) and compressed-branch
-// forward, in one pass over the compressed stream.
+// forward, in one pass over the compressed stream, for f32 operands.
 //
-// Replaces: nsa_vibe_tpu/ops/pallas/scorer.py::nsa_select_and_cmp_pallas
-// (kernel _select_cmp_kernel, top-n epilogue _scorer_topn).
+// Replaces, for f32 operands: nsa_vibe_tpu/ops/pallas/scorer.py::
+// nsa_select_and_cmp_pallas (kernel _select_cmp_kernel, top-n epilogue
+// _scorer_topn). bf16 operands (the serving and training dtype) take the
+// tensor-core kernel of select_cmp_mma.cu; f32 keeps this FMA kernel (its
+// 5e-5 gates rule out TF32).
 //
 // What it computes, per query row (token t, head j of group g):
 //   p      = softmax(q · K_cmp^T * scale) over c < num_cmp(t+1)   (Eq. 8)
@@ -19,8 +22,8 @@
 // f32 = m + log(l), EMPTY_LSE for the rows t < l-1 that see no token.
 //
 // What bounds it on the H100: at the m7c serving shape (S=2048, S_cmp=127,
-// S_sel=32, h=6, D=64) the work is ~4 GFLOP for ~25 MB of Q/O traffic, so
-// bytes bound it on paper (~8 us); this FMA design is instead bound by
+// S_sel=32, h=6, D=64) the work is ~4 GFLOP for ~50 MB of f32 Q/O traffic,
+// so bytes bound it on paper (~15 us); this FMA design is instead bound by
 // shared-memory reads feeding f32 FMAs. Design: one block per
 // (b, g, tile of TQ tokens x h heads); K_cmp/V_cmp (16-byte loads, several
 // in flight per thread) and M_csl stream through shared memory in chunks
@@ -28,8 +31,7 @@
 // bound; one warp per row keeps the online softmax (Q·K from float4 reads),
 // and the O and p_slc accumulators live in shared memory so any h (odd
 // included) and S_sel up to MAX_S_SEL fit without padding. The top-n runs
-// one warp per token with shuffle argmax reductions. tensor-core (wgmma)
-// tiles are later work.
+// one warp per token with shuffle argmax reductions.
 #include "common.cuh"
 
 using namespace nsa;
@@ -65,11 +67,11 @@ struct Smem {
   }
 };
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-select_cmp_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, const T* __restrict__ Vc,
-                  const float* __restrict__ Mcsl, int* __restrict__ sel, T* __restrict__ O,
-                  float* __restrict__ lse, Params p) {
+select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
+                  const float* __restrict__ Vc, const float* __restrict__ Mcsl,
+                  int* __restrict__ sel, float* __restrict__ O, float* __restrict__ lse,
+                  Params p) {
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
   int bid = blockIdx.x;
@@ -100,7 +102,8 @@ select_cmp_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, const T* __
     const int i = r / h, j = r - i * h;
     return (((size_t)b * p.S + s0 + i) * p.G + g) * h + j;
   };
-  load_rows_vec<T>(q_s, Dk, [&](int r) -> const T* { return Q + qo_row(r) * Dk; }, Dk, rows);
+  load_rows_vec<float>(q_s, Dk, [&](int r) -> const float* { return Q + qo_row(r) * Dk; }, Dk,
+                       rows);
   for (int idx = tid; idx < rows * Dv; idx += THREADS) acc_o[idx] = 0.f;
   for (int idx = tid; idx < rows * S_sel; idx += THREADS) acc_p[idx] = 0.f;
   for (int idx = tid; idx < rows; idx += THREADS) {
@@ -108,15 +111,15 @@ select_cmp_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, const T* __
     l_s[idx] = 0.f;
   }
 
-  const T* Kbg = Kc + ((size_t)b * p.G + g) * p.S_cmp * Dk;
-  const T* Vbg = Vc + ((size_t)b * p.G + g) * p.S_cmp * Dv;
+  const float* Kbg = Kc + ((size_t)b * p.G + g) * p.S_cmp * Dk;
+  const float* Vbg = Vc + ((size_t)b * p.G + g) * p.S_cmp * Dv;
   // prefix bound of the tile's last token: no row of the tile sees past it
   const int n_vis_tile = min(num_cmp(s0 + nt, p.l, p.d), p.S_cmp);
 
   for (int c0 = 0; c0 < n_vis_tile; c0 += KC) {
     __syncthreads();   // previous chunk consumed, accumulators initialised
-    load_rows_vec<T>(k_s, kp, Kbg, Dk, c0, KC, p.S_cmp);
-    load_rows_vec<T>(v_s, Dv, Vbg, Dv, c0, KC, p.S_cmp);
+    load_rows_vec<float>(k_s, kp, Kbg, Dk, c0, KC, p.S_cmp);
+    load_rows_vec<float>(v_s, Dv, Vbg, Dv, c0, KC, p.S_cmp);
     load_rows(M_s, S_sel, Mcsl, S_sel, c0, KC, p.S_cmp);
     __syncthreads();
     for (int r = warp; r < rows; r += NWARPS) {
@@ -157,7 +160,7 @@ select_cmp_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, const T* __
     const float den = l_s[r];
     const size_t orow = qo_row(r);
     for (int c = lane; c < Dv; c += 32)
-      O[orow * Dv + c] = from_f<T>(den > 0.f ? acc_o[r * Dv + c] / den : 0.f);
+      O[orow * Dv + c] = den > 0.f ? acc_o[r * Dv + c] / den : 0.f;
     for (int c = lane; c < S_sel; c += 32)
       acc_p[r * S_sel + c] = den > 0.f ? acc_p[r * S_sel + c] / den : 0.f;
     if (lse != nullptr && lane == 0) lse[orow] = row_lse(m_s[r], den);
@@ -213,18 +216,15 @@ select_cmp_kernel(const T* __restrict__ Q, const T* __restrict__ Kc, const T* __
   }
 }
 
-template <typename T>
-int launch(const void* Q, const void* Kc, const void* Vc, const float* M, int* sel, void* O,
-           float* lse, int B, const Params& p, cudaStream_t stream) {
+int launch(const float* Q, const float* Kc, const float* Vc, const float* M, int* sel,
+           float* O, float* lse, int B, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(p.TQ, p.h, p.Dk, p.Dv, p.S_sel).total * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(select_cmp_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(select_cmp_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long nq = (p.S + p.TQ - 1) / p.TQ;
   const long long grid = (long long)B * p.G * nq;
-  select_cmp_kernel<T><<<(unsigned)grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(Q), static_cast<const T*>(Kc), static_cast<const T*>(Vc), M, sel,
-      static_cast<T*>(O), lse, p);
+  select_cmp_kernel<<<(unsigned)grid, THREADS, smem, stream>>>(Q, Kc, Vc, M, sel, O, lse, p);
   NSA_LAUNCH_CHECK();
 }
 
@@ -240,17 +240,17 @@ long long nsa_select_cmp_smem_bytes(int TQ, int h, int Dk, int Dv, int S_sel) {
   return (long long)(Smem(TQ, h, Dk, Dv, S_sel).total * sizeof(float));
 }
 
-int nsa_select_cmp(int dtype, const void* Q, const void* Kc, const void* Vc, const float* M,
-                   int* sel, void* O, float* lse, int B, int S, int G, int h, int Dk, int Dv,
-                   int S_cmp, int S_sel, int l, int d, int l_sel, int n_top, int force_init,
+// f32 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], V_cmp [B,G,S_cmp,Dv], M
+// [S_cmp,S_sel] -> sel [B,S,G,n_out] int32, O [B,S,G,h,Dv], lse [B,S,G,h]
+// (or null); TQ tokens per block.
+int nsa_select_cmp(const float* Q, const float* Kc, const float* Vc, const float* M, int* sel,
+                   float* O, float* lse, int B, int S, int G, int h, int Dk, int Dv, int S_cmp,
+                   int S_sel, int l, int d, int l_sel, int n_top, int force_init,
                    int force_local, float scale, int TQ, void* stream) {
   if (S_sel > MAX_S_SEL || S_cmp <= 0 || TQ <= 0) return (int)cudaErrorInvalidValue;
   const Params p{S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
                  TQ, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch<float>(Q, Kc, Vc, M, sel, O, lse, B, p, s);
-  if (dtype == DT_BF16) return launch<__nv_bfloat16>(Q, Kc, Vc, M, sel, O, lse, B, p, s);
-  return (int)cudaErrorInvalidValue;
+  return launch(Q, Kc, Vc, M, sel, O, lse, B, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -3,7 +3,8 @@ paths, their wrappers and plain PyTorch versions.
 
 | wrapper         | CUDA source             | replaces (nsa_vibe_tpu/ops/pallas/)                 |
 |-----------------|-------------------------|-----------------------------------------------------|
-| select_cmp      | csrc/select_cmp.cu      | scorer.py::nsa_select_and_cmp_pallas                |
+| select_cmp      | csrc/select_cmp_mma.cu, | scorer.py::nsa_select_and_cmp_pallas                |
+|                 | csrc/select_cmp.cu      |                                                     |
 | sel_attn        | csrc/sel_attn.cu,       | sel_flash.py::selection_flash_pallas (prefill),     |
 |                 | csrc/sel_attn_fwd_mma.cu| selection.py::selection_attention_pallas (decode)   |
 | win_attn        | csrc/banded_fwd_mma.cu, | flash_diag.py::flash_banded_diag                    |

@@ -28,9 +28,9 @@ BUILD_ROOT = PKG / "_build"
 SOURCES = ("select_cmp.cu", "sel_attn.cu", "sel_attn_fwd_mma.cu", "banded_fwd_mma.cu",
            "banded_bwd.cu", "sel_attn_bwd.cu", "banded_attn.cu", "select_blocks.cu",
            "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu", "win_bwd_diag.cu", "banded_bwd_mma.cu",
-           "select_blocks_mma.cu")
+           "select_blocks_mma.cu", "select_cmp_mma.cu")
 HEADERS = ("common.cuh", "bwd_common.cuh", "banded_common.cuh", "sel_bwd.cuh", "tc.cuh",
-           "select_blocks.cuh")
+           "select_blocks.cuh", "banded_fwd_mma.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -40,9 +40,11 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # stream are c_void_p so that 64-bit addresses pass whole
 SIGNATURES = {
     "nsa_error_string": ([I], ctypes.c_char_p),
-    "nsa_select_cmp": ([I, P, P, P, P, P, P, P] + [I] * 14 + [F, I, P], I),
+    "nsa_select_cmp": ([P] * 7 + [I] * 14 + [F, I, P], I),
     "nsa_select_cmp_max_s_sel": ([], I),
     "nsa_select_cmp_smem_bytes": ([I] * 5, LL),
+    "nsa_select_cmp_mma": ([P] * 7 + [I] * 14 + [F, I, I, P], I),
+    "nsa_select_cmp_mma_smem_bytes": ([I] * 6, LL),
     "nsa_sel_attn": ([I] + [P] * 8 + [I] * 9 + [F, P], I),
     "nsa_sel_attn_smem_bytes": ([I] * 5, LL),
     "nsa_sel_attn_ws_floats": ([I] * 2, LL),

@@ -1,7 +1,16 @@
-"""Fused selection scorer + compressed-branch forward (csrc/select_cmp.cu).
+"""Fused selection scorer + compressed-branch forward (csrc/select_cmp_mma.cu,
+csrc/select_cmp.cu).
 
-Replaces nsa_vibe_tpu/ops/pallas/scorer.py::nsa_select_and_cmp_pallas.
-Bound on the H100 and design: see the note at the top of the CUDA source.
+Replaces nsa_vibe_tpu/ops/pallas/scorer.py::nsa_select_and_cmp_pallas. Two
+kernels, chosen by dtype alone:
+- bf16: the tensor-core kernel (select_cmp_mma.cu), CTAs of MMA_TILE_ROWS
+  rows: pass 1 is the bf16 banded forward's compressed-prefix walk, so O
+  and lse have banded_attn(mode="cmp")'s bits (P rounded to bf16 before P V,
+  as the TPU kernel rounds it: its bound is the plain version's unrounded
+  f32 result within a multiple of `banded_attn_rss` in cmp mode, not two
+  ulps); pass 2 forms p in f32 from each row's lse and maps it through M;
+- f32: the FMA kernel (select_cmp.cu).
+Bound on the H100 and design: see the notes at the top of the CUDA sources.
 
 Output contract (as the TPU kernel): sel_idx [B,S,G,max(n_top,n_forced)]
 int32 with the forced slots first (block 0, t//l_sel, t//l_sel-1, clamped
@@ -19,14 +28,19 @@ import torch
 from nsa_vibe_tpu_torch.ops import reference as ref
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    check_operands, check_smem, check_vector_rows, ptr, ptr_or_null, raise_on_error,
-    resolve_kernel, stream_of,
+    DTYPE_CODES, SMEM_LIMIT, check_operands, check_smem, check_vector_rows, ptr, ptr_or_null,
+    raise_on_error, resolve_kernel, stream_of,
 )
 from nsa_vibe_tpu_torch.ops.selection import (
     compute_pcmp_masked, effective_sel_blocks, group_reduce, map_pcmp_to_pslc, topn_forced_first,
 )
 
-ROWS_PER_BLOCK = 64   # query rows (tokens x heads) one block aims to hold
+ROWS_PER_BLOCK = 64   # query rows (tokens x heads) one block of the f32 kernel aims to hold
+# rows (tokens x heads) per CTA of the bf16 tensor-core kernel: 64 or 128 (PERF.md)
+MMA_TILE_ROWS = 128
+MAX_D = 128           # head width the tensor-core kernel's tiles cover
+# shared memory of one CTA when two share an H100 SM (228 KB, 1 KB reserved per CTA)
+TWO_CTA_SMEM = 115712
 # width of the kernel's p_slc accumulator (csrc/select_cmp.cu MAX_S_SEL);
 # the wrapper checks the two agree when it launches
 SELECT_CMP_MAX_S_SEL = 256
@@ -59,11 +73,32 @@ def select_cmp_plain(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel:
     return out + (p_grp,) if return_scores else out
 
 
+def tile_plan(lib, h: int, Dk: int, Dv: int, S_sel: int) -> int:
+    """Tokens per CTA of the bf16 kernel: MMA_TILE_ROWS // h, shrunk until
+    two CTAs share an SM (TWO_CTA_SMEM; at head widths past 64 one CTA an
+    SM, SMEM_LIMIT), which only the [tokens, S_sel] f32 group scores of
+    wide selections at small h need. Raises when one token does not fit."""
+    budget = TWO_CTA_SMEM if max(Dk, Dv) <= 64 else SMEM_LIMIT
+
+    def need(tq):
+        return lib.nsa_select_cmp_mma_smem_bytes(MMA_TILE_ROWS, tq, h, Dk, Dv, S_sel)
+
+    for tq in range(MMA_TILE_ROWS // h, 0, -1):
+        if need(tq) <= budget:
+            return tq
+    raise ValueError(f"select_cmp: one token's tile needs {need(1)} bytes of shared memory, "
+                     f"more than the {budget} a CTA may use")
+
+
 def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, n_top: int,
                force_init: bool = True, force_local: int = 2, return_lse: bool = False):
     """Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], V_cmp [B,G,S_cmp,Dv], M [S_cmp,S_sel]
     f32 -> (sel_idx [B,S,G,n_out] int32, O_cmp [B,S,G,h,Dv][, lse [B,S,G,h]]).
-    Query row s is at position s. CPU tensors take the plain version."""
+    Query row s is at position s. CPU tensors take the plain version. M is
+    the Eq. 9 map of ops/block_index.py: the kernels read, for each
+    compressed token c, only the entries of the selection blocks its span
+    [c*d, c*d + l) overlaps; the other entries, zero in that map, are not
+    read."""
     if resolve_kernel(Q) == "plain":
         return select_cmp_plain(Q, K_cmp, V_cmp, M, scale=scale, l=l, d=d, l_sel=l_sel,
                                 n_top=n_top, force_init=force_init,
@@ -91,18 +126,26 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
         raise ValueError(f"select_cmp: h={h}, S_sel={S_sel} is past the kernel's limits "
                          f"(h <= {ROWS_PER_BLOCK}, S_sel <= {SELECT_CMP_MAX_S_SEL}); "
                          f"ops.cuda.select_blocks takes wider selections")
-    tq = max(1, ROWS_PER_BLOCK // h)
-    check_smem("select_cmp", lib.nsa_select_cmp_smem_bytes(tq, h, Dk, Dv, S_sel))
+    mma = code == DTYPE_CODES[torch.bfloat16]
+    if mma and max(Dk, Dv) > MAX_D:
+        raise ValueError(f"select_cmp: the bf16 kernel takes Dk, Dv <= {MAX_D}, got Dk={Dk}, "
+                         f"Dv={Dv}")
     n_out = effective_sel_blocks(n_top, force_init, force_local)
     sel = torch.empty((B, S, G, n_out), dtype=torch.int32, device=Q.device)
     O = torch.empty((B, S, G, h, Dv), dtype=Q.dtype, device=Q.device)
     lse = (torch.empty((B, S, G, h), dtype=torch.float32, device=Q.device)
            if return_lse else None)
+    args = (ptr(Q), ptr(K_cmp), ptr(V_cmp), ptr(M), ptr(sel), ptr(O), ptr_or_null(lse), B, S, G,
+            h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top, int(force_init), force_local,
+            float(scale))
     with torch.cuda.device(Q.device):
-        err = lib.nsa_select_cmp(code, ptr(Q), ptr(K_cmp), ptr(V_cmp), ptr(M), ptr(sel), ptr(O),
-                                 ptr_or_null(lse), B, S, G, h, Dk, Dv, S_cmp, S_sel, l, d,
-                                 l_sel, n_top, int(force_init), force_local, float(scale), tq,
-                                 stream_of(Q))
+        if mma:
+            tq = tile_plan(lib, h, Dk, Dv, S_sel)
+            err = lib.nsa_select_cmp_mma(*args, tq, MMA_TILE_ROWS, stream_of(Q))
+        else:
+            tq = max(1, ROWS_PER_BLOCK // h)
+            check_smem("select_cmp", lib.nsa_select_cmp_smem_bytes(tq, h, Dk, Dv, S_sel))
+            err = lib.nsa_select_cmp(*args, tq, stream_of(Q))
     raise_on_error(lib, "select_cmp", err)
     select_cmp.launches += 1
     return (sel, O, lse) if return_lse else (sel, O)

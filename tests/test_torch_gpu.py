@@ -27,7 +27,10 @@ terms (chip_smoke.py::allowed_tc_err). So are the bf16 banded forward
 (win_attn, banded_attn: csrc/banded_fwd_mma.cu on tensor cores) and the
 bf16 banded backward of every design (banded_bwd_1p, win_bwd_diag and the
 two-pass banded_bwd: csrc/banded_bwd_mma.cu on tensor cores, against
-banded_bwd_rss), also against each other; the three form P and dS with
+banded_bwd_rss), also against each other, and the bf16 fused scorer's O
+(select_cmp: csrc/select_cmp_mma.cu, whose pass 1 is the banded forward's
+compressed-prefix walk, so its O and lse also equal banded_attn's in cmp
+mode bit for bit); the three form P and dS with
 the same instructions and differ in summation order only, so they are
 held to each other by the backward bound above (two bf16 ulps plus the f32
 bound). The bf16 select-only scorer (select_blocks: csrc/select_blocks_mma.cu
@@ -47,7 +50,7 @@ from nsa_vibe_tpu_torch.models.tinylm import (
 from nsa_vibe_tpu_torch.ops import cuda as kernels
 from nsa_vibe_tpu_torch.ops import tuning
 from nsa_vibe_tpu_torch.ops.attention import compressed_attention, fused_select_cmp
-from nsa_vibe_tpu_torch.ops.block_index import build_M_csl, num_cmp_blocks
+from nsa_vibe_tpu_torch.ops.block_index import build_M_csl, build_M_csl_on, num_cmp_blocks
 from nsa_vibe_tpu_torch.ops.cuda import banded_attn as ba_mod
 from nsa_vibe_tpu_torch.ops.cuda import banded_bwd as bb_mod
 from nsa_vibe_tpu_torch.ops.cuda import banded_bwd_1p as b1_mod
@@ -126,10 +129,10 @@ def _sel_fwd_within(got, Q, K, V, sel, t, l_sel, scale):
 
 
 def _band_fwd_within(got, Q, K, V, *, mode, scale, t_start=0, **kw):
-    """The banded forward's output (win_attn, banded_attn) within its
-    bound: f32 _within_bound of the plain version; bf16 (the tensor-core
-    kernel, P rounded to bf16) _within_tc of the plain version's unrounded
-    f32 result."""
+    """The banded forward's output (win_attn, banded_attn, and select_cmp's
+    O in cmp mode) within its bound: f32 _within_bound of the plain
+    version; bf16 (the tensor-core kernel, P rounded to bf16) _within_tc of
+    the plain version's unrounded f32 result."""
     if Q.dtype == torch.float32:
         return _within_bound(got, ba_mod.banded_attn_plain(Q, K, V, mode=mode, **kw, scale=scale,
                                                            t_start=t_start))
@@ -328,8 +331,9 @@ def test_banded_backward_routes_by_dtype(dtype):
 def test_two_pass_backward_and_scorer_route_by_dtype(dtype):
     """bf16 operands launch the tensor-core kernels (banded_bwd: the q-major
     dQ kernel, then the kv-major kernel with no dQ slots, so no slot sum;
-    select_blocks: select_blocks_mma_kernel), f32 the FMA kernels (kernel
-    names from torch.profiler); one launch counted per call."""
+    select_blocks: select_blocks_mma_kernel; select_cmp:
+    select_cmp_mma_kernel), f32 the FMA kernels (kernel names from
+    torch.profiler); one launch counted per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -341,16 +345,21 @@ def test_two_pass_backward_and_scorer_route_by_dtype(dtype):
     Kc = K[:, :, :num_cmp_blocks(S, l, d)].contiguous()
     kernels.reset_launch_counts()
     names = []
+    M = build_M_csl_on(S, l, d, l_sel, dev)
     for fn in (lambda: bb_mod.banded_bwd(*args, mode="win", w=64, scale=SCALE),
                lambda: sk_mod.select_blocks(Q, Kc, S_sel=-(-S // l_sel), scale=SCALE, l=l, d=d,
-                                            l_sel=l_sel, n_top=4)):
+                                            l_sel=l_sel, n_top=4),
+               lambda: sc_mod.select_cmp(Q, Kc, V[:, :, :Kc.shape[2]].contiguous(), M,
+                                         scale=SCALE, l=l, d=d, l_sel=l_sel, n_top=4)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         names.append([e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA])
-    mma = (("banded_bwd_dq_mma_kernel", "banded_bwd_1p_mma_kernel"), ("select_blocks_mma_kernel",))
-    fma = (("banded_bwd_dq_kernel", "banded_bwd_1p_kernel"), ("select_blocks_kernel",))
+    mma = (("banded_bwd_dq_mma_kernel", "banded_bwd_1p_mma_kernel"), ("select_blocks_mma_kernel",),
+           ("select_cmp_mma_kernel",))
+    fma = (("banded_bwd_dq_kernel", "banded_bwd_1p_kernel"), ("select_blocks_kernel",),
+           ("select_cmp_kernel",))
     want, other = (mma, fma) if dtype == torch.bfloat16 else (fma, mma)
     for kerns, not_these, seen in zip(want, other, names):
         for kernel, not_this in zip(kerns, not_these):
@@ -358,7 +367,7 @@ def test_two_pass_backward_and_scorer_route_by_dtype(dtype):
     assert not any("sum_slots_kernel" in n for n in names[0]), names[0]
     counts = kernels.launch_counts()
     assert counts["banded_bwd"] == 1 and counts["select_blocks"] == 1
-    assert counts["banded_bwd_1p"] == 0
+    assert counts["select_cmp"] == 1 and counts["banded_bwd_1p"] == 0
 
 
 @pytest.mark.gpu
@@ -633,7 +642,7 @@ def test_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, n_top, w)
     sel, O = sc_mod.select_cmp(Q, Kc, Vc, M, **kw)
     psel, pO = sc_mod.select_cmp_plain(Q, Kc, Vc, M, **kw)
     assert torch.equal(canonicalize_sel(sel), canonicalize_sel(psel))
-    assert _within_bound(O, pO)
+    assert _band_fwd_within(O, Q, Kc, Vc, mode="cmp", l=l, d=d, scale=SCALE)
 
     K, V = r(B, G, S, D), r(B, G, S, D)
     t = torch.arange(S, device=dev)
@@ -663,6 +672,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         wa_mod.win_attn(Q, K, K, w=8, scale=SCALE)
     with pytest.raises(TypeError, match="dtype"):
         wa_mod.win_attn(Q, K.contiguous().half(), K.contiguous(), w=8, scale=SCALE)
+    # select_cmp: the bf16 kernel's head width, the fused route's selection width
+    kw = dict(scale=SCALE, l=8, d=4, l_sel=16, n_top=4)
+    Qw = torch.randn(1, 40, 1, 2, 136, device=dev).bfloat16()
+    Kw = torch.randn(1, 1, 9, 136, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="Dk, Dv <= 128"):
+        sc_mod.select_cmp(Qw, Kw, Kw, torch.zeros(9, 3, device=dev), **kw)
+    Qn, Kn = Qw[..., :16].contiguous(), Kw[..., :16].contiguous()
+    with pytest.raises(ValueError, match="past the kernel's limits"):
+        sc_mod.select_cmp(Qn, Kn, Kn, torch.zeros(9, 257, device=dev), **kw)
+    with pytest.raises(TypeError, match="float32"):
+        sc_mod.select_cmp(Qn, Kn, Kn, torch.zeros(9, 3, device=dev).bfloat16(), **kw)
 
 
 @pytest.mark.gpu
@@ -820,3 +840,57 @@ def test_small_model_serves_the_same_tokens_on_the_long_route(monkeypatch):
     counts = kernels.launch_counts()
     assert counts == {**dict.fromkeys(counts, 0), "sel_attn": 2 + 2 * 5, "win_attn": 2,
                       "banded_attn": 2, "select_blocks": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,G,h,Dk,Dv,l,d,l_sel,n_top,lse", [
+    (4, 2048, 2, 6, 64, 64, 32, 16, 64, 16, False),   # the m7c serve shape
+    (8, 2048, 2, 6, 64, 64, 32, 16, 64, 16, True),    # the m7c train shape, with lse
+    (2, 200, 2, 1, 32, 32, 16, 8, 16, 8, True),       # h = 1: 128 tokens a CTA
+    (1, 300, 2, 3, 64, 64, 32, 16, 64, 5, True),      # odd h; rows t < 31 see no token
+    (1, 16384, 2, 6, 64, 64, 32, 16, 64, 16, True),   # S_sel = 256, the fused route's limit
+    (1, 1024, 1, 1, 16, 16, 8, 4, 4, 16, False),      # S_sel = 256 at h = 1: the tile shrinks
+    (1, 150, 2, 5, 128, 128, 16, 8, 32, 4, True),     # D = 128
+    (2, 170, 2, 2, 64, 32, 16, 8, 32, 6, True),       # Dk != Dv
+])
+def test_select_cmp_matches_plain_on_gpu(dtype, B, S, G, h, Dk, Dv, l, d, l_sel, n_top, lse):
+    """select_cmp (bf16: the tensor-core kernel; f32: the FMA kernel)
+    against its plain version: O within its bound (bf16: _within_tc of the
+    unrounded f32 O, where a planted 1% fault fails; f32: 5e-5), lse
+    within 1e-4 with the same rows empty, sets as the plain version's but
+    for near ties and the forced slots in order; two launches give the same
+    bits; in bf16 O and lse are banded_attn's in cmp mode bit for bit."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(h + Dk)
+    S_cmp = num_cmp_blocks(S, l, d)
+    Q = torch.randn((B, S, G, h, Dk), generator=gen, device=dev).to(dtype)
+    Kc = torch.randn((B, G, S_cmp, Dk), generator=gen, device=dev).to(dtype)
+    Vc = torch.randn((B, G, S_cmp, Dv), generator=gen, device=dev).to(dtype)
+    M = build_M_csl_on(S, l, d, l_sel, dev)
+    scale = Dk ** -0.5
+    kw = dict(scale=scale, l=l, d=d, l_sel=l_sel, n_top=n_top)
+    kernels.reset_launch_counts()
+    got, again = (sc_mod.select_cmp(Q, Kc, Vc, M, **kw, return_lse=True) for _ in range(2))
+    sel, O = sc_mod.select_cmp(Q, Kc, Vc, M, **kw)
+    assert kernels.launch_counts()["select_cmp"] == 3
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(sel, got[0]) and torch.equal(O, got[1])        # lse or not, same bits
+    psel, pO, plse, p_grp = sc_mod.select_cmp_plain(Q, Kc, Vc, M, **kw, return_lse=True,
+                                                   return_scores=True)
+    assert sel.shape == psel.shape and O.dtype == dtype
+    assert torch.equal(sel[..., :3], psel[..., :3])                   # forced slots, in order
+    assert _sets_equal_but_near_ties(sel, psel, p_grp)
+    empty = plse >= 1e29
+    assert torch.equal(got[2] >= 1e29, empty) and bool(empty[:, :l - 1].all())
+    assert float(torch.where(empty, 0.0, (got[2] - plse).abs()).max()) <= 1e-4
+    assert _band_fwd_within(O, Q, Kc, Vc, mode="cmp", l=l, d=d, scale=scale)
+    assert not bool(O[:, :l - 1].any())
+    if dtype == torch.bfloat16:
+        assert not _band_fwd_within(O.float() * 1.01, Q, Kc, Vc, mode="cmp", l=l, d=d,
+                                    scale=scale)
+        Ob, lseb = ba_mod.banded_attn(Q, Kc, Vc, mode="cmp", l=l, d=d, scale=scale,
+                                      return_lse=True)
+        assert torch.equal(Ob, O) and torch.equal(lseb, got[2])
+    else:
+        assert _within_bound(O, pO)

@@ -1,8 +1,8 @@
 """Rules of the PyTorch port that the code must keep.
 
-* No module of nsa_vibe_tpu_torch/, and not chip_smoke.py, imports JAX or
-  the JAX package (the card machine has no JAX; the port keeps its own
-  copies of what it needs).
+* No module of nsa_vibe_tpu_torch/, and not chip_smoke.py nor the card
+  probe scripts/select_cmp_parts.py, imports JAX or the JAX package (the
+  card machine has no JAX; the port keeps its own copies of what it needs).
 * Entry points default to the card and raise when none is present,
   unless the caller asks for device="cpu".
 """
@@ -29,7 +29,8 @@ SMALL = ModelConfig(vocab_size=16, n_layers=1,
 
 
 def _port_files():
-    return sorted((ROOT / "nsa_vibe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "nsa_vibe_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "select_cmp_parts.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
