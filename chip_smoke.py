@@ -100,6 +100,22 @@ Phases (any failure exits non-zero):
       launch counts, a profiler step by kernel, and the losses of the same
       steps from the same seed, equal to the default keys' within LOSS_TOL.
 
+  (g) ragged serve (run after (c)): m7c-125M in bf16 prefills 4 prompts of
+      RAGGED_LENS tokens alone and admits them (`admit_row`, in place) as
+      rows 0-3 of one ragged batch of capacity CAP; RAGGED_EAGER
+      teacher-forced eager ragged steps against each row's own uniform
+      step (selection sets equal but for near ties, read counters equal,
+      logits within LOGIT_ULPS bf16 ulps); the step captured as a CUDA
+      graph (models/decode_graph.py): RAGGED_REPLAYS replays with no host
+      sync, bit-equal to as many eager ragged steps, traced: 12 split-kernel
+      launches per replay, the count row 4's line takes; at (c)'s
+      shape the eager uniform, eager ragged and replayed step timed, and
+      one traced replay's busy time; `generate_scan`'s greedy tokens equal
+      `generate`'s (or differ first at a near tie, within TIE_ULPS);
+      `generate_ragged` on the four prompts; the replayed decode at each
+      B of SWEEP_B and depth of SWEEP_S (random caches at t = S); row 4 at
+      the ragged shape against its plain version and timed.
+
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
 """
@@ -125,12 +141,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from nsa_vibe_tpu_torch import M7C_125M, M7C_125M_TRAIN
 from nsa_vibe_tpu_torch.convert import params_to, params_to_numpy
-from nsa_vibe_tpu_torch.core.cache import cache_from_prefill
+from nsa_vibe_tpu_torch.core.cache import (
+    admit_row, cache_from_prefill, cache_tensors, ragged_cache,
+)
 from nsa_vibe_tpu_torch.core.decode import nsa_decode_step
 from nsa_vibe_tpu_torch.core.nsa import PROJ_KEYS, nsa_prefill
 from nsa_vibe_tpu_torch.models.llama_block import rmsnorm
+from nsa_vibe_tpu_torch.models.decode_graph import DecodeGraph
 from nsa_vibe_tpu_torch.models.tinylm import (
-    generate, init_model_params, model_decode_step, model_prefill_with_caches,
+    generate, generate_ragged, generate_scan, init_model_caches, init_model_params,
+    model_decode_step, model_decode_step_ragged, model_prefill_with_caches,
 )
 from nsa_vibe_tpu_torch.ops import cuda as kernels
 from nsa_vibe_tpu_torch.ops import attention, tuning
@@ -179,6 +199,7 @@ from nsa_vibe_tpu_torch.train.train_step import (
     init_train_state, loss_and_grads, make_train_step, param_leaves, tree_from_leaves,
 )
 from nsa_vibe_tpu_torch.train.trainer import train
+from nsa_vibe_tpu_torch.utils.device import torch_dtype
 from nsa_vibe_tpu_torch.utils.needle import NEEDLE_CFG, needle_probe, needle_smoke
 
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
@@ -189,6 +210,7 @@ NEAR_TIE = 1e-5            # sel_idx may differ where p_grp scores are this clos
 LAYER_TOL = 1e-4           # one layer, f32: kernel path vs plain path (|out| ~ 0.1)
 LSE_TOL = 1e-4             # forward row statistics, absolute (|lse| < ~20; f32 sum order)
 GRAD_TOL = 1e-4            # one layer's gradients, f32, relative to each tensor's max |value|
+TRACE_PAD = 0.02           # s of idle profiler window before and after the traced calls
 SLEEP_CYCLES_PER_S = 2e9   # >= the H100's SM clock (1.98 GHz), so a sleep lasts at least as asked
 B, S, CAP, N_NEW = 4, 2048, 2080, 32
 B_TRAIN, TIMED_STEPS, LOSS_STEPS = 8, 5, 120
@@ -250,6 +272,20 @@ DECODE_T = (2048, 2055, 2070, 2079)                          # decode positions 
 TRAIN_DIR = os.path.join("artifacts", "chip_smoke_train")   # git-ignored, inside the checkout
 S_LONG, N_CHECK = 65536, 4096    # long prompt; its last rows held against the plain versions
 S_CROSS = 16384                  # the longest m7c prompt the fused scorer takes (S_sel = 256)
+RAGGED_LENS = (2048, 1024, 300, 33)   # prompts prefilled alone, admitted as rows 0-3 (CAP)
+RAGGED_EAGER = 8          # teacher-forced eager ragged steps held against the uniform step
+RAGGED_REPLAYS = 32       # replays held bit-equal to as many eager ragged steps
+SWEEP_S, SWEEP_B = (512, 2048, 16384, 65536), (1, 4)   # decode sweep: depth t = S, batch
+SWEEP_STEPS = 20          # timed replays per sweep point (after 2)
+# bf16 logits of the eager ragged step (one B = 4 batch) against each row's
+# uniform step (B = 1), in ulps of the row's largest |logit|: they read bit
+# for bit on the H100 (0 ulps in every run of phase (g)); 2 leave room for a
+# GEMM of another batch shape that sums in another order
+LOGIT_ULPS = 2
+# a greedy token may differ from generate's only where generate's top-2
+# logits are this close (ulps of the max |logit|); generate_ragged's rows
+# parted from generate at gaps of 1 ulp (decode vs prefill ingestion)
+TIE_ULPS = 2
 NEEDLE_DEPTHS, PROBE_DEPTHS = (0.1, 0.25, 0.5, 0.75, 0.9), (0.1, 0.5, 0.9)
 
 
@@ -1024,19 +1060,30 @@ def phase_serve(dev) -> dict:
     return {"counts": counts, "decode_launches": decode_launches}
 
 
-def trace(fn, n: int, what: str, wall_ms: float) -> None:
+def trace(fn, n: int, what: str, wall_ms: float = None) -> dict:
     """Device busy time of fn (mean of n calls) from torch.profiler: the sum
-    of its kernels' durations, by kernel, beside the untraced wall time."""
+    of its kernels' durations, by kernel, beside the untraced wall time (or,
+    if none is given, the traced calls' own). Returns {"busy": ms, "calls":
+    launches of each port kernel in the n calls}. The profiler drops the
+    kernels whose converted times fall outside its window: without
+    TRACE_PAD at each end, a traced m7c replay lost its last layer's
+    kernels in about half the traces on the H100."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD)
+        t = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    by_name = {}
+        if wall_ms is None:
+            wall_ms = (time.perf_counter() - t) * 1e3 / n
+        time.sleep(TRACE_PAD)
+    by_name, calls = {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             name = next((k for k in PORT_KERNELS if k in e.key), e.key[:48])
             by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3 / n
+            calls[name] = calls.get(name, 0) + e.count
     busy = sum(by_name.values())
     if busy <= 0:
         fail(f"the profiler saw no device time for the {what}")
@@ -1047,6 +1094,366 @@ def trace(fn, n: int, what: str, wall_ms: float) -> None:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in port.items())
           + f"; other kernels {busy - sum(port.values()):.3f} ms, largest: "
           + "; ".join(f"{k} {v:.3f} ms" for v, k in others[:3]))
+    return {"busy": busy, "calls": {k: calls.get(k, 0) for k in PORT_KERNELS}}
+
+
+# ------------------------------------------------------------------ (g)
+
+def bf16_ulp(v: float) -> float:
+    return float(2.0 ** (np.floor(np.log2(max(v, 2.0 ** -126))) - 7))
+
+
+def ragged_decode_inputs(dtype, dev, gen) -> tuple:
+    """One ragged decode step's selection operands (row 4 at the ragged
+    shape): rows at positions RAGGED_LENS of a cache of capacity CAP, Q
+    [4,1,G,h,D], K/V [4,G,CAP,D], sel [4,1,G,n] from random block scores,
+    t [4,1]."""
+    cfg = M7C_125M.nsa
+    G, h, D, n_b = cfg.n_kv_groups, cfg.h_per_group, cfg.d_k, len(RAGGED_LENS)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    t = torch.tensor(RAGGED_LENS, device=dev)[:, None]
+    p = torch.rand((n_b, 1, G, -(-CAP // cfg.l_sel)), generator=gen, device=dev)
+    return (r(n_b, 1, G, h, D), r(n_b, G, CAP, D), r(n_b, G, CAP, D),
+            select_topn_blocks(p, cfg.n_sel, t, cfg.l_sel), t)
+
+
+def step_tick(params, mcfg, caches, tok, out, feed=None, k=None):
+    """One decode tick for a DecodeGraph: the ragged step on the static
+    token `tok` [B,1], its logits into `out` (at column k of [B,R,V] when k
+    is given), then the next token: feed[:, k] (teacher forcing) or the
+    greedy choice."""
+    def tick():
+        if feed is not None:
+            tok.copy_(feed.gather(1, k.expand(tok.shape[0], 1)))
+        lg, _ = model_decode_step_ragged(params, tok, caches, mcfg)
+        if k is None:
+            out.copy_(lg)
+            tok.copy_(lg[:, -1:].argmax(-1))
+        else:
+            out.scatter_(1, k.view(1, 1, 1).expand(lg.shape), lg)
+            k.add_(1)
+    return tick
+
+
+def eager_vs_uniform(params, mcfg, caches, solos, feed) -> int:
+    """RAGGED_EAGER teacher-forced eager ragged steps of the admitted batch
+    against each row's own uniform model_decode_step (B = 1): per layer the
+    selection sets (differing only on near ties), the read counters (equal,
+    and equal to expected_decode_reads), and the logits within LOGIT_ULPS
+    bf16 ulps of the row's largest |logit| on rows whose selection agrees in
+    every layer. Returns the ragged steps' split-kernel launches."""
+    cfg, n_b = mcfg.nsa, len(RAGGED_LENS)
+    ragged = []
+    before = sel_attn.decode_launches
+    for k in range(RAGGED_EAGER):
+        infos = []
+        lg, _ = model_decode_step_ragged(params, feed[:, k:k + 1], caches, mcfg, infos=infos)
+        ragged.append((lg, infos))
+    launches = sel_attn.decode_launches - before
+    worst, flips, spread_max, n_cmp = 0.0, 0, 0.0, 0
+    for i in range(n_b):
+        for k, (lg, rinfo) in enumerate(ragged):
+            uinfo = []
+            lu, solos[i] = model_decode_step(params, feed[i:i + 1, k:k + 1], solos[i], mcfg,
+                                             infos=uinfo)
+            want = expected_decode_reads(RAGGED_LENS[i] + k + 1, cfg.l, cfg.d, cfg.l_sel,
+                                         cfg.n_sel, cfg.w)
+            flipped = False
+            for r_, u_ in zip(rinfo, uinfo):
+                n_diff, n_wide, spread = near_tie_rows(r_.sel_idx[i:i + 1], u_.sel_idx,
+                                                       r_.p_grp[i:i + 1])
+                if n_wide:
+                    fail(f"ragged row {i} step {k}: selection differs from the uniform step "
+                         f"beyond a near tie (score spread {spread:.3e})")
+                flipped |= n_diff > 0
+                flips += n_diff
+                spread_max = max(spread_max, spread)
+                got = [int(r_.reads_pred[i]), int(r_.reads_cmp[i]), int(r_.reads_win[i]),
+                       int(r_.reads_actual_cmp[i]), int(r_.reads_actual_win[i])]
+                exp = [u_.reads_pred, u_.reads_cmp, u_.reads_win, u_.reads_actual_cmp,
+                       u_.reads_actual_win]
+                if got != exp or u_.reads_pred != want or bool(r_.overflow[i]) \
+                        or abs(float(r_.reads_actual_sel[i]) - float(u_.reads_actual_sel)) > 1e-3:
+                    fail(f"ragged row {i} step {k}: read counters {got} != uniform {exp} "
+                         f"(expected reads {want})")
+            if not flipped:
+                ratio = float((lg[i].float() - lu[0].float()).abs().max()) / (
+                    LOGIT_ULPS * bf16_ulp(float(lu.float().abs().max())))
+                worst = max(worst, ratio)
+                n_cmp += 1
+    print(f"[ragged] {RAGGED_EAGER} eager ragged steps (B={n_b}, rows at {RAGGED_LENS}) vs each "
+          f"row's uniform step: read counters equal (and = expected_decode_reads); selection "
+          f"flips {flips} (near ties, widest score spread {spread_max:.3e} <= {NEAR_TIE:g}); "
+          f"logits worst {worst:.3f} of the bound ({LOGIT_ULPS} bf16 ulps of the row's max "
+          f"|logit|) over {n_cmp} of {n_b * RAGGED_EAGER} row-steps with equal selection")
+    if not worst <= 1.0:
+        fail("ragged step logits disagree with the uniform step beyond the bf16 bound")
+    return launches
+
+
+def graph_vs_eager(params, mcfg, caches, feed, dev) -> int:
+    """Phase (g)'s main path: the teacher-forced tick captured on the
+    admitted batch, the launch counts set to 0 after capture, and
+    RAGGED_REPLAYS replays traced, issued with no host sync while tensors
+    allocated after capture stay untouched (what the tick allocated while
+    captured, the split kernel's workspace included, stays in the graph's
+    pool). A replay calls no wrapper: the counts must stay 0, and the trace
+    must show the split decode kernel and its combine L times a replay.
+    Then as many eager ticks from the same state: logits bit-equal.
+    Returns the split kernel's launches in the traced replays."""
+    n_b, V, L = len(RAGGED_LENS), mcfg.vocab_size, mcfg.n_layers
+    tok = torch.zeros((n_b, 1), dtype=torch.int64, device=dev)
+    out = torch.zeros((n_b, RAGGED_REPLAYS, V), dtype=torch_dtype(mcfg.dtype), device=dev)
+    k = torch.zeros((1,), dtype=torch.int64, device=dev)
+    state = [tok, out, k] + [x for c in caches for x in cache_tensors(c)]
+    snap = [x.clone() for x in state]
+    graph = DecodeGraph(step_tick(params, mcfg, caches, tok, out, feed, k), state)
+    if not all(torch.equal(a, b) for a, b in zip(state, snap)):
+        fail("capture moved its state")
+    junk = [torch.full((1 << 22,), 7.0, device=dev) for _ in range(16)]      # 256 MB
+    host_ms = []
+
+    def replays():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t_host = time.perf_counter()
+            for _ in range(RAGGED_REPLAYS):
+                graph.replay()
+            host_ms.append((time.perf_counter() - t_host) * 1e3 / RAGGED_REPLAYS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    kernels.reset_launch_counts()
+    tr = trace(replays, 1, f"{RAGGED_REPLAYS} replays of the captured tick (admitted batch)")
+    counts = dict(kernels.launch_counts(), **{"sel_attn@decode": sel_attn.decode_launches})
+    split = tr["calls"]["sel_attn_split_kernel"]
+    combine = tr["calls"]["sel_attn_combine_kernel"]
+    print(f"[ragged] {RAGGED_REPLAYS} traced replays: split decode kernel {split}, combine "
+          f"{combine} launches (expected {RAGGED_REPLAYS * L} each); wrapper counts "
+          f"{counts} (expected all 0)")
+    if split != RAGGED_REPLAYS * L or combine != RAGGED_REPLAYS * L or any(counts.values()):
+        fail("the replays' launches differ from 12 split-kernel launches a replay")
+    got = out.clone()
+    if not all(bool((j == 7.0).all()) for j in junk):
+        fail("a replay wrote into memory allocated after capture")
+    del junk
+    torch._foreach_copy_(state, snap)
+    tick = step_tick(params, mcfg, caches, tok, out, feed, k)
+    for _ in range(RAGGED_REPLAYS):
+        tick()
+    same = torch.equal(out, got)
+    print(f"[ragged] {RAGGED_REPLAYS} replays with no host sync (set_sync_debug_mode('error'); "
+          f"the host issued a traced replay in {host_ms[0]:.4f} ms), 256 MB allocated after "
+          f"capture untouched; logits bit-equal to {RAGGED_REPLAYS} eager ragged steps: {same}")
+    if not same or not bool(torch.isfinite(got).all()):
+        fail("replayed logits differ from the eager ragged step's")
+    return split
+
+
+def serve_shape_times(params, mcfg, prompt, dev) -> dict:
+    """At phase (c)'s shape (B=4 rows at 2048, capacity CAP): ms a step of
+    the eager uniform step, the eager ragged step and the replayed graph
+    (CUDA events, 20 steps after 2), the host's issue time of a replay, and
+    one traced replay's busy time, idle share and port-kernel launches."""
+    L = mcfg.n_layers
+
+    def fresh():
+        logits, caches = model_prefill_with_caches(params, prompt, mcfg, CAP)
+        return logits[:, -1:].argmax(-1), caches
+
+    tok, caches = fresh()
+    uni = time_ms(lambda: model_decode_step(params, tok, caches, mcfg), 20)
+    tok, caches = fresh()
+    caches = [ragged_cache(c) for c in caches]
+    eager = time_ms(lambda: model_decode_step_ragged(params, tok, caches, mcfg), 20)
+    tok, caches = fresh()
+    caches = [ragged_cache(c) for c in caches]
+    out = torch.empty((prompt.shape[0], 1, mcfg.vocab_size), dtype=torch_dtype(mcfg.dtype),
+                      device=dev)
+    graph = DecodeGraph(step_tick(params, mcfg, caches, tok, out),
+                        [tok, out] + [x for c in caches for x in cache_tensors(c)])
+    replay = time_ms(graph.replay, 20)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    for _ in range(20):
+        graph.replay()
+    host_ms = (time.perf_counter() - t_host) * 1e3 / 20
+    tr = trace(graph.replay, 1, "replayed ragged decode step (serve)", replay)
+    print(f"[ragged] serve shape (B={prompt.shape[0]} at {prompt.shape[1]}, capacity {CAP}): "
+          f"eager uniform step {uni:.4f} ms, eager ragged step {eager:.4f} ms, replayed graph "
+          f"{replay:.4f} ms a step (host issue {host_ms:.4f} ms, mean of 20); split kernel "
+          f"launches in one traced replay: {tr['calls']['sel_attn_split_kernel']} (combine "
+          f"{tr['calls']['sel_attn_combine_kernel']}), expected {L}")
+    if tr["calls"]["sel_attn_split_kernel"] != L or tr["calls"]["sel_attn_combine_kernel"] != L:
+        fail("a replay does not launch the split decode kernel once a layer")
+    return {"uniform_ms": uni, "eager_ms": eager, "replay_ms": replay, "busy": tr["busy"]}
+
+
+def token_check(params, mcfg, prompt) -> None:
+    """generate_scan's greedy tokens equal generate's at phase (c)'s shape;
+    where they differ, the first differing step must be a near tie of the
+    eager logits (top-2 gap within TIE_ULPS bf16 ulps of the max |logit|)."""
+    S0 = prompt.shape[1]
+    t0 = time.perf_counter()
+    want = generate(params, prompt, N_NEW, mcfg, capacity=CAP)
+    got = generate_scan(params, prompt, N_NEW, mcfg, capacity=CAP)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if got.shape != want.shape or not torch.equal(got[:, :S0], prompt):
+        fail("generate_scan returned a malformed token tensor")
+    if torch.equal(got, want):
+        print(f"[ragged] generate_scan ({prompt.shape[0]} x ({S0} + {N_NEW})) tokens equal "
+              f"generate's ({secs:.2f} s for both)")
+        return
+    cols = (got != want).any(0).nonzero()[:, 0]
+    j = int(cols[0])
+    row = int((got[:, j] != want[:, j]).nonzero()[0, 0])
+    logits, caches = model_prefill_with_caches(params, prompt, mcfg, CAP)
+    lg = logits[:, -1]
+    for q in range(S0, j):
+        lg = model_decode_step(params, want[:, q:q + 1], caches, mcfg)[0][:, -1]
+    top = lg[row].float().topk(2).values
+    gap = float(top[0] - top[1])
+    lim = TIE_ULPS * bf16_ulp(float(lg[row].float().abs().max()))
+    print(f"[ragged] generate_scan differs from generate first at new token {j - S0} of row "
+          f"{row}: {int(got[row, j])} vs {int(want[row, j])}; eager top-2 logit gap {gap:.4e} "
+          f"(near tie if <= {lim:.4e})")
+    if gap > lim:
+        fail("generate_scan's tokens differ from generate's beyond a near tie")
+
+
+def first_gaps(params, mcfg, prompts, outs, alone) -> list:
+    """For each row where generate_ragged's tokens (the prompt ingested by
+    decode steps) and the row's own generate (prefill, then decode) differ:
+    (row, first differing new token, the top-2 gap of generate's logits
+    there, TIE_ULPS bf16 ulps of their max |logit|). In bf16 the two
+    ingestions round differently over the whole prompt, so greedy tokens
+    may part, but only at a near tie: the gap must be within the bound."""
+    gaps = []
+    for i, p in enumerate(prompts):
+        diff = (outs[i] != alone[i]).nonzero()
+        if diff.numel() == 0:
+            continue
+        m = int(diff[0, 0])
+        logits, caches = model_prefill_with_caches(params, p, mcfg, p.shape[1] + N_NEW)
+        lg = logits[0, -1]
+        for q in range(m):
+            lg = model_decode_step(params, alone[i][None, q:q + 1], caches, mcfg)[0][0, -1]
+        top = lg.float().topk(2).values
+        gaps.append((i, m, float(top[0] - top[1]),
+                     TIE_ULPS * bf16_ulp(float(lg.float().abs().max()))))
+    return gaps
+
+
+def decode_sweep(params, mcfg, dev) -> None:
+    """Graph-replayed m7c decode at each B of SWEEP_B and depth S of SWEEP_S:
+    caches seeded with random values at t = S (a step reads the same bytes
+    whatever they hold), ms a step (CUDA events, SWEEP_STEPS replays after 2),
+    the eager ragged step's ms (5 steps after 1), and one traced replay's
+    busy time."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for S_ in SWEEP_S:
+        for B_ in SWEEP_B:
+            caches = [ragged_cache(c)
+                      for c in init_model_caches(mcfg, B_, S_ + 64, device=dev)]
+            for c in caches:
+                for x in cache_tensors(c)[:-1]:
+                    x.normal_(generator=gen)
+                c.t.fill_(S_)
+            tok = torch.zeros((B_, 1), dtype=torch.int64, device=dev)
+            out = torch.empty((B_, 1, mcfg.vocab_size), dtype=torch_dtype(mcfg.dtype),
+                              device=dev)
+            tick = step_tick(params, mcfg, caches, tok, out)
+            eager = time_ms(tick, 5, 1)
+            graph = DecodeGraph(tick, [tok, out] + [x for c in caches for x in cache_tensors(c)])
+            ms = time_ms(graph.replay, SWEEP_STEPS)
+            tr = trace(graph.replay, 1, f"replayed decode step B={B_} S={S_}", ms)
+            if not bool(torch.isfinite(out).all()):
+                fail(f"sweep logits not finite at B={B_} S={S_}")
+            print(f"[sweep] B={B_} S={S_}: replayed {ms:.4f} ms a step, device busy "
+                  f"{tr['busy']:.3f} ms (idle {1 - tr['busy'] / ms:.3f}); eager ragged step "
+                  f"{eager:.4f} ms")
+            del caches, graph, tick
+            torch.cuda.empty_cache()
+
+
+def phase_ragged(dev) -> list:
+    """Phase (g): continuous batching and the replayed decode step at m7c
+    (bf16, 12 layers). Returns the JSON row of the selection decode kernel
+    (row 4) at the ragged shape."""
+    t0 = time.perf_counter()
+    mcfg, cfg, L = M7C_125M, M7C_125M.nsa, M7C_125M.n_layers
+    n_b, V = len(RAGGED_LENS), mcfg.vocab_size
+    gen = torch.Generator().manual_seed(0)
+    params = init_model_params(mcfg, gen, device=dev)
+    serve_prompt = torch.randint(0, V, (B, S), generator=gen).to(dev)     # phase (c)'s prompt
+    gen = torch.Generator().manual_seed(21)
+    prompts = [torch.randint(0, V, (1, n), generator=gen).to(dev) for n in RAGGED_LENS]
+    feed = torch.randint(0, V, (n_b, RAGGED_REPLAYS), generator=gen).to(dev)
+    with torch.no_grad():
+        # admission: each prompt prefilled alone (B = 1), installed as row i
+        kernels.reset_launch_counts()
+        solos = [model_prefill_with_caches(params, p, mcfg, CAP)[1] for p in prompts]
+        caches = [ragged_cache(c) for c in init_model_caches(mcfg, n_b, CAP, device=dev)]
+        ptrs = [x.data_ptr() for c in caches for x in cache_tensors(c)]
+        for i, solo in enumerate(solos):
+            for c, s in zip(caches, solo):
+                admit_row(c, s, i)
+        if [x.data_ptr() for c in caches for x in cache_tensors(c)] != ptrs \
+                or any(c.t.tolist() != list(RAGGED_LENS) for c in caches):
+            fail("admit_row did not install the rows in place")
+        admitted = [x.clone() for c in caches for x in cache_tensors(c)]
+        pre = kernels.launch_counts()
+        eager = eager_vs_uniform(params, mcfg, caches, solos, feed)
+        print(f"[ragged] launches: admission prefills {pre}; split decode kernel in the "
+              f"{RAGGED_EAGER} eager ragged steps {eager}")
+        if pre != {**dict.fromkeys(pre, 0), "select_cmp": n_b * L, "sel_attn": n_b * L,
+                   "win_attn": n_b * L} or eager != RAGGED_EAGER * L:
+            fail("phase (g) launch counts differ from the path's")
+        del solos
+        torch._foreach_copy_([x for c in caches for x in cache_tensors(c)], admitted)
+        decode = graph_vs_eager(params, mcfg, caches, feed, dev)
+        del caches, admitted
+        times = serve_shape_times(params, mcfg, serve_prompt, dev)
+        token_check(params, mcfg, serve_prompt)
+        padded = torch.zeros((n_b, max(RAGGED_LENS)), dtype=torch.int64, device=dev)
+        for i, p in enumerate(prompts):
+            padded[i, :p.shape[1]] = p[0]
+        torch.cuda.synchronize()
+        t_r = time.perf_counter()
+        outs = generate_ragged(params, padded, list(RAGGED_LENS), N_NEW, mcfg)
+        torch.cuda.synchronize()
+        t_r = time.perf_counter() - t_r
+        if tuple(outs.shape) != (n_b, N_NEW) or int(outs.min()) < 0 or int(outs.max()) >= V:
+            fail("generate_ragged returned a malformed token tensor")
+        alone = [generate(params, p, N_NEW, mcfg)[0, p.shape[1]:] for p in prompts]
+        agree = [int((outs[i] == a).sum()) for i, a in enumerate(alone)]
+        gaps = first_gaps(params, mcfg, prompts, outs, alone)
+        print(f"[ragged] generate_ragged: {n_b} prompts of {RAGGED_LENS} tokens + {N_NEW} new "
+              f"each in {t_r:.2f} s ({max(RAGGED_LENS) + N_NEW - 1} replays); tokens equal to "
+              f"each row's own generate (B=1, prefill + decode): {agree} of {N_NEW}; first "
+              f"differences (row, new token, top-2 gap, near-tie bound): {gaps}")
+        if any(gap > lim for _, _, gap, lim in gaps):
+            fail("generate_ragged's tokens differ from generate's beyond a near tie")
+        decode_sweep(params, mcfg, dev)
+        # row 4 at the ragged shape, against its plain version
+        kgen = torch.Generator(device=dev).manual_seed(4321)
+        err = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ragged_decode_inputs(dtype, dev, kgen)
+            err[dtype] = sel_fwd_check("sel_attn@ragged",
+                                       lambda: sel_attn(*args, l_sel=cfg.l_sel,
+                                                        scale=1.0 / float(np.sqrt(cfg.d_k))),
+                                       *args, l_sel=cfg.l_sel,
+                                       scale=1.0 / float(np.sqrt(cfg.d_k)))
+        row = sel_attn_row("sel_attn@ragged", *args, launches=decode,
+                           max_err=err[torch.bfloat16])
+        print_rows([row])
+    print(f"[ragged] phase (g): {time.perf_counter() - t0:.1f} s; serve shape {times}")
+    return [row]
 
 
 # ------------------------------------------------------------------ (d)
@@ -2077,6 +2484,8 @@ def main() -> int:
     serve = phase_serve(dev)
     rows = measure(rec, serve["counts"], serve["decode_launches"])
     del rec
+    torch.cuda.empty_cache()
+    rows += phase_ragged(dev)
     torch.cuda.empty_cache()
     trec = phase_train_kernels(dev, TWO_PASS)
     cpu = train_layer_check(dev, {"default": None})

@@ -5,7 +5,7 @@ backward) and cached single-token decode."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,11 +54,16 @@ def block_prefill(params: dict, x: torch.Tensor, mcfg: ModelConfig) -> Tuple[tor
     return x + mlp(params["mlp"], h), aux
 
 
-def block_decode_step(params: dict, x: torch.Tensor, cache: NSACache,
-                      mcfg: ModelConfig) -> Tuple[torch.Tensor, NSACache]:
-    """Single-token cached decode through the block. x: [B,1,dim]."""
-    attn_out, cache, _ = nsa_decode_step(
+def block_decode_step(params: dict, x: torch.Tensor, cache: NSACache, mcfg: ModelConfig,
+                      step=nsa_decode_step, infos: Optional[list] = None
+                      ) -> Tuple[torch.Tensor, NSACache]:
+    """Single-token cached decode through the block. x: [B,1,dim]. `step`
+    is nsa_decode_step (uniform cache) or nsa_decode_step_ragged; the
+    step's info is appended to `infos` if given."""
+    attn_out, cache, info = step(
         params["attn"], rmsnorm(x, params["attn_norm"], mcfg.rmsnorm_eps), cache, mcfg.nsa)
+    if infos is not None:
+        infos.append(info)
     x = x + attn_out
     x = x + mlp(params["mlp"], rmsnorm(x, params["mlp_norm"], mcfg.rmsnorm_eps))
     return x, cache

@@ -1,10 +1,15 @@
 """Compression operator ϕ: overlapped pooling of K/V into compressed tokens.
 
 Port of nsa_vibe_tpu/ops/compress.py. Blocks of length l, stride d; K is
-RoPE'd at absolute positions before pooling. Average pooling uses the
-O(S) cumulative-sum form (d | l): sum d-sized chunks once, then window j
-is csum[j+r] - csum[j] with r = l/d. The learnable ϕ ("conv") is a
-depthwise conv over time with kernel l and stride d, initialized to 1/l.
+RoPE'd at absolute positions before pooling. Average pooling (d | l)
+sums d-sized chunks once, in float32, then window j as the sum of its own
+r = l/d chunk sums, and casts once: a window touches only its own l
+inputs, as the JAX package's `exact=True` does. Its default
+(`exact=False`) takes window j as csum[j+r] - csum[j] from a running sum
+in the input dtype, which in bf16 cancels as S grows (at S = 65536 the
+error reaches the size of the values); the two agree in float32 up to
+round-off. The learnable ϕ ("conv") is a depthwise conv over time with
+kernel l and stride d, initialized to 1/l.
 """
 
 from __future__ import annotations
@@ -26,9 +31,9 @@ def avg_pool_phi(x: torch.Tensor, l: int, d: int) -> torch.Tensor:
     S_cmp = (S - l) // d + 1
     n_chunks = S_cmp - 1 + r
     chunks = x[..., : n_chunks * d, :].reshape(*x.shape[:-2], n_chunks, d, x.shape[-1])
-    csum = torch.cumsum(chunks.sum(dim=-2), dim=-2)
-    csum = torch.cat([torch.zeros_like(csum[..., :1, :]), csum], dim=-2)
-    return (csum[..., r:, :] - csum[..., :-r, :]) / float(l)
+    chunk_sum = chunks.sum(dim=-2, dtype=torch.float32)                # [..., n_chunks, D]
+    win_sum = chunk_sum.unfold(-2, r, 1).sum(dim=-1)                   # [..., S_cmp, D]
+    return (win_sum / float(l)).to(x.dtype)
 
 
 def conv_phi(x: torch.Tensor, weight: torch.Tensor, l: int, d: int) -> torch.Tensor:

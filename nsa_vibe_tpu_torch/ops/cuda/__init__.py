@@ -30,7 +30,9 @@ at decode: sel_attn.cu in both); banded_bwd's dK/dV pass is
 banded_bwd_1p's kernel with its dQ slots off. The backward design each
 branch runs follows ops/tuning.py. Each wrapper counts its launches in a
 plain integer attribute (`<wrapper>.launches`), incremented only where
-the kernel is launched.
+the kernel is launched. A replay of a captured CUDA graph calls no
+wrapper, so these counts do not see it: a replay's launches are read from
+a profiler trace.
 """
 
 from __future__ import annotations

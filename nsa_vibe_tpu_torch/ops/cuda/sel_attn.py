@@ -61,7 +61,8 @@ def sel_attn(Q, K, V, sel_idx, t_pos, *, l_sel: int, scale: float, return_lse: b
     int32, t_pos [S] or [B,S] -> O [B,S,G,h,Dv], and with return_lse the
     f32 row statistics lse [B,S,G,h] (ops.reference). CPU tensors take the
     plain version. Counts launches in `sel_attn.launches` and, of those with
-    one query per row (decode), in `sel_attn.decode_launches`."""
+    one query per row (decode), in `sel_attn.decode_launches`; a replay of a
+    captured graph calls no wrapper, so it is not counted here."""
     if resolve_kernel(Q) == "plain":
         return sel_attn_plain(Q, K, V, sel_idx, t_pos, l_sel=l_sel, scale=scale,
                               return_lse=return_lse)
@@ -94,6 +95,11 @@ def sel_attn(Q, K, V, sel_idx, t_pos, *, l_sel: int, scale: float, return_lse: b
                                          l_sel, qT, float(scale), stream_of(Q))
         else:
             check_smem("sel_attn", lib.nsa_sel_attn_smem_bytes(h, Dk, Dv, n, l_sel))
+            # the split kernel's per-block partials, summed by the combine
+            # kernel. Inside a CUDA graph capture (models/decode_graph.py)
+            # this comes from the graph's private pool and stays reserved for
+            # its replays (chip_smoke.py phase (g) checks, on the card, that
+            # memory allocated after capture is left untouched by replays)
             ws = (torch.empty(B * S * G * n * lib.nsa_sel_attn_ws_floats(h, Dv),
                               dtype=torch.float32, device=Q.device) if S == 1 else None)
             err = lib.nsa_sel_attn(code, ptr(Q), ptr(K), ptr(V), ptr(sel_idx), ptr(tpos),

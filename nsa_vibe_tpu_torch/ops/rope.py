@@ -33,8 +33,7 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, base: float = 10000.0,
     if scale <= 0:
         scale = 1.0
     pos = torch.as_tensor(pos, device=x.device)
-    while pos.dim() < x.dim() - 1:
-        pos = pos.unsqueeze(0)
+    pos = pos.reshape((1,) * (x.dim() - 1 - pos.dim()) + tuple(pos.shape))
     angles = (pos.to(torch.float32) / float(scale)).unsqueeze(-1) * inv_freq
     sin = torch.sin(angles).to(x.dtype)
     cos = torch.cos(angles).to(x.dtype)

@@ -3,6 +3,13 @@
 Port of nsa_vibe_tpu/utils/sampling.py with a torch.Generator in place of
 a JAX key. Filters compose (top-k first, then nucleus over the
 survivors); the highest-probability token is never filtered out.
+
+Nothing here reads a device value, so a CUDA graph can capture it
+(models/decode_graph.py): the draw is `torch.multinomial`'s own one-sample
+path (argmax of probs / q, q ~ Exp(1) from `generator`) written out,
+because `torch.multinomial` checks its input with `.item()`. It draws the
+same ids as `torch.multinomial(probs, 1, generator=...)` from the same
+generator state.
 """
 
 from __future__ import annotations
@@ -32,5 +39,6 @@ def sample_logits(logits: torch.Tensor, temperature: float = 1.0, top_k: int = 0
             dim=-1, keepdim=True)
         logits = logits.masked_fill(logits < thresh, float("-inf"))
     probs = torch.softmax(logits, dim=-1).reshape(-1, V)
-    ids = torch.multinomial(probs, 1, generator=generator)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    ids = torch.argmax(probs / q, dim=-1, keepdim=True)
     return ids.reshape(logits.shape[:-1])

@@ -38,14 +38,19 @@ on tensor cores) keeps p and its map in f32 and is held as sets, as the
 f32 kernel.
 """
 
+import time
+
 import pytest
 import torch
 
+from nsa_vibe_tpu_torch.core.cache import admit_row, cache_tensors, ragged_cache
 from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig, TrainConfig
 from nsa_vibe_tpu_torch.convert import params_to, params_to_numpy
+from nsa_vibe_tpu_torch.models.decode_graph import DecodeGraph
 from nsa_vibe_tpu_torch.core.nsa import init_nsa_params, nsa_prefill
 from nsa_vibe_tpu_torch.models.tinylm import (
-    generate, init_model_params, model_decode_step, model_prefill_with_caches,
+    generate, generate_scan, init_model_params, model_decode_step, model_decode_step_ragged,
+    model_prefill_with_caches,
 )
 from nsa_vibe_tpu_torch.ops import cuda as kernels
 from nsa_vibe_tpu_torch.ops import tuning
@@ -722,6 +727,113 @@ def test_serving_path_issues_without_host_sync():
         model_decode_step(params, logits[:, -1:].argmax(-1), caches, mcfg)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+def _captured_ragged_step(dev, B: int):
+    """The 1-layer serving config of test_serving_path_issues_without_host_sync,
+    B prompts of 90 tokens prefilled into ragged caches of capacity 96, and
+    one captured tick: a ragged step on the static token, logits into a
+    static buffer, the greedy token fed back."""
+    mcfg = ModelConfig(vocab_size=64, n_layers=1,
+                       nsa=NSAConfig(dim=64, n_heads=6, n_kv_groups=2, d_k=16, d_v=16,
+                                     l=8, d=4, l_sel=16, n_sel=4, w=32))
+    params = init_model_params(mcfg, torch.Generator().manual_seed(0), device=dev)
+    prompt = torch.randint(0, 64, (B, 90), generator=torch.Generator().manual_seed(1)).to(dev)
+    logits, caches = model_prefill_with_caches(params, prompt, mcfg, 96)
+    caches = [ragged_cache(c) for c in caches]
+    tok = logits[:, -1:].argmax(-1)
+    out = torch.empty_like(logits[:, -1:])
+
+    def tick():
+        lg, _ = model_decode_step_ragged(params, tok, caches, mcfg)
+        out.copy_(lg)
+        tok.copy_(lg[:, -1:].argmax(-1))
+
+    state = [tok, out] + [x for c in caches for x in cache_tensors(c)]
+    snap = [x.clone() for x in state]
+    graph = DecodeGraph(tick, state)
+    assert all(torch.equal(a, b) for a, b in zip(state, snap))   # capture moves no state
+    return mcfg, params, caches, tick, graph, state, snap, out
+
+
+@pytest.mark.gpu
+def test_captured_ragged_step_replays_bit_equal_without_host_sync():
+    """Four replays of the captured ragged step give the bits of four eager
+    ticks from the same state, issue with no host sync, and launch the split
+    selection kernel once a replay (the layer's decode; kernel names from
+    torch.profiler) while calling no wrapper (launch counts stay 0)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    _, _, _, tick, graph, state, snap, out = _captured_ragged_step(dev, 2)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    got = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)     # the profiler drops kernels timed at its window's edges
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(4):
+                graph.replay()
+                got.append(out.clone())
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    split = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "sel_attn_split_kernel" in e.key)
+    assert split == 4
+    assert not any(kernels.launch_counts().values()) and sa_mod.sel_attn.decode_launches == 0
+    torch._foreach_copy_(state, snap)
+    for g in got:
+        tick()
+        assert torch.equal(out, g)
+
+
+@pytest.mark.gpu
+def test_generate_scan_on_gpu_matches_generate():
+    """On the card generate_scan replays its captured tick: greedy tokens
+    equal generate's; sampled tokens from a seeded CUDA generator (registered
+    with the graph) repeat for the seed and equal generate's draws."""
+    dev = _card()
+    mcfg = ModelConfig(vocab_size=64, n_layers=2,
+                       nsa=NSAConfig(dim=64, n_heads=6, n_kv_groups=2, d_k=16, d_v=16,
+                                     l=8, d=4, l_sel=16, n_sel=4, w=32))
+    params = init_model_params(mcfg, torch.Generator().manual_seed(0), device=dev)
+    prompt = torch.randint(0, 64, (2, 90), generator=torch.Generator().manual_seed(1)).to(dev)
+    assert torch.equal(generate_scan(params, prompt, 6, mcfg), generate(params, prompt, 6, mcfg))
+
+    def run(fn):
+        return fn(params, prompt, 6, mcfg, temperature=0.8, top_k=8, top_p=0.9,
+                  generator=torch.Generator(device=dev).manual_seed(5))
+
+    a = run(generate_scan)
+    assert torch.equal(a, run(generate_scan)) and torch.equal(a, run(generate))
+
+
+@pytest.mark.gpu
+def test_admit_row_into_captured_batch_changes_that_row_only():
+    """admit_row writes a new request into row 1 of the captured caches in
+    place: the next replay's logits change in row 1 only, and row 1 equals
+    the new request's own eager ragged step."""
+    dev = _card()
+    mcfg, params, caches, _, graph, state, snap, out = _captured_ragged_step(dev, 3)
+    graph.replay()
+    before = out.clone()
+    torch._foreach_copy_(state, snap)
+    new = torch.randint(0, 64, (1, 40), generator=torch.Generator().manual_seed(7)).to(dev)
+    _, solo = model_prefill_with_caches(params, new, mcfg, 96)
+    ptrs = [x.data_ptr() for x in state]
+    for c, s in zip(caches, solo):
+        admit_row(c, s, 1)
+    assert [x.data_ptr() for x in state] == ptrs and caches[0].t.tolist() == [90, 40, 90]
+    tok1 = state[0][1:2].clone()
+    graph.replay()
+    assert torch.equal(out[0], before[0]) and torch.equal(out[2], before[2])
+    assert not torch.equal(out[1], before[1])
+    want, _ = model_decode_step_ragged(params, tok1, [ragged_cache(s) for s in solo], mcfg)
+    assert float((out[1] - want[0]).abs().max()) <= 1e-4
 
 
 @pytest.mark.gpu

@@ -233,10 +233,10 @@ def test_nsa_prefill_grads_match_jax(S, extra):
 
 # ---------------------------------------------------------------- TinyLM
 
-def _models(n_layers=2, remat=False, vocab=64):
+def _models(n_layers=2, remat=False, vocab=64, varlen_exact=False):
     kw = dict(BASE)
     jm = JModelConfig(vocab_size=vocab, n_layers=n_layers, remat=remat,
-                      nsa=JNSAConfig(**kw, kernel="reference"))
+                      nsa=JNSAConfig(**kw, kernel="reference", varlen_exact=varlen_exact))
     tm = ModelConfig(vocab_size=vocab, n_layers=n_layers, remat=remat, nsa=NSAConfig(**kw))
     jp = jtiny.init_model_params(jax.random.PRNGKey(0), jm)
     return jm, tm, jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
@@ -321,8 +321,12 @@ def test_three_train_steps_match_optax():
 
 
 def test_gradient_accumulation_matches_jax():
+    # the port pools avg ϕ window by window (ops/compress.py), the JAX
+    # package's window-exact form (varlen_exact); its default running-sum
+    # form differs by f32 round-off, which Adam's normalisation lifts past
+    # the bound on one embedding element whose gradient is near zero
     jt, tt = _train_configs(accum_steps=2, max_grad_norm=0.5)
-    jm, tm, jp, tp = _models(n_layers=1)
+    jm, tm, jp, tp = _models(n_layers=1, varlen_exact=True)
     toks = np.random.RandomState(7).randint(0, 64, size=(2, 2, 2, 41)).astype(np.int32)
     _run_both(jm, tm, jp, tp, jt, tt, list(toks))
 
