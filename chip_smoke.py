@@ -116,6 +116,30 @@ Phases (any failure exits non-zero):
       B of SWEEP_B and depth of SWEEP_S (random caches at t = S); row 4 at
       the ragged shape against its plain version and timed.
 
+  (h) varlen, packed documents (ops/varlen.py; run last): at the train
+      shape, documents packed by pack_documents_aligned from VARLEN_MUST
+      (shorter than l, exactly l_sel, longer than w, nearly a row) and
+      lengths from VARLEN_SEED; rows 1 (select_cmp), 3 (win_attn), 7
+      (banded_bwd_1p, win and cmp), 8 (banded_bwd, win and cmp) and 11
+      (win_bwd_diag) with seq_start against their plain versions with it
+      (f32 TF32 off and bf16, the phases' bounds, sets at near ties, two
+      launches bit-equal), and each given the dense bound must fail; rows
+      5 (banded_attn, cmp) and 6 (select_blocks) at 1 x 65536 likewise on
+      the last N_CHECK rows; m7c bf16 on the packed batch against each
+      document alone in its own row (logits within LOGIT_ULPS, the same
+      selections; those starting on the compressed key-tile grid, each
+      row's first among them, 0 ulps); one document perturbed moves no other document's logits
+      (0.0) at 8 x 2048 and at 1 x 65536 (the long route, launches
+      counted); the varlen train step (make_varlen_batches, 8 x 2048, bf16,
+      remat): step ms, supervised tokens/s, peak memory, launches, host
+      syncs, a traced step's busy and idle share, and the same under each
+      setting of DESIGNS (losses within LOSS_TOL of the defaults'; the
+      backward rows' launches come from these runs); train() with varlen
+      whose loss falls, with one eval; one f32 varlen layer card vs CPU;
+      the varlen step's first f32 gradient under each setting of DESIGNS
+      within STEP_GRAD_TOL of the defaults', where a cmp backward that
+      drops seq_start must fail; the kernels' rows on packed documents.
+
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
 """
@@ -150,7 +174,7 @@ from nsa_vibe_tpu_torch.models.llama_block import rmsnorm
 from nsa_vibe_tpu_torch.models.decode_graph import DecodeGraph
 from nsa_vibe_tpu_torch.models.tinylm import (
     generate, generate_ragged, generate_scan, init_model_caches, init_model_params,
-    model_decode_step, model_decode_step_ragged, model_prefill_with_caches,
+    model_decode_step, model_decode_step_ragged, model_forward, model_prefill_with_caches,
 )
 from nsa_vibe_tpu_torch.ops import cuda as kernels
 from nsa_vibe_tpu_torch.ops import attention, tuning
@@ -194,6 +218,7 @@ from nsa_vibe_tpu_torch.ops.reference import attention_delta
 from nsa_vibe_tpu_torch.ops.selection import (
     canonicalize_sel, select_topn_blocks, selection_token_mask,
 )
+from nsa_vibe_tpu_torch.ops.varlen import make_varlen_batches, pack_documents_aligned
 from nsa_vibe_tpu_torch.train.data import make_batches
 from nsa_vibe_tpu_torch.train.train_step import (
     init_train_state, loss_and_grads, make_train_step, param_leaves, tree_from_leaves,
@@ -836,20 +861,26 @@ def measure(rec, counts, decode_launches) -> list:
 
 def select_cmp_row(name, x, *, lse: bool, launches: int, max_err: float) -> dict:
     """The JSON row of the fused scorer on x's bf16 Q, Kc, Vc and M (with
-    lse where `lse`): kernel time (stream held), the plain version's time,
-    no library call (none computes a top-n block selection), and the bound
-    from this run's inputs: Q, K_cmp, V_cmp, M, sel_idx, O (and lse) moved
+    lse where `lse`; under x["ds"], packed documents, where x has it):
+    kernel time (stream held), the plain version's time, no library call
+    (none computes a top-n block selection), and the bound from this run's
+    inputs: Q, K_cmp, V_cmp, M (and seq_start), sel_idx, O (and lse) moved
     once, 2 (Dk + Dv + S_sel) FLOP per visible (row, compressed token)
     pair (the products S, P V and p M)."""
     cfg = x["cfg"]
-    Q, Kc, Vc, M = x["Q"], x["Kc"], x["Vc"], x["M"]
+    Q, Kc, Vc, M, ds = x["Q"], x["Kc"], x["Vc"], x["M"], x.get("ds")
     Bq, S_q, G, h, Dk = Q.shape
     S_cmp, S_sel = M.shape
     kw = dict(scale=x["scale"], l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel,
-              return_lse=lse)
-    ops = (band_pairs(S_q, S_cmp, "cmp", dict(l=cfg.l, d=cfg.d)) * Bq * G * h
-           * 2 * (Dk + Vc.shape[3] + S_sel))
-    bms, by = bound(nbytes(Q, Kc, Vc, M, *select_cmp(Q, Kc, Vc, M, **kw)), ops, Q.dtype)
+              return_lse=lse, seq_start=ds)
+    if ds is None:
+        pairs = band_pairs(S_q, S_cmp, "cmp", dict(l=cfg.l, d=cfg.d)) * Bq * G * h
+    else:
+        pairs = float(banded_mask(S_q, S_cmp, mode="cmp", l=cfg.l, d=cfg.d, device=Q.device,
+                                  seq_start=ds).sum()) * G * h
+    ops = pairs * 2 * (Dk + Vc.shape[3] + S_sel)
+    bms, by = bound(nbytes(Q, Kc, Vc, M, *select_cmp(Q, Kc, Vc, M, **kw),
+                           *(() if ds is None else (ds,))), ops, Q.dtype)
     return dict(
         name=name, source="nsa_vibe_tpu_torch/csrc/select_cmp_mma.cu",
         replaces="nsa_vibe_tpu/ops/pallas/scorer.py:436", launches=launches,
@@ -890,38 +921,45 @@ BAND_REPLACES = {"win": "nsa_vibe_tpu/ops/pallas/flash_diag.py:146",
 
 
 def band_row(name, kernel, Q, K, V, *, mode: str, kw: dict, lse: bool, launches: int,
-             max_err: float, iters: int, chunk=None) -> dict:
+             max_err: float, iters: int, chunk=None, seq_start=None) -> dict:
     """The JSON row of the banded forward `kernel()` (win_attn or
-    banded_attn on Q, K, V in `mode` with kw, from position 0; returning
-    (O, lse) when `lse`): kernel time (stream held), the plain version's
-    time over every row (`chunk` rows a call if given, each call with the
-    keys its rows see), one SDPA call with the equivalent boolean mask
-    (None where that call runs out of device memory), and the bound from
-    this run's inputs: Q, K, V, O (and lse) moved once, 2 (Dk + Dv) FLOP
-    per visible (row, key) pair."""
+    banded_attn on Q, K, V in `mode` with kw, from position 0, under
+    seq_start [B, S] if given; returning (O, lse) when `lse`): kernel time
+    (stream held), the plain version's time over every row (`chunk` rows a
+    call if given, each call with the keys its rows see), one SDPA call
+    with the equivalent boolean mask (None where that call runs out of
+    device memory), and the bound from this run's inputs: Q, K, V, O (and
+    lse) moved once, 2 (Dk + Dv) FLOP per visible (row, key) pair."""
     Dk, Dv, h = Q.shape[-1], V.shape[-1], Q.shape[3]
     S_q, S_kv = Q.shape[1], K.shape[2]
     sc = 1.0 / float(np.sqrt(Dk))
     out = kernel()
-    io = nbytes(Q, K, V, *(out if lse else (out,)))
-    pairs = band_pairs(S_q, S_kv, mode, kw) * Q.shape[0] * Q.shape[2] * h
+    io = nbytes(Q, K, V, *(out if lse else (out,)), *(() if seq_start is None else (seq_start,)))
+    if seq_start is None:
+        pairs = band_pairs(S_q, S_kv, mode, kw) * Q.shape[0] * Q.shape[2] * h
+    else:
+        pairs = float(banded_mask(S_q, S_kv, mode=mode, **kw, device=Q.device,
+                                  seq_start=seq_start).sum()) * Q.shape[2] * h
     bms, by = bound(io, pairs * 2 * (Dk + Dv), Q.dtype)
     del out
 
     def plain(a, b):
-        Kp, Vp, tp = K, V, a
+        Kp, Vp, tp, ds = K, V, a, None if seq_start is None else seq_start[:, a:b]
         if mode == "win":
             k0 = max(a - kw["w"] + 1, 0)
             Kp, Vp, tp = K[:, :, k0:b], V[:, :, k0:b], a - k0
+            ds = None if ds is None else ds - k0
         return banded_attn_plain(Q[:, a:b], Kp, Vp, mode=mode, **kw, scale=sc, t_start=tp,
-                                 return_lse=lse)
+                                 return_lse=lse, seq_start=ds)
 
     step = chunk or S_q
     plain_ms = time_ms(lambda: [plain(a, min(a + step, S_q)) for a in range(0, S_q, step)],
                        3 if chunk is None else 1, 1, hold=True)
     lib_ms = None
     try:
-        mask = banded_mask(S_q, S_kv, mode=mode, **kw, device=Q.device)
+        mask = banded_mask(S_q, S_kv, mode=mode, **kw, device=Q.device, seq_start=seq_start)
+        if mask.dim() == 3:   # [B, S, S_kv] -> [B, 1, S, S_kv], every head alike
+            mask = mask[:, None]
         sq, sk, sv, _ = sdpa_operands(Q, K, V)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
                                                                 scale=sc), 3, 1, hold=True)
@@ -1791,19 +1829,20 @@ def phase_band_bwd_tiles(x) -> None:
     del ref
 
 
-def measure_train(rec, runs, names) -> list:
+def measure_train(rec, runs, names, calls=None, suffix: str = "") -> list:
     """Times the named backward kernels (bf16, training shapes) beside
     their plain version and the backward of one SDPA call with the
     equivalent mask; computes each bound from this run's inputs (the same
     work for every design of a function). launches: over TIMED_STEPS steps
     of the train-step run (of `runs`, phases (d) and (f)) whose keys select
-    the kernel."""
+    the kernel. `calls` (default bwd_calls of the inputs) and the row
+    names' `suffix`: phase (h)'s packed documents."""
     x = rec["inputs"]
     cfg = x["cfg"]
     Dk = Dv = cfg.d_k
     h = cfg.h_per_group
     kv = {"win": ("Kw", "Vw", "lse_w"), "cmp": ("Kc", "Vc", "lse_c"), "sel": ("K", "V", "lse_s")}
-    calls = bwd_calls(x)
+    calls = calls or bwd_calls(x)
     out = []
     for name in names:
         kern, plain, mask_fn = calls[name]
@@ -1816,6 +1855,8 @@ def measure_train(rec, runs, names) -> list:
         io = nbytes(x["Q"], K, V, x["dO"], lse, lse, *grads)         # lse and delta: same size
         if branch_of(name) == "sel":
             io += nbytes(x["sel"])
+        if "ds" in x:
+            io += nbytes(x["ds"])
         bms, by = bound(io, ops, x["Q"].dtype)
         if name == "win_bwd_diag":
             tq, _, strip = wd_mod.tile_plan(kbuild.library(), x["Q"].dtype, B_TRAIN, S, S,
@@ -1827,7 +1868,7 @@ def measure_train(rec, runs, names) -> list:
         so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm, scale=x["scale"])
         sdo = torch.randn_like(so)
         out.append(dict(
-            name=name, source=f"nsa_vibe_tpu_torch/csrc/{BWD_SOURCE[base]}",
+            name=name + suffix, source=f"nsa_vibe_tpu_torch/csrc/{BWD_SOURCE[base]}",
             replaces=BWD_REPLACES[base],
             launches=max(launches_of(c, name) for c in runs), max_abs_err=rec[name],
             ms=time_ms(kern, 10, hold=True),
@@ -1859,8 +1900,9 @@ def design_keys(keys):
         tuning._load = saved
 
 
-def train_layer_check(dev, designs: dict, cpu=None):
-    """Layer 0 of the m7c model in f32 (B=2, S=2048): nsa_prefill forward +
+def train_layer_check(dev, designs: dict, cpu=None, seq_start=None):
+    """Layer 0 of the m7c model in f32 (B=2, S=2048; packed documents under
+    seq_start [2, 2048] if given): nsa_prefill forward +
     backward through the kernels, under each entry of `designs` (label ->
     design keys, None for the keys in force), against the same layer on
     CPU tensors (plain versions, computed here unless given in `cpu`): the
@@ -1881,11 +1923,15 @@ def train_layer_check(dev, designs: dict, cpu=None):
         wrt = [x.detach().to(d)] + [t for _, t in param_leaves(p)]
         return p, [t.requires_grad_(True) for t in wrt]
 
-    def grads(d):
+    def starts(d):
+        return None if seq_start is None else seq_start.to(d)
+
+    def grads(d):   # the layer's output ("out") and gradients, as numpy leaves
         p, wrt = layer(d)
-        out, aux = nsa_prefill(p, wrt[0], cfg)
+        out, aux = nsa_prefill(p, wrt[0], cfg, seq_start=starts(d))
         g = torch.autograd.grad(out, wrt, dout.to(d))
-        tree = params_to_numpy({"x": g[0], **tree_from_leaves(p, list(g[1:]))})
+        tree = params_to_numpy({"out": out.detach(), "x": g[0],
+                                **tree_from_leaves(p, list(g[1:]))})
         return dict(_leaves(tree)), canonicalize_sel(aux["sel_idx"]).cpu()
 
     gc, sc = cpu if cpu is not None else grads("cpu")
@@ -1896,19 +1942,21 @@ def train_layer_check(dev, designs: dict, cpu=None):
             errs = {k: float(np.abs(gg[k] - want).max() / np.abs(want).max())
                     for k, want in gc.items()}
             worst = max(errs, key=errs.get)
-            print(f"[layer] train f32 ({label} keys): nsa_prefill forward + backward, card vs "
-                  f"plain path: worst gradient err / max|grad| = {errs[worst]:.3e} ({worst}) "
-                  f"over x and {len(errs) - 1} parameters (bound {GRAD_TOL:g}); rows whose "
-                  f"selection differs: {flips}")
+            packed = ", packed documents" if seq_start is not None else ""
+            print(f"[layer] train f32 ({label} keys{packed}): "
+                  f"nsa_prefill forward + backward, card vs plain path: worst err / max|value| "
+                  f"= {errs[worst]:.3e} ({worst}) over the output, x and {len(errs) - 2} "
+                  f"parameters' gradients (bound {GRAD_TOL:g}); rows whose selection differs: "
+                  f"{flips}")
             if flips or not errs[worst] <= GRAD_TOL:
                 fail(f"one layer's gradients on the card ({label} keys) disagree with the "
                      f"plain path")
             p, wrt = layer(dev)
-            dd = dout.to(dev)
+            dd, ds = dout.to(dev), starts(dev)
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                out, _ = nsa_prefill(p, wrt[0], cfg)
+                out, _ = nsa_prefill(p, wrt[0], cfg, seq_start=ds)
                 torch.autograd.grad(out, wrt, dd)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
@@ -1940,17 +1988,35 @@ def train_launches(steps: int) -> dict:
     return {k: v * steps for k, v in want.items()}
 
 
-def phase_train(dev, tag: str = "train") -> dict:
-    """The m7c-125M train step (bf16, remat, B=8 x S=2048, synthetic data)
-    under the design keys in force, from the same seed and batches in every
-    call. Returns the launch counts over TIMED_STEPS steps, the mean step
-    ms and the losses of the warm-up and timed steps."""
-    mcfg, tcfg = M7C_125M, M7C_125M_TRAIN
+def train_batches(n: int, dev, varlen: bool = False) -> list:
+    """n m7c train batches [1, 8, 2048 + 1] of synthetic tokens (seed
+    1337) on dev; with varlen, (tokens, seq_start, loss_mask) of packed
+    documents (make_varlen_batches at align l_sel)."""
+    tcfg = M7C_125M_TRAIN
+    if not varlen:
+        data = make_batches("synthetic", tcfg.seq_len, tcfg.batch_size, seed=tcfg.seed)
+        return [torch.from_numpy(next(data)).long().to(dev)[None] for _ in range(n)]
+    data = make_varlen_batches("synthetic", tcfg.seq_len, tcfg.batch_size,
+                               align=M7C_125M.nsa.l_sel, seed=tcfg.seed)
+    out = []
+    for _ in range(n):
+        toks, ds, lm = next(data)
+        out.append((torch.from_numpy(toks).long().to(dev)[None],
+                    torch.from_numpy(ds).to(dev)[None], torch.from_numpy(lm).to(dev)[None]))
+    return out
+
+
+def phase_train(dev, tag: str = "train", varlen: bool = False) -> dict:
+    """The m7c-125M train step (bf16, remat, B=8 x S=2048, synthetic data;
+    with varlen, packed documents: train_batches) under the design keys in
+    force, from the same seed and batches in every call. Returns the launch
+    counts over TIMED_STEPS steps, the mean step ms, the losses of the
+    warm-up and timed steps and the traced step's busy ms."""
+    mcfg, tcfg = M7C_125M, dataclasses.replace(M7C_125M_TRAIN, varlen=varlen)
     state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(0),
                                                device=dev), tcfg)
     step = make_train_step(mcfg, tcfg)
-    data = make_batches("synthetic", tcfg.seq_len, tcfg.batch_size, seed=tcfg.seed)
-    batches = [torch.from_numpy(next(data)).long().to(dev)[None] for _ in range(TIMED_STEPS + 3)]
+    batches = train_batches(TIMED_STEPS + 3, dev, varlen)
     print(f"[{tag}] m7c-125M {mcfg.dtype}, remat {mcfg.remat}, {tcfg.batch_size} x "
           f"{tcfg.seq_len} tokens per step, lr {tcfg.lr}, max_grad_norm {tcfg.max_grad_norm}; "
           f"backward kernels: " + ", ".join(
@@ -1983,6 +2049,11 @@ def phase_train(dev, tag: str = "train") -> dict:
     print(f"[{tag}] step ms {', '.join(f'{v:.2f}' for v in step_ms)}; mean {mean_ms:.3f} ms, "
           f"{tokens / (mean_ms / 1e3):.0f} tokens/s; losses (warm-up, timed) "
           f"{', '.join(f'{v:.4f}' for v in losses)}; grad_norm {float(m['grad_norm']):.4f}")
+    if varlen:   # the timed batches' supervised tokens over their steps' time
+        sup = sum(float(b[2].sum()) for b in batches[1:1 + TIMED_STEPS])
+        print(f"[{tag}] supervised tokens {sup:.0f} of {tokens * TIMED_STEPS} over "
+              f"{TIMED_STEPS} steps ({sup / (tokens * TIMED_STEPS):.3f}): "
+              f"{sup / (sum(step_ms) / 1e3):.0f} supervised tokens/s")
     print(f"[{tag}] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1998,8 +2069,8 @@ def phase_train(dev, tag: str = "train") -> dict:
             syncs[where] = syncs.get(where, 0) + 1
     print(f"[{tag}] host-device synchronisations in one step: {sum(syncs.values())} "
           f"({syncs or 'none'})")
-    trace(lambda: step(state, batches[-1]), 1, f"{tag} step", mean_ms)
-    return {"counts": counts, "step_ms": mean_ms, "losses": losses}
+    busy = trace(lambda: step(state, batches[-1]), 1, f"{tag} step", mean_ms)["busy"]
+    return {"counts": counts, "step_ms": mean_ms, "losses": losses, "busy": busy}
 
 
 @contextlib.contextmanager
@@ -2021,21 +2092,38 @@ def planted_fault(kernel: str, index: int, factor: float):
         setattr(attention, kernel, real)
 
 
-def first_grads(dev, dtype: str, keys, fault=None) -> list:
+@contextlib.contextmanager
+def dropped_ds(kernel: str):
+    """Runs the body with ops/attention.py's `kernel` wrapper replaced by
+    one that drops seq_start (the dense bound on packed documents): a fault
+    the varlen gradient check must catch."""
+    real = getattr(attention, kernel)
+    setattr(attention, kernel, lambda *args, seq_start=None, **kw: real(*args, **kw))
+    try:
+        yield
+    finally:
+        setattr(attention, kernel, real)
+
+
+def first_grads(dev, dtype: str, keys, fault=None, varlen: bool = False) -> list:
     """[(leaf name, gradient)] of the m7c-125M train step's first batch at
-    phase_train's initial parameters in `dtype` (remat, B=8 x 2048), under
-    the design keys `keys` (None: the keys in force) and a planted fault
-    (planted_fault's arguments) if given; W_qkv is split into its seven
-    projections, so a fault in one branch's dK or dV meets its own block."""
-    mcfg, tcfg = dataclasses.replace(M7C_125M, dtype=dtype), M7C_125M_TRAIN
+    phase_train's initial parameters in `dtype` (remat, B=8 x 2048; with
+    varlen, train_batches' packed documents), under the design keys `keys`
+    (None: the keys in force) and a planted fault if given (planted_fault's
+    arguments, or ("drop ds", kernel): dropped_ds); W_qkv is split into its
+    seven projections, so a fault in one branch's dK or dV meets its own
+    block."""
+    mcfg = dataclasses.replace(M7C_125M, dtype=dtype)
     params = init_model_params(mcfg, torch.Generator().manual_seed(0), device=dev)
     leaves = param_leaves(params)
     for _, leaf in leaves:
         leaf.requires_grad_(True)
-    data = make_batches("synthetic", tcfg.seq_len, tcfg.batch_size, seed=tcfg.seed)
-    batch = torch.from_numpy(next(data)).long().to(dev)
-    with design_keys(keys), (planted_fault(*fault) if fault else contextlib.nullcontext()):
-        grads = loss_and_grads(params, batch, mcfg)[1]
+    batch = train_batches(1, dev, varlen)[0]
+    args = (batch[0][0], mcfg, False, batch[1][0], batch[2][0]) if varlen else (batch[0], mcfg)
+    plant = (contextlib.nullcontext() if not fault else dropped_ds(fault[1])
+             if fault[0] == "drop ds" else planted_fault(*fault))
+    with design_keys(keys), plant:
+        grads = loss_and_grads(params, *args)[1]
     c = mcfg.nsa
     widths = [c.n_heads * c.d_k] + [c.n_kv_groups * dim for dim in (c.d_k, c.d_v)] * 3
     out = []
@@ -2094,48 +2182,67 @@ def step_grad_check(dev) -> None:
         fail(f"the train step's first gradient check failed for {bad}")
 
 
-def phase_designs(dev, default_losses, cpu) -> list:
-    """Phase (f) beyond the kernel checks: one layer's gradients, the m7c
-    train step's first gradient (step_grad_check) and the m7c train step
-    under each setting of DESIGNS; each setting's losses must equal the
-    default keys' (phase (d)) within LOSS_TOL. The first loss comes before
-    any update and the warm-up lr moves the later ones little, so the loss
-    check is weak; the gradient checks are the gate. Returns the settings'
-    launch counts."""
-    train_layer_check(dev, DESIGNS, cpu)
-    step_grad_check(dev)
+def train_designs(dev, default_losses, varlen: bool = False) -> list:
+    """The m7c train step (phase_train, bf16; with varlen on packed
+    documents) under each setting of DESIGNS; each setting's losses must
+    equal the default keys' (`default_losses`) within LOSS_TOL. The first
+    loss comes before any update and the warm-up lr moves the later ones
+    little, so the loss check is weak; the gradient checks are the gate.
+    Returns the settings' launch counts, from which the backward kernels'
+    rows take theirs."""
     runs = []
     for label, keys in DESIGNS.items():
+        tag = f"{'varlen' if varlen else 'train'} {label}"
         with design_keys(keys):
-            r = phase_train(dev, f"train {label}")
+            r = phase_train(dev, tag, varlen)
         diff = max(abs(a - b) for a, b in zip(r["losses"], default_losses))
-        print(f"[train {label}] losses vs the default keys': max |difference| {diff:.3e} "
+        print(f"[{tag}] losses vs the default keys': max |difference| {diff:.3e} "
               f"(bound {LOSS_TOL:g})")
         if not diff <= LOSS_TOL:
-            fail(f"the train step's losses under {label} differ from the default keys'")
+            fail(f"the {tag} step's losses differ from the default keys'")
         runs.append(r["counts"])
     return runs
 
 
-def loss_falls(dev) -> None:
+def phase_designs(dev, default_losses, cpu) -> list:
+    """Phase (f) beyond the kernel checks: one layer's gradients, the m7c
+    train step's first gradient (step_grad_check) and the m7c train step
+    under each setting of DESIGNS against the default keys' losses (phase
+    (d)). Returns the settings' launch counts."""
+    train_layer_check(dev, DESIGNS, cpu)
+    step_grad_check(dev)
+    return train_designs(dev, default_losses)
+
+
+def loss_falls(dev, varlen: bool = False) -> None:
     """train() on the card for LOSS_STEPS m7c steps with a short warmup: the
     logged losses (every 5 steps) must be finite, with no bad step, and the
     mean of the last four at least LOSS_DROP below the first (the loss at
     initialisation, ~ln 256 + 0.1; one batch's loss moves by ~0.2 between
-    logs at this lr, so a shorter run does not show a fall reliably)."""
+    logs at this lr, so a shorter run does not show a fall reliably). With
+    varlen on packed documents, and one eval at the end, whose loss must be
+    finite."""
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     tcfg = dataclasses.replace(M7C_125M_TRAIN, steps=LOSS_STEPS, warmup_steps=5, log_every=5,
-                               save_every=0, eval_every=0, out_dir=TRAIN_DIR)
+                               save_every=0, eval_every=LOSS_STEPS if varlen else 0,
+                               out_dir=TRAIN_DIR, varlen=varlen)
+    tag = "varlen" if varlen else "train"
     t = time.perf_counter()
     summary = train(M7C_125M, tcfg, "synthetic", device=dev)
     with open(os.path.join(TRAIN_DIR, "training.csv")) as f:
         losses = [float(r["loss"]) for r in csv.DictReader(f)]
-    print(f"[train] train(): {summary['steps']} steps in {time.perf_counter() - t:.1f} s, "
+    val = []
+    if varlen:
+        with open(os.path.join(TRAIN_DIR, "val.csv")) as f:
+            val = [float(r[1]) for r in csv.reader(f)]
+    print(f"[{tag}] train(): {summary['steps']} steps in {time.perf_counter() - t:.1f} s, "
           f"logged losses {', '.join(f'{v:.4f}' for v in losses)}, bad steps "
-          f"{summary['bad_steps']}")
+          f"{summary['bad_steps']}" + (f"; eval loss {val}" if varlen else ""))
     if not np.all(np.isfinite(losses)) or summary["bad_steps"] or \
             not np.mean(losses[-4:]) < losses[0] - LOSS_DROP:
-        fail("the m7c training loss did not fall")
+        fail(f"the m7c training loss did not fall ({tag})")
+    if varlen and (len(val) != 1 or not np.isfinite(val[0])):
+        fail(f"the varlen train() run's eval gave {val}")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
 
@@ -2457,6 +2564,505 @@ def measure_long(rec, counts) -> list:
     return out
 
 
+# ------------------------------------------------------------------ (h)
+
+# documents packed first at the train shape (l_sel = 64): one shorter than
+# l = 32 (it sees no compressed token), one of exactly l_sel, one longer
+# than w = 512, one that nearly fills a row; then lengths from a seed
+VARLEN_MUST = (20, 64, 700, 2000)
+VARLEN_SEED = 97
+# raw tokens under one key tile (64 pooled tokens) of the bf16 compressed
+# forward, whose tiles sit at absolute multiples of it
+CMP_TILE_TOKENS = 64 * M7C_125M.nsa.d
+# the varlen rows' TPU kernels that take seq_start (PERF.md's table): the
+# train shape's forwards and backward designs, the 64k route's rows 5 and 6
+VARLEN_BWD = ("banded_bwd_1p@win", "banded_bwd_1p@cmp", "banded_bwd@win", "banded_bwd@cmp",
+              "win_bwd_diag")
+
+
+def varlen_pack(rows: int, S_row: int, seed: int, must=()) -> tuple:
+    """Documents of random tokens packed by pack_documents_aligned at l_sel:
+    `must` lengths first, then lengths drawn from `seed` (a third under 64
+    tokens, the rest up to S_row / 3), until `rows` rows are full. Returns
+    (tokens [rows, S_row + 1], seq_start [rows, S_row], loss_mask, the
+    documents as (row, start, length))."""
+    rng = np.random.default_rng(seed)
+    lens = list(must)
+    while True:
+        docs = [rng.integers(0, M7C_125M.vocab_size, size=n).astype(np.int32) for n in lens]
+        toks, ds, lm = pack_documents_aligned(docs, S_row, M7C_125M.nsa.l_sel, 1)
+        if len(ds) > rows:
+            break
+        lens += [int(rng.integers(2, 64)) if rng.random() < 0.3
+                 else int(rng.integers(64, max(S_row // 3, 65))) for _ in range(8)]
+    toks, ds, lm = toks[:rows], ds[:rows], lm[:rows]
+    spans = [(r, int(a), int(lm[r, ds[r] == a].sum()) + 1)
+             for r in range(rows) for a in np.unique(ds[r]) if lm[r, ds[r] == a].any()]
+    return toks, ds, lm, spans
+
+
+def varlen_kernel_inputs(dtype, dev, gen, ds) -> dict:
+    """Branch operands at the m7c training shapes under seq_start ds [B, S]
+    (packed documents) and their forward outputs with lse, from the
+    kernels."""
+    cfg = M7C_125M.nsa
+    G, h, D = cfg.n_kv_groups, cfg.h_per_group, cfg.d_k
+    meta = build_block_meta(S, cfg.l, cfg.d, cfg.l_sel, cfg.n_sel, cfg.w)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    x = dict(cfg=cfg, scale=1.0 / float(np.sqrt(D)), ds=ds, Q=r(B_TRAIN, S, G, h, D),
+             dO=r(B_TRAIN, S, G, h, D), Kc=r(B_TRAIN, G, meta.S_cmp, D),
+             Vc=r(B_TRAIN, G, meta.S_cmp, D), Kw=r(B_TRAIN, G, S, D), Vw=r(B_TRAIN, G, S, D),
+             M=torch.from_numpy(meta.M_csl).to(dev))
+    x["sel"], x["Oc"], x["lse_c"] = select_cmp(x["Q"], x["Kc"], x["Vc"], x["M"], **cmp_kw(x),
+                                               return_lse=True, seq_start=ds)
+    x["Ow"], x["lse_w"] = win_attn(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=x["scale"],
+                                   return_lse=True, seq_start=ds)
+    return x
+
+
+def cmp_kw(x) -> dict:
+    cfg = x["cfg"]
+    return dict(scale=x["scale"], l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel)
+
+
+def dense_bound_fails(name, O_dense, want_bound) -> None:
+    """The planted fault of phase (h): the kernel's output with the dense
+    bound (seq_start None) on the packed input must fail the varlen check."""
+    worst = worst_ratio(O_dense, *want_bound)
+    print(f"[varlen] {name}: the same kernel given the dense bound on the packed input: worst "
+          f"err/bound {worst:.3f} (must exceed 1)")
+    if not worst > 1.0:
+        fail(f"{name}: the dense bound passes the varlen check")
+
+
+def fwd_bound(dtype, plain_O, rss_fn):
+    """(want, bound) of a forward's output: f32 allowed_err of the plain O,
+    bf16 (tensor cores) allowed_tc_err of the unrounded f32 O."""
+    if dtype == torch.float32:
+        return plain_O, allowed_err(plain_O)
+    want, rss = rss_fn()
+    return want, allowed_tc_err(want, rss)
+
+
+def varlen_fwd_checks(x, dtype) -> dict:
+    """Rows 1 and 3 with seq_start at the train shape against their plain
+    versions with it (fwd_check: two launches bit-equal; bf16 tensor-core
+    bound with a planted 1% fault; lse with the same rows empty); row 1's
+    sets equal but at near ties, forced slots in order, and in bf16 its O
+    and lse banded_attn's (cmp, seq_start) bit for bit; each given the
+    dense bound must fail."""
+    cfg, sc, ds = x["cfg"], x["scale"], x["ds"]
+    Q, Kc, Vc, M = x["Q"], x["Kc"], x["Vc"], x["M"]
+    kw = cmp_kw(x)
+    sel_k = select_cmp(Q, Kc, Vc, M, **kw, seq_start=ds)[0]
+    sel_2 = select_cmp(Q, Kc, Vc, M, **kw, seq_start=ds)[0]
+    sel_p, _, p_grp = select_cmp_plain(Q, Kc, Vc, M, **kw, return_scores=True, seq_start=ds)
+    n_diff, n_far, spread = near_tie_rows(sel_k, sel_p, p_grp)
+    forced = torch.equal(sel_k[..., :3], sel_p[..., :3])
+    dense_far = near_tie_rows(select_cmp(Q, Kc, Vc, M, **kw)[0], sel_p, p_grp)[1]
+    print(f"[varlen] select_cmp {str(dtype)[6:]:8s} sel rows differing on near ties: {n_diff} "
+          f"(widest spread {spread:.3e}); forced slots in order: {forced}; two launches "
+          f"identical: {torch.equal(sel_k, sel_2)}; with the dense bound, rows differing "
+          f"beyond a near tie: {dense_far} (must be > 0)")
+    if n_far or not forced or not torch.equal(sel_k, sel_2) or not dense_far:
+        fail(f"select_cmp with seq_start {dtype}: sets differ beyond the near-tie bound, or "
+             f"the forced slots or two launches differ, or the dense bound passes")
+    del sel_k, sel_2, sel_p, p_grp
+
+    def plain_c(a, b, with_lse=False):
+        out = select_cmp_plain(Q, Kc, Vc, M, **kw, return_lse=with_lse, seq_start=ds)
+        return out[1:] if with_lse else out[1]
+
+    def rss_c(a=0, b=0):
+        return banded_attn_rss(Q, Kc, Vc, mode="cmp", l=cfg.l, d=cfg.d, scale=sc, seq_start=ds)
+
+    errs = {"select_cmp@varlen": fwd_check(
+        "select_cmp@varlen", lambda: select_cmp(Q, Kc, Vc, M, **kw, return_lse=True,
+                                                seq_start=ds)[1:],
+        dtype, S, plain_c, rss_c, tc=dtype == torch.bfloat16, lse=True, rows=None, chunk=None)}
+    dense_bound_fails("select_cmp@varlen", select_cmp(Q, Kc, Vc, M, **kw)[1],
+                      fwd_bound(dtype, plain_c(0, S), rss_c))
+    if dtype == torch.bfloat16:
+        O, L_ = select_cmp(Q, Kc, Vc, M, **kw, return_lse=True, seq_start=ds)[1:]
+        Ob, Lb = banded_attn(Q, Kc, Vc, mode="cmp", l=cfg.l, d=cfg.d, scale=sc, return_lse=True,
+                             seq_start=ds)
+        same = torch.equal(O, Ob) and torch.equal(L_, Lb)
+        print(f"[varlen] select_cmp: O and lse bit-equal to banded_attn (cmp, seq_start): {same}")
+        if not same:
+            fail("select_cmp with seq_start: O or lse differ from banded_attn's in cmp mode")
+    wargs = (Q, x["Kw"], x["Vw"])
+
+    def plain_w(a, b, with_lse=False):
+        return banded_attn_plain(*wargs, mode="win", w=cfg.w, scale=sc, return_lse=with_lse,
+                                 seq_start=ds)
+
+    def rss_w(a=0, b=0):
+        return banded_attn_rss(*wargs, mode="win", w=cfg.w, scale=sc, seq_start=ds)
+
+    errs["win_attn@varlen"] = fwd_check(
+        "win_attn@varlen", lambda: win_attn(*wargs, w=cfg.w, scale=sc, return_lse=True,
+                                            seq_start=ds),
+        dtype, S, plain_w, rss_w, tc=dtype == torch.bfloat16, lse=True, rows=None, chunk=None)
+    dense_bound_fails("win_attn@varlen", win_attn(*wargs, w=cfg.w, scale=sc),
+                      fwd_bound(dtype, plain_w(0, S), rss_w))
+    return errs
+
+
+def varlen_bwd_calls(x) -> dict:
+    """name -> (kernel call under seq_start s, plain call, visibility mask
+    [B,S,G,S_kv]) of the banded backward kernels on x's packed documents."""
+    cfg, sc, ds = x["cfg"], x["scale"], x["ds"]
+    Q, dO = x["Q"], x["dO"]
+    G = Q.shape[2]
+    win = dict(mode="win", w=cfg.w, scale=sc)
+    cmp_ = dict(mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
+    wargs = (Q, x["Kw"], x["Vw"], dO, x["lse_w"], attention_delta(dO, x["Ow"]))
+    cargs = (Q, x["Kc"], x["Vc"], dO, x["lse_c"], attention_delta(dO, x["Oc"]))
+
+    def mask(args, kw):
+        return banded_mask(S, args[1].shape[2], **{k: v for k, v in kw.items() if k != "scale"},
+                           device=Q.device, seq_start=ds)[:, :, None, :].expand(-1, -1, G, -1)
+
+    table = {"banded_bwd_1p@win": (banded_bwd_1p, wargs, win),
+             "banded_bwd_1p@cmp": (banded_bwd_1p, cargs, cmp_),
+             "banded_bwd@win": (banded_bwd, wargs, win), "banded_bwd@cmp": (banded_bwd, cargs, cmp_),
+             "win_bwd_diag": (None, wargs, win)}
+    out = {}
+    for name, (fn, args, kw) in table.items():
+        if fn is None:
+            def kern(s=ds, args=args):
+                return win_bwd_diag(*args, w=cfg.w, scale=sc, seq_start=s)
+        else:
+            def kern(s=ds, fn=fn, args=args, kw=kw):
+                return fn(*args, **kw, seq_start=s)
+        out[name] = (kern, lambda args=args, kw=kw: banded_bwd_plain(*args, **kw, seq_start=ds),
+                     lambda args=args, kw=kw: mask(args, kw))
+    return out
+
+
+def varlen_bwd_checks(x, dtype) -> dict:
+    """Rows 7 (win, cmp), 8 (win, cmp) and 11 with seq_start against the
+    plain version with it (f32 allowed_rel_err; bf16 allowed_tc_err of
+    banded_bwd_rss under seq_start, where a planted 1% fault must fail),
+    two launches bit-equal, the SAME_P_DS pairs within allowed_rel_err of
+    each other; each kernel given the dense bound must fail."""
+    cfg, sc, ds = x["cfg"], x["scale"], x["ds"]
+    calls = varlen_bwd_calls(x)
+    refs, errs, got_all = {}, {}, {}
+    for name in VARLEN_BWD:
+        kern, plain, _ = calls[name]
+        branch = branch_of(name)
+        if branch not in refs:
+            if dtype == torch.bfloat16:
+                K, V, lse, O = (x[k] for k in (("Kw", "Vw", "lse_w", "Ow") if branch == "win"
+                                                else ("Kc", "Vc", "lse_c", "Oc")))
+                kw = dict(mode="win", w=cfg.w) if branch == "win" else dict(mode="cmp", l=cfg.l,
+                                                                            d=cfg.d)
+                want, rss = banded_bwd_rss(x["Q"], K, V, x["dO"], lse,
+                                           attention_delta(x["dO"], O), **kw, scale=sc,
+                                           seq_start=ds)
+                refs[branch] = (want, tuple(allowed_tc_err(w, r) for w, r in zip(want, rss)))
+            else:
+                refs[branch] = (plain(), (allowed_rel_err,) * 3)
+        want, bounds = refs[branch]
+        got, again = kern(), kern()
+        errs[name] = max(check(f"{name}@varlen:{n}", g, w, bound=bd)
+                         for n, g, w, bd in zip(("dQ", "dK", "dV"), got, want, bounds))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{name} with seq_start {dtype}: two launches differ")
+        if dtype == torch.bfloat16:
+            faults = [worst_ratio(g * FAULT, w, bd) for g, w, bd in zip(got, want, bounds)]
+            if not min(faults) > 1.0:
+                fail(f"{name} with seq_start: a planted {FAULT - 1:.0%} fault passes the bound")
+        dense = max(worst_ratio(g, w, bd) for g, w, bd in zip(kern(None), want, bounds))
+        print(f"[varlen] {name} {str(dtype)[6:]}: two launches identical; with the dense bound "
+              f"on the packed input: worst err/bound {dense:.3f} (must exceed 1)")
+        if not dense > 1.0:
+            fail(f"{name}: the dense bound passes the varlen check")
+        got_all[name] = got
+        del again
+    for a, b in (("win_bwd_diag", "banded_bwd_1p@win"), ("banded_bwd@win", "banded_bwd_1p@win"),
+                 ("banded_bwd@cmp", "banded_bwd_1p@cmp")):
+        for n, g, w in zip(("dQ", "dK", "dV"), got_all[a], got_all[b]):
+            check(f"{a}@varlen:{n} vs {b}", g, w, bound=allowed_rel_err)
+    return errs
+
+
+def phase_varlen_kernels(dev, ds) -> dict:
+    """Rows 1, 3, 7, 8 and 11 with seq_start ds [B_TRAIN, S] at the train
+    shape, f32 (TF32 off) then bf16. Returns the bf16 inputs and max
+    errors."""
+    gen = torch.Generator(device=dev).manual_seed(8642)
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = varlen_kernel_inputs(dtype, dev, gen, ds)
+        rec.update(varlen_fwd_checks(x, dtype))
+        rec.update(varlen_bwd_checks(x, dtype))
+        print(f"[varlen] rows 1, 3, 7, 8, 11 with seq_start {str(dtype)[6:]}: within their bounds, "
+              f"two launches identical, the dense bound fails each")
+        if dtype == torch.bfloat16:
+            rec["inputs"] = x
+        del x
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_varlen_long(dev, ds) -> dict:
+    """Rows 5 (banded_attn, cmp) and 6 (select_blocks) with seq_start ds
+    [1, S_LONG] at 64k, f32 then bf16, on the last N_CHECK rows against the
+    plain versions with it (t_start / pos_offset and the rows' own
+    seq_start); two launches identical; the dense bound must fail. Returns
+    the bf16 inputs and max errors."""
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    t0 = S_LONG - N_CHECK
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = long_inputs(dtype, dev, gen, S_LONG)
+        cfg, sc = x["cfg"], x["scale"]
+        cargs, kw = (x["Q"], x["Kc"], x["Vc"]), dict(mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
+
+        def plain(a, b, with_lse=False):
+            return banded_attn_plain(x["Q"][:, a:b], x["Kc"], x["Vc"], **kw, t_start=a,
+                                     return_lse=with_lse, seq_start=ds[:, a:b])
+
+        def rss(a=t0, b=S_LONG):
+            return banded_attn_rss(x["Q"][:, a:b], x["Kc"], x["Vc"], **kw, t_start=a,
+                                   seq_start=ds[:, a:b])
+
+        rec["banded_attn@cmp@varlen-64k"] = fwd_check(
+            "banded_attn@cmp@varlen-64k", lambda: banded_attn(*cargs, **kw, return_lse=True,
+                                                              seq_start=ds),
+            dtype, S_LONG, plain, rss, tc=dtype == torch.bfloat16, lse=True, rows=(t0, S_LONG),
+            chunk=None)
+        dense_bound_fails("banded_attn@cmp@varlen-64k", banded_attn(*cargs, **kw)[:, t0:],
+                          fwd_bound(dtype, plain(t0, S_LONG), rss))
+        sel = select_blocks(x["Q"], x["Kc"], **sel_kw(x), seq_start=ds)
+        again = select_blocks(x["Q"], x["Kc"], **sel_kw(x), seq_start=ds)
+        selp, p_grp = select_blocks_plain(x["Q"][:, t0:], x["Kc"], **sel_kw(x), pos_offset=t0,
+                                          return_scores=True, seq_start=ds[:, t0:])
+        n_diff, n_far, spread = near_tie_rows(sel[:, t0:], selp, p_grp)
+        forced = torch.equal(sel[:, t0:, :, :3], selp[..., :3])
+        dense_far = near_tie_rows(select_blocks(x["Q"], x["Kc"], **sel_kw(x))[:, t0:], selp,
+                                  p_grp)[1]
+        print(f"[varlen] select_blocks {str(dtype)[6:]:8s} 64k: sel rows differing on near ties: "
+              f"{n_diff} of {selp.shape[1] * selp.shape[2]} (widest spread {spread:.3e}); "
+              f"forced slots in order: {forced}; two launches identical: "
+              f"{torch.equal(sel, again)}; with the dense bound, rows differing beyond a near "
+              f"tie: {dense_far} (must be > 0)")
+        if n_far or not forced or not torch.equal(sel, again) or not dense_far:
+            fail(f"select_blocks with seq_start {dtype}: sets differ beyond the near-tie bound, "
+                 f"or the forced slots or two launches differ, or the dense bound passes")
+        rec["select_blocks@varlen-64k"] = spread
+        if dtype == torch.bfloat16:
+            rec["inputs"] = dict(x, ds=ds)
+        del x, sel, again, selp, p_grp
+        torch.cuda.empty_cache()
+    return rec
+
+
+def logit_ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of want's largest |logit|."""
+    return float((got.float() - want.float()).abs().max()) / bf16_ulp(float(want.abs().max()))
+
+
+def packed_equals_alone(dev, params, toks, ds, spans) -> None:
+    """m7c (bf16, no grad) on a packed batch with seq_start against each
+    document run alone, at position 0 of its own row of a batch of the same
+    shape without seq_start (so the same GEMM shapes run): logits within
+    LOGIT_ULPS bf16 ulps of the document's largest |logit|, and the same
+    selection in every layer (packed block ids less the document's first
+    block). The witness of where the ulps come from: the compressed
+    stream's key tiles (64 pooled tokens, CMP_TILE_TOKENS raw ones) sit at
+    absolute multiples, so a document that starts off that grid sums its
+    compressed softmax in other chunks than alone; one that starts on it
+    (each row's first, at 0) must read 0 ulps."""
+    mcfg, l_sel = M7C_125M, M7C_125M.nsa.l_sel
+    Bq, S_row = ds.shape
+    worst = {True: 0.0, False: 0.0}   # documents on / off the compressed key-tile grid
+    flips = 0
+    with torch.no_grad():
+        logits, aux = model_forward(params, toks[:, :-1], mcfg, collect_aux=True,
+                                    seq_start=ds)
+        for i in range(0, len(spans), Bq):
+            group = spans[i:i + Bq]
+            alone = torch.zeros_like(toks[:, :-1])
+            for j, (r, a, n) in enumerate(group):
+                alone[j, :n] = toks[r, a:a + n]
+            la, aux_a = model_forward(params, alone, mcfg, collect_aux=True)
+            for j, (r, a, n) in enumerate(group):
+                on = a % CMP_TILE_TOKENS == 0
+                worst[on] = max(worst[on], logit_ulps(logits[r, a:a + n], la[j, :n]))
+                for layer, layer_a in zip(aux, aux_a):
+                    sp = canonicalize_sel(layer["sel_idx"][r, a:a + n])
+                    sp = torch.where(sp >= 0, sp - a // l_sel, sp)
+                    sa = canonicalize_sel(layer_a["sel_idx"][j, :n])
+                    flips += int((sp != sa).any(-1).sum())
+    n_on = sum(a % CMP_TILE_TOKENS == 0 for _, a, _ in spans)
+    print(f"[varlen] packed equals alone: {len(spans)} documents of {Bq} x {S_row} packed rows "
+          f"(lengths {min(n for *_, n in spans)} .. {max(n for *_, n in spans)}): logits within "
+          f"{max(worst.values()):.2f} bf16 ulps of each document's max |logit| (bound "
+          f"{LOGIT_ULPS}); the {n_on} starting at a multiple of {CMP_TILE_TOKENS} tokens "
+          f"{worst[True]:.2f} (must be 0), the {len(spans) - n_on} others {worst[False]:.2f}; "
+          f"(token, layer, group) selections that differ: {flips}")
+    if not max(worst.values()) <= LOGIT_ULPS or worst[True] != 0.0 or flips:
+        fail("a packed document's logits or selection differ from the document alone")
+
+
+def no_leak(name, params, toks, ds, spans, victim: int) -> None:
+    """Perturbs document `victim`'s tokens: every other document's logits
+    (m7c bf16, no grad, seq_start) must be bit-identical, the victim's not."""
+    r, a, n = spans[victim]
+    pert = toks.clone()
+    pert[r, a:a + n] = (pert[r, a:a + n] + 101) % M7C_125M.vocab_size
+    with torch.no_grad():
+        base = model_forward(params, toks[:, :-1], M7C_125M, seq_start=ds)[0]
+        moved = model_forward(params, pert[:, :-1], M7C_125M, seq_start=ds)[0]
+    diff = (moved - base).abs().amax(-1)                                  # [B, S]
+    own = torch.zeros_like(diff, dtype=torch.bool)
+    own[r] = ds[r] == a                                  # the document and its padding
+    other, inside = float(diff[~own].max()), float(diff[own].max())
+    print(f"[varlen] no leak at {name}: document {victim} ({n} tokens at row {r}, {a}) "
+          f"perturbed: its logits move by up to {inside:.4f}; every other position's by "
+          f"{other} (must be 0.0)")
+    if other != 0.0 or not inside > 0.0:
+        fail(f"cross-document influence at {name}")
+
+
+def varlen_grad_check(dev) -> None:
+    """The varlen m7c step's first f32 gradient under each setting of
+    DESIGNS against the default keys' within STEP_GRAD_TOL per leaf; a
+    backward kernel of the default keys that drops seq_start must fail it.
+    These f32 runs launch the FMA kernels: no row takes its launches from
+    them."""
+    ref = first_grads(dev, "float32", None, varlen=True)
+
+    def gap(keys, fault=None):
+        got = first_grads(dev, "float32", keys, fault, varlen=True)
+        errs = torch.stack([(g.float() - r.float()).norm() / r.float().norm()
+                            for (_, g), (_, r) in zip(got, ref)])
+        i = int(errs.argmax())
+        return float(errs[i]), got[i][0]
+
+    bad = []
+    print(f"[varlen grads] float32: first step's gradient over {len(ref)} leaves vs the default "
+          f"keys' (bound {STEP_GRAD_TOL:g}):")
+    for label, keys in DESIGNS.items():
+        err, leaf = gap(keys)
+        print(f"[varlen grads]   {label}: {err:.3e} ({leaf})")
+        if not err <= STEP_GRAD_TOL:
+            bad.append(label)
+    cmp_kernel = tuning.backward_kernel("cmp", M7C_125M_TRAIN.seq_len, M7C_125M.nsa.w)
+    err, leaf = gap(None, ("drop ds", cmp_kernel))
+    print(f"[varlen grads]   planted: {cmp_kernel} without seq_start: {err:.3e} ({leaf}); must "
+          f"exceed the bound")
+    if not err > STEP_GRAD_TOL:
+        bad.append("planted")
+    if bad:
+        fail(f"the varlen step's first gradient check failed for {bad}")
+
+
+def varlen_rows(krec, lrec, runs, long_counts) -> list:
+    """The JSON rows of the kernels that take seq_start, on packed
+    documents (bf16): rows 1 and 3 and the backward designs at the train
+    shape, rows 5 and 6 at 64k; launches from the varlen bf16 steps (`runs`:
+    the default keys' counts, then each design's: train_designs) and the
+    64k forward (`long_counts`)."""
+    x = krec["inputs"]
+    cfg, sc = x["cfg"], x["scale"]
+    counts = runs[0]
+    out = [select_cmp_row("select_cmp@varlen", x, lse=True, launches=counts["select_cmp"],
+                          max_err=krec["select_cmp@varlen"])]
+    wargs = (x["Q"], x["Kw"], x["Vw"])
+    out.append(band_row("win_attn@varlen", lambda: win_attn(*wargs, w=cfg.w, scale=sc,
+                                                            return_lse=True, seq_start=x["ds"]),
+                        *wargs, mode="win", kw=dict(w=cfg.w), lse=True,
+                        launches=counts["win_attn"], max_err=krec["win_attn@varlen"], iters=10,
+                        seq_start=x["ds"]))
+    bwd = measure_train(krec, runs, VARLEN_BWD, calls=varlen_bwd_calls(x), suffix="@varlen")
+    y = lrec["inputs"]
+    cargs, ds = (y["Q"], y["Kc"], y["Vc"]), y["ds"]
+    kw = dict(mode="cmp", l=cfg.l, d=cfg.d, scale=y["scale"])
+    out.append(band_row("banded_attn@cmp@varlen-64k",
+                        lambda: banded_attn(*cargs, **kw, seq_start=ds), *cargs, mode="cmp",
+                        kw=dict(l=cfg.l, d=cfg.d), lse=False, launches=long_counts["banded_attn"],
+                        max_err=lrec["banded_attn@cmp@varlen-64k"], iters=5, chunk=N_CHECK,
+                        seq_start=ds))
+    sel = select_blocks(y["Q"], y["Kc"], **sel_kw(y), seq_start=ds)
+    pairs = float(banded_mask(S_LONG, y["Kc"].shape[2], mode="cmp", l=cfg.l, d=cfg.d,
+                              device=ds.device, seq_start=ds).sum()) * cfg.n_kv_groups \
+        * cfg.h_per_group
+    bms, by = bound(nbytes(y["Q"], y["Kc"], sel, ds), pairs * 2 * cfg.d_k, y["Q"].dtype)
+    out.append(dict(
+        name="select_blocks@varlen-64k", source="nsa_vibe_tpu_torch/csrc/select_blocks_mma.cu",
+        replaces="nsa_vibe_tpu/ops/pallas/scorer.py:186",
+        launches=long_counts["select_blocks"], max_abs_err=lrec["select_blocks@varlen-64k"],
+        ms=time_ms(lambda: select_blocks(y["Q"], y["Kc"], **sel_kw(y), seq_start=ds), 5,
+                   hold=True),
+        plain_ms=time_ms(lambda: [select_blocks_plain(y["Q"][:, s:s + N_CHECK], y["Kc"],
+                                                      **sel_kw(y), pos_offset=s,
+                                                      seq_start=ds[:, s:s + N_CHECK])
+                                  for s in range(0, S_LONG, N_CHECK)], 1, 1, hold=True),
+        bound_ms=bms, bound_by=by, library_ms=None))
+    print_rows(out)
+    return out[:2] + bwd + out[2:]
+
+
+def phase_varlen(dev) -> list:
+    """Phase (h): packed documents (varlen). Kernel checks with seq_start
+    (train shape: rows 1, 3, 7, 8, 11; 64k: rows 5, 6), packed-equals-alone
+    and no-leak at 8 x 2048, no-leak at 1 x 65536 (the long route, launches
+    counted), the varlen train step (timed, traced, launches, syncs), a
+    varlen train() whose loss falls, one f32 varlen layer card vs CPU, the
+    varlen step's first gradient under every design, and the JSON rows.
+    Returns the rows."""
+    toks, ds_np, lm, spans = varlen_pack(B_TRAIN, S, VARLEN_SEED, VARLEN_MUST)
+    ds = torch.from_numpy(ds_np).to(dev)
+    print(f"[varlen] {B_TRAIN} x {S} packed rows at l_sel {M7C_125M.nsa.l_sel}: {len(spans)} "
+          f"documents of {min(n for *_, n in spans)} .. {max(n for *_, n in spans)} tokens; "
+          f"supervised share {lm.mean():.3f}")
+    krec = phase_varlen_kernels(dev, ds)
+    toks64, ds64_np, _, spans64 = varlen_pack(1, S_LONG, VARLEN_SEED + 1, VARLEN_MUST[:3])
+    ds64 = torch.from_numpy(ds64_np).to(dev)
+    lrec = phase_varlen_long(dev, ds64)
+    params = init_model_params(M7C_125M, torch.Generator().manual_seed(0), device=dev)
+    toks_d = torch.from_numpy(toks).long().to(dev)
+    packed_equals_alone(dev, params, toks_d, ds, spans)
+    no_leak(f"{B_TRAIN} x {S}", params, toks_d, ds, spans, victim=2)
+    toks64_d = torch.from_numpy(toks64).long().to(dev)
+    with torch.no_grad():
+        model_forward(params, toks64_d[:, :-1], M7C_125M, seq_start=ds64)      # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        model_forward(params, toks64_d[:, :-1], M7C_125M, seq_start=ds64)
+        torch.cuda.synchronize()
+    long_counts = kernels.launch_counts()
+    L = M7C_125M.n_layers
+    want = {**dict.fromkeys(long_counts, 0), "sel_attn": L, "win_attn": L, "banded_attn": L,
+            "select_blocks": L}
+    print(f"[varlen] 1 x {S_LONG} forward on packed documents ({len(spans64)}): launches "
+          f"{long_counts}; expected {want}")
+    if long_counts != want:
+        fail(f"varlen 64k launch counts {long_counts} != {want}")
+    no_leak(f"1 x {S_LONG}", params, toks64_d, ds64, spans64, victim=len(spans64) // 2)
+    del params, toks64_d
+    torch.cuda.empty_cache()
+    tr = phase_train(dev, "varlen", varlen=True)
+    runs = [tr["counts"]] + train_designs(dev, tr["losses"], varlen=True)
+    loss_falls(dev, varlen=True)
+    train_layer_check(dev, {"default": None}, seq_start=ds[:2].cpu())
+    varlen_grad_check(dev)
+    rows = varlen_rows(krec, lrec, runs, long_counts)
+    del krec, lrec
+    torch.cuda.empty_cache()
+    print(f"[varlen] step {tr['step_ms']:.3f} ms, busy {tr['busy']:.3f} ms, idle share "
+          f"{1 - tr['busy'] / tr['step_ms']:.3f}; launches over {TIMED_STEPS} steps "
+          f"{tr['counts']}")
+    return rows
+
+
 def _leaves(tree, key=None):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -2522,6 +3128,8 @@ def main() -> int:
     runs = [tr["counts"]] + phase_designs(dev, tr["losses"], cpu)
     rows += measure_train({**trec, **frec}, runs, TWO_PASS + tuple(PARTNERS))
     del trec, frec
+    torch.cuda.empty_cache()
+    rows += phase_varlen(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

@@ -1,11 +1,14 @@
 """Typed configuration (port of nsa_vibe_tpu/core/config.py).
 
 The fields keep the JAX package's names and defaults. Options that only
-route between TPU paths (`kernel`, `prefill_chunk`, `varlen_exact`) are
-absent: the port dispatches by the device of the tensors (CUDA -> kernel,
-CPU -> plain version), and varlen comes in a later slice. `TrainConfig`
-is the single-device part of the JAX trainer's configuration (the
-parallel axes dp/tp/sp/pp/fsdp and varlen batching are later slices).
+route between TPU paths (`kernel`, `prefill_chunk`) are absent: the port
+dispatches by the device of the tensors (CUDA -> kernel, CPU -> plain
+version). So is `varlen_exact`: the port's avg ϕ is always window-exact
+(ops/compress.py), the form the JAX package computes under
+`varlen_exact=True` (train/trainer.py::load_config accepts that key and
+refuses `false`). `TrainConfig` is the single-device part of the JAX
+trainer's configuration (the parallel axes dp/tp/sp/pp/fsdp are a later
+slice), with `varlen` packed-document batching (ops/varlen.py).
 """
 
 from __future__ import annotations
@@ -90,6 +93,9 @@ class TrainConfig:
     out_dir: str = "artifacts/train"
     # per-step gate/selection stats (gate entropy, collapse fraction, k-stats)
     gate_stats: bool = True
+    # packed-document batching (ops/varlen.py): batches carry (tokens,
+    # seq_start, loss_mask); no attention crosses a document boundary
+    varlen: bool = False
 
 
 # configs/m7c_125m.yaml as code (the card machine has no PyYAML):

@@ -1,6 +1,6 @@
 """Functional NSA attention: parameters, projections, batched prefill.
 
-Port of nsa_vibe_tpu/core/nsa.py (no varlen, no gate fold). The prefill
+Port of nsa_vibe_tpu/core/nsa.py (no gate fold). The prefill
 runs the fused scorer (`fused_select_cmp`: selection indices and the cmp
 branch in one kernel) when it fits, by the JAX package's rule: at least
 one compressed token and `select_cmp_fits(h, S_sel)` (at m7c, prompts up
@@ -14,6 +14,13 @@ differentiable (the training hot path): each branch has a backward
 kernel (ops.attention), the selection indices carry no gradient,
 gradients reach W_K_cmp/W_V_cmp (and ϕ) through the pooling and the gate
 through the combine. Decode lives in core/decode.py.
+
+Packed documents (`seq_start`, ops/varlen.py): positions restart at each
+document (RoPE of Q, K_sel, K_win and ϕ at t - seq_start) and every
+branch stays inside the row's document. Both routes stay on kernels: the
+JAX package's non-fused varlen route is XLA code
+(`selection_scores_varlen`), the port's is the scorer kernel
+`select_blocks` beside `compressed_attention`, as for dense rows.
 
 Layouts: x [B, S, dim] -> out [B, S, dim];
   Q: [B, S, G, h, Dk] (RoPE'd);  per-branch K/V: [B, G, S, D*].
@@ -38,6 +45,7 @@ from nsa_vibe_tpu_torch.ops.compress import init_conv_phi_weight, pool_phi_rope_
 from nsa_vibe_tpu_torch.ops.cuda import select_cmp as select_cmp_mod
 from nsa_vibe_tpu_torch.ops.rope import apply_rope
 from nsa_vibe_tpu_torch.ops.selection import select_topn_blocks
+from nsa_vibe_tpu_torch.ops.varlen import select_topn_blocks_varlen
 from nsa_vibe_tpu_torch.utils.device import resolve_device
 
 PROJ_KEYS = ("W_Q", "W_K_sel", "W_V_sel", "W_K_win", "W_V_win", "W_K_cmp", "W_V_cmp")
@@ -133,22 +141,32 @@ def combine_branches(params: dict, cfg: NSAConfig, Q: torch.Tensor, O_cmp: torch
     return O.reshape(B, S, cfg.n_heads * cfg.d_v) @ params["W_O"], gates
 
 
-def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig) -> Tuple[torch.Tensor, dict]:
+def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig,
+                seq_start=None) -> Tuple[torch.Tensor, dict]:
     """Batched prefill forward. x: [B, S, dim] -> (out [B, S, dim], aux);
     aux carries the raw/compressed K/V (for cache seeding), the selection
-    (scorer set form) and the gates."""
+    (scorer set form) and the gates. seq_start [B, S] int (optional):
+    each token's document start in a packed row (ops/varlen.py; starts
+    l_sel-aligned and non-decreasing along a row, as
+    varlen.pack_documents_aligned makes them)."""
     B, S, _ = x.shape
     G, h = cfg.n_kv_groups, cfg.h_per_group
     scale = 1.0 / float(np.sqrt(cfg.d_k))
     dev = x.device
     t_pos = torch.arange(S, device=dev)
+    if seq_start is not None:
+        seq_start = seq_start.to(device=dev, dtype=torch.int32).contiguous()
+        t_local = t_pos[None, :] - seq_start                       # [B,S] doc-local
+        q_pos, k_pos = t_local[:, :, None], t_local[:, None, :]    # -> [B,S,H], [B,G,S]
+    else:
+        q_pos, k_pos = t_pos[:, None], t_pos
 
     Q, K_sel, V_sel, K_win, V_win, K_cmp_raw, V_cmp_raw = project_qkv(params, x, cfg)
-    Q = apply_rope(Q, t_pos[:, None], cfg.rope_base, cfg.rope_scale).reshape(B, S, G, h, cfg.d_k)
-    K_sel = apply_rope(K_sel, t_pos, cfg.rope_base, cfg.rope_scale)
-    K_win = apply_rope(K_win, t_pos, cfg.rope_base, cfg.rope_scale)
+    Q = apply_rope(Q, q_pos, cfg.rope_base, cfg.rope_scale).reshape(B, S, G, h, cfg.d_k)
+    K_sel = apply_rope(K_sel, k_pos, cfg.rope_base, cfg.rope_scale)
+    K_win = apply_rope(K_win, k_pos, cfg.rope_base, cfg.rope_scale)
     K_cmp, V_cmp = pool_phi_rope_kv(
-        K_cmp_raw, V_cmp_raw, cfg.l, cfg.d, pos=t_pos,
+        K_cmp_raw, V_cmp_raw, cfg.l, cfg.d, pos=k_pos,
         k_weight=params.get("phi_k"), v_weight=params.get("phi_v"),
         rope_base=cfg.rope_base, rope_scale=cfg.rope_scale)
     S_cmp = K_cmp.shape[2]
@@ -159,22 +177,29 @@ def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig) -> Tuple[torch.Te
     if S_cmp > 0 and select_cmp_mod.select_cmp_fits(h, S_sel):
         # one pass: selection scores and the cmp branch share softmax(Q K_cmp^T)
         M = build_M_csl_on(S, cfg.l, cfg.d, cfg.l_sel, dev)
-        sel_idx, O_cmp = attn_ops.fused_select_cmp(Q, K_cmp, V_cmp, M, **sel_kw)
+        sel_idx, O_cmp = attn_ops.fused_select_cmp(Q, K_cmp, V_cmp, M, **sel_kw,
+                                                   seq_start=seq_start)
     elif S_cmp > 0:
         # too many selection blocks for the fused scorer: two kernels
-        sel_idx = attn_ops.select_blocks(Q, K_cmp, S_sel=S_sel, **sel_kw)
-        O_cmp = attn_ops.compressed_attention(Q, K_cmp, V_cmp, l=cfg.l, d=cfg.d, scale=scale)
+        sel_idx = attn_ops.select_blocks(Q, K_cmp, S_sel=S_sel, **sel_kw, seq_start=seq_start)
+        O_cmp = attn_ops.compressed_attention(Q, K_cmp, V_cmp, l=cfg.l, d=cfg.d, scale=scale,
+                                              seq_start=seq_start)
     else:
         # no compressed tokens (S < l): all scores are 0, so the top-n keeps
         # the forced blocks plus the lowest-index candidates, as in JAX; the
         # scorer is not launched and the cmp branch is zero
         p_grp = torch.zeros((B, S, G, S_sel), dtype=torch.float32, device=dev)
-        sel_idx = select_topn_blocks(p_grp, cfg.n_sel, t_pos, cfg.l_sel,
-                                     cfg.force_init, cfg.force_local)
+        if seq_start is not None:
+            sel_idx = select_topn_blocks_varlen(p_grp, cfg.n_sel, t_pos, seq_start, cfg.l_sel,
+                                                cfg.force_init, cfg.force_local)
+        else:
+            sel_idx = select_topn_blocks(p_grp, cfg.n_sel, t_pos, cfg.l_sel,
+                                         cfg.force_init, cfg.force_local)
         O_cmp = torch.zeros((B, S, G, h, cfg.d_v), dtype=Q.dtype, device=dev)
     sel_idx = sel_idx.detach()
     O_sel = attn_ops.selection_attention(Q, K_sel, V_sel, sel_idx, t_pos, cfg.l_sel, scale)
-    O_win = attn_ops.sliding_window_attention(Q, K_win, V_win, cfg.w, scale)
+    O_win = attn_ops.sliding_window_attention(Q, K_win, V_win, cfg.w, scale,
+                                              seq_start=seq_start)
     out, gates = combine_branches(params, cfg, Q, O_cmp, O_sel, O_win)
     aux = {
         "gates": gates,

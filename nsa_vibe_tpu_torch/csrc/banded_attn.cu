@@ -9,8 +9,10 @@
 // FMA, since its 5e-5 gates rule out TF32.
 //
 // What it computes: query row s sits at position t = t_start + s and sees
-//   WIN: keys [max(t-w+1, 0), t]                 (and < S_kv)
-//   CMP: compressed tokens [0, num_cmp(t+1))     (none while t+1 < l; < S_kv)
+//   WIN: keys [max(t-w+1, 0, ds), t]                   (and < S_kv)
+//   CMP: compressed tokens [ceil(ds/d), num_cmp(t+1))  (none while t+1 < l; < S_kv)
+// with ds the row's document start (packed documents: ds [B,S] given, at
+// t_start 0) or 0.
 // softmax in f32; a row with no visible key returns O = 0. Optionally (lse
 // != nullptr) the row statistics lse [B,S,G,h] f32 = m + log(l) in the
 // natural base, EMPTY_LSE for a row with no key (the port's convention,
@@ -50,16 +52,12 @@ struct Params {
   float scale;
 };
 
-// keys [lo, hi) that the query at position t sees
+// keys [lo, hi) that the query at position t, in a document starting at
+// `start`, sees (start = 0: the dense bound)
 template <int MODE>
-__device__ __forceinline__ void key_range(const Params& p, int t, int& lo, int& hi) {
-  if (MODE == WIN) {
-    lo = max(t - p.w + 1, 0);
-    hi = min(t + 1, p.S_kv);
-  } else {
-    lo = 0;
-    hi = min(num_cmp(t + 1, p.l, p.d), p.S_kv);
-  }
+__device__ __forceinline__ void key_range(const Params& p, int t, int start, int& lo, int& hi) {
+  lo = max(MODE == WIN ? max(t - p.w + 1, 0) : 0, doc_lo(start, MODE == CMP, p.d));
+  hi = min(MODE == WIN ? t + 1 : num_cmp(t + 1, p.l, p.d), p.S_kv);
 }
 
 // shared-memory carve-up (floats): Q rows, one chunk of K (pitch Dk+4) and
@@ -93,8 +91,8 @@ struct Smem {
 template <int NS, int MODE>
 __global__ void __launch_bounds__(THREADS)
 banded_attn_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                   const float* __restrict__ V, float* __restrict__ O, float* __restrict__ lse,
-                   Params p) {
+                   const float* __restrict__ V, const int* __restrict__ ds,
+                   float* __restrict__ O, float* __restrict__ lse, Params p) {
   using T = float;
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
@@ -145,15 +143,19 @@ banded_attn_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   // row's result does not depend on the tile that holds it (a chunk where
   // the row sees no key leaves its state exactly as it was) and a call at
   // t_start > 0 gives the same bits as those rows of the full call
+  // the document start of the tile's token s0 + i: 0 without ds
+  auto start = [&](int i) { return ds != nullptr ? doc_start(ds, p.S, b, s0 + i) : 0; };
   int lo, hi, unused;
-  key_range<MODE>(p, t_first, lo, unused);
-  key_range<MODE>(p, t_first + nt - 1, unused, hi);
+  key_range<MODE>(p, t_first, start(0), lo, unused);
+  key_range<MODE>(p, t_first + nt - 1, 0, unused, hi);
   lo = lo / KC * KC;
   // per-row visible range of the rows of this thread's phase-A tile
   int rlo[4], rhi[4];
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
-    key_range<MODE>(p, t_first + min(ri + 16 * m, rows - 1) / h, rlo[m], rhi[m]);
+  for (int m = 0; m < 4; ++m) {
+    const int i = min(ri + 16 * m, rows - 1) / h;
+    key_range<MODE>(p, t_first + i, start(i), rlo[m], rhi[m]);
+  }
 
   for (int k0 = lo; k0 < hi; k0 += KC) {
     __syncthreads();   // previous chunk consumed (and Q staged)
@@ -266,8 +268,8 @@ banded_attn_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 }
 
 template <int NS, int MODE>
-int launch_ns(const void* Q, const void* K, const void* V, void* O, float* lse, int B,
-              const Params& p, cudaStream_t stream) {
+int launch_ns(const void* Q, const void* K, const void* V, const int* ds, void* O, float* lse,
+              int B, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(p.TQ, p.h, p.Dk, p.Dv).total * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(banded_attn_kernel<NS, MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -276,21 +278,21 @@ int launch_ns(const void* Q, const void* K, const void* V, void* O, float* lse, 
   const long long grid = (long long)B * p.G * nq;
   banded_attn_kernel<NS, MODE><<<(unsigned)grid, THREADS, smem, stream>>>(
       static_cast<const float*>(Q), static_cast<const float*>(K), static_cast<const float*>(V),
-      static_cast<float*>(O), lse, p);
+      ds, static_cast<float*>(O), lse, p);
   NSA_LAUNCH_CHECK();
 }
 
 // NS = the (row, 4 dims) slices one thread can own: ceil(MAX_ROWS / rstride)
 // with rstride = THREADS / (Dv / 4), rounded up to 1, 2, 4 or MAX_SLICES
 template <int MODE>
-int launch(const void* Q, const void* K, const void* V, void* O, float* lse, int B,
-           const Params& p, cudaStream_t stream) {
+int launch(const void* Q, const void* K, const void* V, const int* ds, void* O, float* lse,
+           int B, const Params& p, cudaStream_t stream) {
   const int rstride = THREADS / (p.Dv / 4);
   const int ns = (MAX_ROWS + rstride - 1) / rstride;
-  if (ns <= 1) return launch_ns<1, MODE>(Q, K, V, O, lse, B, p, stream);
-  if (ns <= 2) return launch_ns<2, MODE>(Q, K, V, O, lse, B, p, stream);
-  if (ns <= 4) return launch_ns<4, MODE>(Q, K, V, O, lse, B, p, stream);
-  return launch_ns<MAX_SLICES, MODE>(Q, K, V, O, lse, B, p, stream);
+  if (ns <= 1) return launch_ns<1, MODE>(Q, K, V, ds, O, lse, B, p, stream);
+  if (ns <= 2) return launch_ns<2, MODE>(Q, K, V, ds, O, lse, B, p, stream);
+  if (ns <= 4) return launch_ns<4, MODE>(Q, K, V, ds, O, lse, B, p, stream);
+  return launch_ns<MAX_SLICES, MODE>(Q, K, V, ds, O, lse, B, p, stream);
 }
 
 }  // namespace
@@ -301,20 +303,22 @@ long long nsa_banded_attn_smem_bytes(int TQ, int h, int Dk, int Dv) {
   return (long long)(Smem(TQ, h, Dk, Dv).total * sizeof(float));
 }
 
-// f32 only. Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv] -> O
-// [B,S,G,h,Dv], lse [B,S,G,h] (or null). mode 0 WIN (w > 0), 1 CMP (l, d >
-// 0); tiles of TQ tokens, TQ * h <= 64.
-int nsa_banded_attn(const void* Q, const void* K, const void* V, void* O, float* lse, int B,
-                    int S, int S_kv, int G, int h, int Dk, int Dv, int mode, int w, int l, int d,
-                    int t_start, float scale, int TQ, void* stream) {
+// f32 only. Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv], ds [B,S]
+// int32 document starts (or null; t_start 0 with ds) -> O [B,S,G,h,Dv],
+// lse [B,S,G,h] (or null). mode 0 WIN (w > 0), 1 CMP (l, d > 0); tiles of
+// TQ tokens, TQ * h <= 64.
+int nsa_banded_attn(const void* Q, const void* K, const void* V, const int* ds, void* O,
+                    float* lse, int B, int S, int S_kv, int G, int h, int Dk, int Dv, int mode,
+                    int w, int l, int d, int t_start, float scale, int TQ, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || Dv > 4 * MAX_SLICES * (THREADS / MAX_ROWS) ||
-      Dv % 8 != 0 || Dk % 8 != 0 || t_start < 0 || (mode != WIN && mode != CMP) ||
+      Dv % 8 != 0 || Dk % 8 != 0 || t_start < 0 || (ds != nullptr && t_start != 0) ||
+      (mode != WIN && mode != CMP) ||
       (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)))
     return (int)cudaErrorInvalidValue;
   const Params p{S, S_kv, G, h, Dk, Dv, w, l, d, t_start, TQ, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == WIN) return launch<WIN>(Q, K, V, O, lse, B, p, s);
-  return launch<CMP>(Q, K, V, O, lse, B, p, s);
+  if (mode == WIN) return launch<WIN>(Q, K, V, ds, O, lse, B, p, s);
+  return launch<CMP>(Q, K, V, ds, O, lse, B, p, s);
 }
 
 }  // extern "C"

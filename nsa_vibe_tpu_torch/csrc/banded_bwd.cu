@@ -39,7 +39,7 @@ __global__ void __launch_bounds__(THREADS)
 banded_bwd_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                      const float* __restrict__ V, const float* __restrict__ dO,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dQ, Params p) {
+                     const int* __restrict__ ds, float* __restrict__ dQ, Params p) {
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
   int bid = blockIdx.x;
@@ -64,7 +64,7 @@ banded_bwd_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   int* lo_s = reinterpret_cast<int*>(smem + L.lo);
   int* hi_s = reinterpret_cast<int*>(smem + L.hi);
 
-  stage_rows(p, Q, dO, lse, delta, b, g, s0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
+  stage_rows(p, Q, dO, lse, delta, ds, b, g, s0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
   float4 acc[NS][4];
 #pragma unroll
   for (int i = 0; i < NS; ++i)
@@ -74,6 +74,7 @@ banded_bwd_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   int lo_first, hi_last, unused;
   key_range(p, s0, lo_first, unused);
   key_range(p, s0 + nt - 1, unused, hi_last);   // lo and hi never decrease with t
+  if (ds != nullptr) doc_bound(p, ds, b, s0, lo_first);
   const float* Kbg = K + ((size_t)b * p.G + g) * p.S_kv * Dk;
   const float* Vbg = V + ((size_t)b * p.G + g) * p.S_kv * Dv;
 
@@ -114,7 +115,8 @@ banded_bwd_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 
 template <int NS>
 int launch(const float* Q, const float* K, const float* V, const float* dO, const float* lse,
-           const float* delta, float* dQ, int B, const Params& p, cudaStream_t stream) {
+           const float* delta, const int* ds, float* dQ, int B, const Params& p,
+           cudaStream_t stream) {
   const size_t smem = Smem(MAX_ROWS, p.Dk, p.Dv).total * sizeof(float);
   const cudaError_t e = cudaFuncSetAttribute(banded_bwd_dq_kernel<NS>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -123,7 +125,7 @@ int launch(const float* Q, const float* K, const float* V, const float* dO, cons
   const long long grid = (long long)B * p.G * ((p.S + p.TQ - 1) / p.TQ);
   if (grid > 0)
     banded_bwd_dq_kernel<NS><<<(unsigned)grid, THREADS, smem, stream>>>(Q, K, V, dO, lse, delta,
-                                                                       dQ, p);
+                                                                       ds, dQ, p);
   NSA_LAUNCH_CHECK();
 }
 
@@ -136,20 +138,21 @@ long long nsa_banded_bwd_smem_bytes(int Dk, int Dv) {
 }
 
 // f32 only: dQ of the two-pass design (its dK and dV: nsa_banded_bwd_1p with
-// ws null). Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h];
-// mode 0 WIN (w > 0), 1 CMP (l, d > 0); TQ tokens per block, TQ * h <= 64.
+// ws null). Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h], ds
+// [B,S] int32 document starts (or null); mode 0 WIN (w > 0), 1 CMP (l, d >
+// 0); TQ tokens per block, TQ * h <= 64.
 int nsa_banded_bwd(const float* Q, const float* K, const float* V, const float* dO,
-                   const float* lse, const float* delta, float* dQ, int B, int S, int S_kv, int G,
-                   int h, int Dk, int Dv, int mode, int w, int l, int d, float scale, int TQ,
-                   void* stream) {
+                   const float* lse, const float* delta, const int* ds, float* dQ, int B, int S,
+                   int S_kv, int G, int h, int Dk, int Dv, int mode, int w, int l, int d,
+                   float scale, int TQ, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 ||
       (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
       (mode != WIN && mode != CMP))
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, 1, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_slices(Dk) == 1) return launch<1>(Q, K, V, dO, lse, delta, dQ, B, p, s);
-  return launch<2>(Q, K, V, dO, lse, delta, dQ, B, p, s);
+  if (kv_slices(Dk) == 1) return launch<1>(Q, K, V, dO, lse, delta, ds, dQ, B, p, s);
+  return launch<2>(Q, K, V, dO, lse, delta, ds, dQ, B, p, s);
 }
 
 }  // extern "C"

@@ -29,14 +29,18 @@
 // blocks (the TPU kernel's dQ ring carries it in VMEM across sequential
 // grid steps): each partial goes to an f32 slot workspace ws[slot][row]
 // (banded_common.cuh::BandSlots: slot = the tile's offset from the row's
-// first visible tile, WIN: kt - lo(t)/64, at most (w+62)/64 + 1 slots;
-// CMP: kt). Splits partition the query rows, so each (slot, row) is written
-// by exactly one block; sum_slots adds each row's slots in slot order and
-// scales. dK/dV go through per-split f32 partials summed in split order
-// (with one split the partial is only cast). No float atomics: two
-// launches give identical bits. With ws == nullptr the kernel forms dK and
-// dV alone: the dK/dV pass of the two-pass design (banded_bwd.cu has its
-// dQ pass), as flash_bwd.py::flash_banded_bwd's _dkv_kernel.
+// first visible tile, kt - lo(t)/64: WIN at most (w+62)/64 + 1 slots, CMP
+// kt under the dense bound). Splits partition the query rows, so each
+// (slot, row) is written by exactly one block; sum_slots adds each row's
+// slots in slot order and scales. With ds [B,S] (packed documents) each
+// row's keys start at its document (doc_bound); the rows a tile streams
+// stay the dense superset (token_range), and a row that sees no key of the
+// tile there writes no slot (band_slot). dK/dV go through per-split f32
+// partials summed in split order (with one split the partial is only
+// cast). No float atomics: two launches give identical bits. With ws ==
+// nullptr the kernel forms dK and dV alone: the dK/dV pass of the two-pass
+// design (banded_bwd.cu has its dQ pass), as flash_bwd.py::
+// flash_banded_bwd's _dkv_kernel.
 #include "banded_common.cuh"
 
 using namespace nsa;
@@ -50,8 +54,9 @@ __global__ void __launch_bounds__(THREADS)
 banded_bwd_1p_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                      const float* __restrict__ V, const float* __restrict__ dO,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dK,
-                     float* __restrict__ dV, float* __restrict__ ws, Params p) {
+                     const float* __restrict__ delta, const int* __restrict__ ds,
+                     float* __restrict__ dK, float* __restrict__ dV, float* __restrict__ ws,
+                     Params p) {
   extern __shared__ __align__(16) float smem[];
   const int nkt = (p.S_kv + KC - 1) / KC;
   int bid = blockIdx.x;
@@ -104,7 +109,7 @@ banded_bwd_1p_kernel(const float* __restrict__ Q, const float* __restrict__ K,
     const int nt = min(p.TQ, tb - t0);
     const int rows = nt * h;
     __syncthreads();   // previous chunk consumed (and the K/V tile staged)
-    stage_rows(p, Q, dO, lse, delta, b, g, t0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
+    stage_rows(p, Q, dO, lse, delta, ds, b, g, t0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
     __syncthreads();
     scores_and_ds(q_s, do_s, k_s, v_s, lse_s, dl_s, rows, Dk, Dv, kp, vp, p.scale,
                   [&](int r, int key) {
@@ -132,9 +137,11 @@ banded_bwd_1p_kernel(const float* __restrict__ Q, const float* __restrict__ K,
         const int r = 4 * rq + r4;
         if (r < rows) {
           const int ti = r / h;
-          const int slot = p.mode == WIN ? kt - lo_s[r] / KC : kt;
+          const int slot = band_slot(kt, lo_s[r], hi_s[r]);
           const size_t row = (((size_t)b * p.S + t0 + ti) * p.G + g) * h + (r - ti * h);
-          *reinterpret_cast<float4*>(ws + slot * slot_stride + row * Dk + 4 * c4) = q_acc[i][r4];
+          if (slot >= 0)
+            *reinterpret_cast<float4*>(ws + slot * slot_stride + row * Dk + 4 * c4) =
+                q_acc[i][r4];
         }
       }
     }
@@ -146,8 +153,8 @@ banded_bwd_1p_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 
 template <int NSK, int NSV>
 int launch_ns(const float* Q, const float* K, const float* V, const float* dO, const float* lse,
-              const float* delta, float* dQ, float* dK, float* dV, float* part, float* ws,
-              const Params& p, cudaStream_t stream) {
+              const float* delta, const int* ds, float* dQ, float* dK, float* dV, float* part,
+              float* ws, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(MAX_ROWS, p.Dk, p.Dv).total * sizeof(float);
   const long long nkt = (p.S_kv + KC - 1) / KC;
   const unsigned grid = (unsigned)((long long)p.B * p.G * nkt * p.nsplit);
@@ -158,8 +165,8 @@ int launch_ns(const float* Q, const float* K, const float* V, const float* dO, c
   cudaError_t e = cudaFuncSetAttribute(banded_bwd_1p_kernel<NSK, NSV, NSK>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  banded_bwd_1p_kernel<NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(Q, K, V, dO, lse, delta,
-                                                                       part_k, part_v, ws, p);
+  banded_bwd_1p_kernel<NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(
+      Q, K, V, dO, lse, delta, ds, part_k, part_v, ws, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int rk = reduce_splits<float>(part_k, dK, nk_el, p.nsplit, stream);
@@ -167,7 +174,9 @@ int launch_ns(const float* Q, const float* K, const float* V, const float* dO, c
   const int rv = reduce_splits<float>(part_v, dV, nv_el, p.nsplit, stream);
   if (rv != 0 || ws == nullptr) return rv;
   const long long rows = (long long)p.B * p.S * p.G * p.h;
-  return sum_slots<float>(ws, dQ, rows, p.Dk, BandSlots{p}, p.scale, stream);
+  if (ds != nullptr)
+    return sum_slots<float>(ws, dQ, rows, p.Dk, BandSlots<true>{p, ds}, p.scale, stream);
+  return sum_slots<float>(ws, dQ, rows, p.Dk, BandSlots<false>{p, nullptr}, p.scale, stream);
 }
 
 }  // namespace
@@ -186,15 +195,15 @@ int nsa_banded_bwd_1p_slots(int mode, int w, int S_kv) {
   return most < nkt ? most : nkt;
 }
 
-// f32 only. part: f32 scratch of nsplit * B*G*S_kv*(Dk+Dv) floats (per-split
-// partial dK, then dV). ws: f32 dQ workspace of
-// nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats, or null for dK and dV
-// alone (dQ unused).
+// f32 only. ds: [B,S] int32 document starts, or null. part: f32 scratch of
+// nsplit * B*G*S_kv*(Dk+Dv) floats (per-split partial dK, then dV). ws: f32
+// dQ workspace of nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats, or null
+// for dK and dV alone (dQ unused).
 int nsa_banded_bwd_1p(const float* Q, const float* K, const float* V, const float* dO,
-                      const float* lse, const float* delta, float* dQ, float* dK, float* dV,
-                      float* part, float* ws, int B, int S, int S_kv, int G, int h, int Dk,
-                      int Dv, int mode, int w, int l, int d, float scale, int TQ, int nsplit,
-                      void* stream) {
+                      const float* lse, const float* delta, const int* ds, float* dQ, float* dK,
+                      float* dV, float* part, float* ws, int B, int S, int S_kv, int G, int h,
+                      int Dk, int Dv, int mode, int w, int l, int d, float scale, int TQ,
+                      int nsplit, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || nsplit <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 ||
       Dv > 128 || S_kv <= 0 || (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
       (mode != WIN && mode != CMP) || part == nullptr)
@@ -203,10 +212,12 @@ int nsa_banded_bwd_1p(const float* Q, const float* K, const float* V, const floa
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nk = kv_slices(Dk), nv = kv_slices(Dv);
   if (nk == 1 && nv == 1)
-    return launch_ns<1, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
-  if (nk == 1) return launch_ns<1, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
-  if (nv == 1) return launch_ns<2, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
-  return launch_ns<2, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
+    return launch_ns<1, 1>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
+  if (nk == 1)
+    return launch_ns<1, 2>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
+  if (nv == 1)
+    return launch_ns<2, 1>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
+  return launch_ns<2, 2>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
 }
 
 }  // extern "C"

@@ -17,9 +17,15 @@
 // What it computes, as those kernels: for query rows (token t, head j of
 // group g) with visible keys [lo(t), hi(t)) (banded_common.cuh: WIN
 // [t-w+1, t], CMP the first num_cmp(t+1) compressed tokens, both below
-// S_kv), the gradients dQ, dK, dV of O = softmax(scale Q K^T) V given dO,
-// lse and delta = rowsum(dO*O) (notation: bwd_common.cuh); outputs bf16,
-// accumulated in f32.
+// S_kv; with ds [B,S] (packed documents) none before the row's document
+// start ds, nor a pooled token that starts before it), the gradients dQ,
+// dK, dV of O = softmax(scale Q K^T) V given dO, lse and delta =
+// rowsum(dO*O) (notation: bwd_common.cuh); outputs bf16, accumulated in
+// f32. Under ds the diagonal kernel keeps the dense band for its strips
+// (so sum_strips reads written rows, zeros where no row sees a key), the
+// dQ pass starts its band at the tile's first token's ds, and the kv pass
+// streams the dense superset of rows, each masking its own bound and
+// writing no slot for a tile it does not see (band_slot).
 //
 // What bounds it on the H100: five products of 2 FLOP per visible (row,
 // key) pair (S, dP, dV, dK, dQ): ~56 GFLOP for the window at the m7c train
@@ -79,7 +85,7 @@
 // registers (P and dS fragments as the A operands, dO and Q by
 // ldmatrix.trans), and writes the chunk's dQ = dS K_tile (dS^T through
 // shared memory) to its f32 slot straight from the fragments: slot = kt -
-// lo(t)/64 (WIN), kt (CMP) (banded_common.cuh::BandSlots). sum_slots adds
+// lo(t)/64 (banded_common.cuh::BandSlots; kt in CMP under the dense bound). sum_slots adds
 // each row's slots in order, reduce_splits each key's split partials. With
 // ws == nullptr (the two-pass design's dK/dV pass) the kernel skips dS^T,
 // the dQ product and the slots.
@@ -138,14 +144,16 @@ __host__ __device__ constexpr int q_min_blocks(int DT, int ROWS) {
 }
 
 // The q-major body: the diagonal design (MODE WIN, DKV: dK/dV strips) and
-// the two-pass design's dQ pass (either MODE, dQ only). p.mode is MODE.
-template <int DT, int ROWS, int MODE, bool DKV>
+// the two-pass design's dQ pass (either MODE, dQ only). p.mode is MODE;
+// DOCS: ds given (the dense instantiation reads none).
+template <int DT, int ROWS, int MODE, bool DKV, bool DOCS>
 __device__ __forceinline__ void q_major(const __nv_bfloat16* __restrict__ Q,
                                         const __nv_bfloat16* __restrict__ K,
                                         const __nv_bfloat16* __restrict__ V,
                                         const __nv_bfloat16* __restrict__ dO,
                                         const float* __restrict__ lse,
                                         const float* __restrict__ delta,
+                                        const int* __restrict__ ds,
                                         __nv_bfloat16* __restrict__ dQ, float* __restrict__ strip_k,
                                         float* __restrict__ strip_v, const Params& p, int SL) {
   using C = QLayout<DT, ROWS, DKV>;
@@ -197,10 +205,12 @@ __device__ __forceinline__ void q_major(const __nv_bfloat16* __restrict__ Q,
   }
 
   // the tile's band [lo(t_first), hi(t_last)) in key tiles from an
-  // absolute multiple of KC
+  // absolute multiple of KC; the diagonal design (DKV) keeps the dense
+  // band, whose strip rows sum_strips reads
   int lo, hi, unused;
   key_range(p, s0, lo, unused);
   key_range(p, s0 + T - 1, unused, hi);
+  if (DOCS && !DKV) doc_bound(p, ds, b, s0, lo);
   const int kb0 = (lo / KC) * KC;
   const int J = hi > lo ? (hi - kb0 + KC - 1) / KC : 0;
 
@@ -233,6 +243,7 @@ __device__ __forceinline__ void q_major(const __nv_bfloat16* __restrict__ Q,
     nl2[hf] = dl[hf] = 0.f;
     if (r < R) {
       key_range(p, s0 + r / h, rlo[hf], rhi[hf]);
+      if (DOCS) doc_bound(p, ds, b, s0 + r / h, rlo[hf]);
       nl2[hf] = neg_lse2(lse[grow(r)]);
       dl[hf] = delta[grow(r)];
     }
@@ -365,24 +376,25 @@ __device__ __forceinline__ void q_major(const __nv_bfloat16* __restrict__ Q,
   }
 }
 
-template <int DT, int ROWS>
+template <int DT, int ROWS, bool DOCS>
 __global__ void __launch_bounds__(2 * ROWS, q_min_blocks(DT, ROWS))
 win_bwd_diag_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
                         const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dQ, float* __restrict__ strip_k,
-                        float* __restrict__ strip_v, Params p, int SL) {
-  q_major<DT, ROWS, WIN, true>(Q, K, V, dO, lse, delta, dQ, strip_k, strip_v, p, SL);
+                        const int* __restrict__ ds, __nv_bfloat16* __restrict__ dQ,
+                        float* __restrict__ strip_k, float* __restrict__ strip_v, Params p,
+                        int SL) {
+  q_major<DT, ROWS, WIN, true, DOCS>(Q, K, V, dO, lse, delta, ds, dQ, strip_k, strip_v, p, SL);
 }
 
-template <int DT, int ROWS, int MODE>
+template <int DT, int ROWS, int MODE, bool DOCS>
 __global__ void __launch_bounds__(2 * ROWS, q_min_blocks(DT, ROWS))
 banded_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
                          const __nv_bfloat16* __restrict__ V,
                          const __nv_bfloat16* __restrict__ dO, const float* __restrict__ lse,
-                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dQ,
-                         Params p) {
-  q_major<DT, ROWS, MODE, false>(Q, K, V, dO, lse, delta, dQ, nullptr, nullptr, p, 0);
+                         const float* __restrict__ delta, const int* __restrict__ ds,
+                         __nv_bfloat16* __restrict__ dQ, Params p) {
+  q_major<DT, ROWS, MODE, false, DOCS>(Q, K, V, dO, lse, delta, ds, dQ, nullptr, nullptr, p, 0);
 }
 
 // ------------------------------------------------------------ one-pass (kv-major)
@@ -401,14 +413,15 @@ struct KvLayout {
   static constexpr size_t BYTES = STATS + (size_t)2 * ROWS * 4 * 4;
 };
 
-template <int DT, int MODE>
+template <int DT, int MODE, bool DOCS>
 __global__ void __launch_bounds__(128)
 banded_bwd_1p_mma_kernel(const __nv_bfloat16* __restrict__ Q,
                          const __nv_bfloat16* __restrict__ K,
                          const __nv_bfloat16* __restrict__ V,
                          const __nv_bfloat16* __restrict__ dO, const float* __restrict__ lse,
-                         const float* __restrict__ delta, float* __restrict__ part_k,
-                         float* __restrict__ part_v, float* __restrict__ ws, Params p) {
+                         const float* __restrict__ delta, const int* __restrict__ ds,
+                         float* __restrict__ part_k, float* __restrict__ part_v,
+                         float* __restrict__ ws, Params p) {
   using C = KvLayout<DT>;
   constexpr int P = C::P, ROWS = C::ROWS, NT = C::NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -497,6 +510,7 @@ banded_bwd_1p_mma_kernel(const __nv_bfloat16* __restrict__ Q,
         nl_s[o] = neg_lse2(lse[gr]);
         dl_s[o] = delta[gr];
         key_range(p, (a0 + r) / h, lo_s[o], hi_s[o]);
+        if (DOCS) doc_bound(p, ds, b, (a0 + r) / h, lo_s[o]);
       } else {   // a padded row sees no key
         nl_s[o] = dl_s[o] = 0.f;
         lo_s[o] = hi_s[o] = 0;
@@ -586,7 +600,11 @@ banded_bwd_1p_mma_kernel(const __nv_bfloat16* __restrict__ Q,
       for (int hf = 0; hf < 2; ++hf) {
         const int r = 16 * rt + g8 + 8 * hf;
         if (a0 + r >= rb) continue;
-        const int slot = MODE == WIN ? kt - lo_b[r] / KC : kt;
+        int slot = MODE == WIN ? kt - lo_b[r] / KC : kt;
+        if (DOCS) {   // a row of another document may see no key of the tile
+          slot = band_slot(kt, lo_b[r], hi_b[r]);
+          if (slot < 0) continue;
+        }
         float* dst = ws + (size_t)slot * stride + grow(a0 + r) * Dk;
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -622,14 +640,15 @@ banded_bwd_1p_mma_kernel(const __nv_bfloat16* __restrict__ Q,
 // ------------------------------------------------------------ launches
 
 using DiagKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
-                            const __nv_bfloat16*, const float*, const float*, __nv_bfloat16*,
-                            float*, float*, Params, int);
+                            const __nv_bfloat16*, const float*, const float*, const int*,
+                            __nv_bfloat16*, float*, float*, Params, int);
 
 template <int DT, int ROWS>
 int launch_diag(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
-                const float* delta, void* dQ, void* dK, void* dV, float* strip_k,
+                const float* delta, const int* ds, void* dQ, void* dK, void* dV, float* strip_k,
                 float* strip_v, const Params& p, int SL, cudaStream_t stream) {
-  const DiagKernel kern = &win_bwd_diag_mma_kernel<DT, ROWS>;
+  const DiagKernel kern = ds != nullptr ? &win_bwd_diag_mma_kernel<DT, ROWS, true>
+                                        : &win_bwd_diag_mma_kernel<DT, ROWS, false>;
   constexpr size_t smem = QLayout<DT, ROWS, true>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -640,7 +659,7 @@ int launch_diag(const void* Q, const void* K, const void* V, const void* dO, con
     kern<<<(unsigned)grid, 2 * ROWS, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(K),
         static_cast<const __nv_bfloat16*>(V), static_cast<const __nv_bfloat16*>(dO), lse, delta,
-        static_cast<__nv_bfloat16*>(dQ), strip_k, strip_v, p, SL);
+        ds, static_cast<__nv_bfloat16*>(dQ), strip_k, strip_v, p, SL);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int rk = sum_strips<__nv_bfloat16>(strip_k, dK, p, p.Dk, SL, p.scale, KC, stream);
@@ -650,8 +669,10 @@ int launch_diag(const void* Q, const void* K, const void* V, const void* dO, con
 
 template <int DT, int ROWS, int MODE>
 int launch_dq(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
-              const float* delta, void* dQ, const Params& p, cudaStream_t stream) {
-  const auto kern = &banded_bwd_dq_mma_kernel<DT, ROWS, MODE>;
+              const float* delta, const int* ds, void* dQ, const Params& p,
+              cudaStream_t stream) {
+  const auto kern = ds != nullptr ? &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, true>
+                                  : &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, false>;
   constexpr size_t smem = QLayout<DT, ROWS, false>::BYTES;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -661,20 +682,23 @@ int launch_dq(const void* Q, const void* K, const void* V, const void* dO, const
     kern<<<(unsigned)grid, 2 * ROWS, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(K),
         static_cast<const __nv_bfloat16*>(V), static_cast<const __nv_bfloat16*>(dO), lse, delta,
-        static_cast<__nv_bfloat16*>(dQ), p);
+        ds, static_cast<__nv_bfloat16*>(dQ), p);
   NSA_LAUNCH_CHECK();
 }
 
 using KvKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
-                          const __nv_bfloat16*, const float*, const float*, float*, float*,
-                          float*, Params);
+                          const __nv_bfloat16*, const float*, const float*, const int*, float*,
+                          float*, float*, Params);
 
 template <int DT>
 int launch_kv(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
-              const float* delta, void* dQ, void* dK, void* dV, float* part, float* ws,
-              const Params& p, cudaStream_t stream) {
-  const KvKernel kern = p.mode == WIN ? &banded_bwd_1p_mma_kernel<DT, WIN>
-                                      : &banded_bwd_1p_mma_kernel<DT, CMP>;
+              const float* delta, const int* ds, void* dQ, void* dK, void* dV, float* part,
+              float* ws, const Params& p, cudaStream_t stream) {
+  const bool docs = ds != nullptr;
+  const KvKernel kern = p.mode == WIN ? (docs ? &banded_bwd_1p_mma_kernel<DT, WIN, true>
+                                              : &banded_bwd_1p_mma_kernel<DT, WIN, false>)
+                                      : (docs ? &banded_bwd_1p_mma_kernel<DT, CMP, true>
+                                              : &banded_bwd_1p_mma_kernel<DT, CMP, false>);
   constexpr size_t smem = KvLayout<DT>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -687,7 +711,7 @@ int launch_kv(const void* Q, const void* K, const void* V, const void* dO, const
   float* part_v = part + (size_t)p.nsplit * nk_el;
   kern<<<grid, 128, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(K),
-      static_cast<const __nv_bfloat16*>(V), static_cast<const __nv_bfloat16*>(dO), lse, delta,
+      static_cast<const __nv_bfloat16*>(V), static_cast<const __nv_bfloat16*>(dO), lse, delta, ds,
       part_k, part_v, ws, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -696,7 +720,10 @@ int launch_kv(const void* Q, const void* K, const void* V, const void* dO, const
   r = reduce_splits<__nv_bfloat16>(part_v, dV, nv_el, p.nsplit, stream);
   if (r != 0 || ws == nullptr) return r;
   const long long rows = (long long)p.B * p.S * p.G * p.h;
-  return sum_slots<__nv_bfloat16>(ws, dQ, rows, p.Dk, BandSlots{p}, p.scale, stream);
+  if (docs)
+    return sum_slots<__nv_bfloat16>(ws, dQ, rows, p.Dk, BandSlots<true>{p, ds}, p.scale, stream);
+  return sum_slots<__nv_bfloat16>(ws, dQ, rows, p.Dk, BandSlots<false>{p, nullptr}, p.scale,
+                                  stream);
 }
 
 bool wide(int Dk, int Dv) { return Dk > 64 || Dv > 64; }
@@ -714,24 +741,25 @@ long long nsa_banded_bwd_1p_mma_smem_bytes(int Dk, int Dv) {
   return (long long)(wide(Dk, Dv) ? KvLayout<128>::BYTES : KvLayout<64>::BYTES);
 }
 
-// bf16 only. Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32
-// -> dQ, dK, dV (bf16). mode 0 WIN (w > 0), 1 CMP (l, d > 0); Dk, Dv <= 128
+// bf16 only. Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32,
+// ds [B,S] int32 document starts (or null) -> dQ, dK, dV (bf16). mode 0
+// WIN (w > 0), 1 CMP (l, d > 0); Dk, Dv <= 128
 // and multiples of 8. part: f32 scratch of nsplit * B*G*S_kv*(Dk+Dv) floats;
 // ws: f32 dQ slots, nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats, or
 // null for dK and dV alone (the two-pass design's kv pass; dQ unused).
 int nsa_banded_bwd_1p_mma(const void* Q, const void* K, const void* V, const void* dO,
-                          const float* lse, const float* delta, void* dQ, void* dK, void* dV,
-                          float* part, float* ws, int B, int S, int S_kv, int G, int h, int Dk,
-                          int Dv, int mode, int w, int l, int d, float scale, int nsplit,
-                          void* stream) {
+                          const float* lse, const float* delta, const int* ds, void* dQ,
+                          void* dK, void* dV, float* part, float* ws, int B, int S, int S_kv,
+                          int G, int h, int Dk, int Dv, int mode, int w, int l, int d,
+                          float scale, int nsplit, void* stream) {
   if (nsplit <= 0 || h <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 ||
       S_kv <= 0 || (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
       (mode != WIN && mode != CMP) || part == nullptr)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, 0, nsplit, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide(Dk, Dv)) return launch_kv<128>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
-  return launch_kv<64>(Q, K, V, dO, lse, delta, dQ, dK, dV, part, ws, p, s);
+  if (wide(Dk, Dv)) return launch_kv<128>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
+  return launch_kv<64>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
 }
 
 long long nsa_win_bwd_diag_mma_smem_bytes(int Dk, int Dv, int rows) {
@@ -753,9 +781,9 @@ long long nsa_banded_bwd_dq_mma_smem_bytes(int Dk, int Dv, int rows) {
 // with ws null). Shapes and modes as nsa_banded_bwd_1p_mma; q tiles of
 // `rows` = 64 or 128 rows (rows / h tokens, h <= rows).
 int nsa_banded_bwd_dq_mma(const void* Q, const void* K, const void* V, const void* dO,
-                          const float* lse, const float* delta, void* dQ, int B, int S, int S_kv,
-                          int G, int h, int Dk, int Dv, int mode, int w, int l, int d,
-                          float scale, int rows, void* stream) {
+                          const float* lse, const float* delta, const int* ds, void* dQ, int B,
+                          int S, int S_kv, int G, int h, int Dk, int Dv, int mode, int w, int l,
+                          int d, float scale, int rows, void* stream) {
   if ((rows != 64 && rows != 128) || h <= 0 || h > rows || S_kv <= 0 || Dk % 8 != 0 ||
       Dv % 8 != 0 || Dk > 128 || Dv > 128 || (mode == WIN && w <= 0) ||
       (mode == CMP && (l <= 0 || d <= 0)) || (mode != WIN && mode != CMP))
@@ -763,14 +791,14 @@ int nsa_banded_bwd_dq_mma(const void* Q, const void* K, const void* V, const voi
   const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, rows / h, 1, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using Launch = int (*)(const void*, const void*, const void*, const void*, const float*,
-                        const float*, void*, const Params&, cudaStream_t);
+                        const float*, const int*, void*, const Params&, cudaStream_t);
   const bool cmp = mode == CMP;
   const Launch launch =
       wide(Dk, Dv) ? (rows == 64 ? (cmp ? &launch_dq<128, 64, CMP> : &launch_dq<128, 64, WIN>)
                                  : (cmp ? &launch_dq<128, 128, CMP> : &launch_dq<128, 128, WIN>))
       : rows == 64 ? (cmp ? &launch_dq<64, 64, CMP> : &launch_dq<64, 64, WIN>)
                    : (cmp ? &launch_dq<64, 128, CMP> : &launch_dq<64, 128, WIN>);
-  return launch(Q, K, V, dO, lse, delta, dQ, p, s);
+  return launch(Q, K, V, dO, lse, delta, ds, dQ, p, s);
 }
 
 // Strip rows per q tile of `rows` rows (rows / h tokens): the most 64-key
@@ -787,9 +815,9 @@ int nsa_win_bwd_diag_mma_strip_keys(int rows, int h, int w, int S_kv) {
 // rows. strip_k / strip_v: f32 scratch of B*G*ceil(S/(rows/h))*SL*Dk (Dv)
 // floats, SL = nsa_win_bwd_diag_mma_strip_keys(rows, h, w, S_kv).
 int nsa_win_bwd_diag_mma(const void* Q, const void* K, const void* V, const void* dO,
-                         const float* lse, const float* delta, void* dQ, void* dK, void* dV,
-                         float* strip_k, float* strip_v, int B, int S, int S_kv, int G, int h,
-                         int Dk, int Dv, int w, float scale, int rows, void* stream) {
+                         const float* lse, const float* delta, const int* ds, void* dQ, void* dK,
+                         void* dV, float* strip_k, float* strip_v, int B, int S, int S_kv, int G,
+                         int h, int Dk, int Dv, int w, float scale, int rows, void* stream) {
   const bool wd = wide(Dk, Dv);
   if ((rows != 64 && rows != 128 && (rows != 192 || wd)) || h <= 0 || h > rows || w <= 0 ||
       S <= 0 || S_kv <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 ||
@@ -799,13 +827,13 @@ int nsa_win_bwd_diag_mma(const void* Q, const void* K, const void* V, const void
   const int SL = nsa_win_bwd_diag_mma_strip_keys(rows, h, w, S_kv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using Launch = int (*)(const void*, const void*, const void*, const void*, const float*,
-                        const float*, void*, void*, void*, float*, float*, const Params&, int,
-                        cudaStream_t);
+                        const float*, const int*, void*, void*, void*, float*, float*,
+                        const Params&, int, cudaStream_t);
   const Launch launch = wd ? (rows == 64 ? &launch_diag<128, 64> : &launch_diag<128, 128>)
                         : rows == 64  ? &launch_diag<64, 64>
                         : rows == 128 ? &launch_diag<64, 128>
                                       : &launch_diag<64, 192>;
-  return launch(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, SL, s);
+  return launch(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, strip_k, strip_v, p, SL, s);
 }
 
 }  // extern "C"

@@ -34,7 +34,24 @@ __host__ __device__ __forceinline__ void key_range(const Params& p, int t, int& 
   }
 }
 
+// Packed documents: raises query token t's lo to its document's bound
+// (common.cuh::doc_lo). The tensor-core kernels call it only in their DOCS
+// instantiation, so the dense one compiles as it did before documents
+// existed; the FMA kernels test ds != nullptr.
+__device__ __forceinline__ void doc_bound(const Params& p, const int* __restrict__ ds, int b,
+                                          int t, int& lo) {
+  lo = max(lo, doc_lo(doc_start(ds, p.S, b, t), p.mode == CMP, p.d));
+}
+
+// the dQ slot of a row with visible keys [lo, hi) for key tile kt, or -1
+// where the row sees no key of the tile: slots count the key tiles the row
+// sees from its first (BandSlots)
+__device__ __forceinline__ int band_slot(int kt, int lo, int hi) {
+  return hi > lo && kt >= lo / KC && kt <= (hi - 1) / KC ? kt - lo / KC : -1;
+}
+
 // query tokens [t_lo, t_hi] that see at least one key of [k0, k1), k1 > k0
+// (under ds a superset of those that do)
 __device__ __forceinline__ void token_range(const Params& p, int k0, int k1, int& t_lo,
                                             int& t_hi) {
   if (p.mode == WIN) {
@@ -48,13 +65,17 @@ __device__ __forceinline__ void token_range(const Params& p, int k0, int k1, int
 
 // dQ slots a row of the one-pass design wrote (sum_slots' count): the key
 // tiles its token sees. Slot of a (row, key tile kt): WIN kt - lo(t)/64,
-// CMP kt.
+// CMP kt; with ds (DOCS) kt - lo(t)/64 in both (band_slot), lo under the
+// document bound. The kv pass and this count form lo alike.
+template <bool DOCS>
 struct BandSlots {
   Params p;
+  const int* ds;
   __device__ int operator()(long long row) const {
     const int t = (int)((row / ((long long)p.G * p.h)) % p.S);
     int lo, hi;
     key_range(p, t, lo, hi);
+    if (DOCS) doc_bound(p, ds, (int)(row / ((long long)p.G * p.h * p.S)), t, lo);
     return hi > lo ? (hi - 1) / KC - lo / KC + 1 : 0;
   }
 };
@@ -80,11 +101,12 @@ struct Smem {
 };
 
 // Stages the f32 query rows of tokens [t0, t0+nt) of (b, g): Q and dO rows,
-// lse, delta and each row's visible key range.
+// lse, delta and each row's visible key range (under ds, when not null).
 __device__ __forceinline__ void stage_rows(const Params& p, const float* Q, const float* dO,
-                                           const float* lse, const float* delta, int b, int g,
-                                           int t0, int nt, float* q_s, float* do_s,
-                                           float* lse_s, float* dl_s, int* lo_s, int* hi_s) {
+                                           const float* lse, const float* delta,
+                                           const int* ds, int b, int g, int t0, int nt,
+                                           float* q_s, float* do_s, float* lse_s, float* dl_s,
+                                           int* lo_s, int* hi_s) {
   const int h = p.h;
   auto row_of = [&](int r) -> size_t {
     const int i = r / h;
@@ -100,6 +122,7 @@ __device__ __forceinline__ void stage_rows(const Params& p, const float* Q, cons
     lse_s[r] = lse[o];
     dl_s[r] = delta[o];
     key_range(p, t0 + r / h, lo_s[r], hi_s[r]);
+    if (ds != nullptr) doc_bound(p, ds, b, t0 + r / h, lo_s[r]);
   }
 }
 
@@ -107,7 +130,9 @@ __device__ __forceinline__ void stage_rows(const Params& p, const float* Q, cons
 // the dK/dV of its band's keys to strip rows [0, ...) of [B, G, nq, SL, D],
 // strip row 0 being key kb0(qt) = floor(max(qt*TQ - w + 1, 0) / align) *
 // align (align 1 for the FMA kernel, 64 for the tensor-core kernel, whose
-// key tiles sit at multiples of 64).
+// key tiles sit at multiples of 64). The band is the dense one also under
+// ds, so every strip row this sum reads was written (zeros for the keys
+// that no row of the tile sees in its document).
 // out[b, g, k, :] = mul * (sum over the q tiles whose band covers key k, in
 // ascending order, of their strip row k - kb0(qt)), cast to T; keys no row
 // sees (k >= S) get 0.

@@ -9,8 +9,11 @@
 //
 // What it computes, as banded_attn.cu: query row s sits at position t =
 // t_start + s and sees
-//   WIN: keys [max(t-w+1, 0), min(t+1, S_kv))
-//   CMP: compressed tokens [0, min(num_cmp(t+1), S_kv))
+//   WIN: keys [max(t-w+1, 0, ds), min(t+1, S_kv))
+//   CMP: compressed tokens [ceil(ds/d), min(num_cmp(t+1), S_kv))
+// with ds the row's document start (packed documents, ds [B,S] given at
+// t_start 0) or 0; the tile band takes ds at the tile's first token, each
+// row masks its own.
 // softmax over the visible keys; a row with no visible key returns O = 0.
 // With lse != nullptr also lse [B,S,G,h] f32 = m + log(l) (natural base),
 // EMPTY_LSE for a row with no key: the port's convention, which
@@ -55,7 +58,8 @@
 //     tile together): the heaviest CTAs launch first.
 //   - The mode is a template argument instantiated under two kernel names
 //     (win_fwd_mma_kernel, cmp_fwd_mma_kernel), so a profile keeps the two
-//     branches apart; the warp count is the launch's block size. The
+//     branches apart; the warp count is the launch's block size. So is
+//     DOCS (ds given): the dense instantiation reads no ds. The
 //     per-CTA walk (band_fwd) is in banded_fwd_mma.cuh: the fused scorer
 //     (select_cmp_mma.cu) runs it in CMP mode as its pass 1.
 // wgmma with TMA suits a contiguous band better still: later work.
@@ -68,29 +72,33 @@ namespace {
 
 // At D = 64 both modes fit 128 registers, so two CTAs of 8 warps share an
 // SM (the design note above)
-template <int DT>
+template <int DT, bool DOCS>
 __global__ void __launch_bounds__(MAX_THREADS, DT == 64 ? 2 : 1)
 win_fwd_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
-                   const __nv_bfloat16* __restrict__ V, __nv_bfloat16* __restrict__ O,
-                   float* __restrict__ lse, Params p) {
-  band_fwd<DT, WIN>(Q, K, V, O, lse, p);
+                   const __nv_bfloat16* __restrict__ V, const int* __restrict__ ds,
+                   __nv_bfloat16* __restrict__ O, float* __restrict__ lse, Params p) {
+  band_fwd<DT, WIN, DOCS>(Q, K, V, ds, O, lse, p);
 }
 
-template <int DT>
+template <int DT, bool DOCS>
 __global__ void __launch_bounds__(MAX_THREADS, DT == 64 ? 2 : 1)
 cmp_fwd_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
-                   const __nv_bfloat16* __restrict__ V, __nv_bfloat16* __restrict__ O,
-                   float* __restrict__ lse, Params p) {
-  band_fwd<DT, CMP>(Q, K, V, O, lse, p);
+                   const __nv_bfloat16* __restrict__ V, const int* __restrict__ ds,
+                   __nv_bfloat16* __restrict__ O, float* __restrict__ lse, Params p) {
+  band_fwd<DT, CMP, DOCS>(Q, K, V, ds, O, lse, p);
 }
 
 using Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
-                        __nv_bfloat16*, float*, Params);
+                        const int*, __nv_bfloat16*, float*, Params);
 
 template <int DT>
-int launch(int mode, const void* Q, const void* K, const void* V, void* O, float* lse, int B,
-           int rows, const Params& p, cudaStream_t stream) {
-  const Kernel kern = mode == WIN ? &win_fwd_mma_kernel<DT> : &cmp_fwd_mma_kernel<DT>;
+int launch(int mode, const void* Q, const void* K, const void* V, const int* ds, void* O,
+           float* lse, int B, int rows, const Params& p, cudaStream_t stream) {
+  const bool docs = ds != nullptr;
+  const Kernel kern = mode == WIN ? (docs ? &win_fwd_mma_kernel<DT, true>
+                                         : &win_fwd_mma_kernel<DT, false>)
+                                  : (docs ? &cmp_fwd_mma_kernel<DT, true>
+                                          : &cmp_fwd_mma_kernel<DT, false>);
   const size_t smem = Layout<DT>::bytes(rows);
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -99,7 +107,7 @@ int launch(int mode, const void* Q, const void* K, const void* V, void* O, float
   if (grid > 0)
     kern<<<(unsigned)grid, 2 * rows, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(K),
-        static_cast<const __nv_bfloat16*>(V), static_cast<__nv_bfloat16*>(O), lse, p);
+        static_cast<const __nv_bfloat16*>(V), ds, static_cast<__nv_bfloat16*>(O), lse, p);
   NSA_LAUNCH_CHECK();
 }
 
@@ -111,14 +119,17 @@ long long nsa_banded_fwd_mma_smem_bytes(int Dk, int Dv, int rows) {
   return (long long)((Dk > 64 || Dv > 64) ? Layout<128>::bytes(rows) : Layout<64>::bytes(rows));
 }
 
-// bf16 only. Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv] -> O
-// [B,S,G,h,Dv], lse [B,S,G,h] f32 (or null). mode 0 WIN (w > 0), 1 CMP
-// (l, d > 0); q tiles of `rows` = 64 or 128 rows (rows / h tokens, h <=
-// rows); Dk, Dv <= 128 and multiples of 8.
-int nsa_banded_fwd_mma(const void* Q, const void* K, const void* V, void* O, float* lse, int B,
-                       int S, int S_kv, int G, int h, int Dk, int Dv, int mode, int w, int l,
-                       int d, int t_start, float scale, int rows, void* stream) {
+// bf16 only. Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv], ds [B,S]
+// int32 document starts (or null; t_start 0 with ds) -> O [B,S,G,h,Dv],
+// lse [B,S,G,h] f32 (or null). mode 0 WIN (w > 0), 1 CMP (l, d > 0); q
+// tiles of `rows` = 64 or 128 rows (rows / h tokens, h <= rows); Dk, Dv <=
+// 128 and multiples of 8.
+int nsa_banded_fwd_mma(const void* Q, const void* K, const void* V, const int* ds, void* O,
+                       float* lse, int B, int S, int S_kv, int G, int h, int Dk, int Dv,
+                       int mode, int w, int l, int d, int t_start, float scale, int rows,
+                       void* stream) {
   if ((rows != 64 && rows != 128) || h <= 0 || h > rows || S_kv < 0 || t_start < 0 ||
+      (ds != nullptr && t_start != 0) ||
       Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 || (mode != WIN && mode != CMP) ||
       (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)))
     return (int)cudaErrorInvalidValue;
@@ -126,8 +137,8 @@ int nsa_banded_fwd_mma(const void* Q, const void* K, const void* V, void* O, flo
   const int nq = (S + qT - 1) / qT;
   const Params p{S, S_kv, G, h, Dk, Dv, w, l, d, t_start, qT, nq, B * G, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dk > 64 || Dv > 64) return launch<128>(mode, Q, K, V, O, lse, B, rows, p, s);
-  return launch<64>(mode, Q, K, V, O, lse, B, rows, p, s);
+  if (Dk > 64 || Dv > 64) return launch<128>(mode, Q, K, V, ds, O, lse, B, rows, p, s);
+  return launch<64>(mode, Q, K, V, ds, O, lse, B, rows, p, s);
 }
 
 }  // extern "C"

@@ -59,10 +59,14 @@ struct Layout {
 // log2(l)) of this thread's rows r0 + g8 (nlse2[0]) and r0 + g8 + 8
 // (nlse2[1]), the base-2 statistic of each row's softmax (0 for a row with
 // no key), so that a caller can form p = exp2(s * scale * log2 e + nlse2).
-template <int DT, int MODE>
+// DOCS: ds [B,S] holds each token's document start (t_start 0): each row's
+// lo is raised to its document's bound (common.cuh::doc_lo); the dense
+// instantiation compiles as it did before documents existed.
+template <int DT, int MODE, bool DOCS>
 __device__ __forceinline__ void band_fwd(const __nv_bfloat16* __restrict__ Q,
                                          const __nv_bfloat16* __restrict__ K,
                                          const __nv_bfloat16* __restrict__ V,
+                                         const int* __restrict__ ds,
                                          __nv_bfloat16* __restrict__ O, float* __restrict__ lse,
                                          const Params& p, float* nlse2 = nullptr) {
   using C = Layout<DT>;
@@ -109,6 +113,7 @@ __device__ __forceinline__ void band_fwd(const __nv_bfloat16* __restrict__ Q,
   int lo, hi, unused;
   key_range<MODE>(p, t_first, lo, unused);
   key_range<MODE>(p, t_first + T - 1, unused, hi);
+  if (DOCS) lo = max(lo, doc_lo(doc_start(ds, p.S, b, s0), MODE == CMP, p.d));
   const int kb0 = (lo / KC) * KC;
   const int J = hi > lo ? (hi - kb0 + KC - 1) / KC : 0;
 
@@ -140,6 +145,8 @@ __device__ __forceinline__ void band_fwd(const __nv_bfloat16* __restrict__ Q,
     rlive[hf] = r < R;
     rlo[hf] = rhi[hf] = 0;
     if (rlive[hf]) key_range<MODE>(p, t_first + r / h, rlo[hf], rhi[hf]);
+    if (DOCS && rlive[hf])
+      rlo[hf] = max(rlo[hf], doc_lo(doc_start(ds, p.S, b, s0 + r / h), MODE == CMP, p.d));
   }
 
   float o[DT / 8][4];

@@ -51,6 +51,21 @@ __device__ __forceinline__ int num_cmp(int s_raw, int l, int d) {
   return s_raw >= l ? (s_raw - l) / d + 1 : 0;
 }
 
+// Packed documents: ds [B,S] int32 holds each query token's document start
+// (l_sel-aligned, non-decreasing along a row); every kernel that takes ds
+// bounds its rows with these two. doc_start: the start of query token t of
+// batch row b. doc_lo: the first key a query of a document starting at
+// `start` may see, the token `start` in the window stream, the first pooled
+// token that starts at or after it, ceil(start / d), in the compressed one
+// (cmp). Both grow with t. The document's first selection block is
+// start / l_sel.
+__device__ __forceinline__ int doc_start(const int* __restrict__ ds, int S, int b, int t) {
+  return __ldg(ds + (size_t)b * S + t);
+}
+__device__ __forceinline__ int doc_lo(int start, bool cmp, int d) {
+  return cmp ? (start + d - 1) / d : start;
+}
+
 // Online-softmax update of one row by one chunk of up to 32 keys, one key
 // per lane. `logit` is this lane's scaled logit (ignored where !vis).
 // Updates m/l in shared memory (lane 0 writes) and returns this lane's

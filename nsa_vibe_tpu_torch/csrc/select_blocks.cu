@@ -19,7 +19,10 @@
 // with start <= t that are not forced (Eq. 11-12). Output contract of
 // select_cmp and of the TPU kernel: forced slots first (may repeat), then
 // picks in descending score order, -1 when no candidate is left. A row
-// with no visible compressed token adds p_slc = 0.
+// with no visible compressed token adds p_slc = 0. With ds [B,S] (packed
+// documents) a row sees only c >= ceil(ds/d), and its forced and candidate
+// blocks start at its document's first block ds // l_sel
+// (select_blocks.cuh::top_n).
 //
 // M_csl is not read: M[c, j] = overlap([c*d, c*d+l), [j*l_sel, (j+1)*l_sel))
 // / l, the row-normalised fractional overlap of ops/block_index.py, whose
@@ -113,7 +116,7 @@ __device__ __forceinline__ void chunk_logits(const float* q_s, const float* k_s,
 
 __global__ void __launch_bounds__(THREADS)
 select_blocks_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
-                     int* __restrict__ sel, Params p) {
+                     const int* __restrict__ ds, int* __restrict__ sel, Params p) {
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
   int bid = blockIdx.x;
@@ -153,11 +156,14 @@ select_blocks_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
   const float* Kbg = Kc + ((size_t)b * p.G + g) * p.S_cmp * Dk;
   // prefix bound of the tile's last token: no row of the tile sees past it
   const int n_vis_tile = min(num_cmp(t_first + nt, p.l, p.d), p.S_cmp);
-  // visible prefix of each row of this thread's phase-A tile
-  int nvis[4];
+  // visible tokens [lo, nvis) of each row of this thread's phase-A tile
+  int lo[4], nvis[4];
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
-    nvis[m] = min(num_cmp(t_first + min(ri + 16 * m, rows - 1) / h + 1, p.l, p.d), p.S_cmp);
+  for (int m = 0; m < 4; ++m) {
+    const int i = min(ri + 16 * m, rows - 1) / h;
+    lo[m] = ds != nullptr ? first_visible(p, ds, b, s0 + i) : 0;
+    nvis[m] = min(num_cmp(t_first + i + 1, p.l, p.d), p.S_cmp);
+  }
 
   // pass 1: row statistics (online max and sum)
   for (int c0 = 0; c0 < n_vis_tile; c0 += KC) {
@@ -172,7 +178,8 @@ select_blocks_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
       if (r < rows) {
 #pragma unroll
         for (int n = 0; n < 4; ++n)
-          s_s[r * KC + ki + 16 * n] = c0 + ki + 16 * n < nvis[m] ? sc[m][n] * p.scale : NEG;
+          s_s[r * KC + ki + 16 * n] =
+              c0 + ki + 16 * n < nvis[m] && c0 + ki + 16 * n >= lo[m] ? sc[m][n] * p.scale : NEG;
       }
     }
     __syncthreads();
@@ -207,25 +214,28 @@ select_blocks_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
         const float lse_r = m_s[r];
 #pragma unroll
         for (int n = 0; n < 4; ++n)
-          s_s[r * KC + ki + 16 * n] =
-              c0 + ki + 16 * n < nvis[m] ? expf(sc[m][n] * p.scale - lse_r) : 0.f;
+          s_s[r * KC + ki + 16 * n] = c0 + ki + 16 * n < nvis[m] && c0 + ki + 16 * n >= lo[m]
+                                          ? expf(sc[m][n] * p.scale - lse_r)
+                                          : 0.f;
       }
     }
     __syncthreads();
     chunk_scores(s_s, KC, acc, p, nt, c0, min(c0 + KC, n_vis_tile));
   }
   __syncthreads();
-  top_n(acc, sel, p, b, g, s0, nt);
+  top_n<true>(acc, sel, p, b, g, s0, nt, ds);
 }
 
-int launch(const float* Q, const float* Kc, int* sel, const Params& p, cudaStream_t stream) {
+int launch(const float* Q, const float* Kc, const int* ds, int* sel, const Params& p,
+           cudaStream_t stream) {
   const size_t smem = Smem(p.TQ, p.h, p.Dk, p.S_sel).total * sizeof(float);
   const cudaError_t e = cudaFuncSetAttribute(select_blocks_kernel,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long grid = (long long)p.B * p.G * ((p.S + p.TQ - 1) / p.TQ);
-  if (grid > 0) select_blocks_kernel<<<(unsigned)grid, THREADS, smem, stream>>>(Q, Kc, sel, p);
+  if (grid > 0)
+    select_blocks_kernel<<<(unsigned)grid, THREADS, smem, stream>>>(Q, Kc, ds, sel, p);
   NSA_LAUNCH_CHECK();
 }
 
@@ -237,18 +247,19 @@ long long nsa_select_blocks_smem_bytes(int TQ, int h, int Dk, int S_sel) {
   return (long long)(Smem(TQ, h, Dk, S_sel).total * sizeof(float));
 }
 
-// f32 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk] -> sel [B,S,G,n_out]; TQ
-// tokens per block, TQ * h <= 64.
-int nsa_select_blocks(const float* Q, const float* Kc, int* sel, int B, int S, int G, int h,
-                      int Dk, int S_cmp, int S_sel, int l, int d, int l_sel, int n_top,
-                      int force_init, int force_local, int pos_offset, float scale, int TQ,
-                      void* stream) {
+// f32 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], ds [B,S] int32 document
+// starts (or null; pos_offset 0 with ds) -> sel [B,S,G,n_out]; TQ tokens
+// per block, TQ * h <= 64.
+int nsa_select_blocks(const float* Q, const float* Kc, const int* ds, int* sel, int B, int S,
+                      int G, int h, int Dk, int S_cmp, int S_sel, int l, int d, int l_sel,
+                      int n_top, int force_init, int force_local, int pos_offset, float scale,
+                      int TQ, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || S_cmp <= 0 || S_sel <= 0 || Dk % 8 != 0 ||
-      pos_offset < 0 || l <= 0 || d <= 0 || l_sel <= 0)
+      pos_offset < 0 || (ds != nullptr && pos_offset != 0) || l <= 0 || d <= 0 || l_sel <= 0)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
                  pos_offset, TQ, scale};
-  return launch(Q, Kc, sel, p, static_cast<cudaStream_t>(stream));
+  return launch(Q, Kc, ds, sel, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -18,6 +18,15 @@ struct Params {
   float scale;
 };
 
+// Packed documents (ds [B,S] int32 at pos_offset 0): the first compressed
+// token that query token s of batch row b sees (common.cuh::doc_lo). The
+// tensor-core kernels read ds only in their DOCS instantiation, so the
+// dense one compiles as it did before documents existed.
+__device__ __forceinline__ int first_visible(const Params& p, const int* __restrict__ ds, int b,
+                                             int s) {
+  return doc_lo(doc_start(ds, p.S, b, s), true, p.d);
+}
+
 // Eq. 9-10 of one chunk of compressed tokens [c0, c1): for each token i <
 // nt of the q tile and each selection block j the chunk overlaps,
 //   acc[i][j] += sum over tokens c of the chunk within block j of
@@ -71,16 +80,19 @@ __device__ __forceinline__ void chunk_scores(float* p_s, int pitch, float* acc, 
 }
 
 // Eq. 11-12 per token of the q tile (tokens s0 .. s0+nt-1 of (b, g), at
-// positions t_first + i): the forced slots {0, t//l_sel, t//l_sel - 1}
-// (clamped at 0), then the n_top - n_forced blocks of largest `score - 1e-8
-// * index` among blocks with start <= t that are not forced, in descending
+// positions t_first + i): the forced slots {f, t//l_sel, t//l_sel - 1}
+// (clamped at f), then the n_top - n_forced blocks of largest `score - 1e-8
+// * index` among blocks in [f, t//l_sel] that are not forced, in descending
 // order (ties to the lowest index), -1 for the slots past the last such
-// block; one warp per token. Up to 32 blocks a lane holds one and counts
+// block; one warp per token. f = ds // l_sel, the token's document's first
+// block, where DOCS and ds are given (the FMA kernels pass DOCS with ds
+// null for the dense bound), else 0. Up to 32 blocks a lane holds one and counts
 // the blocks ahead of it with 32 shuffles: a block of rank k fills slot k;
 // past 32, n_top - n_forced argmax passes with shuffle reductions. Either
 // way a slot's block is the same. acc [nt][S_sel] is overwritten.
+template <bool DOCS>
 __device__ __forceinline__ void top_n(float* acc, int* __restrict__ sel, const Params& p, int b,
-                                      int g, int s0, int nt) {
+                                      int g, int s0, int nt, const int* __restrict__ ds) {
   const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5, S_sel = p.S_sel;
   const int n_forced = (p.force_init ? 1 : 0) + p.force_local;
   const int n_out = max(p.n_top, n_forced);
@@ -89,11 +101,13 @@ __device__ __forceinline__ void top_n(float* acc, int* __restrict__ sel, const P
     for (int i = threadIdx.x >> 5; i < nt; i += nwarps) {
       const int t = p.pos_offset + s0 + i;
       const int last = t / p.l_sel;
+      const int fb = DOCS && ds != nullptr ? doc_start(ds, p.S, b, s0 + i) / p.l_sel : 0;
       int* out = sel + (((size_t)b * p.S + s0 + i) * p.G + g) * n_out;
       const int c = lane;
-      bool forced = p.force_init && c == 0;
-      for (int f = 0; f < p.force_local; ++f) forced = forced || c == max(last - f, 0);
-      const bool cand = c < S_sel && (long long)c * p.l_sel <= t && !forced;
+      bool forced = p.force_init && c == fb;
+      for (int f = 0; f < p.force_local; ++f) forced = forced || c == max(last - f, fb);
+      const bool cand =
+          c < S_sel && (long long)c * p.l_sel <= t && (!DOCS || c >= fb) && !forced;
       const float v = cand ? __fsub_rn(acc[(size_t)i * S_sel + c], __fmul_rn((float)c, 1e-8f))
                            : NEG;
       int rank = 0;   // candidates ahead of this one
@@ -105,8 +119,8 @@ __device__ __forceinline__ void top_n(float* acc, int* __restrict__ sel, const P
       const int n_cand = __popc(__ballot_sync(FULL, cand));
       if (lane == 0) {
         int f = 0;
-        if (p.force_init) out[f++] = 0;
-        for (int k = 0; k < p.force_local; ++k) out[f++] = max(last - k, 0);
+        if (p.force_init) out[f++] = fb;
+        for (int k = 0; k < p.force_local; ++k) out[f++] = max(last - k, fb);
       }
       if (cand && rank < k_rest) out[n_forced + rank] = c;
       for (int k = n_cand + lane; k < k_rest; k += 32) out[n_forced + k] = -1;
@@ -116,19 +130,20 @@ __device__ __forceinline__ void top_n(float* acc, int* __restrict__ sel, const P
   for (int i = threadIdx.x >> 5; i < nt; i += nwarps) {
     const int t = p.pos_offset + s0 + i;
     const int last = t / p.l_sel;
+    const int fb = DOCS && ds != nullptr ? doc_start(ds, p.S, b, s0 + i) / p.l_sel : 0;
     float* comp = acc + (size_t)i * S_sel;
     int* out = sel + (((size_t)b * p.S + s0 + i) * p.G + g) * n_out;
     for (int c = lane; c < S_sel; c += 32) {
-      bool forced = p.force_init && c == 0;
-      for (int f = 0; f < p.force_local; ++f) forced = forced || c == max(last - f, 0);
-      const bool valid = (long long)c * p.l_sel <= t;
+      bool forced = p.force_init && c == fb;
+      for (int f = 0; f < p.force_local; ++f) forced = forced || c == max(last - f, fb);
+      const bool valid = (long long)c * p.l_sel <= t && (!DOCS || c >= fb);
       const float score = (valid && !forced) ? comp[c] : NEG;
       comp[c] = __fsub_rn(score, __fmul_rn((float)c, 1e-8f));
     }
     if (lane == 0) {
       int f = 0;
-      if (p.force_init) out[f++] = 0;
-      for (int k = 0; k < p.force_local; ++k) out[f++] = max(last - k, 0);
+      if (p.force_init) out[f++] = fb;
+      for (int k = 0; k < p.force_local; ++k) out[f++] = max(last - k, fb);
     }
     __syncwarp();
     for (int k = 0; k < k_rest; ++k) {

@@ -14,7 +14,10 @@
 // group's heads mapped onto the selection blocks (Eq. 9-10) and the forced
 // blocks plus top-n (Eq. 11-12). p stays f32 for the map, as the TPU kernel
 // keeps p and M f32 for p . M (scorer.py:113-115); the logits come from
-// bf16 Q and K_cmp with f32 accumulation.
+// bf16 Q and K_cmp with f32 accumulation. With ds [B,S] (packed documents)
+// a row sees only c >= ceil(ds/d) and picks from its document's blocks;
+// both passes start at the key tile of the tile's first token's first
+// visible token, since no row of the tile sees an earlier one.
 //
 // What bounds it on the H100: at the m7c 64k prefill (B=1, S=65536, G=2,
 // h=6, Dk=64, S_cmp=4095, S_sel=1024) one QK^T over the ~1.6 G visible
@@ -89,11 +92,13 @@ struct Layout {
   }
 };
 
-// at most 128 registers a thread: two CTAs of 8 warps, or three of 4, fit an SM
-template <int DT>
+// at most 128 registers a thread: two CTAs of 8 warps, or three of 4, fit an
+// SM; DOCS: ds given (the dense instantiation reads none)
+template <int DT, bool DOCS>
 __global__ void __launch_bounds__(256, 2)
 select_blocks_mma_kernel(const __nv_bfloat16* __restrict__ Q,
-                         const __nv_bfloat16* __restrict__ Kc, int* __restrict__ sel, Params p) {
+                         const __nv_bfloat16* __restrict__ Kc, const int* __restrict__ ds,
+                         int* __restrict__ sel, Params p) {
   constexpr int P = DT + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Layout L(DT, p.TQ, p.h, p.S_sel);
@@ -134,9 +139,11 @@ select_blocks_mma_kernel(const __nv_bfloat16* __restrict__ Q,
   tc::cp_async_commit();
   for (int idx = tid; idx < nt * p.S_sel; idx += nthr) acc[idx] = 0.f;
 
-  // the tile's prefix: key tiles [0, J), the last token's bound
+  // the tile's band: key tiles [j0, J), from the first token's first
+  // visible token (0 without ds) to the last token's bound
   const int n_vis_tile = min(num_cmp(t_first + nt, p.l, p.d), p.S_cmp);
   const int J = (n_vis_tile + KC - 1) / KC;
+  const int j0 = DOCS ? min(first_visible(p, ds, b, s0) / KC, J) : 0;
   const __nv_bfloat16* Kbg = Kc + (size_t)bg * p.S_cmp * Dk;
   auto issue = [&](int j) {   // key tile j to the buffer, then commit
     const int k0 = j * KC;
@@ -149,11 +156,12 @@ select_blocks_mma_kernel(const __nv_bfloat16* __restrict__ Q,
   };
 
   // this thread's rows r0 + g8 (hf 0) and r0 + g8 + 8 (hf 1): visible
-  // prefixes (0 for rows past R)
-  int nv[2];
+  // tokens [lo, nv) (none for rows past R)
+  int lo[2], nv[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = r0 + g8 + 8 * hf;
+    lo[hf] = DOCS && r < R ? first_visible(p, ds, b, s0 + r / h) : 0;
     nv[hf] = r < R ? min(num_cmp(t_first + r / h + 1, p.l, p.d), p.S_cmp) : 0;
   }
   const bool live = r0 < R;   // the warp has rows
@@ -162,8 +170,8 @@ select_blocks_mma_kernel(const __nv_bfloat16* __restrict__ Q,
 
   // pass 0: row statistics; pass 1: probabilities and the map
   for (int pass = 0; pass < 2; ++pass) {
-    if (J > 0) issue(0);
-    for (int j = 0; j < J; ++j) {
+    if (j0 < J) issue(j0);
+    for (int j = j0; j < J; ++j) {
       tc::cp_async_wait<0>();
       __syncthreads();
       const int k0 = j * KC;
@@ -192,7 +200,8 @@ select_blocks_mma_kernel(const __nv_bfloat16* __restrict__ Q,
 #pragma unroll
             for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
               const int key = k0 + 8 * i + 2 * t4 + (e & 1);
-              s[i][e] = key < nv[hf] ? s[i][e] * sl2 : NEG;   // exp2(NEG - m) = 0
+              // exp2(NEG - m) = 0
+              s[i][e] = (!DOCS || key >= lo[hf]) && key < nv[hf] ? s[i][e] * sl2 : NEG;
               mx = fmaxf(mx, s[i][e]);
             }
           mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
@@ -218,9 +227,13 @@ select_blocks_mma_kernel(const __nv_bfloat16* __restrict__ Q,
               const int r = r0 + g8 + 8 * hf, col = 8 * i + 2 * t4;
               if (r >= R) continue;
               float2 pv;
-              pv.x = k0 + col < nv[hf] ? fast_exp2(fmaf(s[i][2 * hf], sl2, nlse2[hf])) : 0.f;
-              pv.y = k0 + col + 1 < nv[hf] ? fast_exp2(fmaf(s[i][2 * hf + 1], sl2, nlse2[hf]))
-                                           : 0.f;
+              const int c = k0 + col;
+              pv.x = (!DOCS || c >= lo[hf]) && c < nv[hf]
+                         ? fast_exp2(fmaf(s[i][2 * hf], sl2, nlse2[hf]))
+                         : 0.f;
+              pv.y = (!DOCS || c + 1 >= lo[hf]) && c + 1 < nv[hf]
+                         ? fast_exp2(fmaf(s[i][2 * hf + 1], sl2, nlse2[hf]))
+                         : 0.f;
               *reinterpret_cast<float2*>(p_s + r * PP + col) = pv;
             }
         }
@@ -242,21 +255,22 @@ select_blocks_mma_kernel(const __nv_bfloat16* __restrict__ Q,
   }
   tc::cp_async_wait<0>();   // a tile with no key tile still staged Q
   __syncthreads();          // the group scores are complete (J = 0: zeroed)
-  top_n(acc, sel, p, b, g, s0, nt);
+  top_n<DOCS>(acc, sel, p, b, g, s0, nt, ds);
 }
 
 template <int DT>
-int launch(const void* Q, const void* Kc, int* sel, const Params& p, int rows,
+int launch(const void* Q, const void* Kc, const int* ds, int* sel, const Params& p, int rows,
            cudaStream_t stream) {
   const size_t smem = Layout(DT, p.TQ, p.h, p.S_sel).total;
-  const cudaError_t e = cudaFuncSetAttribute(select_blocks_mma_kernel<DT>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
+  const auto kern = ds != nullptr ? &select_blocks_mma_kernel<DT, true>
+                                  : &select_blocks_mma_kernel<DT, false>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long grid = (long long)p.B * p.G * ((p.S + p.TQ - 1) / p.TQ);
   if (grid > 0)
-    select_blocks_mma_kernel<DT><<<(unsigned)grid, 2 * rows, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(Kc), sel, p);
+    kern<<<(unsigned)grid, 2 * rows, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(Kc), ds, sel, p);
   NSA_LAUNCH_CHECK();
 }
 
@@ -268,21 +282,23 @@ long long nsa_select_blocks_mma_smem_bytes(int TQ, int h, int Dk, int S_sel) {
   return (long long)Layout(Dk > 64 ? 128 : 64, TQ, h, S_sel).total;
 }
 
-// bf16 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk] -> sel [B,S,G,n_out] int32
+// bf16 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], ds [B,S] int32 document
+// starts (or null; pos_offset 0 with ds) -> sel [B,S,G,n_out] int32
 // (select_blocks.cu's contract). Dk <= 128, a multiple of 8; CTAs of `rows`
 // = 64 or 128 rows, TQ tokens each (TQ * h <= rows).
-int nsa_select_blocks_mma(const void* Q, const void* Kc, int* sel, int B, int S, int G, int h,
-                          int Dk, int S_cmp, int S_sel, int l, int d, int l_sel, int n_top,
-                          int force_init, int force_local, int pos_offset, float scale, int TQ,
-                          int rows, void* stream) {
+int nsa_select_blocks_mma(const void* Q, const void* Kc, const int* ds, int* sel, int B, int S,
+                          int G, int h, int Dk, int S_cmp, int S_sel, int l, int d, int l_sel,
+                          int n_top, int force_init, int force_local, int pos_offset,
+                          float scale, int TQ, int rows, void* stream) {
   if ((rows != 64 && rows != 128) || TQ <= 0 || TQ * h > rows || S_cmp <= 0 || S_sel <= 0 ||
-      Dk % 8 != 0 || Dk > 128 || pos_offset < 0 || l <= 0 || d <= 0 || l_sel <= 0)
+      Dk % 8 != 0 || Dk > 128 || pos_offset < 0 || (ds != nullptr && pos_offset != 0) ||
+      l <= 0 || d <= 0 || l_sel <= 0)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
                  pos_offset, TQ, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dk > 64) return launch<128>(Q, Kc, sel, p, rows, s);
-  return launch<64>(Q, Kc, sel, p, rows, s);
+  if (Dk > 64) return launch<128>(Q, Kc, ds, sel, p, rows, s);
+  return launch<64>(Q, Kc, ds, sel, p, rows, s);
 }
 
 }  // extern "C"

@@ -20,6 +20,9 @@
 // compressed token get O_cmp = 0 and p_slc = 0. Optionally (lse !=
 // nullptr, the training forward) the cmp rows' statistics lse [B,S,G,h]
 // f32 = m + log(l), EMPTY_LSE for the rows t < l-1 that see no token.
+// With ds [B,S] (packed documents, document start ds of each token) a row
+// sees only c >= ceil(ds/d), and the forced and candidate blocks start at
+// ds // l_sel (select_blocks.cuh::top_n's rule).
 //
 // What bounds it on the H100: at the m7c serving shape (S=2048, S_cmp=127,
 // S_sel=32, h=6, D=64) the work is ~4 GFLOP for ~50 MB of f32 Q/O traffic,
@@ -70,8 +73,8 @@ struct Smem {
 __global__ void __launch_bounds__(THREADS)
 select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
                   const float* __restrict__ Vc, const float* __restrict__ Mcsl,
-                  int* __restrict__ sel, float* __restrict__ O, float* __restrict__ lse,
-                  Params p) {
+                  const int* __restrict__ ds, int* __restrict__ sel, float* __restrict__ O,
+                  float* __restrict__ lse, Params p) {
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
   int bid = blockIdx.x;
@@ -96,6 +99,8 @@ select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
   float* M_s = smem + L.M;            // [KC][S_sel]
   float* pw = smem + L.p + warp * KC; // this warp's probabilities [KC]
   const int kp = Dk + 4;
+  // the document start of the tile's token s0 + i: 0 without ds
+  auto start = [&](int i) { return ds != nullptr ? doc_start(ds, p.S, b, s0 + i) : 0; };
 
   // row r = i*h + j is token s0+i, head j; its Q/O row index in [B,S,G,h]
   auto qo_row = [&](int r) -> size_t {
@@ -125,9 +130,11 @@ select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
     for (int r = warp; r < rows; r += NWARPS) {
       const int t = s0 + r / h;
       const int nvis = min(num_cmp(t + 1, p.l, p.d), p.S_cmp);
-      if (nvis <= c0) continue;   // warp-uniform: this row sees nothing here
+      const int first = doc_lo(start(r / h), true, p.d);
+      // warp-uniform: this row sees nothing here
+      if (nvis <= c0 || first >= c0 + KC || first >= nvis) continue;
       const int jmax = min(KC, nvis - c0);
-      const bool vis = lane < jmax;
+      const bool vis = lane < jmax && c0 + lane >= first;
       const float logit = vis ? dot4(q_s + r * Dk, k_s + lane * kp, Dk) * p.scale : NEG;
       float pr, alpha;
       online_softmax_step(logit, vis, m_s + r, l_s + r, pr, alpha);
@@ -173,22 +180,22 @@ select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
   const int k_rest = p.n_top - n_forced;
   for (int i = warp; i < nt; i += NWARPS) {
     const int t = s0 + i;
-    const int last = t / p.l_sel;
+    const int last = t / p.l_sel, fb = start(i) / p.l_sel;
     float* comp = acc_p + (size_t)i * h * S_sel;   // row i*h becomes the composite score
     int* out = sel + (((size_t)b * p.S + s0 + i) * p.G + g) * n_out;
     for (int c = lane; c < S_sel; c += 32) {
       float grp = 0.f;
       for (int j = 0; j < h; ++j) grp += acc_p[(i * h + j) * S_sel + c];
-      bool forced = p.force_init && c == 0;
-      for (int f = 0; f < p.force_local; ++f) forced = forced || c == max(last - f, 0);
-      const bool valid = (long long)c * p.l_sel <= t;
+      bool forced = p.force_init && c == fb;
+      for (int f = 0; f < p.force_local; ++f) forced = forced || c == max(last - f, fb);
+      const bool valid = (long long)c * p.l_sel <= t && c >= fb;
       const float score = (valid && !forced) ? grp : NEG;
       comp[c] = __fsub_rn(score, __fmul_rn((float)c, 1e-8f));
     }
     if (lane == 0) {
       int f = 0;
-      if (p.force_init) out[f++] = 0;
-      for (int k = 0; k < p.force_local; ++k) out[f++] = max(last - k, 0);
+      if (p.force_init) out[f++] = fb;
+      for (int k = 0; k < p.force_local; ++k) out[f++] = max(last - k, fb);
     }
     __syncwarp();
     for (int k = 0; k < k_rest; ++k) {
@@ -216,15 +223,16 @@ select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
   }
 }
 
-int launch(const float* Q, const float* Kc, const float* Vc, const float* M, int* sel,
-           float* O, float* lse, int B, const Params& p, cudaStream_t stream) {
+int launch(const float* Q, const float* Kc, const float* Vc, const float* M, const int* ds,
+           int* sel, float* O, float* lse, int B, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(p.TQ, p.h, p.Dk, p.Dv, p.S_sel).total * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(select_cmp_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long nq = (p.S + p.TQ - 1) / p.TQ;
   const long long grid = (long long)B * p.G * nq;
-  select_cmp_kernel<<<(unsigned)grid, THREADS, smem, stream>>>(Q, Kc, Vc, M, sel, O, lse, p);
+  select_cmp_kernel<<<(unsigned)grid, THREADS, smem, stream>>>(Q, Kc, Vc, M, ds, sel, O, lse,
+                                                                 p);
   NSA_LAUNCH_CHECK();
 }
 
@@ -241,16 +249,18 @@ long long nsa_select_cmp_smem_bytes(int TQ, int h, int Dk, int Dv, int S_sel) {
 }
 
 // f32 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], V_cmp [B,G,S_cmp,Dv], M
-// [S_cmp,S_sel] -> sel [B,S,G,n_out] int32, O [B,S,G,h,Dv], lse [B,S,G,h]
-// (or null); TQ tokens per block.
-int nsa_select_cmp(const float* Q, const float* Kc, const float* Vc, const float* M, int* sel,
-                   float* O, float* lse, int B, int S, int G, int h, int Dk, int Dv, int S_cmp,
+// [S_cmp,S_sel], ds [B,S] int32 document starts (or null) -> sel
+// [B,S,G,n_out] int32, O [B,S,G,h,Dv], lse [B,S,G,h] (or null); TQ tokens
+// per block.
+int nsa_select_cmp(const float* Q, const float* Kc, const float* Vc, const float* M,
+                   const int* ds, int* sel, float* O, float* lse, int B, int S, int G, int h,
+                   int Dk, int Dv, int S_cmp,
                    int S_sel, int l, int d, int l_sel, int n_top, int force_init,
                    int force_local, float scale, int TQ, void* stream) {
   if (S_sel > MAX_S_SEL || S_cmp <= 0 || TQ <= 0) return (int)cudaErrorInvalidValue;
   const Params p{S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
                  TQ, scale};
-  return launch(Q, Kc, Vc, M, sel, O, lse, B, p, static_cast<cudaStream_t>(stream));
+  return launch(Q, Kc, Vc, M, ds, sel, O, lse, B, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

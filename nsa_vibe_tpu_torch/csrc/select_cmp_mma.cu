@@ -13,7 +13,11 @@
 // heads mapped onto the selection blocks by M_csl (Eq. 9-10), the forced
 // blocks and the top-n (Eq. 11-12). As the TPU kernel does, P is rounded
 // to bf16 as the operand of P V (p.astype(v.dtype), scorer.py:388) and
-// kept in f32 for p . M (scorer.py:383-385).
+// kept in f32 for p . M (scorer.py:383-385). With ds [B,S] (packed
+// documents) a row sees only the tokens c >= ceil(ds/d) (none: O = 0, lse
+// EMPTY_LSE, p = 0) and the top-n stays in its document's blocks
+// (select_blocks.cuh::top_n); pass 2 starts at the key tile of the tile's
+// first token's first visible token.
 //
 // What bounds it on the H100: at the m7c serving shape (B=4, S=2048, G=2,
 // h=6, D=64, S_cmp=127, S_sel=32) the products are ~2 GFLOP on the bf16
@@ -84,13 +88,17 @@ struct Layout {
 };
 
 // As the banded forward: at D = 64 within 128 registers, two CTAs of 8
-// warps an SM
-template <int DT>
-__global__ void __launch_bounds__(band::MAX_THREADS, DT == 64 ? 2 : 1)
+// warps an SM. DOCS: ds given (the dense instantiation reads none); its
+// rows' document bounds take registers that spilled at 128 (8 bytes, also
+// with each row's lo kept in shared memory), so it is compiled for one CTA
+// an SM and ops/cuda/select_cmp.py::tile_plan plans its tiles with that
+// budget.
+template <int DT, bool DOCS>
+__global__ void __launch_bounds__(band::MAX_THREADS, DT == 64 && !DOCS ? 2 : 1)
 select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ Kc,
                       const __nv_bfloat16* __restrict__ Vc, const float* __restrict__ M,
-                      int* __restrict__ sel, __nv_bfloat16* __restrict__ O,
-                      float* __restrict__ lse, Params p) {
+                      const int* __restrict__ ds, int* __restrict__ sel,
+                      __nv_bfloat16* __restrict__ O, float* __restrict__ lse, Params p) {
   constexpr int P = band::Layout<DT>::P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const band::Params& bp = p.band;
@@ -115,11 +123,12 @@ select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
 
   // pass 1: O (and lse); -lse2 of this thread's rows r0 + g8 and r0 + g8 + 8
   float nlse2[2];
-  band::band_fwd<DT, band::CMP>(Q, Kc, Vc, O, lse, bp, nlse2);
+  band::band_fwd<DT, band::CMP, DOCS>(Q, Kc, Vc, ds, O, lse, bp, nlse2);
 
-  // pass 2: the tile's prefix again, key tiles [0, J)
+  // pass 2: the tile's band again, key tiles [j0, J) (j0 = 0 without ds)
   const int n_vis_tile = min(num_cmp(s0 + nt, sp.l, sp.d), sp.S_cmp);
   const int J = (n_vis_tile + KC - 1) / KC;
+  const int j0 = DOCS ? min(scorer::first_visible(sp, ds, b, s0) / KC, J) : 0;
   const __nv_bfloat16* Kbg = Kc + (size_t)bg * sp.S_cmp * Dk;
   auto issue = [&](int j, int buf) {   // key tile j to buffer buf, then commit
     const int k0 = j * KC;
@@ -131,19 +140,20 @@ select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
     }
     tc::cp_async_commit();
   };
-  // visible prefixes of this thread's rows (0 for rows past R)
-  int nv[2];
+  // visible tokens [lo, nv) of this thread's rows (none for rows past R)
+  int lo[2], nv[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = r0 + g8 + 8 * hf;
+    lo[hf] = DOCS && r < R ? scorer::first_visible(sp, ds, b, s0 + r / h) : 0;
     nv[hf] = r < R ? min(num_cmp(s0 + r / h + 1, sp.l, sp.d), sp.S_cmp) : 0;
   }
   const bool live = r0 < R;   // the warp has rows
   const float sl2 = bp.scale * band::LOG2E;
   __syncthreads();   // pass 1's buffers are free; the group scores are zeroed
-  if (J > 0) issue(0, 0);
-  for (int j = 0; j < J; ++j) {
-    const int buf = j & 1;
+  if (j0 < J) issue(j0, 0);
+  for (int j = j0; j < J; ++j) {
+    const int buf = (j - j0) & 1;
     if (j + 1 < J) {   // the next tile's copy overlaps this tile's math
       issue(j + 1, buf ^ 1);
       tc::cp_async_wait<1>();
@@ -170,8 +180,11 @@ select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
           const int r = r0 + g8 + 8 * hf, col = 8 * i + 2 * t4;
           if (r >= R) continue;
           float2 pv;
-          pv.x = k0 + col < nv[hf] ? band::fast_exp2(fmaf(s[i][2 * hf], sl2, nlse2[hf])) : 0.f;
-          pv.y = k0 + col + 1 < nv[hf]
+          const int c = k0 + col;
+          pv.x = (!DOCS || c >= lo[hf]) && c < nv[hf]
+                     ? band::fast_exp2(fmaf(s[i][2 * hf], sl2, nlse2[hf]))
+                     : 0.f;
+          pv.y = (!DOCS || c + 1 >= lo[hf]) && c + 1 < nv[hf]
                      ? band::fast_exp2(fmaf(s[i][2 * hf + 1], sl2, nlse2[hf]))
                      : 0.f;
           *reinterpret_cast<float2*>(p_s + r * PP + col) = pv;
@@ -181,21 +194,24 @@ select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
     scorer::chunk_scores(p_s, PP, acc, sp, nt, k0, min(k0 + KC, n_vis_tile), M);
     __syncthreads();   // the K buffer and the probability tile are refilled next
   }
-  scorer::top_n(acc, sel, sp, b, g, s0, nt);
+  scorer::top_n<DOCS>(acc, sel, sp, b, g, s0, nt, ds);
 }
 
 template <int DT>
-int launch(const void* Q, const void* Kc, const void* Vc, const float* M, int* sel, void* O,
-           float* lse, int B, int rows, const Params& p, cudaStream_t stream) {
+int launch(const void* Q, const void* Kc, const void* Vc, const float* M, const int* ds, int* sel,
+           void* O, float* lse, int B, int rows, const Params& p, cudaStream_t stream) {
   const size_t smem = Layout<DT>(rows, p.sc.TQ, p.sc.h, p.sc.S_sel).total;
-  const cudaError_t e = cudaFuncSetAttribute(
-      select_cmp_mma_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kern = ds != nullptr ? &select_cmp_mma_kernel<DT, true>
+                                  : &select_cmp_mma_kernel<DT, false>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long grid = (long long)B * p.band.G * p.band.nq;
   if (grid > 0)
-    select_cmp_mma_kernel<DT><<<(unsigned)grid, 2 * rows, smem, stream>>>(
+    kern<<<(unsigned)grid, 2 * rows, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(Kc),
-        static_cast<const __nv_bfloat16*>(Vc), M, sel, static_cast<__nv_bfloat16*>(O), lse, p);
+        static_cast<const __nv_bfloat16*>(Vc), M, ds, sel, static_cast<__nv_bfloat16*>(O), lse,
+        p);
   NSA_LAUNCH_CHECK();
 }
 
@@ -209,12 +225,13 @@ long long nsa_select_cmp_mma_smem_bytes(int rows, int TQ, int h, int Dk, int Dv,
 }
 
 // bf16 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], V_cmp [B,G,S_cmp,Dv], M
-// [S_cmp,S_sel] f32 -> sel [B,S,G,n_out] int32, O [B,S,G,h,Dv], lse
-// [B,S,G,h] f32 (or null): select_cmp.cu's contract. CTAs of `rows` = 64
-// or 128 rows, TQ tokens each (TQ * h <= rows); Dk, Dv <= 128, multiples
-// of 8.
-int nsa_select_cmp_mma(const void* Q, const void* Kc, const void* Vc, const float* M, int* sel,
-                       void* O, float* lse, int B, int S, int G, int h, int Dk, int Dv,
+// [S_cmp,S_sel] f32, ds [B,S] int32 document starts (or null) -> sel
+// [B,S,G,n_out] int32, O [B,S,G,h,Dv], lse [B,S,G,h] f32 (or null):
+// select_cmp.cu's contract. CTAs of `rows` = 64 or 128 rows, TQ tokens
+// each (TQ * h <= rows); Dk, Dv <= 128, multiples of 8.
+int nsa_select_cmp_mma(const void* Q, const void* Kc, const void* Vc, const float* M,
+                       const int* ds, int* sel, void* O, float* lse, int B, int S, int G, int h,
+                       int Dk, int Dv,
                        int S_cmp, int S_sel, int l, int d, int l_sel, int n_top,
                        int force_init, int force_local, float scale, int TQ, int rows,
                        void* stream) {
@@ -227,8 +244,8 @@ int nsa_select_cmp_mma(const void* Q, const void* Kc, const void* Vc, const floa
                  {B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local, 0,
                   TQ, scale}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dk > 64 || Dv > 64) return launch<128>(Q, Kc, Vc, M, sel, O, lse, B, rows, p, s);
-  return launch<64>(Q, Kc, Vc, M, sel, O, lse, B, rows, p, s);
+  if (Dk > 64 || Dv > 64) return launch<128>(Q, Kc, Vc, M, ds, sel, O, lse, B, rows, p, s);
+  return launch<64>(Q, Kc, Vc, M, ds, sel, O, lse, B, rows, p, s);
 }
 
 }  // extern "C"

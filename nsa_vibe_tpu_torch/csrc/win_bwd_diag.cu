@@ -10,8 +10,9 @@
 //
 // What it computes: the same dQ, dK, dV as the one-pass and two-pass
 // designs in window mode (banded_bwd_1p.cu, banded_bwd.cu): query token t
-// sees keys [max(t-w+1, 0), min(t+1, S_kv)); outputs f32, accumulated in
-// f32 (notation: bwd_common.cuh).
+// sees keys [max(t-w+1, 0, ds), min(t+1, S_kv)), ds its document start
+// (packed documents) or 0; outputs f32, accumulated in f32 (notation:
+// bwd_common.cuh).
 //
 // What bounds it on the H100: ~5 products per visible (row, key) pair at
 // the card's f32 FMA rate (67 TFLOP/s, not the tensor cores), and
@@ -49,7 +50,7 @@ __global__ void __launch_bounds__(THREADS)
 win_bwd_diag_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                     const float* __restrict__ V, const float* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dQ,
+                    const int* __restrict__ ds, float* __restrict__ dQ,
                     float* __restrict__ strip_k, float* __restrict__ strip_v, Params p, int SL) {
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
@@ -76,13 +77,15 @@ win_bwd_diag_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   int* lo_s = reinterpret_cast<int*>(smem + L.lo);
   int* hi_s = reinterpret_cast<int*>(smem + L.hi);
 
-  stage_rows(p, Q, dO, lse, delta, b, g, s0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
+  stage_rows(p, Q, dO, lse, delta, ds, b, g, s0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
   float4 q_acc[NSQ][4];
 #pragma unroll
   for (int i = 0; i < NSQ; ++i)
 #pragma unroll
     for (int r = 0; r < 4; ++r) q_acc[i][r] = make_float4(0.f, 0.f, 0.f, 0.f);
 
+  // the tile's dense band, also under ds: the strip layout sum_strips
+  // reads; each row masks its own document bound (stage_rows)
   int lo_first, hi_last, unused;
   key_range(p, s0, lo_first, unused);
   key_range(p, s0 + nt - 1, unused, hi_last);   // lo and hi never decrease with t
@@ -140,8 +143,8 @@ win_bwd_diag_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 
 template <int NSK, int NSV>
 int launch_ns(const float* Q, const float* K, const float* V, const float* dO, const float* lse,
-              const float* delta, float* dQ, float* dK, float* dV, float* strip_k,
-              float* strip_v, const Params& p, cudaStream_t stream) {
+              const float* delta, const int* ds, float* dQ, float* dK, float* dV,
+              float* strip_k, float* strip_v, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(MAX_ROWS, p.Dk, p.Dv).total * sizeof(float);
   const int SL = strip_keys(p.TQ, p.w, p.S_kv);
   cudaError_t e = cudaFuncSetAttribute(win_bwd_diag_kernel<NSK, NSV, NSK>,
@@ -149,8 +152,8 @@ int launch_ns(const float* Q, const float* K, const float* V, const float* dO, c
   if (e != cudaSuccess) return (int)e;
   const long long nq = (p.S + p.TQ - 1) / p.TQ;
   const unsigned grid = (unsigned)((long long)p.B * p.G * nq);
-  win_bwd_diag_kernel<NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(Q, K, V, dO, lse, delta, dQ,
-                                                                      strip_k, strip_v, p, SL);
+  win_bwd_diag_kernel<NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(
+      Q, K, V, dO, lse, delta, ds, dQ, strip_k, strip_v, p, SL);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int rk = sum_strips<float>(strip_k, dK, p, p.Dk, SL, p.scale, 1, stream);
@@ -168,13 +171,13 @@ long long nsa_win_bwd_diag_smem_bytes(int Dk, int Dv) {
 
 int nsa_win_bwd_diag_strip_keys(int TQ, int w, int S_kv) { return strip_keys(TQ, w, S_kv); }
 
-// f32 only. TQ tokens per q tile, TQ * h <= 64.
-// strip_k / strip_v: f32 scratch of B*G*ceil(S/TQ)*SL*Dk (Dv) floats, SL =
-// nsa_win_bwd_diag_strip_keys(TQ, w, S_kv).
+// f32 only. TQ tokens per q tile, TQ * h <= 64. ds: [B,S] int32 document
+// starts, or null. strip_k / strip_v: f32 scratch of B*G*ceil(S/TQ)*SL*Dk
+// (Dv) floats, SL = nsa_win_bwd_diag_strip_keys(TQ, w, S_kv).
 int nsa_win_bwd_diag(const float* Q, const float* K, const float* V, const float* dO,
-                     const float* lse, const float* delta, float* dQ, float* dK, float* dV,
-                     float* strip_k, float* strip_v, int B, int S, int S_kv, int G, int h, int Dk,
-                     int Dv, int w, float scale, int TQ, void* stream) {
+                     const float* lse, const float* delta, const int* ds, float* dQ, float* dK,
+                     float* dV, float* strip_k, float* strip_v, int B, int S, int S_kv, int G,
+                     int h, int Dk, int Dv, int w, float scale, int TQ, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || w <= 0 || S <= 0 || S_kv <= 0 || Dk % 8 != 0 ||
       Dv % 8 != 0 || Dk > 128 || Dv > 128 || strip_k == nullptr || strip_v == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -182,10 +185,12 @@ int nsa_win_bwd_diag(const float* Q, const float* K, const float* V, const float
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nk = kv_slices(Dk), nv = kv_slices(Dv);
   if (nk == 1 && nv == 1)
-    return launch_ns<1, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
-  if (nk == 1) return launch_ns<1, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
-  if (nv == 1) return launch_ns<2, 1>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
-  return launch_ns<2, 2>(Q, K, V, dO, lse, delta, dQ, dK, dV, strip_k, strip_v, p, s);
+    return launch_ns<1, 1>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, strip_k, strip_v, p, s);
+  if (nk == 1)
+    return launch_ns<1, 2>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, strip_k, strip_v, p, s);
+  if (nv == 1)
+    return launch_ns<2, 1>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, strip_k, strip_v, p, s);
+  return launch_ns<2, 2>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, strip_k, strip_v, p, s);
 }
 
 }  // extern "C"

@@ -43,10 +43,12 @@ def init_block_params(generator: torch.Generator, mcfg: ModelConfig, dtype, devi
     }
 
 
-def block_prefill(params: dict, x: torch.Tensor, mcfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
-    """Pre-norm residual block, batched prefill. Returns (y, attn aux)."""
+def block_prefill(params: dict, x: torch.Tensor, mcfg: ModelConfig,
+                  seq_start=None) -> Tuple[torch.Tensor, dict]:
+    """Pre-norm residual block, batched prefill (seq_start [B,S]: packed
+    documents, ops/varlen.py). Returns (y, attn aux)."""
     attn_out, aux = nsa_prefill(params["attn"], rmsnorm(x, params["attn_norm"], mcfg.rmsnorm_eps),
-                                mcfg.nsa)
+                                mcfg.nsa, seq_start=seq_start)
     x = x + attn_out
     h = rmsnorm(x, params["mlp_norm"], mcfg.rmsnorm_eps)
     if mcfg.remat == "mlp" and torch.is_grad_enabled():

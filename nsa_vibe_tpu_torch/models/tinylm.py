@@ -61,19 +61,21 @@ def _head(params: dict, x: torch.Tensor, mcfg: ModelConfig) -> torch.Tensor:
 
 
 def model_forward(params: dict, tokens: torch.Tensor, mcfg: ModelConfig,
-                  collect_aux: bool = False) -> Tuple[torch.Tensor, list]:
+                  collect_aux: bool = False, seq_start=None) -> Tuple[torch.Tensor, list]:
     """tokens [B, S] -> (logits [B, S, vocab], per-layer gates/selection if
-    asked). With remat True/"full" and grad mode on, each block's forward
-    is recomputed in the backward (torch.utils.checkpoint); "mlp" remats
-    inside the block."""
+    asked). seq_start [B, S]: packed documents (ops/varlen.py). With remat
+    True/"full" and grad mode on, each block's forward is recomputed in the
+    backward (torch.utils.checkpoint); "mlp" remats inside the block."""
     x = _embed(params, tokens, mcfg)
+    if seq_start is not None:
+        seq_start = seq_start.to(device=x.device, dtype=torch.int32).contiguous()
     auxes = []
     remat = mcfg.remat in (True, "full") and torch.is_grad_enabled()
     for bp in params["blocks"]:
         if remat:
-            x, aux = checkpoint(block_prefill, bp, x, mcfg, use_reentrant=False)
+            x, aux = checkpoint(block_prefill, bp, x, mcfg, seq_start, use_reentrant=False)
         else:
-            x, aux = block_prefill(bp, x, mcfg)
+            x, aux = block_prefill(bp, x, mcfg, seq_start)
         if collect_aux:
             auxes.append({"gates": aux["gates"], "sel_idx": aux["sel_idx"]})
     return _head(params, x, mcfg), auxes

@@ -21,6 +21,13 @@ Two routes to the selection and the compressed branch, chosen by the
 caller (core/nsa.py, `select_cmp_fits`): the fused scorer
 (`fused_select_cmp`), or, for selections too wide for it, the scorer
 alone (`select_blocks`, no gradient) beside `compressed_attention`.
+
+Packed documents (ops/varlen.py): `fused_select_cmp`, `select_blocks`,
+`compressed_attention` and `sliding_window_attention` take an optional
+seq_start [B,S] int32 on Q's device (core/nsa.py converts it once),
+which their Functions save for the backward kernels (it takes no
+gradient). The selection branch takes none, as in the JAX package: its
+doc-local sets and key positions <= t keep it inside the document.
 """
 
 from __future__ import annotations
@@ -51,11 +58,13 @@ def _records(*ts) -> bool:
 
 def _banded_grads(saved, dO, mode: str, **kw):
     """dQ, dK, dV of a window (mode "win", kw w, scale) or compressed-prefix
-    (mode "cmp", kw l, d, scale) branch from its saved (Q, K, V, O, lse),
-    through the kernel that tuning.backward_kernel names."""
-    Q, K, V, O, lse = saved
+    (mode "cmp", kw l, d, scale) branch from its saved (Q, K, V, O, lse,
+    seq_start or None), through the kernel that tuning.backward_kernel
+    names."""
+    Q, K, V, O, lse, seq_start = saved
     dO = dO.contiguous()
     args = (Q, K, V, dO, lse, attention_delta(dO, O))
+    kw["seq_start"] = seq_start
     kernel = tuning.backward_kernel(mode, Q.shape[1], kw.get("w", 0))
     if kernel == "win_bwd_diag":
         return win_bwd_diag(*args, **kw)
@@ -63,13 +72,13 @@ def _banded_grads(saved, dO, mode: str, **kw):
 
 
 class _FusedSelectCmp(torch.autograd.Function):
-    """sel_idx (no gradient) and O_cmp; M gets no gradient."""
+    """sel_idx (no gradient) and O_cmp; M and seq_start get no gradient."""
 
     @staticmethod
-    def forward(ctx, Q, K, V, M, kw):
-        sel, O, lse = select_cmp(Q, K, V, M, return_lse=True, **kw)
+    def forward(ctx, Q, K, V, M, seq_start, kw):
+        sel, O, lse = select_cmp(Q, K, V, M, return_lse=True, seq_start=seq_start, **kw)
         ctx.mark_non_differentiable(sel)
-        ctx.save_for_backward(Q, K, V, O, lse)
+        ctx.save_for_backward(Q, K, V, O, lse, seq_start)
         ctx.kw = kw
         return sel, O
 
@@ -78,16 +87,16 @@ class _FusedSelectCmp(torch.autograd.Function):
         kw = ctx.kw
         dQ, dK, dV = _banded_grads(ctx.saved_tensors, dO, "cmp", l=kw["l"], d=kw["d"],
                                    scale=kw["scale"])
-        return dQ, dK, dV, None, None
+        return dQ, dK, dV, None, None, None
 
 
 class _CompressedAttention(torch.autograd.Function):
     """O_cmp through banded_attn (cmp) with lse; backward as _FusedSelectCmp's."""
 
     @staticmethod
-    def forward(ctx, Q, K, V, kw):
-        O, lse = banded_attn(Q, K, V, mode="cmp", return_lse=True, **kw)
-        ctx.save_for_backward(Q, K, V, O, lse)
+    def forward(ctx, Q, K, V, seq_start, kw):
+        O, lse = banded_attn(Q, K, V, mode="cmp", return_lse=True, seq_start=seq_start, **kw)
+        ctx.save_for_backward(Q, K, V, O, lse, seq_start)
         ctx.kw = kw
         return O
 
@@ -96,7 +105,7 @@ class _CompressedAttention(torch.autograd.Function):
         kw = ctx.kw
         dQ, dK, dV = _banded_grads(ctx.saved_tensors, dO, "cmp", l=kw["l"], d=kw["d"],
                                    scale=kw["scale"])
-        return dQ, dK, dV, None
+        return dQ, dK, dV, None, None
 
 
 class _SelectionAttention(torch.autograd.Function):
@@ -122,54 +131,58 @@ class _SelectionAttention(torch.autograd.Function):
 class _SlidingWindowAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, Q, K, V, w, scale):
-        O, lse = win_attn(Q, K, V, w=w, scale=scale, return_lse=True)
-        ctx.save_for_backward(Q, K, V, O, lse)
+    def forward(ctx, Q, K, V, seq_start, w, scale):
+        O, lse = win_attn(Q, K, V, w=w, scale=scale, return_lse=True, seq_start=seq_start)
+        ctx.save_for_backward(Q, K, V, O, lse, seq_start)
         ctx.w, ctx.scale = w, scale
         return O
 
     @staticmethod
     def backward(ctx, dO):
         dQ, dK, dV = _banded_grads(ctx.saved_tensors, dO, "win", w=ctx.w, scale=ctx.scale)
-        return dQ, dK, dV, None, None
+        return dQ, dK, dV, None, None, None
 
 
 def fused_select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int,
-                     n_top: int, force_init: bool, force_local: int):
+                     n_top: int, force_init: bool, force_local: int, seq_start=None):
     """Fused Eq. 8-12 selection + compressed-branch forward. Returns
     (sel_idx [B,S,G,max(n_top,n_forced)] int32 in the scorer's set form,
-    O_cmp [B,S,G,h,Dv]). Requires at least one compressed token."""
+    O_cmp [B,S,G,h,Dv]). Requires at least one compressed token. seq_start
+    [B,S] (packed documents) keeps each row in its document."""
     Q, K_cmp, V_cmp = Q.contiguous(), K_cmp.contiguous(), V_cmp.contiguous()
     M = M.to(device=Q.device, dtype=torch.float32).contiguous()
     kw = dict(scale=scale, l=l, d=d, l_sel=l_sel, n_top=n_top, force_init=force_init,
               force_local=force_local)
     if _records(Q, K_cmp, V_cmp):
-        return _FusedSelectCmp.apply(Q, K_cmp, V_cmp, M, kw)
-    return select_cmp(Q, K_cmp, V_cmp, M, **kw)
+        return _FusedSelectCmp.apply(Q, K_cmp, V_cmp, M, seq_start, kw)
+    return select_cmp(Q, K_cmp, V_cmp, M, seq_start=seq_start, **kw)
 
 
-def compressed_attention(Q, K_cmp, V_cmp, *, l: int, d: int, scale: float, t_start: int = 0):
+def compressed_attention(Q, K_cmp, V_cmp, *, l: int, d: int, scale: float, t_start: int = 0,
+                         seq_start=None):
     """Compressed branch alone: query row s at position t_start + s sees
-    the first num_cmp(t+1) compressed tokens. O [B,S,G,h,Dv]. Its
-    backward (banded_bwd_1p or banded_bwd) takes row 0 at position 0, so a
-    recorded call needs t_start == 0."""
+    the first num_cmp(t+1) compressed tokens (with seq_start [B,S], none
+    that starts before its document). O [B,S,G,h,Dv]. Its backward
+    (banded_bwd_1p or banded_bwd) takes row 0 at position 0, so a recorded
+    call needs t_start == 0."""
     Q, K_cmp, V_cmp = Q.contiguous(), K_cmp.contiguous(), V_cmp.contiguous()
     kw = dict(l=l, d=d, scale=scale)
     if _records(Q, K_cmp, V_cmp):
         if t_start:
             raise ValueError("compressed_attention: the backward takes no t_start")
-        return _CompressedAttention.apply(Q, K_cmp, V_cmp, kw)
-    return banded_attn(Q, K_cmp, V_cmp, mode="cmp", t_start=t_start, **kw)
+        return _CompressedAttention.apply(Q, K_cmp, V_cmp, seq_start, kw)
+    return banded_attn(Q, K_cmp, V_cmp, mode="cmp", t_start=t_start, seq_start=seq_start, **kw)
 
 
 def select_blocks(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: int,
-                  n_top: int, force_init: bool, force_local: int, pos_offset: int = 0):
+                  n_top: int, force_init: bool, force_local: int, pos_offset: int = 0,
+                  seq_start=None):
     """Eq. 8-12 selection without O_cmp, for S_sel selection blocks; the
     same set form as fused_select_cmp. Carries no gradient."""
     return _select_blocks(Q.detach().contiguous(), K_cmp.detach().contiguous(), S_sel=S_sel,
                           scale=scale, l=l, d=d, l_sel=l_sel, n_top=n_top,
                           force_init=force_init, force_local=force_local,
-                          pos_offset=pos_offset)
+                          pos_offset=pos_offset, seq_start=seq_start)
 
 
 def selection_attention(Q, K, V, sel_idx, t_pos, l_sel: int, scale: float):
@@ -182,9 +195,10 @@ def selection_attention(Q, K, V, sel_idx, t_pos, l_sel: int, scale: float):
     return sel_attn(Q, K, V, sel_idx, t_pos, l_sel=l_sel, scale=scale)
 
 
-def sliding_window_attention(Q, K, V, w: int, scale: float):
-    """Window branch: query row t sees keys [t-w+1, t]."""
+def sliding_window_attention(Q, K, V, w: int, scale: float, seq_start=None):
+    """Window branch: query row t sees keys [t-w+1, t] (with seq_start
+    [B,S], none before its document start)."""
     Q, K, V = Q.contiguous(), K.contiguous(), V.contiguous()
     if _records(Q, K, V):
-        return _SlidingWindowAttention.apply(Q, K, V, w, scale)
-    return win_attn(Q, K, V, w=w, scale=scale)
+        return _SlidingWindowAttention.apply(Q, K, V, seq_start, w, scale)
+    return win_attn(Q, K, V, w=w, scale=scale, seq_start=seq_start)

@@ -67,7 +67,8 @@ def pool_phi_rope_kv(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ϕ over K (RoPE'd at absolute positions) and V.
 
-    K_raw/V_raw: [B, G, S, D*]; pos: [S] (default arange).
+    K_raw/V_raw: [B, G, S, D*]; pos: [S] (default arange), or [B, 1, S]
+    document-local positions (packed documents, ops/varlen.py).
     Returns (K_cmp, V_cmp): [B, G, S_cmp, D*]."""
     S = K_raw.shape[2]
     if pos is None:

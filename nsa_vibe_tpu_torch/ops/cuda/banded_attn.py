@@ -17,6 +17,11 @@ sources.
 Row statistics follow the port's convention (ops.reference): natural-log
 lse [B,S,G,h], EMPTY_LSE on a row with no visible key; the TPU kernel's
 base-2 flat [B*G, 1, stats_rows] layout is not copied.
+
+Packed documents (ops/varlen.py): with `seq_start` [B,S] int32 (t_start
+0) row t sees no key before its document start (window) and no pooled
+token that starts before it (compressed); the kernels get a pointer to it,
+null for the dense bound, whose bits they keep.
 """
 
 from __future__ import annotations
@@ -24,11 +29,11 @@ from __future__ import annotations
 import torch
 
 from nsa_vibe_tpu_torch.ops import reference as ref
-from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import MODES, banded_mask
+from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import MODES, banded_mask, mask5
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, check_operands, check_smem, check_vector_rows, ptr, ptr_or_null,
-    raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, check_operands, check_seq_start, check_smem, check_vector_rows, ptr,
+    ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 
 ROWS_PER_BLOCK = 64   # query rows (tokens x heads) per block of the f32 kernel, its maximum
@@ -39,27 +44,27 @@ MMA_TILE_ROWS = 128
 
 
 def banded_attn_plain(Q, K, V, *, mode: str, w: int = 0, l: int = 0, d: int = 1, scale: float,
-                      t_start: int = 0, return_lse: bool = False):
+                      t_start: int = 0, return_lse: bool = False, seq_start=None):
     """Plain PyTorch version: masked attention under `banded_mask`."""
     m = banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, t_start=t_start,
-                    device=Q.device)
-    return ref.attend_masked(Q, K, V, m[None, :, None, None, :], scale, return_lse)
+                    device=Q.device, seq_start=seq_start)
+    return ref.attend_masked(Q, K, V, mask5(m), scale, return_lse)
 
 
 def banded_attn_rss(Q, K, V, *, mode: str, w: int = 0, l: int = 0, d: int = 1, scale: float,
-                    t_start: int = 0):
+                    t_start: int = 0, seq_start=None):
     """O of the plain version in f32 from the operands' values, unrounded,
     and the root sum of squares of each element's terms
     (ops/reference.py::attend_masked_rss): the scale of what rounding P to
     bf16 before P V moves each element."""
-    m = banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, t_start=t_start,
-                    device=Q.device)[None, :, None, None, :]
+    m = mask5(banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, t_start=t_start,
+                          device=Q.device, seq_start=seq_start))
     args = [x.float() for x in (Q, K, V)]
     return ref.attend_masked(*args, m, scale), ref.attend_masked_rss(*args, m, scale)
 
 
 def launch_banded(name: str, Q, K, V, *, mode: str, w: int, l: int, d: int, scale: float,
-                  t_start: int, return_lse: bool):
+                  t_start: int, return_lse: bool, seq_start=None):
     """Checks the operands and launches the kernel of Q's dtype; returns O,
     or (O, lse) with return_lse. The caller counts the launch."""
     if mode not in MODES:
@@ -71,8 +76,11 @@ def launch_banded(name: str, Q, K, V, *, mode: str, w: int, l: int, d: int, scal
         raise ValueError(f"{name}: K {tuple(K.shape)} / V {tuple(V.shape)} do not match "
                          f"Q {tuple(Q.shape)}")
     check_vector_rows(name, Q=Q, K=K, V=V)
+    check_seq_start(name, seq_start, B, S, Q.device)
     if (mode == "win" and w <= 0) or (mode == "cmp" and (l <= 0 or d <= 0)) or t_start < 0:
         raise ValueError(f"{name}: win needs w > 0, cmp needs l, d > 0; t_start >= 0")
+    if seq_start is not None and t_start:
+        raise ValueError(f"{name}: seq_start needs t_start == 0")
     mma = code == DTYPE_CODES[torch.bfloat16]
     if h > ROWS_PER_BLOCK or Dv > MAX_DV or (mma and Dk > MAX_DV):
         raise ValueError(f"{name}: needs h <= {ROWS_PER_BLOCK} and Dv <= {MAX_DV}"
@@ -81,8 +89,8 @@ def launch_banded(name: str, Q, K, V, *, mode: str, w: int, l: int, d: int, scal
     O = torch.empty((B, S, G, h, Dv), dtype=Q.dtype, device=Q.device)
     lse = (torch.empty((B, S, G, h), dtype=torch.float32, device=Q.device)
            if return_lse else None)
-    args = (ptr(Q), ptr(K), ptr(V), ptr(O), ptr_or_null(lse), B, S, S_kv, G, h, Dk, Dv,
-            MODES[mode], w, l, d, int(t_start), float(scale))
+    args = (ptr(Q), ptr(K), ptr(V), ptr_or_null(seq_start), ptr(O), ptr_or_null(lse), B, S,
+            S_kv, G, h, Dk, Dv, MODES[mode], w, l, d, int(t_start), float(scale))
     with torch.cuda.device(Q.device):
         if mma:
             check_smem(name, lib.nsa_banded_fwd_mma_smem_bytes(Dk, Dv, MMA_TILE_ROWS))
@@ -96,16 +104,17 @@ def launch_banded(name: str, Q, K, V, *, mode: str, w: int, l: int, d: int, scal
 
 
 def banded_attn(Q, K, V, *, mode: str, w: int = 0, l: int = 0, d: int = 1, scale: float,
-                t_start: int = 0, return_lse: bool = False):
+                t_start: int = 0, return_lse: bool = False, seq_start=None):
     """Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv] -> O [B,S,G,h,Dv],
     and with return_lse the f32 row statistics lse [B,S,G,h]. Query row s
     sits at position t_start + s (a host int). "win" needs w > 0, "cmp"
-    needs l, d > 0. CPU tensors take the plain version."""
+    needs l, d > 0; seq_start [B,S] int32 (t_start 0) bounds each row to
+    its document. CPU tensors take the plain version."""
     if resolve_kernel(Q) == "plain":
         return banded_attn_plain(Q, K, V, mode=mode, w=w, l=l, d=d, scale=scale,
-                                 t_start=t_start, return_lse=return_lse)
+                                 t_start=t_start, return_lse=return_lse, seq_start=seq_start)
     out = launch_banded("banded_attn", Q, K, V, mode=mode, w=w, l=l, d=d, scale=scale,
-                        t_start=t_start, return_lse=return_lse)
+                        t_start=t_start, return_lse=return_lse, seq_start=seq_start)
     banded_attn.launches += 1
     return out
 

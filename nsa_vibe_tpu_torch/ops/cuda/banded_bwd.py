@@ -15,8 +15,12 @@ dtype alone:
 - f32: dQ from the FMA kernel of banded_bwd.cu, dK and dV from the FMA
   one-pass kernel with its slots off.
 This module also holds the plain version of every banded backward design
-(`banded_bwd_plain`, `banded_bwd_rss`). Bound on the H100 and design: see
-the notes at the top of the CUDA sources.
+(`banded_bwd_plain`, `banded_bwd_rss`). Every design takes an optional
+`seq_start` [B,S] int32 (packed documents, ops/varlen.py): row t then sees
+no key before its document start (window) or no pooled token that starts
+before it (compressed); the kernels take a pointer to it, null for the
+dense bound, whose bits they keep. Bound on the H100 and design: see the
+notes at the top of the CUDA sources.
 """
 
 from __future__ import annotations
@@ -24,9 +28,10 @@ from __future__ import annotations
 import torch
 
 from nsa_vibe_tpu_torch.ops import reference as ref
+from nsa_vibe_tpu_torch.ops import varlen
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, check_smem, ptr, raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, check_smem, ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 
 MODES = {"win": 0, "cmp": 1}
@@ -36,56 +41,71 @@ DQ_TILE_ROWS = 128
 
 
 def banded_mask(S: int, S_kv: int, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-                t_start: int = 0, device=None) -> torch.Tensor:
+                t_start: int = 0, device=None, seq_start=None) -> torch.Tensor:
     """[S, S_kv] visibility of query row s at position t = t_start + s:
     "win" sees keys [t-w+1, t]; "cmp" the first num_cmp(t+1) compressed
-    tokens (flash.py::_bounds_fn)."""
+    tokens (flash.py::_bounds_fn). With seq_start [B,S] (packed documents)
+    [B, S, S_kv], under ops/varlen.py's document bound."""
+    t_pos = torch.arange(t_start, t_start + S, device=device)
+    if mode not in MODES:
+        raise ValueError(f"banded mode must be 'win' or 'cmp', got {mode!r}")
+    if seq_start is not None:
+        if mode == "win":
+            return varlen.win_mask_varlen(t_pos, seq_start, S_kv, w)
+        return varlen.cmp_mask_varlen(t_pos, seq_start, S_kv, l, d)
     if mode == "win":
-        return ref.sliding_window_mask(torch.arange(t_start, t_start + S, device=device), S_kv, w)
-    if mode == "cmp":
-        return ref.compressed_mask(ref.num_cmp_per_token(S, l, d, S_kv, device, t_start), S_kv)
-    raise ValueError(f"banded mode must be 'win' or 'cmp', got {mode!r}")
+        return ref.sliding_window_mask(t_pos, S_kv, w)
+    return ref.compressed_mask(ref.num_cmp_per_token(S, l, d, S_kv, device, t_start), S_kv)
+
+
+def mask5(m: torch.Tensor) -> torch.Tensor:
+    """banded_mask's [S, S_kv] or [B, S, S_kv] -> broadcastable [B,S,G,h,S_kv]."""
+    return m[None, :, None, None, :] if m.dim() == 2 else m[:, :, None, None, :]
 
 
 def banded_bwd_plain(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-                     scale: float):
+                     scale: float, seq_start=None):
     """Plain PyTorch version: the dense formula on the same operands."""
-    m = banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, device=Q.device)
-    return ref.attend_masked_bwd(Q, K, V, dO, lse, delta, m[None, :, None, None, :], scale)
+    m = banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, device=Q.device,
+                    seq_start=seq_start)
+    return ref.attend_masked_bwd(Q, K, V, dO, lse, delta, mask5(m), scale)
 
 
 def banded_bwd_rss(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-                   scale: float):
+                   scale: float, seq_start=None):
     """(dQ, dK, dV) of the plain version in f32 from the operands' values,
     unrounded, and the root sum of squares of each element's terms
     (ops/reference.py::attend_masked_bwd_rss): the scale of what rounding
     P and dS to bf16 before their products moves each element."""
-    m = banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d,
-                    device=Q.device)[None, :, None, None, :]
+    m = mask5(banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, device=Q.device,
+                          seq_start=seq_start))
     args = [x.float() for x in (Q, K, V, dO)]
     return (ref.attend_masked_bwd(*args, lse, delta, m, scale),
             ref.attend_masked_bwd_rss(*args, lse, delta, m, scale))
 
 
 def banded_bwd(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-               scale: float):
+               scale: float, seq_start=None):
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
-    (dQ, dK, dV) in the operands' dtype. Query row s is at position s.
+    (dQ, dK, dV) in the operands' dtype. Query row s is at position s;
+    seq_start [B,S] int32 (or None) bounds each row to its document.
     CPU tensors take the plain version. Counts launches in
     `banded_bwd.launches` and, of those in cmp mode, in
     `banded_bwd.cmp_launches`."""
     if resolve_kernel(Q) == "plain":
-        return banded_bwd_plain(Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d, scale=scale)
+        return banded_bwd_plain(Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d, scale=scale,
+                                seq_start=seq_start)
     # imported here: banded_bwd_1p takes its plain version from this module
     from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import check_banded_operands, kv_pass
 
-    code = check_banded_operands("banded_bwd", Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d)
+    code = check_banded_operands("banded_bwd", Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d,
+                                 seq_start=seq_start)
     B, S, G, h, Dk = Q.shape
     S_kv, Dv = K.shape[2], V.shape[3]
     lib = library()
     dQ = torch.empty_like(Q)
-    args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr(dQ), B, S, S_kv, G, h,
-            Dk, Dv, MODES[mode], w, l, d, float(scale))
+    args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr_or_null(seq_start),
+            ptr(dQ), B, S, S_kv, G, h, Dk, Dv, MODES[mode], w, l, d, float(scale))
     with torch.cuda.device(Q.device):
         if code == DTYPE_CODES[torch.bfloat16]:
             check_smem("banded_bwd", lib.nsa_banded_bwd_dq_mma_smem_bytes(Dk, Dv, DQ_TILE_ROWS))
@@ -95,7 +115,7 @@ def banded_bwd(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d:
             err = lib.nsa_banded_bwd(*args, max(1, ROWS_PER_CHUNK // h), stream_of(Q))
     raise_on_error(lib, "banded_bwd", err)
     _, dK, dV = kv_pass("banded_bwd", lib, code, Q, K, V, dO, lse, delta, mode=mode, w=w, l=l,
-                        d=d, scale=scale, slots=False)
+                        d=d, scale=scale, slots=False, seq_start=seq_start)
     banded_bwd.launches += 1
     if mode == "cmp":
         banded_bwd.cmp_launches += 1

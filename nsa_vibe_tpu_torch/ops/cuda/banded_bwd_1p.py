@@ -14,8 +14,10 @@ plain version is that module's. Two kernels, chosen by dtype alone:
   tokens.
 Both write each dQ partial to its own f32 slot and sum them in order. The
 same launch with the slots off (`kv_pass`) is the two-pass design's dK/dV
-pass (banded_bwd). Bound on the H100 and design: see the notes at the top
-of the CUDA sources.
+pass (banded_bwd). With `seq_start` (packed documents) each row's keys
+stop at its document start; a row's slots count from the first key tile
+it sees there. Bound on the H100 and design: see the notes at the top of
+the CUDA sources.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ import torch
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import MODES, banded_bwd_plain
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, check_operands, check_smem, check_vector_rows, kv_splits, ptr, ptr_or_null,
-    raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, check_operands, check_seq_start, check_smem, check_vector_rows, kv_splits, ptr,
+    ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 
 ROWS_PER_CHUNK = 64   # query rows (tokens x heads) per chunk of the f32 kernel, its maximum
@@ -35,14 +37,15 @@ MAX_D = 128           # head widths the kernels' register slices and tiles cover
 
 
 def check_banded_operands(name: str, Q, K, V, dO, lse, delta, *, mode: str, w: int, l: int,
-                          d: int) -> int:
+                          d: int, seq_start=None) -> int:
     """The checks of a banded backward launch (shapes, dtypes, devices,
-    contiguity, alignment, mode). Returns the dtype code."""
+    contiguity, alignment, mode, seq_start). Returns the dtype code."""
     if mode not in MODES:
         raise ValueError(f"{name}: mode must be 'win' or 'cmp', got {mode!r}")
     code = check_operands(name, {"Q": Q, "K": K, "V": V, "dO": dO})
     check_operands(name, {"lse": lse, "delta": delta})
     B, S, G, h, Dk = Q.shape
+    check_seq_start(name, seq_start, B, S, Q.device)
     S_kv, Dv = K.shape[2], V.shape[3]
     if K.shape != (B, G, S_kv, Dk) or V.shape[:3] != (B, G, S_kv) \
             or dO.shape != (B, S, G, h, Dv) or lse.shape != (B, S, G, h) \
@@ -87,7 +90,7 @@ def mma_plan(lib, device, B: int, S: int, S_kv: int, G: int, h: int, Dk: int,
 
 
 def kv_pass(name: str, lib, code: int, Q, K, V, dO, lse, delta, *, mode: str, w: int, l: int,
-            d: int, scale: float, slots: bool) -> tuple:
+            d: int, scale: float, slots: bool, seq_start=None) -> tuple:
     """Launches the kv-major kernel on checked operands (dtype code `code`):
     bf16 the tensor-core kernel, f32 the FMA kernel. With `slots` it writes
     each chunk's dQ partial to its slot and returns (dQ, dK, dV) (the
@@ -109,9 +112,9 @@ def kv_pass(name: str, lib, code: int, Q, K, V, dO, lse, delta, *, mode: str, w:
     ws = (torch.empty(lib.nsa_banded_bwd_1p_slots(MODES[mode], w, S_kv) * Q.numel(),
                       dtype=torch.float32, device=Q.device) if slots else None)
     part = torch.empty(nsplit * B * G * S_kv * (Dk + Dv), dtype=torch.float32, device=Q.device)
-    args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr_or_null(dQ), ptr(dK),
-            ptr(dV), ptr(part), ptr_or_null(ws), B, S, S_kv, G, h, Dk, Dv, MODES[mode], w, l, d,
-            float(scale))
+    args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr_or_null(seq_start),
+            ptr_or_null(dQ), ptr(dK), ptr(dV), ptr(part), ptr_or_null(ws), B, S, S_kv, G, h, Dk,
+            Dv, MODES[mode], w, l, d, float(scale))
     with torch.cuda.device(Q.device):
         if mma:
             err = lib.nsa_banded_bwd_1p_mma(*args, nsplit, stream_of(Q))
@@ -122,18 +125,20 @@ def kv_pass(name: str, lib, code: int, Q, K, V, dO, lse, delta, *, mode: str, w:
 
 
 def banded_bwd_1p(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-                  scale: float):
+                  scale: float, seq_start=None):
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
-    (dQ, dK, dV) in the operands' dtype. Query row s is at position s.
+    (dQ, dK, dV) in the operands' dtype. Query row s is at position s;
+    seq_start [B,S] int32 (or None) bounds each row to its document.
     CPU tensors take the plain version. Counts launches in
     `banded_bwd_1p.launches` and, of those in cmp mode, in
     `banded_bwd_1p.cmp_launches`."""
     if resolve_kernel(Q) == "plain":
-        return banded_bwd_plain(Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d, scale=scale)
+        return banded_bwd_plain(Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d, scale=scale,
+                                seq_start=seq_start)
     code = check_banded_operands("banded_bwd_1p", Q, K, V, dO, lse, delta, mode=mode, w=w, l=l,
-                                 d=d)
+                                 d=d, seq_start=seq_start)
     grads = kv_pass("banded_bwd_1p", library(), code, Q, K, V, dO, lse, delta, mode=mode, w=w,
-                    l=l, d=d, scale=scale, slots=True)
+                    l=l, d=d, scale=scale, slots=True, seq_start=seq_start)
     banded_bwd_1p.launches += 1
     if mode == "cmp":
         banded_bwd_1p.cmp_launches += 1

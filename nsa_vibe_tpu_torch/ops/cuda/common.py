@@ -51,6 +51,19 @@ def check_operands(name: str, float_args: dict, int_args: dict = None) -> int:
     return DTYPE_CODES[dtype]
 
 
+def check_seq_start(name: str, seq_start, B: int, S: int, device) -> None:
+    """seq_start is None, or an int32 [B, S] contiguous tensor on `device`.
+    Its contract (l_sel-aligned, non-decreasing starts <= t) is not checked
+    here: that would read it back on the host (ops/varlen.py)."""
+    if seq_start is None:
+        return
+    if seq_start.dtype != torch.int32 or tuple(seq_start.shape) != (B, S) \
+            or seq_start.device != device or not seq_start.is_contiguous():
+        raise ValueError(f"{name}: seq_start ({seq_start.dtype}, {tuple(seq_start.shape)}, on "
+                         f"{seq_start.device}) must be a contiguous int32 [B, S] = [{B}, {S}] "
+                         f"tensor on {device}")
+
+
 def check_vector_rows(name: str, **tensors: torch.Tensor) -> None:
     """The kernels stage rows with 16-byte loads: the last dimension must be
     a multiple of 8 and every row 16-byte aligned."""

@@ -15,7 +15,10 @@ int32, forced slots first (may repeat), then the picks in descending
 `p_grp - 1e-8*index` order, -1 when no candidate is left. Query row s sits
 at position t = pos_offset + s. The Eq. 9 map is the fractional overlap of
 ops/block_index.py for S_sel selection blocks (`selection_map`); the
-kernel computes its entries in closed form and reads no M.
+kernel computes its entries in closed form and reads no M. With
+`seq_start` [B,S] int32 (packed documents, pos_offset 0) a row sees no
+pooled token that starts before its document and picks from its document's
+blocks (ops/varlen.py::topn_forced_first_varlen's contract).
 """
 
 from __future__ import annotations
@@ -23,11 +26,12 @@ from __future__ import annotations
 import torch
 
 from nsa_vibe_tpu_torch.ops import reference as ref
+from nsa_vibe_tpu_torch.ops import varlen
 from nsa_vibe_tpu_torch.ops.block_index import build_M_csl_on
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, SMEM_LIMIT, check_operands, check_vector_rows, ptr, raise_on_error,
-    resolve_kernel, stream_of,
+    DTYPE_CODES, SMEM_LIMIT, check_operands, check_seq_start, check_vector_rows, ptr,
+    ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 from nsa_vibe_tpu_torch.ops.selection import (
     compute_pcmp_masked, effective_sel_blocks, group_reduce, map_pcmp_to_pslc, topn_forced_first,
@@ -52,14 +56,19 @@ def selection_map(S_cmp: int, S_sel: int, l: int, d: int, l_sel: int, device=Non
 
 def select_blocks_plain(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: int,
                         n_top: int, force_init: bool = True, force_local: int = 2,
-                        pos_offset: int = 0, return_scores: bool = False):
-    """Plain PyTorch version (Eq. 8-12 pipeline of ops.selection). Returns
-    sel_idx, and with return_scores also the group scores p_grp
-    [B,S,G,S_sel] f32."""
+                        pos_offset: int = 0, return_scores: bool = False, seq_start=None):
+    """Plain PyTorch version (Eq. 8-12 pipeline of ops.selection, or of
+    ops.varlen under seq_start). Returns sel_idx, and with return_scores
+    also the group scores p_grp [B,S,G,S_sel] f32."""
     S, S_cmp = Q.shape[1], K_cmp.shape[2]
     t_pos = torch.arange(pos_offset, pos_offset + S, device=Q.device)
-    num_cmp_t = ref.num_cmp_per_token(S, l, d, S_cmp, Q.device, pos_offset)
     M = selection_map(S_cmp, S_sel, l, d, l_sel, Q.device)
+    if seq_start is not None:
+        p_grp = varlen.selection_scores_varlen(Q, K_cmp, M, scale, t_pos, seq_start, l, d)
+        sel = varlen.topn_forced_first_varlen(p_grp, n_top, t_pos, seq_start, l_sel, force_init,
+                                              force_local)
+        return (sel, p_grp) if return_scores else sel
+    num_cmp_t = ref.num_cmp_per_token(S, l, d, S_cmp, Q.device, pos_offset)
     p_grp = group_reduce(map_pcmp_to_pslc(compute_pcmp_masked(Q, K_cmp, scale, num_cmp_t), M))
     sel = topn_forced_first(p_grp, n_top, t_pos, l_sel, force_init, force_local)
     return (sel, p_grp) if return_scores else sel
@@ -86,14 +95,15 @@ def tile_plan(lib, dtype, h: int, Dk: int, S_sel: int) -> int:
 
 def select_blocks(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: int,
                   n_top: int, force_init: bool = True, force_local: int = 2,
-                  pos_offset: int = 0):
+                  pos_offset: int = 0, seq_start=None):
     """Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk] -> sel_idx [B,S,G,n_out] int32.
-    pos_offset is a host int. CPU tensors take the plain version. Counts
+    pos_offset is a host int; seq_start [B,S] int32 (pos_offset 0) keeps
+    each row in its document. CPU tensors take the plain version. Counts
     launches in `select_blocks.launches`."""
     if resolve_kernel(Q) == "plain":
         return select_blocks_plain(Q, K_cmp, S_sel=S_sel, scale=scale, l=l, d=d, l_sel=l_sel,
                                    n_top=n_top, force_init=force_init, force_local=force_local,
-                                   pos_offset=pos_offset)
+                                   pos_offset=pos_offset, seq_start=seq_start)
     code = check_operands("select_blocks", {"Q": Q, "K_cmp": K_cmp})
     B, S, G, h, Dk = Q.shape
     S_cmp = K_cmp.shape[2]
@@ -101,6 +111,9 @@ def select_blocks(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: 
         raise ValueError(f"select_blocks: K_cmp {tuple(K_cmp.shape)} does not match "
                          f"Q {tuple(Q.shape)}")
     check_vector_rows("select_blocks", Q=Q, K_cmp=K_cmp)
+    check_seq_start("select_blocks", seq_start, B, S, Q.device)
+    if seq_start is not None and pos_offset:
+        raise ValueError("select_blocks: seq_start needs pos_offset == 0")
     if S_cmp == 0:
         raise ValueError("select_blocks: no compressed tokens (S_cmp == 0); the caller "
                          "selects the forced blocks without the scorer")
@@ -112,8 +125,8 @@ def select_blocks(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: 
     tq = tile_plan(lib, Q.dtype, h, Dk, S_sel)
     n_out = effective_sel_blocks(n_top, force_init, force_local)
     sel = torch.empty((B, S, G, n_out), dtype=torch.int32, device=Q.device)
-    args = (ptr(Q), ptr(K_cmp), ptr(sel), B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top,
-            int(force_init), force_local, int(pos_offset), float(scale), tq)
+    args = (ptr(Q), ptr(K_cmp), ptr_or_null(seq_start), ptr(sel), B, S, G, h, Dk, S_cmp, S_sel,
+            l, d, l_sel, n_top, int(force_init), force_local, int(pos_offset), float(scale), tq)
     with torch.cuda.device(Q.device):
         if code == DTYPE_CODES[torch.bfloat16]:
             err = lib.nsa_select_blocks_mma(*args, MMA_TILE_ROWS, stream_of(Q))

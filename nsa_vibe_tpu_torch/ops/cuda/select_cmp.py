@@ -18,7 +18,11 @@ at 0, may repeat), then the picks in descending `p_grp - 1e-8*index`
 order, -1 when no candidate is left; O_cmp [B,S,G,h,Dv]; with return_lse
 the cmp rows' f32 statistics lse [B,S,G,h] (EMPTY_LSE for rows t < l-1,
 which see no compressed token). Consumers treat sel_idx as a set
-(`ops.selection.canonicalize_sel` gives the sorted form).
+(`ops.selection.canonicalize_sel` gives the sorted form). With `seq_start`
+[B,S] int32 (packed documents) a row sees no pooled token that starts
+before its document (none at all: O = 0, lse EMPTY_LSE, p = 0) and picks
+from its document's blocks, the forced slots ds // l_sel and max(t //
+l_sel - i, ds // l_sel) (ops/varlen.py::topn_forced_first_varlen).
 """
 
 from __future__ import annotations
@@ -26,10 +30,11 @@ from __future__ import annotations
 import torch
 
 from nsa_vibe_tpu_torch.ops import reference as ref
+from nsa_vibe_tpu_torch.ops import varlen
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, SMEM_LIMIT, check_operands, check_smem, check_vector_rows, ptr, ptr_or_null,
-    raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, SMEM_LIMIT, check_operands, check_seq_start, check_smem, check_vector_rows, ptr,
+    ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 from nsa_vibe_tpu_torch.ops.selection import (
     compute_pcmp_masked, effective_sel_blocks, group_reduce, map_pcmp_to_pslc, topn_forced_first,
@@ -57,28 +62,41 @@ def select_cmp_fits(h: int, S_sel: int) -> bool:
 
 def select_cmp_plain(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int,
                      n_top: int, force_init: bool = True, force_local: int = 2,
-                     return_scores: bool = False, return_lse: bool = False):
+                     return_scores: bool = False, return_lse: bool = False, seq_start=None):
     """Plain PyTorch version: the same function and output contract.
     Returns (sel_idx, O_cmp), then lse [B,S,G,h] with return_lse, then the
     group scores p_grp [B,S,G,S_sel] with return_scores."""
     S = Q.shape[1]
     t_pos = torch.arange(S, device=Q.device)
-    num_cmp_t = ref.num_cmp_per_token(S, l, d, M.shape[0], Q.device)
-    p_cmp = compute_pcmp_masked(Q, K_cmp, scale, num_cmp_t)          # f32, 0 rows w/o tokens
+    if seq_start is not None:
+        p_cmp = varlen.compute_pcmp_varlen(Q, K_cmp, scale, t_pos, seq_start, l, d)
+    else:
+        num_cmp_t = ref.num_cmp_per_token(S, l, d, M.shape[0], Q.device)
+        p_cmp = compute_pcmp_masked(Q, K_cmp, scale, num_cmp_t)      # f32, 0 rows w/o tokens
     O = torch.einsum("bsghc,bgcv->bsghv", p_cmp, V_cmp.float()).to(Q.dtype)
     p_grp = group_reduce(map_pcmp_to_pslc(p_cmp, M))                 # [B,S,G,S_sel]
-    out = (topn_forced_first(p_grp, n_top, t_pos, l_sel, force_init, force_local), O)
+    if seq_start is not None:
+        sel = varlen.topn_forced_first_varlen(p_grp, n_top, t_pos, seq_start, l_sel, force_init,
+                                              force_local)
+    else:
+        sel = topn_forced_first(p_grp, n_top, t_pos, l_sel, force_init, force_local)
+    out = (sel, O)
     if return_lse:
-        out += (ref.compressed_attention(Q, K_cmp, V_cmp, num_cmp_t, scale, True)[1],)
+        lse = (varlen.compressed_attention_varlen(Q, K_cmp, V_cmp, t_pos, seq_start, l, d,
+                                                  scale, True)[1] if seq_start is not None
+               else ref.compressed_attention(Q, K_cmp, V_cmp, num_cmp_t, scale, True)[1])
+        out += (lse,)
     return out + (p_grp,) if return_scores else out
 
 
-def tile_plan(lib, h: int, Dk: int, Dv: int, S_sel: int) -> int:
+def tile_plan(lib, h: int, Dk: int, Dv: int, S_sel: int, docs: bool = False) -> int:
     """Tokens per CTA of the bf16 kernel: MMA_TILE_ROWS // h, shrunk until
-    two CTAs share an SM (TWO_CTA_SMEM; at head widths past 64 one CTA an
-    SM, SMEM_LIMIT), which only the [tokens, S_sel] f32 group scores of
-    wide selections at small h need. Raises when one token does not fit."""
-    budget = TWO_CTA_SMEM if max(Dk, Dv) <= 64 else SMEM_LIMIT
+    two CTAs share an SM (TWO_CTA_SMEM), which only the [tokens, S_sel] f32
+    group scores of wide selections at small h need. The kernels compiled
+    for one CTA an SM, at head widths past 64 and with seq_start (`docs`:
+    the DOCS instantiation), take the one-CTA budget, SMEM_LIMIT. Raises
+    when one token does not fit."""
+    budget = TWO_CTA_SMEM if max(Dk, Dv) <= 64 and not docs else SMEM_LIMIT
 
     def need(tq):
         return lib.nsa_select_cmp_mma_smem_bytes(MMA_TILE_ROWS, tq, h, Dk, Dv, S_sel)
@@ -91,10 +109,12 @@ def tile_plan(lib, h: int, Dk: int, Dv: int, S_sel: int) -> int:
 
 
 def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, n_top: int,
-               force_init: bool = True, force_local: int = 2, return_lse: bool = False):
+               force_init: bool = True, force_local: int = 2, return_lse: bool = False,
+               seq_start=None):
     """Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], V_cmp [B,G,S_cmp,Dv], M [S_cmp,S_sel]
     f32 -> (sel_idx [B,S,G,n_out] int32, O_cmp [B,S,G,h,Dv][, lse [B,S,G,h]]).
-    Query row s is at position s. CPU tensors take the plain version. M is
+    Query row s is at position s; seq_start [B,S] int32 (or None) keeps each
+    row in its document. CPU tensors take the plain version. M is
     the Eq. 9 map of ops/block_index.py: the kernels read, for each
     compressed token c, only the entries of the selection blocks its span
     [c*d, c*d + l) overlaps; the other entries, zero in that map, are not
@@ -102,7 +122,8 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
     if resolve_kernel(Q) == "plain":
         return select_cmp_plain(Q, K_cmp, V_cmp, M, scale=scale, l=l, d=d, l_sel=l_sel,
                                 n_top=n_top, force_init=force_init,
-                                force_local=force_local, return_lse=return_lse)
+                                force_local=force_local, return_lse=return_lse,
+                                seq_start=seq_start)
     code = check_operands("select_cmp", {"Q": Q, "K_cmp": K_cmp, "V_cmp": V_cmp})
     check_operands("select_cmp", {"M": M})
     if M.dtype != torch.float32:
@@ -115,6 +136,7 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
                          f"{tuple(V_cmp.shape)} do not match Q {tuple(Q.shape)} and M "
                          f"{tuple(M.shape)}")
     check_vector_rows("select_cmp", Q=Q, K_cmp=K_cmp, V_cmp=V_cmp)
+    check_seq_start("select_cmp", seq_start, B, S, Q.device)
     if S_cmp == 0:
         raise ValueError("select_cmp: no compressed tokens (S_cmp == 0); the caller "
                          "selects the forced blocks without the scorer")
@@ -135,12 +157,12 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
     O = torch.empty((B, S, G, h, Dv), dtype=Q.dtype, device=Q.device)
     lse = (torch.empty((B, S, G, h), dtype=torch.float32, device=Q.device)
            if return_lse else None)
-    args = (ptr(Q), ptr(K_cmp), ptr(V_cmp), ptr(M), ptr(sel), ptr(O), ptr_or_null(lse), B, S, G,
-            h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top, int(force_init), force_local,
-            float(scale))
+    args = (ptr(Q), ptr(K_cmp), ptr(V_cmp), ptr(M), ptr_or_null(seq_start), ptr(sel), ptr(O),
+            ptr_or_null(lse), B, S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top,
+            int(force_init), force_local, float(scale))
     with torch.cuda.device(Q.device):
         if mma:
-            tq = tile_plan(lib, h, Dk, Dv, S_sel)
+            tq = tile_plan(lib, h, Dk, Dv, S_sel, docs=seq_start is not None)
             err = lib.nsa_select_cmp_mma(*args, tq, MMA_TILE_ROWS, stream_of(Q))
         else:
             tq = max(1, ROWS_PER_BLOCK // h)

@@ -11,8 +11,10 @@ plain version is banded_bwd's. Two kernels, chosen by dtype alone:
   `banded_bwd.banded_bwd_rss`), q tiles of MMA_TILE_ROWS rows;
 - f32: the FMA kernel (win_bwd_diag.cu), q tiles of one 64-row chunk.
 Both sum per-tile f32 dK/dV strips per key in tile order (`strip_bytes`).
-Bound on the H100 and design: see the notes at the top of the CUDA
-sources.
+With `seq_start` (packed documents) each row's keys stop at its document
+start; a q tile's strips keep the dense band, so the keys no row of it
+sees are written as zeros. Bound on the H100 and design: see the notes at
+the top of the CUDA sources.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import banded_bwd_plain
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import ROWS_PER_CHUNK, check_banded_operands
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, check_smem, ptr, raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, check_smem, ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 
 # rows (tokens x heads) per q tile of the bf16 kernel: 64, 128 or 192 (192
@@ -44,15 +46,17 @@ def tile_plan(lib, dtype, B: int, S: int, S_kv: int, G: int, h: int, Dk: int, Dv
     return tq, sl, B * G * -(-S // tq) * sl * (Dk + Dv) * 4
 
 
-def win_bwd_diag(Q, K, V, dO, lse, delta, *, w: int, scale: float):
+def win_bwd_diag(Q, K, V, dO, lse, delta, *, w: int, scale: float, seq_start=None):
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
-    (dQ, dK, dV) of the window branch (row t sees keys [t-w+1, t]) in the
-    operands' dtype. CPU tensors take the plain version. Counts launches in
+    (dQ, dK, dV) of the window branch (row t sees keys [t-w+1, t], and
+    none before seq_start [B,S] int32 when given) in the operands' dtype.
+    CPU tensors take the plain version. Counts launches in
     `win_bwd_diag.launches`."""
     if resolve_kernel(Q) == "plain":
-        return banded_bwd_plain(Q, K, V, dO, lse, delta, mode="win", w=w, scale=scale)
+        return banded_bwd_plain(Q, K, V, dO, lse, delta, mode="win", w=w, scale=scale,
+                                seq_start=seq_start)
     code = check_banded_operands("win_bwd_diag", Q, K, V, dO, lse, delta, mode="win", w=w, l=0,
-                                 d=1)
+                                 d=1, seq_start=seq_start)
     B, S, G, h, Dk = Q.shape
     S_kv, Dv = K.shape[2], V.shape[3]
     mma = code == DTYPE_CODES[torch.bfloat16]
@@ -66,8 +70,9 @@ def win_bwd_diag(Q, K, V, dO, lse, delta, *, w: int, scale: float):
     dV = torch.empty_like(V)
     strip_k = torch.empty(B * G * n_q * sl * Dk, dtype=torch.float32, device=Q.device)
     strip_v = torch.empty(B * G * n_q * sl * Dv, dtype=torch.float32, device=Q.device)
-    args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr(dQ), ptr(dK), ptr(dV),
-            ptr(strip_k), ptr(strip_v), B, S, S_kv, G, h, Dk, Dv, w, float(scale))
+    args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr_or_null(seq_start),
+            ptr(dQ), ptr(dK), ptr(dV), ptr(strip_k), ptr(strip_v), B, S, S_kv, G, h, Dk, Dv, w,
+            float(scale))
     with torch.cuda.device(Q.device):
         if mma:
             err = lib.nsa_win_bwd_diag_mma(*args, MMA_TILE_ROWS, stream_of(Q))

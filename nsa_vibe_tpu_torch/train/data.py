@@ -2,8 +2,9 @@
 
 The port's own copy of nsa_vibe_tpu/train/data.py (tokenize_bytes, the
 byte tokenizer, synthetic_docs, pack_token_stream, local_docs,
-make_batches): the same numpy arithmetic, so a seed gives the same
-batches in both packages. Not ported: the native C++ packer, HF
+make_batches, collate_varlen): the same numpy arithmetic, so a seed gives
+the same batches in both packages. Packed-document (varlen) batches come
+from ops/varlen.py::make_varlen_batches over the same sources. Not ported: the native C++ packer, HF
 tokenizers, the fineweb stream (it needs the network and HF `datasets`;
 `make_batches("fineweb...")` raises) and doc-level sharding across
 processes (one device reads every document).
@@ -109,3 +110,27 @@ def make_batches(
     else:
         raise ValueError(f"unknown data source: {source}")
     yield from pack_token_stream(docs, seq_len, batch_size)
+
+
+def collate_varlen(docs: list, seq_len: int, pad_id: int = 0) -> dict:
+    """Pad variable-length docs to [B, seq_len] with attention/loss masks,
+    shifted labels and cu_seqlens (the cu_seqlens surface of the reference
+    implementation; the JAX package's train.data.collate_varlen)."""
+    B = len(docs)
+    tokens = np.full((B, seq_len), pad_id, np.int32)
+    attn_mask = np.zeros((B, seq_len), np.int32)
+    labels = np.full((B, seq_len), -1, np.int32)
+    lengths = np.zeros(B + 1, np.int32)
+    for i, doc in enumerate(docs):
+        n = min(len(doc), seq_len)
+        tokens[i, :n] = doc[:n]
+        attn_mask[i, :n] = 1
+        labels[i, : n - 1] = doc[1:n]
+        lengths[i + 1] = lengths[i] + n
+    return {
+        "tokens": tokens,
+        "attn_mask": attn_mask,
+        "labels": np.where(labels >= 0, labels, 0),
+        "loss_mask": (labels >= 0).astype(np.int32),
+        "cu_seqlens": lengths,
+    }

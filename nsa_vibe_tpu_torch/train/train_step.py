@@ -6,7 +6,10 @@ over tokens [accum, B, S+1] (grads summed, then scaled by 1/accum); global
 clipping + AdamW + warmup-cosine (train.optim); the coherent skip: one
 `good = isfinite(loss) & isfinite(grad_norm)` device flag gates the whole
 update, so a bad step leaves parameters, moments and count unchanged; the
-7 gate/selection stats plus sel_k_max.
+7 gate/selection stats plus sel_k_max. With `tcfg.varlen` a batch is
+(tokens [accum, B, S+1], seq_start [accum, B, S], loss_mask [accum, B,
+S]): packed documents (ops/varlen.py), the loss masked to the supervised
+tokens, whose count is the `tokens` metric.
 
 Parameters are the port's nested dicts. The trainable leaves are every
 tensor except the seven projection entries of an attention dict, which
@@ -92,23 +95,27 @@ def gate_stats(auxes: list) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def loss_and_grads(params: dict, tok_row: torch.Tensor, mcfg: ModelConfig,
-                   collect: bool = False):
+                   collect: bool = False, seq_start=None, loss_mask=None):
     """(loss, grads in param_leaves order, per-layer aux) of one batch
-    [B, S+1]: logits of tokens[:, :-1] against tokens[:, 1:]."""
+    [B, S+1]: logits of tokens[:, :-1] against tokens[:, 1:]; packed
+    documents under seq_start [B, S], the loss over loss_mask [B, S]."""
     leaves = [t for _, t in param_leaves(params)]
     with torch.enable_grad():
-        logits, auxes = model_forward(params, tok_row[:, :-1], mcfg, collect_aux=collect)
-        loss = cross_entropy_loss(logits, tok_row[:, 1:])
+        logits, auxes = model_forward(params, tok_row[:, :-1], mcfg, collect_aux=collect,
+                                      seq_start=seq_start)
+        loss = cross_entropy_loss(logits, tok_row[:, 1:], mask=loss_mask)
         grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), list(grads), auxes
 
 
 def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig) -> Callable:
-    """Returns train_step(state, tokens [accum, B, S+1]) -> (state, metrics);
-    the state is updated in place and returned."""
+    """Returns train_step(state, batch) -> (state, metrics), batch tokens
+    [accum, B, S+1], or with tcfg.varlen (tokens, seq_start [accum, B, S],
+    loss_mask [accum, B, S]); the state is updated in place and returned."""
     collect = tcfg.gate_stats
 
-    def train_step(state: TrainState, tokens: torch.Tensor):
+    def train_step(state: TrainState, batch):
+        tokens, seq_start, loss_mask = batch if tcfg.varlen else (batch, None, None)
         accum = tokens.shape[0]
         dev = state.step.device
         grads = None
@@ -116,7 +123,9 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         stat_sum = torch.zeros((7,), device=dev)
         kmax = torch.zeros((), device=dev)
         for a in range(accum):
-            loss, g, auxes = loss_and_grads(state.params, tokens[a], mcfg, collect)
+            loss, g, auxes = loss_and_grads(
+                state.params, tokens[a], mcfg, collect,
+                *((seq_start[a], loss_mask[a]) if tcfg.varlen else ()))
             grads = g if grads is None else [x + y for x, y in zip(grads, g)]
             loss_sum = loss_sum + loss
             if collect:
@@ -137,17 +146,22 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig) -> Callable:
             "loss": loss, "grad_norm": grad_norm, "good": good,
             "gate_entropy": stats[0], "gate_max": stats[1], "gate_collapse_frac": stats[2],
             "branch_shares": stats[3:6], "sel_k_mean": stats[6], "sel_k_max": kmax,
-            "tokens": tokens.shape[0] * tokens.shape[1] * (tokens.shape[2] - 1),
+            # varlen: the supervised tokens (a device scalar); else the batch's
+            "tokens": (loss_mask.sum().to(torch.int32) if tcfg.varlen
+                       else tokens.shape[0] * tokens.shape[1] * (tokens.shape[2] - 1)),
         }
         return state, metrics
 
     return train_step
 
 
-def make_eval_step(mcfg: ModelConfig) -> Callable:
+def make_eval_step(mcfg: ModelConfig, varlen: bool = False) -> Callable:
+    """eval_step(params, batch) -> loss: batch tokens [B, S+1], or with
+    varlen (tokens, seq_start [B, S], loss_mask [B, S])."""
     @torch.no_grad()
-    def eval_step(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        logits, _ = model_forward(params, tokens[:, :-1], mcfg)
-        return cross_entropy_loss(logits, tokens[:, 1:])
+    def eval_step(params: dict, batch) -> torch.Tensor:
+        tokens, seq_start, loss_mask = batch if varlen else (batch, None, None)
+        logits, _ = model_forward(params, tokens[:, :-1], mcfg, seq_start=seq_start)
+        return cross_entropy_loss(logits, tokens[:, 1:], mask=loss_mask)
 
     return eval_step

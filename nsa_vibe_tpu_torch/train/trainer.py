@@ -3,7 +3,9 @@
   * YAML config (model/nsa/train groups; PyYAML is imported only when
     --config is given) + CLI overrides;
   * the train step of train.train_step on one device (the card unless
-    --device cpu);
+    --device cpu); --varlen trains on packed documents (ops/varlen.py:
+    l_sel-aligned starts, no attention across a document boundary, the
+    loss masked to each document's own next tokens);
   * training.csv, val.csv, heartbeat.jsonl, `.HALT` polling each step;
   * the coherent NaN abort: the device `good` flags queue up and are read
     at log boundaries, 3 consecutive bad steps halt the run;
@@ -14,7 +16,7 @@ the card runs ahead of the Python loop between them.
 
 Run:  python -m nsa_vibe_tpu_torch.train.trainer --steps 50 --data synthetic
       python -m nsa_vibe_tpu_torch.train.trainer --config configs/m7c_125m.yaml \
-          --data synthetic --steps 20
+          --data synthetic --steps 20 [--varlen]
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig, TrainConfig
 from nsa_vibe_tpu_torch.models.tinylm import init_model_params
+from nsa_vibe_tpu_torch.ops.varlen import make_varlen_batches
 from nsa_vibe_tpu_torch.train.data import make_batches
 from nsa_vibe_tpu_torch.train.train_step import init_train_state, make_eval_step, make_train_step
 from nsa_vibe_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
@@ -73,14 +76,21 @@ class _Prefetcher:
 
 def load_config(path: Optional[str]) -> tuple[ModelConfig, TrainConfig, str]:
     """YAML with optional model/nsa/train groups; returns (mcfg, tcfg, data).
-    Keys the port does not have (parallel axes, varlen) raise."""
+    Keys the port does not have (the parallel axes) raise; train.varlen is
+    read. nsa.varlen_exact may only be true: the port's avg ϕ is always
+    window-exact (core/config.py), so `false`, the JAX package's running-sum
+    form, raises rather than compute other math unannounced."""
     raw: dict = {}
     if path:
         import yaml
 
         with open(path) as f:
             raw = yaml.safe_load(f) or {}
-    nsa = NSAConfig(**raw.get("nsa", {}))
+    nsa_kw = dict(raw.get("nsa", {}))
+    if not nsa_kw.pop("varlen_exact", True):
+        raise ValueError("nsa.varlen_exact: false is not supported: the port's avg phi is "
+                         "always window-exact (the JAX package's varlen_exact: true)")
+    nsa = NSAConfig(**nsa_kw)
     model_kw = dict(raw.get("model", {}))
     data = model_kw.pop("data", raw.get("data", "synthetic"))
     return ModelConfig(nsa=nsa, **model_kw), TrainConfig(**raw.get("train", {})), data
@@ -89,7 +99,7 @@ def load_config(path: Optional[str]) -> tuple[ModelConfig, TrainConfig, str]:
 def apply_overrides(mcfg: ModelConfig, tcfg: TrainConfig, args) -> tuple[ModelConfig, TrainConfig]:
     t_over = {k: getattr(args, k)
               for k in ("steps", "batch_size", "seq_len", "accum_steps", "lr", "seed",
-                        "save_every", "eval_every", "log_every", "out_dir")
+                        "save_every", "eval_every", "log_every", "out_dir", "varlen")
               if getattr(args, k, None) is not None}
     if t_over:
         tcfg = dataclasses.replace(tcfg, **t_over)
@@ -105,13 +115,27 @@ def apply_overrides(mcfg: ModelConfig, tcfg: TrainConfig, args) -> tuple[ModelCo
     return mcfg, tcfg
 
 
-def _to_device(batch_np: np.ndarray, shape, dev: torch.device) -> torch.Tensor:
-    """int32 numpy batch -> int64 tensor on dev; to a card through pinned
-    memory without waiting for the queued work."""
-    t = torch.from_numpy(np.ascontiguousarray(batch_np).reshape(shape)).long()
+def _to_device(batch_np: np.ndarray, shape, dev: torch.device, dtype=torch.long
+               ) -> torch.Tensor:
+    """numpy batch -> `dtype` tensor of `shape` on dev; to a card through
+    pinned memory without waiting for the queued work."""
+    t = torch.from_numpy(np.ascontiguousarray(batch_np).reshape(shape)).to(dtype)
     if dev.type == "cuda":
         return t.pin_memory().to(dev, non_blocking=True)
     return t
+
+
+def _batch_to_device(batch_np, tcfg: TrainConfig, shape, dev: torch.device):
+    """A batch of make_batches (tokens) or, with tcfg.varlen, of
+    make_varlen_batches (tokens, seq_start, loss_mask) on dev, each array
+    reshaped to `shape` (..., S + 1) or (..., S): tokens int64, seq_start
+    int32, loss_mask f32."""
+    if not tcfg.varlen:
+        return _to_device(batch_np, (*shape, tcfg.seq_len + 1), dev)
+    toks, ds, lm = batch_np
+    return (_to_device(toks, (*shape, tcfg.seq_len + 1), dev),
+            _to_device(ds, (*shape, tcfg.seq_len), dev, torch.int32),
+            _to_device(lm, (*shape, tcfg.seq_len), dev, torch.float32))
 
 
 def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
@@ -132,7 +156,7 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
     params = init_model_params(mcfg, torch.Generator().manual_seed(tcfg.seed), device=dev)
     state = init_train_state(params, tcfg)
     step_fn = make_train_step(mcfg, tcfg)
-    eval_fn = make_eval_step(mcfg)
+    eval_fn = make_eval_step(mcfg, varlen=tcfg.varlen)
 
     ckpt_dir = os.path.join(run_dir, "ckpt")
     start_step = 0
@@ -142,7 +166,12 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
         print(f"[trainer] resumed from step {start_step}", flush=True)
 
     A, Bsz, S = tcfg.accum_steps, tcfg.batch_size, tcfg.seq_len
-    batches = _Prefetcher(make_batches(data_source, S, Bsz * A, seed=tcfg.seed, epochs=0))
+    if tcfg.varlen:
+        source = make_varlen_batches(data_source, S, Bsz * A, align=mcfg.nsa.l_sel,
+                                     seed=tcfg.seed, epochs=0)
+    else:
+        source = make_batches(data_source, S, Bsz * A, seed=tcfg.seed, epochs=0)
+    batches = _Prefetcher(source)
     first_batch = batches.get(timeout=FIRST_BATCH_TIMEOUT_S)
 
     hb = Heartbeat(os.path.join(run_dir, "heartbeat.jsonl"))
@@ -173,7 +202,7 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
                 batch_np, first_batch = first_batch, None
             else:
                 batch_np = batches.get(timeout=300.0)
-            state, metrics = step_fn(state, _to_device(batch_np, (A, Bsz, S + 1), dev))
+            state, metrics = step_fn(state, _batch_to_device(batch_np, tcfg, (A, Bsz), dev))
             pending_good.append(metrics["good"])
             sync_now = ((step + 1) % tcfg.log_every == 0 or step == start_step
                         or step == tcfg.steps - 1
@@ -219,8 +248,9 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
                       flush=True)
 
             if tcfg.eval_every and (step + 1) % tcfg.eval_every == 0:
-                vb = batches.get(timeout=300.0)[:Bsz]
-                vl = float(eval_fn(state.params, _to_device(vb, vb.shape, dev)))
+                vb = batches.get(timeout=300.0)
+                vb = tuple(a[:Bsz] for a in vb) if tcfg.varlen else vb[:Bsz]
+                vl = float(eval_fn(state.params, _batch_to_device(vb, tcfg, (Bsz,), dev)))
                 with open(val_path, "a", newline="") as vf:
                     csv.writer(vf).writerow([step + 1, f"{vl:.6f}", f"{np.exp(vl):.4f}"])
 
@@ -255,6 +285,9 @@ def main() -> None:
     ap.add_argument("--eval-every", dest="eval_every", type=int, default=None)
     ap.add_argument("--log-every", dest="log_every", type=int, default=None)
     ap.add_argument("--out-dir", dest="out_dir", default=None)
+    ap.add_argument("--varlen", action="store_true", default=None,
+                    help="packed-document batching (no attention across a document "
+                         "boundary; loss-masked padding; ops/varlen.py)")
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args()
 

@@ -35,11 +35,17 @@ the same instructions and differ in summation order only, so they are
 held to each other by the backward bound above (two bf16 ulps plus the f32
 bound). The bf16 select-only scorer (select_blocks: csrc/select_blocks_mma.cu
 on tensor cores) keeps p and its map in f32 and is held as sets, as the
-f32 kernel.
+f32 kernel. Packed documents (varlen): each kernel family that takes
+seq_start (the banded forwards, the two scorers, the three banded
+backward designs) against its plain version with it, on rows that hold a
+document shorter than l and q tiles that straddle document starts, under
+the same bounds; each given the dense bound must fail them; and one f32
+layer on both prefill routes against the CPU.
 """
 
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -68,6 +74,7 @@ from nsa_vibe_tpu_torch.ops.cuda import win_attn as wa_mod
 from nsa_vibe_tpu_torch.ops.cuda import win_bwd_diag as wd_mod
 from nsa_vibe_tpu_torch.ops.reference import attention_delta
 from nsa_vibe_tpu_torch.ops.selection import canonicalize_sel
+from nsa_vibe_tpu_torch.ops.varlen import pack_documents_aligned
 from nsa_vibe_tpu_torch.train.train_step import (
     init_train_state, make_train_step, param_leaves,
 )
@@ -1006,3 +1013,182 @@ def test_select_cmp_matches_plain_on_gpu(dtype, B, S, G, h, Dk, Dv, l, d, l_sel,
         assert torch.equal(Ob, O) and torch.equal(lseb, got[2])
     else:
         assert _within_bound(O, pO)
+
+
+# ---------------------------------------------------------------- packed documents (varlen)
+
+# per row, document lengths packed at l_sel = 16: one shorter than l = 8 (no
+# visible compressed token), one of exactly l_sel, one longer than w, and a
+# row that one document nearly fills; the 128-row q tiles (21 tokens at
+# h = 6) straddle the starts
+VARLEN_LENS = ((5, 16, 100, 60, 40), (250, 30))
+VARLEN = dict(S=300, G=2, h=6, D=64, l=8, d=4, l_sel=16, n_top=4, w=40)
+
+
+def _doc_starts(dev, S=VARLEN["S"], lens=VARLEN_LENS, align=VARLEN["l_sel"]):
+    rows = [pack_documents_aligned([np.ones(n, np.int32) for n in row], S, align, 1)[1][0]
+            for row in lens]
+    return torch.from_numpy(np.stack(rows)).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["win", "cmp"])
+def test_varlen_banded_forward_on_gpu(dtype, mode):
+    """win_attn / banded_attn (cmp) with seq_start against the plain
+    version with it (bf16: _within_tc, where a planted 1% fault fails),
+    lse with the same rows empty, two launches bit-equal; the same kernel
+    given the dense bound fails the check."""
+    dev, c = _card(), VARLEN
+    ds = _doc_starts(dev)
+    S_kv = c["S"] if mode == "win" else num_cmp_blocks(c["S"], c["l"], c["d"])
+    Q, K, V, _ = _bwd_operands(dtype, dev, 2, c["S"], c["G"], c["h"], c["D"], S_kv, seed=5)
+    kw = dict(w=c["w"]) if mode == "win" else dict(l=c["l"], d=c["d"])
+    scale = c["D"] ** -0.5
+
+    def run(seq_start):
+        if mode == "win":
+            return wa_mod.win_attn(Q, K, V, **kw, scale=scale, return_lse=True,
+                                   seq_start=seq_start)
+        return ba_mod.banded_attn(Q, K, V, mode=mode, **kw, scale=scale, return_lse=True,
+                                  seq_start=seq_start)
+
+    (O, lse), (O2, lse2) = run(ds), run(ds)
+    assert torch.equal(O, O2) and torch.equal(lse, lse2)
+    pO, plse = ba_mod.banded_attn_plain(Q, K, V, mode=mode, **kw, scale=scale, return_lse=True,
+                                        seq_start=ds)
+    if dtype == torch.float32:
+        within = lambda o: _within_bound(o, pO)                     # noqa: E731
+    else:
+        want, rss = ba_mod.banded_attn_rss(Q, K, V, mode=mode, **kw, scale=scale, seq_start=ds)
+        within = lambda o: _within_tc(o, want, want, rss)           # noqa: E731
+        assert not within(O.float() * 1.01)
+    assert within(O)
+    empty = plse >= 1e29
+    assert torch.equal(lse >= 1e29, empty)
+    assert float(torch.where(empty, 0.0, (lse - plse).abs()).max()) <= 1e-4
+    if mode == "cmp":     # the 5-token document sees no pooled token
+        assert bool(empty[0, :5].all()) and not bool(O[0, :5].any())
+    assert not within(run(None)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_varlen_scorers_on_gpu(dtype):
+    """select_cmp (O, lse, sets) and select_blocks (sets) with seq_start
+    against their plain versions with it: sets equal but for near ties,
+    forced slots (the document's first block, the local blocks clamped to
+    it) in order, every pick inside the row's document; two launches give
+    the same bits; the dense bound gives other sets."""
+    dev, c = _card(), VARLEN
+    ds = _doc_starts(dev)
+    S, l, d, l_sel = c["S"], c["l"], c["d"], c["l_sel"]
+    S_cmp, S_sel = num_cmp_blocks(S, l, d), -(-S // l_sel)
+    Q, Kc, Vc, _ = _bwd_operands(dtype, dev, 2, S, c["G"], c["h"], c["D"], S_cmp, seed=6)
+    scale = c["D"] ** -0.5
+    kw = dict(scale=scale, l=l, d=d, l_sel=l_sel, n_top=c["n_top"])
+    M = build_M_csl_on(S, l, d, l_sel, dev)
+    got = sc_mod.select_cmp(Q, Kc, Vc, M, **kw, return_lse=True, seq_start=ds)
+    again = sc_mod.select_cmp(Q, Kc, Vc, M, **kw, return_lse=True, seq_start=ds)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    psel, pO, plse, p_grp = sc_mod.select_cmp_plain(Q, Kc, Vc, M, **kw, return_lse=True,
+                                                   return_scores=True, seq_start=ds)
+    sel, O, lse = got
+    first = (ds // l_sel).long()[:, :, None, None]
+    for s, ps in ((sel, psel), (sk_mod.select_blocks(Q, Kc, S_sel=S_sel, **kw, seq_start=ds),
+                               sk_mod.select_blocks_plain(Q, Kc, S_sel=S_sel, **kw,
+                                                          seq_start=ds))):
+        assert torch.equal(s[..., :3], ps[..., :3])
+        assert _sets_equal_but_near_ties(s, ps, p_grp)
+        assert bool(((s < 0) | (s >= first)).all())
+        assert not torch.equal(canonicalize_sel(s), canonicalize_sel(sc_mod.select_cmp(
+            Q, Kc, Vc, M, **kw)[0]))
+    empty = plse >= 1e29
+    assert torch.equal(lse >= 1e29, empty) and bool(empty[0, :5].all())
+    assert float(torch.where(empty, 0.0, (lse - plse).abs()).max()) <= 1e-4
+    if dtype == torch.float32:
+        assert _within_bound(O, pO)
+    else:
+        want, rss = ba_mod.banded_attn_rss(Q, Kc, Vc, mode="cmp", l=l, d=d, scale=scale,
+                                           seq_start=ds)
+        assert _within_tc(O, want, want, rss)
+        Ob, Lb = ba_mod.banded_attn(Q, Kc, Vc, mode="cmp", l=l, d=d, scale=scale,
+                                    return_lse=True, seq_start=ds)
+        assert torch.equal(O, Ob) and torch.equal(lse, Lb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["win", "cmp"])
+def test_varlen_banded_backward_designs_on_gpu(dtype, mode):
+    """banded_bwd_1p, banded_bwd and (win) win_bwd_diag with seq_start
+    against the plain version with it and against each other, two launches
+    bit-equal (a dQ slot numbered with another bound, or a strip left stale,
+    would fail); the dense bound fails the check."""
+    dev, c = _card(), VARLEN
+    ds = _doc_starts(dev)
+    S_kv = c["S"] if mode == "win" else num_cmp_blocks(c["S"], c["l"], c["d"])
+    Q, K, V, dO = _bwd_operands(dtype, dev, 2, c["S"], c["G"], c["h"], c["D"], S_kv, seed=7)
+    scale = c["D"] ** -0.5
+    kw = dict(mode=mode, **(dict(w=c["w"]) if mode == "win" else dict(l=c["l"], d=c["d"])))
+    O, lse = ba_mod.banded_attn(Q, K, V, **kw, scale=scale, return_lse=True, seq_start=ds)
+    args = (Q, K, V, dO, lse, attention_delta(dO, O))
+    within = _band_within(args, scale, **kw, seq_start=ds)
+    want = bb_mod.banded_bwd_plain(*args, **kw, scale=scale, seq_start=ds)
+    kernels_ = [lambda s: b1_mod.banded_bwd_1p(*args, **kw, scale=scale, seq_start=s),
+                lambda s: bb_mod.banded_bwd(*args, **kw, scale=scale, seq_start=s)]
+    if mode == "win":
+        kernels_.append(lambda s: wd_mod.win_bwd_diag(*args, w=c["w"], scale=scale,
+                                                      seq_start=s))
+    outs = []
+    for kern in kernels_:
+        got, again = kern(ds), kern(ds)
+        for i, (g, a, p) in enumerate(zip(got, again, want)):
+            assert within(g, p, i) and torch.equal(g, a)
+        assert not all(within(g, p, i) for i, (g, p) in enumerate(zip(kern(None), want)))
+        outs.append(got)
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert _within_rel(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fused", "select_blocks"])
+def test_varlen_layer_on_card_matches_cpu(monkeypatch, route):
+    """One f32 layer's forward + backward on packed documents: the kernels'
+    output and gradients equal the plain path's within 1e-4 of each
+    tensor's max, and the card issues it without a host sync."""
+    dev = _card()
+    if route == "select_blocks":
+        monkeypatch.setattr(sc_mod, "SELECT_CMP_MAX_S_SEL", 4)
+    cfg = NSAConfig(dim=96, n_heads=6, n_kv_groups=2, d_k=16, d_v=16, l=8, d=4, l_sel=16,
+                    n_sel=4, w=32)
+    params = init_nsa_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn(2, 300, 96, generator=torch.Generator().manual_seed(1))
+    ds = _doc_starts("cpu")
+
+    def layer(dv):
+        with torch.no_grad():
+            p = params_to(params, device=dv)
+        return p, [t.requires_grad_(True) for t in [x.to(dv)] + [t for _, t in param_leaves(p)]]
+
+    def grads(p, wrt, s):
+        out = nsa_prefill(p, wrt[0], cfg, seq_start=s)[0]
+        return [out.detach()] + list(torch.autograd.grad((out * out).sum(), wrt))
+
+    want = grads(*layer("cpu"), ds)
+    on_card = layer(dev)
+    kernels.reset_launch_counts()
+    got = grads(*on_card, ds.to(dev))
+    counts = kernels.launch_counts()
+    assert counts["win_attn"] == 1 and (counts["select_cmp"] if route == "fused"
+                                        else counts["select_blocks"]) == 1
+    for g, w_ in zip(got, want):
+        assert (g.cpu() - w_).abs().max() <= 1e-4 * float(w_.abs().max())
+    dsc = ds.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads(*on_card, dsc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

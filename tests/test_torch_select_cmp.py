@@ -203,6 +203,19 @@ def test_tile_plan_keeps_two_ctas_an_sm_at_head_width_64():
         assert 1 <= sc_mod.tile_plan(lib, h, 128, 128, 256) <= 128 // h
 
 
+def test_tile_plan_gives_packed_documents_the_one_cta_budget():
+    """With seq_start the kernel runs one CTA an SM (its DOCS instantiation),
+    so its tiles shrink only past SMEM_LIMIT: at h = 1, S_sel = 256 a CTA
+    keeps all 128 tokens where the dense kernel takes 46."""
+    lib = _Layout()
+    for (h, Dk, Dv, S_sel), (dense, docs) in {(1, 16, 16, 256): (46, 128),
+                                              (6, 64, 64, 32): (21, 21)}.items():
+        assert sc_mod.tile_plan(lib, h, Dk, Dv, S_sel) == dense
+        assert sc_mod.tile_plan(lib, h, Dk, Dv, S_sel, docs=True) == docs
+        need = lib.nsa_select_cmp_mma_smem_bytes(128, docs, h, Dk, Dv, S_sel)
+        assert sc_mod.TWO_CTA_SMEM < need <= sc_mod.SMEM_LIMIT or docs == dense
+
+
 @pytest.mark.parametrize("S,l,d,l_sel", [
     (100, 8, 4, 16), (90, 8, 4, 8), (200, 32, 16, 64), (1024, 8, 4, 4), (120, 16, 8, 16),
     (2048, 32, 16, 64), (16384, 32, 16, 64),   # the m7c serve / train prompt, the route's limit
