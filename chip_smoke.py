@@ -140,6 +140,32 @@ Phases (any failure exits non-zero):
       within STEP_GRAD_TOL of the defaults', where a cmp backward that
       drops seq_start must fail; the kernels' rows on packed documents.
 
+  (i) parallel training (parallel/; run last): (i-kernels) every kernel
+      the second sp rank runs, on its rows of the pod shape (8 x 2048 rows
+      at t_start = 2048 against 4096 keys): rows 1 (select_cmp at
+      pos_offset), 2 (sel_attn at the rows' positions), 3 (the window
+      forward at t_start: banded_attn in window mode), 7 (banded_bwd_1p,
+      win and cmp), 8 (banded_bwd, win and cmp), 9 (sel_attn_bwd_1p), 10
+      (sel_attn_bwd) and 11 (win_bwd_diag), against their plain versions
+      at that offset (f32 TF32 off
+      and bf16; the phases' bounds with the planted 1% fault; sets at near
+      ties; two launches bit-equal) and each launched at offset 0 must
+      fail; (i-sp) and (i-fsdp) each start two ranks of this script
+      (`--parallel-worker sp|fsdp`, torch.distributed.run) on the one card
+      over gloo, as NCCL refuses two ranks on one device (so their times
+      are two processes time-sharing one card, not NCCL scaling): the
+      m7c-125M step (bf16, remat, default keys) at configs/m7c_125m_pod.yaml's
+      seq_len, 8 x 4096 rows per dp member, sp = 2 (and one step under
+      each of DESIGNS' onepass and twopass keys) or dp = 2 with fsdp:
+      losses within LOSS_TOL of one process on the same global batch, the
+      f32 first gradient within STEP_GRAD_TOL per leaf of one process's
+      (with planted faults that must fail: a kernel's dV off by 0.01%, a
+      kernel launched at offset 0, fsdp gradients not summed over dp),
+      launch counts, no host sync outside the collectives, per-rank step
+      ms, busy and idle share, tokens/s and MFU, bytes moved per step
+      (sp), parameter + moment bytes per rank (fsdp) and a checkpoint
+      saved under fsdp restored on one process.
+
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
 """
@@ -219,12 +245,19 @@ from nsa_vibe_tpu_torch.ops.selection import (
     canonicalize_sel, select_topn_blocks, selection_token_mask,
 )
 from nsa_vibe_tpu_torch.ops.varlen import make_varlen_batches, pack_documents_aligned
+from nsa_vibe_tpu_torch.parallel import mesh as pmesh
+from nsa_vibe_tpu_torch.parallel.mesh import gather_dim, initialize_distributed, make_mesh
+from nsa_vibe_tpu_torch.parallel.train_step import (
+    build_state, build_state_and_step, full_leaves, grads_and_stats, local_batch,
+)
 from nsa_vibe_tpu_torch.train.data import make_batches
 from nsa_vibe_tpu_torch.train.train_step import (
     init_train_state, loss_and_grads, make_train_step, param_leaves, tree_from_leaves,
 )
 from nsa_vibe_tpu_torch.train.trainer import train
+from nsa_vibe_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from nsa_vibe_tpu_torch.utils.device import torch_dtype
+from nsa_vibe_tpu_torch.utils.flops import H100_BF16_PEAK_FLOPS, train_step_flops
 from nsa_vibe_tpu_torch.utils.needle import NEEDLE_CFG, needle_probe, needle_smoke
 
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
@@ -612,19 +645,20 @@ def sel_fwd_check(name, run, Q, K, V, sel, t, *, l_sel: int, scale: float, lse: 
 
 
 def banded_fwd_check(name, run, Q, K, V, *, mode: str, kw: dict, scale: float,
-                     lse: bool = False, rows=None) -> float:
+                     lse: bool = False, rows=None, t_start: int = 0) -> float:
     """fwd_check of the banded forward `run()` (win_attn or banded_attn on
-    Q, K, V over every row from position 0, in `mode` with kw: w, or l and
-    d): f32 (the FMA kernel) against banded_attn_plain; bf16 (the
-    tensor-core kernel, rounding P as flash.py:213 and flash_diag.py:119
-    do) against banded_attn_rss. In window mode the plain version of rows
-    [a, b) gets only the keys they can see, with positions shifted by as
-    much (the dense scores of every 64k row would take 12.9 GB)."""
+    Q, K, V over every row, row s at position t_start + s, in `mode` with
+    kw: w, or l and d): f32 (the FMA kernel) against banded_attn_plain;
+    bf16 (the tensor-core kernel, rounding P as flash.py:213 and
+    flash_diag.py:119 do) against banded_attn_rss. In window mode the plain
+    version of rows [a, b) gets only the keys they can see, with positions
+    shifted by as much (the dense scores of every 64k row would take 12.9
+    GB)."""
     def part(a, b):
-        if mode == "win" and a > 0:
-            k0 = max(a - kw["w"] + 1, 0)
-            return Q[:, a:b], K[:, :, k0:], V[:, :, k0:], a - k0
-        return Q[:, a:b], K, V, a
+        if mode == "win":
+            k0 = max(t_start + a - kw["w"] + 1, 0)
+            return Q[:, a:b], K[:, :, k0:], V[:, :, k0:], t_start + a - k0
+        return Q[:, a:b], K, V, t_start + a
 
     def plain(a, b, with_lse=False):
         q, k, v, tp = part(a, b)
@@ -861,23 +895,25 @@ def measure(rec, counts, decode_launches) -> list:
 
 def select_cmp_row(name, x, *, lse: bool, launches: int, max_err: float) -> dict:
     """The JSON row of the fused scorer on x's bf16 Q, Kc, Vc and M (with
-    lse where `lse`; under x["ds"], packed documents, where x has it):
+    lse where `lse`; under x["ds"], packed documents, or at pos_offset
+    x["t0"], where x has it):
     kernel time (stream held), the plain version's time, no library call
     (none computes a top-n block selection), and the bound from this run's
     inputs: Q, K_cmp, V_cmp, M (and seq_start), sel_idx, O (and lse) moved
     once, 2 (Dk + Dv + S_sel) FLOP per visible (row, compressed token)
     pair (the products S, P V and p M)."""
     cfg = x["cfg"]
-    Q, Kc, Vc, M, ds = x["Q"], x["Kc"], x["Vc"], x["M"], x.get("ds")
+    Q, Kc, Vc, M, ds, t0 = x["Q"], x["Kc"], x["Vc"], x["M"], x.get("ds"), x.get("t0", 0)
     Bq, S_q, G, h, Dk = Q.shape
     S_cmp, S_sel = M.shape
     kw = dict(scale=x["scale"], l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel,
-              return_lse=lse, seq_start=ds)
-    if ds is None:
+              return_lse=lse, seq_start=ds, pos_offset=t0)
+    if ds is None and not t0:
         pairs = band_pairs(S_q, S_cmp, "cmp", dict(l=cfg.l, d=cfg.d)) * Bq * G * h
     else:
-        pairs = float(banded_mask(S_q, S_cmp, mode="cmp", l=cfg.l, d=cfg.d, device=Q.device,
-                                  seq_start=ds).sum()) * G * h
+        pairs = float(banded_mask(S_q, S_cmp, mode="cmp", l=cfg.l, d=cfg.d, t_start=t0,
+                                  device=Q.device, seq_start=ds).sum()) * G * h \
+            * (1 if ds is not None else Bq)
     ops = pairs * 2 * (Dk + Vc.shape[3] + S_sel)
     bms, by = bound(nbytes(Q, Kc, Vc, M, *select_cmp(Q, Kc, Vc, M, **kw),
                            *(() if ds is None else (ds,))), ops, Q.dtype)
@@ -921,10 +957,10 @@ BAND_REPLACES = {"win": "nsa_vibe_tpu/ops/pallas/flash_diag.py:146",
 
 
 def band_row(name, kernel, Q, K, V, *, mode: str, kw: dict, lse: bool, launches: int,
-             max_err: float, iters: int, chunk=None, seq_start=None) -> dict:
+             max_err: float, iters: int, chunk=None, seq_start=None, t_start: int = 0) -> dict:
     """The JSON row of the banded forward `kernel()` (win_attn or
-    banded_attn on Q, K, V in `mode` with kw, from position 0, under
-    seq_start [B, S] if given; returning (O, lse) when `lse`): kernel time
+    banded_attn on Q, K, V in `mode` with kw, row s at position t_start +
+    s, under seq_start [B, S] if given; returning (O, lse) when `lse`): kernel time
     (stream held), the plain version's time over every row (`chunk` rows a
     call if given, each call with the keys its rows see), one SDPA call
     with the equivalent boolean mask (None where that call runs out of
@@ -935,19 +971,21 @@ def band_row(name, kernel, Q, K, V, *, mode: str, kw: dict, lse: bool, launches:
     sc = 1.0 / float(np.sqrt(Dk))
     out = kernel()
     io = nbytes(Q, K, V, *(out if lse else (out,)), *(() if seq_start is None else (seq_start,)))
-    if seq_start is None:
+    if seq_start is None and not t_start:
         pairs = band_pairs(S_q, S_kv, mode, kw) * Q.shape[0] * Q.shape[2] * h
     else:
-        pairs = float(banded_mask(S_q, S_kv, mode=mode, **kw, device=Q.device,
-                                  seq_start=seq_start).sum()) * Q.shape[2] * h
+        pairs = float(banded_mask(S_q, S_kv, mode=mode, **kw, t_start=t_start, device=Q.device,
+                                  seq_start=seq_start).sum()) * Q.shape[2] * h \
+            * (1 if seq_start is not None else Q.shape[0])
     bms, by = bound(io, pairs * 2 * (Dk + Dv), Q.dtype)
     del out
 
     def plain(a, b):
-        Kp, Vp, tp, ds = K, V, a, None if seq_start is None else seq_start[:, a:b]
+        t = t_start + a
+        Kp, Vp, tp, ds = K, V, t, None if seq_start is None else seq_start[:, a:b]
         if mode == "win":
-            k0 = max(a - kw["w"] + 1, 0)
-            Kp, Vp, tp = K[:, :, k0:b], V[:, :, k0:b], a - k0
+            k0 = max(t - kw["w"] + 1, 0)
+            Kp, Vp, tp = K[:, :, k0:t_start + b], V[:, :, k0:t_start + b], t - k0
             ds = None if ds is None else ds - k0
         return banded_attn_plain(Q[:, a:b], Kp, Vp, mode=mode, **kw, scale=sc, t_start=tp,
                                  return_lse=lse, seq_start=ds)
@@ -957,7 +995,8 @@ def band_row(name, kernel, Q, K, V, *, mode: str, kw: dict, lse: bool, launches:
                        3 if chunk is None else 1, 1, hold=True)
     lib_ms = None
     try:
-        mask = banded_mask(S_q, S_kv, mode=mode, **kw, device=Q.device, seq_start=seq_start)
+        mask = banded_mask(S_q, S_kv, mode=mode, **kw, t_start=t_start, device=Q.device,
+                           seq_start=seq_start)
         if mask.dim() == 3:   # [B, S, S_kv] -> [B, 1, S, S_kv], every head alike
             mask = mask[:, None]
         sq, sk, sv, _ = sdpa_operands(Q, K, V)
@@ -1859,8 +1898,8 @@ def measure_train(rec, runs, names, calls=None, suffix: str = "") -> list:
             io += nbytes(x["ds"])
         bms, by = bound(io, ops, x["Q"].dtype)
         if name == "win_bwd_diag":
-            tq, _, strip = wd_mod.tile_plan(kbuild.library(), x["Q"].dtype, B_TRAIN, S, S,
-                                            cfg.n_kv_groups, h, Dk, Dv, cfg.w)
+            tq, _, strip = wd_mod.tile_plan(kbuild.library(), x["Q"].dtype, *x["Q"].shape[:2],
+                                            K.shape[2], cfg.n_kv_groups, h, Dk, Dv, cfg.w)
             print(f"[time] win_bwd_diag q tile {wd_mod.MMA_TILE_ROWS} rows ({tq} tokens): "
                   f"strips {strip} bytes")
         sq, sk, sv, sm = sdpa_operands(x["Q"], K, V, mask)
@@ -2049,6 +2088,7 @@ def phase_train(dev, tag: str = "train", varlen: bool = False) -> dict:
     print(f"[{tag}] step ms {', '.join(f'{v:.2f}' for v in step_ms)}; mean {mean_ms:.3f} ms, "
           f"{tokens / (mean_ms / 1e3):.0f} tokens/s; losses (warm-up, timed) "
           f"{', '.join(f'{v:.4f}' for v in losses)}; grad_norm {float(m['grad_norm']):.4f}")
+    print(f"[{tag}] {mfu_text(tcfg.batch_size, tcfg.seq_len, mean_ms)}")
     if varlen:   # the timed batches' supervised tokens over their steps' time
         sup = sum(float(b[2].sum()) for b in batches[1:1 + TIMED_STEPS])
         print(f"[{tag}] supervised tokens {sup:.0f} of {tokens * TIMED_STEPS} over "
@@ -2071,6 +2111,17 @@ def phase_train(dev, tag: str = "train", varlen: bool = False) -> dict:
           f"({syncs or 'none'})")
     busy = trace(lambda: step(state, batches[-1]), 1, f"{tag} step", mean_ms)["busy"]
     return {"counts": counts, "step_ms": mean_ms, "losses": losses, "busy": busy}
+
+
+def mfu_text(rows: int, seq: int, step_ms: float) -> str:
+    """MFU of an m7c-125M train step of rows x seq tokens taking step_ms:
+    utils/flops.py's model FLOPs (no remat recompute) over the H100's bf16
+    dense peak."""
+    flops = train_step_flops(M7C_125M, rows, seq)["total"]
+    achieved = flops / (step_ms / 1e3)
+    return (f"MFU {100 * achieved / H100_BF16_PEAK_FLOPS:.4f}% ({achieved / 1e12:.4f} TFLOP/s "
+            f"of {flops:.6e} model FLOPs a step; bf16 peak {H100_BF16_PEAK_FLOPS / 1e12:g} "
+            f"TFLOP/s)")
 
 
 @contextlib.contextmanager
@@ -3063,6 +3114,691 @@ def phase_varlen(dev) -> list:
     return rows
 
 
+# ------------------------------------------------------------------ (i)
+# Data-, fully-sharded- and context-parallel training (parallel/). This
+# script needs one card, and NCCL refuses two ranks on one device, so the
+# two ranks of (i-sp) and (i-fsdp) share the card over gloo (which stages
+# CUDA tensors through host memory): their times are per-rank costs of
+# two processes time-sharing one card, and say nothing of NCCL scaling
+# across cards.
+
+S_POD, B_POD = 4096, 8    # configs/m7c_125m_pod.yaml's seq_len; rows per dp member
+OFF_T0 = S_POD // 2       # (i-kernels): the second sp rank's rows [2048, 4096)
+POD_STEPS = 3             # timed parallel steps (after a warm-up)
+PAR_RANKS = 2
+PAR_DIR = os.path.join("artifacts", "chip_smoke_parallel")   # git-ignored, inside the checkout
+PAR_TIMEOUT_S = 900
+OFF_BWD = ("banded_bwd_1p@win", "banded_bwd_1p@cmp", "banded_bwd@win", "banded_bwd@cmp",
+           "win_bwd_diag", "sel_attn_bwd_1p", "sel_attn_bwd")
+
+
+def offset_kernel_inputs(dtype, dev, gen) -> dict:
+    """Branch operands of the second sp rank at the pod shape: Q, dO of B_POD
+    x (S_POD - OFF_T0) rows at positions t = [OFF_T0, S_POD), K/V of all
+    S_POD keys (selection, window) or of their compressed tokens, M of
+    S_POD; the selection from select_cmp and the forward outputs with lse
+    from the kernels at the offset."""
+    cfg = M7C_125M.nsa
+    G, h, D = cfg.n_kv_groups, cfg.h_per_group, cfg.d_k
+    meta = build_block_meta(S_POD, cfg.l, cfg.d, cfg.l_sel, cfg.n_sel, cfg.w)
+    S_q = S_POD - OFF_T0
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    x = dict(cfg=cfg, scale=1.0 / float(np.sqrt(D)), t0=OFF_T0, Q=r(B_POD, S_q, G, h, D),
+             dO=r(B_POD, S_q, G, h, D), Kc=r(B_POD, G, meta.S_cmp, D),
+             Vc=r(B_POD, G, meta.S_cmp, D), Kw=r(B_POD, G, S_POD, D), Vw=r(B_POD, G, S_POD, D),
+             K=r(B_POD, G, S_POD, D), V=r(B_POD, G, S_POD, D),
+             t=torch.arange(OFF_T0, S_POD, device=dev), M=torch.from_numpy(meta.M_csl).to(dev))
+    x["sel"], x["Oc"], x["lse_c"] = select_cmp(x["Q"], x["Kc"], x["Vc"], x["M"], **cmp_kw(x),
+                                               return_lse=True, pos_offset=OFF_T0)
+    x["Os"], x["lse_s"] = sel_attn(x["Q"], x["K"], x["V"], x["sel"], x["t"], l_sel=cfg.l_sel,
+                                   scale=x["scale"], return_lse=True)
+    x["Ow"], x["lse_w"] = banded_attn(x["Q"], x["Kw"], x["Vw"], mode="win", w=cfg.w,
+                                      scale=x["scale"], return_lse=True, t_start=OFF_T0)
+    return x
+
+
+def offset_zero_fails(name, got0, want, bd) -> None:
+    """The second planted fault of phase (i): the kernel launched at offset
+    0 on the offset rows must fail their check."""
+    worst = worst_ratio(got0, want, bd)
+    print(f"[offset] {name}: the same kernel at offset 0: worst err/bound {worst:.3f} (must "
+          f"exceed 1)")
+    if not worst > 1.0:
+        fail(f"{name}: the kernel at offset 0 passes the offset rows' check")
+
+
+def offset_fwd_checks(x, dtype) -> dict:
+    """Row 1 (select_cmp at pos_offset) against its plain version at the
+    offset (fwd_check: two launches bit-equal, bf16 tensor-core bound with
+    a planted 1% fault, lse); sets equal but at near ties, forced slots in
+    order; in bf16 O and lse banded_attn's (cmp, t_start) bit for bit; the
+    kernel at offset 0 must fail. Then the forwards the second sp rank runs
+    beside it, as fwd_check holds them, each launched at offset 0 failing:
+    row 2 (sel_attn on rows at positions t against S_POD keys, S != S_kv)
+    and row 3 (the window forward at t_start, banded_attn in window mode,
+    as ops/attention.py launches it for t_start > 0)."""
+    cfg, sc, t0 = x["cfg"], x["scale"], x["t0"]
+    Q, Kc, Vc, M = x["Q"], x["Kc"], x["Vc"], x["M"]
+    kw = cmp_kw(x)
+    sel_k = select_cmp(Q, Kc, Vc, M, **kw, pos_offset=t0)[0]
+    sel_2 = select_cmp(Q, Kc, Vc, M, **kw, pos_offset=t0)[0]
+    sel_p, _, p_grp = select_cmp_plain(Q, Kc, Vc, M, **kw, return_scores=True, pos_offset=t0)
+    n_diff, n_far, spread = near_tie_rows(sel_k, sel_p, p_grp)
+    forced = torch.equal(sel_k[..., :3], sel_p[..., :3])
+    far0 = near_tie_rows(select_cmp(Q, Kc, Vc, M, **kw)[0], sel_p, p_grp)[1]
+    print(f"[offset] select_cmp {str(dtype)[6:]:8s} at pos_offset {t0}: sel rows differing on "
+          f"near ties: {n_diff} (widest spread {spread:.3e}); forced slots in order: {forced}; "
+          f"two launches identical: {torch.equal(sel_k, sel_2)}; at offset 0, rows differing "
+          f"beyond a near tie: {far0} (must be > 0)")
+    if n_far or not forced or not torch.equal(sel_k, sel_2) or not far0:
+        fail(f"select_cmp at pos_offset {dtype}: sets differ beyond the near-tie bound, or the "
+             f"forced slots or two launches differ, or offset 0 passes")
+    del sel_k, sel_2, sel_p, p_grp
+
+    def plain_c(a, b, with_lse=False):
+        out = select_cmp_plain(Q, Kc, Vc, M, **kw, return_lse=with_lse, pos_offset=t0)
+        return out[1:] if with_lse else out[1]
+
+    def rss_c(a=0, b=0):
+        return banded_attn_rss(Q, Kc, Vc, mode="cmp", l=cfg.l, d=cfg.d, scale=sc, t_start=t0)
+
+    errs = {"select_cmp@offset": fwd_check(
+        "select_cmp@offset", lambda: select_cmp(Q, Kc, Vc, M, **kw, return_lse=True,
+                                                pos_offset=t0)[1:],
+        dtype, Q.shape[1], plain_c, rss_c, tc=dtype == torch.bfloat16, lse=True, rows=None,
+        chunk=None)}
+    offset_zero_fails("select_cmp@offset", select_cmp(Q, Kc, Vc, M, **kw)[1],
+                      *fwd_bound(dtype, plain_c(0, 0), rss_c))
+    if dtype == torch.bfloat16:
+        O, L_ = select_cmp(Q, Kc, Vc, M, **kw, return_lse=True, pos_offset=t0)[1:]
+        Ob, Lb = banded_attn(Q, Kc, Vc, mode="cmp", l=cfg.l, d=cfg.d, scale=sc, return_lse=True,
+                             t_start=t0)
+        same = torch.equal(O, Ob) and torch.equal(L_, Lb)
+        print(f"[offset] select_cmp: O and lse bit-equal to banded_attn (cmp, t_start): {same}")
+        if not same:
+            fail("select_cmp at pos_offset: O or lse differ from banded_attn's in cmp mode")
+        del O, L_, Ob, Lb
+    sargs = (Q, x["K"], x["V"], x["sel"], x["t"])
+    skw = dict(l_sel=cfg.l_sel, scale=sc)
+    errs["sel_attn@offset"] = sel_fwd_check(
+        "sel_attn@offset", lambda: sel_attn(*sargs, **skw, return_lse=True), *sargs, **skw,
+        lse=True, chunk=S_POD // 4)
+    offset_zero_fails("sel_attn@offset", sel_attn(*sargs[:4], x["t"] - t0, **skw),
+                      *fwd_bound(dtype, sel_attn_plain(*sargs, **skw),
+                                 lambda: sel_attn_rss(*sargs, **skw)))
+    wargs, wkw = (Q, x["Kw"], x["Vw"]), dict(mode="win", w=cfg.w, scale=sc)
+    errs["banded_attn@win@offset"] = banded_fwd_check(
+        "banded_attn@win@offset", lambda: banded_attn(*wargs, **wkw, return_lse=True, t_start=t0),
+        *wargs, mode="win", kw=dict(w=cfg.w), scale=sc, lse=True, t_start=t0)
+    k0 = t0 - cfg.w + 1   # the window rows see no key before it
+    part = (Q, x["Kw"][:, :, k0:], x["Vw"][:, :, k0:])
+    offset_zero_fails("banded_attn@win@offset", banded_attn(*wargs, **wkw),
+                      *fwd_bound(dtype, banded_attn_plain(*part, **wkw, t_start=t0 - k0),
+                                 lambda: banded_attn_rss(*part, **wkw, t_start=t0 - k0)))
+    return errs
+
+
+def offset_bwd_calls(x) -> dict:
+    """name -> (kernel call at offset t, plain call at x's offset, visibility
+    mask [B,S,G,S_kv]) of the banded and selection backward kernels on x's
+    offset rows."""
+    cfg, sc, t0 = x["cfg"], x["scale"], x["t0"]
+    Q, dO = x["Q"], x["dO"]
+    Bq, S_q, G = Q.shape[:3]
+    win = dict(mode="win", w=cfg.w, scale=sc)
+    cmp_ = dict(mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
+    wargs = (Q, x["Kw"], x["Vw"], dO, x["lse_w"], attention_delta(dO, x["Ow"]))
+    cargs = (Q, x["Kc"], x["Vc"], dO, x["lse_c"], attention_delta(dO, x["Oc"]))
+    sel = dict(l_sel=cfg.l_sel, scale=sc)
+
+    def sargs(t):   # the selection's operands, query row s at position t + s
+        return (Q, x["K"], x["V"], x["sel"], x["t"] - t0 + t, dO, x["lse_s"],
+                attention_delta(dO, x["Os"]))
+
+    def mask(args, kw):
+        m = banded_mask(S_q, args[1].shape[2], **{k: v for k, v in kw.items() if k != "scale"},
+                        t_start=t0, device=Q.device)
+        return m[None, :, None, :].expand(Bq, -1, G, -1)
+
+    table = {"banded_bwd_1p@win": (banded_bwd_1p, wargs, win),
+             "banded_bwd_1p@cmp": (banded_bwd_1p, cargs, cmp_),
+             "banded_bwd@win": (banded_bwd, wargs, win),
+             "banded_bwd@cmp": (banded_bwd, cargs, cmp_),
+             "win_bwd_diag": (None, wargs, win)}
+    out = {name: (lambda t=t0, fn=fn: fn(*sargs(t), **sel),
+                  lambda: sel_attn_bwd_plain(*sargs(t0), **sel),
+                  lambda: selection_token_mask(x["sel"], x["t"], cfg.l_sel, S_POD))
+           for name, fn in (("sel_attn_bwd_1p", sel_attn_bwd_1p), ("sel_attn_bwd", sel_attn_bwd))}
+    for name, (fn, args, kw) in table.items():
+        if fn is None:
+            def kern(t=t0, args=args):
+                return win_bwd_diag(*args, w=cfg.w, scale=sc, t_start=t)
+        else:
+            def kern(t=t0, fn=fn, args=args, kw=kw):
+                return fn(*args, **kw, t_start=t)
+        out[name] = (kern, lambda args=args, kw=kw: banded_bwd_plain(*args, **kw, t_start=t0),
+                     lambda args=args, kw=kw: mask(args, kw))
+    return out
+
+
+def bwd_rounded(Q, K, V, dO, lse, delta, mask, scale: float) -> tuple:
+    """(dQ, dK, dV) of the dense formula (ops/reference.py::
+    attend_masked_bwd) in f32 with P and dS rounded to bf16 before their
+    products, as the tensor-core kernels round them and the TPU kernels do
+    (flash_bwd.py:345, :350; sel_flash.py): the design's own arithmetic,
+    short of the f32 sum order. mask: [1 or B, S, G, h or 1, S_kv]. One
+    batch row at a time (a row's dense scores at the pod shape: 400 MB)."""
+    outs = []
+    for b in range(Q.shape[0]):
+        q, k, v, do = (t[b:b + 1].float() for t in (Q, K, V, dO))
+        m = mask[b:b + 1] if mask.shape[0] > 1 else mask
+        s = torch.einsum("bsghd,bgkd->bsghk", q, k) * scale
+        p = torch.where(m, torch.exp(s - lse[b:b + 1, ..., None]), torch.zeros((), device=s.device))
+        ds = p * (torch.einsum("bsghv,bgkv->bsghk", do, v) - delta[b:b + 1, ..., None])
+        p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+        outs.append((torch.einsum("bsghk,bgkd->bsghd", ds, k) * scale,
+                     torch.einsum("bsghk,bsghd->bgkd", ds, q) * scale,
+                     torch.einsum("bsghk,bsghv->bgkv", p, do)))
+        del s, p, ds
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def offset_tc_refs(x, branch: str) -> tuple:
+    """(center, bounds) of the bf16 backward checks of `branch` at the
+    offset. The bounds are allowed_tc_err of the plain version's unrounded
+    f32 gradients and their rss (sel_attn_bwd_rss, banded_bwd_rss at
+    t_start), as in phases (d) and (f); the center is bwd_rounded, the
+    same formula with P and dS rounded to bf16 as the kernels round them.
+    At this shape every key past the window's edge sums a full band (512
+    rows x h heads), so few elements have the ulp term's slack, and the
+    design's exact arithmetic lands beyond the rss term's 4.7 standard
+    deviations on some of its ~2.6M dV elements (PERF.md §6, PR 13): the
+    kernels are held to what their arithmetic gives, with the same width.
+    The design's own distance to the unrounded gradients is printed."""
+    cfg, sc, t0, dO = x["cfg"], x["scale"], x["t0"], x["dO"]
+    if branch == "sel":
+        args = (x["Q"], x["K"], x["V"], dO, x["lse_s"], attention_delta(dO, x["Os"]))
+        want, rss = sel_attn_bwd_rss(*args[:3], x["sel"], x["t"], *args[3:], l_sel=cfg.l_sel,
+                                     scale=sc)
+        mask = selection_token_mask(x["sel"], x["t"], cfg.l_sel, S_POD)[:, :, :, None, :]
+    else:
+        K, V, lse, O = (x[k] for k in (("Kw", "Vw", "lse_w", "Ow") if branch == "win"
+                                        else ("Kc", "Vc", "lse_c", "Oc")))
+        kw = dict(mode="win", w=cfg.w) if branch == "win" else dict(mode="cmp", l=cfg.l, d=cfg.d)
+        args = (x["Q"], K, V, dO, lse, attention_delta(dO, O))
+        want, rss = banded_bwd_rss(*args, **kw, scale=sc, t_start=t0)
+        mask = banded_mask(x["Q"].shape[1], K.shape[2], **kw, t_start=t0,
+                           device=dO.device)[None, :, None, None, :]
+    bounds = tuple(allowed_tc_err(w, r) for w, r in zip(want, rss))
+    center = bwd_rounded(*args, mask, sc)
+    own = [worst_ratio(c, w, bd) for c, w, bd in zip(center, want, bounds)]
+    print(f"[offset] {branch} backward, bf16 arithmetic (P and dS rounded) vs the unrounded "
+          f"plain gradients: worst err/bound dQ, dK, dV {', '.join(f'{v:.3f}' for v in own)}")
+    return center, bounds, want
+
+
+def offset_bwd_checks(x, dtype) -> dict:
+    """Rows 7 (win, cmp), 8 (win, cmp) and 11 at t_start, rows 9 and 10 on
+    rows at positions t against S_POD keys, against the plain version at
+    the offset (f32 allowed_rel_err; bf16 allowed_tc_err around
+    offset_tc_refs' center, where a planted 1% fault must fail), two
+    launches bit-equal, the SAME_P_DS pairs within allowed_rel_err of each
+    other and rows 9 and 10 within their bound of each other; each kernel
+    launched at offset 0 must fail."""
+    t0 = x["t0"]
+    calls = offset_bwd_calls(x)
+    refs, errs, got_all = {}, {}, {}
+    for name in OFF_BWD:
+        kern, plain, _ = calls[name]
+        branch = branch_of(name)
+        if branch not in refs:
+            refs[branch] = (offset_tc_refs(x, branch) if dtype == torch.bfloat16
+                            else (plain(), (allowed_rel_err,) * 3, None))
+        want, bounds, unrounded = refs[branch]
+        got, again = kern(), kern()
+        errs[name] = max(check(f"{name}@offset:{n}", g, w, bound=bd)
+                         for n, g, w, bd in zip(("dQ", "dK", "dV"), got, want, bounds))
+        if unrounded is not None:   # the JSON row's error, as the other rows': vs unrounded
+            errs[name] = max(float((g.float() - w).abs().max()) for g, w in zip(got, unrounded))
+            print(f"[offset] {name}: vs the unrounded plain gradients, max_abs_err "
+                  f"{errs[name]:.3e}, worst err/bound "
+                  + ", ".join(f"{worst_ratio(g, w, bd):.3f}"
+                              for g, w, bd in zip(got, unrounded, bounds)))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{name} at t_start {dtype}: two launches differ")
+        if dtype == torch.bfloat16:
+            faults = [worst_ratio(g * FAULT, w, bd) for g, w, bd in zip(got, want, bounds)]
+            if not min(faults) > 1.0:
+                fail(f"{name} at t_start: a planted {FAULT - 1:.0%} fault passes the bound")
+        at0 = max(worst_ratio(g, w, bd) for g, w, bd in zip(kern(0), want, bounds))
+        print(f"[offset] {name} {str(dtype)[6:]} at offset {t0}: two launches identical; at "
+              f"offset 0: worst err/bound {at0:.3f} (must exceed 1)")
+        if not at0 > 1.0:
+            fail(f"{name}: the kernel at offset 0 passes the offset rows' check")
+        got_all[name] = got
+        del again
+    for a, b in (("win_bwd_diag", "banded_bwd_1p@win"), ("banded_bwd@win", "banded_bwd_1p@win"),
+                 ("banded_bwd@cmp", "banded_bwd_1p@cmp"), ("sel_attn_bwd", "sel_attn_bwd_1p")):
+        bounds = (allowed_rel_err,) * 3 if branch_of(a) != "sel" else refs["sel"][1]
+        for n, g, w, bd in zip(("dQ", "dK", "dV"), got_all[a], got_all[b], bounds):
+            check(f"{a}@offset:{n} vs {b}", g, w, bound=bd)
+    return errs
+
+
+def phase_offset_kernels(dev) -> dict:
+    """(i-kernels): rows 1, 2, 3, 7, 8, 9, 10 and 11 at the query offset of
+    the second sp rank of the pod shape, f32 (TF32 off) then bf16. Returns
+    the bf16 inputs and max errors."""
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = offset_kernel_inputs(dtype, dev, gen)
+        rec.update(offset_fwd_checks(x, dtype))
+        rec.update(offset_bwd_checks(x, dtype))
+        print(f"[offset] rows 1, 2, 3, 7, 8, 9, 10, 11 at offset {OFF_T0} ({B_POD} x "
+              f"{S_POD - OFF_T0} rows "
+              f"against {S_POD} keys) {str(dtype)[6:]}: within their bounds, two launches "
+              f"identical, offset 0 fails each")
+        if dtype == torch.bfloat16:
+            rec["inputs"] = x
+        del x
+        torch.cuda.empty_cache()
+    return rec
+
+
+def pod_batches(n: int, rows: int, dev) -> list:
+    """n global batches [1, rows, S_POD + 1] of synthetic tokens (seed 1337)."""
+    data = make_batches("synthetic", S_POD, rows, seed=M7C_125M_TRAIN.seed)
+    return [torch.from_numpy(next(data)).long().to(dev)[None] for _ in range(n)]
+
+
+def pod_tcfg(dp: int, sp: int, fsdp: bool, rows: int):
+    return dataclasses.replace(M7C_125M_TRAIN, batch_size=rows, seq_len=S_POD, dp=dp, sp=sp,
+                               fsdp=fsdp)
+
+
+def split_qkv(names, grads) -> list:
+    """[(leaf name, gradient)] with each W_qkv split into its seven
+    projections (a fault in one branch's dK or dV meets its own block)."""
+    c = M7C_125M.nsa
+    widths = [c.n_heads * c.d_k] + [c.n_kv_groups * dim for dim in (c.d_k, c.d_v)] * 3
+    out = []
+    for name, g in zip(names, grads):
+        if name.endswith("/W_qkv"):
+            out += [(name[:-len("W_qkv")] + k, p)
+                    for k, p in zip(PROJ_KEYS, g.split(widths, dim=1))]
+        else:
+            out.append((name, g))
+    return out
+
+
+def pod_reference(dev, rows: int) -> dict:
+    """One process (sp = dp = 1) on the global batches of `rows` rows: the
+    bf16 step's losses (warm-up + POD_STEPS + the step after them) and mean
+    step ms, and the f32 first gradient (W_qkv split), saved for the ranks
+    to compare with."""
+    mcfg, tcfg = M7C_125M, pod_tcfg(1, 1, False, rows)
+    batches = pod_batches(POD_STEPS + 2, rows, dev)
+    state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(0),
+                                               device=dev), tcfg)
+    step = make_train_step(mcfg, tcfg)
+    losses, step_ms = [], []
+    for i, b in enumerate(batches):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, b)
+        e1.record()
+        losses.append(m["loss"])
+        if 1 <= i <= POD_STEPS:
+            step_ms.append((e0, e1))
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in step_ms]
+    losses = [float(v) for v in losses]
+    del state, step
+    torch.cuda.empty_cache()
+    m32 = dataclasses.replace(M7C_125M, dtype="float32")
+    params = init_model_params(m32, torch.Generator().manual_seed(0), device=dev)
+    leaves = param_leaves(params)
+    for _, t in leaves:
+        t.requires_grad_(True)
+    grads = loss_and_grads(params, batches[0][0], m32)[1]
+    ref = [(n, g.cpu()) for n, g in split_qkv([k for k, _ in leaves], grads)]
+    path = os.path.join(PAR_DIR, f"ref_grads_{rows}.pt")
+    torch.save(ref, path)
+    del params, leaves, grads, ref
+    torch.cuda.empty_cache()
+    tokens = rows * S_POD
+    mean = float(np.mean(step_ms))
+    print(f"[pod] one process, m7c-125M bf16 {rows} x {S_POD}: step ms "
+          f"{', '.join(f'{v:.2f}' for v in step_ms)}; mean {mean:.3f} ms, "
+          f"{tokens / (mean / 1e3):.0f} tokens/s, {mfu_text(rows, S_POD, mean)}; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}")
+    return {"losses": losses, "step_ms": mean, "grads": path}
+
+
+def run_ranks(mode: str) -> list:
+    """Launches PAR_RANKS processes of `chip_smoke.py --parallel-worker mode`
+    on the one card (torch.distributed.run, gloo) and returns each rank's
+    results; a rank's failure fails the phase. The process group is killed
+    if it outlives PAR_TIMEOUT_S."""
+    outs = [os.path.join(PAR_DIR, f"{mode}_rank{r}.json") for r in range(PAR_RANKS)]
+    for out in outs:
+        if os.path.exists(out):
+            os.remove(out)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={PAR_RANKS}", os.path.abspath(__file__), "--parallel-worker", mode]
+    print(f"[{mode}] launching {PAR_RANKS} ranks on the one card over gloo: {' '.join(cmd[1:])}",
+          flush=True)
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=PAR_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    print(f"[{mode}] ranks exited with {rc} after {time.perf_counter() - t:.1f} s")
+    if rc != 0 or not all(os.path.exists(out) for out in outs):
+        fail(f"the {mode} ranks failed (exit {rc})")
+    res = []
+    for out in outs:
+        with open(out) as f:
+            res.append(json.load(f))
+    return res
+
+
+def pod_launches(mesh, keys=None) -> dict:
+    """The launch counts one parallel m7c step of this rank must show under
+    the design keys `keys` (None: in force): remat runs each layer's three
+    forward kernels twice (the window at a nonzero offset as banded_attn),
+    the backward one kernel per branch and layer."""
+    L = M7C_125M.n_layers
+    want = dict.fromkeys(train_counts(), 0)
+    win = "banded_attn" if mesh.sp_rank > 0 else "win_attn"
+    for k in ("select_cmp", "sel_attn", win):
+        want[k] = 2 * L
+    with design_keys(keys):
+        for branch in ("win", "cmp", "sel"):
+            k = tuning.backward_kernel(branch, S_POD // mesh.sp, M7C_125M.nsa.w)
+            want[k] += L
+            if branch == "cmp":
+                want[f"{k}@cmp"] += L
+    return want
+
+
+@contextlib.contextmanager
+def dropped_offset(kernel: str):
+    """Runs the body with ops/attention.py's `kernel` wrapper replaced by
+    one that launches at offset 0 (the offset lost on the way to the
+    kernel): a fault the sp gradient check must catch."""
+    real = getattr(attention, kernel)
+    setattr(attention, kernel, lambda *args, t_start=0, **kw: real(*args, **kw))
+    try:
+        yield
+    finally:
+        setattr(attention, kernel, real)
+
+
+@contextlib.contextmanager
+def unsummed_fsdp_grads():
+    """Runs the body with the fsdp gather's backward returning this rank's
+    own slice of its gradient, not the sum over dp: a fault the fsdp
+    gradient check must catch."""
+    real = pmesh.reduce_scatter_dim
+    pmesh.reduce_scatter_dim = lambda x, dim, group, n: x.chunk(n, dim)[
+        torch.distributed.get_rank(group)].contiguous()
+    try:
+        yield
+    finally:
+        pmesh.reduce_scatter_dim = real
+
+
+def parallel_worker(mode: str) -> None:
+    """One rank of (i-sp) (mode "sp": dp 1, sp 2) or (i-fsdp) (mode "fsdp":
+    dp 2, fsdp): the m7c-125M pod-shape step (bf16, remat, default keys),
+    timed, traced, launches and host syncs counted; in sp also one step
+    under each of DESIGNS' onepass and twopass keys; the f32 first gradient
+    against one process's (pod_reference), with its planted faults; in fsdp
+    the per-rank parameter and moment bytes and a checkpoint saved under
+    fsdp. Each rank writes PAR_DIR/<mode>_rank<r>.json (the gradient check
+    on rank 0)."""
+    initialize_distributed("gloo")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(dp=1, sp=PAR_RANKS) if mode == "sp" else make_mesh(dp=PAR_RANKS, sp=1)
+    lead = mesh.rank == 0
+    rows = B_POD * mesh.dp
+    mcfg, tcfg = M7C_125M, pod_tcfg(mesh.dp, mesh.sp, mode == "fsdp", rows)
+    tag = f"{mode} rank {mesh.rank}"
+    step, state = build_state_and_step(
+        init_model_params(mcfg, torch.Generator().manual_seed(0), device=dev), mcfg, tcfg, mesh)
+    batches = [local_batch(b[0], mesh)[None] for b in pod_batches(POD_STEPS + 2, rows, dev)]
+    state, m = step(state, batches[0])                                # warm-up
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(POD_STEPS + 1)]
+    ev[0].record()
+    for i in range(POD_STEPS):
+        state, m = step(state, batches[1 + i])
+        ev[i + 1].record()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    counts = train_counts()
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(POD_STEPS)]
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * POD_STEPS for k, v in pod_launches(mesh).items()}
+    print(f"[{tag}] launches over {POD_STEPS} steps: {counts}; expected {want}", flush=True)
+    if counts != want:
+        fail(f"{tag}: launch counts {counts} != {want}")
+    runs = [counts]
+    if mode == "sp":   # the other designs' kernels at the offset, one step each
+        for label in ("onepass", "twopass"):
+            with design_keys(DESIGNS[label]):
+                kernels.reset_launch_counts()
+                step(state, batches[1])
+                torch.cuda.synchronize()
+                c = train_counts()
+            if c != pod_launches(mesh, DESIGNS[label]):
+                fail(f"{tag}: {label} launch counts {c} != {pod_launches(mesh, DESIGNS[label])}")
+            runs.append(c)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(state, batches[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # gloo's worker threads report their host copies through torch's own
+    # frames (torch/cuda/__init__.py); the port's code must make none but
+    # its collectives (parallel/mesh.py)
+    root = os.path.dirname(os.path.abspath(__file__))
+    syncs, ours = {}, {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
+            syncs[where] = syncs.get(where, 0) + 1
+            if os.path.abspath(w.filename).startswith(root) and \
+                    not w.filename.endswith(os.path.join("parallel", "mesh.py")):
+                ours[where] = syncs[where]
+    print(f"[{tag}] host-device synchronisations in one step: {sum(syncs.values())} "
+          f"({syncs or 'none'}); in the port's code outside its collectives "
+          f"(parallel/mesh.py): {sum(ours.values())}", flush=True)
+    if ours:
+        fail(f"{tag}: the step makes the host wait outside the collectives: {ours}")
+    mean_ms = float(np.mean(step_ms))
+    busy = trace(lambda: step(state, batches[1]), 1, f"{tag} step", mean_ms)["busy"]
+    res = {"losses": [float(v) for v in losses], "step_ms": step_ms, "mean_ms": mean_ms,
+           "busy": busy, "peak": peak, "runs": runs, "syncs": syncs,
+           "n_params": sum(t.numel() for _, t in param_leaves(state.template))}
+    if mode == "fsdp":
+        local = [t for _, t in param_leaves(state.params)]
+        res["state_bytes"] = nbytes(*local, *state.opt_state["mu"], *state.opt_state["nu"])
+        res["dp_state_bytes"] = 3 * nbytes(*(t for _, t in param_leaves(state.template)))
+        ckpt = os.path.join(PAR_DIR, "ckpt")
+        save_checkpoint(ckpt, int(state.step), state, mesh=mesh)
+        full, mu, nu = full_leaves(state, mesh)
+        res["ckpt"] = {"dir": ckpt, "step": int(state.step),
+                       "sums": [float(t.contiguous().double().sum()) for t in full + mu + nu]}
+        state, m = step(state, batches[-1])
+        res["ckpt"]["next_loss"] = float(m["loss"])
+        del full, mu, nu
+    del state, step
+    torch.cuda.empty_cache()
+    # the f32 first gradient, as the rank holds it after the step's sums;
+    # sharded leaves gathered over dp to compare whole
+    m32 = dataclasses.replace(M7C_125M, dtype="float32")
+    st32 = build_state(init_model_params(m32, torch.Generator().manual_seed(0), device=dev),
+                       dataclasses.replace(tcfg, gate_stats=False), mesh)
+    names = [k for k, _ in param_leaves(st32.template)]
+    ref = torch.load(os.path.join(PAR_DIR, f"ref_grads_{rows}.pt")) if lead else None
+    faults = {"sp": {"win_bwd_diag dV x 0.9999": lambda: planted_fault("win_bwd_diag", 2, 0.9999),
+                     "win_bwd_diag at offset 0": lambda: dropped_offset("win_bwd_diag"),
+                     "banded_bwd_1p (cmp) at offset 0": lambda: dropped_offset("banded_bwd_1p")},
+              "fsdp": {"win_bwd_diag dV x 0.9999": lambda: planted_fault("win_bwd_diag", 2, 0.9999),
+                       "fsdp gradients not summed over dp": unsummed_fsdp_grads}}[mode]
+    res["grad_err"] = {}
+    for label, plant in [("base", contextlib.nullcontext)] + list(faults.items()):
+        with plant():
+            grads = grads_and_stats(st32, m32, dataclasses.replace(tcfg, gate_stats=False),
+                                    mesh, batches[0])[1]
+        full = [g if a is None else gather_dim(g, a, mesh.dp_group, mesh.dp)
+                for g, a in zip(grads, st32.axes)]
+        if lead:
+            errs = [float((g.float() - r.to(dev).float()).norm() / r.float().norm())
+                    for (_, g), (_, r) in zip(split_qkv(names, full), ref)]
+            i = int(np.argmax(errs))
+            res["grad_err"][label] = [errs[i], ref[i][0]]
+        del grads, full
+    with open(os.path.join(PAR_DIR, f"{mode}_rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def gathered_bytes(sp: int, rows: int, n_params: int) -> dict:
+    """Bytes one rank of an sp step receives by all-gather (the six K/V
+    streams of each layer, in the forward and again in the remat
+    recompute), sends by reduce-scatter (their gradients, once) and
+    all-reduces (every gradient, bf16), reckoned from the shapes."""
+    c, L = M7C_125M.nsa, M7C_125M.n_layers
+    stream = rows * c.n_kv_groups * S_POD * (3 * c.d_k + 3 * c.d_v) * 2   # bf16, all six
+    share = (sp - 1) / sp
+    return {"all_gather": int(L * 2 * stream * share), "reduce_scatter": int(L * stream * share),
+            "all_reduce": 2 * n_params}
+
+
+def phase_parallel(dev) -> list:
+    """Phase (i): (i-kernels) in this process, then (i-sp) and (i-fsdp), two
+    ranks each on the one card, held against one process on the same
+    global batch. Returns the JSON rows of rows 1, 2, 3, 7, 8, 9, 10 and
+    11 at the offset (launches: the steps of the sp rank at the offset)."""
+    os.makedirs(PAR_DIR, exist_ok=True)
+    krec = phase_offset_kernels(dev)
+    x = krec.pop("inputs")
+    results = {}
+    for mode, rows in (("sp", B_POD), ("fsdp", PAR_RANKS * B_POD)):
+        ref = pod_reference(dev, rows)
+        torch.cuda.empty_cache()
+        results[mode] = ranks = run_ranks(mode)
+        res = ranks[0]
+        gap = max(abs(a - b) for a, b in zip(res["losses"], ref["losses"]))
+        mean = res["mean_ms"]
+        tokens = rows * S_POD
+        print(f"[{mode}] m7c-125M bf16 {rows} x {S_POD} over {PAR_RANKS} ranks "
+              + ("(sp 2: 4096 positions split in two" if mode == "sp"
+                 else "(dp 2, fsdp: 8 rows each") +
+              f"): per-rank step ms {', '.join(f'{v:.2f}' for v in res['step_ms'])}; mean "
+              f"{mean:.3f} ms (one process on the same batch: {ref['step_ms']:.3f} ms); "
+              f"{tokens / (mean / 1e3):.0f} tokens/s, {mfu_text(rows, S_POD, mean)}; rank 0 busy "
+              f"{res['busy']:.3f} ms, idle share {1 - res['busy'] / mean:.3f}; peak "
+              f"{res['peak'] / 2**30:.2f} GiB a rank")
+        print(f"[{mode}] losses {', '.join(f'{v:.4f}' for v in res['losses'])}; one process "
+              f"{', '.join(f'{v:.4f}' for v in ref['losses'][:len(res['losses'])])}; max gap "
+              f"{gap:.3e} (bound LOSS_TOL {LOSS_TOL:g})")
+        if not gap <= LOSS_TOL:
+            fail(f"{mode}: losses differ from one process's by {gap:.3e}")
+        errs = res["grad_err"]
+        print(f"[{mode}] f32 first gradient vs one process, worst leaf ||g - g_1|| / ||g_1||: "
+              + "; ".join(f"{k} {v[0]:.3e} ({v[1]})" for k, v in errs.items())
+              + f" (bound {STEP_GRAD_TOL:g}; each planted fault must exceed it)")
+        if not errs["base"][0] <= STEP_GRAD_TOL:
+            fail(f"{mode}: the f32 first gradient differs from one process's by {errs['base'][0]}")
+        missed = [k for k, v in errs.items() if k != "base" and not v[0] > STEP_GRAD_TOL]
+        if missed:
+            fail(f"{mode}: planted faults pass the gradient check: {missed}")
+        if mode == "sp":
+            b = gathered_bytes(PAR_RANKS, rows, res["n_params"])
+            print(f"[sp] bytes a rank moves per step, from the shapes: all-gathered "
+                  f"{b['all_gather']} (K/V, forward and remat), reduce-scattered "
+                  f"{b['reduce_scatter']} (their gradients), all-reduced {b['all_reduce']} "
+                  f"(gradients, bf16)")
+        else:
+            print(f"[fsdp] parameter + moment bytes a rank: {res['state_bytes']} under fsdp, "
+                  f"{res['dp_state_bytes']} under dp "
+                  f"({res['state_bytes'] / res['dp_state_bytes']:.4f})")
+            ckpt_check(dev, res["ckpt"], rows)
+        os.remove(ref["grads"])
+    rows_out = offset_rows(x, krec, results["sp"][1]["runs"])
+    del x
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def ckpt_check(dev, ck, rows) -> None:
+    """The fsdp checkpoint restored on one process: every leaf and moment
+    as the ranks held them (float64 sums of the contiguous tensors equal),
+    and the next step's loss within LOSS_TOL of the ranks'."""
+    mcfg, tcfg = M7C_125M, pod_tcfg(1, 1, False, rows)
+    state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(1),
+                                               device=dev), tcfg)
+    restore_checkpoint(ck["dir"], state)
+    leaves = [t for _, t in param_leaves(state.params)]
+    sums = [float(t.contiguous().double().sum()) for t in leaves + state.opt_state["mu"]
+            + state.opt_state["nu"]]
+    same = sums == ck["sums"] and int(state.step) == ck["step"]
+    step = make_train_step(mcfg, tcfg)
+    _, m = step(state, pod_batches(POD_STEPS + 2, rows, dev)[-1])
+    gap = abs(float(m["loss"]) - ck["next_loss"])
+    print(f"[fsdp] checkpoint of step {ck['step']} saved under fsdp, restored on one process: "
+          f"leaves and moments as the ranks held them: {same}; next step's loss "
+          f"{float(m['loss']):.4f} vs the ranks' {ck['next_loss']:.4f} (gap {gap:.3e}, bound "
+          f"LOSS_TOL)")
+    if not same or not gap <= LOSS_TOL:
+        fail("fsdp checkpoint: restored state or next loss differs from the ranks'")
+    del state, step
+    torch.cuda.empty_cache()
+
+
+def offset_rows(x, errs, runs) -> list:
+    """The JSON rows of rows 1, 2, 3, 7, 8, 9, 10 and 11 at the offset
+    (bf16; launches from the second sp rank's steps under each design:
+    `runs`)."""
+    cfg, t0 = x["cfg"], x["t0"]
+    wargs = (x["Q"], x["Kw"], x["Vw"])
+    out = [select_cmp_row("select_cmp@offset", x, lse=True, launches=runs[0]["select_cmp"],
+                          max_err=errs["select_cmp@offset"]),
+           sel_attn_row("sel_attn@offset", x["Q"], x["K"], x["V"], x["sel"], x["t"],
+                        launches=runs[0]["sel_attn"], max_err=errs["sel_attn@offset"]),
+           band_row("banded_attn@win@offset",
+                    lambda: banded_attn(*wargs, mode="win", w=cfg.w, scale=x["scale"],
+                                        t_start=t0),
+                    *wargs, mode="win", kw=dict(w=cfg.w), lse=False,
+                    launches=runs[0]["banded_attn"], max_err=errs["banded_attn@win@offset"],
+                    iters=20, t_start=t0)]
+    print_rows(out)
+    out += measure_train({**errs, "inputs": x}, runs, OFF_BWD, calls=offset_bwd_calls(x),
+                         suffix="@offset")
+    return out
+
+
 def _leaves(tree, key=None):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -3130,6 +3866,8 @@ def main() -> int:
     del trec, frec
     torch.cuda.empty_cache()
     rows += phase_varlen(dev)
+    torch.cuda.empty_cache()
+    rows += phase_parallel(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -3143,4 +3881,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:   # a rank of phase (i), under torch.distributed.run
+        parallel_worker(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

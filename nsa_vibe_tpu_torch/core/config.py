@@ -76,7 +76,7 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Trainer configuration, single device (JAX TrainConfig's defaults)."""
+    """Trainer configuration (JAX TrainConfig's defaults)."""
 
     lr: float = 3e-4
     warmup_steps: int = 50
@@ -96,6 +96,16 @@ class TrainConfig:
     # packed-document batching (ops/varlen.py): batches carry (tokens,
     # seq_start, loss_mask); no attention crosses a document boundary
     varlen: bool = False
+    # parallelism (parallel/): batch rows over dp ranks (0 = world // sp),
+    # query positions over sp ranks, fsdp shards parameters and moments over
+    # dp (leaves with an axis of at least fsdp_min_size); tp and pp > 1 are
+    # not ported (they raise)
+    dp: int = 0
+    tp: int = 1
+    sp: int = 1
+    pp: int = 1
+    fsdp: bool = False
+    fsdp_min_size: int = 512
 
 
 # configs/m7c_125m.yaml as code (the card machine has no PyYAML):

@@ -32,7 +32,7 @@ per-branch entries are (views, no second copy).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -141,19 +141,29 @@ def combine_branches(params: dict, cfg: NSAConfig, Q: torch.Tensor, O_cmp: torch
     return O.reshape(B, S, cfg.n_heads * cfg.d_v) @ params["W_O"], gates
 
 
-def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig,
-                seq_start=None) -> Tuple[torch.Tensor, dict]:
+def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig, seq_start=None, t0: int = 0,
+                gather_kv: Optional[Callable] = None) -> Tuple[torch.Tensor, dict]:
     """Batched prefill forward. x: [B, S, dim] -> (out [B, S, dim], aux);
     aux carries the raw/compressed K/V (for cache seeding), the selection
     (scorer set form) and the gates. seq_start [B, S] int (optional):
     each token's document start in a packed row (ops/varlen.py; starts
     l_sel-aligned and non-decreasing along a row, as
-    varlen.pack_documents_aligned makes them)."""
+    varlen.pack_documents_aligned makes them).
+
+    Sequence sharding (parallel/context.py): x holds the rows at positions
+    [t0, t0 + S) and `gather_kv` maps each of the six K/V streams of those
+    rows, after RoPE, to the whole sequence's [B, G, S_kv, D] (an
+    all-gather over the sp ranks); ϕ then pools the gathered raw stream at
+    positions 0..S_kv-1 and every kernel takes the offset t0."""
     B, S, _ = x.shape
     G, h = cfg.n_kv_groups, cfg.h_per_group
     scale = 1.0 / float(np.sqrt(cfg.d_k))
     dev = x.device
-    t_pos = torch.arange(S, device=dev)
+    if t0 and gather_kv is None:
+        raise ValueError("t0 > 0 needs gather_kv: the keys must cover positions 0..t0+S-1")
+    if seq_start is not None and gather_kv is not None:
+        raise ValueError("varlen with sp > 1 is not ported yet (ROADMAP Queue 1 item 4)")
+    t_pos = torch.arange(t0, t0 + S, device=dev)
     if seq_start is not None:
         seq_start = seq_start.to(device=dev, dtype=torch.int32).contiguous()
         t_local = t_pos[None, :] - seq_start                       # [B,S] doc-local
@@ -165,25 +175,30 @@ def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig,
     Q = apply_rope(Q, q_pos, cfg.rope_base, cfg.rope_scale).reshape(B, S, G, h, cfg.d_k)
     K_sel = apply_rope(K_sel, k_pos, cfg.rope_base, cfg.rope_scale)
     K_win = apply_rope(K_win, k_pos, cfg.rope_base, cfg.rope_scale)
+    if gather_kv is not None:
+        K_sel, V_sel, K_win, V_win, K_cmp_raw, V_cmp_raw = (
+            gather_kv(a) for a in (K_sel, V_sel, K_win, V_win, K_cmp_raw, V_cmp_raw))
+        k_pos = torch.arange(K_sel.shape[2], device=dev)
+    S_kv = K_sel.shape[2]
     K_cmp, V_cmp = pool_phi_rope_kv(
         K_cmp_raw, V_cmp_raw, cfg.l, cfg.d, pos=k_pos,
         k_weight=params.get("phi_k"), v_weight=params.get("phi_v"),
         rope_base=cfg.rope_base, rope_scale=cfg.rope_scale)
     S_cmp = K_cmp.shape[2]
-    S_sel = -(-S // cfg.l_sel)
+    S_sel = -(-S_kv // cfg.l_sel)
     sel_kw = dict(scale=scale, l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel,
-                  force_init=cfg.force_init, force_local=cfg.force_local)
+                  force_init=cfg.force_init, force_local=cfg.force_local, pos_offset=t0)
 
     if S_cmp > 0 and select_cmp_mod.select_cmp_fits(h, S_sel):
         # one pass: selection scores and the cmp branch share softmax(Q K_cmp^T)
-        M = build_M_csl_on(S, cfg.l, cfg.d, cfg.l_sel, dev)
+        M = build_M_csl_on(S_kv, cfg.l, cfg.d, cfg.l_sel, dev)
         sel_idx, O_cmp = attn_ops.fused_select_cmp(Q, K_cmp, V_cmp, M, **sel_kw,
                                                    seq_start=seq_start)
     elif S_cmp > 0:
         # too many selection blocks for the fused scorer: two kernels
         sel_idx = attn_ops.select_blocks(Q, K_cmp, S_sel=S_sel, **sel_kw, seq_start=seq_start)
         O_cmp = attn_ops.compressed_attention(Q, K_cmp, V_cmp, l=cfg.l, d=cfg.d, scale=scale,
-                                              seq_start=seq_start)
+                                              t_start=t0, seq_start=seq_start)
     else:
         # no compressed tokens (S < l): all scores are 0, so the top-n keeps
         # the forced blocks plus the lowest-index candidates, as in JAX; the
@@ -199,7 +214,7 @@ def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig,
     sel_idx = sel_idx.detach()
     O_sel = attn_ops.selection_attention(Q, K_sel, V_sel, sel_idx, t_pos, cfg.l_sel, scale)
     O_win = attn_ops.sliding_window_attention(Q, K_win, V_win, cfg.w, scale,
-                                              seq_start=seq_start)
+                                              seq_start=seq_start, t_start=t0)
     out, gates = combine_branches(params, cfg, Q, O_cmp, O_sel, O_win)
     aux = {
         "gates": gates,

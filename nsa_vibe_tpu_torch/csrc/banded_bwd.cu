@@ -72,8 +72,8 @@ banded_bwd_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K,
     for (int r = 0; r < 4; ++r) acc[i][r] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   int lo_first, hi_last, unused;
-  key_range(p, s0, lo_first, unused);
-  key_range(p, s0 + nt - 1, unused, hi_last);   // lo and hi never decrease with t
+  key_range(p, p.t_start + s0, lo_first, unused);
+  key_range(p, p.t_start + s0 + nt - 1, unused, hi_last);   // lo and hi never decrease with t
   if (ds != nullptr) doc_bound(p, ds, b, s0, lo_first);
   const float* Kbg = K + ((size_t)b * p.G + g) * p.S_kv * Dk;
   const float* Vbg = V + ((size_t)b * p.G + g) * p.S_kv * Dv;
@@ -140,16 +140,17 @@ long long nsa_banded_bwd_smem_bytes(int Dk, int Dv) {
 // f32 only: dQ of the two-pass design (its dK and dV: nsa_banded_bwd_1p with
 // ws null). Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h], ds
 // [B,S] int32 document starts (or null); mode 0 WIN (w > 0), 1 CMP (l, d >
-// 0); TQ tokens per block, TQ * h <= 64.
+// 0); query row s at position t_start + s (0 with ds); TQ tokens per block,
+// TQ * h <= 64.
 int nsa_banded_bwd(const float* Q, const float* K, const float* V, const float* dO,
                    const float* lse, const float* delta, const int* ds, float* dQ, int B, int S,
                    int S_kv, int G, int h, int Dk, int Dv, int mode, int w, int l, int d,
-                   float scale, int TQ, void* stream) {
+                   float scale, int t_start, int TQ, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 ||
       (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
-      (mode != WIN && mode != CMP))
+      (mode != WIN && mode != CMP) || t_start < 0 || (ds != nullptr && t_start != 0))
     return (int)cudaErrorInvalidValue;
-  const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, 1, scale};
+  const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, 1, scale, t_start};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_slices(Dk) == 1) return launch<1>(Q, K, V, dO, lse, delta, ds, dQ, B, p, s);
   return launch<2>(Q, K, V, dO, lse, delta, ds, dQ, B, p, s);

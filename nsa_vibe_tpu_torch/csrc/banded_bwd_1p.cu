@@ -98,7 +98,7 @@ banded_bwd_1p_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 
   // this split's share of the tokens that see the tile, whole chunks of TQ
   int t_lo, t_hi;
-  token_range(p, k0, k0 + nk, t_lo, t_hi);
+  token_range<true>(p, k0, k0 + nk, t_lo, t_hi);
   const int ntok = max(t_hi - t_lo + 1, 0);
   const int per = ((ntok + p.nsplit - 1) / p.nsplit + p.TQ - 1) / p.TQ * p.TQ;
   const int ta = t_lo + split * per;
@@ -195,20 +195,22 @@ int nsa_banded_bwd_1p_slots(int mode, int w, int S_kv) {
   return most < nkt ? most : nkt;
 }
 
-// f32 only. ds: [B,S] int32 document starts, or null. part: f32 scratch of
+// f32 only. Query row s at position t_start + s (0 with ds). ds: [B,S]
+// int32 document starts, or null. part: f32 scratch of
 // nsplit * B*G*S_kv*(Dk+Dv) floats (per-split partial dK, then dV). ws: f32
 // dQ workspace of nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats, or null
 // for dK and dV alone (dQ unused).
 int nsa_banded_bwd_1p(const float* Q, const float* K, const float* V, const float* dO,
                       const float* lse, const float* delta, const int* ds, float* dQ, float* dK,
                       float* dV, float* part, float* ws, int B, int S, int S_kv, int G, int h,
-                      int Dk, int Dv, int mode, int w, int l, int d, float scale, int TQ,
-                      int nsplit, void* stream) {
+                      int Dk, int Dv, int mode, int w, int l, int d, float scale, int t_start,
+                      int TQ, int nsplit, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || nsplit <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 ||
       Dv > 128 || S_kv <= 0 || (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
-      (mode != WIN && mode != CMP) || part == nullptr)
+      (mode != WIN && mode != CMP) || part == nullptr || t_start < 0 ||
+      (ds != nullptr && t_start != 0))
     return (int)cudaErrorInvalidValue;
-  const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, nsplit, scale};
+  const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, nsplit, scale, t_start};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nk = kv_slices(Dk), nv = kv_slices(Dv);
   if (nk == 1 && nv == 1)

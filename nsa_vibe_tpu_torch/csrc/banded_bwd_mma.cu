@@ -145,8 +145,10 @@ __host__ __device__ constexpr int q_min_blocks(int DT, int ROWS) {
 
 // The q-major body: the diagonal design (MODE WIN, DKV: dK/dV strips) and
 // the two-pass design's dQ pass (either MODE, dQ only). p.mode is MODE;
-// DOCS: ds given (the dense instantiation reads none).
-template <int DT, int ROWS, int MODE, bool DKV, bool DOCS>
+// DOCS: ds given (the dense instantiation reads none); OFF: row token s at
+// position p.t_start + s (sequence sharding; the dense instantiation reads
+// no offset). DOCS and OFF are never both set.
+template <int DT, int ROWS, int MODE, bool DKV, bool DOCS, bool OFF>
 __device__ __forceinline__ void q_major(const __nv_bfloat16* __restrict__ Q,
                                         const __nv_bfloat16* __restrict__ K,
                                         const __nv_bfloat16* __restrict__ V,
@@ -166,6 +168,7 @@ __device__ __forceinline__ void q_major(const __nv_bfloat16* __restrict__ Q,
   const int g = bg % p.G, b = bg / p.G;
   const int s0 = qt * p.TQ;
   const int T = min(p.TQ, p.S - s0);   // live tokens of the tile
+  const int pos0 = OFF ? p.t_start : 0;   // position of row token 0
   const int h = p.h, Dk = p.Dk, Dv = p.Dv;
   const int R = T * h;                 // live rows
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
@@ -208,8 +211,8 @@ __device__ __forceinline__ void q_major(const __nv_bfloat16* __restrict__ Q,
   // absolute multiple of KC; the diagonal design (DKV) keeps the dense
   // band, whose strip rows sum_strips reads
   int lo, hi, unused;
-  key_range(p, s0, lo, unused);
-  key_range(p, s0 + T - 1, unused, hi);
+  key_range(p, pos0 + s0, lo, unused);
+  key_range(p, pos0 + s0 + T - 1, unused, hi);
   if (DOCS && !DKV) doc_bound(p, ds, b, s0, lo);
   const int kb0 = (lo / KC) * KC;
   const int J = hi > lo ? (hi - kb0 + KC - 1) / KC : 0;
@@ -242,7 +245,7 @@ __device__ __forceinline__ void q_major(const __nv_bfloat16* __restrict__ Q,
     rlo[hf] = rhi[hf] = 0;
     nl2[hf] = dl[hf] = 0.f;
     if (r < R) {
-      key_range(p, s0 + r / h, rlo[hf], rhi[hf]);
+      key_range(p, pos0 + s0 + r / h, rlo[hf], rhi[hf]);
       if (DOCS) doc_bound(p, ds, b, s0 + r / h, rlo[hf]);
       nl2[hf] = neg_lse2(lse[grow(r)]);
       dl[hf] = delta[grow(r)];
@@ -376,7 +379,7 @@ __device__ __forceinline__ void q_major(const __nv_bfloat16* __restrict__ Q,
   }
 }
 
-template <int DT, int ROWS, bool DOCS>
+template <int DT, int ROWS, bool DOCS, bool OFF>
 __global__ void __launch_bounds__(2 * ROWS, q_min_blocks(DT, ROWS))
 win_bwd_diag_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
                         const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
@@ -384,17 +387,19 @@ win_bwd_diag_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16
                         const int* __restrict__ ds, __nv_bfloat16* __restrict__ dQ,
                         float* __restrict__ strip_k, float* __restrict__ strip_v, Params p,
                         int SL) {
-  q_major<DT, ROWS, WIN, true, DOCS>(Q, K, V, dO, lse, delta, ds, dQ, strip_k, strip_v, p, SL);
+  q_major<DT, ROWS, WIN, true, DOCS, OFF>(Q, K, V, dO, lse, delta, ds, dQ, strip_k, strip_v, p,
+                                         SL);
 }
 
-template <int DT, int ROWS, int MODE, bool DOCS>
+template <int DT, int ROWS, int MODE, bool DOCS, bool OFF>
 __global__ void __launch_bounds__(2 * ROWS, q_min_blocks(DT, ROWS))
 banded_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
                          const __nv_bfloat16* __restrict__ V,
                          const __nv_bfloat16* __restrict__ dO, const float* __restrict__ lse,
                          const float* __restrict__ delta, const int* __restrict__ ds,
                          __nv_bfloat16* __restrict__ dQ, Params p) {
-  q_major<DT, ROWS, MODE, false, DOCS>(Q, K, V, dO, lse, delta, ds, dQ, nullptr, nullptr, p, 0);
+  q_major<DT, ROWS, MODE, false, DOCS, OFF>(Q, K, V, dO, lse, delta, ds, dQ, nullptr, nullptr,
+                                            p, 0);
 }
 
 // ------------------------------------------------------------ one-pass (kv-major)
@@ -413,7 +418,7 @@ struct KvLayout {
   static constexpr size_t BYTES = STATS + (size_t)2 * ROWS * 4 * 4;
 };
 
-template <int DT, int MODE, bool DOCS>
+template <int DT, int MODE, bool DOCS, bool OFF>
 __global__ void __launch_bounds__(128)
 banded_bwd_1p_mma_kernel(const __nv_bfloat16* __restrict__ Q,
                          const __nv_bfloat16* __restrict__ K,
@@ -438,6 +443,7 @@ banded_bwd_1p_mma_kernel(const __nv_bfloat16* __restrict__ Q,
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
   const int kw0 = 16 * w;   // this warp's keys in the tile
   const float sl2 = p.scale * LOG2E;
+  const int pos0 = OFF ? p.t_start : 0;   // position of row token 0
 
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + C::K);
   __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + C::V);
@@ -452,7 +458,7 @@ banded_bwd_1p_mma_kernel(const __nv_bfloat16* __restrict__ Q,
   // this split's share of the band rows (token * h + head) that see the
   // tile: [ra, rb), whole chunks of ROWS rows
   int t_lo, t_hi;
-  token_range(p, k0, k0 + nk, t_lo, t_hi);
+  token_range<OFF>(p, k0, k0 + nk, t_lo, t_hi);
   const int R0 = t_lo * h;
   const int nrows = t_hi >= t_lo ? (t_hi - t_lo + 1) * h : 0;
   const int per = ((nrows + p.nsplit - 1) / p.nsplit + ROWS - 1) / ROWS * ROWS;
@@ -509,7 +515,7 @@ banded_bwd_1p_mma_kernel(const __nv_bfloat16* __restrict__ Q,
         const size_t gr = grow(a0 + r);
         nl_s[o] = neg_lse2(lse[gr]);
         dl_s[o] = delta[gr];
-        key_range(p, (a0 + r) / h, lo_s[o], hi_s[o]);
+        key_range(p, pos0 + (a0 + r) / h, lo_s[o], hi_s[o]);
         if (DOCS) doc_bound(p, ds, b, (a0 + r) / h, lo_s[o]);
       } else {   // a padded row sees no key
         nl_s[o] = dl_s[o] = 0.f;
@@ -643,12 +649,20 @@ using DiagKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __
                             const __nv_bfloat16*, const float*, const float*, const int*,
                             __nv_bfloat16*, float*, float*, Params, int);
 
+// q tiles (rows) of the q-major kernels' OFF instantiations: the wrappers'
+// MMA_TILE_ROWS and DQ_TILE_ROWS (the other tiles serve the sweeps)
+constexpr int OFF_ROWS = 128;
+
 template <int DT, int ROWS>
 int launch_diag(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
                 const float* delta, const int* ds, void* dQ, void* dK, void* dV, float* strip_k,
                 float* strip_v, const Params& p, int SL, cudaStream_t stream) {
-  const DiagKernel kern = ds != nullptr ? &win_bwd_diag_mma_kernel<DT, ROWS, true>
-                                        : &win_bwd_diag_mma_kernel<DT, ROWS, false>;
+  DiagKernel kern = ds != nullptr ? &win_bwd_diag_mma_kernel<DT, ROWS, true, false>
+                                  : &win_bwd_diag_mma_kernel<DT, ROWS, false, false>;
+  if (p.t_start != 0) {
+    if constexpr (ROWS == OFF_ROWS) kern = &win_bwd_diag_mma_kernel<DT, ROWS, false, true>;
+    else return (int)cudaErrorInvalidValue;
+  }
   constexpr size_t smem = QLayout<DT, ROWS, true>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -671,8 +685,12 @@ template <int DT, int ROWS, int MODE>
 int launch_dq(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
               const float* delta, const int* ds, void* dQ, const Params& p,
               cudaStream_t stream) {
-  const auto kern = ds != nullptr ? &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, true>
-                                  : &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, false>;
+  auto kern = ds != nullptr ? &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, true, false>
+                            : &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, false, false>;
+  if (p.t_start != 0) {
+    if constexpr (ROWS == OFF_ROWS) kern = &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, false, true>;
+    else return (int)cudaErrorInvalidValue;
+  }
   constexpr size_t smem = QLayout<DT, ROWS, false>::BYTES;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -694,11 +712,14 @@ template <int DT>
 int launch_kv(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
               const float* delta, const int* ds, void* dQ, void* dK, void* dV, float* part,
               float* ws, const Params& p, cudaStream_t stream) {
-  const bool docs = ds != nullptr;
-  const KvKernel kern = p.mode == WIN ? (docs ? &banded_bwd_1p_mma_kernel<DT, WIN, true>
-                                              : &banded_bwd_1p_mma_kernel<DT, WIN, false>)
-                                      : (docs ? &banded_bwd_1p_mma_kernel<DT, CMP, true>
-                                              : &banded_bwd_1p_mma_kernel<DT, CMP, false>);
+  const bool docs = ds != nullptr, off = p.t_start != 0;
+  const KvKernel kern =
+      p.mode == WIN ? (docs  ? &banded_bwd_1p_mma_kernel<DT, WIN, true, false>
+                       : off ? &banded_bwd_1p_mma_kernel<DT, WIN, false, true>
+                             : &banded_bwd_1p_mma_kernel<DT, WIN, false, false>)
+                    : (docs  ? &banded_bwd_1p_mma_kernel<DT, CMP, true, false>
+                       : off ? &banded_bwd_1p_mma_kernel<DT, CMP, false, true>
+                             : &banded_bwd_1p_mma_kernel<DT, CMP, false, false>);
   constexpr size_t smem = KvLayout<DT>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -742,7 +763,8 @@ long long nsa_banded_bwd_1p_mma_smem_bytes(int Dk, int Dv) {
 }
 
 // bf16 only. Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32,
-// ds [B,S] int32 document starts (or null) -> dQ, dK, dV (bf16). mode 0
+// ds [B,S] int32 document starts (or null) -> dQ, dK, dV (bf16); query row
+// s at position t_start + s (0 with ds). mode 0
 // WIN (w > 0), 1 CMP (l, d > 0); Dk, Dv <= 128
 // and multiples of 8. part: f32 scratch of nsplit * B*G*S_kv*(Dk+Dv) floats;
 // ws: f32 dQ slots, nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats, or
@@ -751,12 +773,13 @@ int nsa_banded_bwd_1p_mma(const void* Q, const void* K, const void* V, const voi
                           const float* lse, const float* delta, const int* ds, void* dQ,
                           void* dK, void* dV, float* part, float* ws, int B, int S, int S_kv,
                           int G, int h, int Dk, int Dv, int mode, int w, int l, int d,
-                          float scale, int nsplit, void* stream) {
+                          float scale, int t_start, int nsplit, void* stream) {
   if (nsplit <= 0 || h <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 ||
       S_kv <= 0 || (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
-      (mode != WIN && mode != CMP) || part == nullptr)
+      (mode != WIN && mode != CMP) || part == nullptr || t_start < 0 ||
+      (ds != nullptr && t_start != 0))
     return (int)cudaErrorInvalidValue;
-  const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, 0, nsplit, scale};
+  const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, 0, nsplit, scale, t_start};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide(Dk, Dv)) return launch_kv<128>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
   return launch_kv<64>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
@@ -778,17 +801,19 @@ long long nsa_banded_bwd_dq_mma_smem_bytes(int Dk, int Dv, int rows) {
 }
 
 // bf16 only: dQ of the two-pass design (its dK and dV: nsa_banded_bwd_1p_mma
-// with ws null). Shapes and modes as nsa_banded_bwd_1p_mma; q tiles of
-// `rows` = 64 or 128 rows (rows / h tokens, h <= rows).
+// with ws null). Shapes, modes and t_start as nsa_banded_bwd_1p_mma; q tiles
+// of `rows` = 64 or 128 rows (rows / h tokens, h <= rows; 128 where t_start
+// > 0).
 int nsa_banded_bwd_dq_mma(const void* Q, const void* K, const void* V, const void* dO,
                           const float* lse, const float* delta, const int* ds, void* dQ, int B,
                           int S, int S_kv, int G, int h, int Dk, int Dv, int mode, int w, int l,
-                          int d, float scale, int rows, void* stream) {
+                          int d, float scale, int t_start, int rows, void* stream) {
   if ((rows != 64 && rows != 128) || h <= 0 || h > rows || S_kv <= 0 || Dk % 8 != 0 ||
       Dv % 8 != 0 || Dk > 128 || Dv > 128 || (mode == WIN && w <= 0) ||
-      (mode == CMP && (l <= 0 || d <= 0)) || (mode != WIN && mode != CMP))
+      (mode == CMP && (l <= 0 || d <= 0)) || (mode != WIN && mode != CMP) || t_start < 0 ||
+      (ds != nullptr && t_start != 0))
     return (int)cudaErrorInvalidValue;
-  const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, rows / h, 1, scale};
+  const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, rows / h, 1, scale, t_start};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using Launch = int (*)(const void*, const void*, const void*, const void*, const float*,
                         const float*, const int*, void*, const Params&, cudaStream_t);
@@ -810,20 +835,21 @@ int nsa_win_bwd_diag_mma_strip_keys(int rows, int h, int w, int S_kv) {
   return (band < nkt ? band : nkt) * KC;
 }
 
-// bf16 only. Shapes as nsa_banded_bwd_1p_mma, window w > 0. q tiles of `rows`
-// = 64, 128 or 192 rows (192 for Dk, Dv <= 64 only), rows / h tokens, h <=
-// rows. strip_k / strip_v: f32 scratch of B*G*ceil(S/(rows/h))*SL*Dk (Dv)
+// bf16 only. Shapes and t_start as nsa_banded_bwd_1p_mma, window w > 0. q
+// tiles of `rows` = 64, 128 or 192 rows (192 for Dk, Dv <= 64 only; 128
+// where t_start > 0), rows / h tokens, h <= rows. strip_k / strip_v: f32 scratch of B*G*ceil(S/(rows/h))*SL*Dk (Dv)
 // floats, SL = nsa_win_bwd_diag_mma_strip_keys(rows, h, w, S_kv).
 int nsa_win_bwd_diag_mma(const void* Q, const void* K, const void* V, const void* dO,
                          const float* lse, const float* delta, const int* ds, void* dQ, void* dK,
                          void* dV, float* strip_k, float* strip_v, int B, int S, int S_kv, int G,
-                         int h, int Dk, int Dv, int w, float scale, int rows, void* stream) {
+                         int h, int Dk, int Dv, int w, float scale, int t_start, int rows,
+                         void* stream) {
   const bool wd = wide(Dk, Dv);
   if ((rows != 64 && rows != 128 && (rows != 192 || wd)) || h <= 0 || h > rows || w <= 0 ||
       S <= 0 || S_kv <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 ||
-      strip_k == nullptr || strip_v == nullptr)
+      strip_k == nullptr || strip_v == nullptr || t_start < 0 || (ds != nullptr && t_start != 0))
     return (int)cudaErrorInvalidValue;
-  const Params p{B, S, S_kv, G, h, Dk, Dv, WIN, w, 0, 1, rows / h, 1, scale};
+  const Params p{B, S, S_kv, G, h, Dk, Dv, WIN, w, 0, 1, rows / h, 1, scale, t_start};
   const int SL = nsa_win_bwd_diag_mma_strip_keys(rows, h, w, S_kv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using Launch = int (*)(const void*, const void*, const void*, const void*, const float*,

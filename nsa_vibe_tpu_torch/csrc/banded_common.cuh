@@ -20,9 +20,14 @@ enum Mode : int { WIN = 0, CMP = 1 };
 struct Params {
   int B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, nsplit;
   float scale;
+  // position of query row 0 (sequence sharding: the rows are a slice of
+  // the sequence that K/V cover whole; 0 with ds). The FMA kernels and the
+  // slot and strip sums read it always, the tensor-core kernels only in
+  // their OFF instantiation, so the dense one compiles as it did before
+  int t_start;
 };
 
-// keys [lo, hi) that query token t sees
+// keys [lo, hi) that query token t (a position: t_start + row token) sees
 __host__ __device__ __forceinline__ void key_range(const Params& p, int t, int& lo, int& hi) {
   if (p.mode == WIN) {
     lo = t - p.w + 1 > 0 ? t - p.w + 1 : 0;
@@ -50,11 +55,21 @@ __device__ __forceinline__ int band_slot(int kt, int lo, int hi) {
   return hi > lo && kt >= lo / KC && kt <= (hi - 1) / KC ? kt - lo / KC : -1;
 }
 
-// query tokens [t_lo, t_hi] that see at least one key of [k0, k1), k1 > k0
-// (under ds a superset of those that do)
+// query tokens (rows' token indices) [t_lo, t_hi] that see at least one
+// key of [k0, k1), k1 > k0 (under ds a superset of those that do); OFF:
+// row token s sits at position t_start + s (else at s)
+template <bool OFF>
 __device__ __forceinline__ void token_range(const Params& p, int k0, int k1, int& t_lo,
                                             int& t_hi) {
-  if (p.mode == WIN) {
+  if (OFF) {
+    if (p.mode == WIN) {
+      t_lo = max(k0 - p.t_start, 0);
+      t_hi = min(k1 - 1 + p.w - 1 - p.t_start, p.S - 1);
+    } else {
+      t_lo = max(k0 * p.d + p.l - 1 - p.t_start, 0);
+      t_hi = p.S - 1;
+    }
+  } else if (p.mode == WIN) {
     t_lo = k0;
     t_hi = min(k1 - 1 + p.w - 1, p.S - 1);
   } else {
@@ -74,7 +89,7 @@ struct BandSlots {
   __device__ int operator()(long long row) const {
     const int t = (int)((row / ((long long)p.G * p.h)) % p.S);
     int lo, hi;
-    key_range(p, t, lo, hi);
+    key_range(p, p.t_start + t, lo, hi);
     if (DOCS) doc_bound(p, ds, (int)(row / ((long long)p.G * p.h * p.S)), t, lo);
     return hi > lo ? (hi - 1) / KC - lo / KC + 1 : 0;
   }
@@ -121,21 +136,21 @@ __device__ __forceinline__ void stage_rows(const Params& p, const float* Q, cons
     const size_t o = row_of(r);
     lse_s[r] = lse[o];
     dl_s[r] = delta[o];
-    key_range(p, t0 + r / h, lo_s[r], hi_s[r]);
+    key_range(p, p.t_start + t0 + r / h, lo_s[r], hi_s[r]);
     if (ds != nullptr) doc_bound(p, ds, b, t0 + r / h, lo_s[r]);
   }
 }
 
-// Strips of the diagonal design: q tile qt (tokens [qt*TQ, qt*TQ+TQ)) wrote
-// the dK/dV of its band's keys to strip rows [0, ...) of [B, G, nq, SL, D],
-// strip row 0 being key kb0(qt) = floor(max(qt*TQ - w + 1, 0) / align) *
-// align (align 1 for the FMA kernel, 64 for the tensor-core kernel, whose
+// Strips of the diagonal design: q tile qt (tokens [qt*TQ, qt*TQ+TQ), at
+// positions t_start + token) wrote the dK/dV of its band's keys to strip
+// rows [0, ...) of [B, G, nq, SL, D], strip row 0 being key kb0(qt) =
+// floor(max(t_start + qt*TQ - w + 1, 0) / align) * align (align 1 for the FMA kernel, 64 for the tensor-core kernel, whose
 // key tiles sit at multiples of 64). The band is the dense one also under
 // ds, so every strip row this sum reads was written (zeros for the keys
 // that no row of the tile sees in its document).
 // out[b, g, k, :] = mul * (sum over the q tiles whose band covers key k, in
 // ascending order, of their strip row k - kb0(qt)), cast to T; keys no row
-// sees (k >= S) get 0.
+// sees (k - t_start outside [1 - w, S)) get 0.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 sum_strips_kernel(const float* __restrict__ strip, T* __restrict__ out, Params p, int D, int SL,
@@ -150,11 +165,12 @@ sum_strips_kernel(const float* __restrict__ strip, T* __restrict__ out, Params p
     const long long bg = krow / p.S_kv;
     const int k = (int)(krow - bg * p.S_kv);
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k < p.S) {
-      const int qa = k / p.TQ;
-      const int qb = min((k + p.w - 1) / p.TQ, nq - 1);
+    const int kl = k - p.t_start;   // the first row token that sees key k
+    if (kl < p.S && kl + p.w - 1 >= 0) {
+      const int qa = max(kl, 0) / p.TQ;
+      const int qb = min((kl + p.w - 1) / p.TQ, nq - 1);
       for (int qt = qa; qt <= qb; ++qt) {
-        const int kb0 = max(qt * p.TQ - p.w + 1, 0) / align * align;
+        const int kb0 = max(p.t_start + qt * p.TQ - p.w + 1, 0) / align * align;
         const float4 x = *reinterpret_cast<const float4*>(
             strip + ((bg * nq + qt) * SL + (k - kb0)) * (size_t)D + c);
         a.x += x.x;

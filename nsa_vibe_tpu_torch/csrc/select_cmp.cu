@@ -7,7 +7,8 @@
 // tensor-core kernel of select_cmp_mma.cu; f32 keeps this FMA kernel (its
 // 5e-5 gates rule out TF32).
 //
-// What it computes, per query row (token t, head j of group g):
+// What it computes, per query row (token t = pos_offset + s of query row s,
+// head j of group g; K_cmp covers the whole sequence):
 //   p      = softmax(q · K_cmp^T * scale) over c < num_cmp(t+1)   (Eq. 8)
 //   O_cmp  = p · V_cmp                                           (cmp branch)
 //   p_slc  = p · M_csl                                           (Eq. 9)
@@ -49,6 +50,7 @@ constexpr int MAX_S_SEL = 256;   // p_slc accumulator row width (shared memory)
 struct Params {
   int S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local, TQ;
   float scale;
+  int t0;   // position of query row 0 (pos_offset; 0 with ds)
 };
 
 // shared-memory carve-up (floats): Q rows, O and p_slc accumulators, row
@@ -119,7 +121,7 @@ select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
   const float* Kbg = Kc + ((size_t)b * p.G + g) * p.S_cmp * Dk;
   const float* Vbg = Vc + ((size_t)b * p.G + g) * p.S_cmp * Dv;
   // prefix bound of the tile's last token: no row of the tile sees past it
-  const int n_vis_tile = min(num_cmp(s0 + nt, p.l, p.d), p.S_cmp);
+  const int n_vis_tile = min(num_cmp(p.t0 + s0 + nt, p.l, p.d), p.S_cmp);
 
   for (int c0 = 0; c0 < n_vis_tile; c0 += KC) {
     __syncthreads();   // previous chunk consumed, accumulators initialised
@@ -128,7 +130,7 @@ select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
     load_rows(M_s, S_sel, Mcsl, S_sel, c0, KC, p.S_cmp);
     __syncthreads();
     for (int r = warp; r < rows; r += NWARPS) {
-      const int t = s0 + r / h;
+      const int t = p.t0 + s0 + r / h;
       const int nvis = min(num_cmp(t + 1, p.l, p.d), p.S_cmp);
       const int first = doc_lo(start(r / h), true, p.d);
       // warp-uniform: this row sees nothing here
@@ -179,7 +181,7 @@ select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
   const int n_out = max(p.n_top, n_forced);
   const int k_rest = p.n_top - n_forced;
   for (int i = warp; i < nt; i += NWARPS) {
-    const int t = s0 + i;
+    const int t = p.t0 + s0 + i;
     const int last = t / p.l_sel, fb = start(i) / p.l_sel;
     float* comp = acc_p + (size_t)i * h * S_sel;   // row i*h becomes the composite score
     int* out = sel + (((size_t)b * p.S + s0 + i) * p.G + g) * n_out;
@@ -256,10 +258,12 @@ int nsa_select_cmp(const float* Q, const float* Kc, const float* Vc, const float
                    const int* ds, int* sel, float* O, float* lse, int B, int S, int G, int h,
                    int Dk, int Dv, int S_cmp,
                    int S_sel, int l, int d, int l_sel, int n_top, int force_init,
-                   int force_local, float scale, int TQ, void* stream) {
-  if (S_sel > MAX_S_SEL || S_cmp <= 0 || TQ <= 0) return (int)cudaErrorInvalidValue;
+                   int force_local, float scale, int pos_offset, int TQ, void* stream) {
+  if (S_sel > MAX_S_SEL || S_cmp <= 0 || TQ <= 0 || pos_offset < 0 ||
+      (ds != nullptr && pos_offset != 0))
+    return (int)cudaErrorInvalidValue;
   const Params p{S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
-                 TQ, scale};
+                 TQ, scale, pos_offset};
   return launch(Q, Kc, Vc, M, ds, sel, O, lse, B, p, static_cast<cudaStream_t>(stream));
 }
 

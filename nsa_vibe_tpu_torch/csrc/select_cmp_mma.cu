@@ -92,8 +92,11 @@ struct Layout {
 // rows' document bounds take registers that spilled at 128 (8 bytes, also
 // with each row's lo kept in shared memory), so it is compiled for one CTA
 // an SM and ops/cuda/select_cmp.py::tile_plan plans its tiles with that
-// budget.
-template <int DT, bool DOCS>
+// budget. OFF: query row s sits at position pos_offset + s (sequence
+// sharding; pass 1 and the top-n read the offset from Params in every
+// instantiation, pass 2 only in this one, so the dense one compiles as it
+// did before the offset existed).
+template <int DT, bool DOCS, bool OFF>
 __global__ void __launch_bounds__(band::MAX_THREADS, DT == 64 && !DOCS ? 2 : 1)
 select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ Kc,
                       const __nv_bfloat16* __restrict__ Vc, const float* __restrict__ M,
@@ -113,6 +116,7 @@ select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
   const int R = nt * h;                   // live rows
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
   const int r0 = 16 * w;   // this warp's rows [r0, r0 + 16)
+  const int t0 = OFF ? sp.pos_offset : 0;   // position of the tile's row 0 is t0 + s0
 
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + band::Layout<DT>::K);
   const __nv_bfloat16* q_s =
@@ -126,7 +130,7 @@ select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
   band::band_fwd<DT, band::CMP, DOCS>(Q, Kc, Vc, ds, O, lse, bp, nlse2);
 
   // pass 2: the tile's band again, key tiles [j0, J) (j0 = 0 without ds)
-  const int n_vis_tile = min(num_cmp(s0 + nt, sp.l, sp.d), sp.S_cmp);
+  const int n_vis_tile = min(num_cmp(t0 + s0 + nt, sp.l, sp.d), sp.S_cmp);
   const int J = (n_vis_tile + KC - 1) / KC;
   const int j0 = DOCS ? min(scorer::first_visible(sp, ds, b, s0) / KC, J) : 0;
   const __nv_bfloat16* Kbg = Kc + (size_t)bg * sp.S_cmp * Dk;
@@ -146,7 +150,7 @@ select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
   for (int hf = 0; hf < 2; ++hf) {
     const int r = r0 + g8 + 8 * hf;
     lo[hf] = DOCS && r < R ? scorer::first_visible(sp, ds, b, s0 + r / h) : 0;
-    nv[hf] = r < R ? min(num_cmp(s0 + r / h + 1, sp.l, sp.d), sp.S_cmp) : 0;
+    nv[hf] = r < R ? min(num_cmp(t0 + s0 + r / h + 1, sp.l, sp.d), sp.S_cmp) : 0;
   }
   const bool live = r0 < R;   // the warp has rows
   const float sl2 = bp.scale * band::LOG2E;
@@ -201,8 +205,9 @@ template <int DT>
 int launch(const void* Q, const void* Kc, const void* Vc, const float* M, const int* ds, int* sel,
            void* O, float* lse, int B, int rows, const Params& p, cudaStream_t stream) {
   const size_t smem = Layout<DT>(rows, p.sc.TQ, p.sc.h, p.sc.S_sel).total;
-  const auto kern = ds != nullptr ? &select_cmp_mma_kernel<DT, true>
-                                  : &select_cmp_mma_kernel<DT, false>;
+  const auto kern = ds != nullptr           ? &select_cmp_mma_kernel<DT, true, false>
+                    : p.sc.pos_offset != 0 ? &select_cmp_mma_kernel<DT, false, true>
+                                           : &select_cmp_mma_kernel<DT, false, false>;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -227,22 +232,23 @@ long long nsa_select_cmp_mma_smem_bytes(int rows, int TQ, int h, int Dk, int Dv,
 // bf16 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], V_cmp [B,G,S_cmp,Dv], M
 // [S_cmp,S_sel] f32, ds [B,S] int32 document starts (or null) -> sel
 // [B,S,G,n_out] int32, O [B,S,G,h,Dv], lse [B,S,G,h] f32 (or null):
-// select_cmp.cu's contract. CTAs of `rows` = 64 or 128 rows, TQ tokens
-// each (TQ * h <= rows); Dk, Dv <= 128, multiples of 8.
+// select_cmp.cu's contract, query row s at position pos_offset + s (0 with
+// ds). CTAs of `rows` = 64 or 128 rows, TQ tokens each (TQ * h <= rows);
+// Dk, Dv <= 128, multiples of 8.
 int nsa_select_cmp_mma(const void* Q, const void* Kc, const void* Vc, const float* M,
                        const int* ds, int* sel, void* O, float* lse, int B, int S, int G, int h,
                        int Dk, int Dv,
                        int S_cmp, int S_sel, int l, int d, int l_sel, int n_top,
-                       int force_init, int force_local, float scale, int TQ, int rows,
-                       void* stream) {
+                       int force_init, int force_local, float scale, int pos_offset, int TQ,
+                       int rows, void* stream) {
   if ((rows != 64 && rows != 128) || h <= 0 || TQ <= 0 || TQ * h > rows || S_cmp <= 0 ||
       S_sel <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 || l <= 0 || d <= 0 ||
-      l_sel <= 0)
+      l_sel <= 0 || pos_offset < 0 || (ds != nullptr && pos_offset != 0))
     return (int)cudaErrorInvalidValue;
   const int nq = (S + TQ - 1) / TQ;
-  const Params p{{S, S_cmp, G, h, Dk, Dv, 0, l, d, 0, TQ, nq, B * G, scale},
-                 {B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local, 0,
-                  TQ, scale}};
+  const Params p{{S, S_cmp, G, h, Dk, Dv, 0, l, d, pos_offset, TQ, nq, B * G, scale},
+                 {B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
+                  pos_offset, TQ, scale}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dk > 64 || Dv > 64) return launch<128>(Q, Kc, Vc, M, ds, sel, O, lse, B, rows, p, s);
   return launch<64>(Q, Kc, Vc, M, ds, sel, O, lse, B, rows, p, s);

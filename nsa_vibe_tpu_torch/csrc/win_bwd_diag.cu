@@ -87,8 +87,8 @@ win_bwd_diag_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   // the tile's dense band, also under ds: the strip layout sum_strips
   // reads; each row masks its own document bound (stage_rows)
   int lo_first, hi_last, unused;
-  key_range(p, s0, lo_first, unused);
-  key_range(p, s0 + nt - 1, unused, hi_last);   // lo and hi never decrease with t
+  key_range(p, p.t_start + s0, lo_first, unused);
+  key_range(p, p.t_start + s0 + nt - 1, unused, hi_last);   // lo and hi never decrease with t
   const float* Kbg = K + ((size_t)b * p.G + g) * p.S_kv * Dk;
   const float* Vbg = V + ((size_t)b * p.G + g) * p.S_kv * Dv;
   const size_t strip0 = (((size_t)b * p.G + g) * nq + qt) * SL;   // strip row of key lo_first
@@ -171,17 +171,20 @@ long long nsa_win_bwd_diag_smem_bytes(int Dk, int Dv) {
 
 int nsa_win_bwd_diag_strip_keys(int TQ, int w, int S_kv) { return strip_keys(TQ, w, S_kv); }
 
-// f32 only. TQ tokens per q tile, TQ * h <= 64. ds: [B,S] int32 document
+// f32 only. Query row s at position t_start + s (0 with ds). TQ tokens per
+// q tile, TQ * h <= 64. ds: [B,S] int32 document
 // starts, or null. strip_k / strip_v: f32 scratch of B*G*ceil(S/TQ)*SL*Dk
 // (Dv) floats, SL = nsa_win_bwd_diag_strip_keys(TQ, w, S_kv).
 int nsa_win_bwd_diag(const float* Q, const float* K, const float* V, const float* dO,
                      const float* lse, const float* delta, const int* ds, float* dQ, float* dK,
                      float* dV, float* strip_k, float* strip_v, int B, int S, int S_kv, int G,
-                     int h, int Dk, int Dv, int w, float scale, int TQ, void* stream) {
+                     int h, int Dk, int Dv, int w, float scale, int t_start, int TQ,
+                     void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || w <= 0 || S <= 0 || S_kv <= 0 || Dk % 8 != 0 ||
-      Dv % 8 != 0 || Dk > 128 || Dv > 128 || strip_k == nullptr || strip_v == nullptr)
+      Dv % 8 != 0 || Dk > 128 || Dv > 128 || strip_k == nullptr || strip_v == nullptr ||
+      t_start < 0 || (ds != nullptr && t_start != 0))
     return (int)cudaErrorInvalidValue;
-  const Params p{B, S, S_kv, G, h, Dk, Dv, WIN, w, 0, 1, TQ, 1, scale};
+  const Params p{B, S, S_kv, G, h, Dk, Dv, WIN, w, 0, 1, TQ, 1, scale, t_start};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nk = kv_slices(Dk), nv = kv_slices(Dv);
   if (nk == 1 && nv == 1)

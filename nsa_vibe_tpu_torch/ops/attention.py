@@ -22,6 +22,13 @@ caller (core/nsa.py, `select_cmp_fits`): the fused scorer
 (`fused_select_cmp`), or, for selections too wide for it, the scorer
 alone (`select_blocks`, no gradient) beside `compressed_attention`.
 
+Sequence sharding (parallel/context.py): `fused_select_cmp` (pos_offset),
+`select_blocks` (pos_offset), `compressed_attention` and
+`sliding_window_attention` (t_start) take the position of query row 0 as a
+host int, with K/V covering the whole sequence; their Functions keep it for
+the backward kernels. A zero offset launches what it launched before; a
+nonzero window offset runs banded_attn in window mode (win_attn has none).
+
 Packed documents (ops/varlen.py): `fused_select_cmp`, `select_blocks`,
 `compressed_attention` and `sliding_window_attention` take an optional
 seq_start [B,S] int32 on Q's device (core/nsa.py converts it once),
@@ -60,7 +67,7 @@ def _banded_grads(saved, dO, mode: str, **kw):
     """dQ, dK, dV of a window (mode "win", kw w, scale) or compressed-prefix
     (mode "cmp", kw l, d, scale) branch from its saved (Q, K, V, O, lse,
     seq_start or None), through the kernel that tuning.backward_kernel
-    names."""
+    names; kw t_start: the position of query row 0."""
     Q, K, V, O, lse, seq_start = saved
     dO = dO.contiguous()
     args = (Q, K, V, dO, lse, attention_delta(dO, O))
@@ -86,7 +93,7 @@ class _FusedSelectCmp(torch.autograd.Function):
     def backward(ctx, _dsel, dO):
         kw = ctx.kw
         dQ, dK, dV = _banded_grads(ctx.saved_tensors, dO, "cmp", l=kw["l"], d=kw["d"],
-                                   scale=kw["scale"])
+                                   scale=kw["scale"], t_start=kw["pos_offset"])
         return dQ, dK, dV, None, None, None
 
 
@@ -103,8 +110,7 @@ class _CompressedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dO):
         kw = ctx.kw
-        dQ, dK, dV = _banded_grads(ctx.saved_tensors, dO, "cmp", l=kw["l"], d=kw["d"],
-                                   scale=kw["scale"])
+        dQ, dK, dV = _banded_grads(ctx.saved_tensors, dO, "cmp", **kw)
         return dQ, dK, dV, None, None
 
 
@@ -131,28 +137,40 @@ class _SelectionAttention(torch.autograd.Function):
 class _SlidingWindowAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, Q, K, V, seq_start, w, scale):
-        O, lse = win_attn(Q, K, V, w=w, scale=scale, return_lse=True, seq_start=seq_start)
+    def forward(ctx, Q, K, V, seq_start, w, scale, t_start):
+        O, lse = _window_forward(Q, K, V, w, scale, t_start, seq_start, return_lse=True)
         ctx.save_for_backward(Q, K, V, O, lse, seq_start)
-        ctx.w, ctx.scale = w, scale
+        ctx.w, ctx.scale, ctx.t_start = w, scale, t_start
         return O
 
     @staticmethod
     def backward(ctx, dO):
-        dQ, dK, dV = _banded_grads(ctx.saved_tensors, dO, "win", w=ctx.w, scale=ctx.scale)
-        return dQ, dK, dV, None, None, None
+        dQ, dK, dV = _banded_grads(ctx.saved_tensors, dO, "win", w=ctx.w, scale=ctx.scale,
+                                   t_start=ctx.t_start)
+        return dQ, dK, dV, None, None, None, None
+
+
+def _window_forward(Q, K, V, w: int, scale: float, t_start: int, seq_start, return_lse: bool):
+    """win_attn at t_start 0 (what the single-device path launches), else
+    banded_attn in window mode at the offset."""
+    if t_start:
+        return banded_attn(Q, K, V, mode="win", w=w, scale=scale, t_start=t_start,
+                           return_lse=return_lse, seq_start=seq_start)
+    return win_attn(Q, K, V, w=w, scale=scale, return_lse=return_lse, seq_start=seq_start)
 
 
 def fused_select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int,
-                     n_top: int, force_init: bool, force_local: int, seq_start=None):
+                     n_top: int, force_init: bool, force_local: int, seq_start=None,
+                     pos_offset: int = 0):
     """Fused Eq. 8-12 selection + compressed-branch forward. Returns
     (sel_idx [B,S,G,max(n_top,n_forced)] int32 in the scorer's set form,
     O_cmp [B,S,G,h,Dv]). Requires at least one compressed token. seq_start
-    [B,S] (packed documents) keeps each row in its document."""
+    [B,S] (packed documents) keeps each row in its document; pos_offset:
+    the position of query row 0 (K_cmp and M cover the whole sequence)."""
     Q, K_cmp, V_cmp = Q.contiguous(), K_cmp.contiguous(), V_cmp.contiguous()
     M = M.to(device=Q.device, dtype=torch.float32).contiguous()
     kw = dict(scale=scale, l=l, d=d, l_sel=l_sel, n_top=n_top, force_init=force_init,
-              force_local=force_local)
+              force_local=force_local, pos_offset=pos_offset)
     if _records(Q, K_cmp, V_cmp):
         return _FusedSelectCmp.apply(Q, K_cmp, V_cmp, M, seq_start, kw)
     return select_cmp(Q, K_cmp, V_cmp, M, seq_start=seq_start, **kw)
@@ -163,15 +181,12 @@ def compressed_attention(Q, K_cmp, V_cmp, *, l: int, d: int, scale: float, t_sta
     """Compressed branch alone: query row s at position t_start + s sees
     the first num_cmp(t+1) compressed tokens (with seq_start [B,S], none
     that starts before its document). O [B,S,G,h,Dv]. Its backward
-    (banded_bwd_1p or banded_bwd) takes row 0 at position 0, so a recorded
-    call needs t_start == 0."""
+    (banded_bwd_1p or banded_bwd) runs at the same t_start."""
     Q, K_cmp, V_cmp = Q.contiguous(), K_cmp.contiguous(), V_cmp.contiguous()
-    kw = dict(l=l, d=d, scale=scale)
+    kw = dict(l=l, d=d, scale=scale, t_start=t_start)
     if _records(Q, K_cmp, V_cmp):
-        if t_start:
-            raise ValueError("compressed_attention: the backward takes no t_start")
         return _CompressedAttention.apply(Q, K_cmp, V_cmp, seq_start, kw)
-    return banded_attn(Q, K_cmp, V_cmp, mode="cmp", t_start=t_start, seq_start=seq_start, **kw)
+    return banded_attn(Q, K_cmp, V_cmp, mode="cmp", seq_start=seq_start, **kw)
 
 
 def select_blocks(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: int,
@@ -195,10 +210,10 @@ def selection_attention(Q, K, V, sel_idx, t_pos, l_sel: int, scale: float):
     return sel_attn(Q, K, V, sel_idx, t_pos, l_sel=l_sel, scale=scale)
 
 
-def sliding_window_attention(Q, K, V, w: int, scale: float, seq_start=None):
-    """Window branch: query row t sees keys [t-w+1, t] (with seq_start
-    [B,S], none before its document start)."""
+def sliding_window_attention(Q, K, V, w: int, scale: float, seq_start=None, t_start: int = 0):
+    """Window branch: query row s at position t = t_start + s sees keys
+    [t-w+1, t] (with seq_start [B,S], none before its document start)."""
     Q, K, V = Q.contiguous(), K.contiguous(), V.contiguous()
     if _records(Q, K, V):
-        return _SlidingWindowAttention.apply(Q, K, V, seq_start, w, scale)
-    return win_attn(Q, K, V, w=w, scale=scale, seq_start=seq_start)
+        return _SlidingWindowAttention.apply(Q, K, V, seq_start, w, scale, t_start)
+    return _window_forward(Q, K, V, w, scale, t_start, seq_start, return_lse=False)

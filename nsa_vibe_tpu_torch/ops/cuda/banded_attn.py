@@ -32,8 +32,8 @@ from nsa_vibe_tpu_torch.ops import reference as ref
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import MODES, banded_mask, mask5
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, check_operands, check_seq_start, check_smem, check_vector_rows, ptr,
-    ptr_or_null, raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, check_offset, check_operands, check_seq_start, check_smem, check_vector_rows,
+    ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 
 ROWS_PER_BLOCK = 64   # query rows (tokens x heads) per block of the f32 kernel, its maximum
@@ -79,8 +79,7 @@ def launch_banded(name: str, Q, K, V, *, mode: str, w: int, l: int, d: int, scal
     check_seq_start(name, seq_start, B, S, Q.device)
     if (mode == "win" and w <= 0) or (mode == "cmp" and (l <= 0 or d <= 0)) or t_start < 0:
         raise ValueError(f"{name}: win needs w > 0, cmp needs l, d > 0; t_start >= 0")
-    if seq_start is not None and t_start:
-        raise ValueError(f"{name}: seq_start needs t_start == 0")
+    check_offset(name, t_start, seq_start)
     mma = code == DTYPE_CODES[torch.bfloat16]
     if h > ROWS_PER_BLOCK or Dv > MAX_DV or (mma and Dk > MAX_DV):
         raise ValueError(f"{name}: needs h <= {ROWS_PER_BLOCK} and Dv <= {MAX_DV}"

@@ -31,7 +31,8 @@ from nsa_vibe_tpu_torch.ops import reference as ref
 from nsa_vibe_tpu_torch.ops import varlen
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, check_smem, ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, check_offset, check_smem, ptr, ptr_or_null, raise_on_error, resolve_kernel,
+    stream_of,
 )
 
 MODES = {"win": 0, "cmp": 1}
@@ -64,48 +65,51 @@ def mask5(m: torch.Tensor) -> torch.Tensor:
 
 
 def banded_bwd_plain(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-                     scale: float, seq_start=None):
+                     scale: float, seq_start=None, t_start: int = 0):
     """Plain PyTorch version: the dense formula on the same operands."""
-    m = banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, device=Q.device,
-                    seq_start=seq_start)
+    check_offset("banded_bwd", t_start, seq_start)
+    m = banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, t_start=t_start,
+                    device=Q.device, seq_start=seq_start)
     return ref.attend_masked_bwd(Q, K, V, dO, lse, delta, mask5(m), scale)
 
 
 def banded_bwd_rss(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-                   scale: float, seq_start=None):
+                   scale: float, seq_start=None, t_start: int = 0):
     """(dQ, dK, dV) of the plain version in f32 from the operands' values,
     unrounded, and the root sum of squares of each element's terms
     (ops/reference.py::attend_masked_bwd_rss): the scale of what rounding
     P and dS to bf16 before their products moves each element."""
-    m = mask5(banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, device=Q.device,
-                          seq_start=seq_start))
+    m = mask5(banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, t_start=t_start,
+                          device=Q.device, seq_start=seq_start))
     args = [x.float() for x in (Q, K, V, dO)]
     return (ref.attend_masked_bwd(*args, lse, delta, m, scale),
             ref.attend_masked_bwd_rss(*args, lse, delta, m, scale))
 
 
 def banded_bwd(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-               scale: float, seq_start=None):
+               scale: float, seq_start=None, t_start: int = 0):
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
-    (dQ, dK, dV) in the operands' dtype. Query row s is at position s;
-    seq_start [B,S] int32 (or None) bounds each row to its document.
+    (dQ, dK, dV) in the operands' dtype. Query row s is at position
+    t_start + s (a host int: sequence sharding, where K/V cover the whole
+    sequence); seq_start [B,S] int32 (or None; t_start 0) bounds each row
+    to its document.
     CPU tensors take the plain version. Counts launches in
     `banded_bwd.launches` and, of those in cmp mode, in
     `banded_bwd.cmp_launches`."""
     if resolve_kernel(Q) == "plain":
         return banded_bwd_plain(Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d, scale=scale,
-                                seq_start=seq_start)
+                                seq_start=seq_start, t_start=t_start)
     # imported here: banded_bwd_1p takes its plain version from this module
     from nsa_vibe_tpu_torch.ops.cuda.banded_bwd_1p import check_banded_operands, kv_pass
 
     code = check_banded_operands("banded_bwd", Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d,
-                                 seq_start=seq_start)
+                                 seq_start=seq_start, t_start=t_start)
     B, S, G, h, Dk = Q.shape
     S_kv, Dv = K.shape[2], V.shape[3]
     lib = library()
     dQ = torch.empty_like(Q)
     args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr_or_null(seq_start),
-            ptr(dQ), B, S, S_kv, G, h, Dk, Dv, MODES[mode], w, l, d, float(scale))
+            ptr(dQ), B, S, S_kv, G, h, Dk, Dv, MODES[mode], w, l, d, float(scale), t_start)
     with torch.cuda.device(Q.device):
         if code == DTYPE_CODES[torch.bfloat16]:
             check_smem("banded_bwd", lib.nsa_banded_bwd_dq_mma_smem_bytes(Dk, Dv, DQ_TILE_ROWS))
@@ -115,7 +119,7 @@ def banded_bwd(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d:
             err = lib.nsa_banded_bwd(*args, max(1, ROWS_PER_CHUNK // h), stream_of(Q))
     raise_on_error(lib, "banded_bwd", err)
     _, dK, dV = kv_pass("banded_bwd", lib, code, Q, K, V, dO, lse, delta, mode=mode, w=w, l=l,
-                        d=d, scale=scale, slots=False, seq_start=seq_start)
+                        d=d, scale=scale, slots=False, seq_start=seq_start, t_start=t_start)
     banded_bwd.launches += 1
     if mode == "cmp":
         banded_bwd.cmp_launches += 1

@@ -27,8 +27,8 @@ import torch
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import MODES, banded_bwd_plain
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, check_operands, check_seq_start, check_smem, check_vector_rows, kv_splits, ptr,
-    ptr_or_null, raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, check_offset, check_operands, check_seq_start, check_smem, check_vector_rows,
+    kv_splits, ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 
 ROWS_PER_CHUNK = 64   # query rows (tokens x heads) per chunk of the f32 kernel, its maximum
@@ -37,9 +37,11 @@ MAX_D = 128           # head widths the kernels' register slices and tiles cover
 
 
 def check_banded_operands(name: str, Q, K, V, dO, lse, delta, *, mode: str, w: int, l: int,
-                          d: int, seq_start=None) -> int:
+                          d: int, seq_start=None, t_start: int = 0) -> int:
     """The checks of a banded backward launch (shapes, dtypes, devices,
-    contiguity, alignment, mode, seq_start). Returns the dtype code."""
+    contiguity, alignment, mode, seq_start, the query offset). Returns the
+    dtype code."""
+    check_offset(name, t_start, seq_start)
     if mode not in MODES:
         raise ValueError(f"{name}: mode must be 'win' or 'cmp', got {mode!r}")
     code = check_operands(name, {"Q": Q, "K": K, "V": V, "dO": dO})
@@ -64,17 +66,18 @@ def check_banded_operands(name: str, Q, K, V, dO, lse, delta, *, mode: str, w: i
 
 
 def split_shares(S: int, S_kv: int, h: int, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-                 rows: int, nsplit: int) -> list:
+                 rows: int, nsplit: int, t_start: int = 0) -> list:
     """[key tile][split] -> band rows [ra, rb) (row = token * h + head) of
     the bf16 kernel's CTA (tile, split), as the kernel cuts them: the rows
-    whose tokens see a key of the tile (banded_common.cuh::token_range), in
-    nsplit shares of whole chunks of `rows` rows. An empty share has ra >=
-    rb."""
+    whose tokens (at positions t_start + token) see a key of the tile
+    (banded_common.cuh::token_range), in nsplit shares of whole chunks of
+    `rows` rows. An empty share has ra >= rb."""
     out = []
     for k0 in range(0, S_kv, KEYS_PER_TILE):
         k1 = min(k0 + KEYS_PER_TILE, S_kv)
-        t_lo, t_hi = (k0, min(k1 - 1 + w - 1, S - 1)) if mode == "win" else (k0 * d + l - 1,
-                                                                             S - 1)
+        t_lo, t_hi = ((k0, k1 - 1 + w - 1) if mode == "win"
+                      else (k0 * d + l - 1, t_start + S - 1))    # positions
+        t_lo, t_hi = max(t_lo - t_start, 0), min(t_hi - t_start, S - 1)   # row tokens
         R0, n = t_lo * h, max(t_hi - t_lo + 1, 0) * h
         per = -(-(-(-n // nsplit)) // rows) * rows
         out.append([(R0 + s * per, min(R0 + n, R0 + s * per + per)) for s in range(nsplit)])
@@ -90,7 +93,7 @@ def mma_plan(lib, device, B: int, S: int, S_kv: int, G: int, h: int, Dk: int,
 
 
 def kv_pass(name: str, lib, code: int, Q, K, V, dO, lse, delta, *, mode: str, w: int, l: int,
-            d: int, scale: float, slots: bool, seq_start=None) -> tuple:
+            d: int, scale: float, slots: bool, seq_start=None, t_start: int = 0) -> tuple:
     """Launches the kv-major kernel on checked operands (dtype code `code`):
     bf16 the tensor-core kernel, f32 the FMA kernel. With `slots` it writes
     each chunk's dQ partial to its slot and returns (dQ, dK, dV) (the
@@ -114,7 +117,7 @@ def kv_pass(name: str, lib, code: int, Q, K, V, dO, lse, delta, *, mode: str, w:
     part = torch.empty(nsplit * B * G * S_kv * (Dk + Dv), dtype=torch.float32, device=Q.device)
     args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr_or_null(seq_start),
             ptr_or_null(dQ), ptr(dK), ptr(dV), ptr(part), ptr_or_null(ws), B, S, S_kv, G, h, Dk,
-            Dv, MODES[mode], w, l, d, float(scale))
+            Dv, MODES[mode], w, l, d, float(scale), t_start)
     with torch.cuda.device(Q.device):
         if mma:
             err = lib.nsa_banded_bwd_1p_mma(*args, nsplit, stream_of(Q))
@@ -125,20 +128,22 @@ def kv_pass(name: str, lib, code: int, Q, K, V, dO, lse, delta, *, mode: str, w:
 
 
 def banded_bwd_1p(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-                  scale: float, seq_start=None):
+                  scale: float, seq_start=None, t_start: int = 0):
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
-    (dQ, dK, dV) in the operands' dtype. Query row s is at position s;
-    seq_start [B,S] int32 (or None) bounds each row to its document.
+    (dQ, dK, dV) in the operands' dtype. Query row s is at position
+    t_start + s (a host int: sequence sharding, where K/V cover the whole
+    sequence; the key tiles span all S_kv keys); seq_start [B,S] int32 (or
+    None; t_start 0) bounds each row to its document.
     CPU tensors take the plain version. Counts launches in
     `banded_bwd_1p.launches` and, of those in cmp mode, in
     `banded_bwd_1p.cmp_launches`."""
     if resolve_kernel(Q) == "plain":
         return banded_bwd_plain(Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d, scale=scale,
-                                seq_start=seq_start)
+                                seq_start=seq_start, t_start=t_start)
     code = check_banded_operands("banded_bwd_1p", Q, K, V, dO, lse, delta, mode=mode, w=w, l=l,
-                                 d=d, seq_start=seq_start)
+                                 d=d, seq_start=seq_start, t_start=t_start)
     grads = kv_pass("banded_bwd_1p", library(), code, Q, K, V, dO, lse, delta, mode=mode, w=w,
-                    l=l, d=d, scale=scale, slots=True, seq_start=seq_start)
+                    l=l, d=d, scale=scale, slots=True, seq_start=seq_start, t_start=t_start)
     banded_bwd_1p.launches += 1
     if mode == "cmp":
         banded_bwd_1p.cmp_launches += 1

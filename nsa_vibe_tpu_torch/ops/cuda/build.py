@@ -40,10 +40,10 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # stream are c_void_p so that 64-bit addresses pass whole
 SIGNATURES = {
     "nsa_error_string": ([I], ctypes.c_char_p),
-    "nsa_select_cmp": ([P] * 8 + [I] * 14 + [F, I, P], I),
+    "nsa_select_cmp": ([P] * 8 + [I] * 14 + [F, I, I, P], I),
     "nsa_select_cmp_max_s_sel": ([], I),
     "nsa_select_cmp_smem_bytes": ([I] * 5, LL),
-    "nsa_select_cmp_mma": ([P] * 8 + [I] * 14 + [F, I, I, P], I),
+    "nsa_select_cmp_mma": ([P] * 8 + [I] * 14 + [F, I, I, I, P], I),
     "nsa_select_cmp_mma_smem_bytes": ([I] * 6, LL),
     "nsa_sel_attn": ([I] + [P] * 8 + [I] * 9 + [F, P], I),
     "nsa_sel_attn_smem_bytes": ([I] * 5, LL),
@@ -52,7 +52,7 @@ SIGNATURES = {
     "nsa_sel_attn_union_smem_bytes": ([I] * 6, LL),
     "nsa_banded_fwd_mma": ([P] * 6 + [I] * 12 + [F, I, P], I),
     "nsa_banded_fwd_mma_smem_bytes": ([I] * 3, LL),
-    "nsa_banded_bwd": ([P] * 8 + [I] * 11 + [F, I, P], I),
+    "nsa_banded_bwd": ([P] * 8 + [I] * 11 + [F, I, I, P], I),
     "nsa_banded_bwd_smem_bytes": ([I] * 2, LL),
     "nsa_sel_attn_bwd": ([I] + [P] * 19 + [I] * 16 + [F, P], I),
     "nsa_sel_attn_bwd_smem_bytes": ([I] * 9, LL),
@@ -62,22 +62,22 @@ SIGNATURES = {
     "nsa_select_blocks_smem_bytes": ([I] * 4, LL),
     "nsa_select_blocks_mma": ([P] * 4 + [I] * 14 + [F, I, I, P], I),
     "nsa_select_blocks_mma_smem_bytes": ([I] * 4, LL),
-    "nsa_banded_bwd_1p": ([P] * 12 + [I] * 11 + [F, I, I, P], I),
+    "nsa_banded_bwd_1p": ([P] * 12 + [I] * 11 + [F, I, I, I, P], I),
     "nsa_banded_bwd_1p_smem_bytes": ([I] * 2, LL),
     "nsa_banded_bwd_1p_slots": ([I] * 3, I),
     "nsa_sel_attn_bwd_1p": ([I] + [P] * 18 + [I] * 12 + [F, P], I),
     "nsa_sel_attn_bwd_1p_smem_bytes": ([I] * 3, LL),
     "nsa_sel_attn_bwd_kv_rows": ([I] * 3, I),
-    "nsa_win_bwd_diag": ([P] * 12 + [I] * 8 + [F, I, P], I),
+    "nsa_win_bwd_diag": ([P] * 12 + [I] * 8 + [F, I, I, P], I),
     "nsa_win_bwd_diag_smem_bytes": ([I] * 2, LL),
     "nsa_win_bwd_diag_strip_keys": ([I] * 3, I),
-    "nsa_banded_bwd_1p_mma": ([P] * 12 + [I] * 11 + [F, I, P], I),
+    "nsa_banded_bwd_1p_mma": ([P] * 12 + [I] * 11 + [F, I, I, P], I),
     "nsa_banded_bwd_1p_mma_rows": ([I] * 2, I),
     "nsa_banded_bwd_1p_mma_smem_bytes": ([I] * 2, LL),
-    "nsa_win_bwd_diag_mma": ([P] * 12 + [I] * 8 + [F, I, P], I),
+    "nsa_win_bwd_diag_mma": ([P] * 12 + [I] * 8 + [F, I, I, P], I),
     "nsa_win_bwd_diag_mma_smem_bytes": ([I] * 3, LL),
     "nsa_win_bwd_diag_mma_strip_keys": ([I] * 4, I),
-    "nsa_banded_bwd_dq_mma": ([P] * 8 + [I] * 11 + [F, I, P], I),
+    "nsa_banded_bwd_dq_mma": ([P] * 8 + [I] * 11 + [F, I, I, P], I),
     "nsa_banded_bwd_dq_mma_smem_bytes": ([I] * 3, LL),
 }
 

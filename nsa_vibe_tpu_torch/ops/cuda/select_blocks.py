@@ -30,8 +30,8 @@ from nsa_vibe_tpu_torch.ops import varlen
 from nsa_vibe_tpu_torch.ops.block_index import build_M_csl_on
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, SMEM_LIMIT, check_operands, check_seq_start, check_vector_rows, ptr,
-    ptr_or_null, raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, SMEM_LIMIT, check_offset, check_operands, check_seq_start, check_vector_rows,
+    ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 from nsa_vibe_tpu_torch.ops.selection import (
     compute_pcmp_masked, effective_sel_blocks, group_reduce, map_pcmp_to_pslc, topn_forced_first,
@@ -112,8 +112,7 @@ def select_blocks(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: 
                          f"Q {tuple(Q.shape)}")
     check_vector_rows("select_blocks", Q=Q, K_cmp=K_cmp)
     check_seq_start("select_blocks", seq_start, B, S, Q.device)
-    if seq_start is not None and pos_offset:
-        raise ValueError("select_blocks: seq_start needs pos_offset == 0")
+    check_offset("select_blocks", pos_offset, seq_start)
     if S_cmp == 0:
         raise ValueError("select_blocks: no compressed tokens (S_cmp == 0); the caller "
                          "selects the forced blocks without the scorer")

@@ -33,8 +33,8 @@ from nsa_vibe_tpu_torch.ops import reference as ref
 from nsa_vibe_tpu_torch.ops import varlen
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, SMEM_LIMIT, check_operands, check_seq_start, check_smem, check_vector_rows, ptr,
-    ptr_or_null, raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, SMEM_LIMIT, check_offset, check_operands, check_seq_start, check_smem,
+    check_vector_rows, ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 from nsa_vibe_tpu_torch.ops.selection import (
     compute_pcmp_masked, effective_sel_blocks, group_reduce, map_pcmp_to_pslc, topn_forced_first,
@@ -62,16 +62,18 @@ def select_cmp_fits(h: int, S_sel: int) -> bool:
 
 def select_cmp_plain(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int,
                      n_top: int, force_init: bool = True, force_local: int = 2,
-                     return_scores: bool = False, return_lse: bool = False, seq_start=None):
+                     return_scores: bool = False, return_lse: bool = False, seq_start=None,
+                     pos_offset: int = 0):
     """Plain PyTorch version: the same function and output contract.
     Returns (sel_idx, O_cmp), then lse [B,S,G,h] with return_lse, then the
     group scores p_grp [B,S,G,S_sel] with return_scores."""
     S = Q.shape[1]
-    t_pos = torch.arange(S, device=Q.device)
+    check_offset("select_cmp", pos_offset, seq_start)
+    t_pos = torch.arange(pos_offset, pos_offset + S, device=Q.device)
     if seq_start is not None:
         p_cmp = varlen.compute_pcmp_varlen(Q, K_cmp, scale, t_pos, seq_start, l, d)
     else:
-        num_cmp_t = ref.num_cmp_per_token(S, l, d, M.shape[0], Q.device)
+        num_cmp_t = ref.num_cmp_per_token(S, l, d, M.shape[0], Q.device, pos_offset)
         p_cmp = compute_pcmp_masked(Q, K_cmp, scale, num_cmp_t)      # f32, 0 rows w/o tokens
     O = torch.einsum("bsghc,bgcv->bsghv", p_cmp, V_cmp.float()).to(Q.dtype)
     p_grp = group_reduce(map_pcmp_to_pslc(p_cmp, M))                 # [B,S,G,S_sel]
@@ -110,11 +112,13 @@ def tile_plan(lib, h: int, Dk: int, Dv: int, S_sel: int, docs: bool = False) -> 
 
 def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, n_top: int,
                force_init: bool = True, force_local: int = 2, return_lse: bool = False,
-               seq_start=None):
+               seq_start=None, pos_offset: int = 0):
     """Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], V_cmp [B,G,S_cmp,Dv], M [S_cmp,S_sel]
     f32 -> (sel_idx [B,S,G,n_out] int32, O_cmp [B,S,G,h,Dv][, lse [B,S,G,h]]).
-    Query row s is at position s; seq_start [B,S] int32 (or None) keeps each
-    row in its document. CPU tensors take the plain version. M is
+    Query row s is at position pos_offset + s (a host int: sequence
+    sharding, where K_cmp and M cover the whole sequence); seq_start [B,S]
+    int32 (or None; pos_offset 0) keeps each row in its document. CPU
+    tensors take the plain version. M is
     the Eq. 9 map of ops/block_index.py: the kernels read, for each
     compressed token c, only the entries of the selection blocks its span
     [c*d, c*d + l) overlaps; the other entries, zero in that map, are not
@@ -123,7 +127,8 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
         return select_cmp_plain(Q, K_cmp, V_cmp, M, scale=scale, l=l, d=d, l_sel=l_sel,
                                 n_top=n_top, force_init=force_init,
                                 force_local=force_local, return_lse=return_lse,
-                                seq_start=seq_start)
+                                seq_start=seq_start, pos_offset=pos_offset)
+    check_offset("select_cmp", pos_offset, seq_start)
     code = check_operands("select_cmp", {"Q": Q, "K_cmp": K_cmp, "V_cmp": V_cmp})
     check_operands("select_cmp", {"M": M})
     if M.dtype != torch.float32:
@@ -159,7 +164,7 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
            if return_lse else None)
     args = (ptr(Q), ptr(K_cmp), ptr(V_cmp), ptr(M), ptr_or_null(seq_start), ptr(sel), ptr(O),
             ptr_or_null(lse), B, S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top,
-            int(force_init), force_local, float(scale))
+            int(force_init), force_local, float(scale), int(pos_offset))
     with torch.cuda.device(Q.device):
         if mma:
             tq = tile_plan(lib, h, Dk, Dv, S_sel, docs=seq_start is not None)

@@ -46,17 +46,20 @@ def tile_plan(lib, dtype, B: int, S: int, S_kv: int, G: int, h: int, Dk: int, Dv
     return tq, sl, B * G * -(-S // tq) * sl * (Dk + Dv) * 4
 
 
-def win_bwd_diag(Q, K, V, dO, lse, delta, *, w: int, scale: float, seq_start=None):
+def win_bwd_diag(Q, K, V, dO, lse, delta, *, w: int, scale: float, seq_start=None,
+                 t_start: int = 0):
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
-    (dQ, dK, dV) of the window branch (row t sees keys [t-w+1, t], and
-    none before seq_start [B,S] int32 when given) in the operands' dtype.
+    (dQ, dK, dV) of the window branch (query row s at position t = t_start
+    + s, a host int, sees keys [t-w+1, t]; the strips scatter into all
+    S_kv keys; with seq_start [B,S] int32 (t_start 0) none before the
+    row's document start) in the operands' dtype.
     CPU tensors take the plain version. Counts launches in
     `win_bwd_diag.launches`."""
     if resolve_kernel(Q) == "plain":
         return banded_bwd_plain(Q, K, V, dO, lse, delta, mode="win", w=w, scale=scale,
-                                seq_start=seq_start)
+                                seq_start=seq_start, t_start=t_start)
     code = check_banded_operands("win_bwd_diag", Q, K, V, dO, lse, delta, mode="win", w=w, l=0,
-                                 d=1, seq_start=seq_start)
+                                 d=1, seq_start=seq_start, t_start=t_start)
     B, S, G, h, Dk = Q.shape
     S_kv, Dv = K.shape[2], V.shape[3]
     mma = code == DTYPE_CODES[torch.bfloat16]
@@ -72,7 +75,7 @@ def win_bwd_diag(Q, K, V, dO, lse, delta, *, w: int, scale: float, seq_start=Non
     strip_v = torch.empty(B * G * n_q * sl * Dv, dtype=torch.float32, device=Q.device)
     args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr_or_null(seq_start),
             ptr(dQ), ptr(dK), ptr(dV), ptr(strip_k), ptr(strip_v), B, S, S_kv, G, h, Dk, Dv, w,
-            float(scale))
+            float(scale), t_start)
     with torch.cuda.device(Q.device):
         if mma:
             err = lib.nsa_win_bwd_diag_mma(*args, MMA_TILE_ROWS, stream_of(Q))

@@ -232,23 +232,26 @@ def pack_documents_aligned(docs: List[np.ndarray], seq_len: int, align: int,
 
 def make_varlen_batches(source: str, seq_len: int, batch_size: int, align: int,
                         seed: int = 0, tokenizer: str = "byte", pad_id: int = 0,
-                        epochs: int = 1
+                        epochs: int = 1, shard=None
                         ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Yield (tokens [B,S+1], seq_start [B,S], loss_mask [B,S]) batches of
     align-packed documents from 'synthetic' (documents of max(seq_len // 3,
     8) tokens) or a local .jsonl/.txt file (train.data's sources; fineweb
-    needs the network and is not read). Packs batch_size * 4 documents at a
+    needs the network and is not read), the documents `shard` (a
+    train.data.Shard) owns; synthetic takes the stream of seed +
+    shard.rem, as make_batches does. Packs batch_size * 4 documents at a
     time. epochs (local files only): 0 cycles forever."""
-    from nsa_vibe_tpu_torch.train.data import local_docs, make_tokenizer, synthetic_docs
+    from nsa_vibe_tpu_torch.train.data import Shard, local_docs, make_tokenizer, synthetic_docs
 
     tokenize = make_tokenizer(tokenizer)
+    shard = shard or Shard()
     if source == "synthetic":
-        docs = synthetic_docs(seed=seed, doc_len=max(seq_len // 3, 8))
+        docs = synthetic_docs(seed=seed + shard.rem, doc_len=max(seq_len // 3, 8))
     elif source.startswith("fineweb"):
         raise ValueError("the fineweb source needs the network and HF `datasets`; the port "
                          "reads --data synthetic or a local .jsonl/.txt file")
     elif os.path.exists(source):
-        docs = local_docs(source, tokenize=tokenize, epochs=epochs)
+        docs = local_docs(source, shard, tokenize=tokenize, epochs=epochs)
     else:
         raise ValueError(f"unknown data source: {source}")
 

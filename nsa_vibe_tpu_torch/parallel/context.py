@@ -1,0 +1,87 @@
+"""Context (sequence) parallel NSA over the mesh's sp ranks.
+
+Port of nsa_vibe_tpu/parallel/context.py. Each sp rank holds S / sp
+consecutive query positions of every row (t0 = sp_rank * S / sp) and runs
+core/nsa.py::nsa_prefill on them with t0 and a K/V gather: RoPE at
+positions t0 + s; the six K/V streams (selection, window, raw compressed)
+all-gathered over the sp group by a differentiable gather whose backward
+reduce-scatters (parallel/mesh.py::gather_along), so each rank gets the
+sum of every rank's gradient of its own K/V rows; ϕ pooling over the
+gathered raw stream (windows straddle shard boundaries); the route chosen
+by shape as on one device, every kernel (and its backward) at offset t0.
+Embedding, norms, MLP and LM head act per token on the local rows.
+
+Every rank must run the same collectives in the same order: under remat
+a block's forward (with its gathers) is recomputed in the backward on
+every rank, in the same order, since every rank runs the same graph.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig
+from nsa_vibe_tpu_torch.core.nsa import nsa_prefill
+from nsa_vibe_tpu_torch.models.llama_block import block_prefill, rmsnorm
+from nsa_vibe_tpu_torch.parallel.mesh import Mesh, gather_along
+from nsa_vibe_tpu_torch.utils.device import torch_dtype
+
+
+def check_shards(S: int, sp: int, l_sel: int) -> int:
+    """S / sp, which must be a multiple of l_sel (a selection block never
+    straddles two ranks' rows)."""
+    if S % sp or (S // sp) % l_sel:
+        raise ValueError(f"S={S} must split into sp={sp} shards of a multiple of l_sel={l_sel}")
+    return S // sp
+
+
+def sp_kwargs(mesh: Mesh, S_local: int, l_sel: int) -> dict:
+    """nsa_prefill's sequence-sharding arguments on this rank: its rows'
+    offset t0 and the K/V gather over the sp group."""
+    check_shards(S_local * mesh.sp, mesh.sp, l_sel)
+    return dict(t0=mesh.sp_rank * S_local,
+                gather_kv=lambda a: gather_along(a, 2, mesh.sp_group, mesh.sp))
+
+
+def context_parallel_prefill(params: dict, x_local: torch.Tensor, cfg: NSAConfig,
+                             mesh: Mesh) -> torch.Tensor:
+    """Sequence-sharded batched prefill of one NSA layer (the JAX package's
+    nsa_attention_cp_local): x_local [B, S/sp, dim], the rows at positions
+    [t0, t0 + S/sp), t0 = sp_rank * S/sp -> out [B, S/sp, dim].
+    Differentiable."""
+    return nsa_prefill(params, x_local, cfg, **sp_kwargs(mesh, x_local.shape[1], cfg.l_sel))[0]
+
+
+def context_parallel_model_forward(params: dict, tokens: torch.Tensor, mcfg: ModelConfig,
+                                   mesh: Mesh, collect_aux: bool = False, seq_start=None,
+                                   block: Optional[Callable] = None) -> Tuple[torch.Tensor, list]:
+    """TinyLM forward over this rank's rows: tokens [B, S/sp] (positions
+    [t0, t0 + S/sp) of the rank's dp rows) -> (logits [B, S/sp, vocab],
+    per-layer {"gates", "sel_idx"} of the local rows if asked). With sp = 1
+    each block is block_prefill itself (seq_start [B, S]: packed documents,
+    dp only). `block(i, bp)`, if given, makes block i's parameter dict from
+    bp = params["blocks"][i] inside the (remat) block, where fsdp gathers
+    its shards (parallel/train_step.py). The remat contract is model_forward's:
+    True/"full" recomputes each block, its collectives included, in the
+    backward; "mlp" only the MLP."""
+    if seq_start is not None and mesh.sp > 1:
+        raise ValueError("varlen with sp > 1 is not ported yet (ROADMAP Queue 1 item 4)")
+    x = params["embed"][tokens].to(torch_dtype(mcfg.dtype))
+    if seq_start is not None:
+        seq_start = seq_start.to(device=x.device, dtype=torch.int32).contiguous()
+    make = block or (lambda i, bp: bp)
+    sp_kw = sp_kwargs(mesh, tokens.shape[1], mcfg.nsa.l_sel) if mesh.sp > 1 else {}
+
+    def run(i, bp, x):
+        return block_prefill(make(i, bp), x, mcfg, seq_start, **sp_kw)
+
+    remat = mcfg.remat in (True, "full") and torch.is_grad_enabled()
+    auxes = []
+    for i, bp in enumerate(params["blocks"]):
+        x, aux = checkpoint(run, i, bp, x, use_reentrant=False) if remat else run(i, bp, x)
+        if collect_aux:
+            auxes.append({"gates": aux["gates"], "sel_idx": aux["sel_idx"]})
+    return rmsnorm(x, params["final_norm"], mcfg.rmsnorm_eps) @ params["lm_head"], auxes

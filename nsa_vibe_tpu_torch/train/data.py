@@ -2,21 +2,37 @@
 
 The port's own copy of nsa_vibe_tpu/train/data.py (tokenize_bytes, the
 byte tokenizer, synthetic_docs, pack_token_stream, local_docs,
-make_batches, collate_varlen): the same numpy arithmetic, so a seed gives
-the same batches in both packages. Packed-document (varlen) batches come
-from ops/varlen.py::make_varlen_batches over the same sources. Not ported: the native C++ packer, HF
-tokenizers, the fineweb stream (it needs the network and HF `datasets`;
-`make_batches("fineweb...")` raises) and doc-level sharding across
-processes (one device reads every document).
+make_batches, collate_varlen, Shard): the same numpy arithmetic, so a
+seed gives the same batches in both packages. Packed-document (varlen)
+batches come from ops/varlen.py::make_varlen_batches over the same
+sources. Doc-level sharding (`Shard`) splits documents across the dp
+members of a parallel run (parallel/): member r of n reads the documents
+whose index is r mod n (synthetic: the stream of seed + r); the sp ranks
+of one member read the same rows and each takes its positions. Not
+ported: the native C++ packer, HF tokenizers and the fineweb stream (it
+needs the network and HF `datasets`; `make_batches("fineweb...")` raises).
 """
 
 from __future__ import annotations
 
 import json
 import os
+from dataclasses import dataclass
 from typing import Iterable, Iterator
 
 import numpy as np
+
+
+@dataclass(frozen=True)
+class Shard:
+    """Doc-level modulo sharding: rank `rem` of `mod` consumes docs where
+    doc_index % mod == rem."""
+
+    mod: int = 1
+    rem: int = 0
+
+    def owns(self, index: int) -> bool:
+        return index % self.mod == self.rem
 
 
 def tokenize_bytes(text: str) -> np.ndarray:
@@ -64,26 +80,33 @@ def synthetic_docs(seed: int = 0, doc_len: int = 2048) -> Iterator[np.ndarray]:
         yield doc.astype(np.int32)
 
 
-def local_docs(path: str, tokenize=tokenize_bytes, epochs: int = 1) -> Iterator[np.ndarray]:
-    """Local .jsonl ({'text': ...} per line) or plain .txt file. epochs=0
-    cycles the file forever."""
+def local_docs(path: str, shard: Shard = Shard(), tokenize=tokenize_bytes,
+               epochs: int = 1) -> Iterator[np.ndarray]:
+    """Local .jsonl ({'text': ...} per line) or plain .txt file (one
+    document, index 0), the documents `shard` owns. epochs=0 cycles the
+    file forever."""
     e = 0
     while True:
+        idx = 0
         if path.endswith(".jsonl"):
             with open(path) as f:
                 for line in f:
                     line = line.strip()
                     if not line:
                         continue
-                    try:
-                        text = json.loads(line).get("text", "")
-                    except json.JSONDecodeError:
-                        text = ""
-                    if text:
-                        yield tokenize(text)
+                    if shard.owns(idx):
+                        try:
+                            text = json.loads(line).get("text", "")
+                        except json.JSONDecodeError:
+                            text = ""
+                        if text:
+                            yield tokenize(text)
+                    idx += 1
         else:
             with open(path) as f:
-                yield tokenize(f.read())
+                text = f.read()
+            if shard.owns(0):
+                yield tokenize(text)
         e += 1
         if epochs and e >= epochs:
             return
@@ -96,17 +119,19 @@ def make_batches(
     seed: int = 0,
     tokenizer: str = "byte",
     epochs: int = 1,
+    shard: Shard = Shard(),
 ) -> Iterator[np.ndarray]:
-    """source: 'synthetic' | path to .jsonl/.txt. epochs (local files
+    """source: 'synthetic' | path to .jsonl/.txt, the documents `shard`
+    owns (synthetic: the stream of seed + shard.rem). epochs (local files
     only): 0 cycles forever. Yields int32 [batch_size, seq_len+1]."""
     tokenize = make_tokenizer(tokenizer)
     if source == "synthetic":
-        docs: Iterator[np.ndarray] = synthetic_docs(seed)
+        docs: Iterator[np.ndarray] = synthetic_docs(seed + shard.rem)
     elif source.startswith("fineweb"):
         raise ValueError("the fineweb source needs the network and HF `datasets`; the port "
                          "reads --data synthetic or a local .jsonl/.txt file")
     elif os.path.exists(source):
-        docs = local_docs(source, tokenize=tokenize, epochs=epochs)
+        docs = local_docs(source, shard, tokenize=tokenize, epochs=epochs)
     else:
         raise ValueError(f"unknown data source: {source}")
     yield from pack_token_stream(docs, seq_len, batch_size)

@@ -1,4 +1,4 @@
-"""Byte-LM trainer, single device (port of nsa_vibe_tpu/train/trainer.py).
+"""Byte-LM trainer (port of nsa_vibe_tpu/train/trainer.py).
 
   * YAML config (model/nsa/train groups; PyYAML is imported only when
     --config is given) + CLI overrides;
@@ -6,7 +6,14 @@
     --device cpu); --varlen trains on packed documents (ops/varlen.py:
     l_sel-aligned starts, no attention across a document boundary, the
     loss masked to each document's own next tokens);
-  * training.csv, val.csv, heartbeat.jsonl, `.HALT` polling each step;
+  * under torch.distributed (WORLD_SIZE > 1, or dp/sp > 1) the parallel
+    step of parallel/train_step.py over a (dp, sp) mesh (--dp, --sp,
+    --fsdp): each dp member reads its own documents (train.data.Shard)
+    into batch_size / dp rows, each sp rank takes its positions; the
+    device is cuda:LOCAL_RANK unless --device names one (two ranks on one
+    card: --device cuda:0 --backend gloo); rank 0 logs and writes;
+  * training.csv, val.csv, heartbeat.jsonl, `.HALT` polling each step
+    (under a mesh the ranks agree on it at log boundaries);
   * the coherent NaN abort: the device `good` flags queue up and are read
     at log boundaries, 3 consecutive bad steps halt the run;
   * periodic + final checkpoints with optimizer state; --resume.
@@ -17,6 +24,8 @@ the card runs ahead of the Python loop between them.
 Run:  python -m nsa_vibe_tpu_torch.train.trainer --steps 50 --data synthetic
       python -m nsa_vibe_tpu_torch.train.trainer --config configs/m7c_125m.yaml \
           --data synthetic --steps 20 [--varlen]
+      torchrun --nproc-per-node N -m nsa_vibe_tpu_torch.train.trainer \
+          --config configs/m7c_125m_pod.yaml --data synthetic   (N cards)
 """
 
 from __future__ import annotations
@@ -37,7 +46,9 @@ import torch
 from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig, TrainConfig
 from nsa_vibe_tpu_torch.models.tinylm import init_model_params
 from nsa_vibe_tpu_torch.ops.varlen import make_varlen_batches
-from nsa_vibe_tpu_torch.train.data import make_batches
+from nsa_vibe_tpu_torch.parallel import train_step as pts
+from nsa_vibe_tpu_torch.parallel.mesh import all_reduce_, initialize_distributed, make_mesh
+from nsa_vibe_tpu_torch.train.data import Shard, make_batches
 from nsa_vibe_tpu_torch.train.train_step import init_train_state, make_eval_step, make_train_step
 from nsa_vibe_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from nsa_vibe_tpu_torch.utils.device import resolve_device
@@ -76,8 +87,9 @@ class _Prefetcher:
 
 def load_config(path: Optional[str]) -> tuple[ModelConfig, TrainConfig, str]:
     """YAML with optional model/nsa/train groups; returns (mcfg, tcfg, data).
-    Keys the port does not have (the parallel axes) raise; train.varlen is
-    read. nsa.varlen_exact may only be true: the port's avg ϕ is always
+    train.varlen and the parallel keys (dp, sp, fsdp, fsdp_min_size) are
+    read; tp or pp > 1 and varlen with sp > 1 raise (not ported), as do
+    keys the port does not have. nsa.varlen_exact may only be true: the port's avg ϕ is always
     window-exact (core/config.py), so `false`, the JAX package's running-sum
     form, raises rather than compute other math unannounced."""
     raw: dict = {}
@@ -87,22 +99,29 @@ def load_config(path: Optional[str]) -> tuple[ModelConfig, TrainConfig, str]:
         with open(path) as f:
             raw = yaml.safe_load(f) or {}
     nsa_kw = dict(raw.get("nsa", {}))
+    # the JAX package's prefill chunk bounds its XLA scorer's [chunk, S_cmp]
+    # scores; the port's scorer kernels form no such tensor, so it has none
+    nsa_kw.pop("prefill_chunk", None)
     if not nsa_kw.pop("varlen_exact", True):
         raise ValueError("nsa.varlen_exact: false is not supported: the port's avg phi is "
                          "always window-exact (the JAX package's varlen_exact: true)")
     nsa = NSAConfig(**nsa_kw)
     model_kw = dict(raw.get("model", {}))
     data = model_kw.pop("data", raw.get("data", "synthetic"))
-    return ModelConfig(nsa=nsa, **model_kw), TrainConfig(**raw.get("train", {})), data
+    tcfg = TrainConfig(**raw.get("train", {}))
+    pts.check_config(tcfg)
+    return ModelConfig(nsa=nsa, **model_kw), tcfg, data
 
 
 def apply_overrides(mcfg: ModelConfig, tcfg: TrainConfig, args) -> tuple[ModelConfig, TrainConfig]:
     t_over = {k: getattr(args, k)
               for k in ("steps", "batch_size", "seq_len", "accum_steps", "lr", "seed",
-                        "save_every", "eval_every", "log_every", "out_dir", "varlen")
+                        "save_every", "eval_every", "log_every", "out_dir", "varlen", "dp",
+                        "sp", "fsdp", "fsdp_min_size")
               if getattr(args, k, None) is not None}
     if t_over:
         tcfg = dataclasses.replace(tcfg, **t_over)
+        pts.check_config(tcfg)
     m_over = {}
     if args.n_layers is not None:
         m_over["n_layers"] = args.n_layers
@@ -138,47 +157,88 @@ def _batch_to_device(batch_np, tcfg: TrainConfig, shape, dev: torch.device):
             _to_device(lm, (*shape, tcfg.seq_len), dev, torch.float32))
 
 
+def _distributed(tcfg: TrainConfig) -> bool:
+    return int(os.environ.get("WORLD_SIZE", "1")) > 1 or tcfg.dp > 1 or tcfg.sp > 1
+
+
+def _rank_device(device: str) -> str:
+    """cuda:LOCAL_RANK for the default "cuda"; any other name as given."""
+    return f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}" if device == "cuda" else device
+
+
 def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
-          resume: bool = False, device="cuda") -> dict:
-    """Run training; returns a summary dict (final loss, toks/s, steps done)."""
+          resume: bool = False, device="cuda", backend: Optional[str] = None) -> dict:
+    """Run training; returns a summary dict (final loss, toks/s, steps done).
+    Under torch.distributed (see the module notes) every rank calls it;
+    `backend` ("nccl" or "gloo", None: nccl on a card) starts the group."""
+    parallel = _distributed(tcfg)
+    if parallel:
+        initialize_distributed(backend)
+        device = _rank_device(device)
     dev = resolve_device(device)
+    mesh = None
+    if parallel:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = make_mesh(tcfg.dp, tcfg.sp)
+    lead = mesh is None or mesh.rank == 0
     run_dir = tcfg.out_dir
     os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "env.json"), "w") as f:
-        json.dump({
-            "torch": torch.__version__,
-            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
-            "model": dataclasses.asdict(mcfg),
-            "train": dataclasses.asdict(tcfg),
-            "data": data_source,
-        }, f, indent=2, default=str)
+    if lead:
+        with open(os.path.join(run_dir, "env.json"), "w") as f:
+            json.dump({
+                "torch": torch.__version__,
+                "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
+                "model": dataclasses.asdict(mcfg),
+                "train": dataclasses.asdict(tcfg),
+                "data": data_source,
+                "mesh": None if mesh is None else {"dp": mesh.dp, "sp": mesh.sp,
+                                                   "backend": mesh.backend},
+            }, f, indent=2, default=str)
 
     params = init_model_params(mcfg, torch.Generator().manual_seed(tcfg.seed), device=dev)
-    state = init_train_state(params, tcfg)
-    step_fn = make_train_step(mcfg, tcfg)
-    eval_fn = make_eval_step(mcfg, varlen=tcfg.varlen)
+    if mesh is None:
+        state = init_train_state(params, tcfg)
+        step_fn = make_train_step(mcfg, tcfg)
+        eval_fn = make_eval_step(mcfg, varlen=tcfg.varlen)
+    else:
+        step_fn, state = pts.build_state_and_step(params, mcfg, tcfg, mesh)
+        peval = pts.make_eval_step(mcfg, mesh, varlen=tcfg.varlen)
+        eval_fn = lambda _, b: peval(state, b)   # noqa: E731
+    del params
 
     ckpt_dir = os.path.join(run_dir, "ckpt")
     start_step = 0
     if resume and latest_step(ckpt_dir) is not None:
-        restore_checkpoint(ckpt_dir, state)
+        restore_checkpoint(ckpt_dir, state, mesh=mesh)
         start_step = int(state.step)
-        print(f"[trainer] resumed from step {start_step}", flush=True)
+        if lead:
+            print(f"[trainer] resumed from step {start_step}", flush=True)
 
-    A, Bsz, S = tcfg.accum_steps, tcfg.batch_size, tcfg.seq_len
+    dp = 1 if mesh is None else mesh.dp
+    if tcfg.batch_size % dp:
+        raise ValueError(f"batch_size {tcfg.batch_size} does not split over dp={dp}")
+    A, Bsz, S = tcfg.accum_steps, tcfg.batch_size // dp, tcfg.seq_len
+    shard = Shard() if mesh is None else Shard(mesh.dp, mesh.dp_rank)
     if tcfg.varlen:
         source = make_varlen_batches(data_source, S, Bsz * A, align=mcfg.nsa.l_sel,
-                                     seed=tcfg.seed, epochs=0)
+                                     seed=tcfg.seed, epochs=0, shard=shard)
     else:
-        source = make_batches(data_source, S, Bsz * A, seed=tcfg.seed, epochs=0)
+        source = make_batches(data_source, S, Bsz * A, seed=tcfg.seed, epochs=0, shard=shard)
     batches = _Prefetcher(source)
     first_batch = batches.get(timeout=FIRST_BATCH_TIMEOUT_S)
 
-    hb = Heartbeat(os.path.join(run_dir, "heartbeat.jsonl"))
+    def to_device(batch_np, shape):
+        b = _batch_to_device(batch_np, tcfg, shape, dev)
+        if mesh is not None and not tcfg.varlen:
+            b = pts.local_batch(b, mesh, rows=False)   # this sp rank's positions
+        return b
+
+    hb = Heartbeat(os.path.join(run_dir, "heartbeat.jsonl")) if lead else None
     csv_path = os.path.join(run_dir, "training.csv")
     val_path = os.path.join(run_dir, "val.csv")
     new_csv = not (resume and os.path.exists(csv_path))
-    with open(csv_path, "w" if new_csv else "a", newline="") as csv_f:
+    with open(csv_path if lead else os.devnull, "w" if new_csv else "a", newline="") as csv_f:
         csv_w = csv.writer(csv_f)
         if new_csv:
             csv_w.writerow(["step", "loss", "toks_per_s", "grad_norm", "gate_entropy",
@@ -187,27 +247,42 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
 
         halt_path = os.path.join(run_dir, ".HALT")
         bad_streak = total_bad = 0
-        tokens_per_step = A * Bsz * S
+        tokens_per_step = A * tcfg.batch_size * S
         last_loss = float("nan")
         summary_toks = 0.0
         t_start = time.perf_counter()
         t_window = t_start
         pending_good: list = []
+        synced = True   # the host has waited for every queued step
 
         for step in range(start_step, tcfg.steps):
-            if os.path.exists(halt_path):
-                print(f"[trainer] .HALT detected at step {step}; exiting gracefully", flush=True)
+            halt = os.path.exists(halt_path)
+            if mesh is not None:
+                # every rank stops at the same step; the ranks agree only
+                # where the host already waited for the card (before the
+                # first step and after a log boundary), so the card keeps
+                # running ahead of the loop in between
+                if synced:
+                    flag = torch.tensor(float(halt), device=dev)
+                    halt = bool(all_reduce_(flag, op=torch.distributed.ReduceOp.MAX))
+                else:
+                    halt = False
+            if halt:
+                if lead:
+                    print(f"[trainer] .HALT detected at step {step}; exiting gracefully",
+                          flush=True)
                 break
             if first_batch is not None:
                 batch_np, first_batch = first_batch, None
             else:
                 batch_np = batches.get(timeout=300.0)
-            state, metrics = step_fn(state, _batch_to_device(batch_np, tcfg, (A, Bsz), dev))
+            state, metrics = step_fn(state, to_device(batch_np, (A, Bsz)))
             pending_good.append(metrics["good"])
             sync_now = ((step + 1) % tcfg.log_every == 0 or step == start_step
                         or step == tcfg.steps - 1
                         or (tcfg.eval_every and (step + 1) % tcfg.eval_every == 0)
                         or (tcfg.save_every and (step + 1) % tcfg.save_every == 0))
+            synced = sync_now
             if sync_now:
                 loss = float(metrics["loss"])   # waits for every queued step
                 now = time.perf_counter()
@@ -216,7 +291,7 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
                 summary_toks = toks_per_s
                 last_loss = loss
                 abort = False
-                for g in pending_good:
+                for g in pending_good:   # `good` is the same on every rank
                     if not bool(g):
                         bad_streak += 1
                         total_bad += 1
@@ -225,11 +300,12 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
                         bad_streak = 0
                 pending_good = []
                 if abort:
-                    with open(os.path.join(run_dir, ".anomaly_type"), "w") as f:
-                        f.write("nan_loss\n")
-                    with open(halt_path, "w") as f:
-                        f.write("coherent NaN abort\n")
-                    print(f"[trainer] NaN abort at step {step}", flush=True)
+                    if lead:
+                        with open(os.path.join(run_dir, ".anomaly_type"), "w") as f:
+                            f.write("nan_loss\n")
+                        with open(halt_path, "w") as f:
+                            f.write("coherent NaN abort\n")
+                        print(f"[trainer] NaN abort at step {step}", flush=True)
                     break
                 shares = metrics["branch_shares"].tolist()
                 vals = {k: float(metrics[k]) for k in ("grad_norm", "gate_entropy", "gate_max",
@@ -241,22 +317,25 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
                                 f"{shares[0]:.4f}", f"{shares[1]:.4f}", f"{shares[2]:.4f}",
                                 f"{vals['sel_k_mean']:.2f}", f"{vals['sel_k_max']:.0f}", total_bad])
                 csv_f.flush()
-                hb.beat(step + 1, loss=loss, toks_per_s=toks_per_s, grad_norm=vals["grad_norm"],
-                        gate_entropy=vals["gate_entropy"], gate_max=vals["gate_max"],
-                        gate_collapse_frac=vals["gate_collapse_frac"])
-                print(f"[trainer] step {step + 1} loss {loss:.4f} {toks_per_s:.0f} toks/s",
-                      flush=True)
+                if lead:
+                    hb.beat(step + 1, loss=loss, toks_per_s=toks_per_s,
+                            grad_norm=vals["grad_norm"], gate_entropy=vals["gate_entropy"],
+                            gate_max=vals["gate_max"],
+                            gate_collapse_frac=vals["gate_collapse_frac"])
+                    print(f"[trainer] step {step + 1} loss {loss:.4f} {toks_per_s:.0f} toks/s",
+                          flush=True)
 
             if tcfg.eval_every and (step + 1) % tcfg.eval_every == 0:
                 vb = batches.get(timeout=300.0)
                 vb = tuple(a[:Bsz] for a in vb) if tcfg.varlen else vb[:Bsz]
-                vl = float(eval_fn(state.params, _batch_to_device(vb, tcfg, (Bsz,), dev)))
-                with open(val_path, "a", newline="") as vf:
-                    csv.writer(vf).writerow([step + 1, f"{vl:.6f}", f"{np.exp(vl):.4f}"])
+                vl = float(eval_fn(state.params, to_device(vb, (Bsz,))))
+                if lead:
+                    with open(val_path, "a", newline="") as vf:
+                        csv.writer(vf).writerow([step + 1, f"{vl:.6f}", f"{np.exp(vl):.4f}"])
 
             if tcfg.save_every and (step + 1) % tcfg.save_every == 0:
-                save_checkpoint(ckpt_dir, step + 1, state)
-    save_checkpoint(ckpt_dir, int(state.step), state)
+                save_checkpoint(ckpt_dir, step + 1, state, mesh=mesh)
+    save_checkpoint(ckpt_dir, int(state.step), state, mesh=mesh)
     return {
         "final_loss": last_loss,
         "steps": int(state.step),
@@ -267,10 +346,19 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description="NSA byte-LM trainer (PyTorch port, one device)")
+    ap = argparse.ArgumentParser(description="NSA byte-LM trainer (PyTorch port)")
     ap.add_argument("--config", default=None)
     ap.add_argument("--data", default=None, help="synthetic | path.jsonl | path.txt")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; cuda:LOCAL_RANK under torch.distributed), cuda:N or cpu")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="torch.distributed backend (default: nccl on a card, gloo on the CPU; "
+                         "gloo for several ranks on one card)")
+    ap.add_argument("--dp", type=int, default=None, help="data-parallel ranks (0: world / sp)")
+    ap.add_argument("--sp", type=int, default=None, help="sequence-parallel ranks")
+    ap.add_argument("--fsdp", action="store_true", default=None,
+                    help="shard parameters and moments over dp")
+    ap.add_argument("--fsdp-min-size", dest="fsdp_min_size", type=int, default=None)
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch-size", dest="batch_size", type=int, default=None)
     ap.add_argument("--seq-len", dest="seq_len", type=int, default=None)
@@ -295,8 +383,12 @@ def main() -> None:
     mcfg, tcfg = apply_overrides(mcfg, tcfg, args)
     if args.data is not None:
         data = args.data
-    summary = train(mcfg, tcfg, data, resume=args.resume, device=args.device)
-    print(json.dumps({"summary": summary}), flush=True)
+    summary = train(mcfg, tcfg, data, resume=args.resume, device=args.device,
+                    backend=args.backend)
+    if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
+        print(json.dumps({"summary": summary}), flush=True)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -4,6 +4,12 @@ After nsa_vibe_tpu/utils/checkpoint.py: parameters, optimizer moments and
 count, and the step, one file `step_<n>.pt` per checkpoint. Restore
 copies into the live state in place, so tensors keep their device, dtype
 and views (the projection entries stay views of W_qkv).
+
+Under a mesh (parallel/train_step.py::ParallelState) the file has the
+same single-device format: saving gathers each fsdp-sharded leaf and its
+moments over dp (every rank must call it) and rank 0 writes; restoring
+reads the file on every rank and keeps each leaf's own chunk. So a
+dp/fsdp checkpoint resumes on one device, and the other way round.
 """
 
 from __future__ import annotations
@@ -19,13 +25,26 @@ from nsa_vibe_tpu_torch.train.train_step import TrainState, param_leaves
 _STEP_RE = re.compile(r"^step_(\d+)\.pt$")
 
 
-def save_checkpoint(ckpt_dir: str, step: int, state: TrainState) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, mesh=None) -> str:
+    """Writes step_<step>.pt and returns its path. With `mesh` (a
+    ParallelState) a collective: the full leaves are gathered and rank 0
+    writes."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}.pt")
+    names = [k for k, _ in param_leaves(state.params)]
+    if mesh is not None:
+        from nsa_vibe_tpu_torch.parallel.train_step import full_leaves
+
+        params, mu, nu = full_leaves(state, mesh)
+        if mesh.rank != 0:
+            return path
+    else:
+        params = [t.detach() for _, t in param_leaves(state.params)]
+        mu, nu = state.opt_state["mu"], state.opt_state["nu"]
+    os.makedirs(ckpt_dir, exist_ok=True)
     blob = {
-        "params": {k: v.detach().cpu() for k, v in param_leaves(state.params)},
-        "mu": [t.cpu() for t in state.opt_state["mu"]],
-        "nu": [t.cpu() for t in state.opt_state["nu"]],
+        "params": {k: v.cpu() for k, v in zip(names, params)},
+        "mu": [t.cpu() for t in mu],
+        "nu": [t.cpu() for t in nu],
         "count": state.opt_state["count"].cpu(),
         "step": state.step.cpu(),
     }
@@ -43,9 +62,11 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 @torch.no_grad()
-def restore_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None) -> TrainState:
+def restore_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None,
+                       mesh=None) -> TrainState:
     """Copies checkpoint `step` (default: the latest) into `state` in place
-    and returns it."""
+    and returns it. With `mesh` (a ParallelState) each fsdp-sharded leaf
+    and its moments take this rank's chunk of the saved full leaf."""
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None:
@@ -55,11 +76,23 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = N
     leaves = param_leaves(state.params)
     if [k for k, _ in leaves] != list(blob["params"]):
         raise ValueError("checkpoint parameters do not match the model's")
-    for k, t in leaves:
-        t.copy_(blob["params"][k])
-    for live, saved in zip(state.opt_state["mu"] + state.opt_state["nu"],
-                           blob["mu"] + blob["nu"]):
-        live.copy_(saved)
+    axes = getattr(state, "axes", None) or [None] * len(leaves)
+    if mesh is None and any(a is not None for a in axes):
+        raise ValueError("restore_checkpoint: a sharded state needs its mesh")
+
+    def mine(t, a):
+        if a is None:
+            return t
+        from nsa_vibe_tpu_torch.parallel.mesh import shard_of
+
+        return shard_of(t, a, mesh.dp_rank, mesh.dp)
+
+    for (k, t), a in zip(leaves, axes):
+        t.copy_(mine(blob["params"][k], a))
+    n = len(leaves)
+    for i, (live, saved) in enumerate(zip(state.opt_state["mu"] + state.opt_state["nu"],
+                                          blob["mu"] + blob["nu"])):
+        live.copy_(mine(saved, axes[i % n]))
     state.opt_state["count"].copy_(blob["count"])
     state.step.copy_(blob["step"])
     return state

@@ -208,13 +208,43 @@ def test_nsa_prefill_long_route_matches_jax(monkeypatch):
                                    rtol=0, err_msg=str(path))
 
 
+def _offset_operands():
+    """Q of 12 rows (positions 4..15 at t_start 4) and 5 compressed keys."""
+    g = torch.Generator().manual_seed(0)
+    Q = torch.randn(1, 12, 1, 2, 16, generator=g, requires_grad=True)
+    K = torch.randn(1, 1, 5, 16, generator=g, requires_grad=True)
+    return g, Q, K
+
+
 def test_compressed_attention_offset_has_no_backward():
-    Q = torch.randn(1, 8, 1, 2, 16, requires_grad=True)
-    K = torch.randn(1, 1, 3, 16)
-    out = attn_ops.compressed_attention(Q.detach(), K, K, l=4, d=2, scale=0.25, t_start=4)
-    assert out.shape == (1, 8, 1, 2, 16)
-    with pytest.raises(ValueError, match="t_start"):
-        attn_ops.compressed_attention(Q, K, K, l=4, d=2, scale=0.25, t_start=4)
+    # The name is older than the offset's backward. compressed_attention at
+    # t_start used to run without autograd only, and this test held that a
+    # recorded call raised. Sequence-parallel training (parallel/context.py)
+    # made it differentiable at an offset, so the test now holds the call
+    # without autograd to the full call's rows; the backward is held by
+    # test_compressed_attention_backward_at_offset_matches_full_call.
+    _, Q, K = _offset_operands()
+    out = attn_ops.compressed_attention(Q.detach(), K.detach(), K.detach(), l=4, d=2,
+                                        scale=0.25, t_start=4)
+    assert out.shape == (1, 12, 1, 2, 16)
+    full = attn_ops.compressed_attention(torch.cat([torch.zeros(1, 4, 1, 2, 16), Q.detach()], 1),
+                                         K.detach(), K.detach(), l=4, d=2, scale=0.25)
+    torch.testing.assert_close(out, full[:, 4:], atol=TOL, rtol=0)
+
+
+def test_compressed_attention_backward_at_offset_matches_full_call():
+    # a recorded call at t_start runs the backward kernels at that offset:
+    # its rows and gradients are those of the full call from position 0
+    g, Q, K = _offset_operands()
+    full = attn_ops.compressed_attention(torch.cat([torch.zeros(1, 4, 1, 2, 16), Q], 1), K, K,
+                                         l=4, d=2, scale=0.25)
+    part = attn_ops.compressed_attention(Q, K, K, l=4, d=2, scale=0.25, t_start=4)
+    torch.testing.assert_close(part, full[:, 4:], atol=TOL, rtol=0)
+    dO = torch.randn(part.shape, generator=g)
+    gp = torch.autograd.grad(part, (Q, K), dO)
+    gf = torch.autograd.grad(full[:, 4:], (Q, K), dO)
+    for a, b in zip(gp, gf):
+        torch.testing.assert_close(a, b, atol=TOL, rtol=0)
 
 
 # ------------------------------------------------------------------ (d), (e) needle tools
