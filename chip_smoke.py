@@ -140,7 +140,7 @@ Phases (any failure exits non-zero):
       within STEP_GRAD_TOL of the defaults', where a cmp backward that
       drops seq_start must fail; the kernels' rows on packed documents.
 
-  (i) parallel training (parallel/; run last): (i-kernels) every kernel
+  (i) parallel training (parallel/): (i-kernels) every kernel
       the second sp rank runs, on its rows of the pod shape (8 x 2048 rows
       at t_start = 2048 against 4096 keys): rows 1 (select_cmp at
       pos_offset), 2 (sel_attn at the rows' positions), 3 (the window
@@ -165,6 +165,37 @@ Phases (any failure exits non-zero):
       ms, busy and idle share, tokens/s and MFU, bytes moved per step
       (sp), parameter + moment bytes per rank (fsdp) and a checkpoint
       saved under fsdp restored on one process.
+
+  (j) packed documents under sequence sharding and pipeline stages
+      (parallel/pipeline.py; run last): (j-kernels) rows 1 (select_cmp), 3
+      and 5 (banded_attn, window and cmp), 7 (banded_bwd_1p, win and cmp),
+      8 (banded_bwd, win and cmp) and 11 (win_bwd_diag) on the second sp
+      rank's rows of packed pod-shape rows (8 x 2048 rows at t_start 2048
+      against 4096 keys, seq_start of those rows, documents crossing 2048),
+      and row 6 (select_blocks) on the last 4096 rows of a packed 64k row at
+      t_start 61440, against their plain versions with both arguments (f32
+      TF32 off and bf16, the phases' bounds with the planted 1% fault, sets
+      at near ties, two launches bit-equal), each launched at offset 0 with
+      the same seq_start and at the offset without seq_start failing; the
+      build (a) holds the ptxas reports of every instantiation that existed
+      before the DOCS x OFF ones to PTXAS_BASELINE and reports the new ones;
+      (j-varlen-sp) two ranks, sp = 2 with varlen on packed 8 x 4096 rows
+      (m7c, 12 layers, bf16, remat): losses within LOSS_TOL of one process,
+      the f32 first gradient within STEP_GRAD_TOL (a window backward that
+      drops seq_start must fail it), launch counts under three designs, a
+      document across position 2048 perturbed moving no other document's
+      logits (0.0 on each rank), and the 64k long route under sp with packed
+      documents (launch counts, finite logits); (j-pp) two ranks, pp = 2 with
+      PP_M micro-batches at m7c full width (12 layers, 6 a stage, 8 x 4096,
+      bf16, remat): losses and the f32 first gradient held to one process,
+      with three planted faults that must fail (the activation gradient
+      sent back zeroed, micro-batches 0 and 1 swapped on the last stage, the
+      top-level leaves' gradients not summed over pp); then four ranks, pp =
+      2 x dp = 2 with fsdp and pp = 2 x sp = 2 with varlen, PP4_LAYERS
+      layers at full width, three steps each held to one process. Each
+      setting prints per-rank step ms, busy and idle share, launches a step,
+      the bytes sent stage to stage a step, the bubble fraction and MFU; the
+      ranks time-share the one card over gloo (not NCCL scaling).
 
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
@@ -246,9 +277,13 @@ from nsa_vibe_tpu_torch.ops.selection import (
 )
 from nsa_vibe_tpu_torch.ops.varlen import make_varlen_batches, pack_documents_aligned
 from nsa_vibe_tpu_torch.parallel import mesh as pmesh
+from nsa_vibe_tpu_torch.parallel import pipeline
+from nsa_vibe_tpu_torch.parallel import train_step as pts
+from nsa_vibe_tpu_torch.parallel.context import context_parallel_model_forward
 from nsa_vibe_tpu_torch.parallel.mesh import gather_dim, initialize_distributed, make_mesh
 from nsa_vibe_tpu_torch.parallel.train_step import (
-    build_state, build_state_and_step, full_leaves, grads_and_stats, local_batch,
+    build_state, build_state_and_step, full_leaves, gather_full, gathered_params,
+    grads_and_stats, local_batch,
 )
 from nsa_vibe_tpu_torch.train.data import make_batches
 from nsa_vibe_tpu_torch.train.train_step import (
@@ -298,6 +333,10 @@ NO_SPILL = ("sel_attn_union_kernelILi64E", "win_fwd_mma_kernelILi64E",   # mangl
             "cmp_fwd_mma_kernelILi64E", "banded_bwd_1p_mma_kernelILi64E",
             "win_bwd_diag_mma_kernelILi64E", "banded_bwd_dq_mma_kernelILi64E",
             "select_blocks_mma_kernelILi64E", "select_cmp_mma_kernelILi64E")
+# the reported kernels' ptxas numbers before the packed-documents-at-an-offset
+# (DOCS x OFF) instantiations were added: each of those kernels must keep them
+PTXAS_BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nsa_vibe_tpu_torch",
+                              "csrc", "ptxas_baseline.json")
 # backward-design settings of phase (f) (ops/tuning.py keys), each a train step
 DESIGNS = {
     "onepass": {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 0},
@@ -429,6 +468,18 @@ def tensor_core_sass(lib_path) -> dict:
     return counts
 
 
+def ptxas_key(name: str) -> str:
+    """A demangled kernel name up to its argument list (its template
+    arguments kept): the key of PTXAS_BASELINE."""
+    i = name.find(">(")
+    return name[:i + 1] if i >= 0 else name.split("(")[0]
+
+
+def ptxas_numbers(regs: int, frame: str) -> list:
+    """[registers, stack frame, spill stores, spill loads] of a report line."""
+    return [regs] + [int(v) for v in frame.replace(",", " ").split() if v.isdigit()]
+
+
 def phase_build() -> None:
     t = time.perf_counter()
     path = kbuild.build(force=True)
@@ -440,6 +491,21 @@ def phase_build() -> None:
     names = demangle([r[0] for r in report])
     for (_, regs, frame), name in zip(report, names):
         print(f"[build] ptxas {name}: {regs} registers; {frame}")
+    with open(PTXAS_BASELINE) as f:
+        kept = json.load(f)["kernels"]
+    changed, new = [], []
+    for (_, regs, frame), name in zip(report, names):
+        key, got = ptxas_key(name), ptxas_numbers(regs, frame)
+        if key not in kept:
+            new.append(f"{key}: {got}")
+        elif got != kept[key]:
+            changed.append(f"{key}: {got} (was {kept[key]})")
+    print(f"[build] ptxas reports against {PTXAS_BASELINE} ({len(kept)} kernels): "
+          f"{len(kept) - len(changed)} the same, changed: {changed or 'none'}; instantiations "
+          f"it lacks [registers, stack frame, spill stores, spill loads]: {new or 'none'}")
+    if changed or len(names) - len(new) != len(kept):
+        fail("a kept instantiation's ptxas report (registers, stack, spills) changed, or one "
+             "is missing")
     spills = [n for n, _, f in report
               if any(int(v) for v in f.replace(",", " ").split() if v.isdigit())]
     print(f"[build] reported kernels with a stack frame or spills: {len(spills)}")
@@ -645,29 +711,32 @@ def sel_fwd_check(name, run, Q, K, V, sel, t, *, l_sel: int, scale: float, lse: 
 
 
 def banded_fwd_check(name, run, Q, K, V, *, mode: str, kw: dict, scale: float,
-                     lse: bool = False, rows=None, t_start: int = 0) -> float:
+                     lse: bool = False, rows=None, t_start: int = 0, seq_start=None) -> float:
     """fwd_check of the banded forward `run()` (win_attn or banded_attn on
     Q, K, V over every row, row s at position t_start + s, in `mode` with
-    kw: w, or l and d): f32 (the FMA kernel) against banded_attn_plain;
+    kw: w, or l and d; under seq_start [B, S] if given): f32 (the FMA
+    kernel) against banded_attn_plain;
     bf16 (the tensor-core kernel, rounding P as flash.py:213 and
     flash_diag.py:119 do) against banded_attn_rss. In window mode the plain
     version of rows [a, b) gets only the keys they can see, with positions
     shifted by as much (the dense scores of every 64k row would take 12.9
     GB)."""
     def part(a, b):
+        ds = None if seq_start is None else seq_start[:, a:b]
         if mode == "win":
             k0 = max(t_start + a - kw["w"] + 1, 0)
-            return Q[:, a:b], K[:, :, k0:], V[:, :, k0:], t_start + a - k0
-        return Q[:, a:b], K, V, t_start + a
+            return (Q[:, a:b], K[:, :, k0:], V[:, :, k0:], t_start + a - k0,
+                    None if ds is None else ds - k0)
+        return Q[:, a:b], K, V, t_start + a, ds
 
     def plain(a, b, with_lse=False):
-        q, k, v, tp = part(a, b)
+        q, k, v, tp, ds = part(a, b)
         return banded_attn_plain(q, k, v, mode=mode, **kw, scale=scale, t_start=tp,
-                                 return_lse=with_lse)
+                                 return_lse=with_lse, seq_start=ds)
 
     def rss(a, b):
-        q, k, v, tp = part(a, b)
-        return banded_attn_rss(q, k, v, mode=mode, **kw, scale=scale, t_start=tp)
+        q, k, v, tp, ds = part(a, b)
+        return banded_attn_rss(q, k, v, mode=mode, **kw, scale=scale, t_start=tp, seq_start=ds)
 
     return fwd_check(name, run, Q.dtype, Q.shape[1], plain, rss,
                      tc=Q.dtype == torch.bfloat16, lse=lse, rows=rows, chunk=None)
@@ -2113,11 +2182,11 @@ def phase_train(dev, tag: str = "train", varlen: bool = False) -> dict:
     return {"counts": counts, "step_ms": mean_ms, "losses": losses, "busy": busy}
 
 
-def mfu_text(rows: int, seq: int, step_ms: float) -> str:
-    """MFU of an m7c-125M train step of rows x seq tokens taking step_ms:
-    utils/flops.py's model FLOPs (no remat recompute) over the H100's bf16
-    dense peak."""
-    flops = train_step_flops(M7C_125M, rows, seq)["total"]
+def mfu_text(rows: int, seq: int, step_ms: float, mcfg=M7C_125M) -> str:
+    """MFU of an m7c-125M (or `mcfg`) train step of rows x seq tokens taking
+    step_ms: utils/flops.py's model FLOPs (no remat recompute) over the
+    H100's bf16 dense peak."""
+    flops = train_step_flops(mcfg, rows, seq)["total"]
     achieved = flops / (step_ms / 1e3)
     return (f"MFU {100 * achieved / H100_BF16_PEAK_FLOPS:.4f}% ({achieved / 1e12:.4f} TFLOP/s "
             f"of {flops:.6e} model FLOPs a step; bf16 peak {H100_BF16_PEAK_FLOPS / 1e12:g} "
@@ -3242,10 +3311,12 @@ def offset_fwd_checks(x, dtype) -> dict:
 
 
 def offset_bwd_calls(x) -> dict:
-    """name -> (kernel call at offset t, plain call at x's offset, visibility
-    mask [B,S,G,S_kv]) of the banded and selection backward kernels on x's
-    offset rows."""
-    cfg, sc, t0 = x["cfg"], x["scale"], x["t0"]
+    """name -> (kernel call at offset t (under seq_start s), plain call at
+    x's offset, visibility mask [B,S,G,S_kv]) of the banded and selection
+    backward kernels on x's offset rows; under x["ds"] (phase (j): packed
+    documents at the offset; the selection's operands absent) the banded
+    ones only, each call under seq_start x["ds"] by default."""
+    cfg, sc, t0, ds = x["cfg"], x["scale"], x["t0"], x.get("ds")
     Q, dO = x["Q"], x["dO"]
     Bq, S_q, G = Q.shape[:3]
     win = dict(mode="win", w=cfg.w, scale=sc)
@@ -3260,7 +3331,9 @@ def offset_bwd_calls(x) -> dict:
 
     def mask(args, kw):
         m = banded_mask(S_q, args[1].shape[2], **{k: v for k, v in kw.items() if k != "scale"},
-                        t_start=t0, device=Q.device)
+                        t_start=t0, device=Q.device, seq_start=ds)
+        if ds is not None:
+            return m[:, :, None, :].expand(-1, -1, G, -1)
         return m[None, :, None, :].expand(Bq, -1, G, -1)
 
     table = {"banded_bwd_1p@win": (banded_bwd_1p, wargs, win),
@@ -3268,18 +3341,20 @@ def offset_bwd_calls(x) -> dict:
              "banded_bwd@win": (banded_bwd, wargs, win),
              "banded_bwd@cmp": (banded_bwd, cargs, cmp_),
              "win_bwd_diag": (None, wargs, win)}
-    out = {name: (lambda t=t0, fn=fn: fn(*sargs(t), **sel),
-                  lambda: sel_attn_bwd_plain(*sargs(t0), **sel),
-                  lambda: selection_token_mask(x["sel"], x["t"], cfg.l_sel, S_POD))
-           for name, fn in (("sel_attn_bwd_1p", sel_attn_bwd_1p), ("sel_attn_bwd", sel_attn_bwd))}
+    out = {} if ds is not None else {
+        name: (lambda t=t0, fn=fn: fn(*sargs(t), **sel),
+               lambda: sel_attn_bwd_plain(*sargs(t0), **sel),
+               lambda: selection_token_mask(x["sel"], x["t"], cfg.l_sel, S_POD))
+        for name, fn in (("sel_attn_bwd_1p", sel_attn_bwd_1p), ("sel_attn_bwd", sel_attn_bwd))}
     for name, (fn, args, kw) in table.items():
         if fn is None:
-            def kern(t=t0, args=args):
-                return win_bwd_diag(*args, w=cfg.w, scale=sc, t_start=t)
+            def kern(t=t0, s=ds, args=args):
+                return win_bwd_diag(*args, w=cfg.w, scale=sc, t_start=t, seq_start=s)
         else:
-            def kern(t=t0, fn=fn, args=args, kw=kw):
-                return fn(*args, **kw, t_start=t)
-        out[name] = (kern, lambda args=args, kw=kw: banded_bwd_plain(*args, **kw, t_start=t0),
+            def kern(t=t0, s=ds, fn=fn, args=args, kw=kw):
+                return fn(*args, **kw, t_start=t, seq_start=s)
+        out[name] = (kern, lambda args=args, kw=kw: banded_bwd_plain(*args, **kw, t_start=t0,
+                                                                      seq_start=ds),
                      lambda args=args, kw=kw: mask(args, kw))
     return out
 
@@ -3318,7 +3393,7 @@ def offset_tc_refs(x, branch: str) -> tuple:
     deviations on some of its ~2.6M dV elements (PERF.md §6, PR 13): the
     kernels are held to what their arithmetic gives, with the same width.
     The design's own distance to the unrounded gradients is printed."""
-    cfg, sc, t0, dO = x["cfg"], x["scale"], x["t0"], x["dO"]
+    cfg, sc, t0, dO, ds = x["cfg"], x["scale"], x["t0"], x["dO"], x.get("ds")
     if branch == "sel":
         args = (x["Q"], x["K"], x["V"], dO, x["lse_s"], attention_delta(dO, x["Os"]))
         want, rss = sel_attn_bwd_rss(*args[:3], x["sel"], x["t"], *args[3:], l_sel=cfg.l_sel,
@@ -3329,29 +3404,36 @@ def offset_tc_refs(x, branch: str) -> tuple:
                                         else ("Kc", "Vc", "lse_c", "Oc")))
         kw = dict(mode="win", w=cfg.w) if branch == "win" else dict(mode="cmp", l=cfg.l, d=cfg.d)
         args = (x["Q"], K, V, dO, lse, attention_delta(dO, O))
-        want, rss = banded_bwd_rss(*args, **kw, scale=sc, t_start=t0)
-        mask = banded_mask(x["Q"].shape[1], K.shape[2], **kw, t_start=t0,
-                           device=dO.device)[None, :, None, None, :]
+        want, rss = banded_bwd_rss(*args, **kw, scale=sc, t_start=t0, seq_start=ds)
+        mask = banded_mask(x["Q"].shape[1], K.shape[2], **kw, t_start=t0, device=dO.device,
+                           seq_start=ds)
+        mask = mask[None, :, None, None, :] if ds is None else mask[:, :, None, None, :]
     bounds = tuple(allowed_tc_err(w, r) for w, r in zip(want, rss))
     center = bwd_rounded(*args, mask, sc)
     own = [worst_ratio(c, w, bd) for c, w, bd in zip(center, want, bounds)]
-    print(f"[offset] {branch} backward, bf16 arithmetic (P and dS rounded) vs the unrounded "
-          f"plain gradients: worst err/bound dQ, dK, dV {', '.join(f'{v:.3f}' for v in own)}")
+    print(f"[{offset_tag(x)}] {branch} backward, bf16 arithmetic (P and dS rounded) vs the "
+          f"unrounded plain gradients: worst err/bound dQ, dK, dV "
+          f"{', '.join(f'{v:.3f}' for v in own)}")
     return center, bounds, want
 
 
-def offset_bwd_checks(x, dtype) -> dict:
+def offset_tag(x) -> str:
+    return "offset" if x.get("ds") is None else "docs-offset"
+
+
+def offset_bwd_checks(x, dtype, names=OFF_BWD) -> dict:
     """Rows 7 (win, cmp), 8 (win, cmp) and 11 at t_start, rows 9 and 10 on
-    rows at positions t against S_POD keys, against the plain version at
-    the offset (f32 allowed_rel_err; bf16 allowed_tc_err around
-    offset_tc_refs' center, where a planted 1% fault must fail), two
+    rows at positions t against S_POD keys (`names` of them), against the
+    plain version at the offset (f32 allowed_rel_err; bf16 allowed_tc_err
+    around offset_tc_refs' center, where a planted 1% fault must fail), two
     launches bit-equal, the SAME_P_DS pairs within allowed_rel_err of each
     other and rows 9 and 10 within their bound of each other; each kernel
-    launched at offset 0 must fail."""
-    t0 = x["t0"]
+    launched at offset 0 must fail, and under x["ds"] (phase (j)) also each
+    launched without seq_start."""
+    t0, tag = x["t0"], offset_tag(x)
     calls = offset_bwd_calls(x)
     refs, errs, got_all = {}, {}, {}
-    for name in OFF_BWD:
+    for name in names:
         kern, plain, _ = calls[name]
         branch = branch_of(name)
         if branch not in refs:
@@ -3359,11 +3441,11 @@ def offset_bwd_checks(x, dtype) -> dict:
                             else (plain(), (allowed_rel_err,) * 3, None))
         want, bounds, unrounded = refs[branch]
         got, again = kern(), kern()
-        errs[name] = max(check(f"{name}@offset:{n}", g, w, bound=bd)
+        errs[name] = max(check(f"{name}@{tag}:{n}", g, w, bound=bd)
                          for n, g, w, bd in zip(("dQ", "dK", "dV"), got, want, bounds))
         if unrounded is not None:   # the JSON row's error, as the other rows': vs unrounded
             errs[name] = max(float((g.float() - w).abs().max()) for g, w in zip(got, unrounded))
-            print(f"[offset] {name}: vs the unrounded plain gradients, max_abs_err "
+            print(f"[{tag}] {name}: vs the unrounded plain gradients, max_abs_err "
                   f"{errs[name]:.3e}, worst err/bound "
                   + ", ".join(f"{worst_ratio(g, w, bd):.3f}"
                               for g, w, bd in zip(got, unrounded, bounds)))
@@ -3374,17 +3456,23 @@ def offset_bwd_checks(x, dtype) -> dict:
             if not min(faults) > 1.0:
                 fail(f"{name} at t_start: a planted {FAULT - 1:.0%} fault passes the bound")
         at0 = max(worst_ratio(g, w, bd) for g, w, bd in zip(kern(0), want, bounds))
-        print(f"[offset] {name} {str(dtype)[6:]} at offset {t0}: two launches identical; at "
-              f"offset 0: worst err/bound {at0:.3f} (must exceed 1)")
-        if not at0 > 1.0:
-            fail(f"{name}: the kernel at offset 0 passes the offset rows' check")
+        dropped = (max(worst_ratio(g, w, bd) for g, w, bd in zip(kern(t0, None), want, bounds))
+                   if "ds" in x else 2.0)
+        print(f"[{tag}] {name} {str(dtype)[6:]} at offset {t0}: two launches identical; at "
+              f"offset 0: worst err/bound {at0:.3f} (must exceed 1)"
+              + (f"; without seq_start: {dropped:.3f} (must exceed 1)" if "ds" in x else ""))
+        if not at0 > 1.0 or not dropped > 1.0:
+            fail(f"{name}: the kernel at offset 0 (or without seq_start) passes the offset rows' "
+                 f"check")
         got_all[name] = got
         del again
     for a, b in (("win_bwd_diag", "banded_bwd_1p@win"), ("banded_bwd@win", "banded_bwd_1p@win"),
                  ("banded_bwd@cmp", "banded_bwd_1p@cmp"), ("sel_attn_bwd", "sel_attn_bwd_1p")):
+        if a not in got_all:
+            continue
         bounds = (allowed_rel_err,) * 3 if branch_of(a) != "sel" else refs["sel"][1]
         for n, g, w, bd in zip(("dQ", "dK", "dV"), got_all[a], got_all[b], bounds):
-            check(f"{a}@offset:{n} vs {b}", g, w, bound=bd)
+            check(f"{a}@{tag}:{n} vs {b}", g, w, bound=bd)
     return errs
 
 
@@ -3435,62 +3523,18 @@ def split_qkv(names, grads) -> list:
     return out
 
 
-def pod_reference(dev, rows: int) -> dict:
-    """One process (sp = dp = 1) on the global batches of `rows` rows: the
-    bf16 step's losses (warm-up + POD_STEPS + the step after them) and mean
-    step ms, and the f32 first gradient (W_qkv split), saved for the ranks
-    to compare with."""
-    mcfg, tcfg = M7C_125M, pod_tcfg(1, 1, False, rows)
-    batches = pod_batches(POD_STEPS + 2, rows, dev)
-    state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(0),
-                                               device=dev), tcfg)
-    step = make_train_step(mcfg, tcfg)
-    losses, step_ms = [], []
-    for i, b in enumerate(batches):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        state, m = step(state, b)
-        e1.record()
-        losses.append(m["loss"])
-        if 1 <= i <= POD_STEPS:
-            step_ms.append((e0, e1))
-    torch.cuda.synchronize()
-    step_ms = [a.elapsed_time(b) for a, b in step_ms]
-    losses = [float(v) for v in losses]
-    del state, step
-    torch.cuda.empty_cache()
-    m32 = dataclasses.replace(M7C_125M, dtype="float32")
-    params = init_model_params(m32, torch.Generator().manual_seed(0), device=dev)
-    leaves = param_leaves(params)
-    for _, t in leaves:
-        t.requires_grad_(True)
-    grads = loss_and_grads(params, batches[0][0], m32)[1]
-    ref = [(n, g.cpu()) for n, g in split_qkv([k for k, _ in leaves], grads)]
-    path = os.path.join(PAR_DIR, f"ref_grads_{rows}.pt")
-    torch.save(ref, path)
-    del params, leaves, grads, ref
-    torch.cuda.empty_cache()
-    tokens = rows * S_POD
-    mean = float(np.mean(step_ms))
-    print(f"[pod] one process, m7c-125M bf16 {rows} x {S_POD}: step ms "
-          f"{', '.join(f'{v:.2f}' for v in step_ms)}; mean {mean:.3f} ms, "
-          f"{tokens / (mean / 1e3):.0f} tokens/s, {mfu_text(rows, S_POD, mean)}; losses "
-          f"{', '.join(f'{v:.4f}' for v in losses)}")
-    return {"losses": losses, "step_ms": mean, "grads": path}
-
-
-def run_ranks(mode: str) -> list:
-    """Launches PAR_RANKS processes of `chip_smoke.py --parallel-worker mode`
-    on the one card (torch.distributed.run, gloo) and returns each rank's
-    results; a rank's failure fails the phase. The process group is killed
-    if it outlives PAR_TIMEOUT_S."""
-    outs = [os.path.join(PAR_DIR, f"{mode}_rank{r}.json") for r in range(PAR_RANKS)]
+def run_ranks(mode: str, n: int = PAR_RANKS) -> list:
+    """Launches n processes of `chip_smoke.py --parallel-worker mode` on the
+    one card (torch.distributed.run, gloo) and returns each rank's results;
+    a rank's failure fails the phase. The process group is killed if it
+    outlives PAR_TIMEOUT_S."""
+    outs = [os.path.join(PAR_DIR, f"{mode}_rank{r}.json") for r in range(n)]
     for out in outs:
         if os.path.exists(out):
             os.remove(out)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={PAR_RANKS}", os.path.abspath(__file__), "--parallel-worker", mode]
-    print(f"[{mode}] launching {PAR_RANKS} ranks on the one card over gloo: {' '.join(cmd[1:])}",
+           f"--nproc-per-node={n}", os.path.abspath(__file__), "--parallel-worker", mode]
+    print(f"[{mode}] launching {n} ranks on the one card over gloo: {' '.join(cmd[1:])}",
           flush=True)
     t = time.perf_counter()
     proc = subprocess.Popen(cmd, start_new_session=True)
@@ -3510,25 +3554,6 @@ def run_ranks(mode: str) -> list:
         with open(out) as f:
             res.append(json.load(f))
     return res
-
-
-def pod_launches(mesh, keys=None) -> dict:
-    """The launch counts one parallel m7c step of this rank must show under
-    the design keys `keys` (None: in force): remat runs each layer's three
-    forward kernels twice (the window at a nonzero offset as banded_attn),
-    the backward one kernel per branch and layer."""
-    L = M7C_125M.n_layers
-    want = dict.fromkeys(train_counts(), 0)
-    win = "banded_attn" if mesh.sp_rank > 0 else "win_attn"
-    for k in ("select_cmp", "sel_attn", win):
-        want[k] = 2 * L
-    with design_keys(keys):
-        for branch in ("win", "cmp", "sel"):
-            k = tuning.backward_kernel(branch, S_POD // mesh.sp, M7C_125M.nsa.w)
-            want[k] += L
-            if branch == "cmp":
-                want[f"{k}@cmp"] += L
-    return want
 
 
 @contextlib.contextmanager
@@ -3558,18 +3583,24 @@ def unsummed_fsdp_grads():
         pmesh.reduce_scatter_dim = real
 
 
+def rank_device() -> torch.device:
+    """The card a rank of (i) or (j) runs on: the one card, shared."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    return dev
+
+
 def parallel_worker(mode: str) -> None:
     """One rank of (i-sp) (mode "sp": dp 1, sp 2) or (i-fsdp) (mode "fsdp":
     dp 2, fsdp): the m7c-125M pod-shape step (bf16, remat, default keys),
     timed, traced, launches and host syncs counted; in sp also one step
     under each of DESIGNS' onepass and twopass keys; the f32 first gradient
-    against one process's (pod_reference), with its planted faults; in fsdp
+    against one process's (reference_run), with its planted faults; in fsdp
     the per-rank parameter and moment bytes and a checkpoint saved under
     fsdp. Each rank writes PAR_DIR/<mode>_rank<r>.json (the gradient check
     on rank 0)."""
     initialize_distributed("gloo")
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
+    dev = rank_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_mesh(dp=1, sp=PAR_RANKS) if mode == "sp" else make_mesh(dp=PAR_RANKS, sp=1)
     lead = mesh.rank == 0
@@ -3594,7 +3625,7 @@ def parallel_worker(mode: str) -> None:
     counts = train_counts()
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(POD_STEPS)]
     peak = torch.cuda.max_memory_allocated()
-    want = {k: v * POD_STEPS for k, v in pod_launches(mesh).items()}
+    want = {k: v * POD_STEPS for k, v in stage_launches(mesh, M7C_125M, 1).items()}
     print(f"[{tag}] launches over {POD_STEPS} steps: {counts}; expected {want}", flush=True)
     if counts != want:
         fail(f"{tag}: launch counts {counts} != {want}")
@@ -3606,8 +3637,8 @@ def parallel_worker(mode: str) -> None:
                 step(state, batches[1])
                 torch.cuda.synchronize()
                 c = train_counts()
-            if c != pod_launches(mesh, DESIGNS[label]):
-                fail(f"{tag}: {label} launch counts {c} != {pod_launches(mesh, DESIGNS[label])}")
+            if c != stage_launches(mesh, M7C_125M, 1, DESIGNS[label]):
+                fail(f"{tag}: {label} launch counts {c} != {stage_launches(mesh, M7C_125M, 1, DESIGNS[label])}")
             runs.append(c)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -3658,7 +3689,7 @@ def parallel_worker(mode: str) -> None:
     st32 = build_state(init_model_params(m32, torch.Generator().manual_seed(0), device=dev),
                        dataclasses.replace(tcfg, gate_stats=False), mesh)
     names = [k for k, _ in param_leaves(st32.template)]
-    ref = torch.load(os.path.join(PAR_DIR, f"ref_grads_{rows}.pt")) if lead else None
+    ref = torch.load(os.path.join(PAR_DIR, f"ref_grads_pod{rows}.pt")) if lead else None
     faults = {"sp": {"win_bwd_diag dV x 0.9999": lambda: planted_fault("win_bwd_diag", 2, 0.9999),
                      "win_bwd_diag at offset 0": lambda: dropped_offset("win_bwd_diag"),
                      "banded_bwd_1p (cmp) at offset 0": lambda: dropped_offset("banded_bwd_1p")},
@@ -3705,7 +3736,8 @@ def phase_parallel(dev) -> list:
     x = krec.pop("inputs")
     results = {}
     for mode, rows in (("sp", B_POD), ("fsdp", PAR_RANKS * B_POD)):
-        ref = pod_reference(dev, rows)
+        ref = reference_run(dev, dict(dp=rows // B_POD, pp=1, sp=1, fsdp=False, varlen=False,
+                                      mcfg=M7C_125M), f"pod{rows}", grads=True)
         torch.cuda.empty_cache()
         results[mode] = ranks = run_ranks(mode)
         res = ranks[0]
@@ -3799,6 +3831,658 @@ def offset_rows(x, errs, runs) -> list:
     return out
 
 
+# ------------------------------------------------------------------ (j)
+# Packed documents under sequence sharding (varlen x sp) and pipeline
+# stages (parallel/pipeline.py). As in (i), the ranks of (j-varlen-sp),
+# (j-pp) and the four-rank runs are processes time-sharing the one card over
+# gloo (which stages collectives and the stages' activations through host
+# memory): their times are per-rank costs on one card, not NCCL scaling.
+
+# first lengths packed at the pod shape: the first row's first document
+# starts at 0 and goes on past OFF_T0 (the second sp rank's first row)
+DOCS_MUST = (3000, 20, 64, 700)
+DOCS_SEED = 4099
+# at 64k: the second document [60032, 63032) crosses S_LONG - N_CHECK
+DOCS_LONG_MUST = (60000, 3000)
+DOCS_BWD = ("banded_bwd_1p@win", "banded_bwd_1p@cmp", "banded_bwd@win", "banded_bwd@cmp",
+            "win_bwd_diag")
+PP, PP_M = 2, 4           # (j-pp): stages and GPipe micro-batches
+PP4_LAYERS = 4            # the four-rank runs' depth (full width), to stay within the time limit
+FOUR_RANKS = {"pp-dp-fsdp": dict(dp=2, pp=PP, sp=1, fsdp=True, varlen=False),
+              "pp-sp-varlen": dict(dp=1, pp=PP, sp=2, fsdp=False, varlen=True)}
+
+
+def crossing(spans, t: int) -> list:
+    """The documents (row, start, length) that start before position t and
+    go on past it."""
+    return [sp for sp in spans if sp[1] < t < sp[1] + sp[2]]
+
+
+def docs_offset_inputs(dtype, dev, gen, ds) -> dict:
+    """offset_kernel_inputs under packed documents: ds [B_POD, S_POD], the
+    second sp rank's rows' starts ds[:, OFF_T0:] (packed positions) beside
+    the offset; the fused scorer's and the window's outputs from the kernels
+    with both (the selection's operands dropped: rows 2, 9 and 10 take no
+    seq_start)."""
+    x = offset_kernel_inputs(dtype, dev, gen)
+    for k in ("K", "V", "Os", "lse_s", "t"):
+        del x[k]
+    x["ds"] = ds[:, OFF_T0:].contiguous()
+    cfg = x["cfg"]
+    x["sel"], x["Oc"], x["lse_c"] = select_cmp(x["Q"], x["Kc"], x["Vc"], x["M"], **cmp_kw(x),
+                                               return_lse=True, pos_offset=OFF_T0,
+                                               seq_start=x["ds"])
+    x["Ow"], x["lse_w"] = banded_attn(x["Q"], x["Kw"], x["Vw"], mode="win", w=cfg.w,
+                                      scale=x["scale"], return_lse=True, t_start=OFF_T0,
+                                      seq_start=x["ds"])
+    return x
+
+
+def planted_fails(name: str, label: str, got, want, bd) -> None:
+    """A planted fault of phase (j) (the kernel at offset 0 with the same
+    seq_start, or at the offset without it) must fail the check."""
+    worst = worst_ratio(got, want, bd)
+    print(f"[docs-offset] {name}: {label}: worst err/bound {worst:.3f} (must exceed 1)")
+    if not worst > 1.0:
+        fail(f"{name}: the kernel {label} passes the check")
+
+
+def docs_fwd_checks(x, dtype) -> dict:
+    """Rows 1 (select_cmp), 3 (banded_attn, window) and 5 (banded_attn,
+    cmp) with seq_start at the offset against their plain versions with
+    both (fwd_check / banded_fwd_check: two launches bit-equal, bf16
+    tensor-core bound with a planted 1% fault, lse); row 1's sets equal but
+    at near ties, forced slots in order, in bf16 its O and lse banded_attn's
+    (cmp) bit for bit; each launched at offset 0 with the same seq_start,
+    and at the offset without it, must fail."""
+    cfg, sc, t0, ds = x["cfg"], x["scale"], x["t0"], x["ds"]
+    Q, Kc, Vc, M = x["Q"], x["Kc"], x["Vc"], x["M"]
+    kw = cmp_kw(x)
+    both = dict(pos_offset=t0, seq_start=ds)
+    faults = {"at offset 0": dict(seq_start=ds), "without seq_start": dict(pos_offset=t0)}
+    sel_k = select_cmp(Q, Kc, Vc, M, **kw, **both)[0]
+    sel_2 = select_cmp(Q, Kc, Vc, M, **kw, **both)[0]
+    sel_p, _, p_grp = select_cmp_plain(Q, Kc, Vc, M, **kw, return_scores=True, **both)
+    n_diff, n_far, spread = near_tie_rows(sel_k, sel_p, p_grp)
+    forced = torch.equal(sel_k[..., :3], sel_p[..., :3])
+    far = {k: near_tie_rows(select_cmp(Q, Kc, Vc, M, **kw, **f)[0], sel_p, p_grp)[1]
+           for k, f in faults.items()}
+    print(f"[docs-offset] select_cmp {str(dtype)[6:]:8s} at pos_offset {t0} with seq_start: sel "
+          f"rows differing on near ties: {n_diff} (widest spread {spread:.3e}); forced slots in "
+          f"order: {forced}; two launches identical: {torch.equal(sel_k, sel_2)}; rows "
+          f"differing beyond a near tie " + ", ".join(f"{k}: {v}" for k, v in far.items())
+          + " (each must be > 0)")
+    if n_far or not forced or not torch.equal(sel_k, sel_2) or not all(far.values()):
+        fail(f"select_cmp with seq_start at pos_offset {dtype}: sets differ beyond the near-tie "
+             f"bound, or the forced slots or two launches differ, or a planted fault passes")
+    del sel_k, sel_2, sel_p, p_grp
+
+    def plain_c(a, b, with_lse=False):
+        out = select_cmp_plain(Q, Kc, Vc, M, **kw, return_lse=with_lse, **both)
+        return out[1:] if with_lse else out[1]
+
+    def rss_c(a=0, b=0):
+        return banded_attn_rss(Q, Kc, Vc, mode="cmp", l=cfg.l, d=cfg.d, scale=sc, t_start=t0,
+                               seq_start=ds)
+
+    name = "select_cmp@docs-offset"
+    errs = {name: fwd_check(name, lambda: select_cmp(Q, Kc, Vc, M, **kw, return_lse=True,
+                                                     **both)[1:],
+                            dtype, Q.shape[1], plain_c, rss_c, tc=dtype == torch.bfloat16,
+                            lse=True, rows=None, chunk=None)}
+    want = fwd_bound(dtype, plain_c(0, 0), rss_c)
+    for label, f in faults.items():
+        planted_fails(name, label, select_cmp(Q, Kc, Vc, M, **kw, **f)[1], *want)
+    if dtype == torch.bfloat16:
+        O, L_ = select_cmp(Q, Kc, Vc, M, **kw, return_lse=True, **both)[1:]
+        Ob, Lb = banded_attn(Q, Kc, Vc, mode="cmp", l=cfg.l, d=cfg.d, scale=sc, return_lse=True,
+                             t_start=t0, seq_start=ds)
+        same = torch.equal(O, Ob) and torch.equal(L_, Lb)
+        print(f"[docs-offset] select_cmp: O and lse bit-equal to banded_attn (cmp, t_start, "
+              f"seq_start): {same}")
+        if not same:
+            fail("select_cmp with seq_start at pos_offset: O or lse differ from banded_attn's")
+        del O, L_, Ob, Lb
+    for mode in ("win", "cmp"):
+        K, V = (x["Kw"], x["Vw"]) if mode == "win" else (Kc, Vc)
+        mkw = dict(w=cfg.w) if mode == "win" else dict(l=cfg.l, d=cfg.d)
+        name = f"banded_attn@{mode}@docs-offset"
+        errs[name] = banded_fwd_check(
+            name, lambda: banded_attn(Q, K, V, mode=mode, **mkw, scale=sc, return_lse=True,
+                                      t_start=t0, seq_start=ds),
+            Q, K, V, mode=mode, kw=mkw, scale=sc, lse=True, t_start=t0, seq_start=ds)
+        k0 = t0 - cfg.w + 1 if mode == "win" else 0   # the rows see no window key before it
+        part = (Q, K[:, :, k0:], V[:, :, k0:])
+        pkw = dict(mode=mode, **mkw, scale=sc, t_start=t0 - k0, seq_start=ds - k0)
+        want = fwd_bound(dtype, banded_attn_plain(*part, **pkw),
+                         lambda: banded_attn_rss(*part, **pkw))
+        for label, f in faults.items():
+            planted_fails(name, label, banded_attn(Q, K, V, mode=mode, **mkw, scale=sc,
+                                                   t_start=f.get("pos_offset", 0),
+                                                   seq_start=f.get("seq_start")), *want)
+        del want
+    return errs
+
+
+def docs_long_check(dev) -> dict:
+    """Row 6 (select_blocks) on the long route's shapes with seq_start at
+    the offset: the last N_CHECK rows of a packed 1 x S_LONG row at
+    t_start S_LONG - N_CHECK against all S_LONG keys' compressed tokens, f32
+    then bf16, against its plain version with both (sets equal but at near
+    ties, forced slots in order, two launches identical, and bit-equal to
+    those rows of the full call); launched at offset 0 with the same
+    seq_start, and at the offset without it, each must differ beyond a near
+    tie. Returns the bf16 inputs and the widest near-tie spread."""
+    toks, ds_np, _, spans = varlen_pack(1, S_LONG, DOCS_SEED + 7, DOCS_LONG_MUST)
+    t0 = S_LONG - N_CHECK
+    if not crossing(spans, t0):
+        fail(f"no document of the 64k packing crosses {t0}")
+    ds_full = torch.from_numpy(ds_np).to(dev)
+    ds = ds_full[:, t0:].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(97531)
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = long_inputs(dtype, dev, gen, S_LONG)
+        Qr = x["Q"][:, t0:].contiguous()
+
+        def run(**k):
+            return select_blocks(Qr, x["Kc"], **sel_kw(x), **k)
+
+        sel, again = run(pos_offset=t0, seq_start=ds), run(pos_offset=t0, seq_start=ds)
+        full = select_blocks(x["Q"], x["Kc"], **sel_kw(x), seq_start=ds_full)[:, t0:]
+        selp, p_grp = select_blocks_plain(Qr, x["Kc"], **sel_kw(x), pos_offset=t0,
+                                          return_scores=True, seq_start=ds)
+        n_diff, n_far, spread = near_tie_rows(sel, selp, p_grp)
+        forced = torch.equal(sel[..., :3], selp[..., :3])
+        far = {"at offset 0": near_tie_rows(run(seq_start=ds), selp, p_grp)[1],
+               "without seq_start": near_tie_rows(run(pos_offset=t0), selp, p_grp)[1]}
+        print(f"[docs-offset] select_blocks {str(dtype)[6:]:8s} 64k rows [{t0}, {S_LONG}) with "
+              f"seq_start: sel rows differing on near ties: {n_diff} (widest spread "
+              f"{spread:.3e}); forced slots in order: {forced}; two launches identical: "
+              f"{torch.equal(sel, again)}; bit-equal to those rows of the full call: "
+              f"{torch.equal(sel, full)}; rows differing beyond a near tie "
+              + ", ".join(f"{k}: {v}" for k, v in far.items()) + " (each must be > 0)")
+        if n_far or not forced or not torch.equal(sel, again) or not torch.equal(sel, full) \
+                or not all(far.values()):
+            fail(f"select_blocks with seq_start at pos_offset {dtype}: sets differ beyond the "
+                 f"near-tie bound, or the forced slots, two launches or the full call's rows "
+                 f"differ, or a planted fault passes")
+        rec["select_blocks@docs-offset-64k"] = spread
+        if dtype == torch.bfloat16:
+            rec["long"] = dict(x, Q=Qr, ds=ds, t0=t0)
+        del x, Qr, sel, again, full, selp, p_grp
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_docs_kernels(dev) -> dict:
+    """(j-kernels): rows 1, 3, 5, 7 (win, cmp), 8 (win, cmp) and 11 on the
+    second sp rank's rows of a packed pod-shape batch (8 x 2048 rows at
+    t_start 2048 against 4096 keys, seq_start of those rows), f32 (TF32
+    off) then bf16, and row 6 at 64k (docs_long_check). Returns the bf16
+    inputs and max errors."""
+    _, ds_np, _, spans = varlen_pack(B_POD, S_POD, DOCS_SEED, DOCS_MUST)
+    cross = crossing(spans, OFF_T0)
+    print(f"[docs-offset] {B_POD} x {S_POD} packed rows: {len(spans)} documents, {len(cross)} "
+          f"of them across position {OFF_T0} (the second sp rank's first row), e.g. "
+          f"{cross[:3]} (row, start, length)")
+    if not cross:
+        fail(f"no document crosses position {OFF_T0}")
+    ds = torch.from_numpy(ds_np).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(8246)
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = docs_offset_inputs(dtype, dev, gen, ds)
+        rec.update(docs_fwd_checks(x, dtype))
+        rec.update(offset_bwd_checks(x, dtype, DOCS_BWD))
+        print(f"[docs-offset] rows 1, 3, 5, 7, 8, 11 with seq_start at offset {OFF_T0} "
+              f"{str(dtype)[6:]}: within their bounds, two launches identical, offset 0 and the "
+              f"dropped seq_start fail each")
+        if dtype == torch.bfloat16:
+            rec["inputs"] = x
+        del x
+        torch.cuda.empty_cache()
+    rec.update(docs_long_check(dev))
+    return rec
+
+
+def docs_pod_batches(n: int, rows: int, dev) -> list:
+    """n packed global batches (tokens [1, rows, S_POD + 1], seq_start and
+    loss_mask [1, rows, S_POD]) on dev, each row packed by varlen_pack
+    (DOCS_MUST first, seeds DOCS_SEED + 1 + i)."""
+    out = []
+    for i in range(n):
+        toks, ds, lm, _ = varlen_pack(rows, S_POD, DOCS_SEED + 1 + i, DOCS_MUST)
+        out.append((torch.from_numpy(toks).long().to(dev)[None],
+                    torch.from_numpy(ds).to(dev)[None], torch.from_numpy(lm).float().to(dev)[None]))
+    return out
+
+
+def stage_setting(mode: str) -> dict:
+    """(dp, pp, sp, fsdp, varlen, model) of a phase (j) rank setting."""
+    if mode == "varlen-sp":
+        return dict(dp=1, pp=1, sp=2, fsdp=False, varlen=True, mcfg=M7C_125M)
+    if mode == "pp":
+        return dict(dp=1, pp=PP, sp=1, fsdp=False, varlen=False, mcfg=M7C_125M)
+    return dict(FOUR_RANKS[mode], mcfg=dataclasses.replace(M7C_125M, n_layers=PP4_LAYERS))
+
+
+def stage_tcfg(st: dict):
+    return dataclasses.replace(M7C_125M_TRAIN, batch_size=B_POD * st["dp"], seq_len=S_POD,
+                               dp=st["dp"], sp=st["sp"], pp=st["pp"],
+                               pp_microbatches=PP_M if st["pp"] > 1 else 0, fsdp=st["fsdp"],
+                               varlen=st["varlen"])
+
+
+def stage_batches(st: dict, n: int, dev) -> list:
+    rows = B_POD * st["dp"]
+    if st["varlen"]:
+        return docs_pod_batches(n, rows, dev)
+    return pod_batches(n, rows, dev)
+
+
+def reference_run(dev, st: dict, tag: str, grads: bool) -> dict:
+    """One process on setting st's global batches: the bf16 step's losses
+    (warm-up + POD_STEPS + the step after them) and mean step ms, and with
+    `grads` the f32 first gradient (W_qkv split), saved for the ranks to
+    compare with."""
+    mcfg, tcfg = st["mcfg"], dataclasses.replace(stage_tcfg(st), dp=0, sp=1, pp=1, fsdp=False)
+    rows = B_POD * st["dp"]
+    batches = stage_batches(st, POD_STEPS + 2, dev)
+    state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(0),
+                                               device=dev), tcfg)
+    step = make_train_step(mcfg, tcfg)
+    losses, ev = [], []
+    for i, b in enumerate(batches):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, b)
+        e1.record()
+        losses.append(m["loss"])
+        if 1 <= i <= POD_STEPS:
+            ev.append((e0, e1))
+    torch.cuda.synchronize()
+    mean = float(np.mean([a.elapsed_time(b) for a, b in ev]))
+    losses = [float(v) for v in losses]
+    del state, step
+    torch.cuda.empty_cache()
+    path = None
+    if grads:
+        m32 = dataclasses.replace(mcfg, dtype="float32")
+        params = init_model_params(m32, torch.Generator().manual_seed(0), device=dev)
+        leaves = param_leaves(params)
+        names = [k for k, _ in leaves]
+        for _, t in leaves:
+            t.requires_grad_(True)
+        b = batches[0]
+        g = loss_and_grads(params, b[0][0], m32, seq_start=b[1][0], loss_mask=b[2][0])[1] \
+            if st["varlen"] else loss_and_grads(params, b[0], m32)[1]
+        path = os.path.join(PAR_DIR, f"ref_grads_{tag}.pt")
+        if st["pp"] > 1:
+            # the same rows in the pipeline's micro-batches, gradients summed
+            # over them (the global mean: every micro-batch holds as many
+            # tokens); the reference the pp ranks are held to
+            M = stage_tcfg(st).pp_microbatches
+            parts = [loss_and_grads(params, t, m32)[1] for t in b[0].chunk(M)]
+            split = [sum(gs) / M for gs in zip(*parts)]
+            errs = [float((a - w).norm() / w.norm()) for (_, a), (_, w) in
+                    zip(split_qkv(names, split), split_qkv(names, g))]
+            i = int(np.argmax(errs))
+            print(f"[{tag}] one process, f32 first gradient over {M} micro-batches of "
+                  f"{rows // M} rows vs one call of {rows}: worst leaf {errs[i]:.3e} "
+                  f"({split_qkv(names, g)[i][0]})")
+            torch.save([(n, t.cpu()) for n, t in split_qkv(names, g)],
+                       path.replace(".pt", "_whole.pt"))
+            g = split
+            del parts
+        torch.save([(n, t.cpu()) for n, t in split_qkv(names, g)], path)
+        del params, leaves, g
+        torch.cuda.empty_cache()
+    print(f"[{tag}] one process, {mcfg.n_layers}-layer m7c bf16 {rows} x {S_POD}"
+          f"{' packed' if st['varlen'] else ''}: step {mean:.3f} ms, "
+          f"{mfu_text(rows, S_POD, mean, mcfg)}; losses {', '.join(f'{v:.4f}' for v in losses)}")
+    return {"losses": losses, "step_ms": mean, "grads": path}
+
+
+def stage_launches(mesh, mcfg, M: int, keys=None) -> dict:
+    """The launch counts one parallel step of this rank must show under the
+    design keys `keys` (None: those in force): remat runs each of its
+    blocks' three forward kernels twice (the window at a nonzero offset as
+    banded_attn), the backward one kernel per branch and block; all once
+    per micro-batch (M; 1 without pp)."""
+    L = len(range(0, mcfg.n_layers, mesh.pp))
+    want = dict.fromkeys(train_counts(), 0)
+    win = "banded_attn" if mesh.sp_rank > 0 else "win_attn"
+    for k in ("select_cmp", "sel_attn", win):
+        want[k] = 2 * L * M
+    with design_keys(keys):
+        for branch in ("win", "cmp", "sel"):
+            k = tuning.backward_kernel(branch, S_POD // mesh.sp, mcfg.nsa.w)
+            want[k] += L * M
+            if branch == "cmp":
+                want[f"{k}@cmp"] += L * M
+    return want
+
+
+@contextlib.contextmanager
+def zeroed_sent_grads(mesh):
+    """On the last stage, every tensor it sends (the activation gradients
+    going back) is replaced by zeros: a fault the pp gradient check must
+    catch."""
+    real = pipeline.send_to
+    if mesh.pp_rank == mesh.pp - 1:
+        pipeline.send_to = lambda x, dst, m: real(torch.zeros_like(x), dst, m)
+    try:
+        yield
+    finally:
+        pipeline.send_to = real
+
+
+@contextlib.contextmanager
+def swapped_microbatches(mesh):
+    """On the last stage, the activations of micro-batches 0 and 1 are
+    taken in swapped order: a fault the pp gradient check must catch."""
+    real, held = pipeline.recv_from, []
+
+    def swapped(shape, dtype, device, src, m):
+        if not held and not getattr(swapped, "done", False):
+            held.append(real(shape, dtype, device, src, m))
+            swapped.done = True
+            return real(shape, dtype, device, src, m)
+        return held.pop() if held else real(shape, dtype, device, src, m)
+
+    if mesh.pp_rank == mesh.pp - 1:
+        pipeline.recv_from = swapped
+    try:
+        yield
+    finally:
+        pipeline.recv_from = real
+
+
+@contextlib.contextmanager
+def unsummed_top_grads():
+    """The replicated top-level leaves' gradients are not all-reduced (so,
+    at dp = sp = 1, not summed over pp): a fault the pp gradient check
+    must catch."""
+    real = pts._sum_grads_
+    pts._sum_grads_ = lambda grads, group: None if group is None else real(grads, group)
+    try:
+        yield
+    finally:
+        pts._sum_grads_ = real
+
+
+def stage_worker(mode: str) -> None:
+    """One rank of a phase (j) setting (stage_setting): the m7c step (bf16,
+    remat, default keys) on the setting's batches, warm-up + POD_STEPS
+    timed steps, launch counts, the bytes sent stage to stage, a traced
+    step; in varlen-sp one step under each of DESIGNS' onepass and twopass
+    keys, the cross-document check at the shard boundary and the 64k long
+    route's forward; in varlen-sp and pp the f32 first gradient (gathered
+    whole) against one process's, with planted faults. Writes
+    PAR_DIR/<mode>_rank<r>.json."""
+    initialize_distributed("gloo")
+    dev = rank_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    st = stage_setting(mode)
+    mcfg, tcfg = st["mcfg"], stage_tcfg(st)
+    mesh = make_mesh(dp=st["dp"], sp=st["sp"], pp=st["pp"])
+    lead = mesh.rank == 0
+    tag = f"{mode} rank {mesh.rank}"
+    M = tcfg.pp_microbatches if mesh.pp > 1 else 1
+    step, state = build_state_and_step(
+        init_model_params(mcfg, torch.Generator().manual_seed(0), device=dev), mcfg, tcfg, mesh)
+    batches = [local_batch(b, mesh) for b in stage_batches(st, POD_STEPS + 2, dev)]
+    state, m = step(state, batches[0])                                # warm-up
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    pipeline.SENT["bytes"] = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(POD_STEPS + 1)]
+    ev[0].record()
+    for i in range(POD_STEPS):
+        state, m = step(state, batches[1 + i])
+        ev[i + 1].record()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    counts = train_counts()
+    sent = pipeline.SENT["bytes"] / POD_STEPS
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(POD_STEPS)]
+    want = {k: v * POD_STEPS for k, v in stage_launches(mesh, mcfg, M).items()}
+    print(f"[{tag}] launches over {POD_STEPS} steps: {counts}; expected {want}", flush=True)
+    if counts != want:
+        fail(f"{tag}: launch counts {counts} != {want}")
+    runs = [counts]
+    if mode == "varlen-sp":   # the other designs' kernels on packed rows at the offset
+        for label in ("onepass", "twopass"):
+            with design_keys(DESIGNS[label]):
+                kernels.reset_launch_counts()
+                step(state, batches[1])
+                torch.cuda.synchronize()
+                c = train_counts()
+            if c != stage_launches(mesh, mcfg, M, DESIGNS[label]):
+                fail(f"{tag}: {label} launch counts {c}")
+            runs.append(c)
+    mean_ms = float(np.mean(step_ms))
+    busy = trace(lambda: step(state, batches[1]), 1, f"{tag} step", mean_ms)["busy"]
+    res = {"losses": [float(v) for v in losses], "step_ms": step_ms, "mean_ms": mean_ms,
+           "busy": busy, "runs": runs, "sent": sent, "layers": list(state.layers)}
+    if mode == "varlen-sp":
+        res.update(docs_boundary_checks(state, mcfg, mesh, dev))
+    del state, step
+    torch.cuda.empty_cache()
+    if mode in ("varlen-sp", "pp"):
+        m32 = dataclasses.replace(mcfg, dtype="float32")
+        t32 = dataclasses.replace(tcfg, gate_stats=False)
+        st32 = build_state(init_model_params(m32, torch.Generator().manual_seed(0), device=dev),
+                           t32, mesh)
+        names = [k for k, _ in param_leaves(st32.full_template)]
+        ref = torch.load(os.path.join(PAR_DIR, f"ref_grads_{mode}.pt")) if lead else None
+        whole = (torch.load(os.path.join(PAR_DIR, f"ref_grads_{mode}_whole.pt"))
+                 if lead and mode == "pp" else None)
+        faults = ({"win_bwd_diag without seq_start": lambda: dropped_ds("win_bwd_diag")}
+                  if mode == "varlen-sp" else
+                  {"activation gradient sent back zeroed": lambda: zeroed_sent_grads(mesh),
+                   "micro-batches 0 and 1 swapped on the last stage":
+                       lambda: swapped_microbatches(mesh),
+                   "top-level gradients not summed over pp": unsummed_top_grads})
+        for label, plant in [("base", contextlib.nullcontext)] + list(faults.items()):
+            with plant():
+                grads = grads_and_stats(st32, m32, t32, mesh, batches[0])[1]
+            full = gather_full(st32, mesh, grads)
+            for key, want in (("grad_err", ref), ("grad_err_whole", whole)):
+                if want is None:
+                    continue
+                errs = [float((g.float() - r.to(dev).float()).norm() / r.float().norm())
+                        for (_, g), (_, r) in zip(split_qkv(names, full), want)]
+                i = int(np.argmax(errs))
+                res.setdefault(key, {})[label] = [errs[i], want[i][0]]
+            del grads, full
+    with open(os.path.join(PAR_DIR, f"{mode}_rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def docs_boundary_checks(state, mcfg, mesh, dev) -> dict:
+    """(j-varlen-sp), on each rank: perturbing one document that crosses
+    position OFF_T0 moves no other document's logits (bf16, no grad, the
+    rank's rows: 0.0); then the 64k long route under sp with packed
+    documents (select_blocks and banded_attn at the offset): launch counts
+    and finite logits."""
+    toks, ds_np, _, spans = varlen_pack(B_POD, S_POD, DOCS_SEED + 1, DOCS_MUST)
+    r, a, n = crossing(spans, OFF_T0)[0]
+    toks = torch.from_numpy(toks).long().to(dev)
+    ds = torch.from_numpy(ds_np).to(dev)
+    pert = toks.clone()
+    pert[r, a:a + n] = (pert[r, a:a + n] + 101) % mcfg.vocab_size
+    s = S_POD // mesh.sp
+    t0 = mesh.sp_rank * s
+    params = gathered_params(state, mesh)
+    with torch.no_grad():
+        base = context_parallel_model_forward(params, toks[:, t0:t0 + s], mcfg, mesh,
+                                              seq_start=ds)[0]
+        moved = context_parallel_model_forward(params, pert[:, t0:t0 + s], mcfg, mesh,
+                                               seq_start=ds)[0]
+    diff = (moved - base).abs().amax(-1)                                    # [B, S/sp]
+    own = torch.zeros_like(diff, dtype=torch.bool)
+    own[r] = ds[r, t0:t0 + s] == a
+    out = {"leak": [float(diff[~own].max()), float(diff[own].max()) if own.any() else 0.0],
+           "victim": [r, a, n]}
+    del base, moved, diff
+    toks64, ds64_np, _, _ = varlen_pack(1, S_LONG, DOCS_SEED + 7, DOCS_LONG_MUST)
+    toks64 = torch.from_numpy(toks64).long().to(dev)
+    ds64 = torch.from_numpy(ds64_np).to(dev)
+    s64 = S_LONG // mesh.sp
+    with torch.no_grad():
+        x = toks64[:, mesh.sp_rank * s64:(mesh.sp_rank + 1) * s64]
+        context_parallel_model_forward(params, x, mcfg, mesh, seq_start=ds64)    # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        logits = context_parallel_model_forward(params, x, mcfg, mesh, seq_start=ds64)[0]
+        torch.cuda.synchronize()
+    L = mcfg.n_layers
+    c = kernels.launch_counts()
+    want = {**dict.fromkeys(c, 0), "select_blocks": L, "sel_attn": L,
+            "banded_attn": 2 * L if mesh.sp_rank else L, "win_attn": 0 if mesh.sp_rank else L}
+    out["long"] = {"counts": c, "want": want, "finite": bool(torch.isfinite(logits).all())}
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage_report(mode: str, ranks: list, ref: dict, st: dict) -> None:
+    """Prints a phase (j) setting's numbers (per-rank step ms, busy and
+    idle, the bubble fraction, launches per stage, bytes sent stage to
+    stage per step, MFU) and holds its losses to one process's (LOSS_TOL)
+    and, where measured, its f32 first gradient (STEP_GRAD_TOL, each
+    planted fault beyond it)."""
+    mcfg = st["mcfg"]
+    rows = B_POD * st["dp"]
+    pp, M = st["pp"], PP_M if st["pp"] > 1 else 1
+    for r, res in enumerate(ranks):
+        mean = res["mean_ms"]
+        print(f"[{mode}] rank {r} (layers {res['layers'][0]}..{res['layers'][-1]}): step ms "
+              f"{', '.join(f'{v:.2f}' for v in res['step_ms'])}; mean {mean:.3f} ms; busy "
+              f"{res['busy']:.3f} ms, idle share {1 - res['busy'] / mean:.3f}; launches a step "
+              + str({k: v // POD_STEPS for k, v in res["runs"][0].items() if v})
+              + f"; bytes sent to stage neighbours a step {res['sent']:.0f}")
+    mean = float(np.mean([res["mean_ms"] for res in ranks]))
+    print(f"[{mode}] {mcfg.n_layers}-layer m7c bf16 {rows} x {S_POD} over {len(ranks)} ranks "
+          f"(dp {st['dp']}, pp {pp}, sp {st['sp']}{', fsdp' if st['fsdp'] else ''}"
+          f"{', varlen' if st['varlen'] else ''}{f', M {M}' if pp > 1 else ''}) time-sharing the "
+          f"one card over gloo: mean step {mean:.3f} ms (one process on the same batch: "
+          f"{ref['step_ms']:.3f} ms); bubble fraction (pp-1)/(M+pp-1) {(pp - 1) / (M + pp - 1):.3f}"
+          f"; {rows * S_POD / (mean / 1e3):.0f} tokens/s, {mfu_text(rows, S_POD, mean, mcfg)}")
+    res = ranks[0]
+    gap = max(abs(a - b) for a, b in zip(res["losses"], ref["losses"]))
+    print(f"[{mode}] losses {', '.join(f'{v:.4f}' for v in res['losses'])}; one process "
+          f"{', '.join(f'{v:.4f}' for v in ref['losses'][:len(res['losses'])])}; max gap "
+          f"{gap:.3e} (bound LOSS_TOL {LOSS_TOL:g})")
+    if not gap <= LOSS_TOL:
+        fail(f"{mode}: losses differ from one process's by {gap:.3e}")
+    if "grad_err_whole" in res:   # printed only: near-tie selections differ (PERF.md)
+        print(f"[{mode}] f32 first gradient vs one process's single call on all {rows} rows, "
+              f"worst leaf: " + "; ".join(f"{k} {v[0]:.3e} ({v[1]})"
+                                          for k, v in res["grad_err_whole"].items()))
+    if "grad_err" in res:
+        errs = res["grad_err"]
+        print(f"[{mode}] f32 first gradient vs one process"
+              + (f" on the same {M} micro-batches" if pp > 1 else "")
+              + ", worst leaf ||g - g_1|| / ||g_1||: "
+              + "; ".join(f"{k} {v[0]:.3e} ({v[1]})" for k, v in errs.items())
+              + f" (bound {STEP_GRAD_TOL:g}; each planted fault must exceed it)")
+        if not errs["base"][0] <= STEP_GRAD_TOL:
+            fail(f"{mode}: the f32 first gradient differs from one process's by "
+                 f"{errs['base'][0]}")
+        missed = [k for k, v in errs.items() if k != "base" and not v[0] > STEP_GRAD_TOL]
+        if missed:
+            fail(f"{mode}: planted faults pass the gradient check: {missed}")
+
+
+def phase_stages(dev) -> list:
+    """Phase (j): (j-kernels) in this process; (j-varlen-sp) and (j-pp),
+    two ranks each, and the four-rank settings of FOUR_RANKS, each held to
+    one process on the same global batches. Returns the JSON rows of rows
+    1, 3, 5, 6, 7, 8 and 11 with seq_start at the offset (launches: the
+    second sp rank's varlen steps under each design, and its 64k forward
+    for rows 5 and 6)."""
+    os.makedirs(PAR_DIR, exist_ok=True)
+    krec = phase_docs_kernels(dev)
+    torch.cuda.empty_cache()
+    results = {}
+    for mode, n in (("varlen-sp", 2), ("pp", 2), *((k, 4) for k in FOUR_RANKS)):
+        st = stage_setting(mode)
+        ref = reference_run(dev, st, mode, grads=mode in ("varlen-sp", "pp"))
+        torch.cuda.empty_cache()
+        results[mode] = ranks = run_ranks(mode, n)
+        stage_report(mode, ranks, ref, st)
+        if mode == "varlen-sp":
+            for r, res in enumerate(ranks):
+                other, inside = res["leak"]
+                lg = res["long"]
+                print(f"[varlen-sp] rank {r}: document {res['victim']} (row, start, length) "
+                      f"across position {OFF_T0} perturbed: its logits on this rank move by up "
+                      f"to {inside:.4f}, every other document's by {other} (must be 0.0); 64k "
+                      f"packed forward under sp: launches {lg['counts']} (expected "
+                      f"{lg['want']}), logits finite: {lg['finite']}")
+                if other != 0.0 or not inside > 0.0:
+                    fail(f"varlen-sp rank {r}: cross-document influence at the shard boundary")
+                if lg["counts"] != lg["want"] or not lg["finite"]:
+                    fail(f"varlen-sp rank {r}: the 64k forward's launches or logits")
+        for p in (ref["grads"], ref["grads"] and ref["grads"].replace(".pt", "_whole.pt")):
+            if p and os.path.exists(p):
+                os.remove(p)
+    rows = docs_rows(krec, results["varlen-sp"][1])
+    del krec
+    torch.cuda.empty_cache()
+    return rows
+
+
+def docs_rows(rec, rank1) -> list:
+    """The JSON rows of rows 1, 3, 5, 6, 7, 8 and 11 with seq_start at the
+    offset (bf16), launches from the second sp rank of (j-varlen-sp): its
+    steps under each design (`runs`) and its 64k forward (rows 5 and 6:
+    the cmp-mode banded_attn launches are those past its window's)."""
+    x = rec["inputs"]
+    cfg, sc, t0, ds = x["cfg"], x["scale"], x["t0"], x["ds"]
+    runs, long_counts = rank1["runs"], rank1["long"]["counts"]
+    L = M7C_125M.n_layers
+    out = [select_cmp_row("select_cmp@docs-offset", x, lse=True, launches=runs[0]["select_cmp"],
+                          max_err=rec["select_cmp@docs-offset"])]
+    for mode in ("win", "cmp"):
+        K, V = (x["Kw"], x["Vw"]) if mode == "win" else (x["Kc"], x["Vc"])
+        mkw = dict(w=cfg.w) if mode == "win" else dict(l=cfg.l, d=cfg.d)
+        out.append(band_row(f"banded_attn@{mode}@docs-offset",
+                            lambda: banded_attn(x["Q"], K, V, mode=mode, **mkw, scale=sc,
+                                                t_start=t0, seq_start=ds),
+                            x["Q"], K, V, mode=mode, kw=mkw, lse=False,
+                            launches=(runs[0]["banded_attn"] if mode == "win"
+                                      else long_counts["banded_attn"] - L),
+                            max_err=rec[f"banded_attn@{mode}@docs-offset"], iters=10,
+                            seq_start=ds, t_start=t0))
+    y = rec["long"]
+    Q, Kc, dl, tl = y["Q"], y["Kc"], y["ds"], y["t0"]
+    sel = select_blocks(Q, Kc, **sel_kw(y), pos_offset=tl, seq_start=dl)
+    pairs = float(banded_mask(Q.shape[1], Kc.shape[2], mode="cmp", l=cfg.l, d=cfg.d, t_start=tl,
+                              device=dl.device, seq_start=dl).sum()) * cfg.n_kv_groups \
+        * cfg.h_per_group
+    bms, by = bound(nbytes(Q, Kc, sel, dl), pairs * 2 * cfg.d_k, Q.dtype)
+    out.append(dict(
+        name="select_blocks@docs-offset-64k",
+        source="nsa_vibe_tpu_torch/csrc/select_blocks_mma.cu",
+        replaces="nsa_vibe_tpu/ops/pallas/scorer.py:186",
+        launches=long_counts["select_blocks"], max_abs_err=rec["select_blocks@docs-offset-64k"],
+        ms=time_ms(lambda: select_blocks(Q, Kc, **sel_kw(y), pos_offset=tl, seq_start=dl), 10,
+                   hold=True),
+        plain_ms=time_ms(lambda: select_blocks_plain(Q, Kc, **sel_kw(y), pos_offset=tl,
+                                                     seq_start=dl), 2, 1, hold=True),
+        bound_ms=bms, bound_by=by, library_ms=None))
+    print_rows(out)
+    return out + measure_train({**rec, "inputs": x}, runs, DOCS_BWD,
+                               calls=offset_bwd_calls(x), suffix="@docs-offset")
+
+
 def _leaves(tree, key=None):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -3868,6 +4552,8 @@ def main() -> int:
     rows += phase_varlen(dev)
     torch.cuda.empty_cache()
     rows += phase_parallel(dev)
+    torch.cuda.empty_cache()
+    rows += phase_stages(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -3881,7 +4567,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--parallel-worker"]:   # a rank of phase (i), under torch.distributed.run
-        parallel_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--parallel-worker"]:   # a rank of (i) or (j), under torch.distributed.run
+        (parallel_worker if sys.argv[2] in ("sp", "fsdp") else stage_worker)(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

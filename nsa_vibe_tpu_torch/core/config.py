@@ -6,9 +6,9 @@ dispatches by the device of the tensors (CUDA -> kernel, CPU -> plain
 version). So is `varlen_exact`: the port's avg ϕ is always window-exact
 (ops/compress.py), the form the JAX package computes under
 `varlen_exact=True` (train/trainer.py::load_config accepts that key and
-refuses `false`). `TrainConfig` is the single-device part of the JAX
-trainer's configuration (the parallel axes dp/tp/sp/pp/fsdp are a later
-slice), with `varlen` packed-document batching (ops/varlen.py).
+refuses `false`). `TrainConfig` is the JAX trainer's configuration, with
+`varlen` packed-document batching (ops/varlen.py) and the parallel axes
+dp, sp, pp and fsdp (parallel/; tp is not ported yet).
 """
 
 from __future__ import annotations
@@ -96,14 +96,16 @@ class TrainConfig:
     # packed-document batching (ops/varlen.py): batches carry (tokens,
     # seq_start, loss_mask); no attention crosses a document boundary
     varlen: bool = False
-    # parallelism (parallel/): batch rows over dp ranks (0 = world // sp),
-    # query positions over sp ranks, fsdp shards parameters and moments over
-    # dp (leaves with an axis of at least fsdp_min_size); tp and pp > 1 are
-    # not ported (they raise)
+    # parallelism (parallel/): batch rows over dp ranks (0 = world // (pp
+    # sp)), query positions over sp ranks, blocks over pp pipeline stages
+    # (GPipe over pp_microbatches micro-batches, 0 = pp), fsdp shards
+    # parameters and moments over dp (leaves with an axis of at least
+    # fsdp_min_size); tp > 1 is not ported (it raises)
     dp: int = 0
     tp: int = 1
     sp: int = 1
     pp: int = 1
+    pp_microbatches: int = 0
     fsdp: bool = False
     fsdp_min_size: int = 512
 

@@ -142,7 +142,8 @@ def combine_branches(params: dict, cfg: NSAConfig, Q: torch.Tensor, O_cmp: torch
 
 
 def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig, seq_start=None, t0: int = 0,
-                gather_kv: Optional[Callable] = None) -> Tuple[torch.Tensor, dict]:
+                gather_kv: Optional[Callable] = None,
+                seq_start_kv=None) -> Tuple[torch.Tensor, dict]:
     """Batched prefill forward. x: [B, S, dim] -> (out [B, S, dim], aux);
     aux carries the raw/compressed K/V (for cache seeding), the selection
     (scorer set form) and the gates. seq_start [B, S] int (optional):
@@ -154,15 +155,21 @@ def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig, seq_start=None, t
     [t0, t0 + S) and `gather_kv` maps each of the six K/V streams of those
     rows, after RoPE, to the whole sequence's [B, G, S_kv, D] (an
     all-gather over the sp ranks); ϕ then pools the gathered raw stream at
-    positions 0..S_kv-1 and every kernel takes the offset t0."""
+    positions 0..S_kv-1 and every kernel takes the offset t0. Packed
+    documents under sequence sharding: seq_start [B, S] holds the local
+    rows' starts (packed positions, as the kernels read them at the offset)
+    and seq_start_kv [B, S_kv] every key's, for ϕ's pooling positions
+    (the JAX package's seq_start_full). It is an argument, not a gather:
+    every sp rank of a dp member holds the whole packed row already, and a
+    gather would cost one collective per layer (twice under remat)."""
     B, S, _ = x.shape
     G, h = cfg.n_kv_groups, cfg.h_per_group
     scale = 1.0 / float(np.sqrt(cfg.d_k))
     dev = x.device
     if t0 and gather_kv is None:
         raise ValueError("t0 > 0 needs gather_kv: the keys must cover positions 0..t0+S-1")
-    if seq_start is not None and gather_kv is not None:
-        raise ValueError("varlen with sp > 1 is not ported yet (ROADMAP Queue 1 item 4)")
+    if seq_start is not None and gather_kv is not None and seq_start_kv is None:
+        raise ValueError("seq_start with gather_kv needs seq_start_kv, the starts of every key")
     t_pos = torch.arange(t0, t0 + S, device=dev)
     if seq_start is not None:
         seq_start = seq_start.to(device=dev, dtype=torch.int32).contiguous()
@@ -179,6 +186,8 @@ def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig, seq_start=None, t
         K_sel, V_sel, K_win, V_win, K_cmp_raw, V_cmp_raw = (
             gather_kv(a) for a in (K_sel, V_sel, K_win, V_win, K_cmp_raw, V_cmp_raw))
         k_pos = torch.arange(K_sel.shape[2], device=dev)
+        if seq_start is not None:   # document-local pooling positions of every key
+            k_pos = (k_pos[None, :] - seq_start_kv.to(device=dev, dtype=torch.int32))[:, None, :]
     S_kv = K_sel.shape[2]
     K_cmp, V_cmp = pool_phi_rope_kv(
         K_cmp_raw, V_cmp_raw, cfg.l, cfg.d, pos=k_pos,

@@ -11,8 +11,8 @@
 // What it computes: query row s sits at position t = t_start + s and sees
 //   WIN: keys [max(t-w+1, 0, ds), t]                   (and < S_kv)
 //   CMP: compressed tokens [ceil(ds/d), num_cmp(t+1))  (none while t+1 < l; < S_kv)
-// with ds the row's document start (packed documents: ds [B,S] given, at
-// t_start 0) or 0.
+// with ds the row's document start (packed documents: ds [B,S] given; row
+// s reads ds[b, s], a packed position, also at t_start > 0) or 0.
 // softmax in f32; a row with no visible key returns O = 0. Optionally (lse
 // != nullptr) the row statistics lse [B,S,G,h] f32 = m + log(l) in the
 // natural base, EMPTY_LSE for a row with no key (the port's convention,
@@ -304,14 +304,14 @@ long long nsa_banded_attn_smem_bytes(int TQ, int h, int Dk, int Dv) {
 }
 
 // f32 only. Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv], ds [B,S]
-// int32 document starts (or null; t_start 0 with ds) -> O [B,S,G,h,Dv],
+// int32 document starts (or null) -> O [B,S,G,h,Dv],
 // lse [B,S,G,h] (or null). mode 0 WIN (w > 0), 1 CMP (l, d > 0); tiles of
 // TQ tokens, TQ * h <= 64.
 int nsa_banded_attn(const void* Q, const void* K, const void* V, const int* ds, void* O,
                     float* lse, int B, int S, int S_kv, int G, int h, int Dk, int Dv, int mode,
                     int w, int l, int d, int t_start, float scale, int TQ, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || Dv > 4 * MAX_SLICES * (THREADS / MAX_ROWS) ||
-      Dv % 8 != 0 || Dk % 8 != 0 || t_start < 0 || (ds != nullptr && t_start != 0) ||
+      Dv % 8 != 0 || Dk % 8 != 0 || t_start < 0 ||
       (mode != WIN && mode != CMP) ||
       (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)))
     return (int)cudaErrorInvalidValue;

@@ -140,7 +140,7 @@ long long nsa_banded_bwd_smem_bytes(int Dk, int Dv) {
 // f32 only: dQ of the two-pass design (its dK and dV: nsa_banded_bwd_1p with
 // ws null). Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h], ds
 // [B,S] int32 document starts (or null); mode 0 WIN (w > 0), 1 CMP (l, d >
-// 0); query row s at position t_start + s (0 with ds); TQ tokens per block,
+// 0); query row s at position t_start + s; TQ tokens per block,
 // TQ * h <= 64.
 int nsa_banded_bwd(const float* Q, const float* K, const float* V, const float* dO,
                    const float* lse, const float* delta, const int* ds, float* dQ, int B, int S,
@@ -148,7 +148,7 @@ int nsa_banded_bwd(const float* Q, const float* K, const float* V, const float* 
                    float scale, int t_start, int TQ, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 ||
       (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
-      (mode != WIN && mode != CMP) || t_start < 0 || (ds != nullptr && t_start != 0))
+      (mode != WIN && mode != CMP) || t_start < 0)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, 1, scale, t_start};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

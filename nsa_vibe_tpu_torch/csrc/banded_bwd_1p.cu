@@ -195,7 +195,7 @@ int nsa_banded_bwd_1p_slots(int mode, int w, int S_kv) {
   return most < nkt ? most : nkt;
 }
 
-// f32 only. Query row s at position t_start + s (0 with ds). ds: [B,S]
+// f32 only. Query row s at position t_start + s. ds: [B,S]
 // int32 document starts, or null. part: f32 scratch of
 // nsplit * B*G*S_kv*(Dk+Dv) floats (per-split partial dK, then dV). ws: f32
 // dQ workspace of nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats, or null
@@ -207,8 +207,7 @@ int nsa_banded_bwd_1p(const float* Q, const float* K, const float* V, const floa
                       int TQ, int nsplit, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || nsplit <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 ||
       Dv > 128 || S_kv <= 0 || (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
-      (mode != WIN && mode != CMP) || part == nullptr || t_start < 0 ||
-      (ds != nullptr && t_start != 0))
+      (mode != WIN && mode != CMP) || part == nullptr || t_start < 0)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, nsplit, scale, t_start};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

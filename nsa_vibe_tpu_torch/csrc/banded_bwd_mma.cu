@@ -147,7 +147,8 @@ __host__ __device__ constexpr int q_min_blocks(int DT, int ROWS) {
 // the two-pass design's dQ pass (either MODE, dQ only). p.mode is MODE;
 // DOCS: ds given (the dense instantiation reads none); OFF: row token s at
 // position p.t_start + s (sequence sharding; the dense instantiation reads
-// no offset). DOCS and OFF are never both set.
+// no offset). Both set: packed documents under sequence sharding (row
+// token s at position t_start + s reads ds[b, s], a packed position).
 template <int DT, int ROWS, int MODE, bool DKV, bool DOCS, bool OFF>
 __device__ __forceinline__ void q_major(const __nv_bfloat16* __restrict__ Q,
                                         const __nv_bfloat16* __restrict__ K,
@@ -657,10 +658,13 @@ template <int DT, int ROWS>
 int launch_diag(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
                 const float* delta, const int* ds, void* dQ, void* dK, void* dV, float* strip_k,
                 float* strip_v, const Params& p, int SL, cudaStream_t stream) {
-  DiagKernel kern = ds != nullptr ? &win_bwd_diag_mma_kernel<DT, ROWS, true, false>
-                                  : &win_bwd_diag_mma_kernel<DT, ROWS, false, false>;
+  const bool docs = ds != nullptr;
+  DiagKernel kern = docs ? &win_bwd_diag_mma_kernel<DT, ROWS, true, false>
+                         : &win_bwd_diag_mma_kernel<DT, ROWS, false, false>;
   if (p.t_start != 0) {
-    if constexpr (ROWS == OFF_ROWS) kern = &win_bwd_diag_mma_kernel<DT, ROWS, false, true>;
+    if constexpr (ROWS == OFF_ROWS)
+      kern = docs ? &win_bwd_diag_mma_kernel<DT, ROWS, true, true>
+                  : &win_bwd_diag_mma_kernel<DT, ROWS, false, true>;
     else return (int)cudaErrorInvalidValue;
   }
   constexpr size_t smem = QLayout<DT, ROWS, true>::BYTES;
@@ -685,10 +689,13 @@ template <int DT, int ROWS, int MODE>
 int launch_dq(const void* Q, const void* K, const void* V, const void* dO, const float* lse,
               const float* delta, const int* ds, void* dQ, const Params& p,
               cudaStream_t stream) {
-  auto kern = ds != nullptr ? &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, true, false>
-                            : &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, false, false>;
+  const bool docs = ds != nullptr;
+  auto kern = docs ? &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, true, false>
+                   : &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, false, false>;
   if (p.t_start != 0) {
-    if constexpr (ROWS == OFF_ROWS) kern = &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, false, true>;
+    if constexpr (ROWS == OFF_ROWS)
+      kern = docs ? &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, true, true>
+                  : &banded_bwd_dq_mma_kernel<DT, ROWS, MODE, false, true>;
     else return (int)cudaErrorInvalidValue;
   }
   constexpr size_t smem = QLayout<DT, ROWS, false>::BYTES;
@@ -714,12 +721,15 @@ int launch_kv(const void* Q, const void* K, const void* V, const void* dO, const
               float* ws, const Params& p, cudaStream_t stream) {
   const bool docs = ds != nullptr, off = p.t_start != 0;
   const KvKernel kern =
-      p.mode == WIN ? (docs  ? &banded_bwd_1p_mma_kernel<DT, WIN, true, false>
-                       : off ? &banded_bwd_1p_mma_kernel<DT, WIN, false, true>
-                             : &banded_bwd_1p_mma_kernel<DT, WIN, false, false>)
-                    : (docs  ? &banded_bwd_1p_mma_kernel<DT, CMP, true, false>
-                       : off ? &banded_bwd_1p_mma_kernel<DT, CMP, false, true>
-                             : &banded_bwd_1p_mma_kernel<DT, CMP, false, false>);
+      p.mode == WIN
+          ? (docs ? (off ? &banded_bwd_1p_mma_kernel<DT, WIN, true, true>
+                         : &banded_bwd_1p_mma_kernel<DT, WIN, true, false>)
+                  : (off ? &banded_bwd_1p_mma_kernel<DT, WIN, false, true>
+                         : &banded_bwd_1p_mma_kernel<DT, WIN, false, false>))
+          : (docs ? (off ? &banded_bwd_1p_mma_kernel<DT, CMP, true, true>
+                         : &banded_bwd_1p_mma_kernel<DT, CMP, true, false>)
+                  : (off ? &banded_bwd_1p_mma_kernel<DT, CMP, false, true>
+                         : &banded_bwd_1p_mma_kernel<DT, CMP, false, false>));
   constexpr size_t smem = KvLayout<DT>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -764,9 +774,8 @@ long long nsa_banded_bwd_1p_mma_smem_bytes(int Dk, int Dv) {
 
 // bf16 only. Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32,
 // ds [B,S] int32 document starts (or null) -> dQ, dK, dV (bf16); query row
-// s at position t_start + s (0 with ds). mode 0
-// WIN (w > 0), 1 CMP (l, d > 0); Dk, Dv <= 128
-// and multiples of 8. part: f32 scratch of nsplit * B*G*S_kv*(Dk+Dv) floats;
+// s at position t_start + s (with ds also). mode 0 WIN (w > 0), 1 CMP (l,
+// d > 0); Dk, Dv <= 128 and multiples of 8. part: f32 scratch of nsplit * B*G*S_kv*(Dk+Dv) floats;
 // ws: f32 dQ slots, nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats, or
 // null for dK and dV alone (the two-pass design's kv pass; dQ unused).
 int nsa_banded_bwd_1p_mma(const void* Q, const void* K, const void* V, const void* dO,
@@ -776,8 +785,7 @@ int nsa_banded_bwd_1p_mma(const void* Q, const void* K, const void* V, const voi
                           float scale, int t_start, int nsplit, void* stream) {
   if (nsplit <= 0 || h <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 ||
       S_kv <= 0 || (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)) ||
-      (mode != WIN && mode != CMP) || part == nullptr || t_start < 0 ||
-      (ds != nullptr && t_start != 0))
+      (mode != WIN && mode != CMP) || part == nullptr || t_start < 0)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, 0, nsplit, scale, t_start};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -810,8 +818,7 @@ int nsa_banded_bwd_dq_mma(const void* Q, const void* K, const void* V, const voi
                           int d, float scale, int t_start, int rows, void* stream) {
   if ((rows != 64 && rows != 128) || h <= 0 || h > rows || S_kv <= 0 || Dk % 8 != 0 ||
       Dv % 8 != 0 || Dk > 128 || Dv > 128 || (mode == WIN && w <= 0) ||
-      (mode == CMP && (l <= 0 || d <= 0)) || (mode != WIN && mode != CMP) || t_start < 0 ||
-      (ds != nullptr && t_start != 0))
+      (mode == CMP && (l <= 0 || d <= 0)) || (mode != WIN && mode != CMP) || t_start < 0)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, rows / h, 1, scale, t_start};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -847,7 +854,7 @@ int nsa_win_bwd_diag_mma(const void* Q, const void* K, const void* V, const void
   const bool wd = wide(Dk, Dv);
   if ((rows != 64 && rows != 128 && (rows != 192 || wd)) || h <= 0 || h > rows || w <= 0 ||
       S <= 0 || S_kv <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 ||
-      strip_k == nullptr || strip_v == nullptr || t_start < 0 || (ds != nullptr && t_start != 0))
+      strip_k == nullptr || strip_v == nullptr || t_start < 0)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, WIN, w, 0, 1, rows / h, 1, scale, t_start};
   const int SL = nsa_win_bwd_diag_mma_strip_keys(rows, h, w, S_kv);

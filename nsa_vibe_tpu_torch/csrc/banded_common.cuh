@@ -21,7 +21,7 @@ struct Params {
   int B, S, S_kv, G, h, Dk, Dv, mode, w, l, d, TQ, nsplit;
   float scale;
   // position of query row 0 (sequence sharding: the rows are a slice of
-  // the sequence that K/V cover whole; 0 with ds). The FMA kernels and the
+  // the sequence that K/V cover whole). The FMA kernels and the
   // slot and strip sums read it always, the tensor-core kernels only in
   // their OFF instantiation, so the dense one compiles as it did before
   int t_start;

@@ -11,8 +11,8 @@
 // t_start + s and sees
 //   WIN: keys [max(t-w+1, 0, ds), min(t+1, S_kv))
 //   CMP: compressed tokens [ceil(ds/d), min(num_cmp(t+1), S_kv))
-// with ds the row's document start (packed documents, ds [B,S] given at
-// t_start 0) or 0; the tile band takes ds at the tile's first token, each
+// with ds the row's document start (packed documents, ds [B,S] given; row
+// s reads ds[b, s], a packed position, also at t_start > 0) or 0; the tile band takes ds at the tile's first token, each
 // row masks its own.
 // softmax over the visible keys; a row with no visible key returns O = 0.
 // With lse != nullptr also lse [B,S,G,h] f32 = m + log(l) (natural base),
@@ -120,7 +120,7 @@ long long nsa_banded_fwd_mma_smem_bytes(int Dk, int Dv, int rows) {
 }
 
 // bf16 only. Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv], ds [B,S]
-// int32 document starts (or null; t_start 0 with ds) -> O [B,S,G,h,Dv],
+// int32 document starts (or null) -> O [B,S,G,h,Dv],
 // lse [B,S,G,h] f32 (or null). mode 0 WIN (w > 0), 1 CMP (l, d > 0); q
 // tiles of `rows` = 64 or 128 rows (rows / h tokens, h <= rows); Dk, Dv <=
 // 128 and multiples of 8.
@@ -129,7 +129,6 @@ int nsa_banded_fwd_mma(const void* Q, const void* K, const void* V, const int* d
                        int mode, int w, int l, int d, int t_start, float scale, int rows,
                        void* stream) {
   if ((rows != 64 && rows != 128) || h <= 0 || h > rows || S_kv < 0 || t_start < 0 ||
-      (ds != nullptr && t_start != 0) ||
       Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 || (mode != WIN && mode != CMP) ||
       (mode == WIN && w <= 0) || (mode == CMP && (l <= 0 || d <= 0)))
     return (int)cudaErrorInvalidValue;

@@ -59,7 +59,7 @@ struct Layout {
 // log2(l)) of this thread's rows r0 + g8 (nlse2[0]) and r0 + g8 + 8
 // (nlse2[1]), the base-2 statistic of each row's softmax (0 for a row with
 // no key), so that a caller can form p = exp2(s * scale * log2 e + nlse2).
-// DOCS: ds [B,S] holds each token's document start (t_start 0): each row's
+// DOCS: ds [B,S] holds each token's document start (row s reads ds[b, s]): each row's
 // lo is raised to its document's bound (common.cuh::doc_lo); the dense
 // instantiation compiles as it did before documents existed.
 template <int DT, int MODE, bool DOCS>

@@ -248,14 +248,14 @@ long long nsa_select_blocks_smem_bytes(int TQ, int h, int Dk, int S_sel) {
 }
 
 // f32 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], ds [B,S] int32 document
-// starts (or null; pos_offset 0 with ds) -> sel [B,S,G,n_out]; TQ tokens
+// starts (or null) -> sel [B,S,G,n_out]; TQ tokens
 // per block, TQ * h <= 64.
 int nsa_select_blocks(const float* Q, const float* Kc, const int* ds, int* sel, int B, int S,
                       int G, int h, int Dk, int S_cmp, int S_sel, int l, int d, int l_sel,
                       int n_top, int force_init, int force_local, int pos_offset, float scale,
                       int TQ, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || S_cmp <= 0 || S_sel <= 0 || Dk % 8 != 0 ||
-      pos_offset < 0 || (ds != nullptr && pos_offset != 0) || l <= 0 || d <= 0 || l_sel <= 0)
+      pos_offset < 0 || l <= 0 || d <= 0 || l_sel <= 0)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
                  pos_offset, TQ, scale};

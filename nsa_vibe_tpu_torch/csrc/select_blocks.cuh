@@ -18,7 +18,8 @@ struct Params {
   float scale;
 };
 
-// Packed documents (ds [B,S] int32 at pos_offset 0): the first compressed
+// Packed documents (ds [B,S] int32; row s reads ds[b, s] at
+// any pos_offset): the first compressed
 // token that query token s of batch row b sees (common.cuh::doc_lo). The
 // tensor-core kernels read ds only in their DOCS instantiation, so the
 // dense one compiles as it did before documents existed.

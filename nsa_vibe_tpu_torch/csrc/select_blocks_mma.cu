@@ -283,7 +283,7 @@ long long nsa_select_blocks_mma_smem_bytes(int TQ, int h, int Dk, int S_sel) {
 }
 
 // bf16 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], ds [B,S] int32 document
-// starts (or null; pos_offset 0 with ds) -> sel [B,S,G,n_out] int32
+// starts (or null) -> sel [B,S,G,n_out] int32
 // (select_blocks.cu's contract). Dk <= 128, a multiple of 8; CTAs of `rows`
 // = 64 or 128 rows, TQ tokens each (TQ * h <= rows).
 int nsa_select_blocks_mma(const void* Q, const void* Kc, const int* ds, int* sel, int B, int S,
@@ -291,7 +291,7 @@ int nsa_select_blocks_mma(const void* Q, const void* Kc, const int* ds, int* sel
                           int n_top, int force_init, int force_local, int pos_offset,
                           float scale, int TQ, int rows, void* stream) {
   if ((rows != 64 && rows != 128) || TQ <= 0 || TQ * h > rows || S_cmp <= 0 || S_sel <= 0 ||
-      Dk % 8 != 0 || Dk > 128 || pos_offset < 0 || (ds != nullptr && pos_offset != 0) ||
+      Dk % 8 != 0 || Dk > 128 || pos_offset < 0 ||
       l <= 0 || d <= 0 || l_sel <= 0)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,

@@ -50,7 +50,7 @@ constexpr int MAX_S_SEL = 256;   // p_slc accumulator row width (shared memory)
 struct Params {
   int S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local, TQ;
   float scale;
-  int t0;   // position of query row 0 (pos_offset; 0 with ds)
+  int t0;   // position of query row 0 (pos_offset)
 };
 
 // shared-memory carve-up (floats): Q rows, O and p_slc accumulators, row
@@ -259,8 +259,7 @@ int nsa_select_cmp(const float* Q, const float* Kc, const float* Vc, const float
                    int Dk, int Dv, int S_cmp,
                    int S_sel, int l, int d, int l_sel, int n_top, int force_init,
                    int force_local, float scale, int pos_offset, int TQ, void* stream) {
-  if (S_sel > MAX_S_SEL || S_cmp <= 0 || TQ <= 0 || pos_offset < 0 ||
-      (ds != nullptr && pos_offset != 0))
+  if (S_sel > MAX_S_SEL || S_cmp <= 0 || TQ <= 0 || pos_offset < 0)
     return (int)cudaErrorInvalidValue;
   const Params p{S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
                  TQ, scale, pos_offset};

@@ -94,8 +94,9 @@ struct Layout {
 // an SM and ops/cuda/select_cmp.py::tile_plan plans its tiles with that
 // budget. OFF: query row s sits at position pos_offset + s (sequence
 // sharding; pass 1 and the top-n read the offset from Params in every
-// instantiation, pass 2 only in this one, so the dense one compiles as it
-// did before the offset existed).
+// instantiation, pass 2 only in the OFF ones, so the dense one compiles as
+// it did before the offset existed). DOCS and OFF together: packed
+// documents under sequence sharding.
 template <int DT, bool DOCS, bool OFF>
 __global__ void __launch_bounds__(band::MAX_THREADS, DT == 64 && !DOCS ? 2 : 1)
 select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ Kc,
@@ -205,9 +206,11 @@ template <int DT>
 int launch(const void* Q, const void* Kc, const void* Vc, const float* M, const int* ds, int* sel,
            void* O, float* lse, int B, int rows, const Params& p, cudaStream_t stream) {
   const size_t smem = Layout<DT>(rows, p.sc.TQ, p.sc.h, p.sc.S_sel).total;
-  const auto kern = ds != nullptr           ? &select_cmp_mma_kernel<DT, true, false>
-                    : p.sc.pos_offset != 0 ? &select_cmp_mma_kernel<DT, false, true>
-                                           : &select_cmp_mma_kernel<DT, false, false>;
+  const bool docs = ds != nullptr, off = p.sc.pos_offset != 0;
+  const auto kern = docs ? (off ? &select_cmp_mma_kernel<DT, true, true>
+                                : &select_cmp_mma_kernel<DT, true, false>)
+                         : (off ? &select_cmp_mma_kernel<DT, false, true>
+                                : &select_cmp_mma_kernel<DT, false, false>);
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -232,8 +235,8 @@ long long nsa_select_cmp_mma_smem_bytes(int rows, int TQ, int h, int Dk, int Dv,
 // bf16 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], V_cmp [B,G,S_cmp,Dv], M
 // [S_cmp,S_sel] f32, ds [B,S] int32 document starts (or null) -> sel
 // [B,S,G,n_out] int32, O [B,S,G,h,Dv], lse [B,S,G,h] f32 (or null):
-// select_cmp.cu's contract, query row s at position pos_offset + s (0 with
-// ds). CTAs of `rows` = 64 or 128 rows, TQ tokens each (TQ * h <= rows);
+// select_cmp.cu's contract, query row s at position pos_offset + s (with
+// ds also). CTAs of `rows` = 64 or 128 rows, TQ tokens each (TQ * h <= rows);
 // Dk, Dv <= 128, multiples of 8.
 int nsa_select_cmp_mma(const void* Q, const void* Kc, const void* Vc, const float* M,
                        const int* ds, int* sel, void* O, float* lse, int B, int S, int G, int h,
@@ -243,7 +246,7 @@ int nsa_select_cmp_mma(const void* Q, const void* Kc, const void* Vc, const floa
                        int rows, void* stream) {
   if ((rows != 64 && rows != 128) || h <= 0 || TQ <= 0 || TQ * h > rows || S_cmp <= 0 ||
       S_sel <= 0 || Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128 || l <= 0 || d <= 0 ||
-      l_sel <= 0 || pos_offset < 0 || (ds != nullptr && pos_offset != 0))
+      l_sel <= 0 || pos_offset < 0)
     return (int)cudaErrorInvalidValue;
   const int nq = (S + TQ - 1) / TQ;
   const Params p{{S, S_cmp, G, h, Dk, Dv, 0, l, d, pos_offset, TQ, nq, B * G, scale},

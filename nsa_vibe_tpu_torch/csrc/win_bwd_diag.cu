@@ -171,7 +171,7 @@ long long nsa_win_bwd_diag_smem_bytes(int Dk, int Dv) {
 
 int nsa_win_bwd_diag_strip_keys(int TQ, int w, int S_kv) { return strip_keys(TQ, w, S_kv); }
 
-// f32 only. Query row s at position t_start + s (0 with ds). TQ tokens per
+// f32 only. Query row s at position t_start + s. TQ tokens per
 // q tile, TQ * h <= 64. ds: [B,S] int32 document
 // starts, or null. strip_k / strip_v: f32 scratch of B*G*ceil(S/TQ)*SL*Dk
 // (Dv) floats, SL = nsa_win_bwd_diag_strip_keys(TQ, w, S_kv).
@@ -182,7 +182,7 @@ int nsa_win_bwd_diag(const float* Q, const float* K, const float* V, const float
                      void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || w <= 0 || S <= 0 || S_kv <= 0 || Dk % 8 != 0 ||
       Dv % 8 != 0 || Dk > 128 || Dv > 128 || strip_k == nullptr || strip_v == nullptr ||
-      t_start < 0 || (ds != nullptr && t_start != 0))
+      t_start < 0)
     return (int)cudaErrorInvalidValue;
   const Params p{B, S, S_kv, G, h, Dk, Dv, WIN, w, 0, 1, TQ, 1, scale, t_start};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

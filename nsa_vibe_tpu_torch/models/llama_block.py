@@ -44,12 +44,14 @@ def init_block_params(generator: torch.Generator, mcfg: ModelConfig, dtype, devi
 
 
 def block_prefill(params: dict, x: torch.Tensor, mcfg: ModelConfig, seq_start=None,
-                  t0: int = 0, gather_kv: Optional[Callable] = None) -> Tuple[torch.Tensor, dict]:
+                  t0: int = 0, gather_kv: Optional[Callable] = None,
+                  seq_start_kv=None) -> Tuple[torch.Tensor, dict]:
     """Pre-norm residual block, batched prefill (seq_start [B,S]: packed
-    documents, ops/varlen.py; t0, gather_kv: sequence sharding, see
-    core/nsa.py::nsa_prefill). Returns (y, attn aux)."""
+    documents, ops/varlen.py; t0, gather_kv, seq_start_kv: sequence
+    sharding, see core/nsa.py::nsa_prefill). Returns (y, attn aux)."""
     attn_out, aux = nsa_prefill(params["attn"], rmsnorm(x, params["attn_norm"], mcfg.rmsnorm_eps),
-                                mcfg.nsa, seq_start=seq_start, t0=t0, gather_kv=gather_kv)
+                                mcfg.nsa, seq_start=seq_start, t0=t0, gather_kv=gather_kv,
+                                seq_start_kv=seq_start_kv)
     x = x + attn_out
     h = rmsnorm(x, params["mlp_norm"], mcfg.rmsnorm_eps)
     if mcfg.remat == "mlp" and torch.is_grad_enabled():

@@ -52,11 +52,11 @@ def init_model_params(mcfg: ModelConfig, generator: torch.Generator, device="cud
     }
 
 
-def _embed(params: dict, tokens: torch.Tensor, mcfg: ModelConfig) -> torch.Tensor:
+def embed(params: dict, tokens: torch.Tensor, mcfg: ModelConfig) -> torch.Tensor:
     return params["embed"][tokens].to(torch_dtype(mcfg.dtype))
 
 
-def _head(params: dict, x: torch.Tensor, mcfg: ModelConfig) -> torch.Tensor:
+def head(params: dict, x: torch.Tensor, mcfg: ModelConfig) -> torch.Tensor:
     return rmsnorm(x, params["final_norm"], mcfg.rmsnorm_eps) @ params["lm_head"]
 
 
@@ -66,7 +66,7 @@ def model_forward(params: dict, tokens: torch.Tensor, mcfg: ModelConfig,
     asked). seq_start [B, S]: packed documents (ops/varlen.py). With remat
     True/"full" and grad mode on, each block's forward is recomputed in the
     backward (torch.utils.checkpoint); "mlp" remats inside the block."""
-    x = _embed(params, tokens, mcfg)
+    x = embed(params, tokens, mcfg)
     if seq_start is not None:
         seq_start = seq_start.to(device=x.device, dtype=torch.int32).contiguous()
     auxes = []
@@ -78,7 +78,7 @@ def model_forward(params: dict, tokens: torch.Tensor, mcfg: ModelConfig,
             x, aux = block_prefill(bp, x, mcfg, seq_start)
         if collect_aux:
             auxes.append({"gates": aux["gates"], "sel_idx": aux["sel_idx"]})
-    return _head(params, x, mcfg), auxes
+    return head(params, x, mcfg), auxes
 
 
 def cross_entropy_numden(logits: torch.Tensor, targets: torch.Tensor,
@@ -110,12 +110,12 @@ def init_model_caches(mcfg: ModelConfig, batch: int, capacity: int, dtype=None,
 def model_prefill_with_caches(params: dict, tokens: torch.Tensor, mcfg: ModelConfig,
                               capacity: int) -> Tuple[torch.Tensor, List[NSACache]]:
     """Prefill and seed per-layer decode caches with room for `capacity` tokens."""
-    x = _embed(params, tokens, mcfg)
+    x = embed(params, tokens, mcfg)
     caches = []
     for bp in params["blocks"]:
         x, aux = block_prefill(bp, x, mcfg)
         caches.append(cache_from_prefill(mcfg.nsa, aux, capacity))
-    return _head(params, x, mcfg), caches
+    return head(params, x, mcfg), caches
 
 
 def model_decode_step(params: dict, token: torch.Tensor, caches: List[NSACache],
@@ -123,10 +123,10 @@ def model_decode_step(params: dict, token: torch.Tensor, caches: List[NSACache],
                       ) -> Tuple[torch.Tensor, List[NSACache]]:
     """token [B, 1] -> (logits [B, 1, vocab], caches updated in place);
     each layer's DecodeInfo is appended to `infos` if given."""
-    x = _embed(params, token, mcfg)
+    x = embed(params, token, mcfg)
     for i, (bp, cache) in enumerate(zip(params["blocks"], caches)):
         x, caches[i] = block_decode_step(bp, x, cache, mcfg, infos=infos)
-    return _head(params, x, mcfg), caches
+    return head(params, x, mcfg), caches
 
 
 def model_decode_step_ragged(params: dict, token: torch.Tensor, caches: List[NSACache],
@@ -137,10 +137,10 @@ def model_decode_step_ragged(params: dict, token: torch.Tensor, caches: List[NSA
     step that pairs with admit_row. token [B, 1] -> (logits [B, 1, vocab],
     caches updated in place); each layer's DecodeInfo is appended to
     `infos` if given."""
-    x = _embed(params, token, mcfg)
+    x = embed(params, token, mcfg)
     for bp, cache in zip(params["blocks"], caches):
         x, _ = block_decode_step(bp, x, cache, mcfg, step=nsa_decode_step_ragged, infos=infos)
-    return _head(params, x, mcfg), caches
+    return head(params, x, mcfg), caches
 
 
 def _check_capacity(capacity: Optional[int], length: int) -> int:

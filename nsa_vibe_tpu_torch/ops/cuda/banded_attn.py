@@ -18,9 +18,10 @@ Row statistics follow the port's convention (ops.reference): natural-log
 lse [B,S,G,h], EMPTY_LSE on a row with no visible key; the TPU kernel's
 base-2 flat [B*G, 1, stats_rows] layout is not copied.
 
-Packed documents (ops/varlen.py): with `seq_start` [B,S] int32 (t_start
-0) row t sees no key before its document start (window) and no pooled
-token that starts before it (compressed); the kernels get a pointer to it,
+Packed documents (ops/varlen.py): with `seq_start` [B,S] int32 (row s
+reads seq_start[b, s], a packed position, also at t_start > 0) row t sees
+no key before its document start (window) and no pooled token that starts
+before it (compressed); the kernels get a pointer to it,
 null for the dense bound, whose bits they keep.
 """
 
@@ -79,7 +80,7 @@ def launch_banded(name: str, Q, K, V, *, mode: str, w: int, l: int, d: int, scal
     check_seq_start(name, seq_start, B, S, Q.device)
     if (mode == "win" and w <= 0) or (mode == "cmp" and (l <= 0 or d <= 0)) or t_start < 0:
         raise ValueError(f"{name}: win needs w > 0, cmp needs l, d > 0; t_start >= 0")
-    check_offset(name, t_start, seq_start)
+    check_offset(name, t_start)
     mma = code == DTYPE_CODES[torch.bfloat16]
     if h > ROWS_PER_BLOCK or Dv > MAX_DV or (mma and Dk > MAX_DV):
         raise ValueError(f"{name}: needs h <= {ROWS_PER_BLOCK} and Dv <= {MAX_DV}"
@@ -107,7 +108,7 @@ def banded_attn(Q, K, V, *, mode: str, w: int = 0, l: int = 0, d: int = 1, scale
     """Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv] -> O [B,S,G,h,Dv],
     and with return_lse the f32 row statistics lse [B,S,G,h]. Query row s
     sits at position t_start + s (a host int). "win" needs w > 0, "cmp"
-    needs l, d > 0; seq_start [B,S] int32 (t_start 0) bounds each row to
+    needs l, d > 0; seq_start [B,S] int32 (at any t_start) bounds each row to
     its document. CPU tensors take the plain version."""
     if resolve_kernel(Q) == "plain":
         return banded_attn_plain(Q, K, V, mode=mode, w=w, l=l, d=d, scale=scale,

@@ -67,7 +67,7 @@ def mask5(m: torch.Tensor) -> torch.Tensor:
 def banded_bwd_plain(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
                      scale: float, seq_start=None, t_start: int = 0):
     """Plain PyTorch version: the dense formula on the same operands."""
-    check_offset("banded_bwd", t_start, seq_start)
+    check_offset("banded_bwd", t_start)
     m = banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, t_start=t_start,
                     device=Q.device, seq_start=seq_start)
     return ref.attend_masked_bwd(Q, K, V, dO, lse, delta, mask5(m), scale)
@@ -91,7 +91,7 @@ def banded_bwd(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d:
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
     (dQ, dK, dV) in the operands' dtype. Query row s is at position
     t_start + s (a host int: sequence sharding, where K/V cover the whole
-    sequence); seq_start [B,S] int32 (or None; t_start 0) bounds each row
+    sequence); seq_start [B,S] int32 (or None; at any t_start) bounds each row
     to its document.
     CPU tensors take the plain version. Counts launches in
     `banded_bwd.launches` and, of those in cmp mode, in

@@ -41,7 +41,7 @@ def check_banded_operands(name: str, Q, K, V, dO, lse, delta, *, mode: str, w: i
     """The checks of a banded backward launch (shapes, dtypes, devices,
     contiguity, alignment, mode, seq_start, the query offset). Returns the
     dtype code."""
-    check_offset(name, t_start, seq_start)
+    check_offset(name, t_start)
     if mode not in MODES:
         raise ValueError(f"{name}: mode must be 'win' or 'cmp', got {mode!r}")
     code = check_operands(name, {"Q": Q, "K": K, "V": V, "dO": dO})
@@ -133,7 +133,7 @@ def banded_bwd_1p(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0,
     (dQ, dK, dV) in the operands' dtype. Query row s is at position
     t_start + s (a host int: sequence sharding, where K/V cover the whole
     sequence; the key tiles span all S_kv keys); seq_start [B,S] int32 (or
-    None; t_start 0) bounds each row to its document.
+    None; at any t_start) bounds each row to its document.
     CPU tensors take the plain version. Counts launches in
     `banded_bwd_1p.launches` and, of those in cmp mode, in
     `banded_bwd_1p.cmp_launches`."""

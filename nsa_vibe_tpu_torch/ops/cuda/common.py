@@ -64,14 +64,12 @@ def check_seq_start(name: str, seq_start, B: int, S: int, device) -> None:
                          f"tensor on {device}")
 
 
-def check_offset(name: str, t_start: int, seq_start) -> None:
+def check_offset(name: str, t_start: int) -> None:
     """t_start (the position of query row 0 under sequence sharding) is a
-    host int >= 0, and 0 when seq_start is given: the kernels do not take
-    both yet (ROADMAP Queue 1 item 4)."""
+    host int >= 0. With seq_start too (packed documents under sequence
+    sharding) row s reads seq_start[b, s], a packed position."""
     if not isinstance(t_start, int) or t_start < 0:
         raise ValueError(f"{name}: the query offset must be a host int >= 0, got {t_start!r}")
-    if seq_start is not None and t_start:
-        raise ValueError(f"{name}: seq_start needs a zero query offset, got {t_start}")
 
 
 def check_vector_rows(name: str, **tensors: torch.Tensor) -> None:

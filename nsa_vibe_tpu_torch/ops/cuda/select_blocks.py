@@ -16,7 +16,7 @@ int32, forced slots first (may repeat), then the picks in descending
 at position t = pos_offset + s. The Eq. 9 map is the fractional overlap of
 ops/block_index.py for S_sel selection blocks (`selection_map`); the
 kernel computes its entries in closed form and reads no M. With
-`seq_start` [B,S] int32 (packed documents, pos_offset 0) a row sees no
+`seq_start` [B,S] int32 (packed documents, at any pos_offset) a row sees no
 pooled token that starts before its document and picks from its document's
 blocks (ops/varlen.py::topn_forced_first_varlen's contract).
 """
@@ -97,7 +97,7 @@ def select_blocks(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: 
                   n_top: int, force_init: bool = True, force_local: int = 2,
                   pos_offset: int = 0, seq_start=None):
     """Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk] -> sel_idx [B,S,G,n_out] int32.
-    pos_offset is a host int; seq_start [B,S] int32 (pos_offset 0) keeps
+    pos_offset is a host int; seq_start [B,S] int32 (at any pos_offset) keeps
     each row in its document. CPU tensors take the plain version. Counts
     launches in `select_blocks.launches`."""
     if resolve_kernel(Q) == "plain":
@@ -112,7 +112,7 @@ def select_blocks(Q, K_cmp, *, S_sel: int, scale: float, l: int, d: int, l_sel: 
                          f"Q {tuple(Q.shape)}")
     check_vector_rows("select_blocks", Q=Q, K_cmp=K_cmp)
     check_seq_start("select_blocks", seq_start, B, S, Q.device)
-    check_offset("select_blocks", pos_offset, seq_start)
+    check_offset("select_blocks", pos_offset)
     if S_cmp == 0:
         raise ValueError("select_blocks: no compressed tokens (S_cmp == 0); the caller "
                          "selects the forced blocks without the scorer")

@@ -68,7 +68,7 @@ def select_cmp_plain(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel:
     Returns (sel_idx, O_cmp), then lse [B,S,G,h] with return_lse, then the
     group scores p_grp [B,S,G,S_sel] with return_scores."""
     S = Q.shape[1]
-    check_offset("select_cmp", pos_offset, seq_start)
+    check_offset("select_cmp", pos_offset)
     t_pos = torch.arange(pos_offset, pos_offset + S, device=Q.device)
     if seq_start is not None:
         p_cmp = varlen.compute_pcmp_varlen(Q, K_cmp, scale, t_pos, seq_start, l, d)
@@ -117,7 +117,7 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
     f32 -> (sel_idx [B,S,G,n_out] int32, O_cmp [B,S,G,h,Dv][, lse [B,S,G,h]]).
     Query row s is at position pos_offset + s (a host int: sequence
     sharding, where K_cmp and M cover the whole sequence); seq_start [B,S]
-    int32 (or None; pos_offset 0) keeps each row in its document. CPU
+    int32 (or None; at any pos_offset) keeps each row in its document. CPU
     tensors take the plain version. M is
     the Eq. 9 map of ops/block_index.py: the kernels read, for each
     compressed token c, only the entries of the selection blocks its span
@@ -128,7 +128,7 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
                                 n_top=n_top, force_init=force_init,
                                 force_local=force_local, return_lse=return_lse,
                                 seq_start=seq_start, pos_offset=pos_offset)
-    check_offset("select_cmp", pos_offset, seq_start)
+    check_offset("select_cmp", pos_offset)
     code = check_operands("select_cmp", {"Q": Q, "K_cmp": K_cmp, "V_cmp": V_cmp})
     check_operands("select_cmp", {"M": M})
     if M.dtype != torch.float32:

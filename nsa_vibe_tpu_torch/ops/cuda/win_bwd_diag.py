@@ -51,7 +51,7 @@ def win_bwd_diag(Q, K, V, dO, lse, delta, *, w: int, scale: float, seq_start=Non
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
     (dQ, dK, dV) of the window branch (query row s at position t = t_start
     + s, a host int, sees keys [t-w+1, t]; the strips scatter into all
-    S_kv keys; with seq_start [B,S] int32 (t_start 0) none before the
+    S_kv keys; with seq_start [B,S] int32 (at any t_start) none before the
     row's document start) in the operands' dtype.
     CPU tensors take the plain version. Counts launches in
     `win_bwd_diag.launches`."""

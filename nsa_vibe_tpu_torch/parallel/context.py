@@ -11,6 +11,13 @@ gathered raw stream (windows straddle shard boundaries); the route chosen
 by shape as on one device, every kernel (and its backward) at offset t0.
 Embedding, norms, MLP and LM head act per token on the local rows.
 
+Packed documents (varlen) under sp: every sp rank of a dp member holds
+the same packed rows and their whole seq_start [B, S]; a rank passes its
+own rows' starts (packed positions, which the kernels read at the offset
+t0) and the whole rows' (ϕ's document-local pooling positions of every
+key) to nsa_prefill (`varlen_kwargs`), as the JAX package's
+nsa_attention_cp_local takes seq_start_full.
+
 Every rank must run the same collectives in the same order: under remat
 a block's forward (with its gathers) is recomputed in the backward on
 every rank, in the same order, since every rank runs the same graph.
@@ -25,9 +32,9 @@ from torch.utils.checkpoint import checkpoint
 
 from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig
 from nsa_vibe_tpu_torch.core.nsa import nsa_prefill
-from nsa_vibe_tpu_torch.models.llama_block import block_prefill, rmsnorm
+from nsa_vibe_tpu_torch.models.llama_block import block_prefill
+from nsa_vibe_tpu_torch.models.tinylm import embed, head
 from nsa_vibe_tpu_torch.parallel.mesh import Mesh, gather_along
-from nsa_vibe_tpu_torch.utils.device import torch_dtype
 
 
 def check_shards(S: int, sp: int, l_sel: int) -> int:
@@ -55,33 +62,60 @@ def context_parallel_prefill(params: dict, x_local: torch.Tensor, cfg: NSAConfig
     return nsa_prefill(params, x_local, cfg, **sp_kwargs(mesh, x_local.shape[1], cfg.l_sel))[0]
 
 
+def varlen_kwargs(seq_start, mesh: Mesh, S_local: int) -> dict:
+    """block_prefill's packed-document arguments on this rank from the
+    whole rows' seq_start [B, S] (each sp rank of a dp member holds the
+    same packed rows): its own rows' starts and, under sp, every key's
+    (ϕ's pooling positions). {} without documents."""
+    if seq_start is None:
+        return {}
+    if mesh.sp == 1:
+        return dict(seq_start=seq_start)
+    if seq_start.shape[1] != S_local * mesh.sp:
+        raise ValueError(f"seq_start {tuple(seq_start.shape)} must hold the whole rows "
+                         f"(S = {S_local * mesh.sp}) under sp = {mesh.sp}")
+    t0 = mesh.sp_rank * S_local
+    return dict(seq_start=seq_start[:, t0:t0 + S_local].contiguous(), seq_start_kv=seq_start)
+
+
+def run_blocks(blocks: list, x: torch.Tensor, mcfg: ModelConfig, mesh: Mesh,
+               collect_aux: bool = False, seq_start=None,
+               block: Optional[Callable] = None) -> Tuple[torch.Tensor, list]:
+    """The blocks of parameter dicts `blocks` in order over
+    this rank's rows x [B, S/sp, dim] -> (x, per-layer {"gates",
+    "sel_idx"} if asked). seq_start: the whole rows' [B, S] starts or
+    None. `block(i, bp)`, if given, makes the parameter dict of blocks[i]
+    inside the (remat) block, where fsdp gathers its shards
+    (parallel/train_step.py). The remat contract is model_forward's:
+    True/"full" recomputes each block, its collectives included, in the
+    backward; "mlp" only the MLP."""
+    if seq_start is not None:
+        seq_start = seq_start.to(device=x.device, dtype=torch.int32).contiguous()
+    make = block or (lambda i, bp: bp)
+    kw = sp_kwargs(mesh, x.shape[1], mcfg.nsa.l_sel) if mesh.sp > 1 else {}
+    kw.update(varlen_kwargs(seq_start, mesh, x.shape[1]))
+
+    def run(i, bp, x):
+        return block_prefill(make(i, bp), x, mcfg, **kw)
+
+    remat = mcfg.remat in (True, "full") and torch.is_grad_enabled()
+    auxes = []
+    for i, bp in enumerate(blocks):
+        x, aux = checkpoint(run, i, bp, x, use_reentrant=False) if remat else run(i, bp, x)
+        if collect_aux:
+            auxes.append({"gates": aux["gates"], "sel_idx": aux["sel_idx"]})
+    return x, auxes
+
+
 def context_parallel_model_forward(params: dict, tokens: torch.Tensor, mcfg: ModelConfig,
                                    mesh: Mesh, collect_aux: bool = False, seq_start=None,
                                    block: Optional[Callable] = None) -> Tuple[torch.Tensor, list]:
     """TinyLM forward over this rank's rows: tokens [B, S/sp] (positions
     [t0, t0 + S/sp) of the rank's dp rows) -> (logits [B, S/sp, vocab],
-    per-layer {"gates", "sel_idx"} of the local rows if asked). With sp = 1
-    each block is block_prefill itself (seq_start [B, S]: packed documents,
-    dp only). `block(i, bp)`, if given, makes block i's parameter dict from
-    bp = params["blocks"][i] inside the (remat) block, where fsdp gathers
-    its shards (parallel/train_step.py). The remat contract is model_forward's:
-    True/"full" recomputes each block, its collectives included, in the
-    backward; "mlp" only the MLP."""
-    if seq_start is not None and mesh.sp > 1:
-        raise ValueError("varlen with sp > 1 is not ported yet (ROADMAP Queue 1 item 4)")
-    x = params["embed"][tokens].to(torch_dtype(mcfg.dtype))
-    if seq_start is not None:
-        seq_start = seq_start.to(device=x.device, dtype=torch.int32).contiguous()
-    make = block or (lambda i, bp: bp)
-    sp_kw = sp_kwargs(mesh, tokens.shape[1], mcfg.nsa.l_sel) if mesh.sp > 1 else {}
-
-    def run(i, bp, x):
-        return block_prefill(make(i, bp), x, mcfg, seq_start, **sp_kw)
-
-    remat = mcfg.remat in (True, "full") and torch.is_grad_enabled()
-    auxes = []
-    for i, bp in enumerate(params["blocks"]):
-        x, aux = checkpoint(run, i, bp, x, use_reentrant=False) if remat else run(i, bp, x)
-        if collect_aux:
-            auxes.append({"gates": aux["gates"], "sel_idx": aux["sel_idx"]})
-    return rmsnorm(x, params["final_norm"], mcfg.rmsnorm_eps) @ params["lm_head"], auxes
+    per-layer {"gates", "sel_idx"} of the local rows if asked). seq_start
+    [B, S]: packed documents, the whole rows' starts (under sp every rank
+    of a dp member passes the same, as the JAX package's replicated
+    seq_start). `block` and remat: run_blocks."""
+    x, auxes = run_blocks(params["blocks"], embed(params, tokens, mcfg), mcfg, mesh,
+                          collect_aux, seq_start, block)
+    return head(params, x, mcfg), auxes

@@ -2,22 +2,27 @@
 
 Port of nsa_vibe_tpu/parallel/mesh.py. The JAX package lays a (dp, pp, sp,
 tp) device mesh and lets GSPMD insert the collectives; here each process
-is one member of a (dp, sp) grid, rank = dp_rank * sp + sp_rank (sp the
-minor axis, as in the JAX mesh), with one process group per dp member
-(its sp ranks) and one per sp index (its dp ranks), and the collectives
-are written out (parallel/context.py, parallel/train_step.py):
-  * batch rows shard over dp, query positions over sp;
+is one member of a (dp, pp, sp) grid in the JAX axis order, rank =
+(dp_rank * pp + pp_rank) * sp + sp_rank (sp the minor axis), with explicit
+process groups: per (pp, sp) index its dp ranks, per (dp, pp) index its sp
+ranks, per (dp, sp) index its pp ranks (the stage neighbours), and under
+pp per stage its dp x sp ranks. The collectives are written out
+(parallel/context.py, parallel/pipeline.py, parallel/train_step.py):
+  * batch rows shard over dp, query positions over sp, blocks over pp
+    (stage p holds layers [p L/pp, (p+1) L/pp));
   * with fsdp, parameter leaves shard over dp by the JAX rule
     (`param_specs`): the largest axis that splits evenly and is at least
     fsdp_min long.
-tp and pp > 1 raise (ROADMAP Queue 1 item 4: tensor parallelism as
-explicit collectives, and the pipeline of parallel/pipeline.py).
+tp > 1 raises (ROADMAP Queue 1 item 4: tensor parallelism as explicit
+collectives, the next slice).
 
 The backend is the caller's choice, never a fallback: "nccl" for one card
 a rank, "gloo" for CPU tensors or for several ranks on one card (NCCL
 refuses two ranks on one device). Both run the same collectives
-(all_gather_into_tensor, reduce_scatter_tensor, all_reduce); gloo stages
-CUDA tensors through host memory.
+(all_gather_into_tensor, reduce_scatter_tensor, all_reduce, send/recv);
+gloo stages CUDA tensors through host memory, for send/recv explicitly
+(`send_to`, `recv_from`: gloo's point-to-point takes CPU tensors only),
+NCCL sends device to device.
 """
 
 from __future__ import annotations
@@ -58,42 +63,65 @@ def initialize_distributed(backend: Optional[str] = None, timeout_s: float = 600
 
 @dataclass
 class Mesh:
-    """This process's place in the (dp, sp) grid and the groups it talks to."""
+    """This process's place in the (dp, pp, sp) grid and the groups it talks to."""
 
     dp: int
     sp: int
     rank: int
     dp_rank: int
     sp_rank: int
-    dp_group: Any      # the dp ranks of this sp index (fsdp gathers, dp sums)
-    sp_group: Any      # the sp ranks of this dp member (K/V gathers)
+    dp_group: Any      # the dp ranks of this (pp, sp) index (fsdp gathers, dp sums)
+    sp_group: Any      # the sp ranks of this (dp, pp) index (K/V gathers)
     backend: str
+    pp: int = 1
+    pp_rank: int = 0
+    pp_group: Any = None     # the pp ranks of this (dp, sp) index, stage order
+    pp_ranks: tuple = ()     # their global ranks (point-to-point between stages)
+    data_group: Any = None   # the dp x sp ranks of this stage; None (the world) at pp = 1
 
     @property
     def world(self) -> int:
-        return self.dp * self.sp
+        return self.dp * self.pp * self.sp
 
 
 def make_mesh(dp: int = 0, sp: int = 1, tp: int = 1, pp: int = 1) -> Mesh:
-    """The (dp, sp) mesh over the initialized world (dp = 0: world // sp).
-    Every rank must call it, in the same order as its other collectives."""
-    for name, n in (("tp", tp), ("pp", pp)):
-        if n > 1:
-            raise ValueError(f"{name}={n}: the port has no {name} yet (ROADMAP Queue 1 item 4)")
+    """The (dp, pp, sp) mesh over the initialized world (dp = 0: world //
+    (pp sp)). Every rank must call it, in the same order as its other
+    collectives."""
+    if tp > 1:
+        raise ValueError(f"tp={tp}: the port has no tensor parallelism yet (ROADMAP Queue 1 "
+                         f"item 4, the next slice)")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: call initialize_distributed first")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if sp < 1 or world % sp:
-        raise ValueError(f"world size {world} is not a multiple of sp={sp}")
+    if sp < 1 or pp < 1 or world % (sp * pp):
+        raise ValueError(f"world size {world} is not a multiple of pp={pp} x sp={sp}")
     if dp == 0:
-        dp = world // sp
-    if dp * sp != world:
-        raise ValueError(f"mesh dp={dp} x sp={sp} != world size {world}")
-    dp_groups = [dist.new_group([i * sp + j for i in range(dp)]) for j in range(sp)]
-    sp_groups = [dist.new_group([i * sp + j for j in range(sp)]) for i in range(dp)]
-    return Mesh(dp=dp, sp=sp, rank=rank, dp_rank=rank // sp, sp_rank=rank % sp,
-                dp_group=dp_groups[rank % sp], sp_group=sp_groups[rank // sp],
-                backend=dist.get_backend())
+        dp = world // (sp * pp)
+    if dp * pp * sp != world:
+        raise ValueError(f"mesh dp={dp} x pp={pp} x sp={sp} != world size {world}")
+
+    def at(i, p, j):
+        return (i * pp + p) * sp + j
+
+    dp_rank, pp_rank, sp_rank = rank // (pp * sp), (rank // sp) % pp, rank % sp
+    dp_groups = {(p, j): dist.new_group([at(i, p, j) for i in range(dp)])
+                 for p in range(pp) for j in range(sp)}
+    sp_groups = {(i, p): dist.new_group([at(i, p, j) for j in range(sp)])
+                 for i in range(dp) for p in range(pp)}
+    pp_group = data_group = None
+    pp_ranks = (rank,)
+    if pp > 1:
+        pp_groups = {(i, j): dist.new_group([at(i, p, j) for p in range(pp)])
+                     for i in range(dp) for j in range(sp)}
+        data_groups = {p: dist.new_group([at(i, p, j) for i in range(dp) for j in range(sp)])
+                       for p in range(pp)}
+        pp_group, data_group = pp_groups[dp_rank, sp_rank], data_groups[pp_rank]
+        pp_ranks = tuple(at(dp_rank, p, sp_rank) for p in range(pp))
+    return Mesh(dp=dp, sp=sp, rank=rank, dp_rank=dp_rank, sp_rank=sp_rank,
+                dp_group=dp_groups[pp_rank, sp_rank], sp_group=sp_groups[dp_rank, pp_rank],
+                backend=dist.get_backend(), pp=pp, pp_rank=pp_rank, pp_group=pp_group,
+                pp_ranks=pp_ranks, data_group=data_group)
 
 
 # --- collectives -----------------------------------------------------------
@@ -130,6 +158,24 @@ def all_reduce_(x: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tens
     """In-place all-reduce over `group` (None: the world); returns x."""
     dist.all_reduce(x, op=op, group=group)
     return x
+
+
+def send_to(x: torch.Tensor, dst: int, mesh: Mesh) -> None:
+    """Blocking send of x to global rank dst; under gloo a CUDA tensor goes
+    through a host copy (gloo's send takes CPU tensors only)."""
+    x = x.detach().contiguous()
+    if mesh.backend == "gloo" and x.is_cuda:
+        x = x.cpu()
+    dist.send(x, dst)
+
+
+def recv_from(shape, dtype, device, src: int, mesh: Mesh) -> torch.Tensor:
+    """Blocking receive of a [shape] tensor from global rank src onto
+    `device` (under gloo into a host buffer, then copied over)."""
+    staged = mesh.backend == "gloo" and torch.device(device).type == "cuda"
+    buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else device)
+    dist.recv(buf, src)
+    return buf.to(device) if staged else buf
 
 
 class _GatherDim(torch.autograd.Function):

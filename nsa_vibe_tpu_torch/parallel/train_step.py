@@ -1,30 +1,42 @@
-"""Train step over a (dp, sp) mesh: dp, fsdp, sp and their compositions.
+"""Train step over a (dp, pp, sp) mesh: dp, fsdp, sp, pp, varlen and their
+compositions.
 
 Port of the mesh branches of nsa_vibe_tpu/parallel/train_step.py
-(make_train_step and build_state_and_step with a mesh, pp and tp aside).
-Each rank gets its slice of the global batch (`local_batch`): its dp
-member's rows, and under sp its positions [t0, t0 + S/sp] (one more
-token, the last target). Then, per micro-batch:
+(make_train_step and build_state_and_step with a mesh, tp aside). Each
+rank gets its slice of the global batch (`local_batch`): its dp member's
+rows, and under sp its positions [t0, t0 + S/sp] (one more token, the
+last target); under varlen the whole packed rows' seq_start rides along
+(ϕ pools every key at its document-local position) and the loss mask is
+sliced like the targets. Then, per micro-batch:
   * the loss: each rank forms cross_entropy_numden over its rows and
     back-propagates its sum over the global token count (all-reduced under
     varlen), so the ranks' gradients add up to the gradient of the global
     mean, the JAX loss;
-  * fsdp: a sharded leaf is held as its 1/dp chunk (mesh.param_specs) and
+  * pp: parallel/pipeline.py runs the GPipe schedule over this stage's
+    blocks (the state holds them and the replicated embed, final_norm
+    and lm_head);
+  * fsdp: a sharded leaf is held as its 1/dp chunk (mesh.param_specs; under
+    pp only block leaves, as the JAX package's pipeline_param_specs) and
     gathered over dp where its block uses it (inside the remat block, so
     the backward gathers it again), by a gather whose backward
     reduce-scatters over dp;
 after the micro-batches (grads summed, scaled by 1/accum):
-  * replicated leaves' gradients are all-reduced (sum) over dp x sp in one
-    flat buffer per dtype; sharded leaves' over sp;
-  * the global norm adds each shard's squares once (all-reduced over dp);
-    `good` is formed from all-reduced values, so every rank skips alike;
+  * replicated top-level leaves' gradients are all-reduced (sum) over the
+    world (under pp only stage 0's and the last stage's are not zero),
+    replicated block leaves' over the stage's dp x sp ranks, sharded
+    leaves' over sp, in one flat buffer per dtype;
+  * the global norm adds each shard's squares once (all-reduced over dp)
+    and each stage's blocks once (all-reduced over pp); `good` is formed
+    from all-reduced values, so every rank skips alike;
     train/optim.py::apply_update_ then runs unchanged on the local leaves;
-  * gate stats and sel_k_mean are averaged over ranks, sel_k_max max-reduced.
+  * gate stats and sel_k_mean are averaged over ranks (each holds as many
+    layers x rows), sel_k_max max-reduced.
 The host reads nothing; the collectives are the only waits.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
@@ -34,6 +46,7 @@ import torch.distributed as dist
 from nsa_vibe_tpu_torch.core.config import ModelConfig, TrainConfig
 from nsa_vibe_tpu_torch.core.nsa import PROJ_KEYS
 from nsa_vibe_tpu_torch.models.tinylm import cross_entropy_numden
+from nsa_vibe_tpu_torch.parallel import pipeline
 from nsa_vibe_tpu_torch.parallel.context import context_parallel_model_forward
 from nsa_vibe_tpu_torch.parallel.mesh import (
     Mesh, all_reduce_, gather_along, gather_dim, param_specs, shard_of,
@@ -43,32 +56,36 @@ from nsa_vibe_tpu_torch.train.train_step import (
     TrainState, gate_stats, param_leaves, tree_from_leaves,
 )
 
+TOP = ("embed", "final_norm", "lm_head")
+
 
 @dataclass
 class ParallelState(TrainState):
-    """TrainState of one rank: params holds the rank's leaves (under fsdp a
-    tree of chunks, with no projection views), the moments match them.
-    specs: each leaf's fsdp axis or None (mesh.param_specs); axes: the same
-    in param_leaves order; template: the full tree's shapes (meta
-    tensors), for gathers and checkpoints."""
+    """TrainState of one rank: params holds the rank's leaves (under pp its
+    stage's blocks and the replicated top-level leaves; under fsdp a tree
+    of chunks, with no projection views), the moments match them. specs:
+    each leaf's fsdp axis or None (mesh.param_specs); axes: the same in
+    param_leaves order; template: the rank's tree's shapes (meta tensors),
+    for gathers; full_template: the whole model's (checkpoints); layers:
+    the global indices of the rank's blocks."""
 
     specs: dict
     axes: list
     template: dict
+    full_template: dict
+    layers: range
 
 
 def check_config(tcfg: TrainConfig, mesh: Optional[Mesh] = None) -> None:
-    """The parallel keys the port takes: tp and pp 1, varlen without sp > 1,
-    sp and dp matching the mesh."""
-    for name in ("tp", "pp"):
-        if getattr(tcfg, name) > 1:
-            raise ValueError(f"{name}={getattr(tcfg, name)}: not ported yet (ROADMAP Queue 1 "
-                             f"item 4)")
-    if tcfg.varlen and tcfg.sp > 1:
-        raise ValueError("varlen with sp > 1 is not ported yet (ROADMAP Queue 1 item 4)")
-    if mesh is not None and (mesh.sp != tcfg.sp or (tcfg.dp and mesh.dp != tcfg.dp)):
-        raise ValueError(f"tcfg dp={tcfg.dp}, sp={tcfg.sp} but the mesh is dp={mesh.dp}, "
-                         f"sp={mesh.sp}")
+    """The parallel keys the port takes: tp 1; dp, sp and pp matching the
+    mesh."""
+    if tcfg.tp > 1:
+        raise ValueError(f"tp={tcfg.tp}: not ported yet (ROADMAP Queue 1 item 4, the next "
+                         f"slice)")
+    if mesh is not None and (mesh.sp != tcfg.sp or mesh.pp != tcfg.pp
+                             or (tcfg.dp and mesh.dp != tcfg.dp)):
+        raise ValueError(f"tcfg dp={tcfg.dp}, pp={tcfg.pp}, sp={tcfg.sp} but the mesh is "
+                         f"dp={mesh.dp}, pp={mesh.pp}, sp={mesh.sp}")
 
 
 def _strip_views(node, leaves):
@@ -87,6 +104,11 @@ def _axes_of(specs) -> list:
     return [a for _, a in param_leaves(specs)]
 
 
+def _meta(params):
+    return tree_from_leaves(params, [torch.empty_like(t, device="meta")
+                                     for _, t in param_leaves(params)])
+
+
 def materialize(local, specs, template, mesh: Mesh):
     """The full parameter (sub)tree: each sharded leaf of `local` gathered
     over dp (differentiably), projection views rebuilt from the template."""
@@ -97,11 +119,18 @@ def materialize(local, specs, template, mesh: Mesh):
 
 def build_state(params: dict, tcfg: TrainConfig, mesh: Mesh) -> ParallelState:
     """This rank's state from the full parameters (the same on every rank,
-    e.g. from one seed): under fsdp each sharded leaf becomes its dp
-    chunk; leaves require grad; zero moments of the local leaves."""
-    template = tree_from_leaves(params, [torch.empty_like(t, device="meta")
-                                         for _, t in param_leaves(params)])
+    e.g. from one seed): under pp its stage's blocks and the top-level
+    leaves; under fsdp each sharded leaf becomes its dp chunk; leaves
+    require grad; zero moments of the local leaves."""
+    full_template = _meta(params)
+    layers = (pipeline.stage_layers(len(params["blocks"]), mesh) if mesh.pp > 1
+              else range(len(params["blocks"])))
+    if mesh.pp > 1:
+        params = pipeline.stage_params(params, mesh)
+    template = _meta(params)
     specs = param_specs(template, mesh.dp if tcfg.fsdp else 1, tcfg.fsdp_min_size)
+    if mesh.pp > 1:   # the JAX package's pipeline keeps the top-level leaves replicated
+        specs.update({k: None for k in TOP})
     axes = _axes_of(specs)
     if any(a is not None for a in axes):
         leaves = [shard_of(t.detach(), a, mesh.dp_rank, mesh.dp).clone().requires_grad_(True)
@@ -112,13 +141,25 @@ def build_state(params: dict, tcfg: TrainConfig, mesh: Mesh) -> ParallelState:
         local = params
     return ParallelState(params=local, opt_state=init_optimizer(leaves),
                          step=torch.zeros((), dtype=torch.int32, device=leaves[0].device),
-                         specs=specs, axes=axes, template=template)
+                         specs=specs, axes=axes, template=template,
+                         full_template=full_template, layers=layers)
 
 
-def local_batch(batch: torch.Tensor, mesh: Mesh, rows: bool = True) -> torch.Tensor:
+def local_batch(batch, mesh: Mesh, rows: bool = True):
     """This rank's slice of a global batch [..., B, S+1]: rows of its dp
     member (rows=False: the batch holds only those already), columns [t0,
-    t0 + S/sp + 1) (the last is the last target)."""
+    t0 + S/sp + 1) (the last is the last target). A varlen batch (tokens,
+    seq_start, loss_mask) keeps seq_start's whole rows (ϕ pools every key
+    at its document-local position) and slices loss_mask like the
+    targets."""
+    if isinstance(batch, (tuple, list)):
+        toks, ds, lm = batch
+        s = lm.shape[-1] // mesh.sp
+        if rows:
+            b = ds.shape[-2] // mesh.dp
+            ds, lm = (a[..., mesh.dp_rank * b:(mesh.dp_rank + 1) * b, :] for a in (ds, lm))
+        return (local_batch(toks, mesh, rows), ds.contiguous(),
+                lm[..., mesh.sp_rank * s:(mesh.sp_rank + 1) * s].contiguous())
     B, S = batch.shape[-2], batch.shape[-1] - 1
     dp = mesh.dp if rows else 1
     if B % dp or S % mesh.sp:
@@ -129,30 +170,29 @@ def local_batch(batch: torch.Tensor, mesh: Mesh, rows: bool = True) -> torch.Ten
     return batch[..., mesh.sp_rank * s:mesh.sp_rank * s + s + 1].contiguous()
 
 
-def _forward(state: ParallelState, mcfg: ModelConfig, mesh: Mesh, tokens, collect: bool,
-             seq_start=None):
-    """Logits of this rank's rows and the per-layer aux; fsdp gathers the
-    top-level leaves here and each block's inside the block."""
+def _params_and_block(state: ParallelState, mesh: Mesh):
+    """The rank's parameters with fsdp-sharded top-level leaves gathered,
+    and the block hook that gathers each block's shards inside the block."""
     specs = state.specs
     params, block = state.params, None
     if any(a is not None for a in state.axes):
         params = dict(params)
-        for k in ("embed", "final_norm", "lm_head"):
+        for k in TOP:
             if specs[k] is not None:
                 params[k] = gather_along(params[k], specs[k], mesh.dp_group, mesh.dp)
 
         def block(i, bp):
             return materialize(bp, specs["blocks"][i], state.template["blocks"][i], mesh)
-    return context_parallel_model_forward(params, tokens, mcfg, mesh, collect_aux=collect,
-                                          seq_start=seq_start, block=block)
+    return params, block
 
 
 def _global_count(targets: torch.Tensor, loss_mask, mesh: Mesh):
-    """The supervised tokens of the global batch: every rank holds as
-    many (a host number), or under varlen the all-reduced mask sum."""
+    """The supervised tokens of the global batch: every dp x sp rank of a
+    stage holds as many (a host number), or under varlen the all-reduced
+    mask sum."""
     if loss_mask is None:
-        return float(targets.numel() * mesh.world)
-    return all_reduce_(loss_mask.float().sum()).clamp(min=1.0)
+        return float(targets.numel() * mesh.dp * mesh.sp)
+    return all_reduce_(loss_mask.float().sum(), mesh.data_group).clamp(min=1.0)
 
 
 def _sum_grads_(grads: List[torch.Tensor], group) -> None:
@@ -169,60 +209,97 @@ def _sum_grads_(grads: List[torch.Tensor], group) -> None:
             o += g.numel()
 
 
+def _loss_and_grads(state: ParallelState, mcfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh,
+                    leaves, tokens, seq_start, loss_mask):
+    """(this rank's share of the loss, its gradients, its per-layer aux,
+    the global count) of one accumulation step: tokens [B/dp, S/sp + 1]."""
+    params, block = _params_and_block(state, mesh)
+    den = _global_count(tokens[:, 1:], loss_mask, mesh)
+    if mesh.pp > 1:
+        M = pipeline.microbatches(tcfg, tokens.shape[0], mesh.pp)
+        loss, g, auxes = pipeline.pipeline_loss_and_grads(
+            params, leaves, mcfg, mesh, tokens, M, den, seq_start, loss_mask,
+            tcfg.gate_stats, block)
+        return loss, g, auxes, den
+    with torch.enable_grad():
+        logits, auxes = context_parallel_model_forward(params, tokens[:, :-1], mcfg, mesh,
+                                                       tcfg.gate_stats, seq_start, block)
+        num, _ = cross_entropy_numden(logits, tokens[:, 1:], loss_mask)
+        loss = num / den
+        g = torch.autograd.grad(loss, leaves)
+    return loss.detach(), list(g), auxes, den
+
+
+def _block_leaf(name: str) -> bool:
+    return name.startswith("/blocks/")
+
+
 def grads_and_stats(state: ParallelState, mcfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh,
                     batch) -> tuple:
     """The step's gradients and metrics before the update: (loss, grads in
-    param_leaves order (replicated leaves summed over dp x sp, sharded ones
-    over sp), the global grad norm, the 7 gate stats, sel_k_max, the
-    supervised tokens (varlen)), all equal on every rank."""
+    param_leaves order (summed over the mesh as the module notes say), the
+    global grad norm, the 7 gate stats, sel_k_max, the supervised tokens
+    (varlen)), all equal on every rank."""
     tokens, seq_start, loss_mask = batch if tcfg.varlen else (batch, None, None)
     accum = tokens.shape[0]
     dev = state.step.device
-    leaves = [t for _, t in param_leaves(state.params)]
+    named = param_leaves(state.params)
+    leaves = [t for _, t in named]
     grads = None
     small = torch.zeros((8,), device=dev)   # loss sum, the 7 gate stats
     kmax = torch.zeros((), device=dev)
     n_tok = torch.zeros((), device=dev)
     for a in range(accum):
-        with torch.enable_grad():
-            logits, auxes = _forward(state, mcfg, mesh, tokens[a, :, :-1], tcfg.gate_stats,
-                                     None if seq_start is None else seq_start[a])
-            mask = None if loss_mask is None else loss_mask[a]
-            num, _ = cross_entropy_numden(logits, tokens[a, :, 1:], mask)
-            den = _global_count(tokens[a, :, 1:], mask, mesh)
-            n_tok = n_tok + den
-            loss = num / den
-            g = torch.autograd.grad(loss, leaves)
-        grads = list(g) if grads is None else [x + y for x, y in zip(grads, g)]
-        small[0] += loss.detach()
+        loss, g, auxes, den = _loss_and_grads(
+            state, mcfg, tcfg, mesh, leaves, tokens[a],
+            None if seq_start is None else seq_start[a],
+            None if loss_mask is None else loss_mask[a])
+        grads = g if grads is None else [x + y for x, y in zip(grads, g)]
+        n_tok = n_tok + den
+        small[0] += loss
         if tcfg.gate_stats:
             s, k = gate_stats(auxes)
             small[1:] += s
             kmax = torch.maximum(kmax, k)
-        del auxes, logits
+        del auxes
     inv = 1.0 / float(accum)
     grads = [g * inv for g in grads]
-    rep = [g for g, a in zip(grads, state.axes) if a is None]
     shd = [g for g, a in zip(grads, state.axes) if a is not None]
+    if mesh.pp == 1:
+        rep_top, rep_blk = [g for g, a in zip(grads, state.axes) if a is None], []
+    else:
+        rep_top = [g for (k, _), g, a in zip(named, grads, state.axes)
+                   if a is None and not _block_leaf(k)]
+        rep_blk = [g for (k, _), g, a in zip(named, grads, state.axes)
+                   if a is None and _block_leaf(k)]
     if mesh.world > 1:
-        _sum_grads_(rep, None)
+        _sum_grads_(rep_top, None)
+    if rep_blk and mesh.dp * mesh.sp > 1:
+        _sum_grads_(rep_blk, mesh.data_group)
     if shd and mesh.sp > 1:
         _sum_grads_(shd, mesh.sp_group)
-    sq_rep = sum((g.float().square().sum() for g in rep), torch.zeros((), device=dev))
-    sq_shd = sum((g.float().square().sum() for g in shd), torch.zeros((), device=dev))
+    zero = torch.zeros((), device=dev)
+    sq_top = sum((g.float().square().sum() for g in rep_top), zero)
+    sq_blk = sum((g.float().square().sum() for g in rep_blk), zero)
+    sq_shd = sum((g.float().square().sum() for g in shd), zero)
     if shd and mesh.dp > 1:
         all_reduce_(sq_shd, mesh.dp_group)
+    if mesh.pp > 1:   # each stage's blocks once
+        sq_blk = all_reduce_(sq_blk + sq_shd, mesh.pp_group)
+        sq_shd = zero
     all_reduce_(small)                               # loss: the sum of the ranks' shares
     small[1:] /= mesh.world                          # stats: the mean over ranks
     all_reduce_(kmax, op=dist.ReduceOp.MAX)
-    return small[0] * inv, grads, (sq_rep + sq_shd).sqrt(), small[1:] * inv, kmax, n_tok
+    norm = (sq_top + sq_blk + sq_shd).sqrt()
+    return small[0] * inv, grads, norm, small[1:] * inv, kmax, n_tok
 
 
 def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh) -> Callable:
     """train_step(state, batch) -> (state, metrics) of this rank: batch its
-    slice [accum, B/dp, S/sp + 1] (local_batch), or with tcfg.varlen (dp
-    only) (tokens [accum, B/dp, S+1], seq_start, loss_mask [accum, B/dp,
-    S]). The metrics are the global ones, equal on every rank."""
+    slice [accum, B/dp, S/sp + 1] (local_batch), or with tcfg.varlen
+    (tokens [accum, B/dp, S/sp + 1], seq_start [accum, B/dp, S], loss_mask
+    [accum, B/dp, S/sp]). The metrics are the global ones, equal on every
+    rank."""
     check_config(tcfg, mesh)
 
     def train_step(state: ParallelState, batch):
@@ -238,23 +315,33 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh) -> Callabl
             "gate_entropy": stats[0], "gate_max": stats[1], "gate_collapse_frac": stats[2],
             "branch_shares": stats[3:6], "sel_k_mean": stats[6], "sel_k_max": kmax,
             "tokens": (n_tok.to(torch.int32) if tcfg.varlen else
-                       tokens.shape[0] * tokens.shape[1] * (tokens.shape[2] - 1) * mesh.world),
+                       tokens.shape[0] * tokens.shape[1] * (tokens.shape[2] - 1)
+                       * mesh.dp * mesh.sp),
         }
         return state, metrics
 
     return train_step
 
 
-def make_eval_step(mcfg: ModelConfig, mesh: Mesh, varlen: bool = False) -> Callable:
+def make_eval_step(mcfg: ModelConfig, mesh: Mesh, varlen: bool = False,
+                   tcfg: Optional[TrainConfig] = None) -> Callable:
     """eval_step(state, batch) -> the global mean loss of a batch sliced as
     the train step's (one micro-batch: [B/dp, S/sp + 1], or the varlen
-    tuple), equal on every rank."""
+    tuple), equal on every rank. Under pp tcfg gives the micro-batches."""
     @torch.no_grad()
     def eval_step(state: ParallelState, batch) -> torch.Tensor:
         tokens, seq_start, loss_mask = batch if varlen else (batch, None, None)
-        logits, _ = _forward(state, mcfg, mesh, tokens[:, :-1], False, seq_start)
-        num = all_reduce_(cross_entropy_numden(logits, tokens[:, 1:], loss_mask)[0])
-        return num / _global_count(tokens[:, 1:], loss_mask, mesh)
+        params, block = _params_and_block(state, mesh)
+        den = _global_count(tokens[:, 1:], loss_mask, mesh)
+        if mesh.pp > 1:
+            M = pipeline.microbatches(tcfg or TrainConfig(), tokens.shape[0], mesh.pp)
+            share = pipeline.pipeline_loss_and_grads(params, [], mcfg, mesh, tokens, M, den,
+                                                     seq_start, loss_mask, block=block,
+                                                     grad=False)[0]
+            return all_reduce_(share)
+        logits, _ = context_parallel_model_forward(params, tokens[:, :-1], mcfg, mesh,
+                                                   seq_start=seq_start, block=block)
+        return all_reduce_(cross_entropy_numden(logits, tokens[:, 1:], loss_mask)[0]) / den
 
     return eval_step
 
@@ -266,19 +353,47 @@ def build_state_and_step(params: dict, mcfg: ModelConfig, tcfg: TrainConfig, mes
     return make_train_step(mcfg, tcfg, mesh), build_state(params, tcfg, mesh)
 
 
+def global_names(state: ParallelState) -> list:
+    """The rank's leaves' names in the whole model's tree (param_leaves
+    order): block i of the stage is block state.layers[i]."""
+    first = state.layers[0] if len(state.layers) else 0
+    return [re.sub(r"^/blocks/(\d+)/", lambda m: f"/blocks/{int(m.group(1)) + first}/", k)
+            for k, _ in param_leaves(state.template)]
+
+
 @torch.no_grad()
+def gather_full(state: ParallelState, mesh: Mesh, ts: list) -> list:
+    """Tensors shaped like the rank's leaves (param_leaves order: the
+    leaves, their moments or gradients) as the whole model's, on every
+    rank: sharded ones gathered over dp, the stages' blocks over pp. A
+    collective."""
+    ts = [t.detach() if a is None else gather_dim(t.detach(), a, mesh.dp_group, mesh.dp)
+          for t, a in zip(ts, state.axes)]
+    if mesh.pp == 1:
+        return ts
+    n, by_name = len(state.layers), {}
+    for k, t in zip(global_names(state), ts):
+        if not _block_leaf(k):
+            by_name[k] = t
+            continue
+        stages = gather_dim(t[None], 0, mesh.pp_group, mesh.pp)
+        for q in range(mesh.pp):
+            i = int(k.split("/")[2]) - state.layers[0] + q * n
+            by_name[re.sub(r"^/blocks/\d+/", f"/blocks/{i}/", k)] = stages[q]
+    return [by_name[k] for k, _ in param_leaves(state.full_template)]
+
+
 def full_leaves(state: ParallelState, mesh: Mesh, moments: bool = True) -> tuple:
-    """(params, mu, nu) as full leaves in param_leaves order, on every rank:
-    sharded leaves (and their moments) gathered over dp. A collective."""
-    def full(ts):
-        return [t.detach() if a is None else gather_dim(t.detach(), a, mesh.dp_group, mesh.dp)
-                for t, a in zip(ts, state.axes)]
-    p = full([t for _, t in param_leaves(state.params)])
+    """(params, mu, nu) as the whole model's leaves in param_leaves order,
+    on every rank. A collective."""
+    p = gather_full(state, mesh, [t for _, t in param_leaves(state.params)])
     if not moments:
         return p, None, None
-    return p, full(state.opt_state["mu"]), full(state.opt_state["nu"])
+    return (p, gather_full(state, mesh, state.opt_state["mu"]),
+            gather_full(state, mesh, state.opt_state["nu"]))
 
 
 def gathered_params(state: ParallelState, mesh: Mesh) -> dict:
-    """The full parameter tree (projection views included). A collective."""
-    return tree_from_leaves(state.template, full_leaves(state, mesh, moments=False)[0])
+    """The whole model's parameter tree (projection views included). A
+    collective."""
+    return tree_from_leaves(state.full_template, full_leaves(state, mesh, moments=False)[0])

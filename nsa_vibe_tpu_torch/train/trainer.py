@@ -6,10 +6,12 @@
     --device cpu); --varlen trains on packed documents (ops/varlen.py:
     l_sel-aligned starts, no attention across a document boundary, the
     loss masked to each document's own next tokens);
-  * under torch.distributed (WORLD_SIZE > 1, or dp/sp > 1) the parallel
-    step of parallel/train_step.py over a (dp, sp) mesh (--dp, --sp,
-    --fsdp): each dp member reads its own documents (train.data.Shard)
-    into batch_size / dp rows, each sp rank takes its positions; the
+  * under torch.distributed (WORLD_SIZE > 1, or dp/sp/pp > 1) the parallel
+    step of parallel/train_step.py over a (dp, pp, sp) mesh (--dp, --sp,
+    --pp, --pp-microbatches, --fsdp; --varlen with any of them): each dp
+    member reads its own documents (train.data.Shard, seeded by the dp
+    member, so the sp and pp ranks of one member read the same rows) into
+    batch_size / dp rows, each sp rank takes its positions; the
     device is cuda:LOCAL_RANK unless --device names one (two ranks on one
     card: --device cuda:0 --backend gloo); rank 0 logs and writes;
   * training.csv, val.csv, heartbeat.jsonl, `.HALT` polling each step
@@ -26,6 +28,9 @@ Run:  python -m nsa_vibe_tpu_torch.train.trainer --steps 50 --data synthetic
           --data synthetic --steps 20 [--varlen]
       torchrun --nproc-per-node N -m nsa_vibe_tpu_torch.train.trainer \
           --config configs/m7c_125m_pod.yaml --data synthetic   (N cards)
+      torchrun --nproc-per-node 4 -m nsa_vibe_tpu_torch.train.trainer \
+          --config configs/m7c_125m_pod.yaml --data synthetic --dp 1 --pp 2 \
+          --sp 2 --pp-microbatches 4 --varlen   (4 cards)
 """
 
 from __future__ import annotations
@@ -87,9 +92,9 @@ class _Prefetcher:
 
 def load_config(path: Optional[str]) -> tuple[ModelConfig, TrainConfig, str]:
     """YAML with optional model/nsa/train groups; returns (mcfg, tcfg, data).
-    train.varlen and the parallel keys (dp, sp, fsdp, fsdp_min_size) are
-    read; tp or pp > 1 and varlen with sp > 1 raise (not ported), as do
-    keys the port does not have. nsa.varlen_exact may only be true: the port's avg ϕ is always
+    train.varlen and the parallel keys (dp, sp, pp, pp_microbatches, fsdp,
+    fsdp_min_size) are read; tp > 1 raises (not ported), as do keys the
+    port does not have. nsa.varlen_exact may only be true: the port's avg ϕ is always
     window-exact (core/config.py), so `false`, the JAX package's running-sum
     form, raises rather than compute other math unannounced."""
     raw: dict = {}
@@ -117,7 +122,7 @@ def apply_overrides(mcfg: ModelConfig, tcfg: TrainConfig, args) -> tuple[ModelCo
     t_over = {k: getattr(args, k)
               for k in ("steps", "batch_size", "seq_len", "accum_steps", "lr", "seed",
                         "save_every", "eval_every", "log_every", "out_dir", "varlen", "dp",
-                        "sp", "fsdp", "fsdp_min_size")
+                        "sp", "pp", "pp_microbatches", "fsdp", "fsdp_min_size")
               if getattr(args, k, None) is not None}
     if t_over:
         tcfg = dataclasses.replace(tcfg, **t_over)
@@ -158,7 +163,8 @@ def _batch_to_device(batch_np, tcfg: TrainConfig, shape, dev: torch.device):
 
 
 def _distributed(tcfg: TrainConfig) -> bool:
-    return int(os.environ.get("WORLD_SIZE", "1")) > 1 or tcfg.dp > 1 or tcfg.sp > 1
+    return (int(os.environ.get("WORLD_SIZE", "1")) > 1 or tcfg.dp > 1 or tcfg.sp > 1
+            or tcfg.pp > 1)
 
 
 def _rank_device(device: str) -> str:
@@ -180,7 +186,7 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
     if parallel:
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        mesh = make_mesh(tcfg.dp, tcfg.sp)
+        mesh = make_mesh(tcfg.dp, tcfg.sp, pp=tcfg.pp)
     lead = mesh is None or mesh.rank == 0
     run_dir = tcfg.out_dir
     os.makedirs(run_dir, exist_ok=True)
@@ -192,8 +198,8 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
                 "model": dataclasses.asdict(mcfg),
                 "train": dataclasses.asdict(tcfg),
                 "data": data_source,
-                "mesh": None if mesh is None else {"dp": mesh.dp, "sp": mesh.sp,
-                                                   "backend": mesh.backend},
+                "mesh": None if mesh is None else {"dp": mesh.dp, "pp": mesh.pp,
+                                                   "sp": mesh.sp, "backend": mesh.backend},
             }, f, indent=2, default=str)
 
     params = init_model_params(mcfg, torch.Generator().manual_seed(tcfg.seed), device=dev)
@@ -203,7 +209,7 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
         eval_fn = make_eval_step(mcfg, varlen=tcfg.varlen)
     else:
         step_fn, state = pts.build_state_and_step(params, mcfg, tcfg, mesh)
-        peval = pts.make_eval_step(mcfg, mesh, varlen=tcfg.varlen)
+        peval = pts.make_eval_step(mcfg, mesh, varlen=tcfg.varlen, tcfg=tcfg)
         eval_fn = lambda _, b: peval(state, b)   # noqa: E731
     del params
 
@@ -230,7 +236,7 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
 
     def to_device(batch_np, shape):
         b = _batch_to_device(batch_np, tcfg, shape, dev)
-        if mesh is not None and not tcfg.varlen:
+        if mesh is not None:
             b = pts.local_batch(b, mesh, rows=False)   # this sp rank's positions
         return b
 
@@ -356,6 +362,9 @@ def main() -> None:
                          "gloo for several ranks on one card)")
     ap.add_argument("--dp", type=int, default=None, help="data-parallel ranks (0: world / sp)")
     ap.add_argument("--sp", type=int, default=None, help="sequence-parallel ranks")
+    ap.add_argument("--pp", type=int, default=None, help="pipeline stages")
+    ap.add_argument("--pp-microbatches", dest="pp_microbatches", type=int, default=None,
+                    help="GPipe micro-batches per step under pp (0: pp)")
     ap.add_argument("--fsdp", action="store_true", default=None,
                     help="shard parameters and moments over dp")
     ap.add_argument("--fsdp-min-size", dest="fsdp_min_size", type=int, default=None)

@@ -6,10 +6,13 @@ copies into the live state in place, so tensors keep their device, dtype
 and views (the projection entries stay views of W_qkv).
 
 Under a mesh (parallel/train_step.py::ParallelState) the file has the
-same single-device format: saving gathers each fsdp-sharded leaf and its
-moments over dp (every rank must call it) and rank 0 writes; restoring
-reads the file on every rank and keeps each leaf's own chunk. So a
-dp/fsdp checkpoint resumes on one device, and the other way round.
+same single-device format, the list of blocks: saving gathers each
+fsdp-sharded leaf and its moments over dp and the stages' blocks over pp
+(every rank must call it) and rank 0 writes; restoring reads the file on
+every rank and keeps its own stage's blocks and each leaf's own chunk. So
+a dp/fsdp/pp checkpoint resumes on one device, and the other way round.
+(The JAX package saves the stacked [L, ...] layout under pp; the list
+layout is kept on purpose, so one file serves every mesh.)
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, mesh=None) -> s
         from nsa_vibe_tpu_torch.parallel.train_step import full_leaves
 
         params, mu, nu = full_leaves(state, mesh)
+        names = [k for k, _ in param_leaves(state.full_template)]
         if mesh.rank != 0:
             return path
     else:
@@ -65,8 +69,9 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None,
                        mesh=None) -> TrainState:
     """Copies checkpoint `step` (default: the latest) into `state` in place
-    and returns it. With `mesh` (a ParallelState) each fsdp-sharded leaf
-    and its moments take this rank's chunk of the saved full leaf."""
+    and returns it. With `mesh` (a ParallelState) the rank's stage takes
+    its blocks, and each fsdp-sharded leaf and its moments this rank's
+    chunk of the saved full leaf."""
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None:
@@ -74,8 +79,18 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = N
     blob = torch.load(os.path.join(os.path.abspath(ckpt_dir), f"step_{step}.pt"),
                       map_location="cpu")
     leaves = param_leaves(state.params)
-    if [k for k, _ in leaves] != list(blob["params"]):
-        raise ValueError("checkpoint parameters do not match the model's")
+    saved_names = list(blob["params"])
+    if mesh is None:
+        names = [k for k, _ in leaves]
+        if names != saved_names:
+            raise ValueError("checkpoint parameters do not match the model's")
+    else:
+        from nsa_vibe_tpu_torch.parallel.train_step import global_names
+
+        names = global_names(state)
+        if [k for k, _ in param_leaves(state.full_template)] != saved_names:
+            raise ValueError("checkpoint parameters do not match the model's")
+    index = {k: i for i, k in enumerate(saved_names)}
     axes = getattr(state, "axes", None) or [None] * len(leaves)
     if mesh is None and any(a is not None for a in axes):
         raise ValueError("restore_checkpoint: a sharded state needs its mesh")
@@ -87,12 +102,11 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = N
 
         return shard_of(t, a, mesh.dp_rank, mesh.dp)
 
-    for (k, t), a in zip(leaves, axes):
+    for k, (_, t), a in zip(names, leaves, axes):
         t.copy_(mine(blob["params"][k], a))
-    n = len(leaves)
-    for i, (live, saved) in enumerate(zip(state.opt_state["mu"] + state.opt_state["nu"],
-                                          blob["mu"] + blob["nu"])):
-        live.copy_(mine(saved, axes[i % n]))
+    for key in ("mu", "nu"):
+        for k, live, a in zip(names, state.opt_state[key], axes):
+            live.copy_(mine(blob[key][index[k]], a))
     state.opt_state["count"].copy_(blob["count"])
     state.step.copy_(blob["step"])
     return state

@@ -13,9 +13,13 @@ varlen_exact (the port's avg ϕ is window-exact). Held:
     vs nsa_prefill (MAE < 2e-5), on both routes (the fused
     scorer, and select_blocks beside compressed_attention); the gradients
     of the global mean cross entropy vs jax.value_and_grad within 2e-5 of
-    each leaf's max |value|;
+    each leaf's max |value|; the same under varlen (packed documents,
+    one crossing the shard boundary at S/2) vs JAX's
+    context_parallel_model_forward(seq_start=) and the port's single-process
+    model_forward(seq_start=);
   * three AdamW steps under dp = 2, fsdp = 2, dp x sp = 2 x 2, fsdp x sp
-    = 2 x 2 and varlen batches under dp = 2 vs JAX's build_state_and_step
+    = 2 x 2 and varlen batches under dp = 2 and under dp x sp = 2 x 2 vs
+    JAX's build_state_and_step
     on the same mesh and batches: loss, grad norm and gate stats within
     2e-5 relative, every parameter within 2e-5 of its leaf's max |value|
     after the last step; each fsdp rank holds 1/dp of every sharded leaf
@@ -23,7 +27,8 @@ varlen_exact (the port's avg ϕ is window-exact). Held:
   * varlen batches under dp = 2 vs the port's single-device varlen step
     (the loss is the global masked mean, not a mean of rank means);
   * a checkpoint saved under fsdp restores on one process;
-  * load_config reads dp, sp, fsdp and raises on tp, pp and varlen with sp.
+  * load_config reads dp, sp, pp, pp_microbatches, fsdp and varlen with sp,
+    and raises on tp.
 """
 
 import dataclasses
@@ -69,11 +74,15 @@ TOL = 2e-5
 RUNS = [
     {"name": "fwd", "kind": "forward", "dp": 1, "sp": 2},
     {"name": "fwd_long", "kind": "forward", "dp": 1, "sp": 2, "max_s_sel": 2},
+    {"name": "fwd_varlen", "kind": "forward", "dp": 1, "sp": 2, "varlen": True},
+    {"name": "fwd_varlen_long", "kind": "forward", "dp": 1, "sp": 2, "varlen": True,
+     "max_s_sel": 2},
     {"name": "dp2", "kind": "steps", "dp": 2, "sp": 1},
     {"name": "fsdp2", "kind": "steps", "dp": 2, "sp": 1, "fsdp": True, "ckpt": True},
     {"name": "varlen_dp2", "kind": "varlen_steps", "dp": 2, "sp": 1},
     {"name": "dpsp", "kind": "steps", "dp": 2, "sp": 2},
     {"name": "fsdpsp", "kind": "steps", "dp": 2, "sp": 2, "fsdp": True},
+    {"name": "varlen_dpsp", "kind": "varlen_steps", "dp": 2, "sp": 2},
 ]
 
 
@@ -86,13 +95,16 @@ def _tmodel():
 
 
 def _varlen_batches():
-    """[STEPS, 1, B, ...] packed rows: documents of 5 to 60 tokens."""
+    """[STEPS, 1, B, ...] packed rows: documents of 5 to 60 tokens (every
+    step has one that starts before S/2 and goes on past it, on both sp
+    ranks' rows)."""
     rng = np.random.RandomState(9)
     out = []
     for _ in range(STEPS):
         docs = [rng.randint(1, 64, size=n).astype(np.int32) for n in rng.randint(5, 60, 12)]
         toks, ds, lm = (a[:B] for a in jvarlen.pack_documents_aligned(docs, S, NSA["l_sel"], B))
         out.append((toks[None], ds[None], lm[None]))
+        assert (ds[:, S // 2] < S // 2).any() and lm[:, S // 2].any()
     return [np.stack(a) for a in zip(*out)]
 
 
@@ -139,16 +151,18 @@ def _jax_tree_flat(tree):
     return flatten(jax.tree.map(np.asarray, tree))
 
 
-@pytest.mark.parametrize("name", ["fwd", "fwd_long"])
+@pytest.mark.parametrize("name", ["fwd", "fwd_long", "fwd_varlen", "fwd_varlen_long"])
 def test_sp_forward_and_gradients_match_jax(run, name):
-    d, jp, toks, _ = run
+    d, jp, toks, (vtoks, vds, vlm) = run
     jm = _jmodel()
     mesh = jmake_mesh(dp=1, sp=2, devices=jax.devices()[:2])
-    tok = jnp.asarray(toks[0, 0])
+    varlen = "varlen" in name
+    tok = jnp.asarray(vtoks[0, 0] if varlen else toks[0, 0])
+    ds, lm = (jnp.asarray(vds[0, 0]), jnp.asarray(vlm[0, 0])) if varlen else (None, None)
 
     def loss(p):
-        logits = jcp_forward(p, tok[:, :-1], jm, mesh)
-        return jtiny.cross_entropy_loss(logits, tok[:, 1:]), logits
+        logits = jcp_forward(p, tok[:, :-1], jm, mesh, seq_start=ds)
+        return jtiny.cross_entropy_loss(logits, tok[:, 1:], mask=lm), logits
 
     (_, jlogits), jgrad = jax.jit(jax.value_and_grad(loss, has_aux=True))(jp)
     ranks = [_load(d, name, r) for r in range(2)]
@@ -156,20 +170,23 @@ def test_sp_forward_and_gradients_match_jax(run, name):
     assert np.abs(logits - np.asarray(jlogits)).mean() < TOL
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     with torch.no_grad():
-        single, _ = ttiny.model_forward(tp, torch.from_numpy(toks[0, 0, :, :-1]).long(),
-                                        _tmodel())
+        single, _ = ttiny.model_forward(
+            tp, torch.from_numpy(np.array(tok)[:, :-1]).long(), _tmodel(),
+            seq_start=None if ds is None else torch.from_numpy(np.array(ds)))
     assert np.abs(logits - single.double().numpy()).mean() < TOL
+    for k, g in _jax_tree_flat(jgrad).items():
+        for z in ranks:               # every rank holds the summed gradients
+            _close_rel(z[f"grad:{k}"], g, TOL, k)
+    if varlen:
+        return
     with torch.no_grad():    # one layer: context_parallel_prefill vs nsa_prefill
         x = tp["embed"][torch.from_numpy(toks[0, 0, :, :-1]).long()]
         layer, _ = tnsa.nsa_prefill(tp["blocks"][0]["attn"], x, _tmodel().nsa)
     got = np.concatenate([z["layer"] for z in ranks], axis=1)
     assert np.abs(got - layer.double().numpy()).mean() < TOL
-    for k, g in _jax_tree_flat(jgrad).items():
-        for z in ranks:               # every rank holds the summed gradients
-            _close_rel(z[f"grad:{k}"], g, TOL, k)
 
 
-@pytest.mark.parametrize("name", ["dp2", "fsdp2", "dpsp", "fsdpsp", "varlen_dp2"])
+@pytest.mark.parametrize("name", ["dp2", "fsdp2", "dpsp", "fsdpsp", "varlen_dp2", "varlen_dpsp"])
 def test_three_steps_match_jax_build_state_and_step(run, name):
     d, jp, toks, vbatches = run
     cfg = next(r for r in RUNS if r["name"] == name)
@@ -256,9 +273,13 @@ def test_load_config_reads_the_parallel_keys(tmp_path):
     assert (tcfg.dp, tcfg.sp, tcfg.fsdp, tcfg.fsdp_min_size) == (2, 2, True, 256)
     jfields = {f.name for f in dataclasses.fields(JTrainConfig)}
     assert {"dp", "sp", "tp", "pp", "fsdp", "fsdp_min_size"} <= jfields
-    for bad in ({"tp": 2}, {"pp": 2}, {"sp": 2, "varlen": True}):
-        p.write_text(yaml.safe_dump({"train": bad}))
-        with pytest.raises(ValueError, match="not ported"):
-            load_config(str(p))
+    p.write_text(yaml.safe_dump({"train": {"tp": 2}}))
+    with pytest.raises(ValueError, match="not ported"):
+        load_config(str(p))
+    p.write_text(yaml.safe_dump({"train": {"pp": 2, "pp_microbatches": 4, "sp": 2,
+                                           "varlen": True}}))
+    _, tcfg, _ = load_config(str(p))
+    assert (tcfg.pp, tcfg.pp_microbatches, tcfg.sp, tcfg.varlen) == (2, 4, 2, True)
+    assert {"pp_microbatches", "varlen"} <= jfields
     _, tcfg, _ = load_config(str(ROOT / "configs" / "m7c_125m_pod.yaml"))
     assert (tcfg.dp, tcfg.fsdp, tcfg.seq_len, tcfg.batch_size) == (4, True, 4096, 32)

@@ -32,7 +32,7 @@ def _port_files():
     return sorted((ROOT / "nsa_vibe_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "select_cmp_parts.py",
         ROOT / "scripts" / "gloo_probe.py", ROOT / "scripts" / "offset_bound_probe.py",
-        ROOT / "tests" / "torch_parallel_worker.py"]
+        ROOT / "scripts" / "ptxas_baseline.py", ROOT / "tests" / "torch_parallel_worker.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -2,22 +2,30 @@
 
 Run under torch.distributed.run (gloo, CPU): imports torch and the port
 only, never JAX. Reads DIR/job.json (configs and runs), DIR/params.npz
-(the JAX package's parameters, path-keyed) and DIR/tokens.npy; for each
-run whose dp * sp is the world size writes DIR/<run>_rank<r>.npz.
+(the JAX package's parameters, path-keyed), DIR/tokens.npy and
+DIR/varlen.npz; for each run whose dp * pp * sp is the world size writes
+DIR/<run>_rank<r>.npz (tests/test_torch_parallel.py and
+tests/test_torch_pipeline.py launch it).
 
 Runs:
   forward: logits of the rank's rows from context_parallel_model_forward,
     the output of one layer's context_parallel_prefill on its embedded
     rows, and the gradients of the global mean cross entropy (each rank's share
-    back-propagated, then summed over ranks), from tokens[0, 0];
+    back-propagated, then summed over ranks), from tokens[0, 0]; with
+    "varlen" from varlen.npz's first batch (the masked mean, the whole
+    rows' seq_start on every sp rank; no single layer);
+  pp_grads: under pp, the loss, the whole model's gradients and the rank's
+    layers' gates and selections ([L/pp, B/dp, S/sp, G, *]) of one step's
+    schedule (parallel/train_step.py::grads_and_stats), from tokens[0];
   steps: one AdamW step per tokens[i] through build_state_and_step (each
     rank its local_batch): the metrics of each step, the full parameters
     after the last, the local leaves' and moments' sizes; with "ckpt" a
     checkpoint saved under the mesh into DIR/<run>_ckpt;
   varlen_steps: the same over DIR/varlen.npz's packed batches (tokens,
-    seq_start, loss_mask; dp only), each rank its dp member's rows.
+    seq_start, loss_mask), each rank its local_batch.
 A run's "max_s_sel" lowers select_cmp.SELECT_CMP_MAX_S_SEL, forcing the
-long route (select_blocks beside compressed_attention).
+long route (select_blocks beside compressed_attention); "pp" and "M"
+(pp_microbatches) set the pipeline.
 """
 
 import json
@@ -32,6 +40,7 @@ from nsa_vibe_tpu_torch.convert import params_from_numpy, params_to_numpy
 from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig, TrainConfig
 from nsa_vibe_tpu_torch.models.tinylm import cross_entropy_numden
 from nsa_vibe_tpu_torch.ops.cuda import select_cmp as select_cmp_mod
+from nsa_vibe_tpu_torch.parallel import pipeline
 from nsa_vibe_tpu_torch.parallel import train_step as pts
 from nsa_vibe_tpu_torch.parallel.context import (
     context_parallel_model_forward, context_parallel_prefill,
@@ -68,28 +77,63 @@ def flatten(tree, prefix: str = "") -> dict:
     return {prefix[:-1]: np.asarray(tree, dtype=np.float64)}
 
 
-def forward_run(params_np, tokens, mcfg, mesh):
+def _tensors(batch):
+    """A numpy batch (tokens or (tokens, seq_start, loss_mask)) as tensors."""
+    if isinstance(batch, (tuple, list)):
+        toks, ds, lm = batch
+        return (torch.from_numpy(toks).long(), torch.from_numpy(ds).int(),
+                torch.from_numpy(lm).float())
+    return torch.from_numpy(batch).long()
+
+
+def forward_run(params_np, batch, mcfg, mesh):
     params = params_from_numpy(params_np, device="cpu", dtype="float32")
     leaves = [t.requires_grad_(True) for _, t in param_leaves(params)]
-    row = pts.local_batch(torch.from_numpy(tokens).long(), mesh)
-    logits, _ = context_parallel_model_forward(params, row[:, :-1], mcfg, mesh)
-    num, _ = cross_entropy_numden(logits, row[:, 1:])
-    grads = torch.autograd.grad(num / float(row[:, 1:].numel() * mesh.world), leaves)
+    varlen = isinstance(batch, tuple)
+    row, ds, lm = (pts.local_batch(_tensors(batch), mesh) if varlen
+                   else (pts.local_batch(_tensors(batch), mesh), None, None))
+    logits, _ = context_parallel_model_forward(params, row[:, :-1], mcfg, mesh, seq_start=ds)
+    num, _ = cross_entropy_numden(logits, row[:, 1:], lm)
+    if varlen:
+        den = lm.sum()
+        dist.all_reduce(den)
+    else:
+        den = float(row[:, 1:].numel() * mesh.world)
+    grads = torch.autograd.grad(num / den, leaves)
     for g in grads:
         dist.all_reduce(g)
     out = {"logits": logits.detach().double().numpy()}
-    with torch.no_grad():   # one layer's sequence-sharded prefill of the embedded rows
-        x = params["embed"][row[:, :-1]]
-        out["layer"] = context_parallel_prefill(params["blocks"][0]["attn"], x, mcfg.nsa,
-                                                mesh).double().numpy()
+    if not varlen:
+        with torch.no_grad():   # one layer's sequence-sharded prefill of the embedded rows
+            x = params["embed"][row[:, :-1]]
+            out["layer"] = context_parallel_prefill(params["blocks"][0]["attn"], x, mcfg.nsa,
+                                                    mesh).double().numpy()
     out.update({f"grad:{k}": v for k, v in
                 flatten(params_to_numpy(tree_from_leaves(params, list(grads)))).items()})
     return out
 
 
-def dp_rows(a: np.ndarray, mesh) -> np.ndarray:
-    b = a.shape[1] // mesh.dp
-    return a[:, mesh.dp_rank * b:(mesh.dp_rank + 1) * b]
+def pp_grads_run(params_np, batch, mcfg, tcfg, mesh):
+    params = params_from_numpy(params_np, device="cpu", dtype="float32")
+    state = pts.build_state(params, tcfg, mesh)
+    local = pts.local_batch(_tensors(batch), mesh)
+    loss, grads, _, _, _, _ = pts.grads_and_stats(state, mcfg, tcfg, mesh, local)
+    full = pts.gather_full(state, mesh, grads)
+    out = {"loss": np.asarray(float(loss))}
+    out.update({f"grad:{k}": v for k, v in
+                flatten(params_to_numpy(tree_from_leaves(state.full_template, full))).items()})
+    with torch.no_grad():   # the rank's layers' gates and selections, micro-batches in order
+        p, block = pts._params_and_block(state, mesh)
+        toks, ds, lm = ((a[0] for a in local) if tcfg.varlen else (local[0], None, None))
+        M = pipeline.microbatches(tcfg, toks.shape[0], mesh.pp)
+        _, _, auxes = pipeline.pipeline_loss_and_grads(p, [], mcfg, mesh, toks, M, 1.0, ds, lm,
+                                                       collect_aux=True, block=block,
+                                                       grad=False)
+    n = len(state.layers)
+    for key in ("gates", "sel_idx"):
+        out[key] = np.stack([torch.cat([auxes[m * n + i][key] for m in range(M)]).numpy()
+                             for i in range(n)])
+    return out
 
 
 def steps_run(params_np, batches, mcfg, tcfg, mesh, ckpt_dir=None):
@@ -97,12 +141,7 @@ def steps_run(params_np, batches, mcfg, tcfg, mesh, ckpt_dir=None):
     step_fn, state = pts.build_state_and_step(params, mcfg, tcfg, mesh)
     out = {}
     for i, batch in enumerate(batches):
-        if tcfg.varlen:
-            toks, ds, lm = (dp_rows(a, mesh) for a in batch)
-            local = (torch.from_numpy(toks).long(), torch.from_numpy(ds).int(),
-                     torch.from_numpy(lm).float())
-        else:
-            local = pts.local_batch(torch.from_numpy(batch).long(), mesh)
+        local = pts.local_batch(_tensors(batch), mesh)
         state, met = step_fn(state, local)
         for k in ("loss", "grad_norm", "gate_entropy", "gate_max", "gate_collapse_frac",
                   "sel_k_mean", "sel_k_max", "good"):
@@ -117,6 +156,7 @@ def steps_run(params_np, batches, mcfg, tcfg, mesh, ckpt_dir=None):
     out["mu_numel"] = np.array([t.numel() for t in state.opt_state["mu"]])
     out["nu_numel"] = np.array([t.numel() for t in state.opt_state["nu"]])
     out["sharded"] = np.array([a is not None for a in state.axes])
+    out["top"] = np.array([not k.startswith("/blocks/") for k, _ in param_leaves(state.params)])
     if ckpt_dir:
         save_checkpoint(ckpt_dir, int(state.step), state, mesh=mesh)
     return out
@@ -133,23 +173,26 @@ def main(job_dir: str) -> None:
     tokens = np.load(os.path.join(job_dir, "tokens.npy"))
     world, rank = dist.get_world_size(), dist.get_rank()
     max_s_sel = select_cmp_mod.SELECT_CMP_MAX_S_SEL
+    v = np.load(os.path.join(job_dir, "varlen.npz"))
+    vbatches = list(zip(v["tokens"], v["seq_start"], v["loss_mask"]))
     for run in job["runs"]:
-        if run["dp"] * run["sp"] != world:
+        pp = run.get("pp", 1)
+        if run["dp"] * run["sp"] * pp != world:
             continue
-        mesh = make_mesh(dp=run["dp"], sp=run["sp"])
-        varlen = run["kind"] == "varlen_steps"
-        tcfg = TrainConfig(**{**job["train"], "dp": run["dp"], "sp": run["sp"],
+        mesh = make_mesh(dp=run["dp"], sp=run["sp"], pp=pp)
+        varlen = run["kind"] == "varlen_steps" or run.get("varlen", False)
+        tcfg = TrainConfig(**{**job["train"], "dp": run["dp"], "sp": run["sp"], "pp": pp,
+                              "pp_microbatches": run.get("M", 0),
                               "fsdp": run.get("fsdp", False), "varlen": varlen})
         select_cmp_mod.SELECT_CMP_MAX_S_SEL = run.get("max_s_sel", max_s_sel)
+        batches = vbatches if varlen else tokens
         if run["kind"] == "forward":
-            out = forward_run(params_np, tokens[0, 0], mcfg, mesh)
+            first = tuple(a[0] for a in vbatches[0]) if varlen else tokens[0, 0]
+            out = forward_run(params_np, first, mcfg, mesh)
+        elif run["kind"] == "pp_grads":
+            out = pp_grads_run(params_np, batches[0], mcfg, tcfg, mesh)
         else:
             ckpt = os.path.join(job_dir, f"{run['name']}_ckpt") if run.get("ckpt") else None
-            if varlen:
-                v = np.load(os.path.join(job_dir, "varlen.npz"))
-                batches = list(zip(v["tokens"], v["seq_start"], v["loss_mask"]))
-            else:
-                batches = tokens
             out = steps_run(params_np, batches, mcfg, tcfg, mesh, ckpt)
         np.savez(os.path.join(job_dir, f"{run['name']}_rank{rank}.npz"), **out)
     dist.barrier()
