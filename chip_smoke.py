@@ -154,9 +154,10 @@ Phases (any failure exits non-zero):
       (`--parallel-worker sp|fsdp`, torch.distributed.run) on the one card
       over gloo, as NCCL refuses two ranks on one device (so their times
       are two processes time-sharing one card, not NCCL scaling): the
-      m7c-125M step (bf16, remat, default keys) at configs/m7c_125m_pod.yaml's
-      seq_len, 8 x 4096 rows per dp member, sp = 2 (and one step under
-      each of DESIGNS' onepass and twopass keys) or dp = 2 with fsdp:
+      m7c-125M step at PAR_LAYERS layers (bf16, remat, default keys) at
+      configs/m7c_125m_pod.yaml's seq_len, 8 x 4096 rows per dp member,
+      sp = 2 (and one step under each of DESIGNS' onepass and twopass
+      keys) or dp = 2 with fsdp:
       losses within LOSS_TOL of one process on the same global batch, the
       f32 first gradient within STEP_GRAD_TOL per leaf of one process's
       (with planted faults that must fail: a kernel's dV off by 0.01%, a
@@ -180,13 +181,14 @@ Phases (any failure exits non-zero):
       build (a) holds the ptxas reports of every instantiation that existed
       before the DOCS x OFF ones to PTXAS_BASELINE and reports the new ones;
       (j-varlen-sp) two ranks, sp = 2 with varlen on packed 8 x 4096 rows
-      (m7c, 12 layers, bf16, remat): losses within LOSS_TOL of one process,
-      the f32 first gradient within STEP_GRAD_TOL (a window backward that
-      drops seq_start must fail it), launch counts under three designs, a
+      (m7c, PAR_LAYERS layers, bf16, remat): losses within LOSS_TOL of one
+      process, the f32 first gradient within STEP_GRAD_TOL (a window
+      backward that drops seq_start must fail it), launch counts under
+      three designs, a
       document across position 2048 perturbed moving no other document's
       logits (0.0 on each rank), and the 64k long route under sp with packed
       documents (launch counts, finite logits); (j-pp) two ranks, pp = 2 with
-      PP_M micro-batches at m7c full width (12 layers, 6 a stage, 8 x 4096,
+      PP_M micro-batches at m7c full width (PAR_LAYERS layers, 8 x 4096,
       bf16, remat): losses and the f32 first gradient held to one process,
       with three planted faults that must fail (the activation gradient
       sent back zeroed, micro-batches 0 and 1 swapped on the last stage, the
@@ -197,6 +199,32 @@ Phases (any failure exits non-zero):
       the bytes sent stage to stage a step, the bubble fraction and MFU; the
       ranks time-share the one card over gloo (not NCCL scaling).
 
+  (k) tensor parallelism (parallel/mesh.py: tp_shard, copy_to_tp,
+      reduce_from_tp; run last): (k-kernels) rows 1, 2, 3, 7, 8, 9, 10 and
+      11 at a tp = 2 member's shape (one KV group of m7c, h = 6, D = 64,
+      8 x 4096) against their plain versions (f32 TF32 off and bf16, the
+      phases' bounds with the planted 1% fault, sets at near ties, two
+      launches bit-equal, the designs against each other); (k-tp) two
+      ranks, tp = 2, m7c at full width and depth (12 layers, bf16, remat)
+      on 8 x 4096: losses within LOSS_TOL of one process, the f32 first
+      gradient within STEP_GRAD_TOL of one process computing each member's
+      slice as its own call (`tp_split_grads`; its distance to a single
+      call, where narrower f32 products tip near-tie selections, is
+      printed), with three planted faults that must fail it ((a)
+      copy_to_tp's backward all-reduce dropped, (b) the gate's gradients
+      not summed over tp, (c) the top-level gradients summed over tp too),
+      the bytes all-reduced over tp a step equal to `tp_bytes`, launch
+      counts under three designs, no host sync outside the collectives, a
+      checkpoint saved under tp restored on one process as each rank's own
+      slices, with the next step's loss (and one saved with W_qkv gathered
+      whole, (d), which must not restore so); (k-mesh) four ranks at
+      TP4_LAYERS layers, tp x dp + fsdp, tp x sp + varlen and pp x tp, each
+      held to one process likewise (losses, f32 first gradient, tp bytes);
+      (k-dryrun) parallel/dryrun.py, eight ranks on the one card (every
+      mesh of the JAX dry run, pp x sp x tp among them), its tail line the
+      JAX run's. Per-rank step ms, busy and idle share, peak memory and
+      MFU; the ranks time-share the one card over gloo (not tp scaling).
+
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
 """
@@ -206,18 +234,22 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import functools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
+from torch.utils.checkpoint import checkpoint
 from torch.profiler import ProfilerActivity, profile
 
 from nsa_vibe_tpu_torch import M7C_125M, M7C_125M_TRAIN
@@ -226,12 +258,13 @@ from nsa_vibe_tpu_torch.core.cache import (
     admit_row, cache_from_prefill, cache_tensors, ragged_cache,
 )
 from nsa_vibe_tpu_torch.core.decode import nsa_decode_step
-from nsa_vibe_tpu_torch.core.nsa import PROJ_KEYS, nsa_prefill
-from nsa_vibe_tpu_torch.models.llama_block import rmsnorm
+from nsa_vibe_tpu_torch.core.nsa import PROJ_KEYS, nsa_prefill, tp_local
+from nsa_vibe_tpu_torch.models.llama_block import mlp, rmsnorm
 from nsa_vibe_tpu_torch.models.decode_graph import DecodeGraph
 from nsa_vibe_tpu_torch.models.tinylm import (
-    generate, generate_ragged, generate_scan, init_model_caches, init_model_params,
-    model_decode_step, model_decode_step_ragged, model_forward, model_prefill_with_caches,
+    cross_entropy_loss, embed, generate, generate_ragged, generate_scan, head,
+    init_model_caches, init_model_params, model_decode_step, model_decode_step_ragged,
+    model_forward, model_prefill_with_caches,
 )
 from nsa_vibe_tpu_torch.ops import cuda as kernels
 from nsa_vibe_tpu_torch.ops import attention, tuning
@@ -276,6 +309,7 @@ from nsa_vibe_tpu_torch.ops.selection import (
     canonicalize_sel, select_topn_blocks, selection_token_mask,
 )
 from nsa_vibe_tpu_torch.ops.varlen import make_varlen_batches, pack_documents_aligned
+from nsa_vibe_tpu_torch.parallel import context as pctx
 from nsa_vibe_tpu_torch.parallel import mesh as pmesh
 from nsa_vibe_tpu_torch.parallel import pipeline
 from nsa_vibe_tpu_torch.parallel import train_step as pts
@@ -1604,39 +1638,41 @@ def phase_ragged(dev) -> list:
 
 # ------------------------------------------------------------------ (d)
 
-def train_kernel_inputs(dtype, dev, gen) -> dict:
-    """Branch operands at the m7c training shapes and their forward outputs
-    with row statistics, from the kernels; the lse are held to their plain
+def train_kernel_inputs(dtype, dev, gen, cfg=None, rows: int = 0, seq: int = 0,
+                        tag: str = "train") -> dict:
+    """Branch operands at the m7c training shapes (or `cfg`'s, rows x seq,
+    checks named <kernel>@`tag`) and their forward outputs with row
+    statistics, from the kernels; the lse are held to their plain
     versions'."""
-    cfg = M7C_125M.nsa
+    cfg, Bq, Sq = cfg or M7C_125M.nsa, rows or B_TRAIN, seq or S
     G, h, D = cfg.n_kv_groups, cfg.h_per_group, cfg.d_k
-    meta = build_block_meta(S, cfg.l, cfg.d, cfg.l_sel, cfg.n_sel, cfg.w)
+    meta = build_block_meta(Sq, cfg.l, cfg.d, cfg.l_sel, cfg.n_sel, cfg.w)
 
     def r(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    x = dict(cfg=cfg, scale=1.0 / float(np.sqrt(D)), t=torch.arange(S, device=dev),
-             Q=r(B_TRAIN, S, G, h, D), dO=r(B_TRAIN, S, G, h, D),
-             Kc=r(B_TRAIN, G, meta.S_cmp, D), Vc=r(B_TRAIN, G, meta.S_cmp, D),
-             K=r(B_TRAIN, G, S, D), V=r(B_TRAIN, G, S, D),
-             Kw=r(B_TRAIN, G, S, D), Vw=r(B_TRAIN, G, S, D),
+    x = dict(cfg=cfg, scale=1.0 / float(np.sqrt(D)), t=torch.arange(Sq, device=dev),
+             Q=r(Bq, Sq, G, h, D), dO=r(Bq, Sq, G, h, D),
+             Kc=r(Bq, G, meta.S_cmp, D), Vc=r(Bq, G, meta.S_cmp, D),
+             K=r(Bq, G, Sq, D), V=r(Bq, G, Sq, D),
+             Kw=r(Bq, G, Sq, D), Vw=r(Bq, G, Sq, D),
              M=torch.from_numpy(meta.M_csl).to(dev))
     kw = dict(scale=x["scale"], l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel)
     x["sel"], x["Oc"], x["lse_c"] = select_cmp(x["Q"], x["Kc"], x["Vc"], x["M"], **kw,
                                                return_lse=True)
-    x["cmp_fwd_err"] = select_cmp_check("select_cmp@train", x, lse=True)
+    x["cmp_fwd_err"] = select_cmp_check(f"select_cmp@{tag}", x, lse=True)
     x["Os"], x["lse_s"] = sel_attn(x["Q"], x["K"], x["V"], x["sel"], x["t"], l_sel=cfg.l_sel,
                                    scale=x["scale"], return_lse=True)
     sargs = (x["Q"], x["K"], x["V"], x["sel"], x["t"])
     x["sel_fwd_err"] = sel_fwd_check(
-        "sel_attn@train", lambda: sel_attn(*sargs, l_sel=cfg.l_sel, scale=x["scale"],
-                                           return_lse=True),
+        f"sel_attn@{tag}", lambda: sel_attn(*sargs, l_sel=cfg.l_sel, scale=x["scale"],
+                                            return_lse=True),
         *sargs, l_sel=cfg.l_sel, scale=x["scale"], lse=True)
     x["Ow"], x["lse_w"] = win_attn(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=x["scale"],
                                    return_lse=True)
     wargs = (x["Q"], x["Kw"], x["Vw"])
     x["win_fwd_err"] = banded_fwd_check(
-        "win_attn@train", lambda: win_attn(*wargs, w=cfg.w, scale=x["scale"], return_lse=True),
+        f"win_attn@{tag}", lambda: win_attn(*wargs, w=cfg.w, scale=x["scale"], return_lse=True),
         *wargs, mode="win", kw=dict(w=cfg.w), scale=x["scale"], lse=True)
     plain = {   # select_cmp's lse: select_cmp_check above
         "sel_attn": sel_attn_plain(x["Q"], x["K"], x["V"], x["sel"], x["t"], l_sel=cfg.l_sel,
@@ -1699,7 +1735,7 @@ def bwd_calls(x) -> dict:
     of one function share its plain version and mask."""
     cfg, sc = x["cfg"], x["scale"]
     Q, dO = x["Q"], x["dO"]
-    Bq, G = Q.shape[0], Q.shape[2]
+    Bq, S, G = Q.shape[:3]
     dc, ds_, dw = (attention_delta(dO, x[k]) for k in ("Oc", "Os", "Ow"))
     win = dict(mode="win", w=cfg.w, scale=sc)
     cmp_ = dict(mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
@@ -1759,18 +1795,19 @@ def tc_bounds(x, branch: str) -> tuple:
     return want, tuple(allowed_tc_err(w, r) for w, r in zip(want, rss))
 
 
-def phase_train_kernels(dev, names) -> dict:
-    """The named backward kernels vs plain at the training shapes, f32 then
-    bf16; each twice for identical bits, and against the other designs of
-    its function (PARTNERS) on the same inputs. The bf16 kernels on tensor
+def phase_train_kernels(dev, names, seed: int = 4321, **shape) -> dict:
+    """The named backward kernels vs plain at the training shapes (or
+    `shape`: train_kernel_inputs' cfg, rows, seq, tag), f32 then bf16; each
+    twice for identical bits, and against the other designs of its
+    function (PARTNERS) on the same inputs. The bf16 kernels on tensor
     cores (TC_ROWS) are held to allowed_tc_err against the plain version's
     unrounded result, and a FAULT planted in each of their gradients must
     fail it; a pair of SAME_P_DS is held to allowed_rel_err. Returns the
     bf16 inputs and the bf16 max errors."""
-    gen = torch.Generator(device=dev).manual_seed(4321)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rec = {}
     for dtype in (torch.float32, torch.bfloat16):
-        x = train_kernel_inputs(dtype, dev, gen)
+        x = train_kernel_inputs(dtype, dev, gen, **shape)
         calls = bwd_calls(x)
         tc_refs = {}
         for name in names:
@@ -3197,6 +3234,13 @@ POD_STEPS = 3             # timed parallel steps (after a warm-up)
 PAR_RANKS = 2
 PAR_DIR = os.path.join("artifacts", "chip_smoke_parallel")   # git-ignored, inside the checkout
 PAR_TIMEOUT_S = 900
+PAR_LAYERS = 4            # the two-rank runs of (i) and (j): m7c at full width, its 12 layers cut
+#                           to 4 to keep the whole run within its time limit
+
+
+def par_model():
+    """The model of the two-rank runs of (i) and (j)."""
+    return dataclasses.replace(M7C_125M, n_layers=PAR_LAYERS)
 OFF_BWD = ("banded_bwd_1p@win", "banded_bwd_1p@cmp", "banded_bwd@win", "banded_bwd@cmp",
            "win_bwd_diag", "sel_attn_bwd_1p", "sel_attn_bwd")
 
@@ -3583,6 +3627,36 @@ def unsummed_fsdp_grads():
         pmesh.reduce_scatter_dim = real
 
 
+def host_syncs(run, tag: str) -> dict:
+    """The host-device synchronisations run() makes (one step), by file and
+    line; fails if the port's code makes any outside its collectives.
+    gloo's worker threads report their host copies through torch's own
+    frames (torch/cuda/__init__.py); the port's code must make none but its
+    collectives (parallel/mesh.py)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    syncs, ours = {}, {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
+            syncs[where] = syncs.get(where, 0) + 1
+            if os.path.abspath(w.filename).startswith(root) and \
+                    not w.filename.endswith(os.path.join("parallel", "mesh.py")):
+                ours[where] = syncs[where]
+    print(f"[{tag}] host-device synchronisations in one step: {sum(syncs.values())} "
+          f"({syncs or 'none'}); in the port's code outside its collectives "
+          f"(parallel/mesh.py): {sum(ours.values())}", flush=True)
+    if ours:
+        fail(f"{tag}: the step makes the host wait outside the collectives: {ours}")
+    return syncs
+
+
 def rank_device() -> torch.device:
     """The card a rank of (i) or (j) runs on: the one card, shared."""
     dev = torch.device("cuda", 0)
@@ -3605,7 +3679,7 @@ def parallel_worker(mode: str) -> None:
     mesh = make_mesh(dp=1, sp=PAR_RANKS) if mode == "sp" else make_mesh(dp=PAR_RANKS, sp=1)
     lead = mesh.rank == 0
     rows = B_POD * mesh.dp
-    mcfg, tcfg = M7C_125M, pod_tcfg(mesh.dp, mesh.sp, mode == "fsdp", rows)
+    mcfg, tcfg = par_model(), pod_tcfg(mesh.dp, mesh.sp, mode == "fsdp", rows)
     tag = f"{mode} rank {mesh.rank}"
     step, state = build_state_and_step(
         init_model_params(mcfg, torch.Generator().manual_seed(0), device=dev), mcfg, tcfg, mesh)
@@ -3625,7 +3699,7 @@ def parallel_worker(mode: str) -> None:
     counts = train_counts()
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(POD_STEPS)]
     peak = torch.cuda.max_memory_allocated()
-    want = {k: v * POD_STEPS for k, v in stage_launches(mesh, M7C_125M, 1).items()}
+    want = {k: v * POD_STEPS for k, v in stage_launches(mesh, mcfg, 1).items()}
     print(f"[{tag}] launches over {POD_STEPS} steps: {counts}; expected {want}", flush=True)
     if counts != want:
         fail(f"{tag}: launch counts {counts} != {want}")
@@ -3637,33 +3711,11 @@ def parallel_worker(mode: str) -> None:
                 step(state, batches[1])
                 torch.cuda.synchronize()
                 c = train_counts()
-            if c != stage_launches(mesh, M7C_125M, 1, DESIGNS[label]):
-                fail(f"{tag}: {label} launch counts {c} != {stage_launches(mesh, M7C_125M, 1, DESIGNS[label])}")
+            if c != stage_launches(mesh, mcfg, 1, DESIGNS[label]):
+                fail(f"{tag}: {label} launch counts {c} != "
+                     f"{stage_launches(mesh, mcfg, 1, DESIGNS[label])}")
             runs.append(c)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step(state, batches[1])
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    # gloo's worker threads report their host copies through torch's own
-    # frames (torch/cuda/__init__.py); the port's code must make none but
-    # its collectives (parallel/mesh.py)
-    root = os.path.dirname(os.path.abspath(__file__))
-    syncs, ours = {}, {}
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            where = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
-            syncs[where] = syncs.get(where, 0) + 1
-            if os.path.abspath(w.filename).startswith(root) and \
-                    not w.filename.endswith(os.path.join("parallel", "mesh.py")):
-                ours[where] = syncs[where]
-    print(f"[{tag}] host-device synchronisations in one step: {sum(syncs.values())} "
-          f"({syncs or 'none'}); in the port's code outside its collectives "
-          f"(parallel/mesh.py): {sum(ours.values())}", flush=True)
-    if ours:
-        fail(f"{tag}: the step makes the host wait outside the collectives: {ours}")
+    syncs = host_syncs(lambda: step(state, batches[1]), tag)
     mean_ms = float(np.mean(step_ms))
     busy = trace(lambda: step(state, batches[1]), 1, f"{tag} step", mean_ms)["busy"]
     res = {"losses": [float(v) for v in losses], "step_ms": step_ms, "mean_ms": mean_ms,
@@ -3685,7 +3737,7 @@ def parallel_worker(mode: str) -> None:
     torch.cuda.empty_cache()
     # the f32 first gradient, as the rank holds it after the step's sums;
     # sharded leaves gathered over dp to compare whole
-    m32 = dataclasses.replace(M7C_125M, dtype="float32")
+    m32 = dataclasses.replace(mcfg, dtype="float32")
     st32 = build_state(init_model_params(m32, torch.Generator().manual_seed(0), device=dev),
                        dataclasses.replace(tcfg, gate_stats=False), mesh)
     names = [k for k, _ in param_leaves(st32.template)]
@@ -3719,7 +3771,7 @@ def gathered_bytes(sp: int, rows: int, n_params: int) -> dict:
     streams of each layer, in the forward and again in the remat
     recompute), sends by reduce-scatter (their gradients, once) and
     all-reduces (every gradient, bf16), reckoned from the shapes."""
-    c, L = M7C_125M.nsa, M7C_125M.n_layers
+    c, L = M7C_125M.nsa, PAR_LAYERS
     stream = rows * c.n_kv_groups * S_POD * (3 * c.d_k + 3 * c.d_v) * 2   # bf16, all six
     share = (sp - 1) / sp
     return {"all_gather": int(L * 2 * stream * share), "reduce_scatter": int(L * stream * share),
@@ -3736,20 +3788,21 @@ def phase_parallel(dev) -> list:
     x = krec.pop("inputs")
     results = {}
     for mode, rows in (("sp", B_POD), ("fsdp", PAR_RANKS * B_POD)):
-        ref = reference_run(dev, dict(dp=rows // B_POD, pp=1, sp=1, fsdp=False, varlen=False,
-                                      mcfg=M7C_125M), f"pod{rows}", grads=True)
+        ref = reference_run(dev, dict(dp=rows // B_POD, pp=1, sp=1, tp=1, fsdp=False,
+                                      varlen=False, mcfg=par_model()), f"pod{rows}", grads=True)
         torch.cuda.empty_cache()
         results[mode] = ranks = run_ranks(mode)
         res = ranks[0]
         gap = max(abs(a - b) for a, b in zip(res["losses"], ref["losses"]))
         mean = res["mean_ms"]
         tokens = rows * S_POD
-        print(f"[{mode}] m7c-125M bf16 {rows} x {S_POD} over {PAR_RANKS} ranks "
+        print(f"[{mode}] {PAR_LAYERS}-layer m7c bf16 {rows} x {S_POD} over {PAR_RANKS} ranks "
               + ("(sp 2: 4096 positions split in two" if mode == "sp"
                  else "(dp 2, fsdp: 8 rows each") +
               f"): per-rank step ms {', '.join(f'{v:.2f}' for v in res['step_ms'])}; mean "
               f"{mean:.3f} ms (one process on the same batch: {ref['step_ms']:.3f} ms); "
-              f"{tokens / (mean / 1e3):.0f} tokens/s, {mfu_text(rows, S_POD, mean)}; rank 0 busy "
+              f"{tokens / (mean / 1e3):.0f} tokens/s, {mfu_text(rows, S_POD, mean, par_model())}; "
+              f"rank 0 busy "
               f"{res['busy']:.3f} ms, idle share {1 - res['busy'] / mean:.3f}; peak "
               f"{res['peak'] / 2**30:.2f} GiB a rank")
         print(f"[{mode}] losses {', '.join(f'{v:.4f}' for v in res['losses'])}; one process "
@@ -3788,7 +3841,7 @@ def ckpt_check(dev, ck, rows) -> None:
     """The fsdp checkpoint restored on one process: every leaf and moment
     as the ranks held them (float64 sums of the contiguous tensors equal),
     and the next step's loss within LOSS_TOL of the ranks'."""
-    mcfg, tcfg = M7C_125M, pod_tcfg(1, 1, False, rows)
+    mcfg, tcfg = par_model(), pod_tcfg(1, 1, False, rows)
     state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(1),
                                                device=dev), tcfg)
     restore_checkpoint(ck["dir"], state)
@@ -3847,9 +3900,9 @@ DOCS_LONG_MUST = (60000, 3000)
 DOCS_BWD = ("banded_bwd_1p@win", "banded_bwd_1p@cmp", "banded_bwd@win", "banded_bwd@cmp",
             "win_bwd_diag")
 PP, PP_M = 2, 4           # (j-pp): stages and GPipe micro-batches
-PP4_LAYERS = 4            # the four-rank runs' depth (full width), to stay within the time limit
-FOUR_RANKS = {"pp-dp-fsdp": dict(dp=2, pp=PP, sp=1, fsdp=True, varlen=False),
-              "pp-sp-varlen": dict(dp=1, pp=PP, sp=2, fsdp=False, varlen=True)}
+PP4_LAYERS = 2            # (j)'s four-rank runs' depth (full width), to stay within the time limit
+FOUR_RANKS = {"pp-dp-fsdp": dict(dp=2, pp=PP, sp=1, tp=1, fsdp=True, varlen=False),
+              "pp-sp-varlen": dict(dp=1, pp=PP, sp=2, tp=1, fsdp=False, varlen=True)}
 
 
 def crossing(spans, t: int) -> list:
@@ -4059,17 +4112,22 @@ def docs_pod_batches(n: int, rows: int, dev) -> list:
 
 
 def stage_setting(mode: str) -> dict:
-    """(dp, pp, sp, fsdp, varlen, model) of a phase (j) rank setting."""
+    """(dp, pp, sp, tp, fsdp, varlen, model) of a phase (j) or (k) rank
+    setting."""
     if mode == "varlen-sp":
-        return dict(dp=1, pp=1, sp=2, fsdp=False, varlen=True, mcfg=M7C_125M)
+        return dict(dp=1, pp=1, sp=2, tp=1, fsdp=False, varlen=True, mcfg=par_model())
     if mode == "pp":
-        return dict(dp=1, pp=PP, sp=1, fsdp=False, varlen=False, mcfg=M7C_125M)
-    return dict(FOUR_RANKS[mode], mcfg=dataclasses.replace(M7C_125M, n_layers=PP4_LAYERS))
+        return dict(dp=1, pp=PP, sp=1, tp=1, fsdp=False, varlen=False, mcfg=par_model())
+    if mode == "tp":
+        return dict(dp=1, pp=1, sp=1, tp=TP, fsdp=False, varlen=False, mcfg=M7C_125M)
+    if mode in FOUR_RANKS:
+        return dict(FOUR_RANKS[mode], mcfg=dataclasses.replace(M7C_125M, n_layers=PP4_LAYERS))
+    return dict(TP_MESHES[mode], mcfg=dataclasses.replace(M7C_125M, n_layers=TP4_LAYERS))
 
 
 def stage_tcfg(st: dict):
     return dataclasses.replace(M7C_125M_TRAIN, batch_size=B_POD * st["dp"], seq_len=S_POD,
-                               dp=st["dp"], sp=st["sp"], pp=st["pp"],
+                               dp=st["dp"], sp=st["sp"], pp=st["pp"], tp=st["tp"],
                                pp_microbatches=PP_M if st["pp"] > 1 else 0, fsdp=st["fsdp"],
                                varlen=st["varlen"])
 
@@ -4086,7 +4144,8 @@ def reference_run(dev, st: dict, tag: str, grads: bool) -> dict:
     (warm-up + POD_STEPS + the step after them) and mean step ms, and with
     `grads` the f32 first gradient (W_qkv split), saved for the ranks to
     compare with."""
-    mcfg, tcfg = st["mcfg"], dataclasses.replace(stage_tcfg(st), dp=0, sp=1, pp=1, fsdp=False)
+    mcfg, tcfg = st["mcfg"], dataclasses.replace(stage_tcfg(st), dp=0, sp=1, pp=1, tp=1,
+                                                 fsdp=False)
     rows = B_POD * st["dp"]
     batches = stage_batches(st, POD_STEPS + 2, dev)
     state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(0),
@@ -4118,18 +4177,29 @@ def reference_run(dev, st: dict, tag: str, grads: bool) -> dict:
         g = loss_and_grads(params, b[0][0], m32, seq_start=b[1][0], loss_mask=b[2][0])[1] \
             if st["varlen"] else loss_and_grads(params, b[0], m32)[1]
         path = os.path.join(PAR_DIR, f"ref_grads_{tag}.pt")
-        if st["pp"] > 1:
-            # the same rows in the pipeline's micro-batches, gradients summed
-            # over them (the global mean: every micro-batch holds as many
-            # tokens); the reference the pp ranks are held to
-            M = stage_tcfg(st).pp_microbatches
-            parts = [loss_and_grads(params, t, m32)[1] for t in b[0].chunk(M)]
+        if st["pp"] > 1 or st["tp"] > 1:
+            # the same rows in the pipeline's micro-batches (under tp with dp,
+            # in the dp members' rows), each tp member's slice of every block
+            # its own call (tp_split_grads), gradients summed over the chunks
+            # (the global mean: every chunk holds as many tokens); the
+            # reference the ranks are held to
+            M = stage_tcfg(st).pp_microbatches if st["pp"] > 1 else st["dp"]
+            if st["tp"] > 1:
+                vl = dict(seq_start=b[1][0], loss_mask=b[2][0]) if st["varlen"] else {}
+                if vl and M > 1:
+                    raise ValueError(f"{tag}: the reference splits no packed batch")
+                parts = [tp_split_grads(params, t, m32, st["tp"], **vl)
+                         for t in (b[0][0] if vl else b[0]).chunk(M)]
+            else:
+                parts = [loss_and_grads(params, t, m32)[1] for t in b[0].chunk(M)]
             split = [sum(gs) / M for gs in zip(*parts)]
             errs = [float((a - w).norm() / w.norm()) for (_, a), (_, w) in
                     zip(split_qkv(names, split), split_qkv(names, g))]
             i = int(np.argmax(errs))
-            print(f"[{tag}] one process, f32 first gradient over {M} micro-batches of "
-                  f"{rows // M} rows vs one call of {rows}: worst leaf {errs[i]:.3e} "
+            print(f"[{tag}] one process, f32 first gradient over {M} chunk(s) of "
+                  f"{rows // M} rows" + (f", each tp member's slice its own call"
+                                         if st["tp"] > 1 else "")
+                  + f", vs one call of {rows}: worst leaf {errs[i]:.3e} "
                   f"({split_qkv(names, g)[i][0]})")
             torch.save([(n, t.cpu()) for n, t in split_qkv(names, g)],
                        path.replace(".pt", "_whole.pt"))
@@ -4142,6 +4212,62 @@ def reference_run(dev, st: dict, tag: str, grads: bool) -> dict:
           f"{' packed' if st['varlen'] else ''}: step {mean:.3f} ms, "
           f"{mfu_text(rows, S_POD, mean, mcfg)}; losses {', '.join(f'{v:.4f}' for v in losses)}")
     return {"losses": losses, "step_ms": mean, "grads": path}
+
+
+def tp_split_grads(params, toks, mcfg, tp: int, seq_start=None, loss_mask=None) -> list:
+    """One process computing what tp members compute, for the reference of
+    the tp settings: each block's slice of member k (mesh.tp_shard's,
+    G/tp groups and 1/tp of the hidden dim) run as its own call on the
+    block's normed input, the members' partial outputs summed in member
+    order (as the all-reduce sums them, in the model dtype), blocks
+    recomputed in the backward as remat does. Returns the gradients of the
+    mean cross entropy of toks [B, S+1] (packed documents under
+    seq_start, loss_mask) with respect to params' leaves (param_leaves
+    order; a tp-sharded leaf's assembled from its members', W_qkv
+    projection by projection). The members' GEMMs have the ranks' shapes,
+    so their rounding, and the selections it may tip, are the ranks'."""
+    named = param_leaves(params)
+    members = [pmesh.tp_shard(params, types.SimpleNamespace(tp=tp, tp_rank=k))
+               for k in range(tp)]
+    local = [[t for _, t in param_leaves(m)] for m in members]
+    for leaves in local:
+        for (k, _), t in zip(named, leaves):
+            if pmesh.tp_axis(k) is not None:
+                t.requires_grad_(True)
+    lcfg = tp_local(mcfg.nsa, tp)
+    eps = mcfg.rmsnorm_eps
+
+    def block(x, bps):
+        h = rmsnorm(x, bps[0]["attn_norm"], eps)
+        outs = [nsa_prefill(bp["attn"], h, lcfg, seq_start=seq_start)[0] for bp in bps]
+        x = x + functools.reduce(torch.add, outs)
+        h = rmsnorm(x, bps[0]["mlp_norm"], eps)
+        return x + functools.reduce(torch.add, [mlp(bp["mlp"], h) for bp in bps])
+
+    with torch.enable_grad():
+        x = embed(params, toks[:, :-1], mcfg)
+        for i in range(mcfg.n_layers):
+            x = checkpoint(block, x, [m["blocks"][i] for m in members], use_reentrant=False)
+        loss = cross_entropy_loss(head(params, x, mcfg), toks[:, 1:], mask=loss_mask)
+        inputs = [t for (k, t) in named if pmesh.tp_axis(k) is None]
+        inputs += [t for leaves in local for (k, _), t in zip(named, leaves)
+                   if pmesh.tp_axis(k) is not None]
+        got = dict(zip(map(id, inputs), torch.autograd.grad(loss, inputs)))
+    widths = pts._tp_widths(members[0])
+    out = []
+    for i, (k, t) in enumerate(named):
+        ax = pmesh.tp_axis(k)
+        if ax is None:
+            out.append(got[id(t)])
+            continue
+        parts = [got[id(leaves[i])] for leaves in local]
+        w = widths[i]
+        if w is None:
+            out.append(torch.cat(parts, dim=ax))
+        else:   # projection j of every member, in order, then the next projection
+            out.append(torch.cat([torch.cat([p.split(w, dim=ax)[j] for p in parts], dim=ax)
+                                  for j in range(len(w))], dim=ax))
+    return out
 
 
 def stage_launches(mesh, mcfg, M: int, keys=None) -> dict:
@@ -4212,21 +4338,121 @@ def unsummed_top_grads():
         pts._sum_grads_ = real
 
 
+@contextlib.contextmanager
+def dropped_tp_copy():
+    """copy_to_tp as the identity both ways: its backward all-reduce over tp
+    dropped, so a sub-block's input gradient covers this member's KV
+    groups (or hidden slice) only: a fault the tp gradient check must
+    catch."""
+    real = pctx.copy_to_tp
+    pctx.copy_to_tp = lambda x, mesh: x
+    try:
+        yield
+    finally:
+        pctx.copy_to_tp = real
+
+
+@contextlib.contextmanager
+def unsummed_group_grads():
+    """The gate's (and conv ϕ's) gradients not summed over tp, each member
+    keeping its own groups' share: a fault the tp gradient check must
+    catch."""
+    real = pts.per_group
+    pts.per_group = lambda name: False
+    try:
+        yield
+    finally:
+        pts.per_group = real
+
+
+@contextlib.contextmanager
+def top_grads_over_tp(mesh):
+    """The replicated top-level leaves' gradients summed over the world, so
+    over the tp members too, which each computed them whole: a fault the tp
+    gradient check must catch."""
+    real = pts._sum_grads_
+    pts._sum_grads_ = lambda grads, group: real(grads, None if group is mesh.slice_group
+                                                else group)
+    try:
+        yield
+    finally:
+        pts._sum_grads_ = real
+
+
+@contextlib.contextmanager
+def whole_qkv_gather(state):
+    """A fused W_qkv gathered over tp whole, as one projection (the members'
+    projections interleaved in the saved leaf): a fault the tp checkpoint
+    check must catch."""
+    real = state.tp_widths
+    state.tp_widths = [None] * len(real)
+    try:
+        yield
+    finally:
+        state.tp_widths = real
+
+
+# the planted faults of each setting's f32 gradient check (each takes the mesh)
+STAGE_FAULTS = {
+    "varlen-sp": {"win_bwd_diag without seq_start": lambda mesh: dropped_ds("win_bwd_diag")},
+    "pp": {"activation gradient sent back zeroed": zeroed_sent_grads,
+           "micro-batches 0 and 1 swapped on the last stage": swapped_microbatches,
+           "top-level gradients not summed over pp": lambda mesh: unsummed_top_grads()},
+    "tp": {"(a) copy_to_tp's backward all-reduce dropped": lambda mesh: dropped_tp_copy(),
+           "(b) gate gradients not summed over tp": lambda mesh: unsummed_group_grads(),
+           "(c) top-level gradients summed over tp as well": top_grads_over_tp},
+}
+
+
+def weighted_sum(t: torch.Tensor) -> float:
+    """sum_i (i + 1) t_i in float64 over t's elements in order: equal for
+    equal tensors of one shape, and moved by a permutation."""
+    v = t.detach().reshape(-1).double()
+    return float((v * torch.arange(1, v.numel() + 1, device=v.device, dtype=torch.float64)).sum())
+
+
+def tp_ckpt_save(state, mesh, step, batch) -> dict:
+    """(k-tp), on each rank: a checkpoint of the state saved under the mesh
+    (a collective; rank 0 writes), and one saved with W_qkv gathered whole
+    (whole_qkv_gather, the planted fault); the weighted sums of this rank's
+    own leaves and moments (its tp slices), with their tp axes and W_qkv
+    widths; then the loss of the next step on `batch`."""
+    dirs = {"saved": os.path.join(PAR_DIR, "tp_ckpt"),
+            "(d) W_qkv gathered over tp whole": os.path.join(PAR_DIR, "tp_ckpt_whole")}
+    if mesh.rank == 0:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    save_checkpoint(dirs["saved"], int(state.step), state, mesh=mesh)
+    with whole_qkv_gather(state):
+        save_checkpoint(dirs["(d) W_qkv gathered over tp whole"], int(state.step), state,
+                        mesh=mesh)
+    local = [t for _, t in param_leaves(state.params)]
+    out = {"dirs": dirs, "step": int(state.step), "tp_rank": mesh.tp_rank,
+           "axes": state.tp_axes, "widths": state.tp_widths,
+           "sums": [weighted_sum(t) for t in local + state.opt_state["mu"]
+                    + state.opt_state["nu"]]}
+    _, m = step(state, batch)
+    out["next_loss"] = float(m["loss"])
+    return out
+
+
 def stage_worker(mode: str) -> None:
-    """One rank of a phase (j) setting (stage_setting): the m7c step (bf16,
-    remat, default keys) on the setting's batches, warm-up + POD_STEPS
-    timed steps, launch counts, the bytes sent stage to stage, a traced
-    step; in varlen-sp one step under each of DESIGNS' onepass and twopass
-    keys, the cross-document check at the shard boundary and the 64k long
-    route's forward; in varlen-sp and pp the f32 first gradient (gathered
-    whole) against one process's, with planted faults. Writes
-    PAR_DIR/<mode>_rank<r>.json."""
+    """One rank of a phase (j) or (k) setting (stage_setting): the m7c step
+    (bf16, remat, default keys) on the setting's batches, warm-up +
+    POD_STEPS timed steps, launch counts, the bytes sent stage to stage and
+    all-reduced over tp, peak memory, a traced step; in varlen-sp and tp one
+    step under each of DESIGNS' onepass and twopass keys; in varlen-sp the
+    cross-document check at the shard boundary and the 64k long route's
+    forward; in tp the host syncs of a step and its checkpoints
+    (tp_ckpt_save); in GRAD_MODES the f32 first gradient (gathered whole)
+    against one process's, with the setting's planted faults (STAGE_FAULTS).
+    Writes PAR_DIR/<mode>_rank<r>.json."""
     initialize_distributed("gloo")
     dev = rank_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     st = stage_setting(mode)
     mcfg, tcfg = st["mcfg"], stage_tcfg(st)
-    mesh = make_mesh(dp=st["dp"], sp=st["sp"], pp=st["pp"])
+    mesh = make_mesh(dp=st["dp"], sp=st["sp"], tp=st["tp"], pp=st["pp"])
     lead = mesh.rank == 0
     tag = f"{mode} rank {mesh.rank}"
     M = tcfg.pp_microbatches if mesh.pp > 1 else 1
@@ -4236,8 +4462,10 @@ def stage_worker(mode: str) -> None:
     state, m = step(state, batches[0])                                # warm-up
     losses = [m["loss"]]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     pipeline.SENT["bytes"] = 0
+    pmesh.TP_REDUCED["bytes"] = 0
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(POD_STEPS + 1)]
     ev[0].record()
     for i in range(POD_STEPS):
@@ -4247,13 +4475,15 @@ def stage_worker(mode: str) -> None:
     torch.cuda.synchronize()
     counts = train_counts()
     sent = pipeline.SENT["bytes"] / POD_STEPS
+    reduced = pmesh.TP_REDUCED["bytes"] / POD_STEPS
+    peak = torch.cuda.max_memory_allocated()
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(POD_STEPS)]
     want = {k: v * POD_STEPS for k, v in stage_launches(mesh, mcfg, M).items()}
     print(f"[{tag}] launches over {POD_STEPS} steps: {counts}; expected {want}", flush=True)
     if counts != want:
         fail(f"{tag}: launch counts {counts} != {want}")
     runs = [counts]
-    if mode == "varlen-sp":   # the other designs' kernels on packed rows at the offset
+    if mode in ("varlen-sp", "tp"):   # the other designs' kernels, one step each
         for label in ("onepass", "twopass"):
             with design_keys(DESIGNS[label]):
                 kernels.reset_launch_counts()
@@ -4264,30 +4494,30 @@ def stage_worker(mode: str) -> None:
                 fail(f"{tag}: {label} launch counts {c}")
             runs.append(c)
     mean_ms = float(np.mean(step_ms))
-    busy = trace(lambda: step(state, batches[1]), 1, f"{tag} step", mean_ms)["busy"]
     res = {"losses": [float(v) for v in losses], "step_ms": step_ms, "mean_ms": mean_ms,
-           "busy": busy, "runs": runs, "sent": sent, "layers": list(state.layers)}
+           "runs": runs, "sent": sent, "tp_reduced": reduced, "peak": peak,
+           "layers": list(state.layers)}
+    if mode == "tp":
+        res["syncs"] = host_syncs(lambda: step(state, batches[1]), tag)
+    res["busy"] = trace(lambda: step(state, batches[1]), 1, f"{tag} step", mean_ms)["busy"]
     if mode == "varlen-sp":
         res.update(docs_boundary_checks(state, mcfg, mesh, dev))
+    if mode == "tp":
+        res["ckpt"] = tp_ckpt_save(state, mesh, step, batches[-1])
     del state, step
     torch.cuda.empty_cache()
-    if mode in ("varlen-sp", "pp"):
+    if mode in GRAD_MODES:
         m32 = dataclasses.replace(mcfg, dtype="float32")
         t32 = dataclasses.replace(tcfg, gate_stats=False)
         st32 = build_state(init_model_params(m32, torch.Generator().manual_seed(0), device=dev),
                            t32, mesh)
         names = [k for k, _ in param_leaves(st32.full_template)]
         ref = torch.load(os.path.join(PAR_DIR, f"ref_grads_{mode}.pt")) if lead else None
-        whole = (torch.load(os.path.join(PAR_DIR, f"ref_grads_{mode}_whole.pt"))
-                 if lead and mode == "pp" else None)
-        faults = ({"win_bwd_diag without seq_start": lambda: dropped_ds("win_bwd_diag")}
-                  if mode == "varlen-sp" else
-                  {"activation gradient sent back zeroed": lambda: zeroed_sent_grads(mesh),
-                   "micro-batches 0 and 1 swapped on the last stage":
-                       lambda: swapped_microbatches(mesh),
-                   "top-level gradients not summed over pp": unsummed_top_grads})
+        whole_path = os.path.join(PAR_DIR, f"ref_grads_{mode}_whole.pt")
+        whole = torch.load(whole_path) if lead and os.path.exists(whole_path) else None
+        faults = STAGE_FAULTS.get(mode, {})
         for label, plant in [("base", contextlib.nullcontext)] + list(faults.items()):
-            with plant():
+            with plant(mesh):
                 grads = grads_and_stats(st32, m32, t32, mesh, batches[0])[1]
             full = gather_full(st32, mesh, grads)
             for key, want in (("grad_err", ref), ("grad_err_whole", whole)):
@@ -4352,11 +4582,12 @@ def docs_boundary_checks(state, mcfg, mesh, dev) -> dict:
 
 
 def stage_report(mode: str, ranks: list, ref: dict, st: dict) -> None:
-    """Prints a phase (j) setting's numbers (per-rank step ms, busy and
-    idle, the bubble fraction, launches per stage, bytes sent stage to
-    stage per step, MFU) and holds its losses to one process's (LOSS_TOL)
-    and, where measured, its f32 first gradient (STEP_GRAD_TOL, each
-    planted fault beyond it)."""
+    """Prints a phase (j) or (k) setting's numbers (per-rank step ms, busy
+    and idle, peak memory, the bubble fraction, launches per stage, bytes
+    sent stage to stage and all-reduced over tp per step, MFU), holds the
+    bytes all-reduced over tp to tp_bytes, and holds its losses to one
+    process's (LOSS_TOL) and, where measured, its f32 first gradient
+    (STEP_GRAD_TOL, each planted fault beyond it)."""
     mcfg = st["mcfg"]
     rows = B_POD * st["dp"]
     pp, M = st["pp"], PP_M if st["pp"] > 1 else 1
@@ -4364,12 +4595,21 @@ def stage_report(mode: str, ranks: list, ref: dict, st: dict) -> None:
         mean = res["mean_ms"]
         print(f"[{mode}] rank {r} (layers {res['layers'][0]}..{res['layers'][-1]}): step ms "
               f"{', '.join(f'{v:.2f}' for v in res['step_ms'])}; mean {mean:.3f} ms; busy "
-              f"{res['busy']:.3f} ms, idle share {1 - res['busy'] / mean:.3f}; launches a step "
+              f"{res['busy']:.3f} ms, idle share {1 - res['busy'] / mean:.3f}; peak "
+              f"{res['peak'] / 2**30:.2f} GiB; launches a step "
               + str({k: v // POD_STEPS for k, v in res["runs"][0].items() if v})
-              + f"; bytes sent to stage neighbours a step {res['sent']:.0f}")
+              + f"; bytes sent to stage neighbours a step {res['sent']:.0f}"
+              + (f"; bytes all-reduced over tp a step {res['tp_reduced']:.0f}"
+                 if st["tp"] > 1 else ""))
+    if st["tp"] > 1:
+        want = tp_bytes(mcfg, len(ranks[0]["layers"]), rows // st["dp"], S_POD // st["sp"])
+        print(f"[{mode}] bytes a rank all-reduces over tp a step, from the code (tp_bytes): "
+              f"{want}; measured {sorted({int(res['tp_reduced']) for res in ranks})}")
+        if any(res["tp_reduced"] != want for res in ranks):
+            fail(f"{mode}: the bytes all-reduced over tp differ from tp_bytes' {want}")
     mean = float(np.mean([res["mean_ms"] for res in ranks]))
     print(f"[{mode}] {mcfg.n_layers}-layer m7c bf16 {rows} x {S_POD} over {len(ranks)} ranks "
-          f"(dp {st['dp']}, pp {pp}, sp {st['sp']}{', fsdp' if st['fsdp'] else ''}"
+          f"(dp {st['dp']}, pp {pp}, sp {st['sp']}, tp {st['tp']}{', fsdp' if st['fsdp'] else ''}"
           f"{', varlen' if st['varlen'] else ''}{f', M {M}' if pp > 1 else ''}) time-sharing the "
           f"one card over gloo: mean step {mean:.3f} ms (one process on the same batch: "
           f"{ref['step_ms']:.3f} ms); bubble fraction (pp-1)/(M+pp-1) {(pp - 1) / (M + pp - 1):.3f}"
@@ -4389,6 +4629,7 @@ def stage_report(mode: str, ranks: list, ref: dict, st: dict) -> None:
         errs = res["grad_err"]
         print(f"[{mode}] f32 first gradient vs one process"
               + (f" on the same {M} micro-batches" if pp > 1 else "")
+              + (" computing each tp member's slice as its own call" if st["tp"] > 1 else "")
               + ", worst leaf ||g - g_1|| / ||g_1||: "
               + "; ".join(f"{k} {v[0]:.3e} ({v[1]})" for k, v in errs.items())
               + f" (bound {STEP_GRAD_TOL:g}; each planted fault must exceed it)")
@@ -4447,7 +4688,7 @@ def docs_rows(rec, rank1) -> list:
     x = rec["inputs"]
     cfg, sc, t0, ds = x["cfg"], x["scale"], x["t0"], x["ds"]
     runs, long_counts = rank1["runs"], rank1["long"]["counts"]
-    L = M7C_125M.n_layers
+    L = PAR_LAYERS
     out = [select_cmp_row("select_cmp@docs-offset", x, lse=True, launches=runs[0]["select_cmp"],
                           max_err=rec["select_cmp@docs-offset"])]
     for mode in ("win", "cmp"):
@@ -4481,6 +4722,166 @@ def docs_rows(rec, rank1) -> list:
     print_rows(out)
     return out + measure_train({**rec, "inputs": x}, runs, DOCS_BWD,
                                calls=offset_bwd_calls(x), suffix="@docs-offset")
+
+
+# ------------------------------------------------------------------ (k)
+# Tensor parallelism (parallel/mesh.py: tp_shard, copy_to_tp,
+# reduce_from_tp). As in (i) and (j), the ranks time-share the one card
+# over gloo, which stages the all-reduces through host memory: per-rank
+# costs on one card, not tp scaling.
+
+TP = 2                    # (k-tp): each member holds 1 of m7c's 2 KV groups (h = 6, D = 64)
+TP4_LAYERS = 4            # (k-mesh)'s depth (full width)
+TP_MESHES = {"tp-dp-fsdp": dict(dp=2, pp=1, sp=1, tp=TP, fsdp=True, varlen=False),
+             "tp-sp-varlen": dict(dp=1, pp=1, sp=2, tp=TP, fsdp=False, varlen=True),
+             "pp-tp": dict(dp=1, pp=PP, sp=1, tp=TP, fsdp=False, varlen=False)}
+GRAD_MODES = ("varlen-sp", "pp", "tp", *TP_MESHES)
+TP_BWD = TWO_PASS + tuple(PARTNERS)
+DRYRUN_RANKS = 8
+DRYRUN_ARGS = ("--device", "cuda:0", "--backend", "gloo")   # every rank on the one card
+DRYRUN_LINE = (r"^dryrun_multichip\(8\): mesh 4x2 ok, loss=\d+\.\d{4}; pp train ok; pp x sp train "
+               r"ok; pp x tp train ok; pp x sp x tp train ok; cp prefill sp=8 ok$")
+
+
+def tp_bytes(mcfg, layers: int, rows: int, seq: int) -> int:
+    """The bytes a tp member all-reduces over tp in one step, from the
+    code: each of its `layers` blocks' two sub-blocks all-reduces its
+    [rows, seq, dim] partial output forward (reduce_from_tp) and its normed
+    input's gradient backward (copy_to_tp's backward), in the model dtype;
+    under full remat the recompute runs the attention's all-reduce again
+    but not the MLP's, as torch.utils.checkpoint stops recomputing once the
+    tensors the backward saved are back (its early stop, on by default) and
+    nothing after the MLP's all-reduce saves one."""
+    early = torch.utils.checkpoint._enable_checkpoint_early_stop
+    recompute = (0 if mcfg.remat not in (True, "full") else 1 if early in (None, True) else 2)
+    return layers * (4 + recompute) * rows * seq * mcfg.nsa.dim * torch_dtype(mcfg.dtype).itemsize
+
+
+def tp_ckpt_check(dev, ranks, st) -> None:
+    """(k-tp): the checkpoints saved under tp restored on one process: the
+    one saved as the code saves must give each rank's own slices (tp_slice
+    of each restored leaf and moment, a W_qkv projection by projection) with
+    the weighted sums the rank took of its leaves, and the next step's loss
+    within LOSS_TOL of the ranks'; the one saved with W_qkv gathered whole
+    must not give them."""
+    mcfg, tcfg = st["mcfg"], dataclasses.replace(stage_tcfg(st), tp=1)
+    batch = stage_batches(st, POD_STEPS + 2, dev)[-1]
+    ck0 = ranks[0]["ckpt"]
+    for label, d in ck0["dirs"].items():
+        state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(1),
+                                                   device=dev), tcfg)
+        restore_checkpoint(d, state)
+        ts = [t for _, t in param_leaves(state.params)]
+        ts += state.opt_state["mu"] + state.opt_state["nu"]
+        wrong = 0
+        for res in ranks:
+            ck = res["ckpt"]
+            for t, a, w, want in zip(ts, ck["axes"] * 3, ck["widths"] * 3, ck["sums"]):
+                if a is not None:
+                    t = pmesh.tp_slice(t, a, ck["tp_rank"], TP,
+                                       None if w is None else [x * TP for x in w])
+                wrong += weighted_sum(t) != want
+        if label == "saved":
+            _, m = make_train_step(mcfg, tcfg)(state, batch)
+            gap = abs(float(m["loss"]) - ck0["next_loss"])
+            print(f"[tp] checkpoint of step {ck0['step']} saved under tp {TP}, restored on one "
+                  f"process: leaves and moments that differ from a rank's own slices: {wrong} "
+                  f"of {len(ts) * len(ranks)} (must be 0); next step's loss "
+                  f"{float(m['loss']):.4f} vs the ranks' {ck0['next_loss']:.4f} (gap "
+                  f"{gap:.3e}, bound LOSS_TOL)")
+            if wrong or not gap <= LOSS_TOL:
+                fail("tp checkpoint: the restored state or the next loss differs from the ranks'")
+        else:
+            print(f"[tp] planted fault {label}: leaves and moments that differ from a rank's "
+                  f"own slices after restoring: {wrong} (must be > 0)")
+            if not wrong:
+                fail(f"tp checkpoint: the planted fault {label} passes")
+        del state, ts
+        torch.cuda.empty_cache()
+
+
+def phase_dryrun() -> None:
+    """(k-dryrun): parallel/dryrun.py under torch.distributed.run, eight
+    ranks on the one card over gloo (every mesh of the JAX dry run, pp x sp
+    x tp among them, each step's loss held to one process's); its tail
+    line must be the JAX run's."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={DRYRUN_RANKS}", "-m", "nsa_vibe_tpu_torch.parallel.dryrun",
+           *DRYRUN_ARGS]
+    print(f"[dryrun] launching {DRYRUN_RANKS} ranks on the one card over gloo: "
+          f"{' '.join(cmd[1:])}", flush=True)
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, start_new_session=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        out, rc = proc.communicate(timeout=PAR_TIMEOUT_S)[0], proc.returncode
+    except subprocess.TimeoutExpired:
+        out, rc = "", None
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    lines = [ln for ln in (out or "").splitlines() if ln.startswith(("[dryrun]", "dryrun_"))]
+    print("\n".join(lines))
+    print(f"[dryrun] ranks exited with {rc} after {time.perf_counter() - t:.1f} s")
+    if rc != 0 or not any(re.match(DRYRUN_LINE, ln) for ln in lines):
+        print((out or "")[-4000:])
+        fail(f"dryrun_multichip({DRYRUN_RANKS}) failed (exit {rc}) or printed another tail line")
+
+
+def tp_rows(rec, runs) -> list:
+    """The JSON rows of rows 1, 2, 3 (forward) and 7, 8, 9, 10, 11
+    (backward) at the tp member's shape (G = 1, h = 6, D = 64, 8 x 4096,
+    bf16), launches from the tp rank's steps under each design (`runs`)."""
+    x = rec["inputs"]
+    cfg = x["cfg"]
+    sargs, wargs = (x["Q"], x["K"], x["V"], x["sel"], x["t"]), (x["Q"], x["Kw"], x["Vw"])
+    out = [select_cmp_row("select_cmp@tp", x, lse=True, launches=runs[0]["select_cmp"],
+                          max_err=x["cmp_fwd_err"]),
+           sel_attn_row("sel_attn@tp", *sargs, launches=runs[0]["sel_attn"],
+                        max_err=x["sel_fwd_err"]),
+           band_row("win_attn@tp", lambda: win_attn(*wargs, w=cfg.w, scale=x["scale"],
+                                                    return_lse=True), *wargs,
+                    mode="win", kw=dict(w=cfg.w), lse=True, launches=runs[0]["win_attn"],
+                    max_err=x["win_fwd_err"], iters=10)]
+    print_rows(out)
+    return out + measure_train(rec, runs, TP_BWD, suffix="@tp")
+
+
+def phase_tp(dev) -> list:
+    """Phase (k): (k-kernels) rows 1, 2, 3, 7, 8, 9, 10 and 11 at the tp
+    member's shape in this process; (k-tp) two ranks, tp = 2, m7c at full
+    width and depth on the pod shape, and (k-mesh) four ranks at TP4_LAYERS
+    layers (TP_MESHES), each held to one process on the same global
+    batches; (k-tp)'s checkpoints; (k-dryrun). Returns the JSON rows of the
+    tp member's kernels."""
+    t0 = time.perf_counter()
+    os.makedirs(PAR_DIR, exist_ok=True)
+    krec = phase_train_kernels(dev, TP_BWD, seed=1357, cfg=tp_local(M7C_125M.nsa, TP),
+                               rows=B_POD, seq=S_POD, tag="tp")
+    print(f"[tp] (k-kernels) rows 1, 2, 3, 7, 8, 9, 10, 11 at the tp member's shape (G = 1, "
+          f"h = 6, D = 64, {B_POD} x {S_POD}), f32 and bf16: within their bounds, planted faults "
+          f"failing, two launches identical ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    results = {}
+    for mode, n in (("tp", TP), *((k, 4) for k in TP_MESHES)):
+        st = stage_setting(mode)
+        ref = reference_run(dev, st, mode, grads=True)
+        torch.cuda.empty_cache()
+        results[mode] = ranks = run_ranks(mode, n)
+        stage_report(mode, ranks, ref, st)
+        if mode == "tp":
+            tp_ckpt_check(dev, ranks, st)
+        for p in (ref["grads"], ref["grads"].replace(".pt", "_whole.pt")):
+            if os.path.exists(p):
+                os.remove(p)
+        print(f"[tp] {mode} done at {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_dryrun()
+    rows = tp_rows(krec, results["tp"][0]["runs"])
+    del krec
+    torch.cuda.empty_cache()
+    print(f"[tp] phase (k): {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def _leaves(tree, key=None):
@@ -4554,6 +4955,8 @@ def main() -> int:
     rows += phase_parallel(dev)
     torch.cuda.empty_cache()
     rows += phase_stages(dev)
+    torch.cuda.empty_cache()
+    rows += phase_tp(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

@@ -8,7 +8,7 @@ version). So is `varlen_exact`: the port's avg ϕ is always window-exact
 `varlen_exact=True` (train/trainer.py::load_config accepts that key and
 refuses `false`). `TrainConfig` is the JAX trainer's configuration, with
 `varlen` packed-document batching (ops/varlen.py) and the parallel axes
-dp, sp, pp and fsdp (parallel/; tp is not ported yet).
+dp, sp, pp, tp and fsdp (parallel/).
 """
 
 from __future__ import annotations
@@ -97,10 +97,11 @@ class TrainConfig:
     # seq_start, loss_mask); no attention crosses a document boundary
     varlen: bool = False
     # parallelism (parallel/): batch rows over dp ranks (0 = world // (pp
-    # sp)), query positions over sp ranks, blocks over pp pipeline stages
-    # (GPipe over pp_microbatches micro-batches, 0 = pp), fsdp shards
-    # parameters and moments over dp (leaves with an axis of at least
-    # fsdp_min_size); tp > 1 is not ported (it raises)
+    # sp tp)), query positions over sp ranks, blocks over pp pipeline
+    # stages (GPipe over pp_microbatches micro-batches, 0 = pp), KV groups
+    # and the MLP hidden dim over tp ranks (tp must divide both), fsdp
+    # shards parameters and moments over dp (leaves with an axis of at
+    # least fsdp_min_size)
     dp: int = 0
     tp: int = 1
     sp: int = 1

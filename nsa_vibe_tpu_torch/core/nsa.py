@@ -28,10 +28,17 @@ Parameters are a dict with the JAX package's keys, weights [in, out]
 applied as x @ W, plus "W_qkv": the seven projection weights concatenated
 once at construction (`fuse_projections`), whose column slices the seven
 per-branch entries are (views, no second copy).
+
+Tensor parallelism (parallel/mesh.py): a tp member runs nsa_prefill on
+`tp_local(cfg, tp)` (G/tp KV groups, n_heads/tp heads) with its slices of
+the projections (its W_qkv fuses them, in PROJ_KEYS order) and the rows of
+W_O for its heads, so `combine_branches` returns its partial W_O product;
+the caller sums the partials over tp. At tp = 1 nothing changes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -49,6 +56,16 @@ from nsa_vibe_tpu_torch.ops.varlen import select_topn_blocks_varlen
 from nsa_vibe_tpu_torch.utils.device import resolve_device
 
 PROJ_KEYS = ("W_Q", "W_K_sel", "W_V_sel", "W_K_win", "W_V_win", "W_K_cmp", "W_V_cmp")
+
+
+def tp_local(cfg: NSAConfig, tp: int) -> NSAConfig:
+    """The attention configuration of one of tp members: n_kv_groups / tp
+    groups, each with its h_per_group heads (the JAX pipeline's
+    dataclasses.replace)."""
+    if tp == 1:
+        return cfg
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                               n_kv_groups=cfg.n_kv_groups // tp)
 
 
 def uniform_linear(generator: torch.Generator, fan_in: int, fan_out: int, dtype,
@@ -132,7 +149,9 @@ def project_qkv(params: dict, x: torch.Tensor, cfg: NSAConfig, fused: bool = Tru
 def combine_branches(params: dict, cfg: NSAConfig, Q: torch.Tensor, O_cmp: torch.Tensor,
                      O_sel: torch.Tensor, O_win: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gate over the group-mean-pooled query, weighted branch sum, output
-    projection. Q: [B,S,G,h,Dk]; O_*: [B,S,G,h,Dv]. Returns (out, gates)."""
+    projection. Q: [B,S,G,h,Dk]; O_*: [B,S,G,h,Dv]. Returns (out, gates);
+    with a tp member's G groups and rows of W_O, out is its partial
+    product."""
     B, S = Q.shape[:2]
     gates = gate_probs(params["gate"], Q.mean(dim=3), cfg.gate_temp,
                        force_branch=cfg.force_branch, force_uniform=cfg.force_uniform_gate)

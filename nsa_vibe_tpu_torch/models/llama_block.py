@@ -45,18 +45,25 @@ def init_block_params(generator: torch.Generator, mcfg: ModelConfig, dtype, devi
 
 def block_prefill(params: dict, x: torch.Tensor, mcfg: ModelConfig, seq_start=None,
                   t0: int = 0, gather_kv: Optional[Callable] = None,
-                  seq_start_kv=None) -> Tuple[torch.Tensor, dict]:
+                  seq_start_kv=None, tp_in: Optional[Callable] = None,
+                  tp_out: Optional[Callable] = None) -> Tuple[torch.Tensor, dict]:
     """Pre-norm residual block, batched prefill (seq_start [B,S]: packed
     documents, ops/varlen.py; t0, gather_kv, seq_start_kv: sequence
-    sharding, see core/nsa.py::nsa_prefill). Returns (y, attn aux)."""
-    attn_out, aux = nsa_prefill(params["attn"], rmsnorm(x, params["attn_norm"], mcfg.rmsnorm_eps),
+    sharding, see core/nsa.py::nsa_prefill). Tensor parallelism
+    (parallel/mesh.py): with a tp member's slice of the weights and mcfg's
+    tp-local attention, `tp_in` (copy_to_tp) takes each sub-block's normed
+    input and `tp_out` (reduce_from_tp) its partial output before the
+    residual add. Returns (y, attn aux)."""
+    tin, tout = tp_in or (lambda a: a), tp_out or (lambda a: a)
+    attn_out, aux = nsa_prefill(params["attn"],
+                                tin(rmsnorm(x, params["attn_norm"], mcfg.rmsnorm_eps)),
                                 mcfg.nsa, seq_start=seq_start, t0=t0, gather_kv=gather_kv,
                                 seq_start_kv=seq_start_kv)
-    x = x + attn_out
-    h = rmsnorm(x, params["mlp_norm"], mcfg.rmsnorm_eps)
+    x = x + tout(attn_out)
+    h = tin(rmsnorm(x, params["mlp_norm"], mcfg.rmsnorm_eps))
     if mcfg.remat == "mlp" and torch.is_grad_enabled():
-        return x + checkpoint(mlp, params["mlp"], h, use_reentrant=False), aux
-    return x + mlp(params["mlp"], h), aux
+        return x + tout(checkpoint(mlp, params["mlp"], h, use_reentrant=False)), aux
+    return x + tout(mlp(params["mlp"], h)), aux
 
 
 def block_decode_step(params: dict, x: torch.Tensor, cache: NSACache, mcfg: ModelConfig,

@@ -18,6 +18,13 @@ t0) and the whole rows' (ϕ's document-local pooling positions of every
 key) to nsa_prefill (`varlen_kwargs`), as the JAX package's
 nsa_attention_cp_local takes seq_start_full.
 
+Tensor parallelism (parallel/mesh.py): `run_blocks` hands each block
+the tp-local attention configuration (core/nsa.py::tp_local) and the tp
+hooks, copy_to_tp and reduce_from_tp, beside the sp and varlen arguments,
+so one call serves dp x sp x tp (a rank's K/V gathers over sp move its
+own KV groups only), and gathers the per-layer gates and selections over
+tp on the group axis, so the gate stats see every group.
+
 Every rank must run the same collectives in the same order: under remat
 a block's forward (with its gathers) is recomputed in the backward on
 every rank, in the same order, since every rank runs the same graph.
@@ -25,16 +32,19 @@ every rank, in the same order, since every rank runs the same graph.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig
-from nsa_vibe_tpu_torch.core.nsa import nsa_prefill
+from nsa_vibe_tpu_torch.core.nsa import nsa_prefill, tp_local
 from nsa_vibe_tpu_torch.models.llama_block import block_prefill
 from nsa_vibe_tpu_torch.models.tinylm import embed, head
-from nsa_vibe_tpu_torch.parallel.mesh import Mesh, gather_along
+from nsa_vibe_tpu_torch.parallel.mesh import (
+    Mesh, copy_to_tp, gather_along, gather_dim, reduce_from_tp,
+)
 
 
 def check_shards(S: int, sp: int, l_sel: int) -> int:
@@ -78,14 +88,32 @@ def varlen_kwargs(seq_start, mesh: Mesh, S_local: int) -> dict:
     return dict(seq_start=seq_start[:, t0:t0 + S_local].contiguous(), seq_start_kv=seq_start)
 
 
+def tp_kwargs(mesh: Mesh) -> dict:
+    """block_prefill's tensor-parallel hooks on this rank ({} at tp = 1)."""
+    if mesh.tp == 1:
+        return {}
+    return dict(tp_in=lambda a: copy_to_tp(a, mesh), tp_out=lambda a: reduce_from_tp(a, mesh))
+
+
+def _gather_aux_tp(auxes: list, mesh: Mesh) -> list:
+    """The layers' gates [B,S,G/tp,3] and selections [B,S,G/tp,n] of every
+    tp member, on the group axis (one gather each, no gradient)."""
+    if mesh.tp == 1 or not auxes:
+        return auxes
+    out = [gather_dim(torch.stack([a[k].detach() for a in auxes]), 3, mesh.tp_group, mesh.tp)
+           for k in ("gates", "sel_idx")]
+    return [{"gates": g, "sel_idx": s} for g, s in zip(*out)]
+
+
 def run_blocks(blocks: list, x: torch.Tensor, mcfg: ModelConfig, mesh: Mesh,
                collect_aux: bool = False, seq_start=None,
                block: Optional[Callable] = None) -> Tuple[torch.Tensor, list]:
     """The blocks of parameter dicts `blocks` in order over
     this rank's rows x [B, S/sp, dim] -> (x, per-layer {"gates",
-    "sel_idx"} if asked). seq_start: the whole rows' [B, S] starts or
-    None. `block(i, bp)`, if given, makes the parameter dict of blocks[i]
-    inside the (remat) block, where fsdp gathers its shards
+    "sel_idx"} of every KV group if asked). seq_start: the whole rows'
+    [B, S] starts or None. Under tp the blocks are the rank's slices
+    (mesh.tp_shard). `block(i, bp)`, if given, makes the parameter dict of
+    blocks[i] inside the (remat) block, where fsdp gathers its shards
     (parallel/train_step.py). The remat contract is model_forward's:
     True/"full" recomputes each block, its collectives included, in the
     backward; "mlp" only the MLP."""
@@ -94,6 +122,9 @@ def run_blocks(blocks: list, x: torch.Tensor, mcfg: ModelConfig, mesh: Mesh,
     make = block or (lambda i, bp: bp)
     kw = sp_kwargs(mesh, x.shape[1], mcfg.nsa.l_sel) if mesh.sp > 1 else {}
     kw.update(varlen_kwargs(seq_start, mesh, x.shape[1]))
+    kw.update(tp_kwargs(mesh))
+    if mesh.tp > 1:
+        mcfg = dataclasses.replace(mcfg, nsa=tp_local(mcfg.nsa, mesh.tp))
 
     def run(i, bp, x):
         return block_prefill(make(i, bp), x, mcfg, **kw)
@@ -104,13 +135,14 @@ def run_blocks(blocks: list, x: torch.Tensor, mcfg: ModelConfig, mesh: Mesh,
         x, aux = checkpoint(run, i, bp, x, use_reentrant=False) if remat else run(i, bp, x)
         if collect_aux:
             auxes.append({"gates": aux["gates"], "sel_idx": aux["sel_idx"]})
-    return x, auxes
+    return x, _gather_aux_tp(auxes, mesh)
 
 
 def context_parallel_model_forward(params: dict, tokens: torch.Tensor, mcfg: ModelConfig,
                                    mesh: Mesh, collect_aux: bool = False, seq_start=None,
                                    block: Optional[Callable] = None) -> Tuple[torch.Tensor, list]:
-    """TinyLM forward over this rank's rows: tokens [B, S/sp] (positions
+    """TinyLM forward over this rank's rows (dp x sp x tp; under tp its
+    params hold its slice of the blocks): tokens [B, S/sp] (positions
     [t0, t0 + S/sp) of the rank's dp rows) -> (logits [B, S/sp, vocab],
     per-layer {"gates", "sel_idx"} of the local rows if asked). seq_start
     [B, S]: packed documents, the whole rows' starts (under sp every rank

@@ -21,9 +21,14 @@ Bubbles compute nothing (the JAX package computes zeros there and slices
 them away: the same math). Stage p holds blocks [p L/pp, (p+1) L/pp)
 (L % pp == 0, else it raises, as the JAX package does); embed,
 final_norm and lm_head are replicated on every stage (only stage 0's and
-the last stage's get gradient). A stage's micro-batch gradients add up in
-f32 and are cast to the leaves' dtype once. The sums over the mesh, the
-norm and the metrics are parallel/train_step.py's.
+the last stage's get gradient). Under tp each stage's tp member runs its
+slice of the stage's blocks (run_blocks' tp hooks) and sends to, and
+receives from, the member of its own tp index in the neighbouring stages;
+the per-layer gates and selections come back gathered over tp on the
+group axis (the JAX pipeline's all_gather over tp). A stage's
+micro-batch gradients add up in f32 and are cast to the leaves' dtype
+once. The sums over the mesh, the norm and the metrics are
+parallel/train_step.py's.
 """
 
 from __future__ import annotations

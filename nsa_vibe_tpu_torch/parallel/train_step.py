@@ -1,36 +1,47 @@
-"""Train step over a (dp, pp, sp) mesh: dp, fsdp, sp, pp, varlen and their
-compositions.
+"""Train step over a (dp, pp, sp, tp) mesh: dp, fsdp, sp, pp, tp, varlen
+and their compositions.
 
 Port of the mesh branches of nsa_vibe_tpu/parallel/train_step.py
-(make_train_step and build_state_and_step with a mesh, tp aside). Each
-rank gets its slice of the global batch (`local_batch`): its dp member's
-rows, and under sp its positions [t0, t0 + S/sp] (one more token, the
-last target); under varlen the whole packed rows' seq_start rides along
-(ϕ pools every key at its document-local position) and the loss mask is
-sliced like the targets. Then, per micro-batch:
+(make_train_step and build_state_and_step with a mesh). Each rank gets
+its slice of the global batch (`local_batch`): its dp member's rows, and
+under sp its positions [t0, t0 + S/sp] (one more token, the last target);
+the tp members of a (dp, pp, sp) index hold the same slice. Under varlen
+the whole packed rows' seq_start rides along (ϕ pools every key at its
+document-local position) and the loss mask is sliced like the targets.
+Then, per micro-batch:
   * the loss: each rank forms cross_entropy_numden over its rows and
     back-propagates its sum over the global token count (all-reduced under
-    varlen), so the ranks' gradients add up to the gradient of the global
-    mean, the JAX loss;
+    varlen), so the gradients of the data ranks (dp x sp) add up to the
+    gradient of the global mean, the JAX loss;
   * pp: parallel/pipeline.py runs the GPipe schedule over this stage's
     blocks (the state holds them and the replicated embed, final_norm
     and lm_head);
-  * fsdp: a sharded leaf is held as its 1/dp chunk (mesh.param_specs; under
-    pp only block leaves, as the JAX package's pipeline_param_specs) and
-    gathered over dp where its block uses it (inside the remat block, so
-    the backward gathers it again), by a gather whose backward
-    reduce-scatters over dp;
+  * tp: the state holds the rank's slice of each block (mesh.tp_shard:
+    G/tp KV groups, 1/tp of the MLP hidden dim) and the blocks run with
+    the tp hooks (parallel/context.py::run_blocks);
+  * fsdp: a sharded leaf is held as its 1/dp chunk (mesh.param_specs, on
+    the axis tp did not take; under pp only block leaves, as the JAX
+    package's pipeline_param_specs) and gathered over dp where its block
+    uses it (inside the remat block, so the backward gathers it again), by
+    a gather whose backward reduce-scatters over dp;
 after the micro-batches (grads summed, scaled by 1/accum):
   * replicated top-level leaves' gradients are all-reduced (sum) over the
-    world (under pp only stage 0's and the last stage's are not zero),
-    replicated block leaves' over the stage's dp x sp ranks, sharded
-    leaves' over sp, in one flat buffer per dtype;
-  * the global norm adds each shard's squares once (all-reduced over dp)
-    and each stage's blocks once (all-reduced over pp); `good` is formed
-    from all-reduced values, so every rank skips alike;
-    train/optim.py::apply_update_ then runs unchanged on the local leaves;
-  * gate stats and sel_k_mean are averaged over ranks (each holds as many
-    layers x rows), sel_k_max max-reduced.
+    ranks holding this tp slice (the world at tp = 1; under pp only stage
+    0's and the last stage's are not zero): every tp member computes them
+    whole. Under pp or tp replicated block leaves' go over the stage's
+    dp x sp ranks of this tp index, sharded leaves' over sp, in one flat
+    buffer per dtype; under tp the gate's and conv ϕ's then also over tp,
+    since each member's covers only its KV groups (the tp-sharded leaves
+    and the norms after copy_to_tp are whole on each member);
+  * the global norm adds each dp shard's squares once (all-reduced over
+    dp), each tp slice's once (over tp) and each stage's blocks once
+    (over pp); `good` is formed from all-reduced values, so every rank
+    skips alike; train/optim.py::apply_update_ then runs unchanged on the
+    local leaves;
+  * the loss is summed over the ranks of this tp index (each data rank's
+    share once); gate stats and sel_k_mean are averaged over them (each
+    holds as many layers x rows, of every KV group), sel_k_max
+    max-reduced.
 The host reads nothing; the collectives are the only waits.
 """
 
@@ -49,7 +60,8 @@ from nsa_vibe_tpu_torch.models.tinylm import cross_entropy_numden
 from nsa_vibe_tpu_torch.parallel import pipeline
 from nsa_vibe_tpu_torch.parallel.context import context_parallel_model_forward
 from nsa_vibe_tpu_torch.parallel.mesh import (
-    Mesh, all_reduce_, gather_along, gather_dim, param_specs, shard_of,
+    Mesh, all_reduce_, gather_along, gather_dim, gather_tp, param_specs, per_group, shard_of,
+    tp_axis, tp_shard,
 )
 from nsa_vibe_tpu_torch.train.optim import apply_update_, init_optimizer
 from nsa_vibe_tpu_torch.train.train_step import (
@@ -62,30 +74,40 @@ TOP = ("embed", "final_norm", "lm_head")
 @dataclass
 class ParallelState(TrainState):
     """TrainState of one rank: params holds the rank's leaves (under pp its
-    stage's blocks and the replicated top-level leaves; under fsdp a tree
-    of chunks, with no projection views), the moments match them. specs:
-    each leaf's fsdp axis or None (mesh.param_specs); axes: the same in
-    param_leaves order; template: the rank's tree's shapes (meta tensors),
-    for gathers; full_template: the whole model's (checkpoints); layers:
-    the global indices of the rank's blocks."""
+    stage's blocks and the replicated top-level leaves; under tp its slice
+    of each block; under fsdp a tree of chunks, with no projection views),
+    the moments match them. specs: each leaf's fsdp axis or None
+    (mesh.param_specs); axes: the same in param_leaves order; template:
+    the rank's tree's shapes (meta tensors), for gathers; full_template:
+    the whole model's (checkpoints); layers: the global indices of the
+    rank's blocks; tp_axes: each leaf's tp axis or None (param_leaves
+    order); tp_widths: a fused W_qkv's local projection widths (gathered
+    and sliced projection by projection), else None."""
 
     specs: dict
     axes: list
     template: dict
     full_template: dict
     layers: range
+    tp_axes: list
+    tp_widths: list
 
 
-def check_config(tcfg: TrainConfig, mesh: Optional[Mesh] = None) -> None:
-    """The parallel keys the port takes: tp 1; dp, sp and pp matching the
-    mesh."""
-    if tcfg.tp > 1:
-        raise ValueError(f"tp={tcfg.tp}: not ported yet (ROADMAP Queue 1 item 4, the next "
-                         f"slice)")
-    if mesh is not None and (mesh.sp != tcfg.sp or mesh.pp != tcfg.pp
+def check_config(tcfg: TrainConfig, mesh: Optional[Mesh] = None,
+                 mcfg: Optional[ModelConfig] = None) -> None:
+    """The parallel keys: dp, pp, sp and tp matching the mesh; tp dividing
+    the model's KV groups and MLP hidden dim."""
+    if tcfg.tp < 1:
+        raise ValueError(f"tp={tcfg.tp} must be at least 1")
+    if mesh is not None and (mesh.sp != tcfg.sp or mesh.pp != tcfg.pp or mesh.tp != tcfg.tp
                              or (tcfg.dp and mesh.dp != tcfg.dp)):
-        raise ValueError(f"tcfg dp={tcfg.dp}, pp={tcfg.pp}, sp={tcfg.sp} but the mesh is "
-                         f"dp={mesh.dp}, pp={mesh.pp}, sp={mesh.sp}")
+        raise ValueError(f"tcfg dp={tcfg.dp}, pp={tcfg.pp}, sp={tcfg.sp}, tp={tcfg.tp} but the "
+                         f"mesh is dp={mesh.dp}, pp={mesh.pp}, sp={mesh.sp}, tp={mesh.tp}")
+    if mcfg is not None:   # the JAX pipeline's check and message
+        G, hidden = mcfg.nsa.n_kv_groups, int(mcfg.nsa.dim * mcfg.mlp_ratio)
+        if G % tcfg.tp or hidden % tcfg.tp:
+            raise ValueError(f"tp={tcfg.tp} must divide n_kv_groups={G} and mlp "
+                             f"hidden={hidden}")
 
 
 def _strip_views(node, leaves):
@@ -98,6 +120,24 @@ def _strip_views(node, leaves):
     if isinstance(node, (list, tuple)):
         return type(node)(_strip_views(v, leaves) for v in node)
     return next(leaves)
+
+
+def _tp_widths(node) -> list:
+    """Per leaf of `node` (param_leaves order): a fused W_qkv's projection
+    widths, else None."""
+    if isinstance(node, dict):
+        out = []
+        for k, v in node.items():
+            if "W_qkv" in node and k in PROJ_KEYS:
+                continue
+            if k == "W_qkv":
+                out.append([node[p].shape[1] for p in PROJ_KEYS])
+            else:
+                out += _tp_widths(v)
+        return out
+    if isinstance(node, (list, tuple)):
+        return [w for v in node for w in _tp_widths(v)]
+    return [None]
 
 
 def _axes_of(specs) -> list:
@@ -120,15 +160,17 @@ def materialize(local, specs, template, mesh: Mesh):
 def build_state(params: dict, tcfg: TrainConfig, mesh: Mesh) -> ParallelState:
     """This rank's state from the full parameters (the same on every rank,
     e.g. from one seed): under pp its stage's blocks and the top-level
-    leaves; under fsdp each sharded leaf becomes its dp chunk; leaves
-    require grad; zero moments of the local leaves."""
+    leaves; under tp its slice of each block (mesh.tp_shard); under fsdp
+    each sharded leaf becomes its dp chunk; leaves require grad; zero
+    moments of the local leaves."""
     full_template = _meta(params)
     layers = (pipeline.stage_layers(len(params["blocks"]), mesh) if mesh.pp > 1
               else range(len(params["blocks"])))
     if mesh.pp > 1:
         params = pipeline.stage_params(params, mesh)
+    params = tp_shard(params, mesh)
     template = _meta(params)
-    specs = param_specs(template, mesh.dp if tcfg.fsdp else 1, tcfg.fsdp_min_size)
+    specs = param_specs(template, mesh.dp if tcfg.fsdp else 1, tcfg.fsdp_min_size, mesh.tp)
     if mesh.pp > 1:   # the JAX package's pipeline keeps the top-level leaves replicated
         specs.update({k: None for k in TOP})
     axes = _axes_of(specs)
@@ -139,19 +181,22 @@ def build_state(params: dict, tcfg: TrainConfig, mesh: Mesh) -> ParallelState:
     else:
         leaves = [t.requires_grad_(True) for _, t in param_leaves(params)]
         local = params
+    names = [k for k, _ in param_leaves(template)]
     return ParallelState(params=local, opt_state=init_optimizer(leaves),
                          step=torch.zeros((), dtype=torch.int32, device=leaves[0].device),
                          specs=specs, axes=axes, template=template,
-                         full_template=full_template, layers=layers)
+                         full_template=full_template, layers=layers,
+                         tp_axes=[tp_axis(k) if mesh.tp > 1 else None for k in names],
+                         tp_widths=_tp_widths(template))
 
 
 def local_batch(batch, mesh: Mesh, rows: bool = True):
     """This rank's slice of a global batch [..., B, S+1]: rows of its dp
     member (rows=False: the batch holds only those already), columns [t0,
-    t0 + S/sp + 1) (the last is the last target). A varlen batch (tokens,
-    seq_start, loss_mask) keeps seq_start's whole rows (ϕ pools every key
-    at its document-local position) and slices loss_mask like the
-    targets."""
+    t0 + S/sp + 1) (the last is the last target); the same on every tp
+    member. A varlen batch (tokens, seq_start, loss_mask) keeps seq_start's
+    whole rows (ϕ pools every key at its document-local position) and
+    slices loss_mask like the targets."""
     if isinstance(batch, (tuple, list)):
         toks, ds, lm = batch
         s = lm.shape[-1] // mesh.sp
@@ -264,32 +309,45 @@ def grads_and_stats(state: ParallelState, mcfg: ModelConfig, tcfg: TrainConfig, 
         del auxes
     inv = 1.0 / float(accum)
     grads = [g * inv for g in grads]
+    names = [k for k, _ in named]
+    apart = mesh.pp > 1 or mesh.tp > 1   # block leaves summed apart from the top-level ones
     shd = [g for g, a in zip(grads, state.axes) if a is not None]
-    if mesh.pp == 1:
-        rep_top, rep_blk = [g for g, a in zip(grads, state.axes) if a is None], []
-    else:
-        rep_top = [g for (k, _), g, a in zip(named, grads, state.axes)
-                   if a is None and not _block_leaf(k)]
-        rep_blk = [g for (k, _), g, a in zip(named, grads, state.axes)
-                   if a is None and _block_leaf(k)]
+    rep_top = [g for k, g, a in zip(names, grads, state.axes)
+               if a is None and not (apart and _block_leaf(k))]
+    rep_blk = [g for k, g, a in zip(names, grads, state.axes)
+               if a is None and apart and _block_leaf(k)]
     if mesh.world > 1:
-        _sum_grads_(rep_top, None)
+        _sum_grads_(rep_top, mesh.slice_group)
     if rep_blk and mesh.dp * mesh.sp > 1:
         _sum_grads_(rep_blk, mesh.data_group)
     if shd and mesh.sp > 1:
         _sum_grads_(shd, mesh.sp_group)
+    if mesh.tp > 1:   # the gate and conv ϕ: a member's gradient covers its KV groups only
+        _sum_grads_([g for k, g in zip(names, grads) if per_group(k)], mesh.tp_group)
     zero = torch.zeros((), device=dev)
-    sq_top = sum((g.float().square().sum() for g in rep_top), zero)
-    sq_blk = sum((g.float().square().sum() for g in rep_blk), zero)
-    sq_shd = sum((g.float().square().sum() for g in shd), zero)
-    if shd and mesh.dp > 1:
+
+    def sq(pick) -> torch.Tensor:
+        return sum((g.float().square().sum() for k, g, a, t in
+                    zip(names, grads, state.axes, state.tp_axes) if pick(k, a, t)), zero)
+
+    sq_top = sq(lambda k, a, t: a is None and not (apart and _block_leaf(k)))
+    sq_blk = sq(lambda k, a, t: a is None and apart and _block_leaf(k) and t is None)
+    sq_shd = sq(lambda k, a, t: a is not None and t is None)
+    if mesh.tp > 1:   # each tp slice's squares once: over dp (its shards), then over tp
+        sq_tp = sq(lambda k, a, t: a is None and t is not None)
+        sq_tps = sq(lambda k, a, t: a is not None and t is not None)
+        if shd and mesh.dp > 1:
+            both = all_reduce_(torch.stack([sq_shd, sq_tps]), mesh.dp_group)
+            sq_shd, sq_tps = both[0], both[1]
+        sq_blk = sq_blk + all_reduce_(sq_tp + sq_tps, mesh.tp_group)
+    elif shd and mesh.dp > 1:
         all_reduce_(sq_shd, mesh.dp_group)
     if mesh.pp > 1:   # each stage's blocks once
         sq_blk = all_reduce_(sq_blk + sq_shd, mesh.pp_group)
         sq_shd = zero
-    all_reduce_(small)                               # loss: the sum of the ranks' shares
-    small[1:] /= mesh.world                          # stats: the mean over ranks
-    all_reduce_(kmax, op=dist.ReduceOp.MAX)
+    all_reduce_(small, mesh.slice_group)             # loss: the sum of the data ranks' shares
+    small[1:] /= mesh.world // mesh.tp               # stats: the mean over those ranks
+    all_reduce_(kmax, mesh.group, op=dist.ReduceOp.MAX)
     norm = (sq_top + sq_blk + sq_shd).sqrt()
     return small[0] * inv, grads, norm, small[1:] * inv, kmax, n_tok
 
@@ -338,10 +396,11 @@ def make_eval_step(mcfg: ModelConfig, mesh: Mesh, varlen: bool = False,
             share = pipeline.pipeline_loss_and_grads(params, [], mcfg, mesh, tokens, M, den,
                                                      seq_start, loss_mask, block=block,
                                                      grad=False)[0]
-            return all_reduce_(share)
+            return all_reduce_(share, mesh.slice_group)
         logits, _ = context_parallel_model_forward(params, tokens[:, :-1], mcfg, mesh,
                                                    seq_start=seq_start, block=block)
-        return all_reduce_(cross_entropy_numden(logits, tokens[:, 1:], loss_mask)[0]) / den
+        num = cross_entropy_numden(logits, tokens[:, 1:], loss_mask)[0]
+        return all_reduce_(num, mesh.slice_group) / den
 
     return eval_step
 
@@ -365,10 +424,14 @@ def global_names(state: ParallelState) -> list:
 def gather_full(state: ParallelState, mesh: Mesh, ts: list) -> list:
     """Tensors shaped like the rank's leaves (param_leaves order: the
     leaves, their moments or gradients) as the whole model's, on every
-    rank: sharded ones gathered over dp, the stages' blocks over pp. A
+    rank: sharded ones gathered over dp, tp slices over tp (a fused W_qkv
+    projection by projection), the stages' blocks over pp. A
     collective."""
     ts = [t.detach() if a is None else gather_dim(t.detach(), a, mesh.dp_group, mesh.dp)
           for t, a in zip(ts, state.axes)]
+    if mesh.tp > 1:
+        ts = [t if ax is None else gather_tp(t, ax, mesh, w)
+              for t, ax, w in zip(ts, state.tp_axes, state.tp_widths)]
     if mesh.pp == 1:
         return ts
     n, by_name = len(state.layers), {}

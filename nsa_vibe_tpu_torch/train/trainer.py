@@ -6,11 +6,12 @@
     --device cpu); --varlen trains on packed documents (ops/varlen.py:
     l_sel-aligned starts, no attention across a document boundary, the
     loss masked to each document's own next tokens);
-  * under torch.distributed (WORLD_SIZE > 1, or dp/sp/pp > 1) the parallel
-    step of parallel/train_step.py over a (dp, pp, sp) mesh (--dp, --sp,
-    --pp, --pp-microbatches, --fsdp; --varlen with any of them): each dp
-    member reads its own documents (train.data.Shard, seeded by the dp
-    member, so the sp and pp ranks of one member read the same rows) into
+  * under torch.distributed (WORLD_SIZE > 1, or dp/sp/pp/tp > 1) the
+    parallel step of parallel/train_step.py over a (dp, pp, sp, tp) mesh
+    (--dp, --sp, --pp, --pp-microbatches, --tp, --fsdp; --varlen with any
+    of them): each dp member reads its own documents (train.data.Shard,
+    seeded by the dp member, so the sp, pp and tp ranks of one member read
+    the same rows) into
     batch_size / dp rows, each sp rank takes its positions; the
     device is cuda:LOCAL_RANK unless --device names one (two ranks on one
     card: --device cuda:0 --backend gloo); rank 0 logs and writes;
@@ -31,6 +32,12 @@ Run:  python -m nsa_vibe_tpu_torch.train.trainer --steps 50 --data synthetic
       torchrun --nproc-per-node 4 -m nsa_vibe_tpu_torch.train.trainer \
           --config configs/m7c_125m_pod.yaml --data synthetic --dp 1 --pp 2 \
           --sp 2 --pp-microbatches 4 --varlen   (4 cards)
+      torchrun --nproc-per-node 4 -m nsa_vibe_tpu_torch.train.trainer \
+          --config configs/m7c_125m_pod.yaml --data synthetic --dp 2 --tp 2 \
+          --fsdp   (4 cards: 2 KV groups, one a tp member)
+      torchrun --nproc-per-node 2 -m nsa_vibe_tpu_torch.train.trainer \
+          --config configs/m7c_125m.yaml --data synthetic --tp 2 \
+          --device cuda:0 --backend gloo   (two ranks sharing one card)
 """
 
 from __future__ import annotations
@@ -92,9 +99,10 @@ class _Prefetcher:
 
 def load_config(path: Optional[str]) -> tuple[ModelConfig, TrainConfig, str]:
     """YAML with optional model/nsa/train groups; returns (mcfg, tcfg, data).
-    train.varlen and the parallel keys (dp, sp, pp, pp_microbatches, fsdp,
-    fsdp_min_size) are read; tp > 1 raises (not ported), as do keys the
-    port does not have. nsa.varlen_exact may only be true: the port's avg ϕ is always
+    train.varlen and the parallel keys (dp, sp, pp, pp_microbatches, tp,
+    fsdp, fsdp_min_size) are read; a tp that does not divide the KV groups
+    and the MLP hidden dim raises, as do keys the port does not have.
+    nsa.varlen_exact may only be true: the port's avg ϕ is always
     window-exact (core/config.py), so `false`, the JAX package's running-sum
     form, raises rather than compute other math unannounced."""
     raw: dict = {}
@@ -114,19 +122,19 @@ def load_config(path: Optional[str]) -> tuple[ModelConfig, TrainConfig, str]:
     model_kw = dict(raw.get("model", {}))
     data = model_kw.pop("data", raw.get("data", "synthetic"))
     tcfg = TrainConfig(**raw.get("train", {}))
-    pts.check_config(tcfg)
-    return ModelConfig(nsa=nsa, **model_kw), tcfg, data
+    mcfg = ModelConfig(nsa=nsa, **model_kw)
+    pts.check_config(tcfg, mcfg=mcfg)
+    return mcfg, tcfg, data
 
 
 def apply_overrides(mcfg: ModelConfig, tcfg: TrainConfig, args) -> tuple[ModelConfig, TrainConfig]:
     t_over = {k: getattr(args, k)
               for k in ("steps", "batch_size", "seq_len", "accum_steps", "lr", "seed",
                         "save_every", "eval_every", "log_every", "out_dir", "varlen", "dp",
-                        "sp", "pp", "pp_microbatches", "fsdp", "fsdp_min_size")
+                        "sp", "pp", "pp_microbatches", "tp", "fsdp", "fsdp_min_size")
               if getattr(args, k, None) is not None}
     if t_over:
         tcfg = dataclasses.replace(tcfg, **t_over)
-        pts.check_config(tcfg)
     m_over = {}
     if args.n_layers is not None:
         m_over["n_layers"] = args.n_layers
@@ -136,6 +144,7 @@ def apply_overrides(mcfg: ModelConfig, tcfg: TrainConfig, args) -> tuple[ModelCo
         m_over["dtype"] = args.dtype
     if m_over:
         mcfg = dataclasses.replace(mcfg, **m_over)
+    pts.check_config(tcfg, mcfg=mcfg)
     return mcfg, tcfg
 
 
@@ -164,7 +173,7 @@ def _batch_to_device(batch_np, tcfg: TrainConfig, shape, dev: torch.device):
 
 def _distributed(tcfg: TrainConfig) -> bool:
     return (int(os.environ.get("WORLD_SIZE", "1")) > 1 or tcfg.dp > 1 or tcfg.sp > 1
-            or tcfg.pp > 1)
+            or tcfg.pp > 1 or tcfg.tp > 1)
 
 
 def _rank_device(device: str) -> str:
@@ -186,7 +195,7 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
     if parallel:
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        mesh = make_mesh(tcfg.dp, tcfg.sp, pp=tcfg.pp)
+        mesh = make_mesh(tcfg.dp, tcfg.sp, tp=tcfg.tp, pp=tcfg.pp)
     lead = mesh is None or mesh.rank == 0
     run_dir = tcfg.out_dir
     os.makedirs(run_dir, exist_ok=True)
@@ -199,7 +208,8 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
                 "train": dataclasses.asdict(tcfg),
                 "data": data_source,
                 "mesh": None if mesh is None else {"dp": mesh.dp, "pp": mesh.pp,
-                                                   "sp": mesh.sp, "backend": mesh.backend},
+                                                   "sp": mesh.sp, "tp": mesh.tp,
+                                                   "backend": mesh.backend},
             }, f, indent=2, default=str)
 
     params = init_model_params(mcfg, torch.Generator().manual_seed(tcfg.seed), device=dev)
@@ -360,11 +370,15 @@ def main() -> None:
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                     help="torch.distributed backend (default: nccl on a card, gloo on the CPU; "
                          "gloo for several ranks on one card)")
-    ap.add_argument("--dp", type=int, default=None, help="data-parallel ranks (0: world / sp)")
+    ap.add_argument("--dp", type=int, default=None,
+                    help="data-parallel ranks (0: world / (pp sp tp))")
     ap.add_argument("--sp", type=int, default=None, help="sequence-parallel ranks")
     ap.add_argument("--pp", type=int, default=None, help="pipeline stages")
     ap.add_argument("--pp-microbatches", dest="pp_microbatches", type=int, default=None,
                     help="GPipe micro-batches per step under pp (0: pp)")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="tensor-parallel ranks (each holds n_kv_groups / tp KV groups and "
+                         "1/tp of the MLP hidden dim)")
     ap.add_argument("--fsdp", action="store_true", default=None,
                     help="shard parameters and moments over dp")
     ap.add_argument("--fsdp-min-size", dest="fsdp_min_size", type=int, default=None)

@@ -7,10 +7,13 @@ and views (the projection entries stay views of W_qkv).
 
 Under a mesh (parallel/train_step.py::ParallelState) the file has the
 same single-device format, the list of blocks: saving gathers each
-fsdp-sharded leaf and its moments over dp and the stages' blocks over pp
-(every rank must call it) and rank 0 writes; restoring reads the file on
-every rank and keeps its own stage's blocks and each leaf's own chunk. So
-a dp/fsdp/pp checkpoint resumes on one device, and the other way round.
+fsdp-sharded leaf and its moments over dp, each tp slice over tp (a fused
+W_qkv projection by projection, never whole, which would interleave the
+projections) and the stages' blocks over pp (every rank must call it) and
+rank 0 writes; restoring reads the file on every rank and keeps its own
+stage's blocks, its tp slice of each and then its dp chunk. So a
+dp/fsdp/pp/sp/tp checkpoint resumes on one device, and the other way
+round.
 (The JAX package saves the stacked [L, ...] layout under pp; the list
 layout is kept on purpose, so one file serves every mesh.)
 """
@@ -71,7 +74,7 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = N
     """Copies checkpoint `step` (default: the latest) into `state` in place
     and returns it. With `mesh` (a ParallelState) the rank's stage takes
     its blocks, and each fsdp-sharded leaf and its moments this rank's
-    chunk of the saved full leaf."""
+    chunk of the saved full leaf (under tp of its own tp slice)."""
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None:
@@ -92,21 +95,24 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = N
             raise ValueError("checkpoint parameters do not match the model's")
     index = {k: i for i, k in enumerate(saved_names)}
     axes = getattr(state, "axes", None) or [None] * len(leaves)
-    if mesh is None and any(a is not None for a in axes):
+    tp_axes = getattr(state, "tp_axes", None) or [None] * len(leaves)
+    if mesh is None and any(a is not None for a in axes + tp_axes):
         raise ValueError("restore_checkpoint: a sharded state needs its mesh")
+    widths = getattr(state, "tp_widths", None) or [None] * len(leaves)
 
-    def mine(t, a):
-        if a is None:
-            return t
-        from nsa_vibe_tpu_torch.parallel.mesh import shard_of
+    def mine(t, a, ta, w):
+        from nsa_vibe_tpu_torch.parallel.mesh import shard_of, tp_slice
 
-        return shard_of(t, a, mesh.dp_rank, mesh.dp)
+        if ta is not None:
+            t = tp_slice(t, ta, mesh.tp_rank, mesh.tp,
+                         None if w is None else [x * mesh.tp for x in w])
+        return t if a is None else shard_of(t, a, mesh.dp_rank, mesh.dp)
 
-    for k, (_, t), a in zip(names, leaves, axes):
-        t.copy_(mine(blob["params"][k], a))
+    for k, (_, t), a, ta, w in zip(names, leaves, axes, tp_axes, widths):
+        t.copy_(mine(blob["params"][k], a, ta, w))
     for key in ("mu", "nu"):
-        for k, live, a in zip(names, state.opt_state[key], axes):
-            live.copy_(mine(blob[key][index[k]], a))
+        for k, live, a, ta, w in zip(names, state.opt_state[key], axes, tp_axes, widths):
+            live.copy_(mine(blob[key][index[k]], a, ta, w))
     state.opt_state["count"].copy_(blob["count"])
     state.step.copy_(blob["step"])
     return state

@@ -104,6 +104,11 @@ def train_step_flops(mcfg, batch: int, seq: int) -> dict:
 
 def mfu(flops_per_step: float, step_seconds: float,
         peak: float = H100_BF16_PEAK_FLOPS) -> dict:
+    """Achieved TFLOP/s and MFU of a step of flops_per_step model FLOPs.
+    Under a mesh (dp, sp, pp, tp) pass train_step_flops of the global
+    batch: the model's FLOPs are counted once over the ranks (a tp member
+    does 1/tp of each block's work, an sp member 1/sp of the rows), and
+    the MFU is that of one card, peak, running the whole step."""
     achieved = flops_per_step / step_seconds
     return {
         "achieved_tflops": round(achieved / 1e12, 1),

@@ -27,8 +27,8 @@ varlen_exact (the port's avg ϕ is window-exact). Held:
   * varlen batches under dp = 2 vs the port's single-device varlen step
     (the loss is the global masked mean, not a mean of rank means);
   * a checkpoint saved under fsdp restores on one process;
-  * load_config reads dp, sp, pp, pp_microbatches, fsdp and varlen with sp,
-    and raises on tp.
+  * load_config reads dp, sp, pp, pp_microbatches, tp, fsdp and varlen with
+    sp, and raises on a tp that does not divide the KV groups.
 """
 
 import dataclasses
@@ -274,7 +274,9 @@ def test_load_config_reads_the_parallel_keys(tmp_path):
     jfields = {f.name for f in dataclasses.fields(JTrainConfig)}
     assert {"dp", "sp", "tp", "pp", "fsdp", "fsdp_min_size"} <= jfields
     p.write_text(yaml.safe_dump({"train": {"tp": 2}}))
-    with pytest.raises(ValueError, match="not ported"):
+    assert load_config(str(p))[1].tp == 2
+    p.write_text(yaml.safe_dump({"train": {"tp": 4}}))
+    with pytest.raises(ValueError, match="tp=4 must divide n_kv_groups=2"):
         load_config(str(p))
     p.write_text(yaml.safe_dump({"train": {"pp": 2, "pp_microbatches": 4, "sp": 2,
                                            "varlen": True}}))

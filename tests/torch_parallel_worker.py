@@ -1,11 +1,11 @@
-"""One rank of the port's parallel CPU tests (tests/test_torch_parallel.py).
+"""One rank of the port's parallel CPU tests (tests/test_torch_parallel.py,
+tests/test_torch_pipeline.py, tests/test_torch_tensor_parallel.py).
 
 Run under torch.distributed.run (gloo, CPU): imports torch and the port
 only, never JAX. Reads DIR/job.json (configs and runs), DIR/params.npz
 (the JAX package's parameters, path-keyed), DIR/tokens.npy and
-DIR/varlen.npz; for each run whose dp * pp * sp is the world size writes
-DIR/<run>_rank<r>.npz (tests/test_torch_parallel.py and
-tests/test_torch_pipeline.py launch it).
+DIR/varlen.npz; for each run whose dp * pp * sp * tp is the world size
+writes DIR/<run>_rank<r>.npz.
 
 Runs:
   forward: logits of the rank's rows from context_parallel_model_forward,
@@ -14,18 +14,22 @@ Runs:
     back-propagated, then summed over ranks), from tokens[0, 0]; with
     "varlen" from varlen.npz's first batch (the masked mean, the whole
     rows' seq_start on every sp rank; no single layer);
-  pp_grads: under pp, the loss, the whole model's gradients and the rank's
-    layers' gates and selections ([L/pp, B/dp, S/sp, G, *]) of one step's
-    schedule (parallel/train_step.py::grads_and_stats), from tokens[0];
+  pp_grads: the loss, the whole model's gradients (gathered over dp, tp
+    and pp) and the rank's layers' gates and selections ([L/pp, B/dp,
+    S/sp, G, *], every KV group) of one step (parallel/train_step.py::
+    grads_and_stats; under pp its schedule), from tokens[0] (with
+    "varlen" from varlen.npz's first batch);
   steps: one AdamW step per tokens[i] through build_state_and_step (each
     rank its local_batch): the metrics of each step, the full parameters
-    after the last, the local leaves' and moments' sizes; with "ckpt" a
-    checkpoint saved under the mesh into DIR/<run>_ckpt;
+    after the last, the local leaves' and moments' sizes and which leaves
+    shard over dp and over tp; with "ckpt" a checkpoint saved under the
+    mesh into DIR/<run>_ckpt and restored under it into a fresh state
+    (every local leaf and moment equal to the ranks');
   varlen_steps: the same over DIR/varlen.npz's packed batches (tokens,
     seq_start, loss_mask), each rank its local_batch.
 A run's "max_s_sel" lowers select_cmp.SELECT_CMP_MAX_S_SEL, forcing the
 long route (select_blocks beside compressed_attention); "pp" and "M"
-(pp_microbatches) set the pipeline.
+(pp_microbatches) set the pipeline, "tp" the tensor-parallel ranks.
 """
 
 import json
@@ -47,7 +51,7 @@ from nsa_vibe_tpu_torch.parallel.context import (
 )
 from nsa_vibe_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from nsa_vibe_tpu_torch.train.train_step import param_leaves, tree_from_leaves
-from nsa_vibe_tpu_torch.utils.checkpoint import save_checkpoint
+from nsa_vibe_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 
 def unflatten(flat: dict) -> dict:
@@ -125,10 +129,15 @@ def pp_grads_run(params_np, batch, mcfg, tcfg, mesh):
     with torch.no_grad():   # the rank's layers' gates and selections, micro-batches in order
         p, block = pts._params_and_block(state, mesh)
         toks, ds, lm = ((a[0] for a in local) if tcfg.varlen else (local[0], None, None))
-        M = pipeline.microbatches(tcfg, toks.shape[0], mesh.pp)
-        _, _, auxes = pipeline.pipeline_loss_and_grads(p, [], mcfg, mesh, toks, M, 1.0, ds, lm,
-                                                       collect_aux=True, block=block,
-                                                       grad=False)
+        if mesh.pp == 1:
+            _, auxes = context_parallel_model_forward(p, toks[:, :-1], mcfg, mesh, True, ds,
+                                                      block)
+            M = 1
+        else:
+            M = pipeline.microbatches(tcfg, toks.shape[0], mesh.pp)
+            _, _, auxes = pipeline.pipeline_loss_and_grads(p, [], mcfg, mesh, toks, M, 1.0, ds,
+                                                           lm, collect_aux=True, block=block,
+                                                           grad=False)
     n = len(state.layers)
     for key in ("gates", "sel_idx"):
         out[key] = np.stack([torch.cat([auxes[m * n + i][key] for m in range(M)]).numpy()
@@ -153,12 +162,24 @@ def steps_run(params_np, batches, mcfg, tcfg, mesh, ckpt_dir=None):
     local = [t for _, t in param_leaves(state.params)]
     out["local_numel"] = np.array([t.numel() for t in local])
     out["full_numel"] = np.array([t.numel() for _, t in param_leaves(state.template)])
+    whole = dict(param_leaves(state.full_template))
+    out["whole_numel"] = np.array([whole[k].numel() for k in pts.global_names(state)])
     out["mu_numel"] = np.array([t.numel() for t in state.opt_state["mu"]])
     out["nu_numel"] = np.array([t.numel() for t in state.opt_state["nu"]])
     out["sharded"] = np.array([a is not None for a in state.axes])
+    out["tp_sharded"] = np.array([a is not None for a in state.tp_axes])
     out["top"] = np.array([not k.startswith("/blocks/") for k, _ in param_leaves(state.params)])
     if ckpt_dir:
         save_checkpoint(ckpt_dir, int(state.step), state, mesh=mesh)
+        dist.barrier()   # rank 0 has written; restore it into a fresh state under the mesh
+        fresh = pts.build_state(params_from_numpy(params_np, device="cpu", dtype="float32"),
+                                tcfg, mesh)
+        restore_checkpoint(ckpt_dir, fresh, mesh=mesh)
+        out["restored_equal"] = np.array(all(
+            torch.equal(a.detach(), b.detach()) for a, b in
+            zip(local + state.opt_state["mu"] + state.opt_state["nu"],
+                [t for _, t in param_leaves(fresh.params)] + fresh.opt_state["mu"]
+                + fresh.opt_state["nu"])))
     return out
 
 
@@ -176,12 +197,12 @@ def main(job_dir: str) -> None:
     v = np.load(os.path.join(job_dir, "varlen.npz"))
     vbatches = list(zip(v["tokens"], v["seq_start"], v["loss_mask"]))
     for run in job["runs"]:
-        pp = run.get("pp", 1)
-        if run["dp"] * run["sp"] * pp != world:
+        pp, tp = run.get("pp", 1), run.get("tp", 1)
+        if run["dp"] * run["sp"] * pp * tp != world:
             continue
-        mesh = make_mesh(dp=run["dp"], sp=run["sp"], pp=pp)
+        mesh = make_mesh(dp=run["dp"], sp=run["sp"], tp=tp, pp=pp)
         varlen = run["kind"] == "varlen_steps" or run.get("varlen", False)
-        tcfg = TrainConfig(**{**job["train"], "dp": run["dp"], "sp": run["sp"], "pp": pp,
+        tcfg = TrainConfig(**{**job["train"], "dp": run["dp"], "sp": run["sp"], "pp": pp, "tp": tp,
                               "pp_microbatches": run.get("M", 0),
                               "fsdp": run.get("fsdp", False), "varlen": varlen})
         select_cmp_mod.SELECT_CMP_MAX_S_SEL = run.get("max_s_sel", max_s_sel)
