@@ -151,7 +151,8 @@ Phases (any failure exits non-zero):
       and bf16; the phases' bounds with the planted 1% fault; sets at near
       ties; two launches bit-equal) and each launched at offset 0 must
       fail; (i-sp) and (i-fsdp) each start two ranks of this script
-      (`--parallel-worker sp|fsdp`, torch.distributed.run) on the one card
+      (`--parallel-worker sp|fsdp`, started as torch.distributed.run
+      --standalone starts its ranks) on the one card
       over gloo, as NCCL refuses two ranks on one device (so their times
       are two processes time-sharing one card, not NCCL scaling): the
       m7c-125M step at PAR_LAYERS layers (bf16, remat, default keys) at
@@ -205,9 +206,10 @@ Phases (any failure exits non-zero):
       8 x 4096) against their plain versions (f32 TF32 off and bf16, the
       phases' bounds with the planted 1% fault, sets at near ties, two
       launches bit-equal, the designs against each other); (k-tp) two
-      ranks, tp = 2, m7c at full width and depth (12 layers, bf16, remat)
-      on 8 x 4096: losses within LOSS_TOL of one process, the f32 first
-      gradient within STEP_GRAD_TOL of one process computing each member's
+      ranks, tp = 2, m7c at full width, PAR_LAYERS deep (bf16, remat; 4 of
+      its 12 layers, for the time limit) on 8 x 4096: losses within
+      LOSS_TOL of one process, the f32 first gradient within STEP_GRAD_TOL
+      of one process computing each member's
       slice as its own call (`tp_split_grads`; its distance to a single
       call, where narrower f32 products tip near-tie selections, is
       printed), with three planted faults that must fail it ((a)
@@ -225,20 +227,39 @@ Phases (any failure exits non-zero):
       JAX run's. Per-rank step ms, busy and idle share, peak memory and
       MFU; the ranks time-share the one card over gloo (not tp scaling).
 
+  (l) host tools (run last): (l1) the native C++ packer
+      (nsa_vibe_tpu_torch/native) built with g++ and make_batches(native=True)
+      byte-equal to native=False on TOOLS_BATCHES m7c train batches; (l2)
+      the trainer CLI in a subprocess at m7c full width, TOOLS_LAYERS deep,
+      with every tool on (TOOLS_ARGS: --profile, --mem-dump-every,
+      --watchdog, --detect-anomaly): exit 0, finite losses, no bad step,
+      the native packer used, mem_step<n>.json with a peak allocation, no
+      .HALT, and the profiled steps' trace naming each kernel of the
+      default step and no attention library kernel or op; (l3)
+      NSAAttention and LlamaBlockNSA (models/nn_module.py) at m7c width,
+      bf16, 1 x 2048, bit-equal to nsa_prefill / block_prefill, output and
+      gradients.
+
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
+Every process the script starts has ended when it exits (guard_children:
+at exit and on SIGTERM, SIGINT or SIGHUP).
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import csv
+import ctypes
 import dataclasses
 import functools
 import json
 import os
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import time
@@ -249,17 +270,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
-from torch.utils.checkpoint import checkpoint
 from torch.profiler import ProfilerActivity, profile
 
-from nsa_vibe_tpu_torch import M7C_125M, M7C_125M_TRAIN
+from nsa_vibe_tpu_torch import M7C_125M, M7C_125M_TRAIN, native
 from nsa_vibe_tpu_torch.convert import params_to, params_to_numpy
 from nsa_vibe_tpu_torch.core.cache import (
     admit_row, cache_from_prefill, cache_tensors, ragged_cache,
 )
 from nsa_vibe_tpu_torch.core.decode import nsa_decode_step
-from nsa_vibe_tpu_torch.core.nsa import PROJ_KEYS, nsa_prefill, tp_local
-from nsa_vibe_tpu_torch.models.llama_block import mlp, rmsnorm
+from nsa_vibe_tpu_torch.core.nsa import PROJ_KEYS, init_nsa_params, nsa_prefill, tp_local
+from nsa_vibe_tpu_torch.models.llama_block import block_prefill, init_block_params, mlp, rmsnorm
+from nsa_vibe_tpu_torch.models.nn_module import LlamaBlockNSA, NSAAttention
+from nsa_vibe_tpu_torch.models.remat import remat
 from nsa_vibe_tpu_torch.models.decode_graph import DecodeGraph
 from nsa_vibe_tpu_torch.models.tinylm import (
     cross_entropy_loss, embed, generate, generate_ragged, generate_scan, head,
@@ -422,6 +444,80 @@ NEEDLE_DEPTHS, PROBE_DEPTHS = (0.1, 0.25, 0.5, 0.75, 0.9), (0.1, 0.5, 0.9)
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+# ------------------------------------------------------------------ processes
+# Every process the script starts ends before it does: the script is its
+# descendants' subreaper (an orphan re-parents to it, not to init) and, at
+# exit or on SIGTERM, SIGINT or SIGHUP, kills what is still below it.
+
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def _descendants() -> list:
+    """The live processes below this one, read from /proc."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            with contextlib.suppress(OSError, ValueError):
+                with open(f"/proc/{d}/stat") as f:
+                    state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+                if state != "Z":
+                    parent[int(d)] = int(ppid)
+    out, todo = [], [os.getpid()]
+    while todo:
+        pid = todo.pop()
+        kids = [c for c, p in parent.items() if p == pid]
+        out += kids
+        todo += kids
+    return out
+
+
+def _reap() -> None:
+    with contextlib.suppress(ChildProcessError):
+        while os.waitpid(-1, os.WNOHANG)[0]:
+            pass
+
+
+def end_children(grace_s: float = 0.0) -> list:
+    """Waits up to grace_s for the processes below this one to end, then
+    kills what is left (again while orphans re-parent here) and reaps it;
+    returns the command lines of the processes it killed."""
+    deadline = time.monotonic() + grace_s
+    while _descendants() and time.monotonic() < deadline:
+        _reap()
+        time.sleep(0.2)
+    killed = {}
+    for _ in range(100):
+        pids = _descendants()
+        if not pids:
+            break
+        for pid in pids:
+            with contextlib.suppress(OSError):
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    killed.setdefault(pid, f.read().replace(b"\0", b" ").decode()[:160])
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        time.sleep(0.05)
+        _reap()
+    _reap()
+    return list(killed.values())
+
+
+def guard_children() -> None:
+    """Makes this process its descendants' subreaper and ends them at exit
+    and on SIGTERM, SIGINT and SIGHUP."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        fail(f"prctl(PR_SET_CHILD_SUBREAPER): errno {ctypes.get_errno()}")
+    atexit.register(end_children)
+
+    def on_signal(signum, _frame):
+        end_children()
+        os._exit(128 + signum)
+
+    for sig in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP):
+        signal.signal(sig, on_signal)
 
 
 def time_ms(fn, iters: int, warmup: int = 2, hold: bool = False) -> float:
@@ -3234,7 +3330,7 @@ POD_STEPS = 3             # timed parallel steps (after a warm-up)
 PAR_RANKS = 2
 PAR_DIR = os.path.join("artifacts", "chip_smoke_parallel")   # git-ignored, inside the checkout
 PAR_TIMEOUT_S = 900
-PAR_LAYERS = 4            # the two-rank runs of (i) and (j): m7c at full width, its 12 layers cut
+PAR_LAYERS = 4            # the two-rank runs of (i), (j), (k): m7c at full width, its 12 layers cut
 #                           to 4 to keep the whole run within its time limit
 
 
@@ -3567,29 +3663,54 @@ def split_qkv(names, grads) -> list:
     return out
 
 
+def start_ranks(argv: list, n: int, **popen) -> list:
+    """n processes of `python argv` as ranks 0..n-1 of one job on this host,
+    with the environment that torch.distributed.run --standalone gives its
+    ranks (RANK, LOCAL_RANK, WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT, a free localhost port; OMP_NUM_THREADS 1 unless set) but
+    without its launcher process, whose own start (a torch import, ~9 s on
+    the H100 machine) each launch paid."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(n), "LOCAL_WORLD_SIZE": str(n),
+           "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS", "1")}
+    return [subprocess.Popen([sys.executable, *argv], **popen,
+                             env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+            for r in range(n)]
+
+
+def wait_ranks(procs: list, timeout_s: float) -> int | None:
+    """0 once every rank has exited with 0; else the first nonzero exit
+    code, or None after timeout_s, the other ranks killed (as the launcher
+    ended a job)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        codes = [p.poll() for p in procs]
+        if all(c == 0 for c in codes):
+            return 0
+        bad = [c for c in codes if c not in (None, 0)]
+        if bad or time.monotonic() > deadline:
+            end_children()   # the ranks (nothing else runs beside them)
+            for p in procs:
+                p.wait()
+            return bad[0] if bad else None
+        time.sleep(0.1)
+
+
 def run_ranks(mode: str, n: int = PAR_RANKS) -> list:
-    """Launches n processes of `chip_smoke.py --parallel-worker mode` on the
-    one card (torch.distributed.run, gloo) and returns each rank's results;
-    a rank's failure fails the phase. The process group is killed if it
-    outlives PAR_TIMEOUT_S."""
+    """Runs n ranks of `chip_smoke.py --parallel-worker mode` on the one
+    card (start_ranks, gloo) and returns each rank's results; a rank's
+    failure, or ranks that outlive PAR_TIMEOUT_S, fail the phase."""
     outs = [os.path.join(PAR_DIR, f"{mode}_rank{r}.json") for r in range(n)]
     for out in outs:
         if os.path.exists(out):
             os.remove(out)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={n}", os.path.abspath(__file__), "--parallel-worker", mode]
-    print(f"[{mode}] launching {n} ranks on the one card over gloo: {' '.join(cmd[1:])}",
-          flush=True)
+    argv = [os.path.abspath(__file__), "--parallel-worker", mode]
+    print(f"[{mode}] starting {n} ranks on the one card over gloo: {' '.join(argv)}", flush=True)
     t = time.perf_counter()
-    proc = subprocess.Popen(cmd, start_new_session=True)
-    try:
-        rc = proc.wait(timeout=PAR_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        rc = None
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, 9)
-            proc.wait()
+    rc = wait_ranks(start_ranks(argv, n), PAR_TIMEOUT_S)
     print(f"[{mode}] ranks exited with {rc} after {time.perf_counter() - t:.1f} s")
     if rc != 0 or not all(os.path.exists(out) for out in outs):
         fail(f"the {mode} ranks failed (exit {rc})")
@@ -4119,7 +4240,7 @@ def stage_setting(mode: str) -> dict:
     if mode == "pp":
         return dict(dp=1, pp=PP, sp=1, tp=1, fsdp=False, varlen=False, mcfg=par_model())
     if mode == "tp":
-        return dict(dp=1, pp=1, sp=1, tp=TP, fsdp=False, varlen=False, mcfg=M7C_125M)
+        return dict(dp=1, pp=1, sp=1, tp=TP, fsdp=False, varlen=False, mcfg=par_model())
     if mode in FOUR_RANKS:
         return dict(FOUR_RANKS[mode], mcfg=dataclasses.replace(M7C_125M, n_layers=PP4_LAYERS))
     return dict(TP_MESHES[mode], mcfg=dataclasses.replace(M7C_125M, n_layers=TP4_LAYERS))
@@ -4247,7 +4368,7 @@ def tp_split_grads(params, toks, mcfg, tp: int, seq_start=None, loss_mask=None) 
     with torch.enable_grad():
         x = embed(params, toks[:, :-1], mcfg)
         for i in range(mcfg.n_layers):
-            x = checkpoint(block, x, [m["blocks"][i] for m in members], use_reentrant=False)
+            x = remat(block, x, [m["blocks"][i] for m in members])
         loss = cross_entropy_loss(head(params, x, mcfg), toks[:, 1:], mask=loss_mask)
         inputs = [t for (k, t) in named if pmesh.tp_axis(k) is None]
         inputs += [t for leaves in local for (k, _), t in zip(named, leaves)
@@ -4748,12 +4869,10 @@ def tp_bytes(mcfg, layers: int, rows: int, seq: int) -> int:
     code: each of its `layers` blocks' two sub-blocks all-reduces its
     [rows, seq, dim] partial output forward (reduce_from_tp) and its normed
     input's gradient backward (copy_to_tp's backward), in the model dtype;
-    under full remat the recompute runs the attention's all-reduce again
-    but not the MLP's, as torch.utils.checkpoint stops recomputing once the
-    tensors the backward saved are back (its early stop, on by default) and
-    nothing after the MLP's all-reduce saves one."""
-    early = torch.utils.checkpoint._enable_checkpoint_early_stop
-    recompute = (0 if mcfg.remat not in (True, "full") else 1 if early in (None, True) else 2)
+    under full remat the recompute (models/remat.py) runs the attention's
+    all-reduce again but not the MLP's, which the block leaves outside it
+    (block_prefill's split: nothing after that all-reduce saves a tensor)."""
+    recompute = 1 if mcfg.remat in (True, "full") else 0
     return layers * (4 + recompute) * rows * seq * mcfg.nsa.dim * torch_dtype(mcfg.dtype).itemsize
 
 
@@ -4801,31 +4920,24 @@ def tp_ckpt_check(dev, ranks, st) -> None:
 
 
 def phase_dryrun() -> None:
-    """(k-dryrun): parallel/dryrun.py under torch.distributed.run, eight
-    ranks on the one card over gloo (every mesh of the JAX dry run, pp x sp
-    x tp among them, each step's loss held to one process's); its tail
-    line must be the JAX run's."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={DRYRUN_RANKS}", "-m", "nsa_vibe_tpu_torch.parallel.dryrun",
-           *DRYRUN_ARGS]
-    print(f"[dryrun] launching {DRYRUN_RANKS} ranks on the one card over gloo: "
-          f"{' '.join(cmd[1:])}", flush=True)
+    """(k-dryrun): parallel/dryrun.py as DRYRUN_RANKS ranks (start_ranks)
+    on the one card over gloo (every mesh of the JAX dry run, pp x sp x tp
+    among them, each step's loss held to one process's); its tail line
+    must be the JAX run's."""
+    argv = ["-m", "nsa_vibe_tpu_torch.parallel.dryrun", *DRYRUN_ARGS]
+    print(f"[dryrun] starting {DRYRUN_RANKS} ranks on the one card over gloo: {' '.join(argv)}",
+          flush=True)
     t = time.perf_counter()
-    proc = subprocess.Popen(cmd, start_new_session=True, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    try:
-        out, rc = proc.communicate(timeout=PAR_TIMEOUT_S)[0], proc.returncode
-    except subprocess.TimeoutExpired:
-        out, rc = "", None
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, 9)
-            proc.wait()
-    lines = [ln for ln in (out or "").splitlines() if ln.startswith(("[dryrun]", "dryrun_"))]
+    with open(os.path.join(PAR_DIR, "dryrun.log"), "w+") as log:
+        rc = wait_ranks(start_ranks(argv, DRYRUN_RANKS, stdout=log, stderr=subprocess.STDOUT),
+                        PAR_TIMEOUT_S)
+        log.seek(0)
+        out = log.read()
+    lines = [ln for ln in out.splitlines() if ln.startswith(("[dryrun]", "dryrun_"))]
     print("\n".join(lines))
     print(f"[dryrun] ranks exited with {rc} after {time.perf_counter() - t:.1f} s")
     if rc != 0 or not any(re.match(DRYRUN_LINE, ln) for ln in lines):
-        print((out or "")[-4000:])
+        print(out[-4000:])
         fail(f"dryrun_multichip({DRYRUN_RANKS}) failed (exit {rc}) or printed another tail line")
 
 
@@ -4851,8 +4963,8 @@ def tp_rows(rec, runs) -> list:
 def phase_tp(dev) -> list:
     """Phase (k): (k-kernels) rows 1, 2, 3, 7, 8, 9, 10 and 11 at the tp
     member's shape in this process; (k-tp) two ranks, tp = 2, m7c at full
-    width and depth on the pod shape, and (k-mesh) four ranks at TP4_LAYERS
-    layers (TP_MESHES), each held to one process on the same global
+    width, PAR_LAYERS deep, on the pod shape, and (k-mesh) four ranks at
+    TP4_LAYERS layers (TP_MESHES), each held to one process on the same global
     batches; (k-tp)'s checkpoints; (k-dryrun). Returns the JSON rows of the
     tp member's kernels."""
     t0 = time.perf_counter()
@@ -4884,6 +4996,164 @@ def phase_tp(dev) -> list:
     return rows
 
 
+# ------------------------------------------------------------------ (l)
+
+TOOLS_DIR = os.path.join("artifacts", "chip_smoke_tools")   # git-ignored, inside the checkout
+TOOLS_BATCHES = 16        # (l1): m7c train batches (8 x 2049) from each packer
+TOOLS_STEPS, TOOLS_PROFILE, TOOLS_MEM_EVERY = 8, 2, 4
+# (l2)'s depth (full width): under --detect-anomaly an m7c step took 4.3 s at
+# 12 layers on the H100 (0.3 s without), which would take the phase to ~60 s
+TOOLS_LAYERS = 2
+TOOLS_ARGS = ("--config", os.path.join("configs", "m7c_125m.yaml"), "--data", "synthetic",
+              "--n-layers", str(TOOLS_LAYERS), "--steps", str(TOOLS_STEPS), "--profile",
+              str(TOOLS_PROFILE), "--mem-dump-every", str(TOOLS_MEM_EVERY), "--watchdog",
+              "--detect-anomaly", "--log-every", "4")
+TOOLS_TIMEOUT_S = 240
+# the CUDA symbol that each bf16 kernel of the default m7c step launches, by the
+# name of its launch count (rows 1, 2, 3 forward; 7 cmp, 9, 11 backward)
+STEP_SYMBOLS = {"select_cmp": "select_cmp_mma_kernel", "sel_attn": "sel_attn_union_kernel",
+                "win_attn": "win_fwd_mma_kernel", "banded_bwd_1p": "banded_bwd_1p_mma_kernel",
+                "sel_attn_bwd_1p": "sel_bwd_kv_mma_kernel",
+                "win_bwd_diag": "win_bwd_diag_mma_kernel"}
+# names of PyTorch's attention library kernels and ops (flash, memory-efficient
+# cutlass "fmha", cuDNN "sdpa"), none of which the port may run
+LIBRARY_ATTENTION = ("flash", "fmha", "sdpa", "scaled_dot_product", "efficient_attention")
+
+
+def packer_check() -> None:
+    """(l1): the native packer built with g++ here; TOOLS_BATCHES m7c train
+    batches from make_batches(native=True) byte-equal to native=False's."""
+    t = time.perf_counter()
+    if not native.native_available():
+        fail(f"the native packer did not build: {native._ERROR}")
+    built = time.perf_counter() - t
+    tcfg, runs, ms = M7C_125M_TRAIN, {}, {True: [], False: []}
+    for nat in (False, True, True, False):   # in turns: the first pass warms numpy up
+        t = time.perf_counter()
+        it = make_batches("synthetic", tcfg.seq_len, tcfg.batch_size, seed=tcfg.seed, native=nat)
+        runs[nat] = [next(it) for _ in range(TOOLS_BATCHES)]
+        ms[nat].append((time.perf_counter() - t) * 1e3)
+    shape = (tcfg.batch_size, tcfg.seq_len + 1)
+    if not all(a.shape == b.shape == shape and a.dtype == b.dtype == np.int32
+               and np.array_equal(a, b) for a, b in zip(runs[True], runs[False])):
+        fail("the native packer's batches differ from the Python packer's")
+    print(f"[tools] (l1) native packer {native.library_path()} ready in {built:.2f} s; "
+          f"{TOOLS_BATCHES} batches of {shape[0]} x {shape[1]} byte-equal to the Python "
+          f"packer's (host ms, synthetic documents included, python, native, native, python: "
+          f"{ms[False][0]:.1f}, {ms[True][0]:.1f}, {ms[True][1]:.1f}, {ms[False][1]:.1f})")
+
+
+def trainer_tools_check() -> None:
+    """(l2): the trainer CLI in a subprocess at m7c full width (TOOLS_LAYERS
+    deep) with every tool on (TOOLS_ARGS): exit 0, finite losses, no bad step, the native
+    packer, mem_step<n>.json with a peak allocation, no .HALT, and a trace
+    of the profiled steps that names each kernel of the default step
+    (STEP_SYMBOLS) and no attention library kernel or op."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, TOOLS_DIR)
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "nsa_vibe_tpu_torch.train.trainer", *TOOLS_ARGS,
+           "--out-dir", out]
+    print(f"[tools] (l2) {' '.join(cmd[1:])}", flush=True)
+    t = time.perf_counter()
+    try:
+        run = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                             timeout=TOOLS_TIMEOUT_S, env={**os.environ, "PYTHONPATH": root})
+    except subprocess.TimeoutExpired:
+        fail(f"the trainer did not end within {TOOLS_TIMEOUT_S} s")
+    secs = time.perf_counter() - t
+    print("\n".join(ln for ln in run.stdout.splitlines() if ln.startswith("[trainer]")))
+    if run.returncode != 0:
+        print(run.stdout[-3000:], run.stderr[-3000:])
+        fail(f"the trainer exited with {run.returncode}")
+    summary = json.loads(run.stdout.strip().splitlines()[-1])["summary"]
+    with open(os.path.join(out, "training.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    if (summary["steps"] != TOOLS_STEPS or summary["bad_steps"] or not rows
+            or not np.all(np.isfinite(losses)) or any(int(r["bad_steps"]) for r in rows)):
+        fail(f"the trainer's run: {summary}, logged losses {losses}")
+    if "[trainer] packer: native C++" not in run.stdout:
+        fail("the trainer did not use the native packer")
+    if os.path.exists(os.path.join(out, ".HALT")):
+        fail("the trainer's run left a .HALT")
+    peaks = {}
+    for n in range(TOOLS_MEM_EVERY, TOOLS_STEPS + 1, TOOLS_MEM_EVERY):
+        path = os.path.join(out, f"mem_step{n}.json")
+        if not os.path.exists(path):
+            fail(f"no {path}")
+        with open(path) as f:
+            peaks[n] = json.load(f).get("allocated_bytes.all.peak", 0)
+    if not all(v > 0 for v in peaks.values()):
+        fail(f"mem_step*.json without a peak allocation: {peaks}")
+    # the trainer profiles from its third step (numbered as its log numbers steps)
+    path = os.path.join(out, "profile", f"trace_steps3-{2 + TOOLS_PROFILE}.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels_seen = [e["name"] for e in events if e.get("cat") == "kernel"]
+    library = sorted({e["name"][:80] for e in events if e.get("cat") in ("kernel", "cpu_op")
+                      and any(k in e["name"].lower() for k in LIBRARY_ATTENTION)})
+    M = M7C_125M_TRAIN
+    want = ["select_cmp", "sel_attn", "win_attn"] + [
+        tuning.backward_kernel(b, M.seq_len, M7C_125M.nsa.w) for b in ("win", "cmp", "sel")]
+    calls = {k: sum(STEP_SYMBOLS[k] in n for n in kernels_seen) for k in want}
+    print(f"[tools] (l2) trainer exit 0 in {secs:.1f} s (its loop {summary['wall_s']:.1f} s): "
+          f"logged losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}, bad steps 0; peak allocated "
+          + ", ".join(f"step {n} {v} bytes" for n, v in peaks.items())
+          + f"; {path}: {len(events)} events, {len(kernels_seen)} kernels, port kernels "
+          + ", ".join(f"{k} ({STEP_SYMBOLS[k]}) {v}" for k, v in calls.items())
+          + f"; attention library kernels or ops: {library or 'none'}")
+    if not all(calls.values()) or library:
+        fail("the profiled steps miss a kernel of the default step or ran a library "
+             "attention kernel")
+
+
+def module_check(dev) -> None:
+    """(l3): NSAAttention and LlamaBlockNSA (models/nn_module.py) at m7c
+    width, bf16, 1 x S, bit-equal to nsa_prefill / block_prefill on the same
+    parameters, output and every gradient; the modules' forward and backward
+    launch each kernel of the default step."""
+    cfg = M7C_125M.nsa
+    gen = torch.Generator().manual_seed(2468)
+    x = torch.randn((1, S, cfg.dim), generator=gen).to(dev, torch.bfloat16)
+    cases = (("NSAAttention", NSAAttention, cfg,
+              init_nsa_params(cfg, gen, device=dev, dtype=torch.bfloat16),
+              lambda p: nsa_prefill(p, x, cfg)[0]),
+             ("LlamaBlockNSA", LlamaBlockNSA, M7C_125M,
+              init_block_params(gen, M7C_125M, torch.bfloat16, dev),
+              lambda p: block_prefill(p, x, M7C_125M)[0]))
+    for name, cls, c, params, functional in cases:
+        mod = cls(c, params, device=dev)
+        kernels.reset_launch_counts()
+        y = mod(x)
+        y.float().square().mean().backward()
+        counts = train_counts()
+        leaves = [t.detach().requires_grad_(True) for _, t in param_leaves(params)]
+        want = functional(tree_from_leaves(params, leaves))
+        grads = torch.autograd.grad(want.float().square().mean(), leaves)
+        paths = [k.strip("/").replace("/", ".") for k, _ in param_leaves(params)]
+        same = [torch.equal(mod.tree.get_parameter(k).grad, g) for k, g in zip(paths, grads)]
+        launched = {k: counts[k] for k in STEP_SYMBOLS}
+        equal = torch.equal(y, want)
+        print(f"[tools] (l3) {name} 1 x {S} bf16: output {'bit-equal' if equal else 'DIFFERENT'}"
+              f", {sum(same)} of {len(same)} gradients bit-equal to the functional call's; "
+              f"launches {launched}")
+        if not equal or not all(same) or not all(launched.values()):
+            fail(f"{name} is not the functional call, or missed a kernel")
+
+
+def phase_tools(dev) -> None:
+    """Phase (l), host tools (run last): (l1) packer_check, (l2)
+    trainer_tools_check, (l3) module_check."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    packer_check()
+    trainer_tools_check()
+    module_check(dev)
+    print(f"[tools] phase (l): {time.perf_counter() - t0:.1f} s")
+
+
 def _leaves(tree, key=None):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -4900,6 +5170,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
               file=sys.stderr)
         return 2
+    guard_children()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4957,6 +5228,10 @@ def main() -> int:
     rows += phase_stages(dev)
     torch.cuda.empty_cache()
     rows += phase_tp(dev)
+    torch.cuda.empty_cache()
+    phase_tools(dev)
+    left = end_children(grace_s=10)
+    print(f"[procs] still running at the end, killed: {left or 'none'}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -4970,7 +5245,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--parallel-worker"]:   # a rank of (i) or (j), under torch.distributed.run
+    if sys.argv[1:2] == ["--parallel-worker"]:   # a rank of (i), (j) or (k), from start_ranks
         (parallel_worker if sys.argv[2] in ("sp", "fsdp") else stage_worker)(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

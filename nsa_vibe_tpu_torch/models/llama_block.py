@@ -9,12 +9,12 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from nsa_vibe_tpu_torch.core.cache import NSACache
 from nsa_vibe_tpu_torch.core.config import ModelConfig
 from nsa_vibe_tpu_torch.core.decode import nsa_decode_step
 from nsa_vibe_tpu_torch.core.nsa import init_nsa_params, nsa_prefill, uniform_linear
+from nsa_vibe_tpu_torch.models.remat import remat
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -46,14 +46,16 @@ def init_block_params(generator: torch.Generator, mcfg: ModelConfig, dtype, devi
 def block_prefill(params: dict, x: torch.Tensor, mcfg: ModelConfig, seq_start=None,
                   t0: int = 0, gather_kv: Optional[Callable] = None,
                   seq_start_kv=None, tp_in: Optional[Callable] = None,
-                  tp_out: Optional[Callable] = None) -> Tuple[torch.Tensor, dict]:
+                  tp_out: Optional[Callable] = None, split: bool = False) -> tuple:
     """Pre-norm residual block, batched prefill (seq_start [B,S]: packed
     documents, ops/varlen.py; t0, gather_kv, seq_start_kv: sequence
     sharding, see core/nsa.py::nsa_prefill). Tensor parallelism
     (parallel/mesh.py): with a tp member's slice of the weights and mcfg's
     tp-local attention, `tp_in` (copy_to_tp) takes each sub-block's normed
     input and `tp_out` (reduce_from_tp) its partial output before the
-    residual add. Returns (y, attn aux)."""
+    residual add. Returns (y, attn aux); split=True returns (x, m, aux)
+    with y = x + tp_out(m), the part a block remat recomputes: the last
+    residual add and tp_out's all-reduce save nothing the backward reads."""
     tin, tout = tp_in or (lambda a: a), tp_out or (lambda a: a)
     attn_out, aux = nsa_prefill(params["attn"],
                                 tin(rmsnorm(x, params["attn_norm"], mcfg.rmsnorm_eps)),
@@ -61,9 +63,9 @@ def block_prefill(params: dict, x: torch.Tensor, mcfg: ModelConfig, seq_start=No
                                 seq_start_kv=seq_start_kv)
     x = x + tout(attn_out)
     h = tin(rmsnorm(x, params["mlp_norm"], mcfg.rmsnorm_eps))
-    if mcfg.remat == "mlp" and torch.is_grad_enabled():
-        return x + tout(checkpoint(mlp, params["mlp"], h, use_reentrant=False)), aux
-    return x + tout(mlp(params["mlp"], h)), aux
+    m = (remat(mlp, params["mlp"], h) if mcfg.remat == "mlp" and torch.is_grad_enabled()
+         else mlp(params["mlp"], h))
+    return (x, m, aux) if split else (x + tout(m), aux)
 
 
 def block_decode_step(params: dict, x: torch.Tensor, cache: NSACache, mcfg: ModelConfig,

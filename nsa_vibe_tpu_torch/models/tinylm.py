@@ -13,11 +13,11 @@ functions that replay it as a CUDA graph on the card (`generate_scan`,
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from nsa_vibe_tpu_torch.core.cache import (
     NSACache, cache_from_prefill, cache_tensors, init_cache, ragged_cache,
@@ -28,6 +28,7 @@ from nsa_vibe_tpu_torch.models.decode_graph import DecodeGraph
 from nsa_vibe_tpu_torch.models.llama_block import (
     block_decode_step, block_prefill, init_block_params, rmsnorm,
 )
+from nsa_vibe_tpu_torch.models.remat import remat
 from nsa_vibe_tpu_torch.utils.device import resolve_device, torch_dtype
 from nsa_vibe_tpu_torch.utils.sampling import sample_logits
 
@@ -65,15 +66,17 @@ def model_forward(params: dict, tokens: torch.Tensor, mcfg: ModelConfig,
     """tokens [B, S] -> (logits [B, S, vocab], per-layer gates/selection if
     asked). seq_start [B, S]: packed documents (ops/varlen.py). With remat
     True/"full" and grad mode on, each block's forward is recomputed in the
-    backward (torch.utils.checkpoint); "mlp" remats inside the block."""
+    backward (models/remat.py); "mlp" remats inside the block."""
     x = embed(params, tokens, mcfg)
     if seq_start is not None:
         seq_start = seq_start.to(device=x.device, dtype=torch.int32).contiguous()
     auxes = []
-    remat = mcfg.remat in (True, "full") and torch.is_grad_enabled()
+    rematted = mcfg.remat in (True, "full") and torch.is_grad_enabled()
     for bp in params["blocks"]:
-        if remat:
-            x, aux = checkpoint(block_prefill, bp, x, mcfg, seq_start, use_reentrant=False)
+        if rematted:
+            x, m, aux = remat(functools.partial(block_prefill, split=True), bp, x, mcfg,
+                              seq_start)
+            x = x + m
         else:
             x, aux = block_prefill(bp, x, mcfg, seq_start)
         if collect_aux:

@@ -33,14 +33,15 @@ every rank, in the same order, since every rank runs the same graph.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig
 from nsa_vibe_tpu_torch.core.nsa import nsa_prefill, tp_local
 from nsa_vibe_tpu_torch.models.llama_block import block_prefill
+from nsa_vibe_tpu_torch.models.remat import remat
 from nsa_vibe_tpu_torch.models.tinylm import embed, head
 from nsa_vibe_tpu_torch.parallel.mesh import (
     Mesh, copy_to_tp, gather_along, gather_dim, reduce_from_tp,
@@ -115,8 +116,9 @@ def run_blocks(blocks: list, x: torch.Tensor, mcfg: ModelConfig, mesh: Mesh,
     (mesh.tp_shard). `block(i, bp)`, if given, makes the parameter dict of
     blocks[i] inside the (remat) block, where fsdp gathers its shards
     (parallel/train_step.py). The remat contract is model_forward's:
-    True/"full" recomputes each block, its collectives included, in the
-    backward; "mlp" only the MLP."""
+    True/"full" recomputes each block in the backward, its collectives
+    included but for the last residual add's tp all-reduce
+    (block_prefill's split); "mlp" only the MLP."""
     if seq_start is not None:
         seq_start = seq_start.to(device=x.device, dtype=torch.int32).contiguous()
     make = block or (lambda i, bp: bp)
@@ -126,13 +128,18 @@ def run_blocks(blocks: list, x: torch.Tensor, mcfg: ModelConfig, mesh: Mesh,
     if mesh.tp > 1:
         mcfg = dataclasses.replace(mcfg, nsa=tp_local(mcfg.nsa, mesh.tp))
 
-    def run(i, bp, x):
-        return block_prefill(make(i, bp), x, mcfg, **kw)
+    def run(i, bp, x, split=False):
+        return block_prefill(make(i, bp), x, mcfg, split=split, **kw)
 
-    remat = mcfg.remat in (True, "full") and torch.is_grad_enabled()
+    rematted = mcfg.remat in (True, "full") and torch.is_grad_enabled()
+    tout = kw.get("tp_out") or (lambda a: a)
     auxes = []
     for i, bp in enumerate(blocks):
-        x, aux = checkpoint(run, i, bp, x, use_reentrant=False) if remat else run(i, bp, x)
+        if rematted:
+            x, m, aux = remat(functools.partial(run, split=True), i, bp, x)
+            x = x + tout(m)
+        else:
+            x, aux = run(i, bp, x)
         if collect_aux:
             auxes.append({"gates": aux["gates"], "sel_idx": aux["sel_idx"]})
     return x, _gather_aux_tp(auxes, mesh)

@@ -1,16 +1,19 @@
 """Data pipeline: byte-LM token streams with fixed-length packing.
 
 The port's own copy of nsa_vibe_tpu/train/data.py (tokenize_bytes, the
-byte tokenizer, synthetic_docs, pack_token_stream, local_docs,
-make_batches, collate_varlen, Shard): the same numpy arithmetic, so a
-seed gives the same batches in both packages. Packed-document (varlen)
-batches come from ops/varlen.py::make_varlen_batches over the same
-sources. Doc-level sharding (`Shard`) splits documents across the dp
-members of a parallel run (parallel/): member r of n reads the documents
-whose index is r mod n (synthetic: the stream of seed + r); the sp ranks
-of one member read the same rows and each takes its positions. Not
-ported: the native C++ packer, HF tokenizers and the fineweb stream (it
-needs the network and HF `datasets`; `make_batches("fineweb...")` raises).
+byte tokenizer, synthetic_docs, pack_token_stream, its native form
+pack_token_stream_native over the C++ packer of nsa_vibe_tpu_torch/native,
+local_docs, make_batches, collate_varlen, Shard): the same numpy
+arithmetic, so a seed gives the same batches in both packages, whichever
+packer runs. Packed-document (varlen) batches come from
+ops/varlen.py::make_varlen_batches over the same sources. Doc-level
+sharding (`Shard`) splits documents across the dp members of a parallel
+run (parallel/): member r of n reads the documents whose index is r mod n
+(synthetic: the stream of seed + r); the sp ranks of one member read the
+same rows and each takes its positions. Not ported: HF tokenizers (they
+need tokenizer files the repo does not hold; `make_tokenizer("hf:...")`
+raises) and the fineweb stream (it needs the network and HF `datasets`;
+`make_batches("fineweb...")` raises).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -46,6 +49,9 @@ def make_tokenizer(spec: str = "byte"):
     """Tokenizer factory: only "byte" (vocab 256) in the port."""
     if spec == "byte":
         return tokenize_bytes
+    if spec.startswith("hf:"):
+        raise ValueError(f"tokenizer {spec!r}: an HF tokenizer needs tokenizer files that are "
+                         "not in the repo; the port reads --tokenizer byte only")
     raise ValueError(f"unknown tokenizer spec: {spec} (the port has only 'byte')")
 
 
@@ -64,6 +70,26 @@ def pack_token_stream(
         while buf.size >= need:
             chunk, buf = buf[:need], buf[need:]
             yield chunk.reshape(batch_size, seq_len + 1)
+
+
+def pack_token_stream_native(
+    docs: Iterable[np.ndarray], seq_len: int, batch_size: int
+) -> Iterator[np.ndarray]:
+    """pack_token_stream through the C++ ring-buffer packer
+    (nsa_vibe_tpu_torch.native): the same batches, no per-document Python
+    concatenation. Raises RuntimeError when the library does not build."""
+    from nsa_vibe_tpu_torch.native import ByteStreamPacker
+
+    packer = ByteStreamPacker(seq_len, batch_size)
+    try:
+        for doc in docs:
+            if doc.size == 0:
+                continue
+            packer.feed(doc)
+            while (b := packer.next_batch()) is not None:
+                yield b
+    finally:
+        packer.close()
 
 
 def synthetic_docs(seed: int = 0, doc_len: int = 2048) -> Iterator[np.ndarray]:
@@ -120,10 +146,14 @@ def make_batches(
     tokenizer: str = "byte",
     epochs: int = 1,
     shard: Shard = Shard(),
+    native: Optional[bool] = None,
 ) -> Iterator[np.ndarray]:
     """source: 'synthetic' | path to .jsonl/.txt, the documents `shard`
     owns (synthetic: the stream of seed + shard.rem). epochs (local files
-    only): 0 cycles forever. Yields int32 [batch_size, seq_len+1]."""
+    only): 0 cycles forever. Yields int32 [batch_size, seq_len+1].
+    native: True = the C++ packer (raises when it does not build), False =
+    Python, None = the C++ packer when it builds; the batches are the same
+    (the packer stores byte tokens, and the port's only tokenizer is byte)."""
     tokenize = make_tokenizer(tokenizer)
     if source == "synthetic":
         docs: Iterator[np.ndarray] = synthetic_docs(seed + shard.rem)
@@ -134,7 +164,12 @@ def make_batches(
         docs = local_docs(source, shard, tokenize=tokenize, epochs=epochs)
     else:
         raise ValueError(f"unknown data source: {source}")
-    yield from pack_token_stream(docs, seq_len, batch_size)
+    if native is None:
+        from nsa_vibe_tpu_torch.native import native_available
+
+        native = native_available()
+    pack = pack_token_stream_native if native else pack_token_stream
+    yield from pack(docs, seq_len, batch_size)
 
 
 def collate_varlen(docs: list, seq_len: int, pad_id: int = 0) -> dict:

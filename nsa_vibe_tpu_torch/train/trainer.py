@@ -19,14 +19,30 @@
     (under a mesh the ranks agree on it at log boundaries);
   * the coherent NaN abort: the device `good` flags queue up and are read
     at log boundaries, 3 consecutive bad steps halt the run;
-  * periodic + final checkpoints with optimizer state; --resume.
+  * periodic + final checkpoints with optimizer state; --resume;
+  * the JAX trainer's tools (rank 0): --watchdog runs
+    utils/watchdog.py::watch in a thread until the run ends; --profile N
+    traces steps [start + 2, start + 2 + N) with torch.profiler (CPU
+    activity, and the card's kernels on a card) into
+    out_dir/profile/trace_steps<a>-<b>.json (Chrome trace format);
+    --mem-dump-every N writes torch.cuda.memory_stats() to
+    out_dir/mem_step<n>.json every N steps (none on the CPU, which has no
+    such stats); TensorBoard scalars (the JAX tags) under out_dir/tb when
+    the tensorboard package imports (else one line says none are written);
+    --detect-anomaly runs the loop under
+    torch.autograd.set_detect_anomaly(True); --synthetic-on-fail restarts
+    the feed on synthetic data when the first batch of another source
+    fails; SIGUSR1 dumps every thread's stack (faulthandler). The packer
+    (the C++ one of nsa_vibe_tpu_torch/native when it builds, else Python;
+    packed documents always Python) is printed once.
 
 The host reads device values only at log (and eval/save) boundaries, so
 the card runs ahead of the Python loop between them.
 
 Run:  python -m nsa_vibe_tpu_torch.train.trainer --steps 50 --data synthetic
       python -m nsa_vibe_tpu_torch.train.trainer --config configs/m7c_125m.yaml \
-          --data synthetic --steps 20 [--varlen]
+          --data synthetic --steps 20 [--varlen] [--watchdog] [--profile 2] \
+          [--mem-dump-every 4] [--detect-anomaly]
       torchrun --nproc-per-node N -m nsa_vibe_tpu_torch.train.trainer \
           --config configs/m7c_125m_pod.yaml --data synthetic   (N cards)
       torchrun --nproc-per-node 4 -m nsa_vibe_tpu_torch.train.trainer \
@@ -43,13 +59,18 @@ Run:  python -m nsa_vibe_tpu_torch.train.trainer --steps 50 --data synthetic
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import dataclasses
+import faulthandler
 import json
 import os
 import queue
+import signal
+import sys
 import threading
 import time
+import types
 from typing import Optional
 
 import numpy as np
@@ -60,11 +81,13 @@ from nsa_vibe_tpu_torch.models.tinylm import init_model_params
 from nsa_vibe_tpu_torch.ops.varlen import make_varlen_batches
 from nsa_vibe_tpu_torch.parallel import train_step as pts
 from nsa_vibe_tpu_torch.parallel.mesh import all_reduce_, initialize_distributed, make_mesh
-from nsa_vibe_tpu_torch.train.data import Shard, make_batches
+from nsa_vibe_tpu_torch.native import library_path, native_available
+from nsa_vibe_tpu_torch.train.data import Shard, make_batches, make_tokenizer
 from nsa_vibe_tpu_torch.train.train_step import init_train_state, make_eval_step, make_train_step
 from nsa_vibe_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from nsa_vibe_tpu_torch.utils.device import resolve_device
 from nsa_vibe_tpu_torch.utils.heartbeat import Heartbeat
+from nsa_vibe_tpu_torch.utils.watchdog import watch
 
 NAN_ABORT_STREAK = 3
 FIRST_BATCH_TIMEOUT_S = 120.0   # a stuck data source fails fast
@@ -181,11 +204,85 @@ def _rank_device(device: str) -> str:
     return f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}" if device == "cuda" else device
 
 
+class _StepProfiler:
+    """torch.profiler over the loop's steps [start, start + n): CPU activity,
+    and the card's kernels on a card. `at(step)` is called before each step
+    runs; the trace goes to run_dir/profile/trace_steps<a>-<b>.json (steps
+    numbered as the log numbers them) when the n steps are done or, if the
+    loop ends first, at `close()`."""
+
+    def __init__(self, run_dir: str, dev: torch.device, start: int, n: int):
+        self.dir, self.dev, self.start, self.n = os.path.join(run_dir, "profile"), dev, start, n
+        self.prof = None
+        self.last = start
+
+    def at(self, step: int) -> None:
+        if step == self.start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        elif step == self.start + self.n:
+            self.close()
+        self.last = step
+
+    def close(self) -> None:
+        if self.prof is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)   # the traced steps' kernels end inside the trace
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"trace_steps{self.start + 1}-{self.last + 1}.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        print(f"[trainer] profile written to {path}", flush=True)
+
+
+def _tensorboard(run_dir: str):
+    """A SummaryWriter on run_dir/tb, or None (with one line saying so) where
+    the tensorboard package is not installed."""
+    if "tensorflow" not in sys.modules:
+        # tensorboard imports TensorFlow where one is installed (seconds of
+        # start-up and its memory in every trainer) unless its no-TensorFlow
+        # marker module exists; writing event files needs only its stub
+        marker = "tensorboard.compat.notf"
+        sys.modules.setdefault(marker, types.ModuleType(marker))
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        print("[trainer] the tensorboard package is not installed: no TensorBoard scalars "
+              "are written", flush=True)
+        return None
+    return SummaryWriter(os.path.join(run_dir, "tb"))
+
+
+def _dump_memory(run_dir: str, step: int, dev: torch.device) -> None:
+    """run_dir/mem_step<step>.json from torch.cuda.memory_stats (ints); the
+    CPU has no such stats, so nothing is written there."""
+    stats = torch.cuda.memory_stats(dev) if dev.type == "cuda" else {}
+    if stats:
+        with open(os.path.join(run_dir, f"mem_step{step}.json"), "w") as f:
+            json.dump({k: int(v) for k, v in stats.items()}, f, indent=2)
+
+
 def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
-          resume: bool = False, device="cuda", backend: Optional[str] = None) -> dict:
+          resume: bool = False, device="cuda", backend: Optional[str] = None,
+          watchdog_in_process: bool = False, profile_steps: int = 0, tokenizer: str = "byte",
+          synthetic_on_fail: bool = False,
+          first_batch_timeout_s: float = FIRST_BATCH_TIMEOUT_S,
+          detect_anomaly: bool = False, mem_dump_every: int = 0) -> dict:
     """Run training; returns a summary dict (final loss, toks/s, steps done).
     Under torch.distributed (see the module notes) every rank calls it;
-    `backend` ("nccl" or "gloo", None: nccl on a card) starts the group."""
+    `backend` ("nccl" or "gloo", None: nccl on a card) starts the group.
+    The tools (watchdog_in_process, profile_steps, mem_dump_every, the
+    TensorBoard scalars) run on rank 0; see the module notes for them,
+    synthetic_on_fail and detect_anomaly. tokenizer: "byte" (the only
+    tokenizer the port has; "hf:..." raises)."""
+    make_tokenizer(tokenizer)   # refuses what the port lacks before any work starts
+    with contextlib.suppress(AttributeError, ValueError):   # no SIGUSR1 on this platform
+        faulthandler.register(signal.SIGUSR1, all_threads=True, chain=True)
     parallel = _distributed(tcfg)
     if parallel:
         initialize_distributed(backend)
@@ -236,13 +333,30 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
         raise ValueError(f"batch_size {tcfg.batch_size} does not split over dp={dp}")
     A, Bsz, S = tcfg.accum_steps, tcfg.batch_size // dp, tcfg.seq_len
     shard = Shard() if mesh is None else Shard(mesh.dp, mesh.dp_rank)
-    if tcfg.varlen:
-        source = make_varlen_batches(data_source, S, Bsz * A, align=mcfg.nsa.l_sel,
-                                     seed=tcfg.seed, epochs=0, shard=shard)
-    else:
-        source = make_batches(data_source, S, Bsz * A, seed=tcfg.seed, epochs=0, shard=shard)
-    batches = _Prefetcher(source)
-    first_batch = batches.get(timeout=FIRST_BATCH_TIMEOUT_S)
+    native = not tcfg.varlen and native_available()
+    if lead:
+        print("[trainer] packer: " + (f"native C++ ({library_path()})" if native else
+                                      "python" + (" (packed documents, ops/varlen.py)"
+                                                  if tcfg.varlen else "")), flush=True)
+
+    def source(src: str):
+        if tcfg.varlen:
+            return make_varlen_batches(src, S, Bsz * A, align=mcfg.nsa.l_sel, seed=tcfg.seed,
+                                       tokenizer=tokenizer, epochs=0, shard=shard)
+        return make_batches(src, S, Bsz * A, seed=tcfg.seed, tokenizer=tokenizer, epochs=0,
+                            shard=shard, native=native)
+
+    batches = _Prefetcher(source(data_source))
+    try:
+        first_batch = batches.get(timeout=first_batch_timeout_s)
+    except (queue.Empty, RuntimeError, StopIteration) as e:
+        if not synthetic_on_fail or data_source == "synthetic":
+            raise
+        if lead:
+            print(f"[trainer] data source {data_source!r} failed ({e}); falling back to "
+                  "synthetic", flush=True)
+        batches = _Prefetcher(source("synthetic"))
+        first_batch = batches.get(timeout=60.0)
 
     def to_device(batch_np, shape):
         b = _batch_to_device(batch_np, tcfg, shape, dev)
@@ -254,12 +368,29 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
     csv_path = os.path.join(run_dir, "training.csv")
     val_path = os.path.join(run_dir, "val.csv")
     new_csv = not (resume and os.path.exists(csv_path))
-    with open(csv_path if lead else os.devnull, "w" if new_csv else "a", newline="") as csv_f:
+    with contextlib.ExitStack() as stack:
+        csv_f = stack.enter_context(open(csv_path if lead else os.devnull,
+                                         "w" if new_csv else "a", newline=""))
         csv_w = csv.writer(csv_f)
         if new_csv:
             csv_w.writerow(["step", "loss", "toks_per_s", "grad_norm", "gate_entropy",
                             "gate_max", "gate_collapse_frac", "share_cmp", "share_sel",
                             "share_win", "sel_k_mean", "sel_k_max", "bad_steps"])
+
+        if detect_anomaly:   # the previous setting comes back when the loop ends
+            stack.enter_context(torch.autograd.set_detect_anomaly(True))
+        tb = _tensorboard(run_dir) if lead else None
+        if tb is not None:
+            stack.callback(tb.close)
+        if watchdog_in_process and lead:
+            stop_watch = threading.Event()
+            stack.callback(stop_watch.set)
+            threading.Thread(target=watch, args=(run_dir,), kwargs={"stop": stop_watch},
+                             name="nsa-watchdog", daemon=True).start()
+        prof = None
+        if profile_steps and lead:
+            prof = _StepProfiler(run_dir, dev, start_step + 2, profile_steps)
+            stack.callback(prof.close)
 
         halt_path = os.path.join(run_dir, ".HALT")
         bad_streak = total_bad = 0
@@ -288,6 +419,8 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
                     print(f"[trainer] .HALT detected at step {step}; exiting gracefully",
                           flush=True)
                 break
+            if prof is not None:
+                prof.at(step)
             if first_batch is not None:
                 batch_np, first_batch = first_batch, None
             else:
@@ -340,6 +473,13 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
                             gate_collapse_frac=vals["gate_collapse_frac"])
                     print(f"[trainer] step {step + 1} loss {loss:.4f} {toks_per_s:.0f} toks/s",
                           flush=True)
+                if tb is not None:
+                    for tag, v in (("train/loss", loss), ("train/toks_per_s", toks_per_s),
+                                   ("train/grad_norm", vals["grad_norm"]),
+                                   ("gate/entropy", vals["gate_entropy"]),
+                                   ("gate/collapse_frac", vals["gate_collapse_frac"]),
+                                   ("sel/k_mean", vals["sel_k_mean"])):
+                        tb.add_scalar(tag, v, step + 1)
 
             if tcfg.eval_every and (step + 1) % tcfg.eval_every == 0:
                 vb = batches.get(timeout=300.0)
@@ -351,6 +491,9 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
 
             if tcfg.save_every and (step + 1) % tcfg.save_every == 0:
                 save_checkpoint(ckpt_dir, step + 1, state, mesh=mesh)
+
+            if mem_dump_every and (step + 1) % mem_dump_every == 0 and lead:
+                _dump_memory(run_dir, step + 1, dev)
     save_checkpoint(ckpt_dir, int(state.step), state, mesh=mesh)
     return {
         "final_loss": last_loss,
@@ -364,7 +507,8 @@ def train(mcfg: ModelConfig, tcfg: TrainConfig, data_source: str = "synthetic",
 def main() -> None:
     ap = argparse.ArgumentParser(description="NSA byte-LM trainer (PyTorch port)")
     ap.add_argument("--config", default=None)
-    ap.add_argument("--data", default=None, help="synthetic | path.jsonl | path.txt")
+    ap.add_argument("--data", default=None,
+                    help="synthetic, or a local .jsonl ({\"text\": ...} a line) or .txt file")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; cuda:LOCAL_RANK under torch.distributed), cuda:N or cpu")
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
@@ -400,6 +544,19 @@ def main() -> None:
                     help="packed-document batching (no attention across a document "
                          "boundary; loss-masked padding; ops/varlen.py)")
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--watchdog", action="store_true",
+                    help="run utils/watchdog.py in a thread (halts the run on an anomaly)")
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="trace N steps with torch.profiler into out_dir/profile")
+    ap.add_argument("--tokenizer", default="byte",
+                    help='"byte" (the port has no other; "hf:..." needs files not in the repo)')
+    ap.add_argument("--synthetic-on-fail", dest="synthetic_on_fail", action="store_true",
+                    help="fall back to synthetic data if the source's first batch fails")
+    ap.add_argument("--detect-anomaly", dest="detect_anomaly", action="store_true",
+                    help="torch.autograd.set_detect_anomaly(True): raise at the first "
+                         "backward op that makes a NaN")
+    ap.add_argument("--mem-dump-every", dest="mem_dump_every", type=int, default=0,
+                    metavar="N", help="write torch.cuda.memory_stats() JSON every N steps")
     args = ap.parse_args()
 
     mcfg, tcfg, data = load_config(args.config)
@@ -407,7 +564,10 @@ def main() -> None:
     if args.data is not None:
         data = args.data
     summary = train(mcfg, tcfg, data, resume=args.resume, device=args.device,
-                    backend=args.backend)
+                    backend=args.backend, watchdog_in_process=args.watchdog,
+                    profile_steps=args.profile, tokenizer=args.tokenizer,
+                    synthetic_on_fail=args.synthetic_on_fail,
+                    detect_anomaly=args.detect_anomaly, mem_dump_every=args.mem_dump_every)
     if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
         print(json.dumps({"summary": summary}), flush=True)
     if torch.distributed.is_initialized():

@@ -3,7 +3,7 @@
 After nsa_vibe_tpu/utils/checkpoint.py: parameters, optimizer moments and
 count, and the step, one file `step_<n>.pt` per checkpoint. Restore
 copies into the live state in place, so tensors keep their device, dtype
-and views (the projection entries stay views of W_qkv).
+and views (the projection entries stay views of W_qkv), leaf by name.
 
 Under a mesh (parallel/train_step.py::ParallelState) the file has the
 same single-device format, the list of blocks: saving gathers each
@@ -85,14 +85,17 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = N
     saved_names = list(blob["params"])
     if mesh is None:
         names = [k for k, _ in leaves]
-        if names != saved_names:
-            raise ValueError("checkpoint parameters do not match the model's")
+        full = names
     else:
         from nsa_vibe_tpu_torch.parallel.train_step import global_names
 
         names = global_names(state)
-        if [k for k, _ in param_leaves(state.full_template)] != saved_names:
-            raise ValueError("checkpoint parameters do not match the model's")
+        full = [k for k, _ in param_leaves(state.full_template)]
+    # leaves are matched by name: a state whose dicts hold their keys in
+    # another order (convert.params_from_numpy of a JAX tree, which JAX
+    # sorts) restores the same checkpoint
+    if sorted(full) != sorted(saved_names):
+        raise ValueError("checkpoint parameters do not match the model's")
     index = {k: i for i, k in enumerate(saved_names)}
     axes = getattr(state, "axes", None) or [None] * len(leaves)
     tp_axes = getattr(state, "tp_axes", None) or [None] * len(leaves)

@@ -1,6 +1,6 @@
 """Heartbeat: one JSON line per beat with training vitals (the port's own
-copy of nsa_vibe_tpu/utils/heartbeat.py; its reader `last_beat` serves
-the JAX watchdog, which the port does not have)."""
+copy of nsa_vibe_tpu/utils/heartbeat.py; utils/watchdog.py reads the
+file itself, so the JAX module's reader `last_beat` is not copied)."""
 
 from __future__ import annotations
 

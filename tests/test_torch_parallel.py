@@ -33,8 +33,6 @@ varlen_exact (the port's avg ϕ is window-exact). Held:
 
 import dataclasses
 import json
-import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -61,7 +59,7 @@ from nsa_vibe_tpu_torch.train.trainer import load_config
 from nsa_vibe_tpu_torch.utils.checkpoint import restore_checkpoint
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from torch_parallel_worker import flatten  # noqa: E402
+from torch_parallel_worker import flatten, launch, stop  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "torch_parallel_worker.py"
@@ -122,16 +120,11 @@ def run(tmp_path_factory):
     np.savez(d / "varlen.npz", tokens=vtoks, seq_start=vds, loss_mask=vlm)
     (d / "job.json").write_text(json.dumps({"model": {**MODEL, "nsa": NSA}, "train": TRAIN,
                                             "runs": RUNS}))
-    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                               f"--nproc-per-node={n}", str(WORKER), str(d)], env=env,
-                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for n in (2, 4)]
+    procs = [launch([str(WORKER), str(d)], n, ROOT) for n in (2, 4)]
     try:
         logs = [p.communicate(timeout=600)[0] for p in procs]
     finally:
-        for p in procs:
-            p.kill()
+        stop(procs)
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]
     return d, jp, toks, (vtoks, vds, vlm)

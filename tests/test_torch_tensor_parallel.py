@@ -31,9 +31,7 @@ max |value| for gradients and parameters):
 """
 
 import json
-import os
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -59,7 +57,7 @@ from nsa_vibe_tpu_torch.train import train_step as tts
 from nsa_vibe_tpu_torch.utils.checkpoint import restore_checkpoint
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from torch_parallel_worker import flatten  # noqa: E402
+from torch_parallel_worker import flatten, launch, stop  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "torch_parallel_worker.py"
@@ -97,13 +95,6 @@ def _varlen_batches():
         assert (ds[:, S // 2] < S // 2).any()
         out.append((toks[None], ds[None], lm[None]))
     return [np.stack(a) for a in zip(*out)]
-
-
-def _launch(args, n):
-    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
-    return subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                             f"--nproc-per-node={n}", *args], env=env, cwd=ROOT,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def _flat(tree):
@@ -172,14 +163,13 @@ def run(tmp_path_factory):
     np.savez(d / "varlen.npz", tokens=vtoks, seq_start=vds, loss_mask=vlm)
     (d / "job.json").write_text(json.dumps({"model": {**MODEL, "nsa": NSA}, "train": TRAIN,
                                             "runs": RUNS}))
-    procs = [_launch([str(WORKER), str(d)], n) for n in (2, 4, 8)]
-    procs.append(_launch(["-m", "nsa_vibe_tpu_torch.parallel.dryrun", "--device", "cpu"], 4))
+    procs = [launch([str(WORKER), str(d)], n, ROOT) for n in (2, 4, 8)]
+    procs.append(launch(["-m", "nsa_vibe_tpu_torch.parallel.dryrun", "--device", "cpu"], 4, ROOT))
     try:
         ref = _jax_references(jp, toks, (vtoks, vds, vlm))
         logs = [p.communicate(timeout=600)[0] for p in procs]
     finally:
-        for p in procs:
-            p.kill()
+        stop(procs)
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]
     return d, jp, ref, logs[-1]

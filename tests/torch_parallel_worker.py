@@ -30,10 +30,15 @@ Runs:
 A run's "max_s_sel" lowers select_cmp.SELECT_CMP_MAX_S_SEL, forcing the
 long route (select_blocks beside compressed_attention); "pp" and "M"
 (pp_microbatches) set the pipeline, "tp" the tensor-parallel ranks.
+
+`launch` and `stop` start and end torch.distributed.run for the tests.
 """
 
+import contextlib
 import json
 import os
+import signal
+import subprocess
 import sys
 
 import numpy as np
@@ -52,6 +57,32 @@ from nsa_vibe_tpu_torch.parallel.context import (
 from nsa_vibe_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from nsa_vibe_tpu_torch.train.train_step import param_leaves, tree_from_leaves
 from nsa_vibe_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+
+def launch(args, n: int, root) -> subprocess.Popen:
+    """torch.distributed.run of `args` with n ranks on the CPU (one thread
+    each), from `root`, leading a new process group; `stop` ends it."""
+    env = {**os.environ, "PYTHONPATH": str(root), "OMP_NUM_THREADS": "1"}
+    return subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             f"--nproc-per-node={n}", *args], env=env, cwd=root,
+                            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+
+
+def stop(procs) -> None:
+    """Ends each launcher that still runs (after a timeout or a failed
+    test) and its ranks, which a kill of the launcher alone would leave
+    holding the CPU: SIGTERM first, on which torch.distributed.run stops
+    the ranks it started (it may start each in a session of its own, out
+    of reach of its process group), then SIGKILL of the launcher's group."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                p.wait(timeout=60)
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
 
 
 def unflatten(flat: dict) -> dict:
