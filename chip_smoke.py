@@ -240,6 +240,29 @@ Phases (any failure exits non-zero):
       bf16, 1 x 2048, bit-equal to nsa_prefill / block_prefill, output and
       gradients.
 
+  (m) the gate-epilogue fold (ops/tuning.py nsa.gate_fold, nsa.flat_io; run
+      after (f), on its bf16 train-shape operands and phase (d)'s unfolded
+      step): (m1) rows 1, 2, 3 and 5 (cmp) given a gate [B,S,G] f32
+      against their gated plain versions (f32 allowed_err; bf16
+      allowed_tc_err of the unrounded plain O and rss times the gate, a
+      planted 1% fault failing; two launches bit-equal), their lse and
+      selections the ungated launches' bits, select_cmp's gated O
+      banded_attn's in bf16; (m2) rows 7 (win, cmp) and 9 given the gate
+      bit-equal to the ungated launch on (dO * g).to(dtype), f32 and bf16,
+      the launch with the gate dropped differing, bf16 within
+      allowed_tc_err of the plain version on (dO * g); (m3) the m7c train
+      step's f32 first gradient under the fold (default keys and
+      DESIGNS["twopass"]) within STEP_GRAD_TOL a leaf of the unfolded
+      defaults', a gate backward planted as plain softmax's failing on the
+      gate leaves, the bf16 folded step's losses within LOSS_TOL of (d)'s,
+      its gated launches, busy and other-kernels ms beside (d)'s; (m4) the
+      serve prefill under the fold (and flat-IO, bit-equal) with no host
+      sync on each of FOLD_SERVE_SEEDS, and the long route under the fold
+      (row 5 gated): in f32 the folded logits within FOLD_F32_TOL of the
+      unfolded ones, in bf16 no farther from the f32 unfolded logits than
+      the bf16 unfolded ones plus LOGIT_ULPS; (m5) the gated kernels' JSON
+      rows. The phase fails past FOLD_BUDGET_S.
+
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
 Every process the script starts has ended when it exits (guard_children:
@@ -277,6 +300,7 @@ from nsa_vibe_tpu_torch.convert import params_to, params_to_numpy
 from nsa_vibe_tpu_torch.core.cache import (
     admit_row, cache_from_prefill, cache_tensors, ragged_cache,
 )
+from nsa_vibe_tpu_torch.core import gate as gate_mod
 from nsa_vibe_tpu_torch.core.decode import nsa_decode_step
 from nsa_vibe_tpu_torch.core.nsa import PROJ_KEYS, init_nsa_params, nsa_prefill, tp_local
 from nsa_vibe_tpu_torch.models.llama_block import block_prefill, init_block_params, mlp, rmsnorm
@@ -326,7 +350,7 @@ from nsa_vibe_tpu_torch.ops.cuda.select_cmp import (
 from nsa_vibe_tpu_torch.ops.cuda.win_attn import win_attn, win_attn_plain
 from nsa_vibe_tpu_torch.ops.cuda import win_bwd_diag as wd_mod
 from nsa_vibe_tpu_torch.ops.cuda.win_bwd_diag import win_bwd_diag
-from nsa_vibe_tpu_torch.ops.reference import attention_delta
+from nsa_vibe_tpu_torch.ops.reference import attention_delta, gate_dO
 from nsa_vibe_tpu_torch.ops.selection import (
     canonicalize_sel, select_topn_blocks, selection_token_mask,
 )
@@ -379,7 +403,11 @@ TENSOR_CORE_KERNELS = ("sel_bwd_kv_mma_kernel", "sel_bwd_dq_union_kernel",
                        "sel_attn_union_kernel", "win_fwd_mma_kernel", "cmp_fwd_mma_kernel",
                        "banded_bwd_1p_mma_kernel", "win_bwd_diag_mma_kernel",
                        "banded_bwd_dq_mma_kernel", "select_blocks_mma_kernel",
-                       "select_cmp_mma_kernel")
+                       "select_cmp_mma_kernel",
+                       # the gate-epilogue fold's entries (phase (m))
+                       "gated_sel_bwd_kv_mma_kernel", "gated_sel_attn_union_kernel",
+                       "gated_win_fwd_mma_kernel", "gated_cmp_fwd_mma_kernel",
+                       "gated_banded_bwd_1p_mma_kernel", "gated_select_cmp_mma_kernel")
 # kernels whose ptxas report is printed; the forwards, the banded backward and
 # the scorers on tensor cores at D = 64 must have no stack frame and no spills
 PTXAS_REPORTED = ("sel_bwd_", "sel_attn_union_kernel", "sel_attn_split_kernel",
@@ -388,7 +416,10 @@ PTXAS_REPORTED = ("sel_bwd_", "sel_attn_union_kernel", "sel_attn_split_kernel",
 NO_SPILL = ("sel_attn_union_kernelILi64E", "win_fwd_mma_kernelILi64E",   # mangled <64>
             "cmp_fwd_mma_kernelILi64E", "banded_bwd_1p_mma_kernelILi64E",
             "win_bwd_diag_mma_kernelILi64E", "banded_bwd_dq_mma_kernelILi64E",
-            "select_blocks_mma_kernelILi64E", "select_cmp_mma_kernelILi64E")
+            "select_blocks_mma_kernelILi64E", "select_cmp_mma_kernelILi64E",
+            "gated_sel_attn_union_kernelILi64E", "gated_win_fwd_mma_kernelILi64E",
+            "gated_cmp_fwd_mma_kernelILi64E", "gated_banded_bwd_1p_mma_kernelILi64E",
+            "gated_select_cmp_mma_kernelILi64E", "gated_sel_bwd_kv_mma_kernelILi64E")
 # the reported kernels' ptxas numbers before the packed-documents-at-an-offset
 # (DOCS x OFF) instantiations were added: each of those kernels must keep them
 PTXAS_BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nsa_vibe_tpu_torch",
@@ -915,20 +946,23 @@ def sel_work(sel, tp, l_sel: int, S_kv: int) -> tuple:
 
 
 def sel_attn_row(name, q, k, v, s, tp, *, launches: int, max_err: float, iters: int = 20,
-                 plain_rows=None, library: bool = True) -> dict:
+                 plain_rows=None, library: bool = True, gate=None) -> dict:
     """The JSON row of the selection forward on these inputs: kernel time
     (stream held), plain version's time (over every row, `plain_rows` a
     call if given), one SDPA call with the equivalent mask (`library`),
-    and the bound from this run's inputs."""
+    and the bound from this run's inputs (under the fold: `gate`, [B,S,G]
+    f32, an input of the kernel and its plain version)."""
     cfg = M7C_125M.nsa
     Dk, Dv, h = q.shape[-1], v.shape[-1], q.shape[3]
     sc = 1.0 / float(np.sqrt(Dk))
     kw = dict(l_sel=cfg.l_sel, scale=sc)
+    if gate is not None:
+        kw["gate"] = gate
     pairs, kv_rows = sel_work(s, tp, cfg.l_sel, k.shape[2])
     o = sel_attn(q, k, v, s, tp, **kw)
     tpb = tp.to(torch.int32).expand(q.shape[0], q.shape[1])
-    bms, by = bound(nbytes(q, s, tpb, o) + kv_rows * (Dk + Dv) * k.element_size(),
-                    pairs * h * 2 * (Dk + Dv), q.dtype)
+    bms, by = bound(nbytes(q, s, tpb, o, *(() if gate is None else (gate,)))
+                    + kv_rows * (Dk + Dv) * k.element_size(), pairs * h * 2 * (Dk + Dv), q.dtype)
     del o
     if plain_rows is None:
         plain_ms = time_ms(lambda: sel_attn_plain(q, k, v, s, tp, **kw), 5, hold=True)
@@ -1107,6 +1141,8 @@ def select_cmp_row(name, x, *, lse: bool, launches: int, max_err: float) -> dict
     S_cmp, S_sel = M.shape
     kw = dict(scale=x["scale"], l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel,
               return_lse=lse, seq_start=ds, pos_offset=t0)
+    if "gate" in x:   # the fold's gated row (phase (m))
+        kw["gate"] = x["gate"]
     if ds is None and not t0:
         pairs = band_pairs(S_q, S_cmp, "cmp", dict(l=cfg.l, d=cfg.d)) * Bq * G * h
     else:
@@ -1115,7 +1151,8 @@ def select_cmp_row(name, x, *, lse: bool, launches: int, max_err: float) -> dict
             * (1 if ds is not None else Bq)
     ops = pairs * 2 * (Dk + Vc.shape[3] + S_sel)
     bms, by = bound(nbytes(Q, Kc, Vc, M, *select_cmp(Q, Kc, Vc, M, **kw),
-                           *(() if ds is None else (ds,))), ops, Q.dtype)
+                           *(() if ds is None else (ds,)),
+                           *(() if "gate" not in x else (x["gate"],))), ops, Q.dtype)
     return dict(
         name=name, source="nsa_vibe_tpu_torch/csrc/select_cmp_mma.cu",
         replaces="nsa_vibe_tpu/ops/pallas/scorer.py:436", launches=launches,
@@ -1156,7 +1193,8 @@ BAND_REPLACES = {"win": "nsa_vibe_tpu/ops/pallas/flash_diag.py:146",
 
 
 def band_row(name, kernel, Q, K, V, *, mode: str, kw: dict, lse: bool, launches: int,
-             max_err: float, iters: int, chunk=None, seq_start=None, t_start: int = 0) -> dict:
+             max_err: float, iters: int, chunk=None, seq_start=None, t_start: int = 0,
+             gate=None) -> dict:
     """The JSON row of the banded forward `kernel()` (win_attn or
     banded_attn on Q, K, V in `mode` with kw, row s at position t_start +
     s, under seq_start [B, S] if given; returning (O, lse) when `lse`): kernel time
@@ -1164,12 +1202,15 @@ def band_row(name, kernel, Q, K, V, *, mode: str, kw: dict, lse: bool, launches:
     call if given, each call with the keys its rows see), one SDPA call
     with the equivalent boolean mask (None where that call runs out of
     device memory), and the bound from this run's inputs: Q, K, V, O (and
-    lse) moved once, 2 (Dk + Dv) FLOP per visible (row, key) pair."""
+    lse) moved once, 2 (Dk + Dv) FLOP per visible (row, key) pair. Under the
+    fold `kernel` is the gated launch and `gate` [B,S,G] f32 its gate, an
+    input of the plain version too."""
     Dk, Dv, h = Q.shape[-1], V.shape[-1], Q.shape[3]
     S_q, S_kv = Q.shape[1], K.shape[2]
     sc = 1.0 / float(np.sqrt(Dk))
     out = kernel()
-    io = nbytes(Q, K, V, *(out if lse else (out,)), *(() if seq_start is None else (seq_start,)))
+    io = nbytes(Q, K, V, *(out if lse else (out,)), *(() if seq_start is None else (seq_start,)),
+                *(() if gate is None else (gate,)))
     if seq_start is None and not t_start:
         pairs = band_pairs(S_q, S_kv, mode, kw) * Q.shape[0] * Q.shape[2] * h
     else:
@@ -1187,7 +1228,8 @@ def band_row(name, kernel, Q, K, V, *, mode: str, kw: dict, lse: bool, launches:
             Kp, Vp, tp = K[:, :, k0:t_start + b], V[:, :, k0:t_start + b], t - k0
             ds = None if ds is None else ds - k0
         return banded_attn_plain(Q[:, a:b], Kp, Vp, mode=mode, **kw, scale=sc, t_start=tp,
-                                 return_lse=lse, seq_start=ds)
+                                 return_lse=lse, seq_start=ds,
+                                 gate=None if gate is None else gate[:, a:b])
 
     step = chunk or S_q
     plain_ms = time_ms(lambda: [plain(a, min(a + step, S_q)) for a in range(0, S_q, step)],
@@ -1339,8 +1381,9 @@ def phase_serve(dev) -> dict:
 def trace(fn, n: int, what: str, wall_ms: float = None) -> dict:
     """Device busy time of fn (mean of n calls) from torch.profiler: the sum
     of its kernels' durations, by kernel, beside the untraced wall time (or,
-    if none is given, the traced calls' own). Returns {"busy": ms, "calls":
-    launches of each port kernel in the n calls}. The profiler drops the
+    if none is given, the traced calls' own). Returns {"busy": ms, "other":
+    ms of the kernels that are not the port's, "calls": launches of each
+    port kernel in the n calls}. The profiler drops the
     kernels whose converted times fall outside its window: without
     TRACE_PAD at each end, a traced m7c replay lost its last layer's
     kernels in about half the traces on the H100."""
@@ -1370,7 +1413,8 @@ def trace(fn, n: int, what: str, wall_ms: float = None) -> dict:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in port.items())
           + f"; other kernels {busy - sum(port.values()):.3f} ms, largest: "
           + "; ".join(f"{k} {v:.3f} ms" for v, k in others[:3]))
-    return {"busy": busy, "calls": {k: calls.get(k, 0) for k in PORT_KERNELS}}
+    return {"busy": busy, "other": busy - sum(port.values()),
+            "calls": {k: calls.get(k, 0) for k in PORT_KERNELS}}
 
 
 # ------------------------------------------------------------------ (g)
@@ -2098,6 +2142,8 @@ def measure_train(rec, runs, names, calls=None, suffix: str = "") -> list:
             io += nbytes(x["sel"])
         if "ds" in x:
             io += nbytes(x["ds"])
+        if "gate" in x:   # the fold's gated rows (phase (m))
+            io += nbytes(x["gate"])
         bms, by = bound(io, ops, x["Q"].dtype)
         if name == "win_bwd_diag":
             tq, _, strip = wd_mod.tile_plan(kbuild.library(), x["Q"].dtype, *x["Q"].shape[:2],
@@ -2134,7 +2180,7 @@ def design_keys(keys):
     package's tests replace theirs (tests/test_flash_diag.py)."""
     saved = tuning._load
     if keys is not None:
-        tuning._load = lambda: dict(keys)
+        tuning._load = lambda: dict(tuning.DEFAULTS, **keys)
     try:
         yield
     finally:
@@ -2275,7 +2321,7 @@ def phase_train(dev, tag: str = "train", varlen: bool = False) -> dict:
         ev[i + 1].record()
         losses.append(m["loss"])
     torch.cuda.synchronize()
-    counts = train_counts()
+    counts, gated = train_counts(), kernels.gated_launch_counts()
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TIMED_STEPS)]
     peak = torch.cuda.max_memory_allocated()
     want = train_launches(TIMED_STEPS)
@@ -2311,8 +2357,9 @@ def phase_train(dev, tag: str = "train", varlen: bool = False) -> dict:
             syncs[where] = syncs.get(where, 0) + 1
     print(f"[{tag}] host-device synchronisations in one step: {sum(syncs.values())} "
           f"({syncs or 'none'})")
-    busy = trace(lambda: step(state, batches[-1]), 1, f"{tag} step", mean_ms)["busy"]
-    return {"counts": counts, "step_ms": mean_ms, "losses": losses, "busy": busy}
+    traced = trace(lambda: step(state, batches[-1]), 1, f"{tag} step", mean_ms)
+    return {"counts": counts, "gated": gated, "step_ms": mean_ms, "losses": losses,
+            "busy": traced["busy"], "other": traced["other"]}
 
 
 def mfu_text(rows: int, seq: int, step_ms: float, mcfg=M7C_125M) -> str:
@@ -5154,6 +5201,437 @@ def phase_tools(dev) -> None:
     print(f"[tools] phase (l): {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------------ (m)
+
+FOLD = {"nsa.gate_fold": 1}
+FOLD_SEED = 1811
+FOLD_BUDGET_S = 40.0          # phase (m)'s share of the script's time limit (a check)
+FOLD_SERVE_SEEDS = (0, 1, 2)  # the serve prefill's seeds under the fold (0: phase (c)'s)
+FOLD_F32_TOL = 1e-5           # f32 folded vs unfolded logits, of the max |logit|
+S_FOLD_LONG = 20480           # a prompt on the long route (S_sel = 320 > 256) under the fold
+FOLD_FWD = ("select_cmp", "sel_attn", "win_attn", "banded_attn")     # rows 1, 2, 3, 5 (cmp)
+FOLD_BWD = ("banded_bwd_1p@win", "banded_bwd_1p@cmp", "sel_attn_bwd_1p")   # rows 7, 9
+
+
+def fold_keys(extra=None) -> dict:
+    """The design keys with the gate-epilogue fold on (and `extra`)."""
+    return {**(extra or {}), **FOLD}
+
+
+def fold_operands(x, dtype) -> dict:
+    """x's train-shape operands (train_kernel_inputs, bf16) in `dtype` (M
+    and the row statistics stay f32) and a gate [B,S,G] f32 in [0.05, 1)
+    from FOLD_SEED."""
+    y = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() and k != "M"
+         and not k.startswith("lse") else v for k, v in x.items()}
+    gen = torch.Generator(device=x["Q"].device).manual_seed(FOLD_SEED)
+    y["gate"] = torch.rand(x["Q"].shape[:3], generator=gen, device=x["Q"].device) * 0.95 + 0.05
+    return y
+
+
+def fold_fwd_calls(y) -> dict:
+    """name -> (the gated launch's O, the gated plain version's O, the
+    plain version's unrounded f32 O and rss, each times the gate) of rows
+    1, 2, 3 and 5 (cmp) on fold_operands."""
+    cfg, sc, g = y["cfg"], y["scale"], y["gate"]
+    gg = g[..., None, None]
+    c, w = (y["Q"], y["Kc"], y["Vc"]), (y["Q"], y["Kw"], y["Vw"])
+    s = (y["Q"], y["K"], y["V"], y["sel"], y["t"])
+    ckw = dict(scale=sc, l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel)
+    cmp_ = dict(mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
+    skw = dict(l_sel=cfg.l_sel, scale=sc)
+
+    def times_g(pair):
+        return pair[0] * gg, pair[1] * gg
+
+    return {
+        "select_cmp": (lambda: select_cmp(*c, y["M"], **ckw, gate=g)[1],
+                       lambda: select_cmp_plain(*c, y["M"], **ckw, gate=g)[1],
+                       lambda: times_g(banded_attn_rss(*c, **cmp_))),
+        "sel_attn": (lambda: sel_attn(*s, **skw, gate=g),
+                     lambda: sel_attn_plain(*s, **skw, gate=g),
+                     lambda: times_g(sel_attn_rss(*s, **skw))),
+        "win_attn": (lambda: win_attn(*w, w=cfg.w, scale=sc, gate=g),
+                     lambda: win_attn_plain(*w, w=cfg.w, scale=sc, gate=g),
+                     lambda: times_g(banded_attn_rss(*w, mode="win", w=cfg.w, scale=sc))),
+        "banded_attn": (lambda: banded_attn(*c, **cmp_, gate=g),
+                        lambda: banded_attn_plain(*c, **cmp_, gate=g),
+                        lambda: times_g(banded_attn_rss(*c, **cmp_))),
+    }
+
+
+def fold_forward_checks(x) -> dict:
+    """(m1) Rows 1, 2, 3 and 5 (cmp) given the gate, at the train shape, f32
+    then bf16 (fwd_check: two launches bit-equal; f32 within allowed_err of
+    the gated plain version; bf16 within allowed_tc_err of the plain
+    version's unrounded O and rss times the gate, where a planted 1% fault
+    must fail); the gated launches' lse and selection equal the ungated
+    ones' bit for bit, and in bf16 select_cmp's gated O equals banded_attn's
+    (cmp). Returns the bf16 max errors."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        y = fold_operands(x, dtype)
+        tc = dtype == torch.bfloat16
+        for name, (run, plain, rss) in fold_fwd_calls(y).items():
+            err = fwd_check(f"{name}@fold", run, dtype, y["Q"].shape[1],
+                            lambda a, b, p=plain: p(), lambda a, b, r=rss: r(), tc=tc,
+                            lse=False, rows=None, chunk=None)
+            if tc:
+                errs[name] = err
+        cfg, sc, g = y["cfg"], y["scale"], y["gate"]
+        c = (y["Q"], y["Kc"], y["Vc"])
+        ckw = dict(scale=sc, l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel, return_lse=True)
+        skw = dict(l_sel=cfg.l_sel, scale=sc, return_lse=True)
+        cmp_ = dict(mode="cmp", l=cfg.l, d=cfg.d, scale=sc, return_lse=True)
+        sel_g, O_g, lse_g = select_cmp(*c, y["M"], **ckw, gate=g)
+        sel_u, _, lse_u = select_cmp(*c, y["M"], **ckw)
+        Ob_g, lb_g = banded_attn(*c, **cmp_, gate=g)
+        same = {"select_cmp sets": torch.equal(sel_g, sel_u),
+                "select_cmp lse": torch.equal(lse_g, lse_u),
+                "banded_attn lse": torch.equal(lb_g, banded_attn(*c, **cmp_)[1])}
+        sargs = (y["Q"], y["K"], y["V"], y["sel"], y["t"])
+        same["sel_attn lse"] = torch.equal(sel_attn(*sargs, **skw, gate=g)[1],
+                                           sel_attn(*sargs, **skw)[1])
+        wargs = (y["Q"], y["Kw"], y["Vw"])
+        same["win_attn lse"] = torch.equal(
+            win_attn(*wargs, w=cfg.w, scale=sc, return_lse=True, gate=g)[1],
+            win_attn(*wargs, w=cfg.w, scale=sc, return_lse=True)[1])
+        if tc:
+            same["select_cmp O = banded_attn O"] = torch.equal(O_g, Ob_g)
+        print(f"[fold] {str(dtype)[6:]}: the gated launches against the ungated ones, bit for "
+              f"bit: {same}")
+        if not all(same.values()):
+            fail(f"a gated forward changed lse or the selection, or select_cmp's gated O is "
+                 f"not banded_attn's: {same}")
+        del y, sel_g, O_g, lse_g, sel_u, lse_u, Ob_g, lb_g
+        torch.cuda.empty_cache()
+    return errs
+
+
+def fold_bwd_calls(y) -> dict:
+    """name -> (the gated launch, the ungated launch on (dO * g).to(dtype),
+    the ungated launch on dO (the gate dropped), the plain version's
+    unrounded f32 gradients and rss on (dO * g).to(dtype), the gated plain
+    version, the visibility mask) of rows 7 (win, cmp) and 9 on
+    fold_operands; delta = rowsum(dO * Y), Y the gated forward's output."""
+    cfg, sc, g, Q, dO = y["cfg"], y["scale"], y["gate"], y["Q"], y["dO"]
+    gdO = gate_dO(dO, g)
+    Bq, S_q, G = Q.shape[:3]
+    win = dict(mode="win", w=cfg.w, scale=sc)
+    cmp_ = dict(mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
+    sel = dict(l_sel=cfg.l_sel, scale=sc)
+    wa, ca = (Q, y["Kw"], y["Vw"]), (Q, y["Kc"], y["Vc"])
+    sa = (Q, y["K"], y["V"], y["sel"], y["t"])
+    Dw = attention_delta(dO, win_attn(*wa, w=cfg.w, scale=sc, gate=g))
+    Dc = attention_delta(dO, banded_attn(*ca, **cmp_, gate=g))
+    Ds = attention_delta(dO, sel_attn(*sa, **sel, gate=g))
+    wt, ct, st = (y["lse_w"], Dw), (y["lse_c"], Dc), (y["lse_s"], Ds)
+    S_cmp = y["Kc"].shape[2]
+    return {
+        "banded_bwd_1p@win": (
+            lambda: banded_bwd_1p(*wa, dO, *wt, **win, gate=g),
+            lambda: banded_bwd_1p(*wa, gdO, *wt, **win),
+            lambda: banded_bwd_1p(*wa, dO, *wt, **win),
+            lambda: banded_bwd_rss(*wa, gdO, *wt, **win),
+            lambda: banded_bwd_plain(*wa, dO, *wt, **win, gate=g),
+            lambda: banded_mask(S_q, S_q, mode="win", w=cfg.w, device=Q.device)[
+                None, :, None, :].expand(Bq, S_q, G, S_q)),
+        "banded_bwd_1p@cmp": (
+            lambda: banded_bwd_1p(*ca, dO, *ct, **cmp_, gate=g),
+            lambda: banded_bwd_1p(*ca, gdO, *ct, **cmp_),
+            lambda: banded_bwd_1p(*ca, dO, *ct, **cmp_),
+            lambda: banded_bwd_rss(*ca, gdO, *ct, **cmp_),
+            lambda: banded_bwd_plain(*ca, dO, *ct, **cmp_, gate=g),
+            lambda: banded_mask(S_q, S_cmp, mode="cmp", l=cfg.l, d=cfg.d, device=Q.device)[
+                None, :, None, :].expand(Bq, S_q, G, S_cmp)),
+        "sel_attn_bwd_1p": (
+            lambda: sel_attn_bwd_1p(*sa, dO, *st, **sel, gate=g),
+            lambda: sel_attn_bwd_1p(*sa, gdO, *st, **sel),
+            lambda: sel_attn_bwd_1p(*sa, dO, *st, **sel),
+            lambda: sel_attn_bwd_rss(*sa, gdO, *st, **sel),
+            lambda: sel_attn_bwd_plain(*sa, dO, *st, **sel, gate=g),
+            lambda: selection_token_mask(y["sel"], y["t"], cfg.l_sel, y["K"].shape[2])),
+    }
+
+
+def fold_backward_checks(x) -> dict:
+    """(m2) Rows 7 (win, cmp) and 9 given the gate, at the train shape, f32
+    then bf16: bit-equal to the ungated launch on (dO * g).to(dtype), as the
+    TPU kernels' in-kernel (dO * g).astype(dO.dtype) (flash_bwd.py:424,
+    sel_flash.py:781); the launch with the gate dropped must differ; in bf16
+    each gradient within allowed_tc_err of the plain version's unrounded
+    result on (dO * g).to(bf16), where a planted 1% fault must fail.
+    Returns the bf16 max errors."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        y = fold_operands(x, dtype)
+        for name, (gated, dense, dropped, rss, _, _) in fold_bwd_calls(y).items():
+            got, want, drop = gated(), dense(), dropped()
+            torch.cuda.synchronize()
+            equal = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+            differ = not all(torch.equal(a, b) for a, b in zip(got, drop))
+            print(f"[fold] {name} {str(dtype)[6:]} given the gate: dQ, dK, dV bit-equal to the "
+                  f"ungated launch on (dO * g).to(dtype): {equal}; the launch with the gate "
+                  f"dropped differs: {differ}")
+            if not all(equal) or not differ:
+                fail(f"{name} {dtype}: the gated backward is not the ungated one on "
+                     f"(dO * g).to(dtype), or dropping the gate changes nothing")
+            del want, drop
+            if dtype == torch.bfloat16:
+                plain, rs = rss()
+                bounds = [allowed_tc_err(p, r) for p, r in zip(plain, rs)]
+                errs[name] = max(check(f"{name}@fold:{n}", a, p, bound=bd) for n, a, p, bd in
+                                 zip(("dQ", "dK", "dV"), got, plain, bounds))
+                faults = [worst_ratio(a * FAULT, p, bd) for a, p, bd in zip(got, plain, bounds)]
+                print(f"[check] {name}@fold bf16 with a {FAULT - 1:.0%} fault planted in dQ, "
+                      f"dK, dV: worst err/bound {', '.join(f'{v:.3f}' for v in faults)} (each "
+                      f"must exceed 1)")
+                if not min(faults) > 1.0:
+                    fail(f"{name}@fold: a planted {FAULT - 1:.0%} fault passes the bf16 bound")
+                del plain, rs, bounds
+            del got
+        del y
+        torch.cuda.empty_cache()
+    return errs
+
+
+@contextlib.contextmanager
+def plain_softmax_gate():
+    """Runs the body with the fold's gate backward (core/gate.py::
+    _SoftmaxDForm, dz = D - g sum(D)) replaced by plain softmax's, which
+    reads the D-form cotangent as dg: dz = g (D - sum(g D)). A fault the
+    folded gradient check must catch on the gate leaves."""
+    real = gate_mod._SoftmaxDForm.__dict__["backward"]
+
+    def plain(ctx, D):
+        (g,) = ctx.saved_tensors
+        return g * (D - (g * D).sum(-1, keepdim=True))
+
+    gate_mod._SoftmaxDForm.backward = staticmethod(plain)
+    try:
+        yield
+    finally:
+        gate_mod._SoftmaxDForm.backward = real
+
+
+def fold_grad_check(dev) -> None:
+    """(m3a) The m7c train step's first gradient in f32 (first_grads) under
+    the fold, with the default backward keys and with DESIGNS["twopass"]
+    (rows 8, 10 and 11 on the dense (dO * g).to(dtype)), against the
+    unfolded default keys': per leaf ||g - g_ref|| / ||g_ref|| within
+    STEP_GRAD_TOL; with plain_softmax_gate the gate leaves must exceed it."""
+    ref = first_grads(dev, "float32", None)
+
+    def gaps(keys, plant=None):   # (worst leaf, its name, worst gate leaf)
+        with plant or contextlib.nullcontext():
+            got = first_grads(dev, "float32", keys)
+        errs = [(float((g.float() - r.float()).norm() / r.float().norm()), n)
+                for (n, g), (_, r) in zip(got, ref)]
+        return (*max(errs), max(e for e, n in errs if "/gate/" in n))
+
+    bad = []
+    for label, keys in (("fold", fold_keys()), ("fold, twopass", fold_keys(DESIGNS["twopass"]))):
+        err, leaf, gate_err = gaps(keys)
+        print(f"[fold grads] f32 first gradient under {label} vs the unfolded default keys': "
+              f"{err:.3e} ({leaf}); gate leaves {gate_err:.3e} (bound {STEP_GRAD_TOL:g})")
+        if not err <= STEP_GRAD_TOL:
+            bad.append(label)
+    err, leaf, gate_err = gaps(fold_keys(), plain_softmax_gate())
+    print(f"[fold grads]   planted: the gate's D-form backward replaced by plain softmax's: "
+          f"gate leaves {gate_err:.3e} (worst leaf {err:.3e}, {leaf}); must exceed the bound")
+    if not gate_err > STEP_GRAD_TOL:
+        bad.append("planted plain softmax backward")
+    del ref
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"the folded train step's first gradient check failed for {bad}")
+
+
+def fold_train(dev, tr) -> dict:
+    """(m3b) The m7c train step (phase_train, bf16) under the fold with the
+    default backward keys: its losses within LOSS_TOL of phase (d)'s
+    unfolded ones (`tr`), the gated launches (rows 1, 2 and 3 twice a layer
+    a step, row 7 cmp and row 9 once; row 11, the window's backward, ungated
+    on the dense (dO * g)), the traced step's busy and other-kernels ms
+    beside the unfolded step's. Returns phase_train's record."""
+    with design_keys(fold_keys()):
+        r = phase_train(dev, "train fold")
+        win_bwd = tuning.backward_kernel("win", M7C_125M_TRAIN.seq_len, M7C_125M.nsa.w)
+    diff = max(abs(a - b) for a, b in zip(r["losses"], tr["losses"]))
+    L, T = M7C_125M.n_layers, TIMED_STEPS
+    want = {"select_cmp": 2 * L * T, "sel_attn": 2 * L * T, "win_attn": 2 * L * T,
+            "banded_attn": 0, "banded_bwd_1p": L * T, "sel_attn_bwd_1p": L * T}
+    print(f"[fold] train step under the fold: losses vs the unfolded step's: max |difference| "
+          f"{diff:.3e} (bound {LOSS_TOL:g}); gated launches over {T} steps {r['gated']} "
+          f"(expected {want}); the window's backward {win_bwd} (ungated on the dense "
+          f"(dO * g)): {r['counts'].get(win_bwd)} launches")
+    print(f"[fold] traced step: busy {r['busy']:.3f} ms, other kernels {r['other']:.3f} ms "
+          f"under the fold; unfolded (phase (d)) busy {tr['busy']:.3f} ms, other kernels "
+          f"{tr['other']:.3f} ms; step {r['step_ms']:.3f} ms vs {tr['step_ms']:.3f} ms")
+    if not diff <= LOSS_TOL:
+        fail("the folded train step's losses differ from the unfolded step's")
+    if r["gated"] != want or win_bwd != "win_bwd_diag" or r["counts"][win_bwd] != L * T:
+        fail(f"the folded train step's gated launches {r['gated']} != {want}, or the window's "
+             f"backward is not the ungated diagonal kernel")
+    return r
+
+
+def serve_logits(params, prompt, mcfg, cap, keys, sync_check=False):
+    """The last-position logits of one m7c prefill under the design keys
+    `keys` (None: those in force), issued under set_sync_debug_mode("error")
+    where `sync_check`, and the gated launches it made."""
+    with design_keys(keys):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error" if sync_check else 0)
+        try:
+            logits = model_prefill_with_caches(params, prompt, mcfg, cap)[0][:, -1]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return logits, kernels.launch_counts(), kernels.gated_launch_counts()
+
+
+def fold_logit_check(label, params, prompt, mcfg, cap, want_gated: dict, flat: bool) -> dict:
+    """One prompt's last-position logits under the fold against the
+    unfolded prefill, bf16 and f32 (the same weights, caches of `cap`
+    positions): the f32 folded logits
+    within FOLD_F32_TOL of the f32 unfolded ones' max |logit| (the fold is
+    exact but for f32 rounding, so this is its witness on the no-grad
+    path, where the gated kernels run without lse); the bf16 folded logits
+    no farther from the f32 unfolded ones than the bf16 unfolded logits
+    plus LOGIT_ULPS (the fold moves bf16 rounding: the kernel rounds g * O
+    once from f32, then the plain sum rounds twice, where the unfolded
+    combine rounds the bf16 gate's three products and their sum); with
+    `flat`, flat-IO's logits bit-equal to the fold's. The bf16 folded
+    prefills issue no host sync. Each folded prefill's gated launches equal
+    `want_gated` (0 elsewhere). Returns the launches of the bf16 folded
+    prefill and its distances in bf16 ulps."""
+    cfg32 = dataclasses.replace(mcfg, dtype="float32")
+    params32 = params_to(params, dtype=torch.float32)
+    ref = serve_logits(params, prompt, mcfg, cap, None)[0]
+    ref32 = serve_logits(params32, prompt, cfg32, cap, None)[0]
+    fold32, _, gated32 = serve_logits(params32, prompt, cfg32, cap, fold_keys())
+    fold, counts, gated = serve_logits(params, prompt, mcfg, cap, fold_keys(), sync_check=True)
+    out = dict(counts=counts, gated=gated)
+    for name, g in (("f32", gated32), ("bf16", gated)):
+        want = dict.fromkeys(g, 0) | want_gated
+        if g != want:
+            fail(f"{label} under the fold ({name}): gated launches {g} != {want}")
+    f32_rel = float((fold32 - ref32).abs().max()) / float(ref32.abs().max())
+    out.update(to_unfolded=logit_ulps(fold, ref), fold_err=logit_ulps(fold, ref32),
+               unfold_err=logit_ulps(ref, ref32), f32_rel=f32_rel)
+    flat_equal = None
+    if flat:
+        flat_equal = torch.equal(fold, serve_logits(params, prompt, mcfg, cap,
+                                                    fold_keys({"nsa.flat_io": 1}),
+                                                    sync_check=True)[0])
+    print(f"[fold] {label}: f32 folded logits {f32_rel:.3e} of the max |logit| from the f32 "
+          f"unfolded (bound {FOLD_F32_TOL:g}); bf16 folded {out['to_unfolded']:.3f} bf16 ulps "
+          f"from the bf16 unfolded; from the f32 unfolded: folded {out['fold_err']:.3f}, "
+          f"unfolded {out['unfold_err']:.3f} ulps (bound: unfolded + {LOGIT_ULPS})"
+          + ("" if flat_equal is None else f"; flat-IO bit-equal to the fold: {flat_equal}"))
+    if not f32_rel <= FOLD_F32_TOL:
+        fail(f"{label}: the f32 folded logits are not the f32 unfolded ones")
+    if not out["fold_err"] <= out["unfold_err"] + LOGIT_ULPS or flat_equal is False:
+        fail(f"{label}: the bf16 folded logits are farther from the f32 unfolded ones than "
+             f"the bf16 unfolded logits plus LOGIT_ULPS, or flat-IO changed them")
+    del params32
+    return out
+
+
+def fold_serve(dev) -> dict:
+    """(m4) m7c at phase (c)'s shape (B x S prompts) on each of
+    FOLD_SERVE_SEEDS' weights and prompts: fold_logit_check with rows 1, 2
+    and 3 gated once a layer (and flat-IO). Then the long route (1 x
+    S_FOLD_LONG: select_blocks beside the gated banded_attn, row 5) on the
+    first seed's weights, held likewise. Returns the gated launches of the
+    long-route bf16 prefill."""
+    mcfg = M7C_125M
+    L = mcfg.n_layers
+    with torch.no_grad():
+        for seed in FOLD_SERVE_SEEDS:
+            gen = torch.Generator().manual_seed(seed)
+            params = init_model_params(mcfg, gen, device=dev)
+            prompt = torch.randint(0, mcfg.vocab_size, (B, S), generator=gen).to(dev)
+            fold_logit_check(f"serve prefill {B} x {S}, seed {seed}", params, prompt, mcfg, CAP,
+                             {"select_cmp": L, "sel_attn": L, "win_attn": L}, flat=True)
+            del params, prompt
+        gen = torch.Generator().manual_seed(FOLD_SERVE_SEEDS[0])
+        params = init_model_params(mcfg, gen, device=dev)
+        long_prompt = torch.randint(0, mcfg.vocab_size, (1, S_FOLD_LONG), generator=gen).to(dev)
+        r = fold_logit_check(f"long route 1 x {S_FOLD_LONG}", params, long_prompt, mcfg,
+                             S_FOLD_LONG + 1, {"sel_attn": L, "win_attn": L, "banded_attn": L},
+                             flat=False)
+    counts = r["counts"]
+    print(f"[fold] long route under the fold: launches {counts}")
+    if counts["select_blocks"] != L or counts["select_cmp"] != 0:
+        fail("the long-route prefill under the fold did not run select_blocks once a layer")
+    del params
+    torch.cuda.empty_cache()
+    return r["gated"]
+
+
+def fold_rows(x, fwd_errs, bwd_errs, train_gated, long_gated) -> list:
+    """(m5) The gated kernels' JSON rows at the train shape (bf16): kernel,
+    plain version and SDPA times, bounds from this run's inputs (the gate
+    among them); launches from the folded train step (rows 1, 2, 3, 7 cmp,
+    9; row 7 win runs only under win.bwd_diag 0, so 0 here; rows 1 and 3
+    timed with lse, as its Functions launch them) and, for row 5, from the
+    long-route prefill (no lse)."""
+    y = fold_operands(x, torch.bfloat16)
+    cfg, sc, g = y["cfg"], y["scale"], y["gate"]
+    rows = [select_cmp_row("select_cmp@fold", y, lse=True, launches=train_gated["select_cmp"],
+                           max_err=fwd_errs["select_cmp"])]
+    sargs = (y["Q"], y["K"], y["V"], y["sel"], y["t"])
+    rows.append(sel_attn_row("sel_attn@fold", *sargs, launches=train_gated["sel_attn"],
+                             max_err=fwd_errs["sel_attn"], iters=10, gate=g))
+    wargs, cargs = (y["Q"], y["Kw"], y["Vw"]), (y["Q"], y["Kc"], y["Vc"])
+    rows.append(band_row("win_attn@fold",
+                         lambda: win_attn(*wargs, w=cfg.w, scale=sc, return_lse=True, gate=g),
+                         *wargs, mode="win", kw=dict(w=cfg.w), lse=True,
+                         launches=train_gated["win_attn"], max_err=fwd_errs["win_attn"],
+                         iters=10, gate=g))
+    ckw = dict(l=cfg.l, d=cfg.d)
+    rows.append(band_row("banded_attn@fold",
+                         lambda: banded_attn(*cargs, mode="cmp", **ckw, scale=sc, gate=g),
+                         *cargs, mode="cmp", kw=ckw, lse=False, launches=long_gated["banded_attn"],
+                         max_err=fwd_errs["banded_attn"], iters=10, gate=g))
+    calls = {name: (c[0], c[4], c[5]) for name, c in fold_bwd_calls(y).items()}
+    runs = [{"banded_bwd_1p": train_gated["banded_bwd_1p"],
+             "banded_bwd_1p@cmp": train_gated["banded_bwd_1p"],
+             "sel_attn_bwd_1p": train_gated["sel_attn_bwd_1p"]}]
+    bwd = measure_train({"inputs": y, **bwd_errs}, runs, FOLD_BWD, calls=calls, suffix="@fold")
+    for r in bwd:
+        if r["name"].startswith("banded_bwd_1p"):
+            r["source"] = "nsa_vibe_tpu_torch/csrc/banded_bwd_gated_mma.cu"
+    print_rows(rows)
+    del y
+    torch.cuda.empty_cache()
+    return rows + bwd
+
+
+def phase_fold(dev, x, tr) -> list:
+    """Phase (m), the gate-epilogue fold (nsa.gate_fold) and flat-IO
+    (nsa.flat_io), on x (phase (f)'s bf16 train-shape operands) and tr
+    (phase (d)'s unfolded train step): (m1) the gated forwards, (m2) the
+    gated one-pass backwards, (m3) the m7c train step under the fold, (m4)
+    serve prefill under the fold, flat-IO and the long route, (m5) the
+    gated kernels' rows. Returns the rows."""
+    t = time.perf_counter()
+    fwd_errs = fold_forward_checks(x)
+    bwd_errs = fold_backward_checks(x)
+    fold_grad_check(dev)
+    r = fold_train(dev, tr)
+    long_gated = fold_serve(dev)
+    rows = fold_rows(x, fwd_errs, bwd_errs, r["gated"], long_gated)
+    took = time.perf_counter() - t
+    print(f"[fold] phase (m) took {took:.1f} s (budget {FOLD_BUDGET_S:g} s)")
+    if took > FOLD_BUDGET_S:
+        fail(f"phase (m) took {took:.1f} s, past its budget of {FOLD_BUDGET_S:g} s")
+    return rows
+
+
 def _leaves(tree, key=None):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -5219,6 +5697,7 @@ def main() -> int:
     del x, sargs, wargs
     runs = [tr["counts"]] + phase_designs(dev, tr["losses"], cpu)
     rows += measure_train({**trec, **frec}, runs, TWO_PASS + tuple(PARTNERS))
+    rows += phase_fold(dev, frec["inputs"], tr)
     del trec, frec
     torch.cuda.empty_cache()
     rows += phase_varlen(dev)

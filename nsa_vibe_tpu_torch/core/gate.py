@@ -3,7 +3,8 @@
 Two-layer MLP over the group-mean-pooled query, last layer xavier
 (gain 0.1) with zero bias so the gate starts near uniform, τ-temperature
 softmax over (cmp, sel, win). `force_branch` / `force_uniform` are the
-debug overrides.
+debug overrides. `gate_probs_dform` is the gate of the gate-epilogue fold
+(nsa.gate_fold, core/nsa.py).
 """
 
 from __future__ import annotations
@@ -48,3 +49,39 @@ def gate_probs(params: dict, q_pooled: torch.Tensor, tau: float = 1.0,
     x = F.silu(q_pooled @ params["w1"] + params["b1"])
     g = (x @ params["w2"] + params["b2"]) / max(tau, 1e-6)
     return torch.softmax(g.float(), dim=-1).to(q_pooled.dtype)
+
+
+class _SoftmaxDForm(torch.autograd.Function):
+    """Softmax whose backward takes the D-FORM cotangent D_k = g_k * dg_k in
+    place of dg_k (JAX core/gate.py::_softmax_dform). The gated branch
+    Functions of the fold (ops/attention.py) return exactly D_k =
+    rowsum(dY * Y_k) = g_k * rowsum(dY * O_k) as the gate's gradient, so the
+    pair gives the exact softmax-combine gradient
+
+        dz_k = g_k * (dg_k - sum_j g_j dg_j) = D_k - g_k * sum_j D_j
+
+    with no division by a (possibly collapsing, g -> 0) gate. Its output may
+    feed only gated-branch Functions: any other consumer (a gate-entropy
+    regulariser, say) would get wrong gradients, which is why core/nsa.py
+    returns the fold's gates detached."""
+
+    @staticmethod
+    def forward(ctx, z):
+        g = torch.softmax(z, dim=-1)
+        ctx.save_for_backward(g)
+        return g
+
+    @staticmethod
+    def backward(ctx, D):
+        (g,) = ctx.saved_tensors
+        return D - g * D.sum(-1, keepdim=True)
+
+
+def gate_probs_dform(params: dict, q_pooled: torch.Tensor, tau: float = 1.0) -> torch.Tensor:
+    """Gate probabilities [..., 3] in f32 for the gate-epilogue fold: the
+    values of gate_probs (no force overrides) before its cast to q_pooled's
+    dtype, with the D-form gradient contract of _SoftmaxDForm. Valid only
+    when every consumer of a gate column is a gated-branch Function."""
+    x = F.silu(q_pooled @ params["w1"] + params["b1"])
+    z = (x @ params["w2"] + params["b2"]) / max(tau, 1e-6)
+    return _SoftmaxDForm.apply(z.float())

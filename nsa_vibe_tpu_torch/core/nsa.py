@@ -1,6 +1,6 @@
 """Functional NSA attention: parameters, projections, batched prefill.
 
-Port of nsa_vibe_tpu/core/nsa.py (no gate fold). The prefill
+Port of nsa_vibe_tpu/core/nsa.py. The prefill
 runs the fused scorer (`fused_select_cmp`: selection indices and the cmp
 branch in one kernel) when it fits, by the JAX package's rule: at least
 one compressed token and `select_cmp_fits(h, S_sel)` (at m7c, prompts up
@@ -13,7 +13,14 @@ the selection and window branches, then the gated combine. It is
 differentiable (the training hot path): each branch has a backward
 kernel (ops.attention), the selection indices carry no gradient,
 gradients reach W_K_cmp/W_V_cmp (and ϕ) through the pooling and the gate
-through the combine. Decode lives in core/decode.py.
+through the combine. Decode lives in core/decode.py (it does not fold).
+
+Gate-epilogue fold (ops/tuning.py `nsa.gate_fold`, default 0; JAX
+core/nsa.py:218-245, :300-335): unless a force override is set, the gates
+come from core/gate.py::gate_probs_dform (f32, the D-form gradient), each
+branch kernel takes its gate column and emits g * O (ops/attention.py),
+and the combine is the plain sum O_cmp + O_sel + O_win before W_O; the
+gates in aux are detached. `nsa.flat_io` has no effect here (ops/tuning.py).
 
 Packed documents (`seq_start`, ops/varlen.py): positions restart at each
 document (RoPE of Q, K_sel, K_win and ϕ at t - seq_start) and every
@@ -45,8 +52,9 @@ import numpy as np
 import torch
 
 from nsa_vibe_tpu_torch.core.config import NSAConfig
-from nsa_vibe_tpu_torch.core.gate import gate_probs, init_gate_params
+from nsa_vibe_tpu_torch.core.gate import gate_probs, gate_probs_dform, init_gate_params
 from nsa_vibe_tpu_torch.ops import attention as attn_ops
+from nsa_vibe_tpu_torch.ops import tuning
 from nsa_vibe_tpu_torch.ops.block_index import build_M_csl_on
 from nsa_vibe_tpu_torch.ops.compress import init_conv_phi_weight, pool_phi_rope_kv
 from nsa_vibe_tpu_torch.ops.cuda import select_cmp as select_cmp_mod
@@ -216,17 +224,26 @@ def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig, seq_start=None, t
     S_sel = -(-S_kv // cfg.l_sel)
     sel_kw = dict(scale=scale, l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel,
                   force_init=cfg.force_init, force_local=cfg.force_local, pos_offset=t0)
+    # the gate-epilogue fold (module docstring); force overrides keep the
+    # gated combine of combine_branches
+    use_fold = (bool(tuning.tuned("nsa.gate_fold")) and cfg.force_branch is None
+                and not cfg.force_uniform_gate)
+    g_cmp = g_sel = g_win = gates_fold = None
+    if use_fold:
+        gates_fold = gate_probs_dform(params["gate"], Q.mean(dim=3), cfg.gate_temp)   # [B,S,G,3]
+        # the kernels take each column contiguous
+        g_cmp, g_sel, g_win = gates_fold.movedim(-1, 0).contiguous()
 
     if S_cmp > 0 and select_cmp_mod.select_cmp_fits(h, S_sel):
         # one pass: selection scores and the cmp branch share softmax(Q K_cmp^T)
         M = build_M_csl_on(S_kv, cfg.l, cfg.d, cfg.l_sel, dev)
         sel_idx, O_cmp = attn_ops.fused_select_cmp(Q, K_cmp, V_cmp, M, **sel_kw,
-                                                   seq_start=seq_start)
+                                                   seq_start=seq_start, gate=g_cmp)
     elif S_cmp > 0:
         # too many selection blocks for the fused scorer: two kernels
         sel_idx = attn_ops.select_blocks(Q, K_cmp, S_sel=S_sel, **sel_kw, seq_start=seq_start)
         O_cmp = attn_ops.compressed_attention(Q, K_cmp, V_cmp, l=cfg.l, d=cfg.d, scale=scale,
-                                              t_start=t0, seq_start=seq_start)
+                                              t_start=t0, seq_start=seq_start, gate=g_cmp)
     else:
         # no compressed tokens (S < l): all scores are 0, so the top-n keeps
         # the forced blocks plus the lowest-index candidates, as in JAX; the
@@ -238,12 +255,20 @@ def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig, seq_start=None, t
         else:
             sel_idx = select_topn_blocks(p_grp, cfg.n_sel, t_pos, cfg.l_sel,
                                          cfg.force_init, cfg.force_local)
+        # (under the fold too: the gated branch is zero and carries no gate
+        # gradient, its true gradient D = rowsum(dY * 0) = 0)
         O_cmp = torch.zeros((B, S, G, h, cfg.d_v), dtype=Q.dtype, device=dev)
     sel_idx = sel_idx.detach()
-    O_sel = attn_ops.selection_attention(Q, K_sel, V_sel, sel_idx, t_pos, cfg.l_sel, scale)
+    O_sel = attn_ops.selection_attention(Q, K_sel, V_sel, sel_idx, t_pos, cfg.l_sel, scale,
+                                         gate=g_sel)
     O_win = attn_ops.sliding_window_attention(Q, K_win, V_win, cfg.w, scale,
-                                              seq_start=seq_start, t_start=t0)
-    out, gates = combine_branches(params, cfg, Q, O_cmp, O_sel, O_win)
+                                              seq_start=seq_start, t_start=t0, gate=g_win)
+    if use_fold:
+        O = O_cmp + O_sel + O_win   # the branches are pre-gated
+        out = O.reshape(B, S, cfg.n_heads * cfg.d_v) @ params["W_O"]
+        gates = gates_fold.detach()   # their gradient contract is the D form
+    else:
+        out, gates = combine_branches(params, cfg, Q, O_cmp, O_sel, O_win)
     aux = {
         "gates": gates,
         "sel_idx": sel_idx,

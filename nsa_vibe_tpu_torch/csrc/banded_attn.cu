@@ -92,7 +92,8 @@ template <int NS, int MODE>
 __global__ void __launch_bounds__(THREADS)
 banded_attn_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                    const float* __restrict__ V, const int* __restrict__ ds,
-                   float* __restrict__ O, float* __restrict__ lse, Params p) {
+                   const float* __restrict__ gate, float* __restrict__ O,
+                   float* __restrict__ lse, Params p) {
   using T = float;
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
@@ -259,6 +260,10 @@ banded_attn_kernel(const float* __restrict__ Q, const float* __restrict__ K,
         o.y = den > 0.f ? o.y / den : 0.f;
         o.z = den > 0.f ? o.z / den : 0.f;
         o.w = den > 0.f ? o.w / den : 0.f;
+        if (gate != nullptr) {   // the gate-epilogue fold: O * g of the row's (b, s, g)
+          const float gv = gate[qo_row(r) / h];
+          o = make_float4(o.x * gv, o.y * gv, o.z * gv, o.w * gv);
+        }
         store4<T>(O + qo_row(r) * Dv + 4 * c4, o);
       }
     }
@@ -268,8 +273,8 @@ banded_attn_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 }
 
 template <int NS, int MODE>
-int launch_ns(const void* Q, const void* K, const void* V, const int* ds, void* O, float* lse,
-              int B, const Params& p, cudaStream_t stream) {
+int launch_ns(const void* Q, const void* K, const void* V, const int* ds, const float* gate,
+              void* O, float* lse, int B, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(p.TQ, p.h, p.Dk, p.Dv).total * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(banded_attn_kernel<NS, MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -278,21 +283,21 @@ int launch_ns(const void* Q, const void* K, const void* V, const int* ds, void* 
   const long long grid = (long long)B * p.G * nq;
   banded_attn_kernel<NS, MODE><<<(unsigned)grid, THREADS, smem, stream>>>(
       static_cast<const float*>(Q), static_cast<const float*>(K), static_cast<const float*>(V),
-      ds, static_cast<float*>(O), lse, p);
+      ds, gate, static_cast<float*>(O), lse, p);
   NSA_LAUNCH_CHECK();
 }
 
 // NS = the (row, 4 dims) slices one thread can own: ceil(MAX_ROWS / rstride)
 // with rstride = THREADS / (Dv / 4), rounded up to 1, 2, 4 or MAX_SLICES
 template <int MODE>
-int launch(const void* Q, const void* K, const void* V, const int* ds, void* O, float* lse,
-           int B, const Params& p, cudaStream_t stream) {
+int launch(const void* Q, const void* K, const void* V, const int* ds, const float* gate, void* O,
+           float* lse, int B, const Params& p, cudaStream_t stream) {
   const int rstride = THREADS / (p.Dv / 4);
   const int ns = (MAX_ROWS + rstride - 1) / rstride;
-  if (ns <= 1) return launch_ns<1, MODE>(Q, K, V, ds, O, lse, B, p, stream);
-  if (ns <= 2) return launch_ns<2, MODE>(Q, K, V, ds, O, lse, B, p, stream);
-  if (ns <= 4) return launch_ns<4, MODE>(Q, K, V, ds, O, lse, B, p, stream);
-  return launch_ns<MAX_SLICES, MODE>(Q, K, V, ds, O, lse, B, p, stream);
+  if (ns <= 1) return launch_ns<1, MODE>(Q, K, V, ds, gate, O, lse, B, p, stream);
+  if (ns <= 2) return launch_ns<2, MODE>(Q, K, V, ds, gate, O, lse, B, p, stream);
+  if (ns <= 4) return launch_ns<4, MODE>(Q, K, V, ds, gate, O, lse, B, p, stream);
+  return launch_ns<MAX_SLICES, MODE>(Q, K, V, ds, gate, O, lse, B, p, stream);
 }
 
 }  // namespace
@@ -304,11 +309,12 @@ long long nsa_banded_attn_smem_bytes(int TQ, int h, int Dk, int Dv) {
 }
 
 // f32 only. Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv], ds [B,S]
-// int32 document starts (or null) -> O [B,S,G,h,Dv],
-// lse [B,S,G,h] (or null). mode 0 WIN (w > 0), 1 CMP (l, d > 0); tiles of
-// TQ tokens, TQ * h <= 64.
-int nsa_banded_attn(const void* Q, const void* K, const void* V, const int* ds, void* O,
-                    float* lse, int B, int S, int S_kv, int G, int h, int Dk, int Dv, int mode,
+// int32 document starts (or null), gate [B,S,G] f32 (or null: ungated) ->
+// O [B,S,G,h,Dv] (times the row's gate), lse [B,S,G,h] (or null). mode 0
+// WIN (w > 0), 1 CMP (l, d > 0); tiles of TQ tokens, TQ * h <= 64.
+int nsa_banded_attn(const void* Q, const void* K, const void* V, const int* ds,
+                    const float* gate, void* O, float* lse, int B, int S, int S_kv, int G, int h,
+                    int Dk, int Dv, int mode,
                     int w, int l, int d, int t_start, float scale, int TQ, void* stream) {
   if (TQ <= 0 || TQ * h > MAX_ROWS || Dv > 4 * MAX_SLICES * (THREADS / MAX_ROWS) ||
       Dv % 8 != 0 || Dk % 8 != 0 || t_start < 0 ||
@@ -317,8 +323,8 @@ int nsa_banded_attn(const void* Q, const void* K, const void* V, const int* ds, 
     return (int)cudaErrorInvalidValue;
   const Params p{S, S_kv, G, h, Dk, Dv, w, l, d, t_start, TQ, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == WIN) return launch<WIN>(Q, K, V, ds, O, lse, B, p, s);
-  return launch<CMP>(Q, K, V, ds, O, lse, B, p, s);
+  if (mode == WIN) return launch<WIN>(Q, K, V, ds, gate, O, lse, B, p, s);
+  return launch<CMP>(Q, K, V, ds, gate, O, lse, B, p, s);
 }
 
 }  // extern "C"

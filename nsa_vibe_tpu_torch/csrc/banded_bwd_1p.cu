@@ -40,7 +40,10 @@
 // cast). No float atomics: two launches give identical bits. With ws ==
 // nullptr the kernel forms dK and dV alone: the dK/dV pass of the two-pass
 // design (banded_bwd.cu has its dQ pass), as flash_bwd.py::
-// flash_banded_bwd's _dkv_kernel.
+// flash_banded_bwd's _dkv_kernel. With gate [B,S,G] f32 (the gate-epilogue
+// fold, flash_bwd.py:422-424) each staged dO row is scaled by its gate
+// (common.cuh::gate_rows) before any product: the bits of the ungated
+// launch on dO * g.
 #include "banded_common.cuh"
 
 using namespace nsa;
@@ -55,8 +58,8 @@ banded_bwd_1p_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                      const float* __restrict__ V, const float* __restrict__ dO,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, const int* __restrict__ ds,
-                     float* __restrict__ dK, float* __restrict__ dV, float* __restrict__ ws,
-                     Params p) {
+                     const float* __restrict__ gate, float* __restrict__ dK,
+                     float* __restrict__ dV, float* __restrict__ ws, Params p) {
   extern __shared__ __align__(16) float smem[];
   const int nkt = (p.S_kv + KC - 1) / KC;
   int bid = blockIdx.x;
@@ -111,6 +114,11 @@ banded_bwd_1p_kernel(const float* __restrict__ Q, const float* __restrict__ K,
     __syncthreads();   // previous chunk consumed (and the K/V tile staged)
     stage_rows(p, Q, dO, lse, delta, ds, b, g, t0, nt, q_s, do_s, lse_s, dl_s, lo_s, hi_s);
     __syncthreads();
+    if (gate != nullptr) {
+      gate_rows(do_s, Dv, rows, Dv,
+                [&](int r) { return gate[((size_t)b * p.S + t0 + r / h) * p.G + g]; });
+      __syncthreads();
+    }
     scores_and_ds(q_s, do_s, k_s, v_s, lse_s, dl_s, rows, Dk, Dv, kp, vp, p.scale,
                   [&](int r, int key) {
                     const int k = k0 + key;
@@ -153,8 +161,8 @@ banded_bwd_1p_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 
 template <int NSK, int NSV>
 int launch_ns(const float* Q, const float* K, const float* V, const float* dO, const float* lse,
-              const float* delta, const int* ds, float* dQ, float* dK, float* dV, float* part,
-              float* ws, const Params& p, cudaStream_t stream) {
+              const float* delta, const int* ds, const float* gate, float* dQ, float* dK,
+              float* dV, float* part, float* ws, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(MAX_ROWS, p.Dk, p.Dv).total * sizeof(float);
   const long long nkt = (p.S_kv + KC - 1) / KC;
   const unsigned grid = (unsigned)((long long)p.B * p.G * nkt * p.nsplit);
@@ -166,7 +174,7 @@ int launch_ns(const float* Q, const float* K, const float* V, const float* dO, c
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   banded_bwd_1p_kernel<NSK, NSV, NSK><<<grid, THREADS, smem, stream>>>(
-      Q, K, V, dO, lse, delta, ds, part_k, part_v, ws, p);
+      Q, K, V, dO, lse, delta, ds, gate, part_k, part_v, ws, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int rk = reduce_splits<float>(part_k, dK, nk_el, p.nsplit, stream);
@@ -196,12 +204,14 @@ int nsa_banded_bwd_1p_slots(int mode, int w, int S_kv) {
 }
 
 // f32 only. Query row s at position t_start + s. ds: [B,S]
-// int32 document starts, or null. part: f32 scratch of
+// int32 document starts, or null. gate: [B,S,G] f32, or null (ungated).
+// part: f32 scratch of
 // nsplit * B*G*S_kv*(Dk+Dv) floats (per-split partial dK, then dV). ws: f32
 // dQ workspace of nsa_banded_bwd_1p_slots(...) * B*S*G*h*Dk floats, or null
 // for dK and dV alone (dQ unused).
 int nsa_banded_bwd_1p(const float* Q, const float* K, const float* V, const float* dO,
-                      const float* lse, const float* delta, const int* ds, float* dQ, float* dK,
+                      const float* lse, const float* delta, const int* ds, const float* gate,
+                      float* dQ, float* dK,
                       float* dV, float* part, float* ws, int B, int S, int S_kv, int G, int h,
                       int Dk, int Dv, int mode, int w, int l, int d, float scale, int t_start,
                       int TQ, int nsplit, void* stream) {
@@ -213,12 +223,12 @@ int nsa_banded_bwd_1p(const float* Q, const float* K, const float* V, const floa
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nk = kv_slices(Dk), nv = kv_slices(Dv);
   if (nk == 1 && nv == 1)
-    return launch_ns<1, 1>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
+    return launch_ns<1, 1>(Q, K, V, dO, lse, delta, ds, gate, dQ, dK, dV, part, ws, p, s);
   if (nk == 1)
-    return launch_ns<1, 2>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
+    return launch_ns<1, 2>(Q, K, V, dO, lse, delta, ds, gate, dQ, dK, dV, part, ws, p, s);
   if (nv == 1)
-    return launch_ns<2, 1>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
-  return launch_ns<2, 2>(Q, K, V, dO, lse, delta, ds, dQ, dK, dV, part, ws, p, s);
+    return launch_ns<2, 1>(Q, K, V, dO, lse, delta, ds, gate, dQ, dK, dV, part, ws, p, s);
+  return launch_ns<2, 2>(Q, K, V, dO, lse, delta, ds, gate, dQ, dK, dV, part, ws, p, s);
 }
 
 }  // extern "C"

@@ -60,6 +60,11 @@
 //     (win_fwd_mma_kernel, cmp_fwd_mma_kernel), so a profile keeps the two
 //     branches apart; the warp count is the launch's block size. So is
 //     DOCS (ds given): the dense instantiation reads no ds. The
+//     gate-epilogue fold (nsa.gate_fold; flash.py:274, flash_diag.py:125)
+//     has entries of its own over the same body, gated_win_fwd_mma_kernel
+//     and gated_cmp_fwd_mma_kernel: O = (acc / l) * g in f32, g the row's
+//     gate [B,S,G] f32, then the cast; the ungated entries compile as
+//     before (csrc/ptxas_baseline.json). The
 //     per-CTA walk (band_fwd) is in banded_fwd_mma.cuh: the fused scorer
 //     (select_cmp_mma.cu) runs it in CMP mode as its pass 1.
 // wgmma with TMA suits a contiguous band better still: later work.
@@ -88,27 +93,48 @@ cmp_fwd_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __r
   band_fwd<DT, CMP, DOCS>(Q, K, V, ds, O, lse, p);
 }
 
-using Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
-                        const int*, __nv_bfloat16*, float*, Params);
+// the gate-epilogue fold's entries: O = (acc / l) * gate[b, s, g]
+template <int DT, bool DOCS>
+__global__ void __launch_bounds__(MAX_THREADS, DT == 64 ? 2 : 1)
+gated_win_fwd_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
+                         const __nv_bfloat16* __restrict__ V, const int* __restrict__ ds,
+                         const float* __restrict__ gate, __nv_bfloat16* __restrict__ O,
+                         float* __restrict__ lse, Params p) {
+  band_fwd<DT, WIN, DOCS, true>(Q, K, V, ds, O, lse, p, nullptr, gate);
+}
+
+template <int DT, bool DOCS>
+__global__ void __launch_bounds__(MAX_THREADS, DT == 64 ? 2 : 1)
+gated_cmp_fwd_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
+                         const __nv_bfloat16* __restrict__ V, const int* __restrict__ ds,
+                         const float* __restrict__ gate, __nv_bfloat16* __restrict__ O,
+                         float* __restrict__ lse, Params p) {
+  band_fwd<DT, CMP, DOCS, true>(Q, K, V, ds, O, lse, p, nullptr, gate);
+}
 
 template <int DT>
-int launch(int mode, const void* Q, const void* K, const void* V, const int* ds, void* O,
-           float* lse, int B, int rows, const Params& p, cudaStream_t stream) {
+int launch(int mode, const void* Q, const void* K, const void* V, const int* ds,
+           const float* gate, void* O, float* lse, int B, int rows, const Params& p,
+           cudaStream_t stream) {
   const bool docs = ds != nullptr;
-  const Kernel kern = mode == WIN ? (docs ? &win_fwd_mma_kernel<DT, true>
-                                         : &win_fwd_mma_kernel<DT, false>)
-                                  : (docs ? &cmp_fwd_mma_kernel<DT, true>
-                                          : &cmp_fwd_mma_kernel<DT, false>);
   const size_t smem = Layout<DT>::bytes(rows);
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   const long long grid = (long long)B * p.G * p.nq;
-  if (grid > 0)
-    kern<<<(unsigned)grid, 2 * rows, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(K),
-        static_cast<const __nv_bfloat16*>(V), ds, static_cast<__nv_bfloat16*>(O), lse, p);
-  NSA_LAUNCH_CHECK();
+  const auto* q = static_cast<const __nv_bfloat16*>(Q);
+  const auto* k = static_cast<const __nv_bfloat16*>(K);
+  const auto* v = static_cast<const __nv_bfloat16*>(V);
+  auto* o = static_cast<__nv_bfloat16*>(O);
+  if (gate != nullptr) {
+    const auto kern = mode == WIN ? (docs ? &gated_win_fwd_mma_kernel<DT, true>
+                                          : &gated_win_fwd_mma_kernel<DT, false>)
+                                  : (docs ? &gated_cmp_fwd_mma_kernel<DT, true>
+                                          : &gated_cmp_fwd_mma_kernel<DT, false>);
+    return launch_kernel(kern, grid, 2 * rows, smem, stream, q, k, v, ds, gate, o, lse, p);
+  }
+  const auto kern = mode == WIN ? (docs ? &win_fwd_mma_kernel<DT, true>
+                                        : &win_fwd_mma_kernel<DT, false>)
+                                : (docs ? &cmp_fwd_mma_kernel<DT, true>
+                                        : &cmp_fwd_mma_kernel<DT, false>);
+  return launch_kernel(kern, grid, 2 * rows, smem, stream, q, k, v, ds, o, lse, p);
 }
 
 }  // namespace
@@ -120,12 +146,13 @@ long long nsa_banded_fwd_mma_smem_bytes(int Dk, int Dv, int rows) {
 }
 
 // bf16 only. Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv], ds [B,S]
-// int32 document starts (or null) -> O [B,S,G,h,Dv],
-// lse [B,S,G,h] f32 (or null). mode 0 WIN (w > 0), 1 CMP (l, d > 0); q
-// tiles of `rows` = 64 or 128 rows (rows / h tokens, h <= rows); Dk, Dv <=
-// 128 and multiples of 8.
-int nsa_banded_fwd_mma(const void* Q, const void* K, const void* V, const int* ds, void* O,
-                       float* lse, int B, int S, int S_kv, int G, int h, int Dk, int Dv,
+// int32 document starts (or null), gate [B,S,G] f32 (or null: ungated) ->
+// O [B,S,G,h,Dv] (times the row's gate), lse [B,S,G,h] f32 (or null). mode
+// 0 WIN (w > 0), 1 CMP (l, d > 0); q tiles of `rows` = 64 or 128 rows (rows
+// / h tokens, h <= rows); Dk, Dv <= 128 and multiples of 8.
+int nsa_banded_fwd_mma(const void* Q, const void* K, const void* V, const int* ds,
+                       const float* gate, void* O, float* lse, int B, int S, int S_kv, int G,
+                       int h, int Dk, int Dv,
                        int mode, int w, int l, int d, int t_start, float scale, int rows,
                        void* stream) {
   if ((rows != 64 && rows != 128) || h <= 0 || h > rows || S_kv < 0 || t_start < 0 ||
@@ -136,8 +163,8 @@ int nsa_banded_fwd_mma(const void* Q, const void* K, const void* V, const int* d
   const int nq = (S + qT - 1) / qT;
   const Params p{S, S_kv, G, h, Dk, Dv, w, l, d, t_start, qT, nq, B * G, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dk > 64 || Dv > 64) return launch<128>(mode, Q, K, V, ds, O, lse, B, rows, p, s);
-  return launch<64>(mode, Q, K, V, ds, O, lse, B, rows, p, s);
+  if (Dk > 64 || Dv > 64) return launch<128>(mode, Q, K, V, ds, gate, O, lse, B, rows, p, s);
+  return launch<64>(mode, Q, K, V, ds, gate, O, lse, B, rows, p, s);
 }
 
 }  // extern "C"

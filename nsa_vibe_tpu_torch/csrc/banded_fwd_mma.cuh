@@ -61,14 +61,18 @@ struct Layout {
 // no key), so that a caller can form p = exp2(s * scale * log2 e + nlse2).
 // DOCS: ds [B,S] holds each token's document start (row s reads ds[b, s]): each row's
 // lo is raised to its document's bound (common.cuh::doc_lo); the dense
-// instantiation compiles as it did before documents existed.
-template <int DT, int MODE, bool DOCS>
+// instantiation compiles as it did before documents existed. GATED (the
+// gate-epilogue fold): gate [B,S,G] f32 scales each row's output, O =
+// (acc / l) * g in f32 before the cast to bf16 (flash.py:274); lse and
+// nlse2 stay the ungated softmax's. The ungated instantiations read no gate.
+template <int DT, int MODE, bool DOCS, bool GATED = false>
 __device__ __forceinline__ void band_fwd(const __nv_bfloat16* __restrict__ Q,
                                          const __nv_bfloat16* __restrict__ K,
                                          const __nv_bfloat16* __restrict__ V,
                                          const int* __restrict__ ds,
                                          __nv_bfloat16* __restrict__ O, float* __restrict__ lse,
-                                         const Params& p, float* nlse2 = nullptr) {
+                                         const Params& p, float* nlse2 = nullptr,
+                                         const float* __restrict__ gate = nullptr) {
   using C = Layout<DT>;
   constexpr int P = C::P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -247,13 +251,16 @@ __device__ __forceinline__ void band_fwd(const __nv_bfloat16* __restrict__ Q,
     const int r = r0 + g8 + 8 * hf;
     if (r >= R) continue;
     const float inv = l > 0.f ? 1.f / l : 0.f;
+    const float gv = GATED ? gate[((size_t)b * p.S + s0 + r / h) * p.G + g] : 1.f;
     __nv_bfloat16* dst = O + grow(r) * Dv;
 #pragma unroll
     for (int i = 0; i < DT / 8; ++i) {
       const int dim = 8 * i + 2 * t4;
-      if (dim < Dv)
+      if (dim < Dv) {
+        const float x0 = o[i][2 * hf] * inv, x1 = o[i][2 * hf + 1] * inv;
         *reinterpret_cast<uint32_t*>(dst + dim) =
-            tc::pack_bf16(o[i][2 * hf] * inv, o[i][2 * hf + 1] * inv);
+            GATED ? tc::pack_bf16(x0 * gv, x1 * gv) : tc::pack_bf16(x0, x1);
+      }
     }
     if (lse != nullptr && t4 == 0) lse[grow(r)] = l > 0.f ? (m2[hf] + log2f(l)) * LN2 : EMPTY_LSE;
   }

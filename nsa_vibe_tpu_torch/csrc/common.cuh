@@ -200,6 +200,52 @@ template <> __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16*
   d[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 
+// Gate-epilogue fold (nsa.gate_fold), backward side: the one-pass
+// backwards of rows 7 and 9 scale each staged dO row r (width D, pitch
+// `pitch`; rows [0, nr)) by its gate g(r) in f32 and store the product in
+// the tile's type, so a bf16 tile holds (dO * g).astype(bf16), what
+// flash_bwd.py:424 and sel_flash.py:781 feed their products; the launch
+// then has the bits of the ungated launch on that tensor. A bf16 tile is
+// taken 8 elements (16 bytes) at a time, so D % 8 == 0 and 16-byte rows;
+// thread t takes the pieces idx = t, t + blockDim.x, ... (row idx / (D/8)),
+// as the kernels' cp.async staging loops do, so a thread may scale the
+// pieces it staged itself right after cp_async_wait, before the barrier
+// that publishes them. The f32 form scales a tile already published.
+template <typename GateOf>
+__device__ __forceinline__ void gate_rows(float* t, int pitch, int nr, int D, GateOf gate_of) {
+  for (int idx = threadIdx.x; idx < nr * D; idx += blockDim.x) {
+    const int r = idx / D, c = idx - r * D;
+    t[r * pitch + c] = __fmul_rn(t[r * pitch + c], gate_of(r));
+  }
+}
+template <typename GateOf>
+__device__ __forceinline__ void gate_rows(__nv_bfloat16* t, int pitch, int nr, int D,
+                                          GateOf gate_of) {
+  const int v = D / 8;
+  for (int idx = threadIdx.x; idx < nr * v; idx += blockDim.x) {
+    const int r = idx / v, c = (idx - r * v) * 8;
+    const float g = gate_of(r);
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(t + r * pitch + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(x[e]);
+      x[e] = __floats2bfloat162_rn(__fmul_rn(f.x, g), __fmul_rn(f.y, g));
+    }
+  }
+}
+
+// Sets the kernel's dynamic shared memory and launches it on `grid` blocks
+// (none for grid <= 0); returns the cudaError_t of the launch.
+template <typename Kernel, typename... Args>
+int launch_kernel(Kernel kern, long long grid, int threads, size_t smem, cudaStream_t stream,
+                  Args... args) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (grid > 0) kern<<<(unsigned)grid, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 // Shared-memory carve-up in floats, each piece rounded up to a multiple of 4
 // so that every piece stays 16-byte aligned.
 __host__ __device__ constexpr size_t round4(size_t n) { return (n + 3) & ~size_t(3); }

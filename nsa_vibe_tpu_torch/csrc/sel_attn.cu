@@ -93,13 +93,16 @@ struct Smem {
 //   SPLIT writes the unnormalised partial (acc [h][Dv], m [h], l [h]) of its
 //   block to ws[blockIdx.x] instead of O (an invisible or repeated slot: l
 //   = 0, acc = 0).
+//   gate [B,S,G] f32 (not SPLIT; null: ungated), the gate-epilogue fold:
+//   O = (acc / l) * gate[b, s, g] in f32 (sel_flash.py:169).
 template <typename T, int HMAX, bool SPLIT>
 __device__ __forceinline__ void sel_attn_body(const T* __restrict__ Q, const T* __restrict__ K,
                                               const T* __restrict__ V,
                                               const int* __restrict__ sel,
                                               const int* __restrict__ tpos, T* __restrict__ O,
                                               float* __restrict__ lse, float* __restrict__ ws,
-                                              const Params& p) {
+                                              const Params& p,
+                                              const float* __restrict__ gate = nullptr) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int nb_s;
   const int bid = SPLIT ? blockIdx.x / p.n : blockIdx.x;   // (b*S + s)*G + g
@@ -256,6 +259,10 @@ __device__ __forceinline__ void sel_attn_body(const T* __restrict__ Q, const T* 
     o.y = den > 0.f ? o.y / den : 0.f;
     o.z = den > 0.f ? o.z / den : 0.f;
     o.w = den > 0.f ? o.w / den : 0.f;
+    if (gate != nullptr) {
+      const float gv = gate[bid];
+      o = make_float4(o.x * gv, o.y * gv, o.z * gv, o.w * gv);
+    }
     store4<T>(O + (row0 + j) * Dv + c, o);
   }
   if (SPLIT) {
@@ -271,9 +278,10 @@ __device__ __forceinline__ void sel_attn_body(const T* __restrict__ Q, const T* 
 template <typename T, int HMAX>
 __global__ void __launch_bounds__(THREADS)
 sel_attn_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
-                const int* __restrict__ sel, const int* __restrict__ tpos, T* __restrict__ O,
-                float* __restrict__ lse, Params p) {
-  sel_attn_body<T, HMAX, false>(Q, K, V, sel, tpos, O, lse, nullptr, p);
+                const int* __restrict__ sel, const int* __restrict__ tpos,
+                const float* __restrict__ gate, T* __restrict__ O, float* __restrict__ lse,
+                Params p) {
+  sel_attn_body<T, HMAX, false>(Q, K, V, sel, tpos, O, lse, nullptr, p, gate);
 }
 
 template <typename T, int HMAX>
@@ -312,8 +320,8 @@ sel_attn_combine_kernel(const float* __restrict__ ws, T* __restrict__ O, float* 
 }
 
 template <typename T, int HMAX>
-int launch(const void* Q, const void* K, const void* V, const int* sel, const int* tpos, void* O,
-           float* lse, int B, const Params& p, cudaStream_t stream) {
+int launch(const void* Q, const void* K, const void* V, const int* sel, const int* tpos,
+           const float* gate, void* O, float* lse, int B, const Params& p, cudaStream_t stream) {
   const size_t smem = Smem(p.h, p.Dk, p.Dv, p.n, p.l_sel).bytes;
   cudaError_t e = cudaFuncSetAttribute(sel_attn_kernel<T, HMAX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -321,7 +329,7 @@ int launch(const void* Q, const void* K, const void* V, const int* sel, const in
   const long long grid = (long long)B * p.S * p.G;
   sel_attn_kernel<T, HMAX><<<(unsigned)grid, THREADS, smem, stream>>>(
       static_cast<const T*>(Q), static_cast<const T*>(K), static_cast<const T*>(V), sel, tpos,
-      static_cast<T*>(O), lse, p);
+      gate, static_cast<T*>(O), lse, p);
   NSA_LAUNCH_CHECK();
 }
 
@@ -346,13 +354,16 @@ int launch_split(const void* Q, const void* K, const void* V, const int* sel, co
 // bf16 takes only the split design: its prefill is sel_attn_fwd_mma.cu
 template <typename T>
 int launch_h(const void* Q, const void* K, const void* V, const int* sel, const int* tpos,
-             void* O, float* lse, float* ws, int B, const Params& p, cudaStream_t stream) {
-  if (ws != nullptr)
+             const float* gate, void* O, float* lse, float* ws, int B, const Params& p,
+             cudaStream_t stream) {
+  if (ws != nullptr) {   // decode does not fold the gate
+    if (gate != nullptr) return (int)cudaErrorInvalidValue;
     return p.h <= 8 ? launch_split<T, 8>(Q, K, V, sel, tpos, O, lse, ws, B, p, stream)
                     : launch_split<T, 16>(Q, K, V, sel, tpos, O, lse, ws, B, p, stream);
+  }
   if constexpr (std::is_same<T, float>::value) {
-    if (p.h <= 8) return launch<T, 8>(Q, K, V, sel, tpos, O, lse, B, p, stream);
-    return launch<T, 16>(Q, K, V, sel, tpos, O, lse, B, p, stream);
+    if (p.h <= 8) return launch<T, 8>(Q, K, V, sel, tpos, gate, O, lse, B, p, stream);
+    return launch<T, 16>(Q, K, V, sel, tpos, gate, O, lse, B, p, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -367,19 +378,22 @@ long long nsa_sel_attn_smem_bytes(int h, int Dk, int Dv, int n, int l_sel) {
   return (long long)Smem(h, Dk, Dv, n, l_sel).bytes;
 }
 
-// ws == nullptr: one block per (b, s, g) (the f32 prefill; f32 only).
-// ws != nullptr: the split design (decode), ws an f32 workspace of B*S*G*n
-// slots of nsa_sel_attn_ws_floats(h, Dv) floats.
+// ws == nullptr: one block per (b, s, g) (the f32 prefill; f32 only), O
+// times gate [B,S,G] f32 where one is given (the gate-epilogue fold).
+// ws != nullptr: the split design (decode; gate null), ws an f32 workspace
+// of B*S*G*n slots of nsa_sel_attn_ws_floats(h, Dv) floats.
 int nsa_sel_attn(int dtype, const void* Q, const void* K, const void* V, const int* sel,
-                 const int* tpos, void* O, float* lse, float* ws, int B, int S, int S_kv, int G,
-                 int h, int Dk, int Dv, int n, int l_sel, float scale, void* stream) {
+                 const int* tpos, const float* gate, void* O, float* lse, float* ws, int B,
+                 int S, int S_kv, int G, int h, int Dk, int Dv, int n, int l_sel, float scale,
+                 void* stream) {
   if (n <= 0 || l_sel <= 0 || S_kv <= 0 || h > 16 || Dv % 8 != 0 || Dk % 8 != 0 ||
       Dv / 4 > THREADS)
     return (int)cudaErrorInvalidValue;
   const Params p{S, S_kv, G, h, Dk, Dv, n, l_sel, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch_h<float>(Q, K, V, sel, tpos, O, lse, ws, B, p, s);
-  if (dtype == DT_BF16) return launch_h<__nv_bfloat16>(Q, K, V, sel, tpos, O, lse, ws, B, p, s);
+  if (dtype == DT_F32) return launch_h<float>(Q, K, V, sel, tpos, gate, O, lse, ws, B, p, s);
+  if (dtype == DT_BF16)
+    return launch_h<__nv_bfloat16>(Q, K, V, sel, tpos, gate, O, lse, ws, B, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -50,6 +50,14 @@
 // bounds are 5e-5 relative: TF32 would break them) keep the FMA
 // arithmetic of bwd_common.cuh in `sel_bwd_kv_fma_kernel` (256 threads,
 // operands staged as f32), over the same work list.
+//
+// The gate-epilogue fold (nsa.gate_fold; sel_flash.py:781): with a gate
+// [B,S,G] f32 the one-pass design launches gated_sel_bwd_kv_mma_kernel
+// (bf16) or gated_sel_bwd_kv_fma_kernel (f32), the same bodies (GATED),
+// which scale each staged dO row by its gate and round it to the operands'
+// dtype (common.cuh::gate_rows) before any product: the bits of the
+// ungated launch on (dO * g).to(dtype). The ungated entries compile as
+// before (csrc/ptxas_baseline.json).
 #include "bwd_common.cuh"
 #include "sel_bwd.cuh"
 #include "tc.cuh"
@@ -111,8 +119,9 @@ struct FmaSmem {
   }
 };
 
-template <int NSK, int NSV>
-__global__ void __launch_bounds__(THREADS) sel_bwd_kv_fma_kernel(KvArgs a, KvParams p) {
+template <int NSK, int NSV, bool GATED>
+__device__ __forceinline__ void kv_fma_body(const KvArgs& a, const KvParams& p,
+                                            const float* __restrict__ gate) {
   extern __shared__ __align__(16) float smem[];
   const int L = p.l_sel;
   const int nsub = (L + KC - 1) / KC;
@@ -189,6 +198,11 @@ __global__ void __launch_bounds__(THREADS) sel_bwd_kv_fma_kernel(KvArgs a, KvPar
       dl_s[r] = a.delta[o];
     }
     __syncthreads();
+    if (GATED) {   // dO * g of each staged row (sel_flash.py:781)
+      gate_rows(do_s, Dv, rows, Dv,
+                [&](int r) { return gate[((size_t)b * p.S + tok_s[r / h]) * p.G + g]; });
+      __syncthreads();
+    }
     scores_and_ds(q_s, do_s, k_s, v_s, lse_s, dl_s, rows, Dk, Dv, kp, vp, p.scale,
                   [&](int r, int key) { return key < nk && k0 + key <= tp_s[r / h]; },
                   p_s, ds_s, SP, 1);
@@ -223,6 +237,17 @@ __global__ void __launch_bounds__(THREADS) sel_bwd_kv_fma_kernel(KvArgs a, KvPar
   store_kv<float, NSV>(dv_acc, a.part + (size_t)p.n_work * nsub * KC * Dk, row0, nk, Dv, 1.f);
 }
 
+template <int NSK, int NSV>
+__global__ void __launch_bounds__(THREADS) sel_bwd_kv_fma_kernel(KvArgs a, KvParams p) {
+  kv_fma_body<NSK, NSV, false>(a, p, nullptr);
+}
+
+template <int NSK, int NSV>
+__global__ void __launch_bounds__(THREADS)
+gated_sel_bwd_kv_fma_kernel(KvArgs a, KvParams p, const float* __restrict__ gate) {
+  kv_fma_body<NSK, NSV, true>(a, p, gate);
+}
+
 // ------------------------------------------------------------ bf16: tensor cores
 
 template <int DT>
@@ -239,8 +264,9 @@ struct Mma {
   static constexpr size_t BYTES = STATS + (size_t)2 * ROWS * 5 * 4;
 };
 
-template <int DT>
-__global__ void __launch_bounds__(TC_THREADS) sel_bwd_kv_mma_kernel(KvArgs a, KvParams p) {
+template <int DT, bool GATED>
+__device__ __forceinline__ void kv_mma_body(const KvArgs& a, const KvParams& p,
+                                            const float* __restrict__ gate) {
   using C = Mma<DT>;
   constexpr int P = C::P, ROWS = C::ROWS, NT = C::NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -358,6 +384,12 @@ __global__ void __launch_bounds__(TC_THREADS) sel_bwd_kv_mma_kernel(KvArgs a, Kv
     } else {
       tc::cp_async_wait<0>();
     }
+    // (dO * g).astype(bf16) of each staged row (sel_flash.py:781): a thread
+    // scales the 16-byte pieces it staged itself (issue's mapping, which
+    // gate_rows shares at TC_THREADS), so the barrier below publishes them
+    if (GATED)
+      gate_rows(do_s + buf * ROWS * P, P, min(p.TQ, it.i1 - i0) * h, Dv,
+                [&](int r) { return gate[((size_t)b * p.S + list[i0 + r / h]) * p.G + g]; });
     __syncthreads();
     const __nv_bfloat16* qb = q_s + buf * ROWS * P;
     const __nv_bfloat16* ob = do_s + buf * ROWS * P;
@@ -455,6 +487,17 @@ __global__ void __launch_bounds__(TC_THREADS) sel_bwd_kv_mma_kernel(KvArgs a, Kv
   }
 }
 
+template <int DT>
+__global__ void __launch_bounds__(TC_THREADS) sel_bwd_kv_mma_kernel(KvArgs a, KvParams p) {
+  kv_mma_body<DT, false>(a, p, nullptr);
+}
+
+template <int DT>
+__global__ void __launch_bounds__(TC_THREADS)
+gated_sel_bwd_kv_mma_kernel(KvArgs a, KvParams p, const float* __restrict__ gate) {
+  kv_mma_body<DT, true>(a, p, gate);
+}
+
 // ------------------------------------------------------------ reduction
 
 // out[b, g, key, :] = mul * (sum over the items of the key's block, in slot
@@ -509,24 +552,40 @@ int finish(const KvArgs& a, const KvParams& p, cudaStream_t stream) {
   return sum_slots<T>(a.ws, a.dQ, rows, p.Dk, SelSlots{a.nblk, p.h, nsub}, p.scale, stream);
 }
 
-template <typename Kern>
+template <typename Kern, typename... Gate>
 int launch_grid(Kern kernel, int threads, size_t smem, const KvArgs& a, const KvParams& p,
-                cudaStream_t stream) {
+                cudaStream_t stream, Gate... gate) {
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((long long)p.n_work * ((p.l_sel + KC - 1) / KC));
-  kernel<<<grid, threads, smem, stream>>>(a, p);
+  kernel<<<grid, threads, smem, stream>>>(a, p, gate...);
   return (int)cudaGetLastError();
 }
 
-int launch_fma(const KvArgs& a, const KvParams& p, cudaStream_t stream) {
+template <int NSK, int NSV>
+int launch_fma_ns(const KvArgs& a, const KvParams& p, cudaStream_t stream, const float* gate) {
   const size_t smem = FmaSmem(p.Dk, p.Dv).total * sizeof(float);
+  if (gate != nullptr)
+    return launch_grid(gated_sel_bwd_kv_fma_kernel<NSK, NSV>, THREADS, smem, a, p, stream,
+                       gate);
+  return launch_grid(sel_bwd_kv_fma_kernel<NSK, NSV>, THREADS, smem, a, p, stream);
+}
+
+int launch_fma(const KvArgs& a, const KvParams& p, cudaStream_t stream, const float* gate) {
   const int nk = kv_slices(p.Dk), nv = kv_slices(p.Dv);
-  if (nk == 1 && nv == 1) return launch_grid(sel_bwd_kv_fma_kernel<1, 1>, THREADS, smem, a, p, stream);
-  if (nk == 1) return launch_grid(sel_bwd_kv_fma_kernel<1, 2>, THREADS, smem, a, p, stream);
-  if (nv == 1) return launch_grid(sel_bwd_kv_fma_kernel<2, 1>, THREADS, smem, a, p, stream);
-  return launch_grid(sel_bwd_kv_fma_kernel<2, 2>, THREADS, smem, a, p, stream);
+  if (nk == 1 && nv == 1) return launch_fma_ns<1, 1>(a, p, stream, gate);
+  if (nk == 1) return launch_fma_ns<1, 2>(a, p, stream, gate);
+  if (nv == 1) return launch_fma_ns<2, 1>(a, p, stream, gate);
+  return launch_fma_ns<2, 2>(a, p, stream, gate);
+}
+
+template <int DT>
+int launch_mma(const KvArgs& a, const KvParams& p, cudaStream_t stream, const float* gate) {
+  if (gate != nullptr)
+    return launch_grid(gated_sel_bwd_kv_mma_kernel<DT>, TC_THREADS, Mma<DT>::BYTES, a, p, stream,
+                       gate);
+  return launch_grid(sel_bwd_kv_mma_kernel<DT>, TC_THREADS, Mma<DT>::BYTES, a, p, stream);
 }
 
 }  // namespace
@@ -541,21 +600,20 @@ long long kv_smem_bytes(int dtype, int Dk, int Dv) {
   return (long long)((Dk > 64 || Dv > 64) ? Mma<128>::BYTES : Mma<64>::BYTES);
 }
 
-int launch_kv(int dtype, const KvArgs& a, const KvParams& p, cudaStream_t stream) {
+int launch_kv(int dtype, const KvArgs& a, const KvParams& p, cudaStream_t stream,
+              const float* gate) {
   if (p.l_sel <= 0 || p.S_kv <= 0 || p.h <= 0 || p.TQ <= 0 || p.TQ * p.h > kv_rows(dtype, p.Dk, p.Dv) ||
       p.per % p.TQ != 0 || p.Dk % 8 != 0 || p.Dv % 8 != 0 || p.Dk > 128 || p.Dv > 128 ||
       a.part == nullptr || (a.ws != nullptr && (a.rank == nullptr || a.nblk == nullptr)))
     return (int)cudaErrorInvalidValue;
   int e;
   if (dtype == DT_F32) {
-    e = launch_fma(a, p, stream);
+    e = launch_fma(a, p, stream, gate);
     return e != 0 ? e : finish<float>(a, p, stream);
   }
   if (dtype != DT_BF16) return (int)cudaErrorInvalidValue;
-  if (p.Dk > 64 || p.Dv > 64)
-    e = launch_grid(sel_bwd_kv_mma_kernel<128>, TC_THREADS, Mma<128>::BYTES, a, p, stream);
-  else
-    e = launch_grid(sel_bwd_kv_mma_kernel<64>, TC_THREADS, Mma<64>::BYTES, a, p, stream);
+  e = p.Dk > 64 || p.Dv > 64 ? launch_mma<128>(a, p, stream, gate)
+                             : launch_mma<64>(a, p, stream, gate);
   return e != 0 ? e : finish<__nv_bfloat16>(a, p, stream);
 }
 
@@ -577,9 +635,11 @@ long long nsa_sel_attn_bwd_1p_smem_bytes(int dtype, int Dk, int Dv) {
 // (sel_bwd.cuh), items of `per` tokens; nblk [B,S,G] each row's distinct
 // visible blocks. part: f32 scratch of n_work * ceil(l_sel/64) * 64 *
 // (Dk+Dv) floats; ws: f32 dQ slots, max(nblk) * ceil(l_sel/64) *
-// B*S*G*h*Dk floats (at most min(n, NB) blocks per row).
+// B*S*G*h*Dk floats (at most min(n, NB) blocks per row). gate [B,S,G] f32
+// (or null: ungated): the gradients of dO * g rounded to the dtype.
 int nsa_sel_attn_bwd_1p(int dtype, const void* Q, const void* K, const void* V, const void* dO,
-                        const float* lse, const float* delta, const int* tpos, const int* inv,
+                        const float* lse, const float* delta, const float* gate,
+                        const int* tpos, const int* inv,
                         const int* cnt, const int* rank, const int* work, const int* span,
                         const int* nblk, void* dQ, void* dK, void* dV, float* part, float* ws,
                         int B, int S, int S_kv, int G, int h, int Dk, int Dv, int l_sel,
@@ -588,7 +648,7 @@ int nsa_sel_attn_bwd_1p(int dtype, const void* Q, const void* K, const void* V, 
   const nsa::sel::KvArgs a{Q, K, V, dO, lse, delta, tpos, inv, cnt, rank, work, span, nblk,
                            dQ, dK, dV, part, ws};
   const nsa::sel::KvParams p{B, S, S_kv, G, h, Dk, Dv, l_sel, inv_pitch, n_work, TQ, per, scale};
-  return nsa::sel::launch_kv(dtype, a, p, static_cast<cudaStream_t>(stream));
+  return nsa::sel::launch_kv(dtype, a, p, static_cast<cudaStream_t>(stream), gate);
 }
 
 }  // extern "C"

@@ -76,12 +76,19 @@ struct Layout {
   }
 };
 
-template <int DT>
-__global__ void __launch_bounds__(THREADS)
-sel_attn_union_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
-                      const __nv_bfloat16* __restrict__ V, const int* __restrict__ sel,
-                      const int* __restrict__ tpos, __nv_bfloat16* __restrict__ O,
-                      float* __restrict__ lse, Params p) {
+// GATED (the gate-epilogue fold, sel_flash.py:169): O = (acc / l) * g in
+// f32 before the cast, g the row's gate [B,S,G] f32; lse stays the ungated
+// softmax's. The entries: sel_attn_union_kernel (ungated, compiled as
+// before) and gated_sel_attn_union_kernel, over this one body.
+template <int DT, bool GATED>
+__device__ __forceinline__ void union_body(const __nv_bfloat16* __restrict__ Q,
+                                           const __nv_bfloat16* __restrict__ K,
+                                           const __nv_bfloat16* __restrict__ V,
+                                           const int* __restrict__ sel,
+                                           const int* __restrict__ tpos,
+                                           const float* __restrict__ gate,
+                                           __nv_bfloat16* __restrict__ O,
+                                           float* __restrict__ lse, const Params& p) {
   using C = Layout<DT>;
   constexpr int P = C::P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -302,30 +309,54 @@ sel_attn_union_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
     const int r = rows[hf];
     if (r >= R) continue;
     const float inv = l > 0.f ? 1.f / l : 0.f;
+    const float gv = GATED ? gate[((size_t)b * p.S + s0 + r / h) * p.G + g] : 1.f;
     __nv_bfloat16* dst = O + grow(r) * Dv;
 #pragma unroll
     for (int i = 0; i < DT / 8; ++i) {
       const int dim = 8 * i + 2 * t4;
-      if (dim < Dv)
+      if (dim < Dv) {
+        const float x0 = o[i][2 * hf] * inv, x1 = o[i][2 * hf + 1] * inv;
         *reinterpret_cast<uint32_t*>(dst + dim) =
-            tc::pack_bf16(o[i][2 * hf] * inv, o[i][2 * hf + 1] * inv);
+            GATED ? tc::pack_bf16(x0 * gv, x1 * gv) : tc::pack_bf16(x0, x1);
+      }
     }
     if (lse != nullptr && t4 == 0) lse[grow(r)] = l > 0.f ? (m2[hf] + log2f(l)) * LN2 : EMPTY_LSE;
   }
 }
 
 template <int DT>
-int launch(const void* Q, const void* K, const void* V, const int* sel, const int* tpos, void* O,
-           float* lse, int B, const Params& p, cudaStream_t stream) {
+__global__ void __launch_bounds__(THREADS)
+sel_attn_union_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
+                      const __nv_bfloat16* __restrict__ V, const int* __restrict__ sel,
+                      const int* __restrict__ tpos, __nv_bfloat16* __restrict__ O,
+                      float* __restrict__ lse, Params p) {
+  union_body<DT, false>(Q, K, V, sel, tpos, nullptr, O, lse, p);
+}
+
+template <int DT>
+__global__ void __launch_bounds__(THREADS)
+gated_sel_attn_union_kernel(const __nv_bfloat16* __restrict__ Q,
+                            const __nv_bfloat16* __restrict__ K,
+                            const __nv_bfloat16* __restrict__ V, const int* __restrict__ sel,
+                            const int* __restrict__ tpos, const float* __restrict__ gate,
+                            __nv_bfloat16* __restrict__ O, float* __restrict__ lse, Params p) {
+  union_body<DT, true>(Q, K, V, sel, tpos, gate, O, lse, p);
+}
+
+template <int DT>
+int launch(const void* Q, const void* K, const void* V, const int* sel, const int* tpos,
+           const float* gate, void* O, float* lse, int B, const Params& p, cudaStream_t stream) {
   const size_t smem = Layout<DT>::bytes(p.NB, p.U, p.qT, p.W);
-  const cudaError_t e = cudaFuncSetAttribute(
-      sel_attn_union_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   const long long grid = (long long)B * p.G * ((p.S + p.qT - 1) / p.qT);
-  sel_attn_union_kernel<DT><<<(unsigned)grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(K),
-      static_cast<const __nv_bfloat16*>(V), sel, tpos, static_cast<__nv_bfloat16*>(O), lse, p);
-  NSA_LAUNCH_CHECK();
+  const auto* q = static_cast<const __nv_bfloat16*>(Q);
+  const auto* k = static_cast<const __nv_bfloat16*>(K);
+  const auto* v = static_cast<const __nv_bfloat16*>(V);
+  auto* o = static_cast<__nv_bfloat16*>(O);
+  if (gate != nullptr)
+    return launch_kernel(gated_sel_attn_union_kernel<DT>, grid, THREADS, smem, stream, q, k, v,
+                         sel, tpos, gate, o, lse, p);
+  return launch_kernel(sel_attn_union_kernel<DT>, grid, THREADS, smem, stream, q, k, v, sel, tpos,
+                       o, lse, p);
 }
 
 Params make_params(int S, int S_kv, int G, int h, int Dk, int Dv, int n, int l_sel, int qT,
@@ -346,18 +377,20 @@ long long nsa_sel_attn_union_smem_bytes(int S_kv, int Dk, int Dv, int n, int l_s
 }
 
 // bf16 only. Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv], sel [B,S,G,n]
-// int32, tpos [B,S] int32 -> O [B,S,G,h,Dv], lse [B,S,G,h] f32 (or null).
-// q tiles of qT tokens, qT * h <= 64; Dk, Dv <= 128 and multiples of 8.
+// int32, tpos [B,S] int32, gate [B,S,G] f32 (or null: ungated) -> O
+// [B,S,G,h,Dv] (times the row's gate), lse [B,S,G,h] f32 (or null). q tiles
+// of qT tokens, qT * h <= 64; Dk, Dv <= 128 and multiples of 8.
 int nsa_sel_attn_union(const void* Q, const void* K, const void* V, const int* sel,
-                       const int* tpos, void* O, float* lse, int B, int S, int S_kv, int G, int h,
+                       const int* tpos, const float* gate, void* O, float* lse, int B, int S,
+                       int S_kv, int G, int h,
                        int Dk, int Dv, int n, int l_sel, int qT, float scale, void* stream) {
   if (n <= 0 || l_sel <= 0 || S_kv <= 0 || h <= 0 || qT <= 0 || qT * h > ROWS ||
       Dk % 8 != 0 || Dv % 8 != 0 || Dk > 128 || Dv > 128)
     return (int)cudaErrorInvalidValue;
   const Params p = make_params(S, S_kv, G, h, Dk, Dv, n, l_sel, qT, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dk > 64 || Dv > 64) return launch<128>(Q, K, V, sel, tpos, O, lse, B, p, s);
-  return launch<64>(Q, K, V, sel, tpos, O, lse, B, p, s);
+  if (Dk > 64 || Dv > 64) return launch<128>(Q, K, V, sel, tpos, gate, O, lse, B, p, s);
+  return launch<64>(Q, K, V, sel, tpos, gate, O, lse, B, p, s);
 }
 
 }  // extern "C"

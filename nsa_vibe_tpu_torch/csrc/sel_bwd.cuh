@@ -39,8 +39,11 @@ struct KvArgs {
 int kv_rows(int dtype, int Dk, int Dv);
 long long kv_smem_bytes(int dtype, int Dk, int Dv);
 // launches the kv-major kernel and the reductions (dK, dV; with ws also
-// dQ by sum_slots); returns a cudaError_t
-int launch_kv(int dtype, const KvArgs& a, const KvParams& p, cudaStream_t stream);
+// dQ by sum_slots); returns a cudaError_t. gate [B,S,G] f32 (the one-pass
+// design under the gate-epilogue fold, or null): each dO row is scaled by
+// its gate and rounded to the operands' dtype before any product.
+int launch_kv(int dtype, const KvArgs& a, const KvParams& p, cudaStream_t stream,
+              const float* gate = nullptr);
 
 }  // namespace sel
 }  // namespace nsa

@@ -75,7 +75,8 @@ struct Smem {
 __global__ void __launch_bounds__(THREADS)
 select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
                   const float* __restrict__ Vc, const float* __restrict__ Mcsl,
-                  const int* __restrict__ ds, int* __restrict__ sel, float* __restrict__ O,
+                  const int* __restrict__ ds, const float* __restrict__ gate,
+                  int* __restrict__ sel, float* __restrict__ O,
                   float* __restrict__ lse, Params p) {
   extern __shared__ __align__(16) float smem[];
   const int nq = (p.S + p.TQ - 1) / p.TQ;
@@ -168,8 +169,12 @@ select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
   for (int r = warp; r < rows; r += NWARPS) {
     const float den = l_s[r];
     const size_t orow = qo_row(r);
-    for (int c = lane; c < Dv; c += 32)
-      O[orow * Dv + c] = den > 0.f ? acc_o[r * Dv + c] / den : 0.f;
+    // the gate-epilogue fold (scorer.py:399): O * g of the row's (b, s, g)
+    const float gv = gate != nullptr ? gate[orow / h] : 1.f;
+    for (int c = lane; c < Dv; c += 32) {
+      const float o = den > 0.f ? acc_o[r * Dv + c] / den : 0.f;
+      O[orow * Dv + c] = gate != nullptr ? o * gv : o;
+    }
     for (int c = lane; c < S_sel; c += 32)
       acc_p[r * S_sel + c] = den > 0.f ? acc_p[r * S_sel + c] / den : 0.f;
     if (lse != nullptr && lane == 0) lse[orow] = row_lse(m_s[r], den);
@@ -226,15 +231,16 @@ select_cmp_kernel(const float* __restrict__ Q, const float* __restrict__ Kc,
 }
 
 int launch(const float* Q, const float* Kc, const float* Vc, const float* M, const int* ds,
-           int* sel, float* O, float* lse, int B, const Params& p, cudaStream_t stream) {
+           const float* gate, int* sel, float* O, float* lse, int B, const Params& p,
+           cudaStream_t stream) {
   const size_t smem = Smem(p.TQ, p.h, p.Dk, p.Dv, p.S_sel).total * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(select_cmp_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long nq = (p.S + p.TQ - 1) / p.TQ;
   const long long grid = (long long)B * p.G * nq;
-  select_cmp_kernel<<<(unsigned)grid, THREADS, smem, stream>>>(Q, Kc, Vc, M, ds, sel, O, lse,
-                                                                 p);
+  select_cmp_kernel<<<(unsigned)grid, THREADS, smem, stream>>>(Q, Kc, Vc, M, ds, gate, sel, O,
+                                                                 lse, p);
   NSA_LAUNCH_CHECK();
 }
 
@@ -251,11 +257,12 @@ long long nsa_select_cmp_smem_bytes(int TQ, int h, int Dk, int Dv, int S_sel) {
 }
 
 // f32 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], V_cmp [B,G,S_cmp,Dv], M
-// [S_cmp,S_sel], ds [B,S] int32 document starts (or null) -> sel
-// [B,S,G,n_out] int32, O [B,S,G,h,Dv], lse [B,S,G,h] (or null); TQ tokens
-// per block.
+// [S_cmp,S_sel], ds [B,S] int32 document starts (or null), gate [B,S,G] f32
+// (or null: ungated) -> sel [B,S,G,n_out] int32, O [B,S,G,h,Dv] (times the
+// row's gate), lse [B,S,G,h] (or null); TQ tokens per block.
 int nsa_select_cmp(const float* Q, const float* Kc, const float* Vc, const float* M,
-                   const int* ds, int* sel, float* O, float* lse, int B, int S, int G, int h,
+                   const int* ds, const float* gate, int* sel, float* O, float* lse, int B,
+                   int S, int G, int h,
                    int Dk, int Dv, int S_cmp,
                    int S_sel, int l, int d, int l_sel, int n_top, int force_init,
                    int force_local, float scale, int pos_offset, int TQ, void* stream) {
@@ -263,7 +270,7 @@ int nsa_select_cmp(const float* Q, const float* Kc, const float* Vc, const float
     return (int)cudaErrorInvalidValue;
   const Params p{S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
                  TQ, scale, pos_offset};
-  return launch(Q, Kc, Vc, M, ds, sel, O, lse, B, p, static_cast<cudaStream_t>(stream));
+  return launch(Q, Kc, Vc, M, ds, gate, sel, O, lse, B, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

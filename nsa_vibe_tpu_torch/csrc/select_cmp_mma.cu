@@ -96,13 +96,21 @@ struct Layout {
 // sharding; pass 1 and the top-n read the offset from Params in every
 // instantiation, pass 2 only in the OFF ones, so the dense one compiles as
 // it did before the offset existed). DOCS and OFF together: packed
-// documents under sequence sharding.
-template <int DT, bool DOCS, bool OFF>
-__global__ void __launch_bounds__(band::MAX_THREADS, DT == 64 && !DOCS ? 2 : 1)
-select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ Kc,
-                      const __nv_bfloat16* __restrict__ Vc, const float* __restrict__ M,
-                      const int* __restrict__ ds, int* __restrict__ sel,
-                      __nv_bfloat16* __restrict__ O, float* __restrict__ lse, Params p) {
+// documents under sequence sharding. GATED (the gate-epilogue fold,
+// scorer.py:399): pass 1 writes O * g, g the row's gate [B,S,G] f32
+// (band_fwd); pass 2, lse and the selection are the ungated ones. The
+// entries: select_cmp_mma_kernel (ungated, compiled as before) and
+// gated_select_cmp_mma_kernel, over this one body.
+template <int DT, bool DOCS, bool OFF, bool GATED>
+__device__ __forceinline__ void select_cmp_body(const __nv_bfloat16* __restrict__ Q,
+                                                const __nv_bfloat16* __restrict__ Kc,
+                                                const __nv_bfloat16* __restrict__ Vc,
+                                                const float* __restrict__ M,
+                                                const int* __restrict__ ds,
+                                                const float* __restrict__ gate,
+                                                int* __restrict__ sel,
+                                                __nv_bfloat16* __restrict__ O,
+                                                float* __restrict__ lse, const Params& p) {
   constexpr int P = band::Layout<DT>::P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const band::Params& bp = p.band;
@@ -128,7 +136,7 @@ select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
 
   // pass 1: O (and lse); -lse2 of this thread's rows r0 + g8 and r0 + g8 + 8
   float nlse2[2];
-  band::band_fwd<DT, band::CMP, DOCS>(Q, Kc, Vc, ds, O, lse, bp, nlse2);
+  band::band_fwd<DT, band::CMP, DOCS, GATED>(Q, Kc, Vc, ds, O, lse, bp, nlse2, gate);
 
   // pass 2: the tile's band again, key tiles [j0, J) (j0 = 0 without ds)
   const int n_vis_tile = min(num_cmp(t0 + s0 + nt, sp.l, sp.d), sp.S_cmp);
@@ -202,25 +210,50 @@ select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
   scorer::top_n<DOCS>(acc, sel, sp, b, g, s0, nt, ds);
 }
 
+template <int DT, bool DOCS, bool OFF>
+__global__ void __launch_bounds__(band::MAX_THREADS, DT == 64 && !DOCS ? 2 : 1)
+select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ Kc,
+                      const __nv_bfloat16* __restrict__ Vc, const float* __restrict__ M,
+                      const int* __restrict__ ds, int* __restrict__ sel,
+                      __nv_bfloat16* __restrict__ O, float* __restrict__ lse, Params p) {
+  select_cmp_body<DT, DOCS, OFF, false>(Q, Kc, Vc, M, ds, nullptr, sel, O, lse, p);
+}
+
+template <int DT, bool DOCS, bool OFF>
+__global__ void __launch_bounds__(band::MAX_THREADS, DT == 64 && !DOCS ? 2 : 1)
+gated_select_cmp_mma_kernel(const __nv_bfloat16* __restrict__ Q,
+                            const __nv_bfloat16* __restrict__ Kc,
+                            const __nv_bfloat16* __restrict__ Vc, const float* __restrict__ M,
+                            const int* __restrict__ ds, const float* __restrict__ gate,
+                            int* __restrict__ sel, __nv_bfloat16* __restrict__ O,
+                            float* __restrict__ lse, Params p) {
+  select_cmp_body<DT, DOCS, OFF, true>(Q, Kc, Vc, M, ds, gate, sel, O, lse, p);
+}
+
 template <int DT>
-int launch(const void* Q, const void* Kc, const void* Vc, const float* M, const int* ds, int* sel,
-           void* O, float* lse, int B, int rows, const Params& p, cudaStream_t stream) {
+int launch(const void* Q, const void* Kc, const void* Vc, const float* M, const int* ds,
+           const float* gate, int* sel, void* O, float* lse, int B, int rows, const Params& p,
+           cudaStream_t stream) {
   const size_t smem = Layout<DT>(rows, p.sc.TQ, p.sc.h, p.sc.S_sel).total;
   const bool docs = ds != nullptr, off = p.sc.pos_offset != 0;
+  const long long grid = (long long)B * p.band.G * p.band.nq;
+  const auto* q = static_cast<const __nv_bfloat16*>(Q);
+  const auto* k = static_cast<const __nv_bfloat16*>(Kc);
+  const auto* v = static_cast<const __nv_bfloat16*>(Vc);
+  auto* o = static_cast<__nv_bfloat16*>(O);
+  if (gate != nullptr) {
+    const auto kern = docs ? (off ? &gated_select_cmp_mma_kernel<DT, true, true>
+                                  : &gated_select_cmp_mma_kernel<DT, true, false>)
+                           : (off ? &gated_select_cmp_mma_kernel<DT, false, true>
+                                  : &gated_select_cmp_mma_kernel<DT, false, false>);
+    return launch_kernel(kern, grid, 2 * rows, smem, stream, q, k, v, M, ds, gate, sel, o, lse,
+                         p);
+  }
   const auto kern = docs ? (off ? &select_cmp_mma_kernel<DT, true, true>
                                 : &select_cmp_mma_kernel<DT, true, false>)
                          : (off ? &select_cmp_mma_kernel<DT, false, true>
                                 : &select_cmp_mma_kernel<DT, false, false>);
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long grid = (long long)B * p.band.G * p.band.nq;
-  if (grid > 0)
-    kern<<<(unsigned)grid, 2 * rows, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(Q), static_cast<const __nv_bfloat16*>(Kc),
-        static_cast<const __nv_bfloat16*>(Vc), M, ds, sel, static_cast<__nv_bfloat16*>(O), lse,
-        p);
-  NSA_LAUNCH_CHECK();
+  return launch_kernel(kern, grid, 2 * rows, smem, stream, q, k, v, M, ds, sel, o, lse, p);
 }
 
 }  // namespace
@@ -233,13 +266,15 @@ long long nsa_select_cmp_mma_smem_bytes(int rows, int TQ, int h, int Dk, int Dv,
 }
 
 // bf16 only. Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], V_cmp [B,G,S_cmp,Dv], M
-// [S_cmp,S_sel] f32, ds [B,S] int32 document starts (or null) -> sel
-// [B,S,G,n_out] int32, O [B,S,G,h,Dv], lse [B,S,G,h] f32 (or null):
+// [S_cmp,S_sel] f32, ds [B,S] int32 document starts (or null), gate [B,S,G]
+// f32 (or null: ungated) -> sel [B,S,G,n_out] int32, O [B,S,G,h,Dv] (times
+// the row's gate), lse [B,S,G,h] f32 (or null):
 // select_cmp.cu's contract, query row s at position pos_offset + s (with
 // ds also). CTAs of `rows` = 64 or 128 rows, TQ tokens each (TQ * h <= rows);
 // Dk, Dv <= 128, multiples of 8.
 int nsa_select_cmp_mma(const void* Q, const void* Kc, const void* Vc, const float* M,
-                       const int* ds, int* sel, void* O, float* lse, int B, int S, int G, int h,
+                       const int* ds, const float* gate, int* sel, void* O, float* lse, int B,
+                       int S, int G, int h,
                        int Dk, int Dv,
                        int S_cmp, int S_sel, int l, int d, int l_sel, int n_top,
                        int force_init, int force_local, float scale, int pos_offset, int TQ,
@@ -253,8 +288,8 @@ int nsa_select_cmp_mma(const void* Q, const void* Kc, const void* Vc, const floa
                  {B, S, G, h, Dk, S_cmp, S_sel, l, d, l_sel, n_top, force_init, force_local,
                   pos_offset, TQ, scale}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dk > 64 || Dv > 64) return launch<128>(Q, Kc, Vc, M, ds, sel, O, lse, B, rows, p, s);
-  return launch<64>(Q, Kc, Vc, M, ds, sel, O, lse, B, rows, p, s);
+  if (Dk > 64 || Dv > 64) return launch<128>(Q, Kc, Vc, M, ds, gate, sel, O, lse, B, rows, p, s);
+  return launch<64>(Q, Kc, Vc, M, ds, gate, sel, O, lse, B, rows, p, s);
 }
 
 }  // extern "C"

@@ -30,7 +30,9 @@ at decode: sel_attn.cu in both); banded_bwd's dK/dV pass is
 banded_bwd_1p's kernel with its dQ slots off. The backward design each
 branch runs follows ops/tuning.py. Each wrapper counts its launches in a
 plain integer attribute (`<wrapper>.launches`), incremented only where
-the kernel is launched. A replay of a captured CUDA graph calls no
+the kernel is launched; the wrappers that take the gate-epilogue fold's
+gate (nsa.gate_fold) also count their gated launches
+(`<wrapper>.gated_launches`). A replay of a captured CUDA graph calls no
 wrapper, so these counts do not see it: a replay's launches are read from
 a profiler trace.
 """
@@ -55,9 +57,17 @@ WRAPPERS = (_select_cmp_mod.select_cmp, _sel_attn_mod.sel_attn, _win_attn_mod.wi
             _win_bwd_diag_mod.win_bwd_diag)
 
 
+# the wrappers that take the gate-epilogue fold's gate (`gated_launches`)
+GATED_WRAPPERS = (_select_cmp_mod.select_cmp, _sel_attn_mod.sel_attn, _win_attn_mod.win_attn,
+                  _banded_attn_mod.banded_attn, _banded_bwd_1p_mod.banded_bwd_1p,
+                  _sel_attn_bwd_1p_mod.sel_attn_bwd_1p)
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in GATED_WRAPPERS:
+        fn.gated_launches = 0
     _sel_attn_mod.sel_attn.decode_launches = 0
     _banded_bwd_mod.banded_bwd.cmp_launches = 0
     _banded_bwd_1p_mod.banded_bwd_1p.cmp_launches = 0
@@ -65,3 +75,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def gated_launch_counts() -> dict:
+    """The launches under the gate-epilogue fold, by wrapper."""
+    return {fn.__name__: fn.gated_launches for fn in GATED_WRAPPERS}

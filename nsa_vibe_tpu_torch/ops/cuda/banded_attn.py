@@ -23,6 +23,10 @@ reads seq_start[b, s], a packed position, also at t_start > 0) row t sees
 no key before its document start (window) and no pooled token that starts
 before it (compressed); the kernels get a pointer to it,
 null for the dense bound, whose bits they keep.
+
+Gate-epilogue fold (nsa.gate_fold): with `gate` [B,S,G] f32 the kernels
+emit O * g, formed in f32 before the cast (flash.py:274, flash_diag.py:125);
+lse stays the ungated softmax's. Null launches the ungated entries.
 """
 
 from __future__ import annotations
@@ -33,8 +37,8 @@ from nsa_vibe_tpu_torch.ops import reference as ref
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import MODES, banded_mask, mask5
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, check_offset, check_operands, check_seq_start, check_smem, check_vector_rows,
-    ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, check_gate, check_offset, check_operands, check_seq_start, check_smem,
+    check_vector_rows, ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 
 ROWS_PER_BLOCK = 64   # query rows (tokens x heads) per block of the f32 kernel, its maximum
@@ -45,11 +49,11 @@ MMA_TILE_ROWS = 128
 
 
 def banded_attn_plain(Q, K, V, *, mode: str, w: int = 0, l: int = 0, d: int = 1, scale: float,
-                      t_start: int = 0, return_lse: bool = False, seq_start=None):
+                      t_start: int = 0, return_lse: bool = False, seq_start=None, gate=None):
     """Plain PyTorch version: masked attention under `banded_mask`."""
     m = banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, t_start=t_start,
                     device=Q.device, seq_start=seq_start)
-    return ref.attend_masked(Q, K, V, mask5(m), scale, return_lse)
+    return ref.attend_masked(Q, K, V, mask5(m), scale, return_lse, gate)
 
 
 def banded_attn_rss(Q, K, V, *, mode: str, w: int = 0, l: int = 0, d: int = 1, scale: float,
@@ -65,7 +69,7 @@ def banded_attn_rss(Q, K, V, *, mode: str, w: int = 0, l: int = 0, d: int = 1, s
 
 
 def launch_banded(name: str, Q, K, V, *, mode: str, w: int, l: int, d: int, scale: float,
-                  t_start: int, return_lse: bool, seq_start=None):
+                  t_start: int, return_lse: bool, seq_start=None, gate=None):
     """Checks the operands and launches the kernel of Q's dtype; returns O,
     or (O, lse) with return_lse. The caller counts the launch."""
     if mode not in MODES:
@@ -78,6 +82,7 @@ def launch_banded(name: str, Q, K, V, *, mode: str, w: int, l: int, d: int, scal
                          f"Q {tuple(Q.shape)}")
     check_vector_rows(name, Q=Q, K=K, V=V)
     check_seq_start(name, seq_start, B, S, Q.device)
+    check_gate(name, gate, B, S, G, Q.device)
     if (mode == "win" and w <= 0) or (mode == "cmp" and (l <= 0 or d <= 0)) or t_start < 0:
         raise ValueError(f"{name}: win needs w > 0, cmp needs l, d > 0; t_start >= 0")
     check_offset(name, t_start)
@@ -89,8 +94,9 @@ def launch_banded(name: str, Q, K, V, *, mode: str, w: int, l: int, d: int, scal
     O = torch.empty((B, S, G, h, Dv), dtype=Q.dtype, device=Q.device)
     lse = (torch.empty((B, S, G, h), dtype=torch.float32, device=Q.device)
            if return_lse else None)
-    args = (ptr(Q), ptr(K), ptr(V), ptr_or_null(seq_start), ptr(O), ptr_or_null(lse), B, S,
-            S_kv, G, h, Dk, Dv, MODES[mode], w, l, d, int(t_start), float(scale))
+    args = (ptr(Q), ptr(K), ptr(V), ptr_or_null(seq_start), ptr_or_null(gate), ptr(O),
+            ptr_or_null(lse), B, S, S_kv, G, h, Dk, Dv, MODES[mode], w, l, d, int(t_start),
+            float(scale))
     with torch.cuda.device(Q.device):
         if mma:
             check_smem(name, lib.nsa_banded_fwd_mma_smem_bytes(Dk, Dv, MMA_TILE_ROWS))
@@ -104,19 +110,24 @@ def launch_banded(name: str, Q, K, V, *, mode: str, w: int, l: int, d: int, scal
 
 
 def banded_attn(Q, K, V, *, mode: str, w: int = 0, l: int = 0, d: int = 1, scale: float,
-                t_start: int = 0, return_lse: bool = False, seq_start=None):
+                t_start: int = 0, return_lse: bool = False, seq_start=None, gate=None):
     """Q [B,S,G,h,Dk], K [B,G,S_kv,Dk], V [B,G,S_kv,Dv] -> O [B,S,G,h,Dv],
     and with return_lse the f32 row statistics lse [B,S,G,h]. Query row s
     sits at position t_start + s (a host int). "win" needs w > 0, "cmp"
     needs l, d > 0; seq_start [B,S] int32 (at any t_start) bounds each row to
-    its document. CPU tensors take the plain version."""
+    its document; gate [B,S,G] f32 (or None) scales O. CPU tensors take the
+    plain version. Counts launches in `banded_attn.launches`, the gated ones
+    also in `banded_attn.gated_launches`."""
     if resolve_kernel(Q) == "plain":
         return banded_attn_plain(Q, K, V, mode=mode, w=w, l=l, d=d, scale=scale,
-                                 t_start=t_start, return_lse=return_lse, seq_start=seq_start)
+                                 t_start=t_start, return_lse=return_lse, seq_start=seq_start,
+                                 gate=gate)
     out = launch_banded("banded_attn", Q, K, V, mode=mode, w=w, l=l, d=d, scale=scale,
-                        t_start=t_start, return_lse=return_lse, seq_start=seq_start)
+                        t_start=t_start, return_lse=return_lse, seq_start=seq_start, gate=gate)
     banded_attn.launches += 1
+    banded_attn.gated_launches += gate is not None
     return out
 
 
 banded_attn.launches = 0
+banded_attn.gated_launches = 0

@@ -65,11 +65,14 @@ def mask5(m: torch.Tensor) -> torch.Tensor:
 
 
 def banded_bwd_plain(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-                     scale: float, seq_start=None, t_start: int = 0):
-    """Plain PyTorch version: the dense formula on the same operands."""
+                     scale: float, seq_start=None, t_start: int = 0, gate=None):
+    """Plain PyTorch version: the dense formula on the same operands (with
+    gate [B,S,G] f32, the gate-epilogue fold: on ref.gate_dO(dO, gate))."""
     check_offset("banded_bwd", t_start)
     m = banded_mask(Q.shape[1], K.shape[2], mode=mode, w=w, l=l, d=d, t_start=t_start,
                     device=Q.device, seq_start=seq_start)
+    if gate is not None:
+        dO = ref.gate_dO(dO, gate)
     return ref.attend_masked_bwd(Q, K, V, dO, lse, delta, mask5(m), scale)
 
 

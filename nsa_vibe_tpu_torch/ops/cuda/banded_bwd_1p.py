@@ -16,8 +16,11 @@ Both write each dQ partial to its own f32 slot and sum them in order. The
 same launch with the slots off (`kv_pass`) is the two-pass design's dK/dV
 pass (banded_bwd). With `seq_start` (packed documents) each row's keys
 stop at its document start; a row's slots count from the first key tile
-it sees there. Bound on the H100 and design: see the notes at the top of
-the CUDA sources.
+it sees there. With `gate` [B,S,G] f32 (the gate-epilogue fold,
+flash_bwd.py:422-424) the kernels scale each staged dO row by its gate and
+round it to dO's dtype before any product: the bits of the ungated launch
+on (dO * g).to(dO.dtype) (bf16: csrc/banded_bwd_gated_mma.cu). Bound on the
+H100 and design: see the notes at the top of the CUDA sources.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ import torch
 from nsa_vibe_tpu_torch.ops.cuda.banded_bwd import MODES, banded_bwd_plain
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, check_offset, check_operands, check_seq_start, check_smem, check_vector_rows,
-    kv_splits, ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, check_gate, check_offset, check_operands, check_seq_start, check_smem,
+    check_vector_rows, kv_splits, ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 
 ROWS_PER_CHUNK = 64   # query rows (tokens x heads) per chunk of the f32 kernel, its maximum
@@ -37,10 +40,10 @@ MAX_D = 128           # head widths the kernels' register slices and tiles cover
 
 
 def check_banded_operands(name: str, Q, K, V, dO, lse, delta, *, mode: str, w: int, l: int,
-                          d: int, seq_start=None, t_start: int = 0) -> int:
+                          d: int, seq_start=None, t_start: int = 0, gate=None) -> int:
     """The checks of a banded backward launch (shapes, dtypes, devices,
-    contiguity, alignment, mode, seq_start, the query offset). Returns the
-    dtype code."""
+    contiguity, alignment, mode, seq_start, the query offset, the gate).
+    Returns the dtype code."""
     check_offset(name, t_start)
     if mode not in MODES:
         raise ValueError(f"{name}: mode must be 'win' or 'cmp', got {mode!r}")
@@ -48,6 +51,7 @@ def check_banded_operands(name: str, Q, K, V, dO, lse, delta, *, mode: str, w: i
     check_operands(name, {"lse": lse, "delta": delta})
     B, S, G, h, Dk = Q.shape
     check_seq_start(name, seq_start, B, S, Q.device)
+    check_gate(name, gate, B, S, G, Q.device)
     S_kv, Dv = K.shape[2], V.shape[3]
     if K.shape != (B, G, S_kv, Dk) or V.shape[:3] != (B, G, S_kv) \
             or dO.shape != (B, S, G, h, Dv) or lse.shape != (B, S, G, h) \
@@ -93,12 +97,14 @@ def mma_plan(lib, device, B: int, S: int, S_kv: int, G: int, h: int, Dk: int,
 
 
 def kv_pass(name: str, lib, code: int, Q, K, V, dO, lse, delta, *, mode: str, w: int, l: int,
-            d: int, scale: float, slots: bool, seq_start=None, t_start: int = 0) -> tuple:
+            d: int, scale: float, slots: bool, seq_start=None, t_start: int = 0,
+            gate=None) -> tuple:
     """Launches the kv-major kernel on checked operands (dtype code `code`):
     bf16 the tensor-core kernel, f32 the FMA kernel. With `slots` it writes
     each chunk's dQ partial to its slot and returns (dQ, dK, dV) (the
     one-pass design); without, it forms (None, dK, dV) alone (the two-pass
-    design's dK/dV pass: no slot workspace)."""
+    design's dK/dV pass: no slot workspace). gate: the fold's [B,S,G] f32
+    scaling each dO row, or None."""
     B, S, G, h, Dk = Q.shape
     S_kv, Dv = K.shape[2], V.shape[3]
     mma = code == DTYPE_CODES[torch.bfloat16]
@@ -116,8 +122,8 @@ def kv_pass(name: str, lib, code: int, Q, K, V, dO, lse, delta, *, mode: str, w:
                       dtype=torch.float32, device=Q.device) if slots else None)
     part = torch.empty(nsplit * B * G * S_kv * (Dk + Dv), dtype=torch.float32, device=Q.device)
     args = (ptr(Q), ptr(K), ptr(V), ptr(dO), ptr(lse), ptr(delta), ptr_or_null(seq_start),
-            ptr_or_null(dQ), ptr(dK), ptr(dV), ptr(part), ptr_or_null(ws), B, S, S_kv, G, h, Dk,
-            Dv, MODES[mode], w, l, d, float(scale), t_start)
+            ptr_or_null(gate), ptr_or_null(dQ), ptr(dK), ptr(dV), ptr(part), ptr_or_null(ws), B,
+            S, S_kv, G, h, Dk, Dv, MODES[mode], w, l, d, float(scale), t_start)
     with torch.cuda.device(Q.device):
         if mma:
             err = lib.nsa_banded_bwd_1p_mma(*args, nsplit, stream_of(Q))
@@ -128,23 +134,27 @@ def kv_pass(name: str, lib, code: int, Q, K, V, dO, lse, delta, *, mode: str, w:
 
 
 def banded_bwd_1p(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0, d: int = 1,
-                  scale: float, seq_start=None, t_start: int = 0):
+                  scale: float, seq_start=None, t_start: int = 0, gate=None):
     """Q, dO [B,S,G,h,D*], K/V [B,G,S_kv,D*], lse/delta [B,S,G,h] f32 ->
     (dQ, dK, dV) in the operands' dtype. Query row s is at position
     t_start + s (a host int: sequence sharding, where K/V cover the whole
     sequence; the key tiles span all S_kv keys); seq_start [B,S] int32 (or
-    None; at any t_start) bounds each row to its document.
-    CPU tensors take the plain version. Counts launches in
-    `banded_bwd_1p.launches` and, of those in cmp mode, in
-    `banded_bwd_1p.cmp_launches`."""
+    None; at any t_start) bounds each row to its document; gate [B,S,G] f32
+    (the gate-epilogue fold, or None): the gradients of Y = g O given dY =
+    dO, delta = rowsum(dY * Y). CPU tensors take the plain version. Counts
+    launches in `banded_bwd_1p.launches`, of those in cmp mode in
+    `banded_bwd_1p.cmp_launches` and of the gated ones in
+    `banded_bwd_1p.gated_launches`."""
     if resolve_kernel(Q) == "plain":
         return banded_bwd_plain(Q, K, V, dO, lse, delta, mode=mode, w=w, l=l, d=d, scale=scale,
-                                seq_start=seq_start, t_start=t_start)
+                                seq_start=seq_start, t_start=t_start, gate=gate)
     code = check_banded_operands("banded_bwd_1p", Q, K, V, dO, lse, delta, mode=mode, w=w, l=l,
-                                 d=d, seq_start=seq_start, t_start=t_start)
+                                 d=d, seq_start=seq_start, t_start=t_start, gate=gate)
     grads = kv_pass("banded_bwd_1p", library(), code, Q, K, V, dO, lse, delta, mode=mode, w=w,
-                    l=l, d=d, scale=scale, slots=True, seq_start=seq_start, t_start=t_start)
+                    l=l, d=d, scale=scale, slots=True, seq_start=seq_start, t_start=t_start,
+                    gate=gate)
     banded_bwd_1p.launches += 1
+    banded_bwd_1p.gated_launches += gate is not None
     if mode == "cmp":
         banded_bwd_1p.cmp_launches += 1
     return grads
@@ -152,3 +162,4 @@ def banded_bwd_1p(Q, K, V, dO, lse, delta, *, mode: str, w: int = 0, l: int = 0,
 
 banded_bwd_1p.launches = 0
 banded_bwd_1p.cmp_launches = 0
+banded_bwd_1p.gated_launches = 0

@@ -28,9 +28,9 @@ BUILD_ROOT = PKG / "_build"
 SOURCES = ("select_cmp.cu", "sel_attn.cu", "sel_attn_fwd_mma.cu", "banded_fwd_mma.cu",
            "banded_bwd.cu", "sel_attn_bwd.cu", "banded_attn.cu", "select_blocks.cu",
            "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu", "win_bwd_diag.cu", "banded_bwd_mma.cu",
-           "select_blocks_mma.cu", "select_cmp_mma.cu")
+           "select_blocks_mma.cu", "select_cmp_mma.cu", "banded_bwd_gated_mma.cu")
 HEADERS = ("common.cuh", "bwd_common.cuh", "banded_common.cuh", "sel_bwd.cuh", "tc.cuh",
-           "select_blocks.cuh", "banded_fwd_mma.cuh")
+           "select_blocks.cuh", "banded_fwd_mma.cuh", "banded_bwd_mma.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -40,38 +40,38 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # stream are c_void_p so that 64-bit addresses pass whole
 SIGNATURES = {
     "nsa_error_string": ([I], ctypes.c_char_p),
-    "nsa_select_cmp": ([P] * 8 + [I] * 14 + [F, I, I, P], I),
+    "nsa_select_cmp": ([P] * 9 + [I] * 14 + [F, I, I, P], I),
     "nsa_select_cmp_max_s_sel": ([], I),
     "nsa_select_cmp_smem_bytes": ([I] * 5, LL),
-    "nsa_select_cmp_mma": ([P] * 8 + [I] * 14 + [F, I, I, I, P], I),
+    "nsa_select_cmp_mma": ([P] * 9 + [I] * 14 + [F, I, I, I, P], I),
     "nsa_select_cmp_mma_smem_bytes": ([I] * 6, LL),
-    "nsa_sel_attn": ([I] + [P] * 8 + [I] * 9 + [F, P], I),
+    "nsa_sel_attn": ([I] + [P] * 9 + [I] * 9 + [F, P], I),
     "nsa_sel_attn_smem_bytes": ([I] * 5, LL),
     "nsa_sel_attn_ws_floats": ([I] * 2, LL),
-    "nsa_sel_attn_union": ([P] * 7 + [I] * 10 + [F, P], I),
+    "nsa_sel_attn_union": ([P] * 8 + [I] * 10 + [F, P], I),
     "nsa_sel_attn_union_smem_bytes": ([I] * 6, LL),
-    "nsa_banded_fwd_mma": ([P] * 6 + [I] * 12 + [F, I, P], I),
+    "nsa_banded_fwd_mma": ([P] * 7 + [I] * 12 + [F, I, P], I),
     "nsa_banded_fwd_mma_smem_bytes": ([I] * 3, LL),
     "nsa_banded_bwd": ([P] * 8 + [I] * 11 + [F, I, I, P], I),
     "nsa_banded_bwd_smem_bytes": ([I] * 2, LL),
     "nsa_sel_attn_bwd": ([I] + [P] * 19 + [I] * 16 + [F, P], I),
     "nsa_sel_attn_bwd_smem_bytes": ([I] * 9, LL),
-    "nsa_banded_attn": ([P] * 6 + [I] * 12 + [F, I, P], I),
+    "nsa_banded_attn": ([P] * 7 + [I] * 12 + [F, I, P], I),
     "nsa_banded_attn_smem_bytes": ([I] * 4, LL),
     "nsa_select_blocks": ([P] * 4 + [I] * 14 + [F, I, P], I),
     "nsa_select_blocks_smem_bytes": ([I] * 4, LL),
     "nsa_select_blocks_mma": ([P] * 4 + [I] * 14 + [F, I, I, P], I),
     "nsa_select_blocks_mma_smem_bytes": ([I] * 4, LL),
-    "nsa_banded_bwd_1p": ([P] * 12 + [I] * 11 + [F, I, I, I, P], I),
+    "nsa_banded_bwd_1p": ([P] * 13 + [I] * 11 + [F, I, I, I, P], I),
     "nsa_banded_bwd_1p_smem_bytes": ([I] * 2, LL),
     "nsa_banded_bwd_1p_slots": ([I] * 3, I),
-    "nsa_sel_attn_bwd_1p": ([I] + [P] * 18 + [I] * 12 + [F, P], I),
+    "nsa_sel_attn_bwd_1p": ([I] + [P] * 19 + [I] * 12 + [F, P], I),
     "nsa_sel_attn_bwd_1p_smem_bytes": ([I] * 3, LL),
     "nsa_sel_attn_bwd_kv_rows": ([I] * 3, I),
     "nsa_win_bwd_diag": ([P] * 12 + [I] * 8 + [F, I, I, P], I),
     "nsa_win_bwd_diag_smem_bytes": ([I] * 2, LL),
     "nsa_win_bwd_diag_strip_keys": ([I] * 3, I),
-    "nsa_banded_bwd_1p_mma": ([P] * 12 + [I] * 11 + [F, I, I, P], I),
+    "nsa_banded_bwd_1p_mma": ([P] * 13 + [I] * 11 + [F, I, I, P], I),
     "nsa_banded_bwd_1p_mma_rows": ([I] * 2, I),
     "nsa_banded_bwd_1p_mma_smem_bytes": ([I] * 2, LL),
     "nsa_win_bwd_diag_mma": ([P] * 12 + [I] * 8 + [F, I, I, P], I),

@@ -64,6 +64,18 @@ def check_seq_start(name: str, seq_start, B: int, S: int, device) -> None:
                          f"tensor on {device}")
 
 
+def check_gate(name: str, gate, B: int, S: int, G: int, device) -> None:
+    """gate is None, or the gate-epilogue fold's f32 [B, S, G] contiguous
+    tensor on `device` (one gate a (token, group), shared by its heads)."""
+    if gate is None:
+        return
+    if gate.dtype != torch.float32 or tuple(gate.shape) != (B, S, G) \
+            or gate.device != device or not gate.is_contiguous():
+        raise ValueError(f"{name}: gate ({gate.dtype}, {tuple(gate.shape)}, on {gate.device}) "
+                         f"must be a contiguous float32 [B, S, G] = [{B}, {S}, {G}] tensor on "
+                         f"{device}")
+
+
 def check_offset(name: str, t_start: int) -> None:
     """t_start (the position of query row 0 under sequence sharding) is a
     host int >= 0. With seq_start too (packed documents under sequence

@@ -35,10 +35,14 @@ CHUNKS_PER_ITEM = 16   # chunks of the kv-major pass per work item
 UNION_ROWS = 64        # rows of a q tile of the bf16 union dQ kernel: UNION_ROWS // h tokens
 
 
-def sel_attn_bwd_plain(Q, K, V, sel_idx, t_pos, dO, lse, delta, *, l_sel: int, scale: float):
-    """Plain PyTorch version: the dense formula on the same operands.
+def sel_attn_bwd_plain(Q, K, V, sel_idx, t_pos, dO, lse, delta, *, l_sel: int, scale: float,
+                       gate=None):
+    """Plain PyTorch version: the dense formula on the same operands (with
+    gate [B,S,G] f32, the gate-epilogue fold: on ref.gate_dO(dO, gate)).
     t_pos: [S] or [B,S] query positions."""
     m = selection_token_mask(sel_idx, t_pos, l_sel, K.shape[2])
+    if gate is not None:
+        dO = ref.gate_dO(dO, gate)
     return ref.attend_masked_bwd(Q, K, V, dO, lse, delta, m[:, :, :, None, :], scale)
 
 

@@ -15,7 +15,9 @@ Bound on the H100 and design: see the notes at the top of the CUDA sources.
 Output contract (as the TPU kernel): sel_idx [B,S,G,max(n_top,n_forced)]
 int32 with the forced slots first (block 0, t//l_sel, t//l_sel-1, clamped
 at 0, may repeat), then the picks in descending `p_grp - 1e-8*index`
-order, -1 when no candidate is left; O_cmp [B,S,G,h,Dv]; with return_lse
+order, -1 when no candidate is left; O_cmp [B,S,G,h,Dv] (with `gate`
+[B,S,G] f32, the gate-epilogue fold: O_cmp * g, formed in f32 before the
+cast, as scorer.py:399; the rest is the ungated output); with return_lse
 the cmp rows' f32 statistics lse [B,S,G,h] (EMPTY_LSE for rows t < l-1,
 which see no compressed token). Consumers treat sel_idx as a set
 (`ops.selection.canonicalize_sel` gives the sorted form). With `seq_start`
@@ -33,8 +35,8 @@ from nsa_vibe_tpu_torch.ops import reference as ref
 from nsa_vibe_tpu_torch.ops import varlen
 from nsa_vibe_tpu_torch.ops.cuda.build import library
 from nsa_vibe_tpu_torch.ops.cuda.common import (
-    DTYPE_CODES, SMEM_LIMIT, check_offset, check_operands, check_seq_start, check_smem,
-    check_vector_rows, ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
+    DTYPE_CODES, SMEM_LIMIT, check_gate, check_offset, check_operands, check_seq_start,
+    check_smem, check_vector_rows, ptr, ptr_or_null, raise_on_error, resolve_kernel, stream_of,
 )
 from nsa_vibe_tpu_torch.ops.selection import (
     compute_pcmp_masked, effective_sel_blocks, group_reduce, map_pcmp_to_pslc, topn_forced_first,
@@ -63,7 +65,7 @@ def select_cmp_fits(h: int, S_sel: int) -> bool:
 def select_cmp_plain(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int,
                      n_top: int, force_init: bool = True, force_local: int = 2,
                      return_scores: bool = False, return_lse: bool = False, seq_start=None,
-                     pos_offset: int = 0):
+                     pos_offset: int = 0, gate=None):
     """Plain PyTorch version: the same function and output contract.
     Returns (sel_idx, O_cmp), then lse [B,S,G,h] with return_lse, then the
     group scores p_grp [B,S,G,S_sel] with return_scores."""
@@ -75,7 +77,8 @@ def select_cmp_plain(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel:
     else:
         num_cmp_t = ref.num_cmp_per_token(S, l, d, M.shape[0], Q.device, pos_offset)
         p_cmp = compute_pcmp_masked(Q, K_cmp, scale, num_cmp_t)      # f32, 0 rows w/o tokens
-    O = torch.einsum("bsghc,bgcv->bsghv", p_cmp, V_cmp.float()).to(Q.dtype)
+    O = torch.einsum("bsghc,bgcv->bsghv", p_cmp, V_cmp.float())
+    O = (O if gate is None else O * gate[..., None, None]).to(Q.dtype)
     p_grp = group_reduce(map_pcmp_to_pslc(p_cmp, M))                 # [B,S,G,S_sel]
     if seq_start is not None:
         sel = varlen.topn_forced_first_varlen(p_grp, n_top, t_pos, seq_start, l_sel, force_init,
@@ -112,22 +115,23 @@ def tile_plan(lib, h: int, Dk: int, Dv: int, S_sel: int, docs: bool = False) -> 
 
 def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, n_top: int,
                force_init: bool = True, force_local: int = 2, return_lse: bool = False,
-               seq_start=None, pos_offset: int = 0):
+               seq_start=None, pos_offset: int = 0, gate=None):
     """Q [B,S,G,h,Dk], K_cmp [B,G,S_cmp,Dk], V_cmp [B,G,S_cmp,Dv], M [S_cmp,S_sel]
     f32 -> (sel_idx [B,S,G,n_out] int32, O_cmp [B,S,G,h,Dv][, lse [B,S,G,h]]).
     Query row s is at position pos_offset + s (a host int: sequence
     sharding, where K_cmp and M cover the whole sequence); seq_start [B,S]
-    int32 (or None; at any pos_offset) keeps each row in its document. CPU
-    tensors take the plain version. M is
-    the Eq. 9 map of ops/block_index.py: the kernels read, for each
-    compressed token c, only the entries of the selection blocks its span
-    [c*d, c*d + l) overlaps; the other entries, zero in that map, are not
-    read."""
+    int32 (or None; at any pos_offset) keeps each row in its document; gate
+    [B,S,G] f32 (or None) scales O_cmp (the gate-epilogue fold). CPU
+    tensors take the plain version. Launches count in `select_cmp.launches`,
+    the gated ones also in `select_cmp.gated_launches`. M is the Eq. 9 map
+    of ops/block_index.py: the kernels read, for each compressed token c,
+    only the entries of the selection blocks its span [c*d, c*d + l)
+    overlaps; the other entries, zero in that map, are not read."""
     if resolve_kernel(Q) == "plain":
         return select_cmp_plain(Q, K_cmp, V_cmp, M, scale=scale, l=l, d=d, l_sel=l_sel,
                                 n_top=n_top, force_init=force_init,
                                 force_local=force_local, return_lse=return_lse,
-                                seq_start=seq_start, pos_offset=pos_offset)
+                                seq_start=seq_start, pos_offset=pos_offset, gate=gate)
     check_offset("select_cmp", pos_offset)
     code = check_operands("select_cmp", {"Q": Q, "K_cmp": K_cmp, "V_cmp": V_cmp})
     check_operands("select_cmp", {"M": M})
@@ -142,6 +146,7 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
                          f"{tuple(M.shape)}")
     check_vector_rows("select_cmp", Q=Q, K_cmp=K_cmp, V_cmp=V_cmp)
     check_seq_start("select_cmp", seq_start, B, S, Q.device)
+    check_gate("select_cmp", gate, B, S, G, Q.device)
     if S_cmp == 0:
         raise ValueError("select_cmp: no compressed tokens (S_cmp == 0); the caller "
                          "selects the forced blocks without the scorer")
@@ -162,9 +167,9 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
     O = torch.empty((B, S, G, h, Dv), dtype=Q.dtype, device=Q.device)
     lse = (torch.empty((B, S, G, h), dtype=torch.float32, device=Q.device)
            if return_lse else None)
-    args = (ptr(Q), ptr(K_cmp), ptr(V_cmp), ptr(M), ptr_or_null(seq_start), ptr(sel), ptr(O),
-            ptr_or_null(lse), B, S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel, n_top,
-            int(force_init), force_local, float(scale), int(pos_offset))
+    args = (ptr(Q), ptr(K_cmp), ptr(V_cmp), ptr(M), ptr_or_null(seq_start), ptr_or_null(gate),
+            ptr(sel), ptr(O), ptr_or_null(lse), B, S, G, h, Dk, Dv, S_cmp, S_sel, l, d, l_sel,
+            n_top, int(force_init), force_local, float(scale), int(pos_offset))
     with torch.cuda.device(Q.device):
         if mma:
             tq = tile_plan(lib, h, Dk, Dv, S_sel, docs=seq_start is not None)
@@ -175,7 +180,9 @@ def select_cmp(Q, K_cmp, V_cmp, M, *, scale: float, l: int, d: int, l_sel: int, 
             err = lib.nsa_select_cmp(*args, tq, stream_of(Q))
     raise_on_error(lib, "select_cmp", err)
     select_cmp.launches += 1
+    select_cmp.gated_launches += gate is not None
     return (sel, O, lse) if return_lse else (sel, O)
 
 
 select_cmp.launches = 0
+select_cmp.gated_launches = 0

@@ -9,6 +9,12 @@ Row statistics: lse = logsumexp of a row's visible scaled logits
 (natural base), EMPTY_LSE = +1e30 for a row with no visible key, so that
 exp(s - lse) is exactly 0 there in the backward.
 
+Gate-epilogue fold (nsa.gate_fold): with gate [B,S,G] f32 (the heads of a
+group share it) the forward returns Y = O * g, formed in f32 before the
+cast to Q's dtype, and its backward takes `gate_dO(dY, gate)` = (dY *
+g).to(dY.dtype) in place of dO, as the TPU kernels scale dO in the
+kernel (flash_bwd.py:424) or densely (flash_bwd.py::_apply_gate_dense).
+
 Layout:
   Q: [B, S, G, h, Dk] (RoPE applied)   K: [B, G, S_kv, Dk]   V: [B, G, S_kv, Dv]
   -> O: [B, S, G, h, Dv]
@@ -24,17 +30,25 @@ NEG_INF = float("-inf")
 EMPTY_LSE = 1e30
 
 
+def gate_dO(dO: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """(dO * g).to(dO.dtype), g [B,S,G] f32 broadcast over the heads and
+    dims of dO [B,S,G,h,Dv]: the dO that the fold's backward feeds the
+    ungated gradient (JAX flash_bwd.py::_apply_gate_dense)."""
+    return (dO * gate[..., None, None]).to(dO.dtype)
+
+
 def attend_masked(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
-                  mask: torch.Tensor, scale: float, return_lse: bool = False):
+                  mask: torch.Tensor, scale: float, return_lse: bool = False, gate=None):
     """Masked grouped attention. mask broadcastable to [B,S,G,h,S_kv];
     True = attend. With return_lse, also returns the f32 row statistics
-    lse [B,S,G,h] (module docstring)."""
+    lse [B,S,G,h] (module docstring); with gate [B,S,G] f32, O * g."""
     logits = torch.einsum("bsghd,bgkd->bsghk", Q.float(), K.float()) * scale
     logits = logits.masked_fill(~mask, NEG_INF)
     any_visible = mask.any(dim=-1, keepdim=True)
     p = torch.softmax(logits, dim=-1)
     p = torch.where(any_visible, p, torch.zeros((), device=p.device))
-    O = torch.einsum("bsghk,bgkv->bsghv", p, V.float()).to(Q.dtype)
+    O = torch.einsum("bsghk,bgkv->bsghv", p, V.float())
+    O = (O if gate is None else O * gate[..., None, None]).to(Q.dtype)
     if not return_lse:
         return O
     any_visible = any_visible.expand(logits.shape[:-1] + (1,))[..., 0]
@@ -121,20 +135,20 @@ def num_cmp_per_token(S: int, l: int, d: int, S_cmp: int, device=None,
 
 
 def sliding_window_attention(Q, K, V, t_pos: torch.Tensor, w: int, scale: float,
-                             return_lse: bool = False):
+                             return_lse: bool = False, gate=None):
     m = sliding_window_mask(t_pos, K.shape[2], w)
-    return attend_masked(Q, K, V, m[None, :, None, None, :], scale, return_lse)
+    return attend_masked(Q, K, V, m[None, :, None, None, :], scale, return_lse, gate)
 
 
 def compressed_attention(Q, K_cmp, V_cmp, num_cmp_t: torch.Tensor, scale: float,
-                         return_lse: bool = False):
+                         return_lse: bool = False, gate=None):
     m = compressed_mask(num_cmp_t, K_cmp.shape[2])
-    return attend_masked(Q, K_cmp, V_cmp, m[None, :, None, None, :], scale, return_lse)
+    return attend_masked(Q, K_cmp, V_cmp, m[None, :, None, None, :], scale, return_lse, gate)
 
 
 def selection_attention(Q, K, V, sel_idx: torch.Tensor, t_pos: torch.Tensor,
-                        l_sel: int, scale: float, return_lse: bool = False):
+                        l_sel: int, scale: float, return_lse: bool = False, gate=None):
     """Softmax over the union of the selected blocks, key positions <= t.
     t_pos: [S] or [B,S] (per-row depths)."""
     m = selection_token_mask(sel_idx, t_pos, l_sel, K.shape[2])
-    return attend_masked(Q, K, V, m[:, :, :, None, :], scale, return_lse)
+    return attend_masked(Q, K, V, m[:, :, :, None, :], scale, return_lse, gate)

@@ -1,4 +1,4 @@
-"""Backward-design keys of the port (counterpart of nsa_vibe_tpu/ops/tuning.py).
+"""Design keys of the port (counterpart of nsa_vibe_tpu/ops/tuning.py).
 
 Three keys, under the JAX package's names, choose the backward kernel of
 each branch (`backward_kernel`, read by ops/attention.py at every
@@ -15,13 +15,30 @@ backward):
                    query rows (as flash_bwd.py:500-501); never the
                    compressed branch.
 
-The defaults are the port's own, chosen by timing both designs of each
-branch at the m7c-125M train shape on an H100 (chip_smoke.py phase (f);
-PERF.md). Overrides come from a JSON object in the file named by the
-environment variable NSA_TORCH_TUNING (never NSA_KERNEL_TUNING, whose keys
-answer TPU constraints), read once; a key not listed here, or a value
-other than 0 or 1 (or None for sel.bwd_onepass), raises. The
-port's kernels take their tile sizes from their own modules, not from here.
+Two more, read by core/nsa.py's prefill (`tuned`), choose how the branch
+outputs are combined, as nsa_vibe_tpu/ops/tuning.py:101-115 and
+nsa_vibe_tpu/core/nsa.py:218-245 do:
+
+  nsa.gate_fold    1: the gate-epilogue fold. The forward kernels emit the
+                   gated branch output Y = g * O, the combine is a plain
+                   sum and the gate logits' gradient comes from the delta
+                   preprocess through the D-form softmax backward
+                   (core/gate.py::gate_probs_dform). 0 (the default): the
+                   gated combine of core/nsa.py::combine_branches.
+  nsa.flat_io      accepted (0 or 1) so that a JAX setting carries over, and
+                   has no effect: the TPU's flat-IO kernels write the
+                   unpadded [B, S, H * Dv] layout, and the port's kernels
+                   write contiguous [B, S, G, h, Dv], which has those bytes
+                   under either value.
+
+The backward defaults are the port's own, chosen by timing both designs of
+each branch at the m7c-125M train shape on an H100 (chip_smoke.py phase
+(f); PERF.md); the fold keys default to 0, as in the JAX package.
+Overrides come from a JSON object in the file named by the environment
+variable NSA_TORCH_TUNING (never NSA_KERNEL_TUNING, whose keys answer TPU
+constraints), read once; a key not listed here, or a value other than 0 or
+1 (or None for sel.bwd_onepass), raises. The port's kernels take their
+tile sizes from their own modules, not from here.
 """
 
 from __future__ import annotations
@@ -31,7 +48,8 @@ import json
 import os
 
 ENV_VAR = "NSA_TORCH_TUNING"
-DEFAULTS = {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 1}
+DEFAULTS = {"bwd.onepass": 1, "sel.bwd_onepass": None, "win.bwd_diag": 1,
+            "nsa.gate_fold": 0, "nsa.flat_io": 0}
 DIAG_MIN_S = 128   # the diagonal window backward engages from this many query rows
 
 
@@ -54,6 +72,11 @@ def _load() -> dict:
             raise ValueError(f"{ENV_VAR}={path}: {key} must be one of {list(allowed)}, "
                              f"got {value!r}")
     return {**DEFAULTS, **data}
+
+
+def tuned(key: str):
+    """The value in force of `key`, one of DEFAULTS' keys."""
+    return _load()[key]
 
 
 def backward_kernel(branch: str, S: int, w: int = 0) -> str:

@@ -78,15 +78,15 @@ def sel_token_mask_varlen(sel_idx: torch.Tensor, t_pos: torch.Tensor,
 
 
 def sliding_window_attention_varlen(Q, K, V, t_pos, seq_start, w: int, scale: float,
-                                    return_lse: bool = False):
+                                    return_lse: bool = False, gate=None):
     m = win_mask_varlen(t_pos, seq_start, K.shape[2], w)
-    return attend_masked(Q, K, V, m[:, :, None, None, :], scale, return_lse)
+    return attend_masked(Q, K, V, m[:, :, None, None, :], scale, return_lse, gate)
 
 
 def compressed_attention_varlen(Q, K_cmp, V_cmp, t_pos, seq_start, l: int, d: int,
-                                scale: float, return_lse: bool = False):
+                                scale: float, return_lse: bool = False, gate=None):
     m = cmp_mask_varlen(t_pos, seq_start, K_cmp.shape[2], l, d)
-    return attend_masked(Q, K_cmp, V_cmp, m[:, :, None, None, :], scale, return_lse)
+    return attend_masked(Q, K_cmp, V_cmp, m[:, :, None, None, :], scale, return_lse, gate)
 
 
 def selection_attention_varlen(Q, K, V, sel_idx, t_pos, seq_start, l_sel: int, scale: float,

@@ -40,7 +40,13 @@ seq_start (the banded forwards, the two scorers, the three banded
 backward designs) against its plain version with it, on rows that hold a
 document shorter than l and q tiles that straddle document starts, under
 the same bounds; each given the dense bound must fail them; and one f32
-layer on both prefill routes against the CPU.
+layer on both prefill routes against the CPU. The gate-epilogue fold
+(nsa.gate_fold): the gated forwards (rows 1, 2, 3 and 5) against their
+gated plain versions under the same bounds (bf16: the plain unrounded
+result and its rss times the gate); the gated one-pass backwards (rows 7
+and 9) bit-equal to the ungated launch fed (dO * g).to(dO.dtype), where
+the launch with the gate dropped must differ; one f32 folded layer against
+the CPU.
 """
 
 import time
@@ -72,7 +78,7 @@ from nsa_vibe_tpu_torch.ops.cuda import select_blocks as sk_mod
 from nsa_vibe_tpu_torch.ops.cuda import select_cmp as sc_mod
 from nsa_vibe_tpu_torch.ops.cuda import win_attn as wa_mod
 from nsa_vibe_tpu_torch.ops.cuda import win_bwd_diag as wd_mod
-from nsa_vibe_tpu_torch.ops.reference import attention_delta
+from nsa_vibe_tpu_torch.ops.reference import attention_delta, gate_dO
 from nsa_vibe_tpu_torch.ops.selection import canonicalize_sel
 from nsa_vibe_tpu_torch.ops.varlen import pack_documents_aligned
 from nsa_vibe_tpu_torch.train.train_step import (
@@ -543,7 +549,7 @@ def test_layer_backward_under_each_design_matches_cpu(monkeypatch, keys):
     the design keys: the kernels tuning.backward_kernel names launch, once
     per branch, with the CPU's gradients, and no host sync."""
     dev = _card()
-    monkeypatch.setattr(tuning, "_load", lambda: keys)
+    monkeypatch.setattr(tuning, "_load", lambda: dict(tuning.DEFAULTS, **keys))
     cfg = NSAConfig(dim=96, n_heads=6, n_kv_groups=2, d_k=16, d_v=16, l=8, d=4, l_sel=16,
                     n_sel=4, w=32)
     params = init_nsa_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -1190,5 +1196,180 @@ def test_varlen_layer_on_card_matches_cpu(monkeypatch, route):
     torch.cuda.set_sync_debug_mode("error")
     try:
         grads(*on_card, dsc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------- gate-epilogue fold
+
+# S, t_start, h, D, seq_start, l, d, l_sel, w, n_top
+FOLD_CASES = [
+    (300, 0, 6, 64, False, 32, 16, 64, 128, 5),     # m7c geometry
+    (130, 170, 3, 16, True, 8, 4, 16, 40, 4),       # at an offset with seq_start, odd h
+    (200, 0, 2, 128, True, 16, 8, 16, 100, 4),      # D = 128: the wide tiles; seq_start
+]
+
+
+def _fold_operands(dtype, dev, S, t_start, h, D, docs, l, d, seed=5):
+    """Q [2,S,2,h,D] at positions t_start.., window K/V and compressed K/V
+    over every position, dO, the gate [2,S,2] in [0.05, 1) and, with docs,
+    the rows' document starts (packed positions, multiples of 16)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, G, n_pos = 2, 2, t_start + S
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    S_cmp = num_cmp_blocks(n_pos, l, d)
+    x = dict(Q=r(B, S, G, h, D), K=r(B, G, n_pos, D), V=r(B, G, n_pos, D), Kc=r(B, G, S_cmp, D),
+             Vc=r(B, G, S_cmp, D), dO=r(B, S, G, h, D),
+             g=torch.rand((B, S, G), generator=gen, device=dev) * 0.95 + 0.05)
+    pos = torch.arange(t_start, n_pos, device=dev)
+    x["ds"] = (torch.where(pos < 96, 0, torch.where(pos < 208, 96, 208)).to(torch.int32)
+               .expand(B, S).contiguous() if docs else None)
+    x["t"] = pos
+    return x
+
+
+def _gated_within(got, g, plain, rss_fn):
+    """A gated forward's output within its bound: f32 _within_bound of the
+    gated plain version `plain()`; bf16 _within_tc of the unrounded plain
+    result and its rss (`rss_fn()`), each times the gate."""
+    if got.dtype == torch.float32:
+        return _within_bound(got, plain())
+    want, rss = rss_fn()
+    gg = g[..., None, None]
+    return _within_tc(got, want * gg, want * gg, rss * gg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,t_start,h,D,docs,l,d,l_sel,w,n_top", FOLD_CASES)
+def test_gated_forwards_match_plain_on_gpu(dtype, S, t_start, h, D, docs, l, d, l_sel, w, n_top):
+    """Rows 1, 2, 3 and 5 under the fold: O * g within the bounds of the
+    gated plain versions, lse and the selection the ungated launch's bits,
+    and in bf16 select_cmp's O the gated banded_attn's (cmp) bits."""
+    dev = _card()
+    x = _fold_operands(dtype, dev, S, t_start, h, D, docs, l, d)
+    Q, g, ds, t = x["Q"], x["g"], x["ds"], x["t"]
+    cmp = dict(mode="cmp", l=l, d=d, scale=SCALE, t_start=t_start, seq_start=ds)
+    win = dict(mode="win", w=w, scale=SCALE, t_start=t_start, seq_start=ds)
+    kernels.reset_launch_counts()
+    M = build_M_csl_on(t_start + S, l, d, l_sel, dev)
+    kw = dict(scale=SCALE, l=l, d=d, l_sel=l_sel, n_top=n_top, seq_start=ds, pos_offset=t_start)
+    sel, O, lse = sc_mod.select_cmp(Q, x["Kc"], x["Vc"], M, **kw, gate=g, return_lse=True)
+    usel, _, ulse = sc_mod.select_cmp(Q, x["Kc"], x["Vc"], M, **kw, return_lse=True)
+    assert torch.equal(sel, usel) and torch.equal(lse, ulse)
+    assert _gated_within(O, g, lambda: ba_mod.banded_attn_plain(Q, x["Kc"], x["Vc"], **cmp,
+                                                                gate=g),
+                         lambda: ba_mod.banded_attn_rss(Q, x["Kc"], x["Vc"], **cmp))
+    Ob, lb = ba_mod.banded_attn(Q, x["Kc"], x["Vc"], **cmp, gate=g, return_lse=True)
+    assert torch.equal(lb, ba_mod.banded_attn(Q, x["Kc"], x["Vc"], **cmp, return_lse=True)[1])
+    if dtype == torch.bfloat16:   # pass 1 of the fused scorer is the banded forward's walk
+        assert torch.equal(Ob, O) and torch.equal(lb, lse)
+    else:
+        assert _within_bound(Ob, ba_mod.banded_attn_plain(Q, x["Kc"], x["Vc"], **cmp, gate=g))
+    Os = sa_mod.sel_attn(Q, x["K"], x["V"], sel, t, l_sel=l_sel, scale=SCALE, gate=g)
+    assert _gated_within(Os, g, lambda: sa_mod.sel_attn_plain(Q, x["K"], x["V"], sel, t,
+                                                              l_sel=l_sel, scale=SCALE, gate=g),
+                         lambda: sa_mod.sel_attn_rss(Q, x["K"], x["V"], sel, t, l_sel=l_sel,
+                                                     scale=SCALE))
+    if t_start == 0:
+        Ow = wa_mod.win_attn(Q, x["K"], x["V"], w=w, scale=SCALE, seq_start=ds, gate=g)
+    else:
+        Ow = ba_mod.banded_attn(Q, x["K"], x["V"], **win, gate=g)
+    assert _gated_within(Ow, g, lambda: ba_mod.banded_attn_plain(Q, x["K"], x["V"], **win,
+                                                                 gate=g),
+                         lambda: ba_mod.banded_attn_rss(Q, x["K"], x["V"], **win))
+    gated = kernels.gated_launch_counts()
+    assert gated["select_cmp"] == 1 and gated["banded_attn"] == 1 + (t_start > 0)
+    assert gated["sel_attn"] == 1 and gated["win_attn"] == (t_start == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,t_start,h,D,docs,l,d,l_sel,w,n_top", FOLD_CASES)
+def test_gated_one_pass_backwards_equal_the_dense_gate_on_gpu(dtype, S, t_start, h, D, docs, l,
+                                                             d, l_sel, w, n_top):
+    """Rows 7 (win, cmp) and 9 given the gate: bit-equal to the ungated
+    launch on (dO * g).to(dO.dtype), within the ungated bound of the plain
+    version on it, and not equal to the launch with the gate dropped."""
+    dev = _card()
+    x = _fold_operands(dtype, dev, S, t_start, h, D, docs, l, d)
+    Q, dO, g, ds, t = x["Q"], x["dO"], x["g"], x["ds"], x["t"]
+    gdO = gate_dO(dO, g)
+    M = build_M_csl_on(t_start + S, l, d, l_sel, dev)
+    sel = sc_mod.select_cmp(Q, x["Kc"], x["Vc"], M, scale=SCALE, l=l, d=d, l_sel=l_sel,
+                            n_top=n_top, seq_start=ds, pos_offset=t_start)[0]
+    for mode, K, V, kw in (("win", x["K"], x["V"], dict(w=w)),
+                           ("cmp", x["Kc"], x["Vc"], dict(l=l, d=d))):
+        Y, lse = ba_mod.banded_attn(Q, K, V, mode=mode, **kw, scale=SCALE, t_start=t_start,
+                                    seq_start=ds, gate=g, return_lse=True)
+        args = (Q, K, V, dO, lse, attention_delta(dO, Y))
+        both = dict(mode=mode, **kw, scale=SCALE, t_start=t_start, seq_start=ds)
+        got = b1_mod.banded_bwd_1p(*args, **both, gate=g)
+        dense = b1_mod.banded_bwd_1p(Q, K, V, gdO, *args[4:], **both)
+        dropped = b1_mod.banded_bwd_1p(*args, **both)
+        assert all(torch.equal(a, b) for a, b in zip(got, dense)), mode
+        assert not all(torch.equal(a, b) for a, b in zip(got, dropped)), mode
+        within = _band_within((Q, K, V, gdO, *args[4:]), SCALE, mode=mode, **kw,
+                              t_start=t_start, seq_start=ds)
+        plain = bb_mod.banded_bwd_plain(*args, **both, gate=g)
+        assert all(within(a, b, i) for i, (a, b) in enumerate(zip(got, plain))), mode
+    Y, lse = sa_mod.sel_attn(Q, x["K"], x["V"], sel, t, l_sel=l_sel, scale=SCALE, gate=g,
+                             return_lse=True)
+    args = (Q, x["K"], x["V"], sel, t, dO, lse, attention_delta(dO, Y))
+    got = s1_mod.sel_attn_bwd_1p(*args, l_sel=l_sel, scale=SCALE, gate=g)
+    dense = s1_mod.sel_attn_bwd_1p(*args[:5], gdO, *args[6:], l_sel=l_sel, scale=SCALE)
+    dropped = s1_mod.sel_attn_bwd_1p(*args, l_sel=l_sel, scale=SCALE)
+    assert all(torch.equal(a, b) for a, b in zip(got, dense))
+    assert not all(torch.equal(a, b) for a, b in zip(got, dropped))
+    within = _sel_within((*args[:5], gdO, *args[6:]), l_sel, SCALE)
+    plain = sb_mod.sel_attn_bwd_plain(*args, l_sel=l_sel, scale=SCALE, gate=g)
+    assert all(within(a, b, i) for i, (a, b) in enumerate(zip(got, plain)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keys", [
+    {"nsa.gate_fold": 1},
+    {"nsa.gate_fold": 1, "nsa.flat_io": 1, "bwd.onepass": 0, "sel.bwd_onepass": 0,
+     "win.bwd_diag": 0},
+])
+def test_layer_under_the_fold_matches_cpu(monkeypatch, keys):
+    """One f32 layer's forward + backward under the fold on the card: the
+    gated kernels launch (rows 1, 2, 3; rows 7 and 9 where the one-pass
+    design runs), with the CPU's output and gradients, and no host sync."""
+    dev = _card()
+    monkeypatch.setattr(tuning, "_load", lambda: dict(tuning.DEFAULTS, **keys))
+    cfg = NSAConfig(dim=96, n_heads=6, n_kv_groups=2, d_k=16, d_v=16, l=8, d=4, l_sel=16,
+                    n_sel=4, w=32)
+    params = init_nsa_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn(2, 150, 96, generator=torch.Generator().manual_seed(1))
+
+    def layer(dv):
+        with torch.no_grad():
+            p = params_to(params, device=dv)
+        return p, [t.requires_grad_(True) for t in [x.to(dv)] + [t for _, t in param_leaves(p)]]
+
+    def grads(p, wrt):
+        out = nsa_prefill(p, wrt[0], cfg)[0]
+        return [out.detach()] + list(torch.autograd.grad((out * out).sum(), wrt))
+
+    want = grads(*layer("cpu"))
+    on_card = layer(dev)
+    kernels.reset_launch_counts()
+    got = grads(*on_card)
+    gated = kernels.gated_launch_counts()
+    onepass = tuning.backward_kernel("sel", 150) == "sel_attn_bwd_1p"
+    assert gated == {"select_cmp": 1, "sel_attn": 1, "win_attn": 1, "banded_attn": 0,
+                     "banded_bwd_1p": int(onepass) * (1 + (tuning.backward_kernel(
+                         "win", 150, 32) == "banded_bwd_1p")),
+                     "sel_attn_bwd_1p": int(onepass)}, gated
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max() <= 1e-4 * float(b.abs().max())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads(*on_card)
     finally:
         torch.cuda.set_sync_debug_mode(0)
