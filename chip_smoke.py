@@ -206,7 +206,7 @@ Phases (any failure exits non-zero):
       8 x 4096) against their plain versions (f32 TF32 off and bf16, the
       phases' bounds with the planted 1% fault, sets at near ties, two
       launches bit-equal, the designs against each other); (k-tp) two
-      ranks, tp = 2, m7c at full width, PAR_LAYERS deep (bf16, remat; 4 of
+      ranks, tp = 2, m7c at full width, PAR_LAYERS deep (bf16, remat; 2 of
       its 12 layers, for the time limit) on 8 x 4096: losses within
       LOSS_TOL of one process, the f32 first gradient within STEP_GRAD_TOL
       of one process computing each member's
@@ -263,6 +263,34 @@ Phases (any failure exits non-zero):
       the bf16 unfolded ones plus LOGIT_ULPS; (m5) the gated kernels' JSON
       rows. The phase fails past FOLD_BUDGET_S.
 
+  (n) the JAX package's other configurations (run after (m)), each read
+      from configs/<name>.yaml through the trainer's load_config at full
+      width and depth, on synthetic tokens (fineweb needs the network):
+      (n1) m7c_350m.yaml (24 layers, dim 1024, G = 4, h = 4): rows 1, 2,
+      3 (with lse), 7 (cmp), 9 and 11 and their partners at 8 x 2048
+      against their plain versions (f32 allowed_err / allowed_rel_err;
+      bf16 allowed_tc_err with a planted 1% fault; two launches
+      bit-equal; lse within LSE_TOL), row 4 at the decode shape, one layer
+      in f32 card vs CPU (GRAD_TOL, and STEP_GRAD_TOL a leaf, which each of
+      LAYER_FAULTS must exceed), serving 4 x 2048 + 32 (launch counts, no
+      host sync, prefill, decode and replayed decode timed and traced), the
+      train step; (n2) m7c_125m_16k.yaml (1 x 16384, MLP-only remat,
+      rope_scale 8, 8 micro-batches): the fused route (select_cmp_fits at
+      S_sel = 256), the same kernel checks at B = 1, S = 16384 (plain
+      versions CHUNK_16K rows or HEADS_16K heads a call), the train step,
+      remat_accum_check; (n3) m7c_125m_long.yaml (2 x 8192, MLP-only
+      remat, rope_scale 4, 4 micro-batches): the train step,
+      remat_accum_check; (n4) m7c_125m_fast.yaml (16 x 2048, no remat):
+      the train step; (n5) train_showcase.yaml (f32, d_k 16): the train
+      step, then the trainer's CLI for SHOWCASE_STEPS steps. Each train
+      step (phase_train): launch counts equal to train_launches (forward
+      kernels twice a layer and micro-batch under full remat, once
+      otherwise), no host sync in a step, finite losses and grad norms
+      with no bad step; step ms, busy and idle share, tokens/s, MFU, peak
+      memory. The JSON rows <kernel>@350m, sel_attn@350m-decode and
+      <kernel>@16k, and the tile sweeps at both shapes (printed only).
+      The phase fails past CONFIG_BUDGET_S.
+
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
 Every process the script starts has ended when it exits (guard_children:
@@ -288,6 +316,7 @@ import sys
 import time
 import types
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -369,7 +398,7 @@ from nsa_vibe_tpu_torch.train.data import make_batches
 from nsa_vibe_tpu_torch.train.train_step import (
     init_train_state, loss_and_grads, make_train_step, param_leaves, tree_from_leaves,
 )
-from nsa_vibe_tpu_torch.train.trainer import train
+from nsa_vibe_tpu_torch.train.trainer import load_config, train
 from nsa_vibe_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from nsa_vibe_tpu_torch.utils.device import torch_dtype
 from nsa_vibe_tpu_torch.utils.flops import H100_BF16_PEAK_FLOPS, train_step_flops
@@ -452,6 +481,10 @@ STEP_GRAD_TOL = 2e-5
 # 1 dK, 2 dV, factor); each must take the first gradient past STEP_GRAD_TOL
 PLANTED_FAULTS = (("sel_attn_bwd_1p", 1, 0.0), ("sel_attn_bwd_1p", 0, 0.9999),
                   ("win_bwd_diag", 2, 0.9999), ("banded_bwd_1p", 0, 0.9999))
+# the same faults planted in one layer (phase (n)'s m7c-350M layer check), the
+# compressed branch's dQ at 0.1%: in one layer its dQ is ~6% of W_Q's gradient
+# (a 0.01% fault moved W_Q by 5.6e-6 on the CPU at that layer's shape)
+LAYER_FAULTS = PLANTED_FAULTS[:3] + (("banded_bwd_1p", 0, 0.999),)
 DECODE_T = (2048, 2055, 2070, 2079)                          # decode positions per row
 TRAIN_DIR = os.path.join("artifacts", "chip_smoke_train")   # git-ignored, inside the checkout
 S_LONG, N_CHECK = 65536, 4096    # long prompt; its last rows held against the plain versions
@@ -704,8 +737,10 @@ def near_tie_rows(sel_k, sel_p, p_grp):
     return int(differ.sum()), int((spread > NEAR_TIE).sum()), float(spread.max())
 
 
-def kernel_inputs(dtype, dev, gen):
-    cfg = M7C_125M.nsa
+def kernel_inputs(dtype, dev, gen, cfg=None):
+    """Operands of the serving kernels at phase (b)'s shapes, with the
+    heads and groups of `cfg` (default m7c-125M's)."""
+    cfg = cfg or M7C_125M.nsa
     G, h, D = cfg.n_kv_groups, cfg.h_per_group, cfg.d_k
     meta = build_block_meta(S, cfg.l, cfg.d, cfg.l_sel, cfg.n_sel, cfg.w)
     dmeta = build_block_meta(CAP, cfg.l, cfg.d, cfg.l_sel, cfg.n_sel, cfg.w)
@@ -872,7 +907,8 @@ def sel_fwd_check(name, run, Q, K, V, sel, t, *, l_sel: int, scale: float, lse: 
 
 
 def banded_fwd_check(name, run, Q, K, V, *, mode: str, kw: dict, scale: float,
-                     lse: bool = False, rows=None, t_start: int = 0, seq_start=None) -> float:
+                     lse: bool = False, rows=None, t_start: int = 0, seq_start=None,
+                     chunk=None) -> float:
     """fwd_check of the banded forward `run()` (win_attn or banded_attn on
     Q, K, V over every row, row s at position t_start + s, in `mode` with
     kw: w, or l and d; under seq_start [B, S] if given): f32 (the FMA
@@ -881,7 +917,7 @@ def banded_fwd_check(name, run, Q, K, V, *, mode: str, kw: dict, scale: float,
     flash_diag.py:119 do) against banded_attn_rss. In window mode the plain
     version of rows [a, b) gets only the keys they can see, with positions
     shifted by as much (the dense scores of every 64k row would take 12.9
-    GB)."""
+    GB); `chunk` rows a plain call if given."""
     def part(a, b):
         ds = None if seq_start is None else seq_start[:, a:b]
         if mode == "win":
@@ -900,7 +936,7 @@ def banded_fwd_check(name, run, Q, K, V, *, mode: str, kw: dict, scale: float,
         return banded_attn_rss(q, k, v, mode=mode, **kw, scale=scale, t_start=tp, seq_start=ds)
 
     return fwd_check(name, run, Q.dtype, Q.shape[1], plain, rss,
-                     tc=Q.dtype == torch.bfloat16, lse=lse, rows=rows, chunk=None)
+                     tc=Q.dtype == torch.bfloat16, lse=lse, rows=rows, chunk=chunk)
 
 
 def band_pairs(S_q: int, S_kv: int, mode: str, kw: dict) -> float:
@@ -973,11 +1009,14 @@ def sel_attn_row(name, q, k, v, s, tp, *, launches: int, max_err: float, iters: 
                            1, 1, hold=True)
     lib_ms = None
     if library:
-        mask = selection_token_mask(s, tp, cfg.l_sel, k.shape[2])
-        sq, sk, sv, sm = sdpa_operands(q, k, v, mask)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm,
-                                                                scale=sc), 10, hold=True)
-        del sq, sk, sv, sm, mask
+        try:
+            mask = selection_token_mask(s, tp, cfg.l_sel, k.shape[2])
+            sq, sk, sv, sm = sdpa_operands(q, k, v, mask)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm,
+                                                                    scale=sc), 10, hold=True)
+        except torch.cuda.OutOfMemoryError:
+            print(f"[time] {name}: one SDPA call with the selection's mask ran out of memory")
+        mask = sq = sk = sv = sm = None
     decode = q.shape[1] == 1
     src = "sel_attn" if decode or q.dtype != torch.bfloat16 else "sel_attn_fwd_mma"
     row = dict(
@@ -992,11 +1031,12 @@ def sel_attn_row(name, q, k, v, s, tp, *, launches: int, max_err: float, iters: 
 
 
 def sel_fwd_tiles(label: str, q, k, v, s, tp, iters: int) -> None:
-    """The bf16 union forward at each q tile of Q_TILE_TOKENS on these
-    inputs: the mean union size and the kernel's time."""
+    """The bf16 union forward at each q tile of Q_TILE_TOKENS (and the
+    default tile at these inputs' h) on these inputs: the mean union size
+    and the kernel's time."""
     cfg, h = M7C_125M.nsa, q.shape[3]
     kw = dict(l_sel=cfg.l_sel, scale=1.0 / float(np.sqrt(q.shape[-1])))
-    for T in Q_TILE_TOKENS:
+    for T in sorted({*Q_TILE_TOKENS, union_tile_tokens(h)}):
         _, count, _ = selection_tile_union(s, tp, cfg.l_sel, k.shape[2], T)
         sa_mod.union_tile_tokens = lambda h, T=T: T    # the wrapper's q tile, for this timing only
         try:
@@ -1306,13 +1346,17 @@ def layer_check(params, prompt, tokens, dev) -> None:
             fail("layer decode disagrees with the plain path")
 
 
-def phase_serve(dev) -> dict:
-    mcfg = M7C_125M
+def phase_serve(dev, mcfg=M7C_125M, tag: str = "serve", label: str = "m7c-125M",
+                layer: bool = True) -> dict:
+    """m7c-125M (or `mcfg`, named `label`) serves B prompts of S tokens and
+    N_NEW greedy tokens through `generate` (launch counts, timings, no host
+    sync, traces; with `layer`, layer_check). Returns the launch counts and
+    the decode launches of sel_attn, the parameters and the prompt."""
     gen = torch.Generator().manual_seed(0)
     params = init_model_params(mcfg, gen, device=dev)
     prompt = torch.randint(0, mcfg.vocab_size, (B, S), generator=gen).to(dev)
     n_params = sum(p.numel() for k, p in _leaves(params) if k != "W_qkv")
-    print(f"[serve] m7c-125M: {mcfg.n_layers} layers, dim {mcfg.nsa.dim}, "
+    print(f"[{tag}] {label}: {mcfg.n_layers} layers, dim {mcfg.nsa.dim}, "
           f"{n_params / 1e6:.1f} M parameters, {mcfg.dtype}")
     with torch.no_grad():
         generate(params, prompt, 2, mcfg, capacity=CAP)            # warm-up
@@ -1331,7 +1375,7 @@ def phase_serve(dev) -> dict:
         L = mcfg.n_layers
         want = {**dict.fromkeys(counts, 0), "select_cmp": L, "sel_attn": L + L * (N_NEW - 1),
                 "win_attn": L}
-        print(f"[serve] launches on the main path: {counts} "
+        print(f"[{tag}] launches on the main path: {counts} "
               f"(sel_attn at decode: {decode_launches}); expected {want}")
         if counts != want:
             fail(f"launch counts {counts} != {want}")
@@ -1354,12 +1398,12 @@ def phase_serve(dev) -> dict:
         decode_ms = e0.elapsed_time(e1) / (N_NEW - 1)
         if not bool(torch.isfinite(logits).all()):
             fail("decode logits are not finite")
-        print(f"[serve] {B} requests x ({S} prompt + {N_NEW} new) tokens: generate "
+        print(f"[{tag}] {B} requests x ({S} prompt + {N_NEW} new) tokens: generate "
               f"{serve_ms:.2f} ms, {B * N_NEW / (serve_ms / 1e3):.1f} new tokens/s")
-        print(f"[serve] prefill {prefill_ms:.3f} ms ({B * S / (prefill_ms / 1e3):.0f} tokens/s); "
+        print(f"[{tag}] prefill {prefill_ms:.3f} ms ({B * S / (prefill_ms / 1e3):.0f} tokens/s); "
               f"decode {decode_ms:.4f} ms/token step ({B / (decode_ms / 1e3):.1f} tokens/s "
               f"over {B} rows), of which the host took {decode_host_ms:.4f} ms to issue")
-        print(f"[serve] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+        print(f"[{tag}] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
         # the serving path never makes the host wait for the card
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1367,15 +1411,17 @@ def phase_serve(dev) -> dict:
             model_decode_step(params, tokens[:, S:S + 1], caches, mcfg)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        print("[serve] prefill and decode step issued with no host-device synchronisation "
+        print(f"[{tag}] prefill and decode step issued with no host-device synchronisation "
               "(torch.cuda.set_sync_debug_mode('error'))")
-        layer_check(params, prompt, tokens, dev)
-        trace(lambda: model_prefill_with_caches(params, prompt, mcfg, CAP), 1, "prefill",
-              prefill_ms)
+        if layer:
+            layer_check(params, prompt, tokens, dev)
+        trace(lambda: model_prefill_with_caches(params, prompt, mcfg, CAP), 1,
+              "prefill" if tag == "serve" else f"{tag} prefill", prefill_ms)
         _, caches = model_prefill_with_caches(params, prompt, mcfg, CAP)
         trace(lambda: model_decode_step(params, tokens[:, S:S + 1], caches, mcfg), 3,
-              "decode step", decode_ms)
-    return {"counts": counts, "decode_launches": decode_launches}
+              "decode step" if tag == "serve" else f"{tag} decode step", decode_ms)
+    return {"counts": counts, "decode_launches": decode_launches, "params": params,
+            "prompt": prompt, "prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
 def trace(fn, n: int, what: str, wall_ms: float = None) -> dict:
@@ -1388,7 +1434,7 @@ def trace(fn, n: int, what: str, wall_ms: float = None) -> dict:
     TRACE_PAD at each end, a traced m7c replay lost its last layer's
     kernels in about half the traces on the H100."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(TRACE_PAD)
         t = time.perf_counter()
         for _ in range(n):
@@ -1573,11 +1619,12 @@ def graph_vs_eager(params, mcfg, caches, feed, dev) -> int:
     return split
 
 
-def serve_shape_times(params, mcfg, prompt, dev) -> dict:
+def serve_shape_times(params, mcfg, prompt, dev, tag: str = "ragged", iters: int = 20) -> dict:
     """At phase (c)'s shape (B=4 rows at 2048, capacity CAP): ms a step of
     the eager uniform step, the eager ragged step and the replayed graph
-    (CUDA events, 20 steps after 2), the host's issue time of a replay, and
-    one traced replay's busy time, idle share and port-kernel launches."""
+    (CUDA events, `iters` steps after 2), the host's issue time of a
+    replay, and one traced replay's busy time, idle share and port-kernel
+    launches."""
     L = mcfg.n_layers
 
     def fresh():
@@ -1585,26 +1632,27 @@ def serve_shape_times(params, mcfg, prompt, dev) -> dict:
         return logits[:, -1:].argmax(-1), caches
 
     tok, caches = fresh()
-    uni = time_ms(lambda: model_decode_step(params, tok, caches, mcfg), 20)
+    uni = time_ms(lambda: model_decode_step(params, tok, caches, mcfg), iters)
     tok, caches = fresh()
     caches = [ragged_cache(c) for c in caches]
-    eager = time_ms(lambda: model_decode_step_ragged(params, tok, caches, mcfg), 20)
+    eager = time_ms(lambda: model_decode_step_ragged(params, tok, caches, mcfg), iters)
     tok, caches = fresh()
     caches = [ragged_cache(c) for c in caches]
     out = torch.empty((prompt.shape[0], 1, mcfg.vocab_size), dtype=torch_dtype(mcfg.dtype),
                       device=dev)
     graph = DecodeGraph(step_tick(params, mcfg, caches, tok, out),
                         [tok, out] + [x for c in caches for x in cache_tensors(c)])
-    replay = time_ms(graph.replay, 20)
+    replay = time_ms(graph.replay, iters)
     torch.cuda.synchronize()
     t_host = time.perf_counter()
-    for _ in range(20):
+    for _ in range(iters):
         graph.replay()
-    host_ms = (time.perf_counter() - t_host) * 1e3 / 20
-    tr = trace(graph.replay, 1, "replayed ragged decode step (serve)", replay)
-    print(f"[ragged] serve shape (B={prompt.shape[0]} at {prompt.shape[1]}, capacity {CAP}): "
+    host_ms = (time.perf_counter() - t_host) * 1e3 / iters
+    tr = trace(graph.replay, 1, "replayed ragged decode step (serve)" if tag == "ragged"
+               else f"{tag} replayed ragged decode step", replay)
+    print(f"[{tag}] serve shape (B={prompt.shape[0]} at {prompt.shape[1]}, capacity {CAP}): "
           f"eager uniform step {uni:.4f} ms, eager ragged step {eager:.4f} ms, replayed graph "
-          f"{replay:.4f} ms a step (host issue {host_ms:.4f} ms, mean of 20); split kernel "
+          f"{replay:.4f} ms a step (host issue {host_ms:.4f} ms, mean of {iters}); split kernel "
           f"launches in one traced replay: {tr['calls']['sel_attn_split_kernel']} (combine "
           f"{tr['calls']['sel_attn_combine_kernel']}), expected {L}")
     if tr["calls"]["sel_attn_split_kernel"] != L or tr["calls"]["sel_attn_combine_kernel"] != L:
@@ -1779,11 +1827,14 @@ def phase_ragged(dev) -> list:
 # ------------------------------------------------------------------ (d)
 
 def train_kernel_inputs(dtype, dev, gen, cfg=None, rows: int = 0, seq: int = 0,
-                        tag: str = "train") -> dict:
+                        tag: str = "train", chunk=None, heads: int = 0) -> dict:
     """Branch operands at the m7c training shapes (or `cfg`'s, rows x seq,
     checks named <kernel>@`tag`) and their forward outputs with row
     statistics, from the kernels; the lse are held to their plain
-    versions'."""
+    versions'. Where a plain version's dense scores over every row would
+    not fit the card (16k), `chunk` query rows a plain forward call and
+    `heads` heads a plain backward call (x["heads"], read by bwd_calls and
+    tc_bounds)."""
     cfg, Bq, Sq = cfg or M7C_125M.nsa, rows or B_TRAIN, seq or S
     G, h, D = cfg.n_kv_groups, cfg.h_per_group, cfg.d_k
     meta = build_block_meta(Sq, cfg.l, cfg.d, cfg.l_sel, cfg.n_sel, cfg.w)
@@ -1796,7 +1847,7 @@ def train_kernel_inputs(dtype, dev, gen, cfg=None, rows: int = 0, seq: int = 0,
              Kc=r(Bq, G, meta.S_cmp, D), Vc=r(Bq, G, meta.S_cmp, D),
              K=r(Bq, G, Sq, D), V=r(Bq, G, Sq, D),
              Kw=r(Bq, G, Sq, D), Vw=r(Bq, G, Sq, D),
-             M=torch.from_numpy(meta.M_csl).to(dev))
+             M=torch.from_numpy(meta.M_csl).to(dev), heads=heads)
     kw = dict(scale=x["scale"], l=cfg.l, d=cfg.d, l_sel=cfg.l_sel, n_top=cfg.n_sel)
     x["sel"], x["Oc"], x["lse_c"] = select_cmp(x["Q"], x["Kc"], x["Vc"], x["M"], **kw,
                                                return_lse=True)
@@ -1807,13 +1858,15 @@ def train_kernel_inputs(dtype, dev, gen, cfg=None, rows: int = 0, seq: int = 0,
     x["sel_fwd_err"] = sel_fwd_check(
         f"sel_attn@{tag}", lambda: sel_attn(*sargs, l_sel=cfg.l_sel, scale=x["scale"],
                                             return_lse=True),
-        *sargs, l_sel=cfg.l_sel, scale=x["scale"], lse=True)
+        *sargs, l_sel=cfg.l_sel, scale=x["scale"], lse=True, chunk=chunk)
     x["Ow"], x["lse_w"] = win_attn(x["Q"], x["Kw"], x["Vw"], w=cfg.w, scale=x["scale"],
                                    return_lse=True)
     wargs = (x["Q"], x["Kw"], x["Vw"])
     x["win_fwd_err"] = banded_fwd_check(
         f"win_attn@{tag}", lambda: win_attn(*wargs, w=cfg.w, scale=x["scale"], return_lse=True),
-        *wargs, mode="win", kw=dict(w=cfg.w), scale=x["scale"], lse=True)
+        *wargs, mode="win", kw=dict(w=cfg.w), scale=x["scale"], lse=True, chunk=chunk)
+    if chunk:   # fwd_check above held the lse of every row, chunk rows at a time
+        return x
     plain = {   # select_cmp's lse: select_cmp_check above
         "sel_attn": sel_attn_plain(x["Q"], x["K"], x["V"], x["sel"], x["t"], l_sel=cfg.l_sel,
                                    scale=x["scale"], return_lse=True)[1],
@@ -1897,13 +1950,13 @@ def bwd_calls(x) -> dict:
         return selection_token_mask(x["sel"], x["t"], cfg.l_sel, S)
 
     def win_plain():
-        return banded_bwd_plain(*wargs, **win)
+        return by_heads(banded_bwd_plain, wargs, BAND_HEAD_ARGS, x.get("heads", 0), **win)
 
     def cmp_plain():
-        return banded_bwd_plain(*cargs, **cmp_)
+        return by_heads(banded_bwd_plain, cargs, BAND_HEAD_ARGS, x.get("heads", 0), **cmp_)
 
     def sel_plain():
-        return sel_attn_bwd_plain(*sargs, **sel)
+        return by_heads(sel_attn_bwd_plain, sargs, SEL_HEAD_ARGS, x.get("heads", 0), **sel)
 
     return {
         "banded_bwd@win": (lambda: banded_bwd(*wargs, **win), win_plain, win_mask),
@@ -1917,21 +1970,51 @@ def bwd_calls(x) -> dict:
     }
 
 
+# the arguments with a head axis (Q, dO, lse, delta) of banded_bwd_plain /
+# banded_bwd_rss and of sel_attn_bwd_plain / sel_attn_bwd_rss
+BAND_HEAD_ARGS, SEL_HEAD_ARGS = (0, 3, 4, 5), (0, 5, 6, 7)
+
+
+def by_heads(fn, args, head_args, per: int, **kw):
+    """A plain backward fn(*args, **kw) -> (dQ, dK, dV) computed `per` heads
+    a call (all at once where per is 0): dQ of each slice in place, dK and
+    dV summed over the slices in f32 (each head's keys see its own rows
+    only). With an rss fn, ((dQ, dK, dV), (rQ, rK, rV)): the root sums of
+    squares add in quadrature."""
+    h = args[0].shape[3]
+    if not per or per >= h:
+        return fn(*args, **kw)
+    parts = [fn(*(a[:, :, :, i:i + per] if j in head_args else a for j, a in enumerate(args)),
+                **kw) for i in range(0, h, per)]
+
+    def join(grads, square=False):
+        dq = torch.cat([g[0] for g in grads], dim=3)
+        if square:
+            return (dq, *(sum(g[k].float() ** 2 for g in grads).sqrt() for k in (1, 2)))
+        return (dq, *(sum(g[k].float() for g in grads).to(grads[0][k].dtype) for k in (1, 2)))
+
+    if isinstance(parts[0][0], tuple):   # an rss fn: (gradients, root sums of squares)
+        return join([p[0] for p in parts]), join([p[1] for p in parts], square=True)
+    return join(parts)
+
+
 def tc_bounds(x, branch: str) -> tuple:
     """The plain backward's unrounded f32 gradients of `branch` ('sel', 'win'
-    or 'cmp') from the bf16 inputs of train_kernel_inputs, and
-    allowed_tc_err of each."""
-    cfg, dO, sc = x["cfg"], x["dO"], x["scale"]
+    or 'cmp') from the bf16 inputs of train_kernel_inputs (x["heads"] heads
+    a call), and allowed_tc_err of each."""
+    cfg, dO, sc, per = x["cfg"], x["dO"], x["scale"], x.get("heads", 0)
     if branch == "sel":
-        want, rss = sel_attn_bwd_rss(x["Q"], x["K"], x["V"], x["sel"], x["t"], dO, x["lse_s"],
-                                     attention_delta(dO, x["Os"]), l_sel=cfg.l_sel, scale=sc)
+        want, rss = by_heads(sel_attn_bwd_rss, (x["Q"], x["K"], x["V"], x["sel"], x["t"], dO,
+                                                x["lse_s"], attention_delta(dO, x["Os"])),
+                             SEL_HEAD_ARGS, per, l_sel=cfg.l_sel, scale=sc)
     elif branch == "win":
-        want, rss = banded_bwd_rss(x["Q"], x["Kw"], x["Vw"], dO, x["lse_w"],
-                                   attention_delta(dO, x["Ow"]), mode="win", w=cfg.w, scale=sc)
+        want, rss = by_heads(banded_bwd_rss, (x["Q"], x["Kw"], x["Vw"], dO, x["lse_w"],
+                                              attention_delta(dO, x["Ow"])),
+                             BAND_HEAD_ARGS, per, mode="win", w=cfg.w, scale=sc)
     else:
-        want, rss = banded_bwd_rss(x["Q"], x["Kc"], x["Vc"], dO, x["lse_c"],
-                                   attention_delta(dO, x["Oc"]), mode="cmp", l=cfg.l, d=cfg.d,
-                                   scale=sc)
+        want, rss = by_heads(banded_bwd_rss, (x["Q"], x["Kc"], x["Vc"], dO, x["lse_c"],
+                                              attention_delta(dO, x["Oc"])),
+                             BAND_HEAD_ARGS, per, mode="cmp", l=cfg.l, d=cfg.d, scale=sc)
     return want, tuple(allowed_tc_err(w, r) for w, r in zip(want, rss))
 
 
@@ -2024,14 +2107,15 @@ def chunk_spread(cnt, tq: int, per: int, nsplit: int) -> tuple:
 def phase_sel_tiles(x) -> None:
     """The selection backward's work at the train shape (bf16 inputs of
     train_kernel_inputs): the kv-major pass's chunks per CTA before and
-    after the work items; then, for each q tile of Q_TILE_TOKENS, the mean
+    after the work items; then, for each q tile of Q_TILE_TOKENS (and the
+    default tile at these inputs' h), the mean
     union size of the two-pass dQ kernel and the device time of
     sel_attn_bwd with that tile (the kv pass is the same in each: the
     differences are the dQ kernel's)."""
     cfg, h = x["cfg"], x["cfg"].h_per_group
     Q, K = x["Q"], x["K"]
     B_, S_, G_ = Q.shape[:3]
-    _, _, cnt, _ = selection_index(x["sel"], x["t"], cfg.l_sel, S)
+    _, _, cnt, _ = selection_index(x["sel"], x["t"], cfg.l_sel, S_)
     NB = cnt.shape[-1]
     tq = kbuild.library().nsa_sel_attn_bwd_kv_rows(1, cfg.d_k, cfg.d_v) // h
     nsplit = kv_splits(Q.device, B_ * G_ * NB * -(-cfg.l_sel // 64), 8)
@@ -2041,8 +2125,8 @@ def phase_sel_tiles(x) -> None:
           f"{CHUNKS_PER_ITEM} chunks max {amax} mean {amean:.2f} (max/mean {amax / amean:.2f})")
     args = (Q, K, x["V"], x["sel"], x["t"], x["dO"], x["lse_s"], attention_delta(x["dO"], x["Os"]))
     default = union_tokens(h)
-    for T in Q_TILE_TOKENS:
-        _, count, _ = selection_tile_union(x["sel"], x["t"], cfg.l_sel, S, T)
+    for T in sorted({*Q_TILE_TOKENS, default}):
+        _, count, _ = selection_tile_union(x["sel"], x["t"], cfg.l_sel, S_, T)
         sb_mod.union_tokens = lambda h, T=T: T     # the wrapper's q tile, for this timing only
         try:
             ms = time_ms(lambda: sel_attn_bwd(*args, l_sel=cfg.l_sel, scale=x["scale"]), 10,
@@ -2150,26 +2234,28 @@ def measure_train(rec, runs, names, calls=None, suffix: str = "") -> list:
                                             K.shape[2], cfg.n_kv_groups, h, Dk, Dv, cfg.w)
             print(f"[time] win_bwd_diag q tile {wd_mod.MMA_TILE_ROWS} rows ({tq} tokens): "
                   f"strips {strip} bytes")
-        sq, sk, sv, sm = sdpa_operands(x["Q"], K, V, mask)
-        sq, sk, sv = (t.detach().requires_grad_(True) for t in (sq, sk, sv))
-        so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm, scale=x["scale"])
-        sdo = torch.randn_like(so)
+        lib_ms = None
+        try:
+            sq, sk, sv, sm = sdpa_operands(x["Q"], K, V, mask)
+            sq, sk, sv = (t.detach().requires_grad_(True) for t in (sq, sk, sv))
+            so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm, scale=x["scale"])
+            sdo = torch.randn_like(so)
+            lib_ms = time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), sdo,
+                                                         retain_graph=True), 5, hold=True)
+        except torch.cuda.OutOfMemoryError:
+            print(f"[time] {name + suffix}: SDPA's backward with the [{x['Q'].shape[1]}, "
+                  f"{K.shape[2]}] mask ran out of memory")
+        sq = sk = sv = sm = so = sdo = None
         out.append(dict(
             name=name + suffix, source=f"nsa_vibe_tpu_torch/csrc/{BWD_SOURCE[base]}",
             replaces=BWD_REPLACES[base],
             launches=max(launches_of(c, name) for c in runs), max_abs_err=rec[name],
             ms=time_ms(kern, 10, hold=True),
             plain_ms=time_ms(plain, 3, hold=True),
-            bound_ms=bms, bound_by=by,
-            library_ms=time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), sdo,
-                                                           retain_graph=True), 5, hold=True)))
-        del sq, sk, sv, sm, so, sdo, mask, grads
+            bound_ms=bms, bound_by=by, library_ms=lib_ms))
+        del mask, grads
         torch.cuda.empty_cache()
-    for r in out:
-        print(f"[time] {r['name']:18s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})  launches {r['launches']}  max_abs_err(bf16) "
-              f"{r['max_abs_err']:.3e}")
+    print_rows(out)
     return out
 
 
@@ -2187,22 +2273,25 @@ def design_keys(keys):
         tuning._load = saved
 
 
-def train_layer_check(dev, designs: dict, cpu=None, seq_start=None):
-    """Layer 0 of the m7c model in f32 (B=2, S=2048; packed documents under
-    seq_start [2, 2048] if given): nsa_prefill forward +
+def train_layer_check(dev, designs: dict, cpu=None, seq_start=None, mcfg=M7C_125M,
+                      faults=(), rows: int = 2):
+    """Layer 0 of the m7c model (or `mcfg`'s) in f32 (`rows` x S=2048; packed
+    documents under seq_start [2, 2048] if given): nsa_prefill forward +
     backward through the kernels, under each entry of `designs` (label ->
     design keys, None for the keys in force), against the same layer on
     CPU tensors (plain versions, computed here unless given in `cpu`): the
     gradients of x and of every parameter within GRAD_TOL of each tensor's
-    max |value|; then the card pass again under set_sync_debug_mode("error").
-    Returns the CPU result."""
-    mcfg, cfg = M7C_125M, M7C_125M.nsa
+    max |value|; with `faults` (planted_fault's arguments) also every
+    leaf's ||g - g_cpu|| / ||g_cpu|| within STEP_GRAD_TOL, which each
+    fault, planted in the card's kernels, must exceed; then the card pass
+    again under set_sync_debug_mode("error"). Returns the CPU result."""
+    cfg = mcfg.nsa
     gen = torch.Generator().manual_seed(7)
     params = init_model_params(mcfg, gen, device="cpu", dtype=torch.float32)
     blk = params["blocks"][0]
-    tokens = torch.randint(0, mcfg.vocab_size, (2, S), generator=gen)
+    tokens = torch.randint(0, mcfg.vocab_size, (rows, S), generator=gen)
     x = rmsnorm(params["embed"][tokens], blk["attn_norm"], mcfg.rmsnorm_eps)
-    dout = torch.randn(2, S, cfg.dim, generator=gen) * 1e-2
+    dout = torch.randn(rows, S, cfg.dim, generator=gen) * 1e-2
 
     def layer(d):   # the layer's parameters on d, and [x, its leaves] as gradient targets
         with torch.no_grad():
@@ -2222,6 +2311,13 @@ def train_layer_check(dev, designs: dict, cpu=None, seq_start=None):
         return dict(_leaves(tree)), canonicalize_sel(aux["sel_idx"]).cpu()
 
     gc, sc = cpu if cpu is not None else grads("cpu")
+
+    def leaf_gap(gg):   # (worst leaf's ||g - g_cpu|| / ||g_cpu||, its name), "out" aside
+        errs = {k: float(np.linalg.norm(gg[k] - want) / np.linalg.norm(want))
+                for k, want in gc.items() if k != "out"}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
     for label, keys in designs.items():
         with design_keys(keys):
             gg, sg = grads(dev)
@@ -2238,6 +2334,20 @@ def train_layer_check(dev, designs: dict, cpu=None, seq_start=None):
             if flips or not errs[worst] <= GRAD_TOL:
                 fail(f"one layer's gradients on the card ({label} keys) disagree with the "
                      f"plain path")
+            if faults:
+                gap, leaf = leaf_gap(gg)
+                print(f"[layer] train f32 ({label} keys): per leaf ||g - g_cpu|| / ||g_cpu|| "
+                      f"{gap:.3e} ({leaf}; bound {STEP_GRAD_TOL:g})")
+                if not gap <= STEP_GRAD_TOL:
+                    fail(f"one layer's gradients on the card ({label} keys) are {gap:.3e} from "
+                         f"the plain path's, past {STEP_GRAD_TOL:g}")
+                for fault in faults:
+                    with planted_fault(*fault):
+                        gap, leaf = leaf_gap(grads(dev)[0])
+                    print(f"[layer]   planted: {fault[0]} d{'QKV'[fault[1]]} x {fault[2]:g}: "
+                          f"{gap:.3e} ({leaf}); must exceed the bound")
+                    if not gap > STEP_GRAD_TOL:
+                        fail(f"a fault planted in {fault[0]} passes the one-layer gradient check")
             p, wrt = layer(dev)
             dd, ds = dout.to(dev), starts(dev)
             torch.cuda.synchronize()
@@ -2258,31 +2368,36 @@ def train_counts() -> dict:
                                             "banded_bwd_1p@cmp": banded_bwd_1p.cmp_launches})
 
 
-def train_launches(steps: int) -> dict:
-    """The launch counts `steps` m7c train steps must show under the keys
-    in force: remat runs each layer's three forward kernels twice; the
-    backward runs per layer the kernel tuning.backward_kernel names for
-    each of the window, compressed and selection branches."""
-    L, tcfg = M7C_125M.n_layers, M7C_125M_TRAIN
+def train_launches(steps: int, mcfg=M7C_125M, tcfg=M7C_125M_TRAIN) -> dict:
+    """The launch counts `steps` train steps of the m7c model (or of mcfg,
+    tcfg) must show under the keys in force, per layer and micro-batch: the
+    three forward kernels twice under full remat (the block's forward runs
+    again in the backward), once under MLP-only remat or none; the
+    backward the kernel tuning.backward_kernel names for each of the
+    window, compressed and selection branches."""
+    per = mcfg.n_layers * tcfg.accum_steps
+    fwd = 2 if mcfg.remat in (True, "full") else 1
     want = dict.fromkeys(train_counts(), 0)
     for k in ("select_cmp", "sel_attn", "win_attn"):
-        want[k] = 2 * L
+        want[k] = fwd * per
     for branch in ("win", "cmp", "sel"):
-        k = tuning.backward_kernel(branch, tcfg.seq_len, M7C_125M.nsa.w)
-        want[k] += L
+        k = tuning.backward_kernel(branch, tcfg.seq_len, mcfg.nsa.w)
+        want[k] += per
         if branch == "cmp":
-            want[f"{k}@cmp"] += L
+            want[f"{k}@cmp"] += per
     return {k: v * steps for k, v in want.items()}
 
 
-def train_batches(n: int, dev, varlen: bool = False) -> list:
+def train_batches(n: int, dev, varlen: bool = False, tcfg=M7C_125M_TRAIN) -> list:
     """n m7c train batches [1, 8, 2048 + 1] of synthetic tokens (seed
-    1337) on dev; with varlen, (tokens, seq_start, loss_mask) of packed
+    1337) on dev (or tcfg's [accum, batch, seq + 1], as the trainer reads
+    them); with varlen, (tokens, seq_start, loss_mask) of packed
     documents (make_varlen_batches at align l_sel)."""
-    tcfg = M7C_125M_TRAIN
     if not varlen:
-        data = make_batches("synthetic", tcfg.seq_len, tcfg.batch_size, seed=tcfg.seed)
-        return [torch.from_numpy(next(data)).long().to(dev)[None] for _ in range(n)]
+        A, rows, seq = tcfg.accum_steps, tcfg.batch_size, tcfg.seq_len
+        data = make_batches("synthetic", seq, rows * A, seed=tcfg.seed)
+        return [torch.from_numpy(next(data)).long().reshape(A, rows, seq + 1).to(dev)
+                for _ in range(n)]
     data = make_varlen_batches("synthetic", tcfg.seq_len, tcfg.batch_size,
                                align=M7C_125M.nsa.l_sel, seed=tcfg.seed)
     out = []
@@ -2293,73 +2408,73 @@ def train_batches(n: int, dev, varlen: bool = False) -> list:
     return out
 
 
-def phase_train(dev, tag: str = "train", varlen: bool = False) -> dict:
+def phase_train(dev, tag: str = "train", varlen: bool = False, mcfg=M7C_125M,
+                tcfg=M7C_125M_TRAIN, label: str = "m7c-125M", steps: int = TIMED_STEPS,
+                keep: bool = False) -> dict:
     """The m7c-125M train step (bf16, remat, B=8 x S=2048, synthetic data;
-    with varlen, packed documents: train_batches) under the design keys in
-    force, from the same seed and batches in every call. Returns the launch
-    counts over TIMED_STEPS steps, the mean step ms, the losses of the
-    warm-up and timed steps and the traced step's busy ms."""
-    mcfg, tcfg = M7C_125M, dataclasses.replace(M7C_125M_TRAIN, varlen=varlen)
+    with varlen, packed documents: train_batches), or that of mcfg, tcfg
+    (named `label`; tcfg.accum_steps micro-batches a step), under the
+    design keys in force, from the same seed and batches in every call: a
+    warm-up step, `steps` timed steps whose launch counts must be
+    train_launches' and whose losses and grad norms must be finite with
+    no bad step, one step with no host sync, one traced step. Returns the
+    launch counts over the timed steps, the mean step ms, the losses of the
+    warm-up and timed steps, the traced step's busy ms, the peak memory
+    (and with `keep`, the state, the step and the batches)."""
+    tcfg = dataclasses.replace(tcfg, varlen=varlen)
     state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(0),
                                                device=dev), tcfg)
     step = make_train_step(mcfg, tcfg)
-    batches = train_batches(TIMED_STEPS + 3, dev, varlen)
-    print(f"[{tag}] m7c-125M {mcfg.dtype}, remat {mcfg.remat}, {tcfg.batch_size} x "
-          f"{tcfg.seq_len} tokens per step, lr {tcfg.lr}, max_grad_norm {tcfg.max_grad_norm}; "
-          f"backward kernels: " + ", ".join(
+    batches = train_batches(steps + 3, dev, varlen, tcfg)
+    print(f"[{tag}] {label} {mcfg.dtype}, remat {mcfg.remat}, {tcfg.accum_steps} x "
+          f"{tcfg.batch_size} x {tcfg.seq_len} tokens per step, lr {tcfg.lr}, max_grad_norm "
+          f"{tcfg.max_grad_norm}; backward kernels: " + ", ".join(
               f"{b} {tuning.backward_kernel(b, tcfg.seq_len, mcfg.nsa.w)}"
               for b in ("win", "cmp", "sel")))
     state, m = step(state, batches[0])                                 # warm-up
-    losses = [m["loss"]]
+    losses, norms, goods = [m["loss"]], [m["grad_norm"]], [m["good"]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     ev[0].record()
-    for i in range(TIMED_STEPS):
+    for i in range(steps):
         state, m = step(state, batches[1 + i])
         ev[i + 1].record()
         losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        goods.append(m["good"])
     torch.cuda.synchronize()
     counts, gated = train_counts(), kernels.gated_launch_counts()
-    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TIMED_STEPS)]
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
     peak = torch.cuda.max_memory_allocated()
-    want = train_launches(TIMED_STEPS)
-    print(f"[{tag}] launches over {TIMED_STEPS} steps: {counts}; expected {want}")
+    want = train_launches(steps, mcfg, tcfg)
+    print(f"[{tag}] launches over {steps} steps: {counts}; expected {want}")
     if counts != want:
         fail(f"{tag} launch counts {counts} != {want}")
-    losses = [float(v) for v in losses]
-    if not np.all(np.isfinite(losses)) or not bool(m["good"]):
-        fail(f"{tag} step losses not finite: {losses}")
+    losses, norms = [float(v) for v in losses], [float(v) for v in norms]
+    bad = sum(not bool(g) for g in goods)
+    if not np.all(np.isfinite(losses + norms)) or bad:
+        fail(f"{tag} steps: losses {losses}, grad norms {norms}, {bad} bad steps")
     mean_ms = float(np.mean(step_ms))
-    tokens = tcfg.batch_size * tcfg.seq_len
+    tokens = tcfg.accum_steps * tcfg.batch_size * tcfg.seq_len
     print(f"[{tag}] step ms {', '.join(f'{v:.2f}' for v in step_ms)}; mean {mean_ms:.3f} ms, "
           f"{tokens / (mean_ms / 1e3):.0f} tokens/s; losses (warm-up, timed) "
-          f"{', '.join(f'{v:.4f}' for v in losses)}; grad_norm {float(m['grad_norm']):.4f}")
-    print(f"[{tag}] {mfu_text(tcfg.batch_size, tcfg.seq_len, mean_ms)}")
+          f"{', '.join(f'{v:.4f}' for v in losses)}; grad_norm {norms[-1]:.4f}; bad steps {bad}")
+    print(f"[{tag}] {mfu_text(tcfg.accum_steps * tcfg.batch_size, tcfg.seq_len, mean_ms, mcfg)}")
     if varlen:   # the timed batches' supervised tokens over their steps' time
-        sup = sum(float(b[2].sum()) for b in batches[1:1 + TIMED_STEPS])
-        print(f"[{tag}] supervised tokens {sup:.0f} of {tokens * TIMED_STEPS} over "
-              f"{TIMED_STEPS} steps ({sup / (tokens * TIMED_STEPS):.3f}): "
+        sup = sum(float(b[2].sum()) for b in batches[1:1 + steps])
+        print(f"[{tag}] supervised tokens {sup:.0f} of {tokens * steps} over "
+              f"{steps} steps ({sup / (tokens * steps):.3f}): "
               f"{sup / (sum(step_ms) / 1e3):.0f} supervised tokens/s")
     print(f"[{tag}] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step(state, batches[-2])
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = {}
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            where = f"{os.path.basename(w.filename)}:{w.lineno}"
-            syncs[where] = syncs.get(where, 0) + 1
-    print(f"[{tag}] host-device synchronisations in one step: {sum(syncs.values())} "
-          f"({syncs or 'none'})")
+    host_syncs(lambda: step(state, batches[-2]), tag)
     traced = trace(lambda: step(state, batches[-1]), 1, f"{tag} step", mean_ms)
-    return {"counts": counts, "gated": gated, "step_ms": mean_ms, "losses": losses,
-            "busy": traced["busy"], "other": traced["other"]}
+    out = {"counts": counts, "gated": gated, "step_ms": mean_ms, "losses": losses,
+           "busy": traced["busy"], "other": traced["other"], "peak": peak}
+    if keep:
+        out.update(state=state, step=step, batches=batches)
+    return out
 
 
 def mfu_text(rows: int, seq: int, step_ms: float, mcfg=M7C_125M) -> str:
@@ -3377,8 +3492,8 @@ POD_STEPS = 3             # timed parallel steps (after a warm-up)
 PAR_RANKS = 2
 PAR_DIR = os.path.join("artifacts", "chip_smoke_parallel")   # git-ignored, inside the checkout
 PAR_TIMEOUT_S = 900
-PAR_LAYERS = 4            # the two-rank runs of (i), (j), (k): m7c at full width, its 12 layers cut
-#                           to 4 to keep the whole run within its time limit
+PAR_LAYERS = 2            # the two-rank runs of (i), (j), (k): m7c at full width, its 12 layers cut
+#                           to 2 to keep the whole run within its time limit (4 until phase (n))
 
 
 def par_model():
@@ -3796,8 +3911,9 @@ def unsummed_fsdp_grads():
 
 
 def host_syncs(run, tag: str) -> dict:
-    """The host-device synchronisations run() makes (one step), by file and
-    line; fails if the port's code makes any outside its collectives.
+    """The host-device synchronisations run() makes (one step, of a rank or
+    of one process), by file and line; fails if the port's code makes any
+    outside its collectives.
     gloo's worker threads report their host copies through torch's own
     frames (torch/cuda/__init__.py); the port's code must make none but its
     collectives (parallel/mesh.py)."""
@@ -5632,6 +5748,275 @@ def phase_fold(dev, x, tr) -> list:
     return rows
 
 
+# ------------------------------------------------------------------ (n)
+
+# the JAX package's configurations (configs/) that no card run had taken,
+# each read through the trainer's load_config, in the order phase (n) runs them
+CFG_350M, CFG_16K, CFG_LONG, CFG_FAST, CFG_SHOWCASE = (
+    "m7c_350m.yaml", "m7c_125m_16k.yaml", "m7c_125m_long.yaml", "m7c_125m_fast.yaml",
+    "train_showcase.yaml")
+CONFIG_BUDGET_S = 150.0    # phase (n)'s share of the script's time limit (a check)
+CONFIG_STEPS = 2           # timed steps of the 16k, 8k, batch-16 and showcase runs
+CHUNK_16K = 4096           # query rows a plain forward call at 16k
+HEADS_16K = 2              # heads a plain backward call at 16k ([1, 16384, 2, 2, 16384] f32)
+PEAK_GROWTH = 0.01         # a step of A micro-batches peaks within 1% of a step of 2
+CONFIGS_DIR = os.path.join("artifacts", "chip_smoke_configs")   # git-ignored, in the checkout
+SHOWCASE_STEPS, SHOWCASE_TIMEOUT_S = 20, 180
+SERVE_ITERS_350M = 5       # timed decode steps of each kind at the 350M serve shape (a step ~0.2 s)
+
+
+def config_of(name: str) -> tuple:
+    """(mcfg, tcfg) of configs/<name> through train/trainer.py::load_config,
+    the port's entry point; the data source is synthetic tokens (fineweb
+    needs the network, and the port raises on it)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    mcfg, tcfg, data = load_config(os.path.join(root, "configs", name))
+    c = mcfg.nsa
+    print(f"[configs] {name}: {mcfg.n_layers} layers, dim {c.dim}, {c.n_heads} heads in "
+          f"{c.n_kv_groups} KV groups (h = {c.h_per_group}), d_k {c.d_k}, {mcfg.dtype}, remat "
+          f"{mcfg.remat}, rope_scale {c.rope_scale}; {tcfg.accum_steps} x {tcfg.batch_size} x "
+          f"{tcfg.seq_len} tokens a step; data {data}, run on synthetic tokens", flush=True)
+    return mcfg, tcfg
+
+
+def default_bwd(mcfg, tcfg) -> tuple:
+    """The backward kernel rows (phase_train_kernels' names) that the keys
+    in force run at tcfg's sequence length."""
+    names = []
+    for branch in ("win", "cmp", "sel"):
+        k = tuning.backward_kernel(branch, tcfg.seq_len, mcfg.nsa.w)
+        names.append(f"{k}@{branch}" if k.startswith("banded_bwd") else k)
+    return tuple(names)
+
+
+def config_summary(name: str, mcfg, tcfg, tr) -> None:
+    """One line of a configuration's train run: step ms, busy, idle share,
+    tokens/s, MFU, peak memory."""
+    rows = tcfg.accum_steps * tcfg.batch_size
+    flops = train_step_flops(mcfg, rows, tcfg.seq_len)["total"]
+    print(f"[configs] {name}: step {tr['step_ms']:.3f} ms, busy {tr['busy']:.3f} ms, idle share "
+          f"{1 - tr['busy'] / tr['step_ms']:.3f}, "
+          f"{rows * tcfg.seq_len / (tr['step_ms'] / 1e3):.0f} tokens/s, MFU "
+          f"{100 * flops / (tr['step_ms'] / 1e3) / H100_BF16_PEAK_FLOPS:.4f}%, "
+          f"max_memory_allocated {tr['peak']} bytes ({tr['peak'] / 2**30:.2f} GiB)")
+
+
+def config_kernel_rows(rec, counts, names, tag: str, chunk=None) -> list:
+    """The JSON rows of rows 1, 2 and 3 (with lse, as the train step
+    launches them) and of the backward rows `names` on
+    phase_train_kernels' bf16 inputs (`rec`), named <kernel>@tag, with the
+    launches of a train run's timed steps (`counts`; `chunk` rows a plain
+    forward call); then the tile sweeps, printed only: the fused scorer's
+    CTAs, the union forward's q tiles, the selection backward's chunks a
+    CTA and dQ q tiles, the banded one-pass kernel's CTAs and chunks, the
+    diagonal and two-pass dQ kernels' q tiles."""
+    x = rec["inputs"]
+    cfg, sc = x["cfg"], x["scale"]
+    sargs, wargs = (x["Q"], x["K"], x["V"], x["sel"], x["t"]), (x["Q"], x["Kw"], x["Vw"])
+    rows = [select_cmp_row(f"select_cmp@{tag}", x, lse=True, launches=counts["select_cmp"],
+                           max_err=x["cmp_fwd_err"]),
+            sel_attn_row(f"sel_attn@{tag}", *sargs, launches=counts["sel_attn"],
+                         max_err=x["sel_fwd_err"], iters=10, plain_rows=chunk),
+            band_row(f"win_attn@{tag}", lambda: win_attn(*wargs, w=cfg.w, scale=sc,
+                                                         return_lse=True), *wargs,
+                     mode="win", kw=dict(w=cfg.w), lse=True, launches=counts["win_attn"],
+                     max_err=x["win_fwd_err"], iters=10, chunk=chunk)]
+    print_rows(rows)
+    rows += measure_train(rec, [counts], names, suffix=f"@{tag}")
+    cmp_tiles(tag, x)
+    sel_fwd_tiles(tag, *sargs, iters=5)
+    phase_sel_tiles(x)
+    phase_band_bwd_tiles(x)
+    return rows
+
+
+def config_350m(dev) -> list:
+    """(n1) configs/m7c_350m.yaml (G = 4, h = 4, 24 layers): rows 1, 2, 3
+    (with lse), 7 (cmp), 9 and 11 and their partners at the 8 x 2048 train
+    shape against their plain versions (phase_train_kernels), row 4 at the
+    decode shape (sel_fwd_check); one layer f32 card vs CPU (1 x 2048)
+    with LAYER_FAULTS planted (train_layer_check); serving (phase_serve, 4 x 2048 +
+    32, and the replayed decode, serve_shape_times); the train step
+    (phase_train); the JSON rows and tile sweeps."""
+    mcfg, tcfg = config_of(CFG_350M)
+    names = default_bwd(mcfg, tcfg)
+    rec = phase_train_kernels(dev, names, cfg=mcfg.nsa, rows=tcfg.batch_size, seq=tcfg.seq_len,
+                              tag="350m")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    cfg = mcfg.nsa
+    for dtype in (torch.float32, torch.bfloat16):
+        x = kernel_inputs(dtype, dev, gen, cfg)
+        dec = (x["Qd"], x["Kd"], x["Vd"], x["sel_dec"], x["t_dec"])
+        dec_err = sel_fwd_check("sel_attn@350m-decode",
+                                lambda: sel_attn(*dec, l_sel=cfg.l_sel, scale=x["scale"]),
+                                *dec, l_sel=cfg.l_sel, scale=x["scale"])
+        del x
+    train_layer_check(dev, {"default": None}, mcfg=mcfg, faults=LAYER_FAULTS, rows=1)
+    serve = phase_serve(dev, mcfg, tag="350m serve", label="m7c-350M", layer=False)
+    times = serve_shape_times(serve.pop("params"), mcfg, serve.pop("prompt"), dev,
+                              tag="350m serve", iters=SERVE_ITERS_350M)
+    print(f"[configs] m7c_350m.yaml serve: prefill {serve['prefill_ms']:.3f} ms, decode "
+          f"{serve['decode_ms']:.4f} ms a step, replayed {times['replay_ms']:.4f} ms a step")
+    torch.cuda.empty_cache()
+    tr = phase_train(dev, "350m train", mcfg=mcfg, tcfg=tcfg, label="m7c-350M")
+    config_summary(CFG_350M, mcfg, tcfg, tr)
+    torch.cuda.empty_cache()
+    rows = config_kernel_rows(rec, tr["counts"], names, "350m")
+    rows.append(sel_attn_row("sel_attn@350m-decode", *dec, launches=serve["decode_launches"],
+                             max_err=dec_err))
+    print_rows(rows[-1:])
+    return rows
+
+
+def remat_accum_check(tag: str, mcfg, tcfg, tr) -> None:
+    """MLP-only remat and accumulation on phase_train's state and batches
+    (`tr`, kept): (1) a forward of one micro-batch leaves no [rows, 4 dim]
+    MLP hidden activation saved for the backward (without remat it leaves
+    two a layer, which shows the check can fail); (2) the peak of a step of
+    one micro-batch under MLP-only and under full remat, printed; (3) the
+    peak of a step of tcfg.accum_steps micro-batches within PEAK_GROWTH of
+    a step of 2, each from the same state: nothing grows from one
+    micro-batch to the next."""
+    state, batch = tr["state"], tr["batches"][1]
+    tokens = batch[0, :, :-1]
+    hidden = int(mcfg.nsa.dim * mcfg.mlp_ratio)
+
+    def saved_hidden(m) -> int:
+        refs = []
+
+        def pack(t):   # a detached alias: a saved output packed as itself would hold
+            d = t.detach()   # its own grad_fn, a cycle through C++ that no gc frees
+            refs.append(weakref.ref(d))
+            return d
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda d: d):
+            logits, _ = model_forward(state.params, tokens, m)
+        n = sum(1 for t in (r() for r in refs) if t is not None and t.shape[-1] == hidden
+                and t.numel() >= tokens.numel() * hidden)
+        del logits
+        return n
+
+    n_mlp, n_none = saved_hidden(mcfg), saved_hidden(dataclasses.replace(mcfg, remat=False))
+
+    def peak(m, b) -> int:
+        step = make_train_step(m, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, b)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    p_mlp, p_full = peak(mcfg, batch[:1]), peak(dataclasses.replace(mcfg, remat=True), batch[:1])
+    p_two, p_all = peak(mcfg, batch[:2]), peak(mcfg, batch)
+    print(f"[{tag}] MLP hidden activations [{tokens.numel()}, {hidden}] saved by one forward: "
+          f"{n_mlp} under MLP-only remat, {n_none} without remat (must be 0 and at least "
+          f"{mcfg.n_layers}); peak of a one-micro-batch step: MLP-only remat {p_mlp} bytes "
+          f"({p_mlp / 2**30:.2f} GiB), full remat {p_full} bytes ({p_full / 2**30:.2f} GiB); "
+          f"peak of a step of {batch.shape[0]} micro-batches {p_all} bytes, of 2 {p_two} "
+          f"bytes (at most {PEAK_GROWTH:.0%} more; the timed steps' {tr['peak']} bytes)")
+    if n_mlp or n_none < mcfg.n_layers:
+        fail(f"{tag}: MLP-only remat leaves the MLP's hidden activation saved")
+    if not p_all <= p_two * (1 + PEAK_GROWTH):
+        fail(f"{tag}: a step's peak memory grows with its micro-batches")
+
+
+def config_16k(dev) -> list:
+    """(n2) configs/m7c_125m_16k.yaml (1 x 16384, MLP-only remat, rope_scale
+    8, 8 micro-batches): the prefill route must be the fused scorer
+    (select_cmp_fits at S_sel = 256); rows 1, 2, 3 (with lse), 7 (cmp), 9
+    and 11 and their partners at B = 1, S = 16384 against their plain
+    versions (CHUNK_16K rows a plain forward call, HEADS_16K heads a plain
+    backward call); the train step (its launch counts show select_cmp once
+    a layer and micro-batch, select_blocks never); remat_accum_check; the
+    JSON rows and tile sweeps."""
+    mcfg, tcfg = config_of(CFG_16K)
+    h, S_sel = mcfg.nsa.h_per_group, tcfg.seq_len // mcfg.nsa.l_sel
+    fused = sc_mod.select_cmp_fits(h, S_sel)
+    print(f"[16k] select_cmp_fits(h = {h}, S_sel = {S_sel}): {fused} (the fused scorer's limit "
+          f"S_sel = {sc_mod.SELECT_CMP_MAX_S_SEL})")
+    if not fused:
+        fail("the 16k prefill would not take the fused scorer")
+    names = default_bwd(mcfg, tcfg)
+    rec = phase_train_kernels(dev, names, cfg=mcfg.nsa, rows=tcfg.batch_size, seq=tcfg.seq_len,
+                              tag="16k", chunk=CHUNK_16K, heads=HEADS_16K)
+    torch.cuda.empty_cache()
+    tr = phase_train(dev, "16k train", mcfg=mcfg, tcfg=tcfg, label="m7c-125M at 16k",
+                     steps=CONFIG_STEPS, keep=True)
+    config_summary(CFG_16K, mcfg, tcfg, tr)
+    remat_accum_check("16k", mcfg, tcfg, tr)
+    counts = tr["counts"]
+    del tr
+    torch.cuda.empty_cache()
+    return config_kernel_rows(rec, counts, names, "16k", chunk=CHUNK_16K)
+
+
+def showcase_cli() -> None:
+    """(n5) the Quick start's trainer command on configs/train_showcase.yaml
+    (SHOWCASE_STEPS steps) in a subprocess: exit 0, finite logged losses,
+    no bad step."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, CONFIGS_DIR, "showcase")
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "nsa_vibe_tpu_torch.train.trainer", "--config",
+           os.path.join("configs", CFG_SHOWCASE), "--steps", str(SHOWCASE_STEPS),
+           "--out-dir", out]
+    print(f"[configs] {' '.join(cmd[1:])}", flush=True)
+    t = time.perf_counter()
+    try:
+        run = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                             timeout=SHOWCASE_TIMEOUT_S, env={**os.environ, "PYTHONPATH": root})
+    except subprocess.TimeoutExpired:
+        fail(f"the showcase trainer did not end within {SHOWCASE_TIMEOUT_S} s")
+    secs = time.perf_counter() - t
+    if run.returncode != 0:
+        print(run.stdout[-3000:], run.stderr[-3000:])
+        fail(f"the showcase trainer exited with {run.returncode}")
+    summary = json.loads(run.stdout.strip().splitlines()[-1])["summary"]
+    with open(os.path.join(out, "training.csv")) as f:
+        logged = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in logged]
+    print(f"[configs] {CFG_SHOWCASE} trainer CLI: exit 0 in {secs:.1f} s (its loop "
+          f"{summary['wall_s']:.1f} s), {summary['steps']} steps, logged losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}, bad steps {summary['bad_steps']}")
+    if (summary["steps"] != SHOWCASE_STEPS or summary["bad_steps"] or not logged
+            or not np.all(np.isfinite(losses)) or any(int(r["bad_steps"]) for r in logged)):
+        fail(f"the showcase trainer's run: {summary}, logged losses {losses}")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_configs(dev) -> list:
+    """Phase (n): the JAX package's other configurations on the card, each
+    from its yaml file at full width and depth: (n1) m7c-350M, (n2) the 16k
+    rung, (n3) the 8k rung (MLP-only remat, rope_scale 4, 4 micro-batches:
+    the train step and remat_accum_check), (n4) the batch-16 rung without
+    remat (the train step), (n5) the f32 showcase (the train step in this
+    process, then the trainer's CLI). Returns the kernels' JSON rows. The
+    phase fails past CONFIG_BUDGET_S."""
+    t = time.perf_counter()
+    rows = config_350m(dev)
+    torch.cuda.empty_cache()
+    rows += config_16k(dev)
+    torch.cuda.empty_cache()
+    mcfg, tcfg = config_of(CFG_LONG)
+    tr = phase_train(dev, "8k train", mcfg=mcfg, tcfg=tcfg, label="m7c-125M at 8k",
+                     steps=CONFIG_STEPS, keep=True)
+    config_summary(CFG_LONG, mcfg, tcfg, tr)
+    remat_accum_check("8k", mcfg, tcfg, tr)
+    del tr
+    torch.cuda.empty_cache()
+    for name, tag in ((CFG_FAST, "batch-16 train"), (CFG_SHOWCASE, "showcase train")):
+        mcfg, tcfg = config_of(name)
+        tr = phase_train(dev, tag, mcfg=mcfg, tcfg=tcfg, label=name, steps=CONFIG_STEPS)
+        config_summary(name, mcfg, tcfg, tr)
+        torch.cuda.empty_cache()
+    showcase_cli()
+    took = time.perf_counter() - t
+    print(f"[configs] phase (n) took {took:.1f} s (budget {CONFIG_BUDGET_S:g} s)")
+    if took > CONFIG_BUDGET_S:
+        fail(f"phase (n) took {took:.1f} s, past its budget of {CONFIG_BUDGET_S:g} s")
+    return rows
+
+
 def _leaves(tree, key=None):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -5659,7 +6044,7 @@ def main() -> int:
     rec = phase_kernels(dev)
     serve = phase_serve(dev)
     rows = measure(rec, serve["counts"], serve["decode_launches"])
-    del rec
+    del rec, serve
     torch.cuda.empty_cache()
     rows += phase_ragged(dev)
     torch.cuda.empty_cache()
@@ -5699,6 +6084,8 @@ def main() -> int:
     rows += measure_train({**trec, **frec}, runs, TWO_PASS + tuple(PARTNERS))
     rows += phase_fold(dev, frec["inputs"], tr)
     del trec, frec
+    torch.cuda.empty_cache()
+    rows += phase_configs(dev)
     torch.cuda.empty_cache()
     rows += phase_varlen(dev)
     torch.cuda.empty_cache()

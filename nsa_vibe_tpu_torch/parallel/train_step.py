@@ -300,6 +300,7 @@ def grads_and_stats(state: ParallelState, mcfg: ModelConfig, tcfg: TrainConfig, 
             None if seq_start is None else seq_start[a],
             None if loss_mask is None else loss_mask[a])
         grads = g if grads is None else [x + y for x, y in zip(grads, g)]
+        del g   # else it holds a second copy of the gradients through the next micro-batch
         n_tok = n_tok + den
         small[0] += loss
         if tcfg.gate_stats:

@@ -127,6 +127,7 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig) -> Callable:
                 state.params, tokens[a], mcfg, collect,
                 *((seq_start[a], loss_mask[a]) if tcfg.varlen else ()))
             grads = g if grads is None else [x + y for x, y in zip(grads, g)]
+            del g   # else it holds a second copy of the gradients through the next micro-batch
             loss_sum = loss_sum + loss
             if collect:
                 s, k = gate_stats(auxes)

@@ -194,6 +194,7 @@ def _bwd_operands(dtype, dev, B, S, G, h, D, S_kv, seed=0):
     (1, 70, 2, 1, 32, 16, 8, 16, 8, 512),       # h = 1, window wider than S
     (1, 300, 1, 2, 32, 32, 16, 128, 3, 100),    # l_sel = 128: two kv tiles per block
     (1, 100, 1, 2, 128, 16, 8, 32, 4, 50),      # D = 128: two register slices per thread
+    (2, 260, 4, 4, 64, 32, 16, 64, 6, 128),     # G = 4, h = 4: the m7c-350M head layout
 ])
 def test_backward_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, n_top, w):
     """Forward lse and both backward kernels (win, cmp, sel) against their
@@ -250,6 +251,7 @@ def test_backward_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, 
     (1, 70, 2, 1, 32, 16, 8, 16, 8, 512),       # h = 1, window wider than S
     (1, 300, 1, 2, 32, 32, 16, 128, 3, 100),    # l_sel = 128: two kv tiles per block
     (1, 100, 1, 2, 128, 16, 8, 32, 4, 50),      # D = 128: two register slices per thread
+    (2, 260, 4, 4, 64, 32, 16, 64, 6, 128),     # G = 4, h = 4: the m7c-350M head layout
 ])
 def test_backward_designs_match_plain_and_each_other_on_gpu(dtype, B, S, G, h, D, l, d, l_sel,
                                                             n_top, w):
@@ -397,6 +399,7 @@ def test_two_pass_backward_and_scorer_route_by_dtype(dtype):
     (16, 64, 128, 330, 3),     # h = 16; l_sel = 128: two key tiles, the last past S_kv
     (6, 128, 64, 140, 4),      # D = 128: the wide tensor-core tiles (32-row chunks)
     (3, 32, 8, 330, 6),        # l_sel = 8: q-tile unions past 32 blocks (two mask words)
+    (4, 64, 64, 300, 16),      # h = 4 (m7c-350M): 16-token q tiles
 ])
 def test_selection_backward_designs_on_gpu(dtype, h, D, l_sel, S, n):
     """Both selection backward designs (sel_attn_bwd, sel_attn_bwd_1p)
@@ -449,6 +452,7 @@ def _random_selection(dev, B, S, G, n, NB, seed):
     (16, 64, 128, 330, 3),     # h = 16; two key tiles per block, the last one past S_kv
     (16, 128, 16, 77, 6),      # h = 16, D = 128, 4-token tiles
     (1, 64, 8, 330, 5),        # unions past 32 blocks: two membership words
+    (4, 64, 64, 305, 16),      # h = 4 (m7c-350M): 16-token q tiles, the last one of 1
 ])
 def test_prefill_selection_forward_on_gpu(dtype, h, D, l_sel, S, n):
     """sel_attn at S > 1 (bf16: the tensor-core union kernel; f32: the FMA
@@ -481,6 +485,7 @@ def test_prefill_selection_forward_on_gpu(dtype, h, D, l_sel, S, n):
     (3, 5, 100, 16, 3),        # a partial last block (keys 96..99)
     (4, 16, 2080, 64, 6),      # the m7c serve cache
     (2, 16, 333, 8, 16),       # h = 16, more slots than visible blocks early on
+    (4, 16, 2080, 64, 4),      # h = 4 (m7c-350M) at the serve cache
 ])
 def test_decode_selection_split_on_gpu(dtype, B, n, C, l_sel, h):
     """sel_attn at S = 1 (the split kernel and its combine) against the
@@ -645,6 +650,7 @@ def test_layer_backward_issues_without_host_sync():
     (2, 300, 2, 6, 64, 32, 16, 64, 5, 128),     # m7c geometry, short
     (1, 130, 1, 3, 16, 8, 4, 16, 4, 40),        # odd h, S not divisible by l_sel
     (1, 70, 3, 1, 32, 16, 8, 16, 8, 512),       # h = 1, window wider than S
+    (2, 300, 4, 4, 64, 32, 16, 64, 5, 128),     # G = 4, h = 4: the m7c-350M head layout
 ])
 def test_kernels_match_plain_on_gpu(dtype, B, S, G, h, D, l, d, l_sel, n_top, w):
     dev = _card()
@@ -975,6 +981,7 @@ def test_small_model_serves_the_same_tokens_on_the_long_route(monkeypatch):
     (2, 200, 2, 1, 32, 32, 16, 8, 16, 8, True),       # h = 1: 128 tokens a CTA
     (1, 300, 2, 3, 64, 64, 32, 16, 64, 5, True),      # odd h; rows t < 31 see no token
     (1, 16384, 2, 6, 64, 64, 32, 16, 64, 16, True),   # S_sel = 256, the fused route's limit
+    (1, 16384, 4, 4, 64, 64, 32, 16, 64, 16, True),   # S_sel = 256 at G = 4, h = 4, with lse
     (1, 1024, 1, 1, 16, 16, 8, 4, 4, 16, False),      # S_sel = 256 at h = 1: the tile shrinks
     (1, 150, 2, 5, 128, 128, 16, 8, 32, 4, True),     # D = 128
     (2, 170, 2, 2, 64, 32, 16, 8, 32, 6, True),       # Dk != Dv
