@@ -1,0 +1,6 @@
+"""Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense
+rates without sparsity, at its full 700 W power limit). The card's own
+limit is read with nvidia-smi and printed beside every run."""
+
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12, "tf32": 495e12}
+HBM_BYTES_PER_S = 3.35e12
