@@ -36,6 +36,7 @@ import torch
 from nsa_vibe_tpu_torch.core.config import NSAConfig
 from nsa_vibe_tpu_torch.ops.block_index import build_block_meta, build_M_csl_on, num_cmp_blocks
 from nsa_vibe_tpu_torch.ops.rope import apply_rope
+from nsa_vibe_tpu_torch.utils import trace
 from nsa_vibe_tpu_torch.utils.device import resolve_device
 
 
@@ -141,7 +142,8 @@ def admit_row(cache: NSACache, row: NSACache, i: int) -> NSACache:
     graph of the step sees the new row at its next replay. Raises if the
     two caches differ in capacity, dtype, device or any other buffer shape,
     m_csl's included (its values follow from the capacity and l, d, l_sel);
-    no device value is read."""
+    no device value is read. The writes run inside the span `cache.admit`
+    (utils/trace.py)."""
     if not torch.is_tensor(cache.t):
         raise ValueError("admit_row needs a ragged cache (ragged_cache): its t is a host int")
     if row.k_sel.shape[0] != 1 or not 0 <= i < cache.k_sel.shape[0]:
@@ -154,10 +156,11 @@ def admit_row(cache: NSACache, row: NSACache, i: int) -> NSACache:
             raise ValueError(f"admit_row: {f} differs: {tuple(a.shape)} {a.dtype} {a.device} "
                              f"vs {tuple(b.shape)} {b.dtype} {b.device} (capacity "
                              f"{cache.capacity} vs {row.capacity})")
-    for f in BUFFERS:
-        getattr(cache, f)[i].copy_(getattr(row, f)[0])
-    if torch.is_tensor(row.t):
-        cache.t[i].copy_(row.t.reshape(()))
-    else:
-        cache.t[i] = row.t
+    with trace.span("cache.admit"):
+        for f in BUFFERS:
+            getattr(cache, f)[i].copy_(getattr(row, f)[0])
+        if torch.is_tensor(row.t):
+            cache.t[i].copy_(row.t.reshape(()))
+        else:
+            cache.t[i] = row.t
     return cache

@@ -5,7 +5,8 @@ runs the fused scorer (`fused_select_cmp`: selection indices and the cmp
 branch in one kernel) when it fits, by the JAX package's rule: at least
 one compressed token and `select_cmp_fits(h, S_sel)` (at m7c, prompts up
 to 16384 tokens). Otherwise the scorer runs alone (`select_blocks`) and
-the cmp branch through the banded kernel (`compressed_attention`). The
+the cmp branch through the banded kernel (`compressed_attention`); either
+route runs inside the span `prefill.score` (utils/trace.py). The
 JAX package's own non-fused selection is XLA code chunked by
 `prefill_chunk`; the port's scorer kernel computes the same sets without
 a [chunk, S_cmp] score tensor, so the port has no `prefill_chunk`. Then
@@ -61,6 +62,7 @@ from nsa_vibe_tpu_torch.ops.cuda import select_cmp as select_cmp_mod
 from nsa_vibe_tpu_torch.ops.rope import apply_rope
 from nsa_vibe_tpu_torch.ops.selection import select_topn_blocks
 from nsa_vibe_tpu_torch.ops.varlen import select_topn_blocks_varlen
+from nsa_vibe_tpu_torch.utils import trace
 from nsa_vibe_tpu_torch.utils.device import resolve_device
 
 PROJ_KEYS = ("W_Q", "W_K_sel", "W_V_sel", "W_K_win", "W_V_win", "W_K_cmp", "W_V_cmp")
@@ -234,30 +236,31 @@ def nsa_prefill(params: dict, x: torch.Tensor, cfg: NSAConfig, seq_start=None, t
         # the kernels take each column contiguous
         g_cmp, g_sel, g_win = gates_fold.movedim(-1, 0).contiguous()
 
-    if S_cmp > 0 and select_cmp_mod.select_cmp_fits(h, S_sel):
-        # one pass: selection scores and the cmp branch share softmax(Q K_cmp^T)
-        M = build_M_csl_on(S_kv, cfg.l, cfg.d, cfg.l_sel, dev)
-        sel_idx, O_cmp = attn_ops.fused_select_cmp(Q, K_cmp, V_cmp, M, **sel_kw,
-                                                   seq_start=seq_start, gate=g_cmp)
-    elif S_cmp > 0:
-        # too many selection blocks for the fused scorer: two kernels
-        sel_idx = attn_ops.select_blocks(Q, K_cmp, S_sel=S_sel, **sel_kw, seq_start=seq_start)
-        O_cmp = attn_ops.compressed_attention(Q, K_cmp, V_cmp, l=cfg.l, d=cfg.d, scale=scale,
-                                              t_start=t0, seq_start=seq_start, gate=g_cmp)
-    else:
-        # no compressed tokens (S < l): all scores are 0, so the top-n keeps
-        # the forced blocks plus the lowest-index candidates, as in JAX; the
-        # scorer is not launched and the cmp branch is zero
-        p_grp = torch.zeros((B, S, G, S_sel), dtype=torch.float32, device=dev)
-        if seq_start is not None:
-            sel_idx = select_topn_blocks_varlen(p_grp, cfg.n_sel, t_pos, seq_start, cfg.l_sel,
-                                                cfg.force_init, cfg.force_local)
+    with trace.span("prefill.score"):   # the scorer, and the cmp branch it yields
+        if S_cmp > 0 and select_cmp_mod.select_cmp_fits(h, S_sel):
+            # one pass: selection scores and the cmp branch share softmax(Q K_cmp^T)
+            M = build_M_csl_on(S_kv, cfg.l, cfg.d, cfg.l_sel, dev)
+            sel_idx, O_cmp = attn_ops.fused_select_cmp(Q, K_cmp, V_cmp, M, **sel_kw,
+                                                       seq_start=seq_start, gate=g_cmp)
+        elif S_cmp > 0:
+            # too many selection blocks for the fused scorer: two kernels
+            sel_idx = attn_ops.select_blocks(Q, K_cmp, S_sel=S_sel, **sel_kw, seq_start=seq_start)
+            O_cmp = attn_ops.compressed_attention(Q, K_cmp, V_cmp, l=cfg.l, d=cfg.d, scale=scale,
+                                                  t_start=t0, seq_start=seq_start, gate=g_cmp)
         else:
-            sel_idx = select_topn_blocks(p_grp, cfg.n_sel, t_pos, cfg.l_sel,
-                                         cfg.force_init, cfg.force_local)
-        # (under the fold too: the gated branch is zero and carries no gate
-        # gradient, its true gradient D = rowsum(dY * 0) = 0)
-        O_cmp = torch.zeros((B, S, G, h, cfg.d_v), dtype=Q.dtype, device=dev)
+            # no compressed tokens (S < l): all scores are 0, so the top-n keeps
+            # the forced blocks plus the lowest-index candidates, as in JAX; the
+            # scorer is not launched and the cmp branch is zero
+            p_grp = torch.zeros((B, S, G, S_sel), dtype=torch.float32, device=dev)
+            if seq_start is not None:
+                sel_idx = select_topn_blocks_varlen(p_grp, cfg.n_sel, t_pos, seq_start, cfg.l_sel,
+                                                    cfg.force_init, cfg.force_local)
+            else:
+                sel_idx = select_topn_blocks(p_grp, cfg.n_sel, t_pos, cfg.l_sel,
+                                             cfg.force_init, cfg.force_local)
+            # (under the fold too: the gated branch is zero and carries no gate
+            # gradient, its true gradient D = rowsum(dY * 0) = 0)
+            O_cmp = torch.zeros((B, S, G, h, cfg.d_v), dtype=Q.dtype, device=dev)
     sel_idx = sel_idx.detach()
     O_sel = attn_ops.selection_attention(Q, K_sel, V_sel, sel_idx, t_pos, cfg.l_sel, scale,
                                          gate=g_sel)

@@ -29,6 +29,7 @@ from nsa_vibe_tpu_torch.models.llama_block import (
     block_decode_step, block_prefill, init_block_params, rmsnorm,
 )
 from nsa_vibe_tpu_torch.models.remat import remat
+from nsa_vibe_tpu_torch.utils import trace
 from nsa_vibe_tpu_torch.utils.device import resolve_device, torch_dtype
 from nsa_vibe_tpu_torch.utils.sampling import sample_logits
 
@@ -112,13 +113,18 @@ def init_model_caches(mcfg: ModelConfig, batch: int, capacity: int, dtype=None,
 
 def model_prefill_with_caches(params: dict, tokens: torch.Tensor, mcfg: ModelConfig,
                               capacity: int) -> Tuple[torch.Tensor, List[NSACache]]:
-    """Prefill and seed per-layer decode caches with room for `capacity` tokens."""
-    x = embed(params, tokens, mcfg)
-    caches = []
-    for bp in params["blocks"]:
-        x, aux = block_prefill(bp, x, mcfg)
-        caches.append(cache_from_prefill(mcfg.nsa, aux, capacity))
-    return head(params, x, mcfg), caches
+    """Prefill and seed per-layer decode caches with room for `capacity`
+    tokens. Spans (utils/trace.py): `prefill` around the call, `prefill.cache`
+    around each layer's cache seeding, and the counter
+    `prefill.device_allocs`: the caching allocator's cudaMalloc calls inside."""
+    with trace.span("prefill"), trace.device_allocs("prefill.device_allocs", tokens.device):
+        x = embed(params, tokens, mcfg)
+        caches = []
+        for bp in params["blocks"]:
+            x, aux = block_prefill(bp, x, mcfg)
+            with trace.span("prefill.cache"):
+                caches.append(cache_from_prefill(mcfg.nsa, aux, capacity))
+        return head(params, x, mcfg), caches
 
 
 def model_decode_step(params: dict, token: torch.Tensor, caches: List[NSACache],

@@ -16,6 +16,11 @@ tensor except the seven projection entries of an attention dict, which
 are column views of its fused "W_qkv" (core.nsa.fuse_projections): the
 optimizer updates W_qkv in place and the views follow. Nothing here reads
 a device value on the host.
+
+Spans (utils/trace.py, recorded only while a profiler runs): `train.step`
+around a call, `train.forward` (model_forward and the loss) and
+`train.backward` (torch.autograd.grad) for each micro-batch, and
+`train.optimizer` from the global norm through apply_update_.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from nsa_vibe_tpu_torch.core.nsa import PROJ_KEYS
 from nsa_vibe_tpu_torch.models.tinylm import cross_entropy_loss, model_forward
 from nsa_vibe_tpu_torch.ops.selection import count_distinct_blocks
 from nsa_vibe_tpu_torch.train.optim import apply_update_, global_norm, init_optimizer
+from nsa_vibe_tpu_torch.utils import trace
 
 
 def param_leaves(params: Any, path: str = "") -> List[Tuple[str, torch.Tensor]]:
@@ -101,10 +107,12 @@ def loss_and_grads(params: dict, tok_row: torch.Tensor, mcfg: ModelConfig,
     documents under seq_start [B, S], the loss over loss_mask [B, S]."""
     leaves = [t for _, t in param_leaves(params)]
     with torch.enable_grad():
-        logits, auxes = model_forward(params, tok_row[:, :-1], mcfg, collect_aux=collect,
-                                      seq_start=seq_start)
-        loss = cross_entropy_loss(logits, tok_row[:, 1:], mask=loss_mask)
-        grads = torch.autograd.grad(loss, leaves)
+        with trace.span("train.forward"):
+            logits, auxes = model_forward(params, tok_row[:, :-1], mcfg, collect_aux=collect,
+                                          seq_start=seq_start)
+            loss = cross_entropy_loss(logits, tok_row[:, 1:], mask=loss_mask)
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), list(grads), auxes
 
 
@@ -114,7 +122,7 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     loss_mask [accum, B, S]); the state is updated in place and returned."""
     collect = tcfg.gate_stats
 
-    def train_step(state: TrainState, batch):
+    def run(state: TrainState, batch):
         tokens, seq_start, loss_mask = batch if tcfg.varlen else (batch, None, None)
         accum = tokens.shape[0]
         dev = state.step.device
@@ -138,10 +146,11 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         grads = [g * inv for g in grads]
         loss = loss_sum * inv
         stats = stat_sum * inv
-        grad_norm = global_norm(grads)
-        good = torch.isfinite(loss) & torch.isfinite(grad_norm)
-        params = [t for _, t in param_leaves(state.params)]
-        apply_update_(params, grads, state.opt_state, tcfg, grad_norm, good)
+        with trace.span("train.optimizer"):
+            grad_norm = global_norm(grads)
+            good = torch.isfinite(loss) & torch.isfinite(grad_norm)
+            params = [t for _, t in param_leaves(state.params)]
+            apply_update_(params, grads, state.opt_state, tcfg, grad_norm, good)
         state.step = state.step + 1
         metrics = {
             "loss": loss, "grad_norm": grad_norm, "good": good,
@@ -152,6 +161,10 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig) -> Callable:
                        else tokens.shape[0] * tokens.shape[1] * (tokens.shape[2] - 1)),
         }
         return state, metrics
+
+    def train_step(state: TrainState, batch):
+        with trace.span("train.step"):
+            return run(state, batch)
 
     return train_step
 

@@ -24,7 +24,8 @@
     utils/watchdog.py::watch in a thread until the run ends; --profile N
     traces steps [start + 2, start + 2 + N) with torch.profiler (CPU
     activity, and the card's kernels on a card) into
-    out_dir/profile/trace_steps<a>-<b>.json (Chrome trace format);
+    out_dir/profile/trace_steps<a>-<b>.json (Chrome trace format), which
+    holds the port's spans (utils/trace.py) as user annotations;
     --mem-dump-every N writes torch.cuda.memory_stats() to
     out_dir/mem_step<n>.json every N steps (none on the CPU, which has no
     such stats); TensorBoard scalars (the JAX tags) under out_dir/tb when
@@ -84,6 +85,7 @@ from nsa_vibe_tpu_torch.parallel.mesh import all_reduce_, initialize_distributed
 from nsa_vibe_tpu_torch.native import library_path, native_available
 from nsa_vibe_tpu_torch.train.data import Shard, make_batches, make_tokenizer
 from nsa_vibe_tpu_torch.train.train_step import init_train_state, make_eval_step, make_train_step
+from nsa_vibe_tpu_torch.utils import trace
 from nsa_vibe_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from nsa_vibe_tpu_torch.utils.device import resolve_device
 from nsa_vibe_tpu_torch.utils.heartbeat import Heartbeat
@@ -209,7 +211,9 @@ class _StepProfiler:
     and the card's kernels on a card. `at(step)` is called before each step
     runs; the trace goes to run_dir/profile/trace_steps<a>-<b>.json (steps
     numbered as the log numbers them) when the n steps are done or, if the
-    loop ends first, at `close()`."""
+    loop ends first, at `close()`. The port's spans, recorded while the
+    profiler runs, are in it as user annotations; the recorder's own copy
+    is dropped at `close()`."""
 
     def __init__(self, run_dir: str, dev: torch.device, start: int, n: int):
         self.dir, self.dev, self.start, self.n = os.path.join(run_dir, "profile"), dev, start, n
@@ -237,6 +241,7 @@ class _StepProfiler:
         path = os.path.join(self.dir, f"trace_steps{self.start + 1}-{self.last + 1}.json")
         self.prof.export_chrome_trace(path)
         self.prof = None
+        trace.reset()
         print(f"[trainer] profile written to {path}", flush=True)
 
 
@@ -547,7 +552,8 @@ def main() -> None:
     ap.add_argument("--watchdog", action="store_true",
                     help="run utils/watchdog.py in a thread (halts the run on an anomaly)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="trace N steps with torch.profiler into out_dir/profile")
+                    help="trace N steps with torch.profiler into out_dir/profile, "
+                    "the port's spans (utils/trace.py) included")
     ap.add_argument("--tokenizer", default="byte",
                     help='"byte" (the port has no other; "hf:..." needs files not in the repo)')
     ap.add_argument("--synthetic-on-fail", dest="synthetic_on_fail", action="store_true",

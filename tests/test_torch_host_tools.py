@@ -1,8 +1,10 @@
 """The port's host tools against the JAX package's: the watchdog
-(utils/watchdog.py, after tests/test_data_ops.py), the debug log
-(utils/debug.py), and the trainer's tool options (train/trainer.py: the
-synthetic fallback after tests/test_trainer_integration.py, --watchdog,
---profile, --mem-dump-every, --detect-anomaly, --tokenizer, TensorBoard).
+(utils/watchdog.py, after tests/test_data_ops.py) and the trainer's tool
+options (train/trainer.py: the synthetic fallback after
+tests/test_trainer_integration.py, --watchdog, --profile with the port's
+spans, --mem-dump-every, --detect-anomaly, --tokenizer, TensorBoard); and
+the JAX package's debug log (nsa_vibe_tpu/utils/debug.py), which the port
+does not copy: nothing in either package calls it.
 """
 
 import json
@@ -21,7 +23,6 @@ from nsa_vibe_tpu.utils import debug as jdebug
 from nsa_vibe_tpu.utils import watchdog as jwatchdog
 from nsa_vibe_tpu_torch.core.config import ModelConfig, NSAConfig, TrainConfig
 from nsa_vibe_tpu_torch.train import trainer as ttrainer
-from nsa_vibe_tpu_torch.utils import debug as tdebug
 from nsa_vibe_tpu_torch.utils import watchdog as twatchdog
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -96,22 +97,19 @@ def test_watch_halts_like_jax_and_stops_when_asked(tmp_path):
 
 
 def test_debug_log_gating_and_limit(capsys, monkeypatch):
-    errs = []
-    for mod in (tdebug, jdebug):
-        mod.reset_counts()
-        monkeypatch.delenv("NSA_DEBUG_LOG", raising=False)
-        monkeypatch.delenv("NSA_LOG_LIMIT", raising=False)
-        mod.log("decode.reads", total=100)
-        assert capsys.readouterr().err == ""
-        monkeypatch.setenv("NSA_DEBUG_LOG", "1")
-        mod.log("decode.reads", total=100, hit=0.5)
-        monkeypatch.setenv("NSA_LOG_LIMIT", "2")
-        mod.reset_counts()
-        for a in range(4):
-            mod.log("x", a=a)
-        errs.append(capsys.readouterr().err)
-    assert errs[0] == errs[1]
-    assert "NSA-LOG decode.reads total=100 hit=0.5" in errs[0] and errs[0].count("NSA-LOG x") == 2
+    jdebug.reset_counts()
+    monkeypatch.delenv("NSA_DEBUG_LOG", raising=False)
+    monkeypatch.delenv("NSA_LOG_LIMIT", raising=False)
+    jdebug.log("decode.reads", total=100)
+    assert capsys.readouterr().err == ""
+    monkeypatch.setenv("NSA_DEBUG_LOG", "1")
+    jdebug.log("decode.reads", total=100, hit=0.5)
+    monkeypatch.setenv("NSA_LOG_LIMIT", "2")
+    jdebug.reset_counts()
+    for a in range(4):
+        jdebug.log("x", a=a)
+    err = capsys.readouterr().err
+    assert "NSA-LOG decode.reads total=100 hit=0.5" in err and err.count("NSA-LOG x") == 2
 
 
 def _cfgs(out_dir, steps=2):
@@ -185,6 +183,8 @@ def test_trainer_cli_with_every_tool(tmp_path):
     trace = json.loads((out / "profile" / "trace_steps3-3.json").read_text())
     ops = [e for e in trace["traceEvents"] if e.get("cat") == "cpu_op"]
     assert any(e["name"] == "aten::mm" for e in ops)
+    spans = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"train.step", "train.forward", "train.backward", "train.optimizer"} <= spans
     events = list((out / "tb").glob("events.out.tfevents.*"))
     assert len(events) == 1 and b"train/loss" in events[0].read_bytes()
     assert not list(out.glob("mem_step*.json"))          # no device memory stats on the CPU
