@@ -291,6 +291,16 @@ Phases (any failure exits non-zero):
       <kernel>@16k, and the tile sweeps at both shapes (printed only).
       The phase fails past CONFIG_BUDGET_S.
 
+  (o) the multi-tensor AdamW (ops/cuda/adamw_mt.py; run after (d)) at
+      m7c-125M's and m7c-350M's trainable leaves, bf16: its update bit for
+      bit the tensor ops' (train/optim.py::apply_update_plain_) in p, mu, nu
+      and count over a first, an unclipped and a clipped step past
+      warm-up, its norm within ADAMW_NORM_TOL of global_norm and repeatable;
+      its launches a step; the kernels' optimizer a step timed beside the
+      tensor ops and its bytes bound (JSON rows adamw_mt@125m, @350m).
+      Every train step (phase_train) also holds the optimizer's launches
+      over its timed steps to optimizer_launches.
+
 The last lines are the card's `name, power.limit`, a JSON line of the
 kernels' numbers, and {"ok": true, "device": {...}}.
 Every process the script starts has ended when it exits (guard_children:
@@ -348,6 +358,7 @@ from nsa_vibe_tpu_torch.ops.block_index import (
     build_block_meta, build_M_csl_on, expected_decode_reads, num_cmp_blocks,
 )
 from nsa_vibe_tpu_torch.ops.cuda import build as kbuild
+from nsa_vibe_tpu_torch.ops.cuda import adamw_mt
 from nsa_vibe_tpu_torch.ops.cuda import banded_attn as ba_mod
 from nsa_vibe_tpu_torch.ops.cuda.banded_attn import (
     MMA_TILE_ROWS, banded_attn, banded_attn_plain, banded_attn_rss,
@@ -395,6 +406,7 @@ from nsa_vibe_tpu_torch.parallel.train_step import (
     grads_and_stats, local_batch,
 )
 from nsa_vibe_tpu_torch.train.data import make_batches
+from nsa_vibe_tpu_torch.train import optim
 from nsa_vibe_tpu_torch.train.train_step import (
     init_train_state, loss_and_grads, make_train_step, param_leaves, tree_from_leaves,
 )
@@ -2388,6 +2400,17 @@ def train_launches(steps: int, mcfg=M7C_125M, tcfg=M7C_125M_TRAIN) -> dict:
     return {k: v * steps for k, v in want.items()}
 
 
+def optimizer_launches(steps: int, leaves) -> dict:
+    """The multi-tensor AdamW's launches (ops/cuda/adamw_mt.py) over `steps`
+    train steps of these leaves: for each dtype, a launch of the partial
+    norms and one of the update per as many leaves as a launch's parameters
+    hold; one finalize a step."""
+    most = kbuild.library().nsa_adamw_mt_max_leaves()
+    per = sum(-(-len(ix) // most) for ix in adamw_mt.by_dtype(
+        [t.dtype for t in leaves if t.numel()]).values())
+    return {"norm": steps * (per + 1), "update": steps * per}
+
+
 def train_batches(n: int, dev, varlen: bool = False, tcfg=M7C_125M_TRAIN) -> list:
     """n m7c train batches [1, 8, 2048 + 1] of synthetic tokens (seed
     1337) on dev (or tcfg's [accum, batch, seq + 1], as the trainer reads
@@ -2446,12 +2469,17 @@ def phase_train(dev, tag: str = "train", varlen: bool = False, mcfg=M7C_125M,
         goods.append(m["good"])
     torch.cuda.synchronize()
     counts, gated = train_counts(), kernels.gated_launch_counts()
+    opt = {"norm": adamw_mt.norm_and_good.launches, "update": adamw_mt.update_.launches}
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
     peak = torch.cuda.max_memory_allocated()
     want = train_launches(steps, mcfg, tcfg)
     print(f"[{tag}] launches over {steps} steps: {counts}; expected {want}")
     if counts != want:
         fail(f"{tag} launch counts {counts} != {want}")
+    want_opt = optimizer_launches(steps, [t for _, t in param_leaves(state.params)])
+    print(f"[{tag}] multi-tensor AdamW launches over {steps} steps: {opt}; expected {want_opt}")
+    if opt != want_opt:
+        fail(f"{tag} optimizer launch counts {opt} != {want_opt}")
     losses, norms = [float(v) for v in losses], [float(v) for v in norms]
     bad = sum(not bool(g) for g in goods)
     if not np.all(np.isfinite(losses + norms)) or bad:
@@ -6017,6 +6045,116 @@ def phase_configs(dev) -> list:
     return rows
 
 
+# ------------------------------------------------------------------ (o)
+
+ADAMW_NORM_TOL = 2e-6     # the kernels' norm vs global_norm's, relative (another f32 order)
+ADAMW_ITERS = 50          # timed calls of the kernels' optimizer (the tensor ops': 3)
+# (label, gradient scale, steps from warm-up's end or None for the state as
+# it is, clipped): the first step (lr 0), an unclipped step, a clipped step
+# past warm-up
+ADAMW_STEPS = (("first (lr 0)", 1e-3, None, True), ("unclipped", 1e-5, None, False),
+               ("past warm-up", 1e-3, 5, True))
+
+
+def adamw_check(dev, label: str, mcfg, tcfg) -> dict:
+    """(o) at one configuration's trainable leaves, as the train step holds
+    them (bf16, from init_train_state): the multi-tensor AdamW's update
+    (optim.apply_update_) against the tensor ops (optim.apply_update_plain_)
+    on copies of the same state, given the same gradients and the kernels'
+    grad_norm and good, bit for bit in p, mu, nu and count through
+    ADAMW_STEPS; its norm (optim.norm_and_good) within ADAMW_NORM_TOL of
+    global_norm and the same bits twice. Then the JSON row: the kernels'
+    optimizer a step (norm_and_good + apply_update_, the train step's
+    `train.optimizer` span) timed with the stream held and on the host's
+    clock, the tensor ops likewise, its launches a step (optimizer_launches,
+    held to the counters) and the bytes bound from the inputs: g read twice,
+    p, mu and nu read and written."""
+    state = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(0),
+                                               device=dev), tcfg)
+    params = [t for _, t in param_leaves(state.params)]
+    opt = state.opt_state
+    plain = {"mu": [t.clone() for t in opt["mu"]], "nu": [t.clone() for t in opt["nu"]],
+             "count": opt["count"].clone()}
+    params_plain = [t.detach().clone() for t in params]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    loss = torch.tensor(2.0, device=dev)
+    n = sum(t.numel() for t in params)
+    print(f"[adamw] {label}: {len(params)} leaves, {n} elements, {mcfg.dtype}")
+    for name, scale, past, want_clip in ADAMW_STEPS:
+        if past is not None:
+            for c in (opt["count"], plain["count"]):
+                c.fill_(tcfg.warmup_steps + past)
+        grads = [(torch.randn(t.shape, generator=gen, device=dev) * scale).to(t.dtype)
+                 for t in params]
+        norm, good = optim.norm_and_good(params, grads, opt, loss)
+        again, _ = optim.norm_and_good(params, grads, opt, loss)
+        want = optim.global_norm(grads)
+        err = abs(float(norm) - float(want)) / float(want)
+        optim.apply_update_(params, grads, opt, tcfg, norm, good)
+        optim.apply_update_plain_(params_plain, grads, plain, tcfg, norm, good)
+        torch.cuda.synchronize()
+        differ = sum(not torch.equal(a.reshape(-1).view(torch.uint8),
+                                     b.reshape(-1).view(torch.uint8))
+                     for a, b in zip(params + opt["mu"] + opt["nu"],
+                                     params_plain + plain["mu"] + plain["nu"]))
+        clipped = float(norm) >= tcfg.max_grad_norm
+        print(f"[adamw] {label} {name}: grad_norm {float(norm):.6f} (clipped {clipped}), vs "
+              f"global_norm {err:.3e} (bound {ADAMW_NORM_TOL:g}), repeated bits "
+              f"{torch.equal(norm, again)}; p, mu, nu tensors differing from the tensor "
+              f"ops' {differ} of {3 * len(params)}; count {int(opt['count'])} / "
+              f"{int(plain['count'])}")
+        if not err <= ADAMW_NORM_TOL or not torch.equal(norm, again) or not bool(good):
+            fail(f"adamw_mt's norm at {label} ({name}) is {err:.3e} from global_norm's or not "
+                 f"repeatable")
+        if differ or int(opt["count"]) != int(plain["count"]) or clipped != want_clip:
+            fail(f"adamw_mt's update at {label} ({name}) is not the tensor ops' bit for bit")
+    del params_plain, plain
+
+    def fused():
+        norm, good = optim.norm_and_good(params, grads, opt, loss)
+        optim.apply_update_(params, grads, opt, tcfg, norm, good)
+
+    def tensor_ops():
+        norm = optim.global_norm(grads)
+        optim.apply_update_plain_(params, grads, opt, tcfg, norm, torch.isfinite(loss)
+                                  & torch.isfinite(norm))
+
+    kernels.reset_launch_counts()
+    fused()
+    got = {"norm": adamw_mt.norm_and_good.launches, "update": adamw_mt.update_.launches}
+    want = optimizer_launches(1, params)
+    if got != want:
+        fail(f"adamw_mt's launches at {label}: {got} != {want}")
+    bms, by = bound(2 * nbytes(*grads, *params, *opt["mu"], *opt["nu"]), 0, params[0].dtype)
+    t = time.perf_counter()
+    for _ in range(ADAMW_ITERS):
+        fused()
+    host_ms = (time.perf_counter() - t) * 1e3 / ADAMW_ITERS
+    row = dict(name=f"adamw_mt@{label}", source="nsa_vibe_tpu_torch/csrc/adamw_mt.cu",
+               replaces="none (optax's clip + AdamW chain, fused by XLA)",
+               launches=want["norm"] + want["update"], max_abs_err=0.0,
+               ms=time_ms(fused, ADAMW_ITERS, hold=True), host_ms=host_ms,
+               plain_ms=time_ms(tensor_ops, 3, warmup=1, hold=True), bound_ms=bms, bound_by=by,
+               library_ms=None)
+    print(f"[adamw] {label}: the kernels' optimizer {row['ms']:.4f} ms a step (host "
+          f"{host_ms:.4f}), the tensor ops {row['plain_ms']:.4f} ms, bound {bms:.4f} ms "
+          f"({by}), {want['norm']} + {want['update']} launches a step")
+    del state, params, opt, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_adamw(dev) -> list:
+    """Phase (o): the multi-tensor AdamW (csrc/adamw_mt.cu) at m7c-125M's and
+    m7c-350M's (configs/m7c_350m.yaml) trainable leaves (adamw_check).
+    Returns their JSON rows."""
+    mcfg, tcfg = config_of(CFG_350M)
+    rows = [adamw_check(dev, "125m", M7C_125M, M7C_125M_TRAIN),
+            adamw_check(dev, "350m", mcfg, tcfg)]
+    print_rows(rows)
+    return rows
+
+
 def _leaves(tree, key=None):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -6051,6 +6189,7 @@ def main() -> int:
     trec = phase_train_kernels(dev, TWO_PASS)
     cpu = train_layer_check(dev, {"default": None})
     tr = phase_train(dev)
+    rows += phase_adamw(dev)
     del trec["inputs"]
     torch.cuda.empty_cache()
     loss_falls(dev)

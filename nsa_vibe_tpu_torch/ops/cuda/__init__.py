@@ -22,6 +22,11 @@ paths, their wrappers and plain PyTorch versions.
 | select_blocks   | csrc/select_blocks_mma.cu | scorer.py::nsa_select_pallas (pos_offset)         |
 |                 | csrc/select_blocks.cu   |                                                     |
 
+adamw_mt (csrc/adamw_mt.cu) is the train step's optimizer, in three
+launches a step over every leaf; it replaces no TPU kernel and counts its
+launches apart (`norm_and_good.launches`, `update_.launches`), outside
+WRAPPERS; reset_launch_counts zeroes them too.
+
 win_attn and banded_attn launch the same two kernels (window mode at
 t_start = 0 for win_attn): bf16 the tensor-core banded_fwd_mma.cu, f32
 the FMA banded_attn.cu. The other wrappers with two sources take the
@@ -39,6 +44,7 @@ a profiler trace.
 
 from __future__ import annotations
 
+from nsa_vibe_tpu_torch.ops.cuda import adamw_mt as _adamw_mt_mod
 from nsa_vibe_tpu_torch.ops.cuda import banded_attn as _banded_attn_mod
 from nsa_vibe_tpu_torch.ops.cuda import banded_bwd as _banded_bwd_mod
 from nsa_vibe_tpu_torch.ops.cuda import banded_bwd_1p as _banded_bwd_1p_mod
@@ -71,6 +77,8 @@ def reset_launch_counts() -> None:
     _sel_attn_mod.sel_attn.decode_launches = 0
     _banded_bwd_mod.banded_bwd.cmp_launches = 0
     _banded_bwd_1p_mod.banded_bwd_1p.cmp_launches = 0
+    _adamw_mt_mod.norm_and_good.launches = 0
+    _adamw_mt_mod.update_.launches = 0
 
 
 def launch_counts() -> dict:

@@ -28,7 +28,8 @@ BUILD_ROOT = PKG / "_build"
 SOURCES = ("select_cmp.cu", "sel_attn.cu", "sel_attn_fwd_mma.cu", "banded_fwd_mma.cu",
            "banded_bwd.cu", "sel_attn_bwd.cu", "banded_attn.cu", "select_blocks.cu",
            "banded_bwd_1p.cu", "sel_attn_bwd_1p.cu", "win_bwd_diag.cu", "banded_bwd_mma.cu",
-           "select_blocks_mma.cu", "select_cmp_mma.cu", "banded_bwd_gated_mma.cu")
+           "select_blocks_mma.cu", "select_cmp_mma.cu", "banded_bwd_gated_mma.cu",
+           "adamw_mt.cu")
 HEADERS = ("common.cuh", "bwd_common.cuh", "banded_common.cuh", "sel_bwd.cuh", "tc.cuh",
            "select_blocks.cuh", "banded_fwd_mma.cuh", "banded_bwd_mma.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -79,6 +80,10 @@ SIGNATURES = {
     "nsa_win_bwd_diag_mma_strip_keys": ([I] * 4, I),
     "nsa_banded_bwd_dq_mma": ([P] * 8 + [I] * 11 + [F, I, I, P], I),
     "nsa_banded_bwd_dq_mma_smem_bytes": ([I] * 3, LL),
+    "nsa_adamw_mt_max_leaves": ([], I),
+    "nsa_adamw_mt_norm": ([I, P, P, I, LL, I, F, P, P], I),
+    "nsa_adamw_mt_finalize": ([P, I, P, P, P, P], I),
+    "nsa_adamw_mt_update": ([I] + [P] * 5 + [I, LL, I] + [P] * 5 + [F] * 8 + [P], I),
 }
 
 _LIB = None

@@ -2,13 +2,13 @@
 
 Port of nsa_vibe_tpu/parallel/train_step.py (make_train_step and
 make_eval_step without a mesh): f32 cross-entropy; gradient accumulation
-over tokens [accum, B, S+1] (grads summed, then scaled by 1/accum); global
-clipping + AdamW + warmup-cosine (train.optim); the coherent skip: one
-`good = isfinite(loss) & isfinite(grad_norm)` device flag gates the whole
-update, so a bad step leaves parameters, moments and count unchanged; the
-7 gate/selection stats plus sel_k_max. With `tcfg.varlen` a batch is
-(tokens [accum, B, S+1], seq_start [accum, B, S], loss_mask [accum, B,
-S]): packed documents (ops/varlen.py), the loss masked to the supervised
+over tokens [accum, B, S+1] (grads summed, then scaled by 1/accum inside the
+optimizer); global clipping + AdamW + warmup-cosine (train.optim); the
+coherent skip: one `good = isfinite(loss) & isfinite(grad_norm)` device flag
+gates the whole update, so a bad step leaves parameters, moments and count
+unchanged; the 7 gate/selection stats plus sel_k_max. With `tcfg.varlen` a
+batch is (tokens [accum, B, S+1], seq_start [accum, B, S], loss_mask [accum,
+B, S]): packed documents (ops/varlen.py), the loss masked to the supervised
 tokens, whose count is the `tokens` metric.
 
 Parameters are the port's nested dicts. The trainable leaves are every
@@ -20,7 +20,9 @@ a device value on the host.
 Spans (utils/trace.py, recorded only while a profiler runs): `train.step`
 around a call, `train.forward` (model_forward and the loss) and
 `train.backward` (torch.autograd.grad) for each micro-batch, and
-`train.optimizer` from the global norm through apply_update_.
+`train.optimizer` from the global norm through apply_update_; the leaves the
+optimizer updated, by path, in the counters `optimizer.fused_leaves` and
+`optimizer.plain_leaves` (train/optim.py).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from nsa_vibe_tpu_torch.core.config import ModelConfig, TrainConfig
 from nsa_vibe_tpu_torch.core.nsa import PROJ_KEYS
 from nsa_vibe_tpu_torch.models.tinylm import cross_entropy_loss, model_forward
 from nsa_vibe_tpu_torch.ops.selection import count_distinct_blocks
-from nsa_vibe_tpu_torch.train.optim import apply_update_, global_norm, init_optimizer
+from nsa_vibe_tpu_torch.train.optim import apply_update_, init_optimizer, norm_and_good
 from nsa_vibe_tpu_torch.utils import trace
 
 
@@ -76,7 +78,7 @@ def tree_from_leaves(params: Any, leaves: List[torch.Tensor]) -> Any:
 @dataclass
 class TrainState:
     params: dict
-    opt_state: dict       # {"mu": [...], "nu": [...], "count": int32 scalar}
+    opt_state: dict       # {"mu": [...], "nu": [...], "count": int32 scalar[, "plan"]}
     step: torch.Tensor    # int32 scalar on the parameters' device
 
 
@@ -143,14 +145,12 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig) -> Callable:
                 kmax = torch.maximum(kmax, k)
             del auxes
         inv = 1.0 / float(accum)
-        grads = [g * inv for g in grads]
         loss = loss_sum * inv
         stats = stat_sum * inv
         with trace.span("train.optimizer"):
-            grad_norm = global_norm(grads)
-            good = torch.isfinite(loss) & torch.isfinite(grad_norm)
             params = [t for _, t in param_leaves(state.params)]
-            apply_update_(params, grads, state.opt_state, tcfg, grad_norm, good)
+            grad_norm, good = norm_and_good(params, grads, state.opt_state, loss, inv)
+            apply_update_(params, grads, state.opt_state, tcfg, grad_norm, good, inv)
         state.step = state.step + 1
         metrics = {
             "loss": loss, "grad_norm": grad_norm, "good": good,

@@ -46,7 +46,10 @@ gated plain versions under the same bounds (bf16: the plain unrounded
 result and its rss times the gate); the gated one-pass backwards (rows 7
 and 9) bit-equal to the ungated launch fed (dO * g).to(dO.dtype), where
 the launch with the gate dropped must differ; one f32 folded layer against
-the CPU.
+the CPU. The multi-tensor AdamW (ops/cuda/adamw_mt.py) is held to the
+tensor-op path (train/optim.py::apply_update_plain_) bit for bit in p, mu,
+nu and count, its norm to global_norm within 2e-6 of the norm; it raises
+on leaves it does not take.
 """
 
 import time
@@ -1380,3 +1383,176 @@ def test_layer_under_the_fold_matches_cpu(monkeypatch, keys):
         grads(*on_card)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------- multi-tensor AdamW
+
+def _adamw_leaves(dtype, dev):
+    """m7c-125M's 123 trainable leaves as the train step holds them, then
+    leaves of 1, 3 and 4097 elements and one 4097-element leaf at an odd
+    element offset (every pointer of it misaligned), as (params, mu, nu).
+    dtype a list: the leaves' dtypes in turn (a launch group each)."""
+    from nsa_vibe_tpu_torch.core.config import M7C_125M
+
+    dtypes = dtype if isinstance(dtype, list) else [dtype]
+    gen = torch.Generator().manual_seed(11)
+    tree = init_model_params(M7C_125M, gen, device=dev, dtype=dtypes[0])
+    params = [t for _, t in param_leaves(tree)]
+    assert len(params) == 123
+    params += [torch.randn(n, device=dev) for n in (1, 3, 4097)]
+    params = [p.detach().to(dtypes[i % len(dtypes)]) for i, p in enumerate(params)]
+
+    def odd(n):
+        return torch.empty(n + 1, dtype=params[-1].dtype, device=dev)[1:]
+
+    params.append(odd(4097).copy_(torch.randn(4097, device=dev)))
+    mu = [(torch.randn_like(p, dtype=torch.float32) * 1e-3).to(p.dtype) for p in params]
+    nu = [(torch.rand_like(p, dtype=torch.float32) * 1e-6).to(p.dtype) for p in params]
+    mu[-1], nu[-1] = odd(4097).copy_(mu[-1]), odd(4097).copy_(nu[-1])
+    return params, mu, nu
+
+
+def _bits(t):
+    return t.reshape(-1).view(torch.uint8) if t.is_floating_point() else t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   [torch.bfloat16, torch.float32]],
+                         ids=["bf16", "f32", "bf16 and f32"])
+def test_adamw_mt_update_bit_equal_to_the_tensor_ops(dtype):
+    """ops/cuda/adamw_mt.py's update over m7c-125M's leaves plus leaves of 1,
+    3 and 4097 elements and a misaligned one (in bf16, in f32, and in both
+    dtypes by turns: two launch groups): p, mu, nu and count bit for bit
+    those of train/optim.py's tensor ops, given the same gradients, state and
+    grad_norm, through a first step (lr 0), a clipped step at accum 2, an
+    unclipped one, a skipped one (NaN loss: every bit kept) and one past
+    warm-up."""
+    from nsa_vibe_tpu_torch.ops.cuda import adamw_mt
+    from nsa_vibe_tpu_torch.train import optim
+
+    dev = _card()
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=3, steps=10, max_grad_norm=1.0, weight_decay=0.1)
+    params, mu, nu = _adamw_leaves(dtype, dev)
+    groups = 1 if isinstance(dtype, torch.dtype) else len(dtype)
+    fused = {"mu": mu, "nu": nu, "count": torch.zeros((), dtype=torch.int32, device=dev)}
+    plain = {"mu": [t.clone() for t in mu], "nu": [t.clone() for t in nu],
+             "count": fused["count"].clone()}
+    params_plain = [t.clone() for t in params]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    steps = [("first (lr 0)", 1e-3, 1.0, 1.0, True), ("clipped, accum 2", 1e-3, 0.5, 1.0, True),
+             ("unclipped", 1e-6, 1.0, 1.0, False), ("skipped", 1e-3, 1.0, float("nan"), True),
+             ("past warm-up", 1e-6, 1.0, 1.0, False)]
+    count = 0
+    for name, scale, inv, loss, clipped in steps:
+        grads = [(torch.randn(p.shape, generator=gen, device=dev) * scale).to(p.dtype)
+                 for p in params]
+        grads[-1] = torch.empty(4098, dtype=grads[-1].dtype, device=dev)[1:].copy_(grads[-1])
+        norm = optim.global_norm([g * inv for g in grads])
+        good = torch.isfinite(torch.tensor(loss, device=dev)) & torch.isfinite(norm)
+        assert bool(norm >= tcfg.max_grad_norm) == clipped, name
+        n0 = adamw_mt.update_.launches
+        optim.apply_update_(params, grads, fused, tcfg, norm, good, inv)
+        assert adamw_mt.update_.launches == n0 + groups, name
+        optim.apply_update_plain_(params_plain, grads, plain, tcfg, norm, good, inv)
+        torch.cuda.synchronize()
+        count += name != "skipped"
+        assert int(fused["count"]) == int(plain["count"]) == count, name
+        for a, b in zip(params + fused["mu"] + fused["nu"],
+                        params_plain + plain["mu"] + plain["nu"]):
+            assert torch.equal(_bits(a), _bits(b)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   [torch.bfloat16, torch.float32]],
+                         ids=["bf16", "f32", "bf16 and f32"])
+def test_adamw_mt_norm_is_global_norm_and_repeats_its_bits(dtype):
+    """The kernels' norm of g * inv_accum within 2e-6 of global_norm's (a sum
+    in another order), the same bits on a second call, and good =
+    isfinite(loss) & isfinite(norm); a non-contiguous gradient is read as
+    its contiguous copy."""
+    from nsa_vibe_tpu_torch.ops.cuda import adamw_mt
+    from nsa_vibe_tpu_torch.train import optim
+
+    dev = _card()
+    params, mu, nu = _adamw_leaves(dtype, dev)
+    groups = 1 if isinstance(dtype, torch.dtype) else len(dtype)
+    state = {"mu": mu, "nu": nu, "count": torch.zeros((), dtype=torch.int32, device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype) for p in params]
+    loss = torch.tensor(2.5, device=dev)
+    for inv in (1.0, 1 / 3):
+        want = optim.global_norm([g * inv for g in grads])
+        n0 = adamw_mt.norm_and_good.launches
+        norm, good = optim.norm_and_good(params, grads, state, loss, inv)
+        assert adamw_mt.norm_and_good.launches == n0 + groups + 1
+        again, _ = optim.norm_and_good(params, grads, state, loss, inv)
+        assert abs(float(norm) - float(want)) <= 2e-6 * float(want)
+        assert torch.equal(_bits(norm), _bits(again)) and bool(good)
+    w = grads[0]                                       # the embedding [vocab, dim], transposed
+    grads[0] = w.t().contiguous().t()
+    assert not grads[0].is_contiguous()
+    assert torch.equal(_bits(optim.norm_and_good(params, grads, state, loss, inv)[0]),
+                       _bits(norm))
+    grads[0] = w
+    assert not bool(optim.norm_and_good(params, grads, state,
+                                        torch.tensor(float("nan"), device=dev))[1])
+    grads[5].view(-1)[7] = float("inf")
+    assert not bool(optim.norm_and_good(params, grads, state, loss)[1])
+
+
+@pytest.mark.gpu
+def test_adamw_mt_raises_on_leaves_it_cannot_take_and_issues_no_host_sync():
+    """On the card the optimizer runs the kernels or raises: a
+    non-contiguous parameter, an f16 leaf, a gradient of another dtype each
+    raise ValueError with nothing launched; the train step's counter reads
+    every leaf as fused, and its optimizer issues no host sync."""
+    from nsa_vibe_tpu_torch.ops.cuda import adamw_mt
+    from nsa_vibe_tpu_torch.train import optim
+    from nsa_vibe_tpu_torch.utils import trace
+
+    dev = _card()
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=0, steps=10)
+    loss = torch.tensor(1.0, device=dev)
+    for params in ([torch.randn(64, 32, device=dev).t(), torch.randn(100, device=dev)],
+                   [torch.randn(64, 32, device=dev), torch.randn(100, device=dev).half()]):
+        grads = [torch.randn_like(p) for p in params]
+        state = optim.init_optimizer(params)
+        n0 = adamw_mt.norm_and_good.launches, adamw_mt.update_.launches
+        with pytest.raises(ValueError):
+            optim.norm_and_good(params, grads, state, loss)
+        with pytest.raises(ValueError):
+            optim.apply_update_(params, grads, state, tcfg, loss, torch.tensor(True, device=dev))
+        assert (adamw_mt.norm_and_good.launches, adamw_mt.update_.launches) == n0
+        assert int(state["count"]) == 0
+    params = [torch.randn(64, 32, device=dev), torch.randn(100, device=dev)]
+    state = optim.init_optimizer(params)
+    with pytest.raises(ValueError):
+        optim.norm_and_good(params, [torch.randn_like(params[0]).bfloat16(),
+                                     torch.randn_like(params[1])], state, loss)
+    mcfg = ModelConfig(vocab_size=64, n_layers=2,
+                       nsa=NSAConfig(dim=96, n_heads=6, n_kv_groups=2, d_k=16, d_v=16,
+                                     l=8, d=4, l_sel=16, n_sel=4, w=32))
+    st = init_train_state(init_model_params(mcfg, torch.Generator().manual_seed(0),
+                                            device=dev), tcfg)
+    n = len(param_leaves(st.params))
+    step = make_train_step(mcfg, tcfg)
+    toks = torch.randint(0, 64, (1, 2, 131), device=dev)
+    st, m = step(st, toks)                            # builds the kernels and the plan
+    leaves = [t for _, t in param_leaves(st.params)]
+    loss, grads = m["loss"], [torch.randn_like(t) for t in leaves]
+    trace.reset()
+    trace.enable()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            norm, good = optim.norm_and_good(leaves, grads, st.opt_state, loss)
+            optim.apply_update_(leaves, grads, st.opt_state, tcfg, norm, good)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert trace.counters() == {"optimizer.fused_leaves": n}
+    finally:
+        trace.disable()
+        trace.reset()
